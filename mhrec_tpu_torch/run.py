@@ -1,0 +1,84 @@
+"""CLI entry point (port of ``mhrec_tpu/run.py``). Usage::
+
+    python -m mhrec_tpu_torch.run --config_file IDNet/hstu-size4.yaml \
+        overall/ID.yaml IDNet/hstu.yaml -- --val_only True --loss prior ...
+
+Only the serving path is ported: ``--val_only True`` evaluates the model on
+the test split (reference run.py:136-143). It runs on the CUDA card unless
+``--device`` names another device (``--device cpu``). Training is not ported
+yet.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+import sys
+
+import torch
+
+from mhrec_tpu_torch.config import Config
+from mhrec_tpu_torch.data import InteractionData, build_eval_dataloaders
+from mhrec_tpu_torch.trainer import Trainer
+from mhrec_tpu_torch.utils import init_logger, init_seed, resolve_device
+
+logger = logging.getLogger(__name__)
+
+
+def serve(config, data, device=None):
+    """The ``--val_only`` path after data loading: eval batchers, a Trainer
+    with parameters initialised from ``config["seed"]``, and the evaluation
+    of the test split. Returns (trainer, test batcher, metric sections)."""
+    _, test_loader = build_eval_dataloaders(config, data)
+    trainer = Trainer(config, data, device=device)
+    trainer.setup_model()
+    result = trainer.evaluate(test_loader, load_best_model=True)
+    return trainer, test_loader, result
+
+
+def run_loop(config_files, extra_args, device=None):
+    config = Config(config_file_list=config_files, cli_args=extra_args).finalize()
+    if not config.get("val_only", False):
+        raise NotImplementedError("training is not ported yet; pass --val_only True")
+    device = resolve_device(device)
+    # full-precision float32 products, as the reference's scores need
+    # (TF32 keeps about three decimal digits)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init_seed(config["seed"] or 2020, config["reproducibility"])
+    init_logger(config)
+    logger.info("configuration:\n%s", config.format_categorized())
+
+    logger.info("loading data...")
+    data = InteractionData(config).build()
+    trainer, _, result = serve(config, data, device)
+    for section, metrics in result.items():
+        logger.info("%s: %s", section, metrics)
+    if config.get("result_json_path"):
+        payload = {
+            "process_index": 0,
+            "result": {k: {m: float(v) for m, v in d.items()} for k, d in result.items()},
+            "final_loss": None,
+            "param_checksum": float(sum(p.detach().abs().float().sum()
+                                        for p in trainer.model.parameters())),
+        }
+        with open(f"{config['result_json_path']}.0.json", "w") as f:
+            json.dump(payload, f)
+    return result
+
+
+def main(argv=None):
+    argv = list(sys.argv[1:] if argv is None else argv)
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--config_file", nargs="+", required=True)
+    parser.add_argument("--device", default=None,
+                        help="device to run on (default: the CUDA card)")
+    args, extra = parser.parse_known_args(argv)
+    if extra and extra[0] == "--":
+        extra = extra[1:]
+    return run_loop(args.config_file, extra, device=args.device)
+
+
+if __name__ == "__main__":
+    main()

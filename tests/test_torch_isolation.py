@@ -1,0 +1,114 @@
+"""The port stands alone: ``mhrec_tpu_torch`` and ``chip_smoke.py`` import
+nothing of JAX and nothing of the JAX package, and the serving path that
+``chip_smoke.py`` drives imports neither PyYAML nor pandas nor pyarrow (the
+machine with the card has none of them)."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+torch.set_num_threads(2)
+
+ROOT = Path(__file__).resolve().parents[1]
+SOURCES = sorted((ROOT / "mhrec_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+NEVER = ("jax", "jaxlib", "flax", "optax", "mhrec_tpu")
+NOT_AT_TOP = ("yaml", "pandas", "pyarrow")
+
+
+def _imports(source):
+    """(module, at module level?) for every import statement and
+    ``importlib.import_module`` / ``__import__`` call with a literal name."""
+    tree = ast.parse(source)
+    out = []
+
+    def walk(node, top):
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, ast.Import):
+                out.extend((a.name, top) for a in child.names)
+            elif isinstance(child, ast.ImportFrom) and child.level == 0:
+                out.append((child.module, top))
+            elif isinstance(child, ast.Call) and child.args \
+                    and isinstance(child.args[0], ast.Constant) \
+                    and isinstance(child.args[0].value, str) \
+                    and getattr(child.func, "attr", getattr(child.func, "id", None)) \
+                    in ("import_module", "__import__"):
+                out.append((child.args[0].value.split("{")[0], top))
+            walk(child, top and not isinstance(
+                child, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda)))
+
+    walk(tree, True)
+    return out
+
+
+def _root(module):
+    return module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_forbidden_imports(path):
+    for module, top in _imports(path.read_text()):
+        assert _root(module) not in NEVER, f"{path.name} imports {module}"
+        if top:
+            assert _root(module) not in NOT_AT_TOP, f"{path.name} imports {module} at module level"
+
+
+def test_scanner_sees_what_it_looks_for():
+    src = ("import jax\nfrom mhrec_tpu.ops import x\nimport mhrec_tpu_torch\n"
+           "def f():\n    import pandas\n    importlib.import_module('mhrec_tpu.data')\n")
+    assert _imports(src) == [("jax", True), ("mhrec_tpu.ops", True), ("mhrec_tpu_torch", True),
+                             ("pandas", False), ("mhrec_tpu.data", False)]
+
+
+_SERVE = """
+import sys
+import torch
+import chip_smoke
+from mhrec_tpu_torch.data.synthetic import InMemoryInteractionData
+from mhrec_tpu_torch.run import serve
+import mhrec_tpu_torch.convert, mhrec_tpu_torch.models.factory
+
+torch.set_num_threads(2)
+cfg = chip_smoke.serve_config()
+for k, v in dict(n_layers=1, n_heads=2, item_embedding_size=128, hstu_embedding_size=128,
+                 eval_batch_size=32, eval_item_chunk_size=700, MAX_ITEM_LIST_LENGTH=6).items():
+    cfg[k] = v
+data = InMemoryInteractionData(num_users=40, num_items=1000, seq_len=2 * 6 + 16,
+                               num_categories=8, eval_pred_len=8, max_item_list_length=6)
+_, _, result = serve(cfg, data, device="cpu")
+assert "pred_7" in result and "shared" in result
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in {"jax", "jaxlib", "flax", "optax", "mhrec_tpu",
+                                    "yaml", "pandas", "pyarrow"})
+print("BAD", bad)
+"""
+
+
+def test_serving_path_imports_nothing_it_must_not():
+    """Drive a tiny serve on the CPU in a fresh interpreter and look at what
+    it loaded."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", _SERVE], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "BAD []" in proc.stdout, proc.stdout
+
+
+def test_chip_smoke_fails_without_the_package(tmp_path):
+    """Alone in a directory the script exits non-zero and prints no result."""
+    (tmp_path / "chip_smoke.py").write_bytes((ROOT / "chip_smoke.py").read_bytes())
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0 and proc.stdout == ""
+
+
+def test_chip_smoke_fails_without_a_card():
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0 and proc.stdout == ""

@@ -1,0 +1,215 @@
+"""The port's HSTU attention ops (``mhrec_tpu_torch/ops``) against the JAX
+package's Pallas kernels, run in interpret mode on the CPU.
+
+On CPU tensors every kernel wrapper runs its plain PyTorch version, so these
+tests hold the plain versions (the arithmetic the CUDA kernels repeat) to the
+Pallas kernels #1-#3 (``_fwd_gated``, ``_fwd_v2``, ``_fwd``). Both sides
+compute in float32 and differ only in the order of sums: rtol/atol 2e-5.
+The CUDA kernels themselves are held to the plain versions on the card
+(``tests/test_torch_cuda.py``, ``chip_smoke.py``).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mhrec_tpu.ops.hstu_attention import hstu_attention_xla
+from mhrec_tpu.ops.pallas.hstu_attention_tpu import (
+    hstu_attention_gated_pallas,
+    hstu_attention_pallas,
+    hstu_attention_pallas_v2,
+)
+from mhrec_tpu_torch.ops import cuda_build
+from mhrec_tpu_torch.ops import hstu_attention_cuda as K
+from mhrec_tpu_torch.ops.hstu_attention import attention_mask, hstu_attention
+
+torch.set_num_threads(2)
+
+TOL = dict(rtol=2e-5, atol=2e-5)
+
+
+def _nonpad(B, L, rng):
+    """Left-padded rows as eval builds them: row 0 full, row 1 a third pad,
+    row 2 (if any) all padding, the rest random."""
+    keep = np.ones((B, L), bool)
+    if B > 1:
+        keep[1, : L // 3] = False
+    if B > 2:
+        keep[2] = False
+    for b in range(3, B):
+        keep[b, : rng.integers(0, L)] = False
+    return keep
+
+
+def _jax_mask(nonpad):
+    L = nonpad.shape[1]
+    return jnp.asarray(nonpad[:, None, None, :] & np.tril(np.ones((L, L), bool))[None, None])
+
+
+def _t(x):
+    return torch.from_numpy(np.ascontiguousarray(x))
+
+
+@pytest.mark.parametrize(
+    "B,L",
+    [
+        (2, 20),  # JAX's short-L row-packed mode, seg=32
+        (3, 50),  # seg=64, odd B (the size4 window), with an all-pad row
+        (2, 70),  # JAX's unpacked mode (L > 64)
+    ],
+)
+def test_stu_gated_plain_matches_pallas(B, L):
+    D, h = 128, 2
+    rng = np.random.default_rng(0)
+    q, k, v, u = (rng.normal(size=(B, L, D)).astype(np.float32) * 0.5 for _ in range(4))
+    gamma = (1.0 + 0.1 * rng.normal(size=(D,))).astype(np.float32)
+    beta = (0.05 * rng.normal(size=(D,))).astype(np.float32)
+    nonpad = _nonpad(B, L, rng)
+
+    ref = hstu_attention_gated_pallas(
+        *map(jnp.asarray, (q, k, v, u, gamma, beta)), _jax_mask(nonpad), h, interpret=True
+    )
+    args = (_t(q), _t(k), _t(v), _t(u), _t(gamma), _t(beta), _t(nonpad), h)
+    out = K.hstu_stu_gated_fwd(*args)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+    assert torch.equal(out, K.hstu_stu_gated_fwd_plain(*args))
+    if B > 2:
+        # a row with no key at all attends to nothing: LN(0) = β, out = u·β
+        np.testing.assert_allclose(out[2].numpy(), u[2] * beta, **TOL)
+
+
+def test_stu_gated_plain_takes_strided_uvqk_splits():
+    """The STU layer hands the kernel row-strided splits of one projection;
+    the result must not depend on the layout."""
+    B, L, D, h = 2, 12, 128, 2
+    rng = np.random.default_rng(1)
+    mixed = _t(rng.normal(size=(B, L, 4 * D)).astype(np.float32))
+    u, v, q, k = torch.split(mixed, [D] * 4, dim=-1)
+    gamma, beta = torch.ones(D), torch.zeros(D)
+    nonpad = _t(_nonpad(B, L, rng))
+    out = K.hstu_stu_gated_fwd(q, k, v, u, gamma, beta, nonpad, h)
+    dense = K.hstu_stu_gated_fwd(*(x.contiguous() for x in (q, k, v, u)), gamma, beta, nonpad, h)
+    assert torch.equal(out, dense)
+
+
+@pytest.mark.parametrize("B,L,H,d", [(2, 10, 4, 8), (3, 70, 2, 16)])
+def test_attention_v2_plain_matches_pallas_v2(B, L, H, d):
+    rng = np.random.default_rng(5)
+    q, k, v = (rng.normal(size=(B, L, H, d)).astype(np.float32) for _ in range(3))
+    nonpad = _nonpad(B, L, rng)
+    ref = hstu_attention_pallas_v2(*map(jnp.asarray, (q, k, v)), _jax_mask(nonpad), interpret=True)
+    out = K.hstu_attention_v2(_t(q), _t(k), _t(v), _t(nonpad))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+    # the dispatcher's 'pallas' choice is this wrapper
+    via = hstu_attention(_t(q), _t(k), _t(v), _t(nonpad), impl="pallas")
+    assert torch.equal(via, out)
+
+
+def test_attention_bhld_plain_matches_pallas_v1():
+    """Kernel #3 (``hstu_attention_pallas``, [B·H, L, d] programs) through
+    the layout wrapper over the pointwise kernel."""
+    B, L, H, d = 2, 70, 2, 16
+    rng = np.random.default_rng(0)
+    q, k, v = (rng.normal(size=(B, L, H, d)).astype(np.float32) for _ in range(3))
+    nonpad = rng.random((B, L)) > 0.25
+    nonpad[:, -1] = True
+    ref = hstu_attention_pallas(*map(jnp.asarray, (q, k, v)), _jax_mask(nonpad), interpret=True)
+
+    def bhld(x):
+        return _t(x.transpose(0, 2, 1, 3).reshape(B * H, L, -1))
+
+    np_bh = _t(np.repeat(nonpad, H, axis=0))
+    out = K.hstu_attention_bhld(bhld(q), bhld(k), bhld(v), np_bh)
+    out = out.reshape(B, H, L, d).transpose(1, 2).numpy()
+    np.testing.assert_allclose(out, np.asarray(ref), **TOL)
+
+
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_plain_attention_matches_xla(with_bias):
+    B, L, H, d = 2, 9, 2, 8
+    rng = np.random.default_rng(3)
+    q, k, v = (rng.normal(size=(B, L, H, d)).astype(np.float32) for _ in range(3))
+    nonpad = _nonpad(B, L, rng)
+    bias = rng.normal(size=(1, L, L)).astype(np.float32) if with_bias else None
+    ref = hstu_attention_xla(
+        *map(jnp.asarray, (q, k, v)), _jax_mask(nonpad),
+        None if bias is None else jnp.asarray(bias),
+    )
+    out = hstu_attention(_t(q), _t(k), _t(v), _t(nonpad), impl="xla",
+                         bias=None if bias is None else _t(bias))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+    np.testing.assert_array_equal(attention_mask(_t(nonpad)).numpy(), np.asarray(_jax_mask(nonpad)))
+
+
+def test_cpu_tensors_run_the_plain_version_and_count_nothing():
+    rng = np.random.default_rng(2)
+    B, L, H, d = 2, 6, 2, 64
+    q, k, v = (_t(rng.normal(size=(B, H, L, d)).astype(np.float32)) for _ in range(3))
+    nonpad = _t(_nonpad(B, L, rng))
+    before = (K.hstu_attn_fwd.launches, K.hstu_stu_gated_fwd.launches)
+    assert torch.equal(K.hstu_attn_fwd(q, k, v, nonpad), K.hstu_attn_fwd_plain(q, k, v, nonpad))
+    flat = [x.transpose(1, 2).reshape(B, L, H * d) for x in (q, k, v, v)]
+    g, b = torch.ones(H * d), torch.zeros(H * d)
+    assert torch.equal(K.hstu_stu_gated_fwd(*flat, g, b, nonpad, H),
+                       K.hstu_stu_gated_fwd_plain(*flat, g, b, nonpad, H))
+    assert (K.hstu_attn_fwd.launches, K.hstu_stu_gated_fwd.launches) == before
+
+
+def _meta_stu_inputs(B=2, L=8, F=128, dtype=torch.float32):
+    m = torch.device("meta")
+    q, k, v, u = (torch.empty(B, L, F, device=m, dtype=dtype) for _ in range(4))
+    gamma = torch.empty(F, device=m)
+    beta = torch.empty(F, device=m)
+    nonpad = torch.empty(B, L, device=m, dtype=torch.bool)
+    return [q, k, v, u, gamma, beta, nonpad, 2]
+
+
+@pytest.mark.parametrize(
+    "break_it, what",
+    [
+        (lambda a: a.__setitem__(0, a[0].half()), "dtype"),
+        (lambda a: a.__setitem__(1, a[1].to(torch.bfloat16)), "must be"),
+        (lambda a: a.__setitem__(2, a[2][..., ::2]), "contiguous"),
+        (lambda a: a.__setitem__(3, a[3][:, :4]), "disagree"),
+        (lambda a: a.__setitem__(4, a[4].double()), "gamma"),
+        (lambda a: a.__setitem__(6, a[6].int()), "nonpad"),
+        (lambda a: a.__setitem__(7, 3), "divisible"),
+    ],
+)
+def test_kernel_wrapper_refuses_what_the_kernel_does_not_take(break_it, what):
+    args = _meta_stu_inputs()
+    break_it(args)
+    with pytest.raises(ValueError, match=what):
+        K.hstu_stu_gated_fwd(*args)
+
+
+def test_kernel_wrapper_refuses_rows_beyond_shared_memory():
+    args = _meta_stu_inputs(F=4096)
+    args[7] = 32
+    with pytest.raises(ValueError, match="shared memory"):
+        K.hstu_stu_gated_fwd(*args)
+
+
+def test_cuda_paths_raise_without_a_card(monkeypatch, tmp_path):
+    """Off the card a non-CPU tensor reaches the kernel's build, which
+    raises: there is no quiet fallback to the plain version."""
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(cuda_build, "_LIBS", {})
+    monkeypatch.setattr(cuda_build, "NVCC_CANDIDATES", (str(tmp_path / "nvcc"),))
+    before = K.hstu_stu_gated_fwd.launches
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        K.hstu_stu_gated_fwd(*_meta_stu_inputs())
+    m = torch.device("meta")
+    x = torch.empty(2, 2, 8, 64, device=m)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        K.hstu_attn_fwd(x, x, x, torch.empty(2, 8, device=m, dtype=torch.bool))
+    assert K.hstu_stu_gated_fwd.launches == before
+
+
+def test_library_name_tracks_sources_and_flags(monkeypatch):
+    a = cuda_build.library_path("hstu_attn_fwd")
+    assert a.name.startswith("libhstu_attn_fwd-") and a.parent == cuda_build.BUILD_DIR
+    assert a != cuda_build.library_path("hstu_stu_gated_fwd")
+    monkeypatch.setattr(cuda_build, "NVCC_FLAGS", cuda_build.NVCC_FLAGS + ("-lineinfo",))
+    assert cuda_build.library_path("hstu_attn_fwd") != a
