@@ -4,24 +4,38 @@
     python3 chip_smoke.py [--profile]
 
 Builds the port's CUDA kernels from ``mhrec_tpu_torch/csrc`` (one ``nvcc``
-per source, in parallel), holds each kernel against its plain PyTorch version
-on the card, then drives the serving path (``run.py --val_only True``) of the
-paper's headline model — HSTU size4 (1024d, 16 layers, 16 heads, window 50)
-with 8-category prior heads, 4 segment heads, additive interaction and the
-prior switch — over 4096 users and a 200,000-item catalog, with random
-weights from seed 0. Two more passes run one eval batch with
-``attn_impl: pallas`` (through the pointwise attention kernel) and with
-``attn_impl: xla`` (the plain path, no kernel) and hold each against the
-serve path's embeddings of that batch.
+per source, in parallel) and holds each against its plain PyTorch version on
+the card: the forward kernels of the fused STU block and of the pointwise
+attention, their backward kernels, and the row-sparse AdamW. Then it drives
+the port's two main paths on the paper's headline model — HSTU size4 (1024d,
+16 layers, 16 heads, window 50) with 8-category prior heads, 4 segment heads,
+additive interaction and the prior switch — over 4096 users and a
+200,000-item catalog, with random weights from seed 0:
+
+* serving (``run.serve``, what ``run.py --val_only True`` runs): the test
+  split evaluated, kernel A launched 64 times; two more passes run one eval
+  batch with ``attn_impl: pallas`` (through the pointwise attention kernel)
+  and ``attn_impl: xla`` (the plain path, no kernel) and hold each against
+  the serve path's embeddings of that batch;
+* training (``run.train``, what ``run.py`` runs without ``--val_only``): 30
+  steps of the reproduce script's prior protocol at batch 64 with 8192
+  negatives, ``sparse_item_adam`` and dropout 0.2, an evaluation of the valid
+  split with a best-checkpoint save (under a temporary directory), and the
+  test split evaluated from that checkpoint; kernel A runs 16 times forward
+  and 16 times backward per step and ``row_adamw`` once. A last pass takes
+  one batch through ``attn_impl: pallas`` and ``xla`` and holds the loss and
+  (on a float32 copy of the model) the gradients against ``auto``'s, and one
+  row update of ``sparse_adam_impl: xla`` (the plain version) against the
+  kernel's.
 
 Prints one JSON object per line: the card's name and power limit, build
-seconds, each kernel phase (error against tolerance; kernel, plain and
-bound times), the serve phase, the pallas and xla phases, a ``kernels``
-summary, and last ``{"ok": true, "device": {...}}``. Any failure exits
-non-zero without the last line. ``--profile`` adds a phase that evaluates
-the test split once more under ``torch.profiler`` and prints device time by
-kernel group and the top kernels. float32 products run in full float32: TF32
-is switched off for matmuls and cuDNN.
+seconds, each kernel phase (error against tolerance; kernel, plain and bound
+times), the serve, impl, train and train-impl phases, a ``kernels`` summary,
+and last ``{"ok": true, "device": {...}}``. Any failure exits non-zero
+without the last line. ``--profile`` adds phases that run one evaluation of
+the test split and five train steps under ``torch.profiler`` and print device
+time by kernel group and the top kernels. float32 products run in full
+float32: TF32 is switched off for matmuls and cuDNN.
 """
 
 from __future__ import annotations
@@ -29,8 +43,10 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 
@@ -44,6 +60,19 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 # of sums; bfloat16 may also round the attention entries or the output one
 # ulp apart (2^-8 relative), so it gets about three ulps
 TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 2e-2)}  # (atol, rtol)
+
+# the paths with another attention route round the bf16 trunk at other
+# places over 16 layers: unit-norm embeddings (max abs) and the loss must
+# still agree to this. Gradients are compared on a float32 copy of the
+# model, where the routes differ only in the order of sums and in the
+# bfloat16 logit tables of the loss: each gradient tensor to a relative L2
+# error of F32_GRAD_TOL (bfloat16 gradients of the early layers differ by
+# tens of percent between routes at 16 layers, PERF.md: rounding noise grows
+# through the backward, so they are reported and not held to a bound)
+IMPL_TOL = 5e-2
+F32_GRAD_TOL = 1e-2
+
+TRAIN_STEPS = 30
 
 
 def emit(obj):
@@ -65,12 +94,21 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def excess_error(out, ref, dtype_name):
-    """(max |out - ref|, max of |out - ref| - (atol + rtol·|ref|)); the
-    second is ≤ 0 when every element is within tolerance."""
+def excess_error(outs, refs, dtype_name):
+    """(max |out - ref|, max of |out - ref| - (atol + rtol·|ref|)) over one
+    output or a tuple of them; the second is ≤ 0 when every element is
+    within tolerance."""
+    import torch
+
+    if isinstance(outs, torch.Tensor):
+        outs, refs = (outs,), (refs,)
     atol, rtol = TOL[dtype_name]
-    d = (out.float() - ref.float()).abs()
-    return float(d.max()), float((d - (atol + rtol * ref.float().abs())).max())
+    err = excess = float("-inf")
+    for out, ref in zip(outs, refs):
+        d = (out.float() - ref.float()).abs()
+        err = max(err, float(d.max()))
+        excess = max(excess, float((d - (atol + rtol * ref.float().abs())).max()))
+    return err, excess
 
 
 def make_nonpad(B, L, gen, device):
@@ -88,46 +126,71 @@ def make_nonpad(B, L, gen, device):
 
 def kernel_inputs(kind, B, L, H, d, dtype, seed):
     """Random inputs of one kernel at one shape. Kernel A's q/k/v/u are the
-    strided splits of one [B, L, 4·H·d] projection, as in the STU layer."""
+    strided splits of one [B, L, 4·H·d] projection, as in the STU layer; the
+    backward kinds add the output gradient g."""
     import torch
 
     dev = torch.device("cuda")
     gen = torch.Generator(device="cpu").manual_seed(seed)
     nonpad = make_nonpad(B, L, gen, dev)
-    if kind == "stu":
+    if kind in ("stu", "stu_bwd"):
         F = H * d
         mixed = torch.randn(B, L, 4 * F, generator=gen).mul_(0.5).to(dev, dtype)
         u, v, q, k = torch.split(mixed, [F, F, F, F], dim=-1)
         gamma = (1 + 0.1 * torch.randn(F, generator=gen)).to(dev)
         beta = (0.05 * torch.randn(F, generator=gen)).to(dev)
-        return (q, k, v, u, gamma, beta, nonpad, H)
+        if kind == "stu":
+            return (q, k, v, u, gamma, beta, nonpad, H)
+        g = torch.randn(B, L, F, generator=gen).to(dev, dtype)
+        return (q, k, v, u, gamma, beta, nonpad, g, H)
     q, k, v = (torch.randn(B, H, L, d, generator=gen).mul_(0.5).to(dev, dtype)
                for _ in range(3))
-    return (q, k, v, nonpad)
+    if kind == "attn":
+        return (q, k, v, nonpad)
+    g = torch.randn(B, H, L, d, generator=gen).to(dev, dtype)
+    return (q, k, v, g, nonpad)
+
+
+def _nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _bound(nbytes, flops, peak):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def bound_ms(kind, args):
     """Least time the card could take: the larger of bytes moved (each
-    input read once, the output written once) over HBM bandwidth and the
+    input read once, each output written once) over HBM bandwidth and the
     operations over the peak rate of the input type. Attention flops count
-    the causal (key ≤ query) pairs."""
-    if kind == "stu":
-        q, k, v, u, gamma, beta, nonpad, H = args
+    the causal (key ≤ query) pairs: 2·d per product per pair — two products
+    forward (q·kᵀ, A·v); the backward recomputes the first two and adds
+    g·vᵀ, Aᵀ·g, ds·k and dsᵀ·q."""
+    if kind in ("stu", "stu_bwd"):
+        q, k, v, u, gamma, beta, nonpad = args[:7]
+        H = args[-1]
         B, L, F = v.shape
-        nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, u, gamma, beta, nonpad))
-        nbytes += B * L * F * q.element_size()
+        dqk, dv = q.shape[-1] // H, F // H
         pairs = B * H * L * (L + 1) // 2
-        flops = 2 * pairs * (q.shape[-1] // H + F // H) + 10 * B * L * F
+        if kind == "stu":
+            nbytes = _nbytes(q, k, v, u, gamma, beta, nonpad) + B * L * F * q.element_size()
+            flops = 2 * pairs * (dqk + dv) + 10 * B * L * F
+        else:  # + g in; dq, dk, dv, du, dγ, dβ out
+            nbytes = _nbytes(q, k, v, u, gamma, beta, nonpad, args[7], q, k, v, u, gamma, beta)
+            flops = 2 * pairs * (3 * dqk + 3 * dv) + 20 * B * L * F
     else:
-        q, k, v, nonpad = args
+        q, k, v = args[:3]
+        nonpad = args[-1]
         B, H, L, d = q.shape
-        nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, nonpad))
-        nbytes += v.numel() * v.element_size()
         pairs = B * H * L * (L + 1) // 2
-        flops = 2 * pairs * (d + v.shape[-1])
-    peak = PEAK_FLOPS[str(q.dtype).replace("torch.", "")]
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+        if kind == "attn":
+            nbytes = _nbytes(q, k, v, nonpad, v)
+            flops = 2 * pairs * (d + v.shape[-1])
+        else:  # + g in; dq, dk, dv out
+            nbytes = _nbytes(q, k, v, args[3], nonpad, q, k, v)
+            flops = 2 * pairs * (3 * d + 2 * v.shape[-1])
+    return _bound(nbytes, flops, PEAK_FLOPS[str(q.dtype).replace("torch.", "")])
 
 
 KERNELS = {
@@ -139,21 +202,36 @@ KERNELS = {
         name="hstu_attn_fwd", source="mhrec_tpu_torch/csrc/hstu_attn_fwd.cu",
         replaces="mhrec_tpu/ops/pallas/hstu_attention_tpu.py:269",
     ),
+    "stu_bwd": dict(
+        name="hstu_stu_gated_bwd", source="mhrec_tpu_torch/csrc/hstu_stu_gated_bwd.cu",
+        replaces="mhrec_tpu/ops/pallas/hstu_attention_tpu.py:537",
+    ),
+    "attn_bwd": dict(
+        name="hstu_attn_bwd", source="mhrec_tpu_torch/csrc/hstu_attn_bwd.cu",
+        replaces="mhrec_tpu/ops/pallas/hstu_attention_tpu.py:307",
+    ),
+    "row_adamw": dict(
+        name="row_adamw", source="mhrec_tpu_torch/csrc/row_adamw.cu",
+        replaces="mhrec_tpu/ops/pallas/row_adam_tpu.py:231",
+    ),
 }
 
 
 def kernel_fns(kind):
     from mhrec_tpu_torch.ops import hstu_attention_cuda as K
 
-    if kind == "stu":
-        return K.hstu_stu_gated_fwd, K.hstu_stu_gated_fwd_plain
-    return K.hstu_attn_fwd, K.hstu_attn_fwd_plain
+    return {
+        "stu": (K.hstu_stu_gated_fwd, K.hstu_stu_gated_fwd_plain),
+        "attn": (K.hstu_attn_fwd, K.hstu_attn_fwd_plain),
+        "stu_bwd": (K.hstu_stu_gated_bwd, K.hstu_stu_gated_bwd_plain),
+        "attn_bwd": (K.hstu_attn_bwd, K.hstu_attn_bwd_plain),
+    }[kind]
 
 
 def kernel_phase(kind, shape_name, B, L, H, d, dtype, seed=0):
     """Compare one kernel with its plain version on the card, time both
     (plain, kernel, kernel, plain) and compute the bound. The comparison
-    and timing launches are counted outside the main path's runs."""
+    and timing launches are counted outside the main paths' runs."""
     import torch
 
     fn, plain = kernel_fns(kind)
@@ -163,7 +241,8 @@ def kernel_phase(kind, shape_name, B, L, H, d, dtype, seed=0):
     ref = plain(*args)
     dname = str(dtype).replace("torch.", "")
     err, excess = excess_error(out, ref, dname)
-    finite = bool(torch.isfinite(out).all())
+    outs = out if isinstance(out, tuple) else (out,)
+    finite = all(bool(torch.isfinite(o).all()) for o in outs)
     rec = {"phase": "kernel", "kernel": KERNELS[kind]["name"], "shape": shape_name,
            "B": B, "L": L, "H": H, "d": d, "dtype": dname, "max_abs_err": err,
            "atol": TOL[dname][0], "rtol": TOL[dname][1],
@@ -175,23 +254,87 @@ def kernel_phase(kind, shape_name, B, L, H, d, dtype, seed=0):
     return rec
 
 
-def serve_config():
+def row_adamw_phase(N=200_000, D=1024, U=77_824, n_real=65_000, seed=0):
+    """The row-sparse AdamW kernel against its plain version at the train
+    phase's table and id block: a [200000, 1024] f32 table with its moments,
+    77,824 id slots (the prior protocol's unique-id block) of which the
+    first 65,000 are real and the rest pad slots. The kernel must equal the
+    plain update bit for bit on p, m and v. Times are per update in place."""
+    import torch
+
+    from mhrec_tpu_torch.ops.row_adam_cuda import row_adamw
+    from mhrec_tpu_torch.trainer.sparse_adam import SparseAdamConfig, sparse_adamw_row_update
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    table = torch.randn(N, D, device=dev, generator=gen)
+    m = 0.01 * torch.randn(N, D, device=dev, generator=gen)
+    v = 0.01 * torch.rand(N, D, device=dev, generator=gen)
+    ids = torch.full((U,), -1, dtype=torch.long, device=dev)
+    ids[:n_real] = torch.randperm(N, device=dev, generator=gen)[:n_real]
+    g = torch.randn(U, D, device=dev, generator=gen)
+    cfg = SparseAdamConfig(weight_decay=0.01)
+    ker = [t.clone() for t in (table, m, v)]
+    ref = [t.clone() for t in (table, m, v)]
+    row_adamw(*ker, ids, g, 1e-4, 7, cfg)
+    sparse_adamw_row_update(*ref, ids, g, 1e-4, 7, cfg)
+    torch.cuda.synchronize()
+    equal = all(bool(torch.equal(a, b)) for a, b in zip(ker, ref))
+    err = max(float((a - b).abs().max()) for a, b in zip(ker, ref))
+    moved = bool((ker[0][ids[:n_real]] != table[ids[:n_real]]).any())
+    untouched = torch.ones(N, dtype=torch.bool, device=dev)
+    untouched[ids[:n_real]] = False
+    kept = bool(torch.equal(ker[0][untouched], table[untouched]))
+    del ref
+    p1, k1, k2, p2 = (cuda_ms(lambda f=f: f(*ker, ids, g, 1e-4, 7, cfg), iters=10)
+                      for f in (sparse_adamw_row_update, row_adamw, row_adamw,
+                                sparse_adamw_row_update))
+    nbytes = 7 * 4 * n_real * D + ids.numel() * ids.element_size()
+    bound, bound_by = _bound(nbytes, 16 * n_real * D, PEAK_FLOPS["float32"])
+    rec = {"phase": "kernel", "kernel": "row_adamw", "N": N, "D": D, "U": U, "real_ids": n_real,
+           "bit_equal": equal, "max_abs_err": err, "rows_moved": moved,
+           "untouched_rows_kept": kept, "ms": min(k1, k2), "plain_ms": min(p1, p2),
+           "bound_ms": bound, "bound_by": bound_by, "ok": equal and moved and kept}
+    emit(rec)
+    return rec
+
+
+def base_config(**over):
     from mhrec_tpu_torch.config import Config
 
     C = 8
     return Config(
         config_file_list=["IDNet/hstu-size4.yaml", "overall/ID.yaml", "IDNet/hstu.yaml"],
         config_dict=dict(
-            dataset="synthetic", seed=0, val_only=True,
-            MAX_ITEM_LIST_LENGTH=50, loss="prior", eval_num_cats=C,
-            num_prior_head=C, num_segment_head=4, head_interaction="additive",
-            medusa_num_layers=1, prior_switch="in", use_prior_switch_test=True,
-            segment_embed=True, split_mode="combine",
-            eval_pred_len=8, pred_len=8, topk=[5, 10, 50, 200],
-            eval_batch_size=1024, eval_item_chunk_size=131072,
-            int_to_category={i: f"cat_{i}" for i in range(C)},
-        ),
+            dict(dataset="synthetic", seed=0,
+                 MAX_ITEM_LIST_LENGTH=50, loss="prior", eval_num_cats=C,
+                 num_prior_head=C, num_segment_head=4, head_interaction="additive",
+                 medusa_num_layers=1, prior_switch="in", use_prior_switch_test=True,
+                 segment_embed=True, split_mode="combine",
+                 eval_pred_len=8, pred_len=8, topk=[5, 10, 50, 200],
+                 eval_batch_size=1024, eval_item_chunk_size=131072,
+                 int_to_category={i: f"cat_{i}" for i in range(C)}),
+            **over),
     ).finalize()
+
+
+def serve_config():
+    return base_config(val_only=True)
+
+
+def train_config(checkpoint_dir):
+    """The reproduce script's prior protocol (reproduce/HSTU-Pixel8M-prior.sh)
+    at the per-chip shape of BASELINE.md: batch 64, 8192 negatives drawn per
+    category, the weighted prior loss, learning rate 1e-4 under the default
+    cosine schedule, dropout 0.2 (hstu-size4.yaml), the row-sparse item-table
+    AdamW; the switch classifier's loss at weight 0.1 so that its gradient
+    runs."""
+    return base_config(
+        train_batch_size=64, num_negatives=8192, neg_sample_by_cat=True,
+        weighted_prior_loss=True, prior_switch_loss_weight=0.1, sparse_item_adam=True,
+        optim_args={"learning_rate": 1e-4, "weight_decay": 0.0},
+        total_iters=TRAIN_STEPS, eval_interval=TRAIN_STEPS, update_interval=10,
+        checkpoint_dir=checkpoint_dir)
 
 
 def check_streamed_topk(trainer, batch, n_users=16):
@@ -222,28 +365,43 @@ def check_streamed_topk(trainer, batch, n_users=16):
             and float((at_idx - vals)[finite].abs().max()) <= 1e-5)
 
 
+def reset_launches():
+    from mhrec_tpu_torch.ops import hstu_attention_cuda as K
+    from mhrec_tpu_torch.ops.row_adam_cuda import row_adamw
+
+    for fn in (K.hstu_stu_gated_fwd, K.hstu_attn_fwd, K.hstu_stu_gated_bwd, K.hstu_attn_bwd,
+               row_adamw):
+        fn.launches = 0
+
+
+def read_launches():
+    from mhrec_tpu_torch.ops import hstu_attention_cuda as K
+    from mhrec_tpu_torch.ops.row_adam_cuda import row_adamw
+
+    return {fn.__name__: fn.launches for fn in (K.hstu_stu_gated_fwd, K.hstu_attn_fwd,
+                                                 K.hstu_stu_gated_bwd, K.hstu_attn_bwd,
+                                                 row_adamw)}
+
+
 def serve_phase(data):
-    """The main path: ``run.serve`` (what ``run.py --val_only True`` runs
+    """The serving path: ``run.serve`` (what ``run.py --val_only True`` runs
     after loading data) with the launch counts set to 0 just before and read
     just after. ``serve_seconds`` is that call, set-up included, on a cold
     process; ``eval_seconds`` and ``users_per_s`` time a second, warm
     ``evaluate`` of the same split, which must give the same metrics."""
     import torch
 
-    from mhrec_tpu_torch.ops import hstu_attention_cuda as K
     from mhrec_tpu_torch.run import serve
 
     config = serve_config()
-    K.hstu_stu_gated_fwd.launches = 0
-    K.hstu_attn_fwd.launches = 0
+    reset_launches()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     trainer, test_loader, result = serve(config, data)
     torch.cuda.synchronize()
     serve_seconds = time.perf_counter() - t0
-    launches = {"hstu_stu_gated_fwd": K.hstu_stu_gated_fwd.launches,
-                "hstu_attn_fwd": K.hstu_attn_fwd.launches}
+    launches = read_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     t0 = time.perf_counter()
     again = trainer.evaluate(test_loader)
@@ -254,15 +412,22 @@ def serve_phase(data):
     sane = (all(math.isfinite(v) for v in values)
             and all(0.0 <= result[f"pred_{p}"][m] <= 1.0 for p in config["metrics_pred_len_list"]
                     for m in result[f"pred_{p}"]))
-    topk_ok = check_streamed_topk(trainer, next(iter(test_loader.batches())))
+    with torch.no_grad():
+        topk_ok = check_streamed_topk(trainer, next(iter(test_loader.batches())))
+    others = sum(n for k, n in launches.items() if k != "hstu_stu_gated_fwd")
     ok = (sane and topk_ok and again == result and launches["hstu_stu_gated_fwd"] == 64
-          and launches["hstu_attn_fwd"] == 0 and "pred_7" in result and "shared" in result)
+          and others == 0 and "pred_7" in result and "shared" in result)
     emit({"phase": "serve", "users": n_users, "items": int(data.item_num),
           "serve_seconds": serve_seconds, "eval_seconds": eval_seconds,
           "users_per_s": n_users / eval_seconds, "peak_mem_gb": peak_gb,
           "launches": launches, "repeat_matches": again == result,
           "streamed_topk_matches_dense": topk_ok, "metrics": result, "ok": bool(ok)})
     return trainer, test_loader, launches, ok
+
+
+def set_attn_impl(model, impl):
+    for layer in model.stu_layers:
+        layer.attn_impl = impl
 
 
 def impl_phase(trainer, batch, impl):
@@ -272,48 +437,188 @@ def impl_phase(trainer, batch, impl):
     reference that runs neither kernel)."""
     import torch
 
-    from mhrec_tpu_torch.ops import hstu_attention_cuda as K
-
     dev = trainer._eval_device_batch(batch)
-    ref = trainer.model.predict_embeddings(dev["item_seq"], dev["target_tags"])
-    for layer in trainer.model.stu_layers:
-        layer.attn_impl = impl
-    K.hstu_stu_gated_fwd.launches = 0
-    K.hstu_attn_fwd.launches = 0
-    pe = trainer.model.predict_embeddings(dev["item_seq"], dev["target_tags"])
-    torch.cuda.synchronize()
-    launches = {"hstu_stu_gated_fwd": K.hstu_stu_gated_fwd.launches,
-                "hstu_attn_fwd": K.hstu_attn_fwd.launches}
-    for layer in trainer.model.stu_layers:
-        layer.attn_impl = "auto"
+    with torch.no_grad():
+        ref = trainer.model.predict_embeddings(dev["item_seq"], dev["target_tags"])
+        set_attn_impl(trainer.model, impl)
+        reset_launches()
+        pe = trainer.model.predict_embeddings(dev["item_seq"], dev["target_tags"])
+        torch.cuda.synchronize()
+        launches = read_launches()
+        set_attn_impl(trainer.model, "auto")
     err = float((pe["head_embs"] - ref["head_embs"]).abs().max())
     cos = float((pe["head_embs"] * ref["head_embs"]).sum(-1).min())
-    # the paths round the bf16 trunk at different places over 16 layers;
-    # the unit-norm head embeddings must still agree closely
-    tol = 5e-2
     want_attn = len(trainer.model.stu_layers) if impl == "pallas" else 0
-    ok = (err <= tol and launches["hstu_attn_fwd"] == want_attn
-          and launches["hstu_stu_gated_fwd"] == 0)
+    ok = (err <= IMPL_TOL and launches["hstu_attn_fwd"] == want_attn
+          and sum(launches.values()) == want_attn)
     emit({"phase": impl, "users": int(dev["item_seq"].shape[0]), "launches": launches,
-          "head_embs_max_abs_err": err, "min_cosine": cos, "tolerance": tol, "ok": bool(ok)})
+          "head_embs_max_abs_err": err, "min_cosine": cos, "tolerance": IMPL_TOL,
+          "ok": bool(ok)})
     return launches, ok
 
 
-# the profile phase's groups of device kernels, by name (first match wins)
+def train_phase(data, checkpoint_dir):
+    """The training path: ``run.train`` (what ``run.py`` runs without
+    ``--val_only`` after loading data) with the launch counts set to 0 just
+    before and read just after. Kernel A must run 16 times forward and 16
+    times backward per step (plus 16 forward per evaluated batch) and
+    ``row_adamw`` once per step; kernel B not at all."""
+    import torch
+
+    from mhrec_tpu_torch.data import build_eval_dataloaders
+    from mhrec_tpu_torch.run import train
+
+    config = train_config(checkpoint_dir)
+    # valid + test batches, each evaluated once (16 forward launches each)
+    eval_batches = sum(math.ceil(len(loader) / config["eval_batch_size"])
+                       for loader in build_eval_dataloaders(config, data))
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer, stats, result = train(config, data)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    n_layers = len(trainer.model.stu_layers)
+    per_step = {"hstu_stu_gated_fwd": (launches["hstu_stu_gated_fwd"]
+                                       - n_layers * eval_batches) / stats["iters"],
+                "hstu_stu_gated_bwd": launches["hstu_stu_gated_bwd"] / stats["iters"],
+                "row_adamw": launches["row_adamw"] / stats["iters"],
+                "hstu_attn_fwd": launches["hstu_attn_fwd"] / stats["iters"],
+                "hstu_attn_bwd": launches["hstu_attn_bwd"] / stats["iters"]}
+    first, last = trainer.fetched_losses[0], trainer.fetched_losses[-1]
+    nan_step = int(trainer.nan_step)
+    ckpt = os.path.isfile(trainer.checkpoint_path())
+    values = [v for sec in result.values() for v in sec.values()]
+    ok = (stats["iters"] == TRAIN_STEPS and math.isfinite(first[1]) and math.isfinite(last[1])
+          and nan_step < 0 and ckpt and trainer.step == TRAIN_STEPS
+          and per_step == {"hstu_stu_gated_fwd": n_layers, "hstu_stu_gated_bwd": n_layers,
+                           "row_adamw": 1, "hstu_attn_fwd": 0, "hstu_attn_bwd": 0}
+          and all(math.isfinite(v) for v in values) and "pred_7" in result)
+    emit({"phase": "train", "steps": stats["iters"], "batch": config["train_batch_size"],
+          "num_negatives": config["num_negatives"], "items": int(data.item_num),
+          "seconds": seconds, "fit_wall_s": stats["wall_s"], "fit_eval_s": stats["eval_s"],
+          "steady_examples_per_s": stats["steady_examples_per_s"],
+          "examples_per_s": stats["examples_per_s"],
+          "first_loss": first, "last_loss": last, "nan_step": nan_step,
+          "peak_mem_gb": peak_gb, "launches": launches, "launches_per_step": per_step,
+          "checkpoint_saved_and_loaded": ckpt, "test_metrics": result.get("pred_7"),
+          "ok": bool(ok)})
+    return trainer, launches, ok
+
+
+def loss_and_grads(trainer, batch, step):
+    """Loss and every gradient of one batch at the trainer's parameters,
+    without an optimizer step; dropout drawn from step ``step``'s stream."""
+    import torch
+
+    model = trainer.model
+    dev = trainer._train_device_batch(batch)
+    ids = dev.pop("unique_ids")
+    sub0 = model.item_embedding.weight.detach()[ids.clamp(min=0)].requires_grad_(True)
+    for p in model.parameters():
+        p.grad = None
+    out = model(dev, sub=sub0, generator=trainer.step_generator(step))
+    out["loss"].backward()
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()
+             if p.grad is not None}
+    grads["item_rows"] = sub0.grad.detach()
+    return float(out["loss"].detach()), grads, ids
+
+
+def _grad_agreement(grads, ref):
+    """(max per-tensor relative L2 error, cosine of the whole gradient)."""
+    import torch
+
+    rel = max(float(torch.linalg.vector_norm(grads[n] - g) / torch.linalg.vector_norm(g))
+              for n, g in ref.items() if bool(g.any()))
+    flat_a = torch.cat([g.flatten().double() for g in grads.values()])
+    flat_b = torch.cat([g.flatten().double() for g in ref.values()])
+    return rel, float(torch.nn.functional.cosine_similarity(flat_a, flat_b, dim=0))
+
+
+def train_impl_phase(trainer, data):
+    """One batch of the trained model's loss and gradients under
+    ``attn_impl: pallas`` (kernel B forward and backward, 16 launches each)
+    and ``xla`` (the plain path, no kernel) against ``auto`` (kernel A), in
+    the model's bfloat16 and on a float32 copy; and one row update of
+    ``sparse_adam_impl: xla`` (the plain version) against the kernel's,
+    which must be bit-equal."""
+    import torch
+
+    from mhrec_tpu_torch.data import build_dataloader
+    from mhrec_tpu_torch.ops.row_adam_cuda import row_adamw
+    from mhrec_tpu_torch.trainer import Trainer
+    from mhrec_tpu_torch.trainer.sparse_adam import SparseAdamConfig, sparse_adamw_row_update
+
+    batch = next(build_dataloader(trainer.config, data)[0].epoch_batches(5))
+    step = trainer.step
+    f32 = Trainer(trainer.config, data, dtype=torch.float32)
+    f32.model.load_state_dict(trainer.model.state_dict())
+    L = len(trainer.model.stu_layers)
+    recs, ok_all, pallas_launches = {}, True, None
+    for dname, tr in (("bfloat16", trainer), ("float32", f32)):
+        loss_ref, g_ref, ids = loss_and_grads(tr, batch, step)
+        if dname == "bfloat16":
+            g_rows, ids_rows = g_ref["item_rows"], ids
+        for impl in ("pallas", "xla"):
+            set_attn_impl(tr.model, impl)
+            reset_launches()
+            loss, grads, _ = loss_and_grads(tr, batch, step)
+            torch.cuda.synchronize()
+            launches = read_launches()
+            set_attn_impl(tr.model, "auto")
+            loss_rel = abs(loss - loss_ref) / abs(loss_ref)
+            grad_rel, cos = _grad_agreement(grads, g_ref)
+            want = {k: 0 for k in launches}
+            if impl == "pallas":
+                want.update(hstu_attn_fwd=L, hstu_attn_bwd=L)
+                if dname == "bfloat16":
+                    pallas_launches = launches
+            ok = (loss_rel <= IMPL_TOL and launches == want
+                  and (dname == "bfloat16" or grad_rel <= F32_GRAD_TOL))
+            ok_all &= ok
+            recs[f"{impl}_{dname}"] = {
+                "loss": loss, "loss_auto": loss_ref, "loss_rel_diff": loss_rel,
+                "grad_max_rel_l2": grad_rel, "grad_cosine": cos, "launches": launches,
+                "ok": bool(ok)}
+    del f32
+    model = trainer.model
+    cfg = SparseAdamConfig(weight_decay=trainer.weight_decay)
+    states = []
+    for update in (row_adamw, sparse_adamw_row_update):
+        tmv = [t.detach().clone() for t in (model.item_embedding.weight, trainer.table_m,
+                                            trainer.table_v)]
+        update(*tmv, ids_rows, g_rows, 1e-4, step, cfg)
+        states.append(tmv)
+    torch.cuda.synchronize()
+    row_equal = all(bool(torch.equal(a, b)) for a, b in zip(*states))
+    del states
+    ok_all &= row_equal
+    emit({"phase": "train_impl", "loss_tolerance": IMPL_TOL,
+          "f32_grad_tolerance": F32_GRAD_TOL, **recs,
+          "row_update_xla_equals_kernel": row_equal, "ok": bool(ok_all)})
+    return pallas_launches, ok_all
+
+
+# the profile phases' groups of device kernels, by name (first match wins)
 PROFILE_GROUPS = (
     ("hstu_stu_gated_fwd", "stu_gated_fwd"),
+    ("hstu_stu_gated_bwd", "stu_gated_bwd|attn_bwd"),
     ("hstu_attn_fwd", "attn_fwd_kernel"),
+    ("row_adamw", "row_adamw"),
     ("matmul", "gemm|nvjet|xmma|cutlass"),
     ("topk_and_sort", "topk|sort|radix"),
     ("copy_to_host", "Memcpy DtoH"),
 )
 
 
-def profile_phase(trainer, loader, top: int = 40):
-    """One more evaluation of the test split under ``torch.profiler``:
-    device time by group and of the ``top`` kernels, and the device's busy
-    share of the wall time (the union of kernel intervals over the host
-    time of the evaluation)."""
+def profile_phase(name, fn, top: int = 40):
+    """``fn()`` under ``torch.profiler``: device time by group and of the
+    ``top`` kernels, and the device's busy share of the wall time (the union
+    of kernel intervals over the host time of ``fn``)."""
     import re
 
     import torch
@@ -323,15 +628,15 @@ def profile_phase(trainer, loader, top: int = 40):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        trainer.evaluate(loader)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
                    if e.device_type == DeviceType.CUDA)
     by_name, busy_us, end = {}, 0.0, float("-inf")
-    for start, stop, name in spans:
-        n, us = by_name.get(name, (0, 0.0))
-        by_name[name] = (n + 1, us + stop - start)
+    for start, stop, kname in spans:
+        n, us = by_name.get(kname, (0, 0.0))
+        by_name[kname] = (n + 1, us + stop - start)
         busy_us += max(0.0, stop - max(start, end))
         end = max(end, stop)
     rows = sorted(({"name": k[:120], "count": n, "device_ms": us / 1e3}
@@ -341,9 +646,26 @@ def profile_phase(trainer, loader, top: int = 40):
     for r in rows:
         g = next((g for g, pat in PROFILE_GROUPS if re.search(pat, r["name"])), "other")
         groups[g] += r["device_ms"]
-    emit({"phase": "profile", "wall_s": wall, "device_busy_ms": busy_us / 1e3,
+    emit({"phase": f"profile_{name}", "wall_s": wall, "device_busy_ms": busy_us / 1e3,
           "device_busy_share": busy_us / 1e6 / wall, "groups_ms": groups,
-          "top": rows[:top]})
+          "device_events": sum(r["count"] for r in rows), "top": rows[:top]})
+
+
+def profile_train_steps(trainer, data, n=5):
+    import torch
+
+    from mhrec_tpu_torch.data import build_dataloader
+
+    stream = build_dataloader(trainer.config, data)[0].epoch_batches(7)
+    batches = [next(stream) for _ in range(n + 1)]
+    trainer.train_step(batches[0])  # warm
+    torch.cuda.synchronize()
+
+    def run():
+        for b in batches[1:]:
+            trainer.train_step(b)
+
+    profile_phase("train", run)
 
 
 def main(argv=None) -> int:
@@ -358,7 +680,6 @@ def main(argv=None) -> int:
         print("chip_smoke.py: no CUDA device", file=sys.stderr)
         return 3
     sys.path.insert(0, ROOT)
-    torch.set_grad_enabled(False)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -378,17 +699,25 @@ def main(argv=None) -> int:
     failed = []
     kernel_recs = {}
     shapes = {"size4": (64, 50, 16, 64), "merrec": (32, 400, 8, 64)}
-    for kind in ("stu", "attn"):
-        for shape_name, (B, L, H, d) in shapes.items():
-            for dtype in (torch.float32, torch.bfloat16):
-                rec = kernel_phase(kind, shape_name, B, L, H, d, dtype)
+    with torch.no_grad():
+        for kind in ("stu", "attn", "stu_bwd", "attn_bwd"):
+            for shape_name, (B, L, H, d) in shapes.items():
+                for dtype in (torch.float32, torch.bfloat16):
+                    rec = kernel_phase(kind, shape_name, B, L, H, d, dtype)
+                    if not rec["ok"]:
+                        failed.append(f"{kind}/{shape_name}/{dtype}")
+                    if shape_name == "size4" and dtype == torch.bfloat16:
+                        # the train step's shape (batch 64, window 50, bf16)
+                        kernel_recs[kind] = rec
+            if kind in ("stu", "attn"):
+                # the serving shape: one eval batch of 1024 users
+                rec = kernel_phase(kind, "serve", 1024, 50, 16, 64, torch.bfloat16)
+                kernel_recs[kind] = rec
                 if not rec["ok"]:
-                    failed.append(f"{kind}/{shape_name}/{dtype}")
-        # the serving shape: one eval batch of 1024 users
-        rec = kernel_phase(kind, "serve", 1024, 50, 16, 64, torch.bfloat16)
-        kernel_recs[kind] = rec
-        if not rec["ok"]:
-            failed.append(f"{kind}/serve")
+                    failed.append(f"{kind}/serve")
+        kernel_recs["row_adamw"] = row_adamw_phase()
+        if not kernel_recs["row_adamw"]["ok"]:
+            failed.append("row_adamw")
 
     data = InMemoryInteractionData(
         num_users=4096, num_items=200_000, seq_len=2 * 50 + 2 * 8, num_categories=8,
@@ -404,16 +733,34 @@ def main(argv=None) -> int:
     if not impl_phase(trainer, batch0, "xla")[1]:
         failed.append("xla")
     if "--profile" in args:
-        profile_phase(trainer, test_loader)
+        profile_phase("serve", lambda: trainer.evaluate(test_loader))
+    del trainer
+    torch.cuda.empty_cache()
+
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        trainer, train_launches, ok = train_phase(data, ckpt_dir)
+        if not ok:
+            failed.append("train")
+        impl_train_launches, ok = train_impl_phase(trainer, data)
+        if not ok:
+            failed.append("train_impl")
+        if "--profile" in args:
+            profile_train_steps(trainer, data)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
 
     launches = {"stu": serve_launches["hstu_stu_gated_fwd"],
-                "attn": pallas_launches["hstu_attn_fwd"]}
+                "attn": pallas_launches["hstu_attn_fwd"],
+                "stu_bwd": train_launches["hstu_stu_gated_bwd"],
+                "attn_bwd": impl_train_launches["hstu_attn_bwd"],
+                "row_adamw": train_launches["row_adamw"]}
     emit({"kernels": [
         dict(KERNELS[kind], route="cuda", launches=launches[kind],
              max_abs_err=kernel_recs[kind]["max_abs_err"], ms=kernel_recs[kind]["ms"],
              plain_ms=kernel_recs[kind]["plain_ms"], bound_ms=kernel_recs[kind]["bound_ms"],
              bound_by=kernel_recs[kind]["bound_by"], library_ms=None)
-        for kind in ("stu", "attn")
+        for kind in KERNELS
     ]})
     if failed:
         print("chip_smoke.py: failed phases: " + ", ".join(failed), file=sys.stderr)

@@ -1,15 +1,20 @@
-"""Dataloader factory (reference ``REC/data/utils.py:13-77``).
-
-Only the evaluation batchers are ported so far; the training batchers come
-with the training slice.
-"""
+"""Dataloader factory (reference ``REC/data/utils.py:13-77``; port of
+``mhrec_tpu/data/loaders.py`` for the ID models, one process)."""
 
 from __future__ import annotations
 
 from mhrec_tpu_torch.data.evalset import SeqEvalBatcher
+from mhrec_tpu_torch.data.trainset import SEQTrainBatcher
 
 
 def build_eval_dataloaders(config, dataload):
     """Returns the (valid, test) evaluation batchers of one process."""
     return (SeqEvalBatcher(config, dataload, phase="valid"),
             SeqEvalBatcher(config, dataload, phase="test"))
+
+
+def build_dataloader(config, dataload):
+    """Returns the (train, valid, test) batchers of one process."""
+    if str(config["model"] or "HSTU") == "HLLM":
+        raise NotImplementedError("the HLLM text batcher is not ported yet")
+    return (SEQTrainBatcher(config, dataload), *build_eval_dataloaders(config, dataload))

@@ -1,10 +1,12 @@
 """HSTU — Hierarchical Sequential Transduction Unit, PyTorch port.
 
-Port of ``mhrec_tpu/models/idnet/hstu.py`` (serving half): the STU trunk,
-the multi-head "medusa" decoding with prior-switch classifiers, and
-full-corpus cosine scoring with per-head category masks. The trunk runs in
-``dtype`` (bfloat16 by default) over float32 parameters; head embeddings and
-retrieval scores are float32 (hstu.py:21-22).
+Port of ``mhrec_tpu/models/idnet/hstu.py``: the STU trunk with dropout
+after the gate, the multi-head "medusa" decoding with prior-switch
+classifiers, the training forward (multi-horizon NCE / prior / switch
+losses, ``models/multihead.py``), and full-corpus cosine scoring with
+per-head category masks. The trunk runs in ``dtype`` (bfloat16 by default)
+over float32 parameters; heads, losses and retrieval scores are float32
+(hstu.py:21-22).
 
 Parameter names follow the JAX package's flax tree closely enough for
 ``mhrec_tpu_torch/convert.py`` to carry its weights across.
@@ -27,7 +29,11 @@ from mhrec_tpu_torch.models.layers import (
     trunc_normal_init,
     xavier_uniform_init,
 )
-from mhrec_tpu_torch.models.multihead import predict_switch_and_heads
+from mhrec_tpu_torch.models.losses import horizon_discount
+from mhrec_tpu_torch.models.multihead import (
+    compute_multihead_losses,
+    predict_switch_and_heads,
+)
 from mhrec_tpu_torch.ops.hstu_attention import hstu_attention
 from mhrec_tpu_torch.ops.hstu_attention_cuda import hstu_stu_gated_fwd
 from mhrec_tpu_torch.utils.enums import InputType
@@ -40,8 +46,9 @@ class STULayer(nn.Module):
 
     def __init__(self, embedding_dim: int, linear_dim: int, attention_dim: int,
                  num_heads: int, linear_activation: str = "silu",
-                 attn_impl: str = "auto", dtype=torch.bfloat16):
+                 attn_impl: str = "auto", dtype=torch.bfloat16, dropout_ratio: float = 0.0):
         super().__init__()
+        self.dropout_ratio = dropout_ratio
         self.num_heads = num_heads
         self.linear_dim = linear_dim
         self.attention_dim = attention_dim
@@ -64,7 +71,9 @@ class STULayer(nn.Module):
         xavier_uniform_init(self.o_proj.weight, gen)
         self.o_proj.bias.zero_()
 
-    def forward(self, x, nonpad, attn_bias=None):
+    def forward(self, x, nonpad, attn_bias=None, generator=None):
+        """``generator`` turns on dropout after the gate (training) and
+        draws its mask; without one the layer is deterministic."""
         B, L, D = x.shape
         h, dqk, dv = self.num_heads, self.attention_dim, self.linear_dim
         mixed = torch.matmul(self.input_norm(x), self.uvqk.to(self.dtype))
@@ -86,6 +95,13 @@ class STULayer(nn.Module):
                 v.reshape(B, L, h, dv), nonpad, impl=impl, bias=attn_bias,
             ).reshape(B, L, h * dv)
             gated = u * self.attn_norm(attn)
+        if generator is not None and self.dropout_ratio > 0.0:
+            # flax Dropout: keep with probability 1 − p, scale the kept by
+            # 1 / (1 − p); the mask comes from the caller's generator
+            keep = 1.0 - self.dropout_ratio
+            mask = torch.empty(gated.shape, device=gated.device).bernoulli_(keep, generator=generator)
+            gated = torch.where(mask.bool(), gated / keep, torch.zeros((), dtype=gated.dtype,
+                                                                         device=gated.device))
         out = F.linear(gated, self.o_proj.weight.to(self.dtype), self.o_proj.bias.to(self.dtype))
         return x + out
 
@@ -118,7 +134,9 @@ class _CatBottleneck(nn.Module):
 
 
 class HSTU(nn.Module):
-    """Multi-head prior-aware HSTU model (serving half)."""
+    """Multi-head prior-aware HSTU model. ``forward`` is the training
+    forward (a dict with 'loss'); ``predict_embeddings`` and ``score_items``
+    serve."""
 
     input_type = InputType.SEQ
 
@@ -141,6 +159,21 @@ class HSTU(nn.Module):
         head_interaction: str = "multiplicative",
         prior_switch: Optional[str] = None,
         master_switch: bool = False,
+        pred_len: int = 1,
+        hidden_dropout_prob: float = 0.0,
+        nce_thres: float = 0.99,
+        medusa_lambda: float = 0.99,
+        neg_sample_by_cat: bool = False,
+        pos_sample_mix_ratio: float = 0.0,
+        prior_loss_weight: Tuple[float, ...] = (1.0,),
+        prior_switch_loss_weight: float = 0.0,
+        use_asym_switch_loss: bool = False,
+        gamma_pos: float = 4.0,
+        gamma_neg: float = 0.0,
+        switch_last_only: bool = False,
+        detach_aux_in: bool = False,
+        nce_impl: str = "banded",
+        prior_loss_impl: str = "loop",
         eval_pred_len: int = 1,
         prior_given_at_test: bool = False,
         given_prior_len: int = 1,
@@ -167,6 +200,20 @@ class HSTU(nn.Module):
         self.head_interaction = head_interaction
         self.prior_switch = prior_switch
         self.master_switch = master_switch
+        self.pred_len = pred_len
+        self.nce_thres = nce_thres
+        self.medusa_lambda = medusa_lambda
+        self.neg_sample_by_cat = neg_sample_by_cat
+        self.pos_sample_mix_ratio = pos_sample_mix_ratio
+        self.prior_loss_weight = tuple(prior_loss_weight)
+        self.prior_switch_loss_weight = prior_switch_loss_weight
+        self.use_asym_switch_loss = use_asym_switch_loss
+        self.gamma_pos = gamma_pos
+        self.gamma_neg = gamma_neg
+        self.switch_last_only = switch_last_only
+        self.detach_aux_in = detach_aux_in
+        self.nce_impl = nce_impl
+        self.prior_loss_impl = prior_loss_impl
         self.eval_pred_len = eval_pred_len
         self.prior_given_at_test = prior_given_at_test
         self.given_prior_len = given_prior_len
@@ -186,7 +233,7 @@ class HSTU(nn.Module):
         self.stu_layers = nn.ModuleList(
             STULayer(D, D // n_heads, D // n_heads, n_heads,
                      linear_activation=hidden_act or "silu", attn_impl=attn_impl,
-                     dtype=dtype)
+                     dtype=dtype, dropout_ratio=hidden_dropout_prob)
             for _ in range(n_layers)
         )
         if enable_relative_attention_bias:
@@ -246,6 +293,17 @@ class HSTU(nn.Module):
             return self.num_segment_head + self.num_prior_head
         raise ValueError(f"Unknown head_interaction: {self.head_interaction}")
 
+    @property
+    def seg_len(self) -> int:
+        if self.medusa_num_layers > 0:
+            if self.pred_len % self.num_segment_head:
+                raise ValueError("pred_len must divide by num_segment_head")
+            return self.pred_len // self.num_segment_head
+        return self.pred_len
+
+    def horizon_discount(self) -> torch.Tensor:
+        return horizon_discount(self.medusa_lambda, self.pred_len)
+
     @torch.no_grad()
     def init_parameters(self, gen: torch.Generator):
         """Random initialisation from ``gen``, with the JAX package's
@@ -278,26 +336,29 @@ class HSTU(nn.Module):
             trunc_normal_init(lin.bias, gen)
 
     # ------------------------------------------------------------------
-    def _embed_items(self, items):
-        emb = self.item_embedding(items)
+    def _embed_items(self, items, sub=None):
+        """Under ``sparse_item_adam`` the trainer passes the gathered
+        per-batch sub-table ``sub`` and the ids are local indices into it."""
+        emb = self.item_embedding(items, sub)
         if self.item_proj is not None:
             emb = self.item_proj(emb)
         return emb
 
-    def encode(self, items_ctx):
+    def encode(self, items_ctx, sub=None, generator=None):
         """Trunk forward over the context window.
 
         items_ctx: [B, L] int. Returns output_embs [B, L, D] (model dtype).
+        ``generator`` turns on the STU layers' dropout (training).
         """
         B, L = items_ctx.shape
-        emb = self._embed_items(items_ctx)
+        emb = self._embed_items(items_ctx, sub)
         x = (emb + self.position_embedding.weight[:L][None]).to(self.dtype)
         nonpad = items_ctx != 0
         for i, layer in enumerate(self.stu_layers):
             bias = None
             if self.enable_relative_attention_bias and self.apply_relative_attention_bias:
                 bias = self.rel_bias[i](None)[:, :L, :L]
-            x = layer(x, nonpad, attn_bias=bias)
+            x = layer(x, nonpad, attn_bias=bias, generator=generator)
         return x
 
     def _seg_head(self, c: int, s: int) -> MedusaHead:
@@ -322,6 +383,29 @@ class HSTU(nn.Module):
                     outs.append(self._seg_head(c, s)(seg_in))
             return torch.stack(outs, dim=1)
         return torch.stack([h(output_embs) for h in self.medusa_head], dim=1)
+
+    def forward(self, batch, sub=None, generator=None):
+        """Training forward → dict with 'loss' and detached logging scalars
+        (JAX ``HSTU.__call__``, hstu.py:484-507).
+
+        batch: items [B, L+P], neg_items [B, NC, K], masked_index [B, L+P],
+        tag_categories [B, L+P, C] (prior loss only); under
+        ``sparse_item_adam`` the ids index ``sub`` [U, D]. ``generator``
+        draws the dropout masks and the positive-mix draws."""
+        items = batch["items"]
+        neg_items = batch["neg_items"]
+        user_mask = batch["masked_index"].bool()
+        L = self.max_seq_length
+        pos_items_embs = self._embed_items(items, sub)  # [B, L+P, D]
+        ctx_items = torch.where(user_mask[:, :L], items[:, :L], torch.zeros_like(items[:, :L]))
+        output_embs = self.encode(ctx_items, sub=sub, generator=generator)
+
+        def neg_norm(col):
+            neg = cosine_normalize(self._embed_items(neg_items[:, col], sub).float())
+            return neg.reshape(-1, neg.shape[-1])
+
+        return compute_multihead_losses(self, output_embs, pos_items_embs, user_mask,
+                                        batch.get("tag_categories"), neg_norm, generator)
 
     def predict_embeddings(self, item_seq, target_tags=None):
         """Eval-time user/head embeddings (reference hstu.py:874-971); see
@@ -373,13 +457,21 @@ class HSTU(nn.Module):
 
 # ----------------------------------------------------------------------
 def hstu_from_config(config, dataload, dtype=torch.bfloat16) -> HSTU:
-    """Build an HSTU from a Config + InteractionData (serving options of the
-    JAX package's ``hstu_from_config``)."""
+    """Build an HSTU from a Config + InteractionData (the JAX package's
+    ``hstu_from_config``, hstu.py:604-670, one device)."""
     if config.get("scan_layers", False):
         raise NotImplementedError("scan_layers (ScannedSTUStack) is not ported yet")
     if config.get("shard_item_embedding", False):
         raise NotImplementedError("shard_item_embedding (multi-GPU) is not ported yet")
+    loss = config["loss"]
     num_prior = config["num_prior_head"] or 1
+    if loss == "prior" and config["weighted_prior_loss"]:
+        all_counts = sum(dataload.category_counts.values())
+        weights = [0.0] * num_prior
+        for cat, cnt in dataload.category_counts.items():
+            weights[dataload.category_to_int[cat]] = cnt / all_counts
+    else:
+        weights = [1.0 / num_prior] * num_prior
     i2c = config["int_to_category"] or {}
     eval_pred_len = config["eval_pred_len"]
     prior_given = bool(config.get("prior_given_at_test", False))
@@ -393,8 +485,23 @@ def hstu_from_config(config, dataload, dtype=torch.bfloat16) -> HSTU:
         hidden_act=config["hidden_act"] or "silu",
         enable_relative_attention_bias=bool(config["enable_relative_attention_bias"]),
         apply_relative_attention_bias=bool(config.get("apply_relative_attention_bias", False)),
-        loss_type=config["loss"],
+        loss_type=loss,
         fix_temp=bool(config["fix_temp"]),
+        pred_len=config["pred_len"],
+        hidden_dropout_prob=config["hidden_dropout_prob"] or 0.0,
+        nce_thres=config["nce_thres"] or 0.99,
+        medusa_lambda=config["medusa_lambda"],
+        neg_sample_by_cat=bool(config["neg_sample_by_cat"]) and loss == "prior",
+        pos_sample_mix_ratio=config["pos_sample_mix_ratio"] or 0.0,
+        prior_loss_weight=tuple(weights),
+        prior_switch_loss_weight=config["prior_switch_loss_weight"] or 0.0,
+        use_asym_switch_loss=config.get("asym_switch_loss", False),
+        gamma_pos=config.get("gamma_pos", 4.0),
+        gamma_neg=config.get("gamma_neg", 0.0),
+        switch_last_only=config.get("switch_last_only", False),
+        detach_aux_in=config.get("detach_aux_in", False),
+        nce_impl=str(config.get("nce_impl") or "banded"),
+        prior_loss_impl=str(config.get("prior_loss_impl") or "loop"),
         medusa_num_layers=config["medusa_num_layers"] or 0,
         num_segment_head=config["num_segment_head"] or 1,
         num_prior_head=num_prior,

@@ -59,15 +59,19 @@ class LayerNorm(nn.LayerNorm):
 
 
 class ItemEmbed(nn.Module):
-    """Item-embedding table (plain lookup; the JAX package's per-batch
-    sub-table hook belongs to the training slice)."""
+    """Item-embedding table whose lookups can be redirected to a per-batch
+    sub-table of gathered unique rows (the JAX package's ``ItemEmbed`` 'sub'
+    collection). Under ``sparse_item_adam`` the trainer passes ``sub``
+    [U, D] and the ids are LOCAL indices into it; the full table is then
+    not read, and the trainer row-updates only the touched rows
+    (``trainer/sparse_adam.py``)."""
 
     def __init__(self, num_embeddings: int, features: int):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(num_embeddings, features))
 
-    def forward(self, ids):
-        return F.embedding(ids, self.weight)
+    def forward(self, ids, sub=None):
+        return F.embedding(ids, self.weight if sub is None else sub)
 
 
 class ResBlock(nn.Module):
@@ -86,3 +90,30 @@ class ResBlock(nn.Module):
         if self.norm is not None:
             x = self.norm(x)
         return x + F.silu(self.linear(x))
+
+
+def asymmetric_loss(logits, targets, gamma_pos: float = 0.0, gamma_neg: float = 4.0,
+                    clip: float = 0.05, eps: float = 1e-8):
+    """Asymmetric focal BCE (reference layers.py:16-84), mean-reduced.
+    ``logits``/``targets``: [..., num_tasks]; the loss is summed over the
+    last axis, then averaged."""
+    xs_pos = torch.sigmoid(logits)
+    xs_neg = 1.0 - xs_pos
+    if clip and clip > 0:
+        xs_neg = torch.clamp(xs_neg + clip, max=1.0)
+    loss = (targets * torch.log(torch.clamp(xs_pos, min=eps))
+            + (1.0 - targets) * torch.log(torch.clamp(xs_neg, min=eps)))
+    if gamma_neg > 0 or gamma_pos > 0:
+        pt = xs_pos * targets + xs_neg * (1.0 - targets)
+        gamma = gamma_pos * targets + gamma_neg * (1.0 - targets)
+        loss = loss * torch.pow(1.0 - pt, gamma)
+    return torch.mean(-loss.sum(dim=-1))
+
+
+def weighted_bce_with_logits(logits, targets, pos_weight):
+    """``binary_cross_entropy_with_logits(pos_weight=...)`` written as the
+    JAX package writes it, mean-reduced over every element (reference
+    hstu.py:794-796)."""
+    loss = -(pos_weight * targets * F.logsigmoid(logits)
+             + (1.0 - targets) * F.logsigmoid(-logits))
+    return torch.mean(loss)

@@ -1,0 +1,198 @@
+"""Multi-horizon InfoNCE with false-negative masking (port of
+``mhrec_tpu/models/losses.py``).
+
+Math of the reference loss (``hstu.py:600-872``): per token a cosine
+positive logit and ``out·negᵀ`` negative logits, negatives whose similarity
+to the target exceeds ``nce_thres`` removed (false negatives), a learnable
+temperature clamped to ``[0, ln 100]``, token cross-entropy with the
+positive at index 0; per prediction offset ``p`` a masked mean over valid
+tokens, then a normalized geometric horizon discount. Empty masks
+contribute zero.
+
+Two formulations, as in the JAX package: ``banded`` (default) computes every
+offset's partition sum with one banded product against the complement of
+the false-negative indicator; ``per_offset`` runs one masked logsumexp per
+offset. The large ``[B, L, M]`` logit tables are bfloat16 products with
+float32 sums rounded to bfloat16, as in the JAX package; the banded
+partition-sum product keeps float32 sums (here: float32 products of the
+bfloat16 values, which are exact). The category-stacked variant
+(``prior_loss_impl: stacked``) is not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from mhrec_tpu_torch.models.layers import cosine_normalize
+
+_LN100 = 4.605170185988092  # np.log(100)
+_BF16 = torch.bfloat16
+_F32_MIN = torch.finfo(torch.float32).min
+
+
+def clamp_logit_scale(logit_scale: torch.Tensor) -> torch.Tensor:
+    """Straight-through clamp to [0, ln 100] then exp (hstu.py:600-603): the
+    forward uses the clamped value, the gradient passes as if unclamped."""
+    ste = logit_scale + (torch.clamp(logit_scale, 0.0, _LN100) - logit_scale).detach()
+    return torch.exp(ste)
+
+
+def _bf16_product(a, b):
+    """``a @ b`` of the bfloat16-rounded operands with float32 sums, rounded
+    to bfloat16 (JAX: bf16 einsum with ``preferred_element_type=f32``, then
+    ``.astype(bf16)``)."""
+    return torch.matmul(a.to(_BF16), b.to(_BF16))
+
+
+def multi_horizon_nce(
+    head_embs: torch.Tensor,        # [B, H, L, D] raw head outputs
+    target_embs: torch.Tensor,      # [B, L+P, D] item embeddings of the window
+    neg_embs_norm: torch.Tensor,    # [M, D], already L2-normalized
+    base_mask: torch.Tensor,        # [B, P, L] bool: valid (non-pad) tokens
+    head_for_pred,                  # [P] int: which head serves offset p
+    horizon_discount: torch.Tensor,  # [P] float, normalized
+    logit_scale: torch.Tensor,      # scalar param (pre-exp)
+    nce_thres: float,
+    loss_weight: float = 1.0,
+    extra_mask: Optional[torch.Tensor] = None,  # [B, P, L] e.g. category mask
+    compute_topk_log: bool = False,
+    impl: str = "banded",
+    inputs_normalized: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
+    """Returns (total_loss, per_pred_loss [P], log_dict)."""
+    if inputs_normalized:
+        heads_norm, tgt_norm = head_embs.float(), target_embs.float()
+    else:
+        heads_norm = cosine_normalize(head_embs.float())
+        tgt_norm = cosine_normalize(target_embs.float())
+    args = (heads_norm, tgt_norm, neg_embs_norm, base_mask,
+            [int(h) for h in head_for_pred], horizon_discount, logit_scale, nce_thres,
+            loss_weight, extra_mask, compute_topk_log)
+    if impl == "banded":
+        return _banded_nce(*args)
+    if impl == "per_offset":
+        return _per_offset_nce(*args)
+    raise ValueError(f"nce_impl must be banded | per_offset, got {impl!r}")
+
+
+def _per_offset_nce(heads_norm, tgt_norm, neg_embs_norm, base_mask, head_for_pred,
+                    horizon_discount, logit_scale, nce_thres, loss_weight, extra_mask,
+                    compute_topk_log):
+    L = heads_norm.shape[2]
+    P = base_mask.shape[1]
+    scale = clamp_logit_scale(logit_scale).float()
+    neg_T = neg_embs_norm.to(_BF16).t()
+    raw_neg = {h: _bf16_product(heads_norm[:, h], neg_T) for h in sorted(set(head_for_pred))}
+    # false-negative table for all offsets at once: tgt[l+1 .. L+P-1] · negᵀ
+    tgt_neg = _bf16_product(tgt_norm[:, 1:], neg_T)          # [B, L+P-1, M]
+    mask_full = base_mask if extra_mask is None else (base_mask & extra_mask)
+    per_pred_loss = []
+    log_dict: Dict[str, torch.Tensor] = {}
+    for p in range(P):
+        h = head_for_pred[p]
+        pos_logit = (heads_norm[:, h] * tgt_norm[:, p + 1: p + 1 + L]).sum(-1)  # [B, L]
+        fix = tgt_neg[:, p: p + L]                            # [B, L, M]
+        m = mask_full[:, p].float()
+        neg_logits = torch.where(fix > nce_thres, _F32_MIN, raw_neg[h].float())
+        lse = torch.logaddexp(pos_logit * scale, torch.logsumexp(neg_logits * scale, dim=-1))
+        tok_ce = lse - pos_logit * scale
+        mean_p = (tok_ce * m).sum() / torch.clamp(m.sum(), min=1.0)
+        per_pred_loss.append(horizon_discount[p] * loss_weight * mean_p)
+        if compute_topk_log and p == 0:
+            with torch.no_grad():
+                cnt = torch.clamp(m.sum(), min=1.0)
+                masked = torch.where(fix > nce_thres, _F32_MIN, raw_neg[h].float())
+                n_unmasked = (masked > _F32_MIN / 100).sum(-1).float() + 1.0
+                log_dict["nce_samples"] = (n_unmasked * m).sum() / cnt
+                beaten = (masked > pos_logit[:, :, None]).sum(-1)
+                for kk in (1, 5, 10, 50, 100):
+                    if kk > masked.shape[-1] + 1:
+                        break
+                    log_dict[f"nce_top{kk}_acc"] = ((beaten < kk).float() * m).sum() / cnt
+    per_pred = torch.stack(per_pred_loss)
+    return per_pred.sum(), per_pred, log_dict
+
+
+def _banded_nce(heads_norm, tgt_norm, neg_embs_norm, base_mask, head_for_pred,
+                horizon_discount, logit_scale, nce_thres, loss_weight, extra_mask,
+                compute_topk_log):
+    """One-product multi-horizon NCE (the JAX package's ``_banded_nce``,
+    losses.py:148-298, whose docstring derives it): masking only removes
+    terms from the partition sum, and every offset's false-negative mask is
+    a shifted slice of one indicator ``G[b, j, m] = (tgt_j · neg_m >
+    thres)``, so ``kept[b, h, l, j] = Σ_m exp(scaled − shift)·(1 − G)`` gives
+    every offset's partition sum at ``j = l + p``. The shift is the row max
+    lowered by a headroom that keeps ``M·e^C`` finite in float32."""
+    B, _, L, _ = heads_norm.shape
+    P = base_mask.shape[1]
+    scale = clamp_logit_scale(logit_scale).float()
+    neg_T = neg_embs_norm.to(_BF16).t()                       # [D, M]
+    tgtJ = tgt_norm[:, 1:]                                    # [B, J, D]
+    with torch.no_grad():  # no gradient flows through a mask
+        keep_ind = (_bf16_product(tgtJ, neg_T) <= nce_thres).float()  # [B, J, M]
+    band = (torch.arange(L, device=heads_norm.device)[:, None]
+            + torch.arange(P, device=heads_norm.device)[None, :])       # [L, P]
+    M = neg_embs_norm.shape[0]
+    headroom = min(70.0, 86.7 - float(np.log(max(M, 1))))
+
+    distinct = sorted(set(head_for_pred))
+    Hd = len(distinct)
+    outs = heads_norm[:, distinct]                            # [B, Hd, L, D]
+    raw_all = _bf16_product(outs, neg_T)                      # [B, Hd, L, M]
+    scaled = raw_all.float() * scale
+    shift = scaled.max(dim=-1).values.detach() - headroom     # [B, Hd, L]
+    s = torch.exp(scaled - shift[..., None]).to(_BF16)
+    J = tgtJ.shape[1]
+    kept = torch.bmm(s.float().reshape(B, Hd * L, M),
+                     keep_ind.transpose(1, 2)).reshape(B, Hd, L, J)
+    kept_b_all = torch.gather(kept, 3, band.expand(B, Hd, L, P))        # [B, Hd, L, P]
+    lse_neg_h = shift[..., None] + torch.log(torch.clamp(kept_b_all, min=1e-30))
+    if L <= 7 * P:
+        pos_full = torch.bmm(outs.reshape(B, Hd * L, -1),
+                             tgtJ.transpose(1, 2)).reshape(B, Hd, L, J)
+        pos_band_h = torch.gather(pos_full, 3, band.expand(B, Hd, L, P))
+    else:
+        pos_band_h = torch.stack(
+            [(outs * tgtJ[:, None, p: p + L]).sum(-1) for p in range(P)], dim=-1)
+    slot = {h: i for i, h in enumerate(distinct)}
+
+    mask_full = base_mask if extra_mask is None else (base_mask & extra_mask)
+    m = mask_full.float()                                     # [B, P, L]
+    lse_neg_all = torch.stack([lse_neg_h[:, slot[h], :, p] for p, h in enumerate(head_for_pred)], 1)
+    pos_all = torch.stack([pos_band_h[:, slot[h], :, p] for p, h in enumerate(head_for_pred)], 1)
+    lse = torch.logaddexp(pos_all * scale, lse_neg_all)
+    tok_ce = lse - pos_all * scale
+    cnt = m.sum(dim=(0, 2))
+    per_pred_mean = (tok_ce * m).sum(dim=(0, 2)) / torch.clamp(cnt, min=1.0)
+    per_pred = horizon_discount * loss_weight * per_pred_mean
+
+    log_dict: Dict[str, torch.Tensor] = {}
+    if compute_topk_log:
+        with torch.no_grad():
+            h0 = slot[head_for_pred[0]]
+            raw0 = raw_all[:, h0].float()
+            k0 = keep_ind[:, :L].bool()                       # offset p=0 slice
+            m0 = m[:, 0]
+            cnt0 = torch.clamp(m0.sum(), min=1.0)
+            n_unmasked = k0.sum(-1).float() + 1.0
+            log_dict["nce_samples"] = (n_unmasked * m0).sum() / cnt0
+            under = ((kept_b_all[:, h0, :, 0] <= 0.0) & (n_unmasked > 1.0)).float()
+            log_dict["nce_underflow_rate"] = (under * m0).sum() / cnt0
+            beaten = ((raw0 > pos_all[:, 0, :, None]) & k0).sum(-1)
+            for kk in (1, 5, 10, 50, 100):
+                if kk > raw0.shape[-1] + 1:
+                    break
+                log_dict[f"nce_top{kk}_acc"] = ((beaten < kk).float() * m0).sum() / cnt0
+    return per_pred.sum(), per_pred, log_dict
+
+
+def horizon_discount(medusa_lambda: float, pred_len: int, device=None) -> torch.Tensor:
+    """Normalized geometric discount over the prediction offsets
+    (reference hstu.py:436-438)."""
+    d = torch.tensor([medusa_lambda ** p for p in range(pred_len)], dtype=torch.float32,
+                     device=device)
+    return d / d.sum()
+

@@ -1,12 +1,13 @@
-"""CLI entry point (port of ``mhrec_tpu/run.py``). Usage::
+"""CLI entry point (port of ``mhrec_tpu/run.py``, one device). Usage::
 
     python -m mhrec_tpu_torch.run --config_file IDNet/hstu-size4.yaml \
-        overall/ID.yaml IDNet/hstu.yaml -- --val_only True --loss prior ...
+        overall/ID.yaml IDNet/hstu.yaml -- --loss prior ...
 
-Only the serving path is ported: ``--val_only True`` evaluates the model on
-the test split (reference run.py:136-143). It runs on the CUDA card unless
-``--device`` names another device (``--device cpu``). Training is not ported
-yet.
+Without ``--val_only`` it trains (``Trainer.fit`` with periodic evaluation
+and best-checkpoint saves), then evaluates the test split from the best
+checkpoint; ``--val_only True`` only evaluates (reference run.py:136-143).
+It runs on the CUDA card unless ``--device`` names another device
+(``--device cpu``).
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import sys
 import torch
 
 from mhrec_tpu_torch.config import Config
-from mhrec_tpu_torch.data import InteractionData, build_eval_dataloaders
+from mhrec_tpu_torch.data import InteractionData, build_dataloader, build_eval_dataloaders
 from mhrec_tpu_torch.trainer import Trainer
 from mhrec_tpu_torch.utils import init_logger, init_seed, resolve_device
 
@@ -37,10 +38,22 @@ def serve(config, data, device=None):
     return trainer, test_loader, result
 
 
+def train(config, data, device=None):
+    """The training path after data loading (JAX run.py:82-94): batchers, a
+    Trainer with parameters initialised from ``config["seed"]``, ``fit``
+    over the train split with evaluation on the valid split, then the test
+    split evaluated from the best checkpoint. Returns (trainer, fit
+    statistics, metric sections)."""
+    train_loader, valid_loader, test_loader = build_dataloader(config, data)
+    trainer = Trainer(config, data, device=device)
+    trainer.setup_model()
+    fit_stats = trainer.fit(train_loader, valid_loader)
+    result = trainer.evaluate(test_loader, load_best_model=True)
+    return trainer, fit_stats, result
+
+
 def run_loop(config_files, extra_args, device=None):
     config = Config(config_file_list=config_files, cli_args=extra_args).finalize()
-    if not config.get("val_only", False):
-        raise NotImplementedError("training is not ported yet; pass --val_only True")
     device = resolve_device(device)
     # full-precision float32 products, as the reference's scores need
     # (TF32 keeps about three decimal digits)
@@ -52,14 +65,18 @@ def run_loop(config_files, extra_args, device=None):
 
     logger.info("loading data...")
     data = InteractionData(config).build()
-    trainer, _, result = serve(config, data, device)
+    fit_stats = None
+    if config.get("val_only", False):
+        trainer, _, result = serve(config, data, device)
+    else:
+        trainer, fit_stats, result = train(config, data, device)
     for section, metrics in result.items():
         logger.info("%s: %s", section, metrics)
     if config.get("result_json_path"):
         payload = {
             "process_index": 0,
             "result": {k: {m: float(v) for m, v in d.items()} for k, d in result.items()},
-            "final_loss": None,
+            "final_loss": float(fit_stats.get("loss", float("nan"))) if fit_stats else None,
             "param_checksum": float(sum(p.detach().abs().float().sum()
                                         for p in trainer.model.parameters())),
         }

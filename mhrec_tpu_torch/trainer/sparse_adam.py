@@ -1,0 +1,78 @@
+"""Row-sparse (lazy) AdamW for the item-embedding table (port of
+``mhrec_tpu/trainer/sparse_adam.py``).
+
+The gradient of an embedding lookup touches only the rows gathered in the
+batch. The trainer differentiates with respect to the per-batch gathered
+sub-table (``[U, D]`` unique rows, read by ``ItemEmbed`` through its ``sub``
+argument) and applies AdamW to only those rows, with the moments stored
+dense and touched row-wise. Untouched rows receive no update — LazyAdam
+semantics: idle rows' moments do not decay, and decoupled weight decay
+applies only on touch.
+
+Unlike the JAX package, the update happens in place, and the unique-id block
+marks its pad slots with id −1 (the JAX package aliases them to row 0 with a
+mask of 0). ``sparse_adamw_row_update`` here is the plain version, the
+``index_add_`` counterpart of the JAX package's XLA scatters; the CUDA
+kernel ``row_adamw`` (``ops/row_adam_cuda.py``) performs the same
+operations in the same order.
+
+Not ported yet: bfloat16 tables with stochastic rounding
+(``item_table_dtype: bfloat16``) and ``dedup_touched_rows`` (multi-host,
+``accumulate_grad > 1``).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+
+class SparseAdamConfig(NamedTuple):
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
+    weight_decay: float = 0.0
+
+
+def adam_scalars(lr, step_count: int, cfg: SparseAdamConfig):
+    """The update's scalars as float32 values, computed as the JAX kernel's
+    wrapper computes them (row_adam_tpu.py:292-301): bias corrections
+    ``c = 1 − b^t`` with ``t = step_count + 1``, and ``1 − b`` in float32."""
+    f = np.float32
+    t = f(step_count + 1)
+    b1, b2 = f(cfg.b1), f(cfg.b2)
+    return dict(neg_lr=float(-f(lr)), c1=float(f(1) - b1 ** t), c2=float(f(1) - b2 ** t),
+                eps=float(f(cfg.eps)), wd=float(f(cfg.weight_decay)), b1=float(b1),
+                b2=float(b2), omb1=float(f(1) - b1), omb2=float(f(1) - b2))
+
+
+def sparse_adamw_row_update(table, m, v, ids, grad_rows, lr, step_count: int,
+                            cfg: SparseAdamConfig):
+    """Advance the rows ``ids`` (int64 [U], −1 = pad slot, real ids unique)
+    of ``table``, ``m`` and ``v`` (float32 [N, D]) one AdamW step in place,
+    given their gradient rows ``grad_rows`` [U, D] (optax.adamw's formula:
+    ``−lr · (mhat / (sqrt(vhat) + eps) + wd · p)``, bias corrections from
+    the global step count). Pad slots alias row 0 with a zero update, so the
+    function needs no host synchronisation. Each operation is its own
+    elementwise kernel, in the order of the CUDA kernel, so the two agree
+    bit for bit on the card."""
+    s = adam_scalars(lr, step_count, cfg)
+    keep = (ids >= 0)[:, None]
+    rows = ids.clamp(min=0)
+    zero = torch.zeros((), dtype=torch.float32, device=table.device)
+    g = torch.where(keep, grad_rows.float(), zero)
+    p_old, m_old, v_old = table[rows], m[rows], v[rows]
+    # divisors as tensors on the device: a Python scalar divisor would be
+    # applied as a multiplication by its reciprocal
+    c1 = torch.tensor(s["c1"], dtype=torch.float32, device=table.device)
+    c2 = torch.tensor(s["c2"], dtype=torch.float32, device=table.device)
+    m_new = m_old * s["b1"] + g * s["omb1"]
+    v_new = v_old * s["b2"] + (g * g) * s["omb2"]
+    mhat = m_new / c1
+    vhat = v_new / c2
+    direction = mhat / (torch.sqrt(vhat) + s["eps"]) + p_old * s["wd"]
+    table.index_add_(0, rows, torch.where(keep, direction * s["neg_lr"], zero))
+    m.index_add_(0, rows, torch.where(keep, m_new - m_old, zero))
+    v.index_add_(0, rows, torch.where(keep, v_new - v_old, zero))

@@ -1,23 +1,38 @@
-"""Evaluation engine (port of the serving half of
-``mhrec_tpu/trainer/trainer.py``).
+"""Training and evaluation engine (port of ``mhrec_tpu/trainer/trainer.py``,
+one device).
 
-The pipeline of the reference's eval (trainer.py:698-1152): corpus item
-embeddings → per-user-batch head embeddings → **streamed** full-corpus
-cosine scoring with pad-item masking and history suppression, per-head top-k
-merged over item chunks on the card → host collector → metrics → sample-count
-normalization. The item table stays on the card; each chunk's
-``[B, H, chunk]`` score block is the largest object.
+* iteration-based ``fit``: ``total_iters`` steps over an endless batch
+  stream, NaN guard, periodic eval → ``early_stopping`` on the valid metric
+  → best-checkpoint save (reference trainer.py:371-373, 494-687);
+* the train step (JAX trainer.py:549-724): under ``sparse_item_adam`` the
+  loss is differentiated with respect to the gathered per-batch sub-table,
+  the dense parameters take AdamW and the touched item-table rows the
+  row-sparse AdamW (kernel ``row_adamw`` on the card); otherwise the whole
+  model takes AdamW. The NaN guard stays on the card: a step whose loss is
+  NaN has its gradients zeroed and its index recorded in ``nan_step``, and
+  the host raises when it next reads the loss (every ``update_interval``
+  steps and at the last step);
+* dropout and the positive-mix draws come from a generator on the device
+  seeded from (seed, step), so a resumed run draws what the first run drew;
+* checkpoints (``torch.save``, synchronous): parameters, optimizer state,
+  the item table's row moments, step and best score;
+* the evaluation pipeline (trainer.py:698-1152): corpus item embeddings →
+  per-user-batch head embeddings → **streamed** full-corpus cosine scoring
+  with pad-item masking and history suppression, per-head top-k merged over
+  item chunks on the card → host collector → metrics → sample-count
+  normalization. The item table stays on the card; each chunk's
+  ``[B, H, chunk]`` score block is the largest object.
 
-Training (fit, optimizers, checkpoints) comes with the training slice; until
-then ``setup_model`` initialises parameters only, and
-``evaluate(load_best_model=True)`` evaluates the current parameters, as the
-JAX package does when no checkpoint exists.
+Not ported yet: ``accumulate_grad > 1`` (with ``dedup_touched_rows``),
+``item_table_dtype: bfloat16`` and asynchronous checkpoints.
 """
 
 from __future__ import annotations
 
 import logging
 import math
+import os
+import time
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -26,7 +41,11 @@ import torch.nn.functional as F
 
 from mhrec_tpu_torch.evaluator import Collector, Evaluator
 from mhrec_tpu_torch.models.factory import build_model
-from mhrec_tpu_torch.utils.misc import resolve_device
+from mhrec_tpu_torch.ops import row_adam_cuda
+from mhrec_tpu_torch.trainer.lr_schedule import build_schedule
+from mhrec_tpu_torch.trainer.optim import build_optimizer, clip_grad_norm
+from mhrec_tpu_torch.trainer.sparse_adam import SparseAdamConfig, sparse_adamw_row_update
+from mhrec_tpu_torch.utils.misc import calculate_valid_score, early_stopping, resolve_device
 
 logger = logging.getLogger(__name__)
 
@@ -66,16 +85,271 @@ class Trainer:
         self.item_chunk_size = int(config.get("eval_item_chunk_size", 131072))
         self.results_rows: list = []
 
+        optim_args = dict(config["optim_args"] or {})
+        self.learning_rate = float(optim_args.get("learning_rate", 1e-3))
+        self.weight_decay = float(optim_args.get("weight_decay", 0.0))
+        self.total_iters = int(config["total_iters"] or 1000)
+        self.accumulate_grad = int(config["accumulate_grad"] or 1)
+        self.eval_interval = int(config["eval_interval"] or self.total_iters)
+        self.stopping_step = int(config["stopping_step"] or 10)
+        self.valid_metric = config["valid_metric"]
+        self.valid_metric_bigger = bool(config["valid_metric_bigger"])
+        self.debug = bool(config.get("debug", False))
+        self.sparse_item_adam = bool(config.get("sparse_item_adam", False))
+        table_dtype = str(config.get("item_table_dtype") or "float32").lower()
+        if table_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"item_table_dtype must be float32|bfloat16, got {table_dtype}")
+        if table_dtype == "bfloat16":
+            raise NotImplementedError("item_table_dtype: bfloat16 is not ported yet")
+        # the row update runs the kernel (on the card) unless 'xla' asks for
+        # the plain version; the JAX package's default is 'xla', chosen from
+        # TPU timings that do not carry over
+        self.sparse_adam_impl = str(config.get("sparse_adam_impl") or "auto")
+        self.schedule = build_schedule(config["scheduler_args"], self.learning_rate,
+                                       self.total_iters)
+        self.update_interval = int(config.get("update_interval") or 20)
+        sp = config.get("show_progress")
+        self.show_progress = True if sp is None else bool(sp)
+        self.loss_decimal_place = int(config.get("loss_decimal_place") or 4)
+        self.seed = int(config["seed"] or 0)
+        run_name = str(config["model"])
+        if config.get("dataset"):
+            run_name += f"-{config['dataset']}"
+        if config.get("save_model_note"):
+            run_name += f"-{config['save_model_note']}"
+        self.saved_model_dir = os.path.abspath(
+            os.path.join(config["checkpoint_dir"] or "./saved", run_name, "ckpt"))
+
+        self.optimizer = None
+        self.group_schedules: list = []
+        self.dense_params: list = []
+        self.table_m = self.table_v = None
+        self.step = 0
+        self.fetched_losses: list = []
+        self.nan_step = torch.tensor(-1, dtype=torch.long, device=self.device)
+        self.best_valid_score: Optional[float] = None
+        self.best_valid_result = None
+
     # ------------------------------------------------------------------
     def setup_model(self, seed: Optional[int] = None):
         """Random parameter initialisation from ``seed`` (default
         ``config["seed"]``) with an explicit generator on the model's
-        device."""
+        device; the optimizer; under ``sparse_item_adam`` the item table's
+        dense row moments. Resumes from ``load_checkpoint_name`` or, with
+        ``resume: true``, from this run's checkpoint."""
         seed = int(seed if seed is not None else (self.config["seed"] or 0))
         gen = torch.Generator(device=self.device).manual_seed(seed)
         self.model.init_parameters(gen)
         n_params = sum(p.numel() for p in self.model.parameters())
         logger.info("Trainable parameters: %d", n_params)
+        self.optimizer, self.group_schedules, frozen = build_optimizer(
+            self.config, self.model,
+            lambda lr: build_schedule(self.config["scheduler_args"], lr, self.total_iters))
+        for p in frozen:
+            p.requires_grad_(False)
+        self.dense_params = [p for g in self.optimizer.param_groups for p in g["params"]]
+        if self.sparse_item_adam:
+            table = self.model.item_embedding.weight
+            self.table_m = torch.zeros_like(table)
+            self.table_v = torch.zeros_like(table)
+        self.step = 0
+        self.nan_step.fill_(-1)
+        if self.config["load_checkpoint_name"]:
+            self.saved_model_dir = os.path.abspath(self.config["load_checkpoint_name"])
+            if self.load_checkpoint():
+                logger.info("resumed from %s at step %d", self.saved_model_dir, self.step)
+        elif self.config.get("resume", False):
+            if self.load_checkpoint():
+                logger.info("resumed at step %d", self.step)
+
+    # ------------------------------------------------------------------
+    # training
+    # ------------------------------------------------------------------
+    def _train_device_batch(self, batch) -> Dict[str, torch.Tensor]:
+        out = {}
+        for key in ("items", "neg_items", "masked_index", "unique_ids"):
+            if key in batch:
+                out[key] = torch.as_tensor(np.asarray(batch[key]), dtype=torch.long).to(
+                    self.device, non_blocking=True)
+        tags = np.asarray(batch["tag_categories"])
+        if tags.size:
+            out["tag_categories"] = torch.as_tensor(tags).to(self.device, non_blocking=True)
+        return out
+
+    def step_generator(self, step: int) -> torch.Generator:
+        """The generator of a step's dropout masks and mix draws, seeded
+        from (seed, step) so a resumed run repeats the stream."""
+        return torch.Generator(device=self.device).manual_seed(
+            (self.seed * 1_000_003 + step) % (2 ** 63))
+
+    def train_step(self, batch) -> Dict[str, torch.Tensor]:
+        """One optimizer step on one batch (numpy dict from the batcher).
+        Returns the model's output dict (tensors on the device)."""
+        dev = self._train_device_batch(batch)
+        gen = self.step_generator(self.step)
+        self.model.train()
+        for p in self.dense_params:
+            p.grad = None
+        if self.sparse_item_adam:
+            ids = dev.pop("unique_ids")
+            table = self.model.item_embedding.weight
+            sub0 = table.detach()[ids.clamp(min=0)].requires_grad_(True)
+            out = self.model(dev, sub=sub0, generator=gen)
+        else:
+            out = self.model(dev, generator=gen)
+        loss = out["loss"]
+        loss.backward()
+        # NaN guard on the card: zero this step's gradients and record it
+        bad = torch.isnan(loss.detach())
+        self.nan_step = torch.where((self.nan_step < 0) & bad,
+                                    torch.full_like(self.nan_step, self.step), self.nan_step)
+        for p in self.dense_params:
+            if p.grad is None:  # unused this step: optax still sees a zero gradient
+                p.grad = torch.zeros_like(p)
+            else:
+                p.grad.masked_fill_(bad, 0.0)
+        clip = self.config.get("clip_grad_norm")
+        if clip:
+            clip_grad_norm(self.dense_params, float(clip))
+        for group, sched in zip(self.optimizer.param_groups, self.group_schedules):
+            group["lr"] = sched(self.step)
+        self.optimizer.step()
+        if self.sparse_item_adam:
+            g_sub = sub0.grad.masked_fill_(bad, 0.0)
+            update = (sparse_adamw_row_update if self.sparse_adam_impl == "xla"
+                      else row_adam_cuda.row_adamw)
+            with torch.no_grad():
+                update(self.model.item_embedding.weight, self.table_m, self.table_v, ids,
+                       g_sub, self.schedule(self.step), self.step,
+                       SparseAdamConfig(weight_decay=self.weight_decay))
+        self.step += 1
+        return out
+
+    def fit(self, train_batcher, valid_batcher=None):
+        """``total_iters`` steps with periodic evaluation, early stopping and
+        best-checkpoint saves. Returns run statistics and the last logged
+        scalars."""
+        if self.optimizer is None:
+            self.setup_model()
+        if self.accumulate_grad > 1:
+            raise NotImplementedError("accumulate_grad > 1 is not ported yet")
+        if self.config.get("sparse_adam_global_dedup") not in (None, "auto", False):
+            raise NotImplementedError("sparse_adam_global_dedup is not ported yet")
+        stream = train_batcher.infinite_batches(prefetch=2)
+        stop_flag = False
+        cur_step = 0
+        t_data = t_step = t_eval = 0.0
+        self.fetched_losses = []  # (step, loss) of every step the host read
+        t_steady = None
+        it_steady = 0
+        t0 = time.time()
+        logs: Dict[str, float] = {}
+        start_it = self.step  # nonzero after resume
+        if start_it:
+            logger.info("resuming fit at step %d/%d", start_it, self.total_iters)
+        it = start_it - 1
+        for it in range(start_it, self.total_iters):
+            td = time.time()
+            batch = next(stream)
+            t_data += time.time() - td
+            ts = time.time()
+            out = self.train_step(batch)
+            # the first step is fetched too, so the steady clock starts
+            # after it; the NaN check fires on the last step as well
+            if (it + 1) % self.update_interval == 0 or self.debug or it == start_it \
+                    or it == self.total_iters - 1:
+                loss = float(out["loss"].detach())
+                ns = int(self.nan_step)
+                if ns >= 0:
+                    raise RuntimeError(f"NaN loss at iter {ns}")
+                if math.isnan(loss):
+                    raise RuntimeError(f"NaN loss at iter {it}")
+                logs = {k: float(v.detach()) for k, v in out.items()}
+                self.fetched_losses.append((it + 1, loss))
+                t_step += time.time() - ts
+                if t_steady is None:
+                    t_steady, it_steady = time.time(), it + 1
+                if self.show_progress:
+                    logger.info("iter %d/%d loss=%.*f lr=%.3e data=%.2fs step=%.2fs",
+                                it + 1, self.total_iters, self.loss_decimal_place, loss,
+                                self.schedule(it), t_data, t_step)
+            else:
+                t_step += time.time() - ts
+            if valid_batcher is not None and (it + 1) % self.eval_interval == 0:
+                te = time.time()
+                result = self.evaluate(valid_batcher, load_best_model=False)
+                score = calculate_valid_score(result, self.valid_metric, self.eval_pred_len)
+                self.best_valid_score, cur_step, stop_flag, update_flag = early_stopping(
+                    score, self.best_valid_score, cur_step, self.stopping_step,
+                    bigger=self.valid_metric_bigger)
+                logger.info("valid @ step %d: %s=%.6f (best %.6f)", it + 1, self.valid_metric,
+                            score, self.best_valid_score)
+                if update_flag:
+                    self.best_valid_result = result
+                    self.save_checkpoint()
+                if t_steady is not None:
+                    t_eval += time.time() - te
+                if stop_flag:
+                    logger.info("early stopping at step %d", it + 1)
+                    break
+            if self.debug and it >= 9:
+                break
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        wall = time.time() - t0
+        n_done = it + 1 - start_it
+        batch_size = self.config["train_batch_size"]
+        rate = n_done * batch_size / max(wall, 1e-9)
+        steady_rate = rate
+        if t_steady is not None and it + 1 > it_steady:
+            steady_rate = (it + 1 - it_steady) * batch_size / max(
+                time.time() - t_steady - t_eval, 1e-9)
+        logger.info("fit done: %d steps, %.1fs, %.1f examples/s (%.1f steady: after the "
+                    "first step, evaluations left out)", n_done, wall, rate, steady_rate)
+        return {"iters": n_done, "wall_s": wall, "examples_per_s": rate,
+                "steady_examples_per_s": steady_rate, "eval_s": t_eval, **logs}
+
+    # ------------------------------------------------------------------
+    # checkpoints
+    # ------------------------------------------------------------------
+    def checkpoint_path(self) -> str:
+        return os.path.join(self.saved_model_dir, "checkpoint.pt")
+
+    def save_checkpoint(self):
+        """Write the run's one checkpoint (the newest replaces the last),
+        through a temporary file so a crash never leaves a torn one."""
+        os.makedirs(self.saved_model_dir, exist_ok=True)
+        payload = {
+            "params": self.model.state_dict(),
+            "optimizer": self.optimizer.state_dict(),
+            "step": self.step,
+            "best_valid_score": self.best_valid_score,
+        }
+        if self.table_m is not None:
+            payload["table_m"] = self.table_m
+            payload["table_v"] = self.table_v
+        path = self.checkpoint_path()
+        tmp = f"{path}.{os.getpid()}.tmp"
+        torch.save(payload, tmp)
+        os.replace(tmp, path)
+
+    def load_checkpoint(self) -> bool:
+        """Restore the run's checkpoint; False when there is none."""
+        path = self.checkpoint_path()
+        if not os.path.isfile(path):
+            return False
+        # read to host memory: the copies below move each tensor to its
+        # parameter's device, while the optimizer's step counts stay on the
+        # host (on the card they would cost a synchronisation each per step)
+        payload = torch.load(path, map_location="cpu", weights_only=True)
+        self.model.load_state_dict(payload["params"])
+        self.optimizer.load_state_dict(payload["optimizer"])
+        if self.table_m is not None:
+            self.table_m.copy_(payload["table_m"])
+            self.table_v.copy_(payload["table_v"])
+        self.step = int(payload["step"])
+        self.best_valid_score = payload["best_valid_score"]
+        return True
 
     # ------------------------------------------------------------------
     @torch.no_grad()
@@ -86,9 +360,9 @@ class Trainer:
 
     @torch.no_grad()
     def evaluate(self, eval_batcher, load_best_model: bool = False):
-        if load_best_model:
-            # checkpoints come with the training slice, so none exists yet
+        if load_best_model and not self.load_checkpoint():
             logger.warning("no checkpoint found; evaluating current params")
+        self.model.eval()
         for key in ("rec.meanrank", "rec.score", "rec.tgt_score"):
             if self.collector.register.need(key):
                 raise NotImplementedError(

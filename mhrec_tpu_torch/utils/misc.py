@@ -1,8 +1,10 @@
-"""Seeding (reference ``REC/utils/utils.py:140-158``)."""
+"""Seeding, device choice, early stopping and the validation score
+(reference ``REC/utils/utils.py``)."""
 
 from __future__ import annotations
 
 import random
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -32,3 +34,38 @@ def resolve_device(device=None) -> torch.device:
             )
         return torch.device("cuda")
     return torch.device(device)
+
+
+def early_stopping(
+    value: float,
+    best: Optional[float],
+    cur_step: int,
+    max_step: int,
+    bigger: bool = True,
+) -> Tuple[float, int, bool, bool]:
+    """Best-score tracking with patience (reference utils.py:60-102).
+    Returns (best, cur_step, stop_flag, update_flag)."""
+    if best is None:
+        return value, 0, False, True
+    improved = value > best if bigger else value < best
+    if improved:
+        return value, 0, False, True
+    cur_step += 1
+    return best, cur_step, cur_step > max_step, False
+
+
+def calculate_valid_score(
+    valid_result: Dict[str, Any],
+    valid_metric: Optional[str] = None,
+    eval_pred_len: int = 1,
+) -> float:
+    """The model-selection scalar of a nested eval-result dict: the metric
+    under ``pred_{eval_pred_len-1}`` (reference utils.py:104-125)."""
+    key = f"pred_{eval_pred_len - 1}"
+    inner = valid_result[key] if key in valid_result else valid_result
+    if valid_metric and valid_metric in inner:
+        return float(inner[valid_metric])
+    lowered = {k.lower(): v for k, v in inner.items()}
+    if valid_metric and valid_metric.lower() in lowered:
+        return float(lowered[valid_metric.lower()])
+    raise KeyError(f"valid_metric {valid_metric!r} not in result keys {list(inner)[:8]}")

@@ -82,3 +82,111 @@ def test_kernel_refuses_cpu_and_gpu_mix(card):
     x = torch.zeros(1, 2, 4, 8, device=card)
     with pytest.raises(ValueError, match="nonpad"):
         K.hstu_attn_fwd(x, x, x, torch.ones(1, 4, dtype=torch.bool))
+
+
+def _gated_inputs(B, L, H, d, dtype, device, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    F = H * d
+    mixed = (0.5 * torch.randn(B, L, 4 * F, generator=gen)).to(device, dtype)
+    u, v, q, k = torch.split(mixed, [F] * 4, dim=-1)
+    gamma = (1 + 0.1 * torch.randn(F, generator=gen)).to(device)
+    beta = (0.05 * torch.randn(F, generator=gen)).to(device)
+    g = torch.randn(B, L, F, generator=gen).to(device, dtype)
+    return q, k, v, u, gamma, beta, _nonpad(B, L, gen, device), g
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("shape", list(SHAPES))
+def test_stu_gated_bwd_kernel_matches_plain(card, shape, dtype):
+    B, L, H, d = SHAPES[shape]
+    q, k, v, u, gamma, beta, nonpad, g = _gated_inputs(B, L, H, d, dtype, card)
+    before = K.hstu_stu_gated_bwd.launches
+    out = K.hstu_stu_gated_bwd(q, k, v, u, gamma, beta, nonpad, g, H)
+    torch.cuda.synchronize()
+    assert K.hstu_stu_gated_bwd.launches == before + 1
+    ref = K.hstu_stu_gated_bwd_plain(q, k, v, u, gamma, beta, nonpad, g, H)
+    for name, o, r in zip(("dq", "dk", "dv", "du", "dgamma", "dbeta"), out, ref):
+        assert o.dtype == r.dtype and o.shape == r.shape, name
+        _close(o, r, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("shape", list(SHAPES))
+def test_attn_bwd_kernel_matches_plain(card, shape, dtype):
+    B, L, H, d = SHAPES[shape]
+    gen = torch.Generator().manual_seed(2)
+    q, k, v, g = ((0.5 * torch.randn(B, L, H, d, generator=gen)).to(card, dtype)
+                  for _ in range(4))
+    nonpad = _nonpad(B, L, gen, card)
+    before = K.hstu_attn_bwd.launches
+    # [B, L, H, d] viewed head-major: the kernel reads the strides, no copy
+    args = [x.transpose(1, 2) for x in (q, k, v, g)] + [nonpad]
+    out = K.hstu_attn_bwd(*args)
+    torch.cuda.synchronize()
+    assert K.hstu_attn_bwd.launches == before + 1
+    for o, r in zip(out, K.hstu_attn_bwd_plain(*args)):
+        _close(o, r, dtype)
+
+
+def test_autograd_goes_through_the_backward_kernels(card):
+    B, L, H, d = SHAPES["odd"]
+    q, k, v, u, gamma, beta, nonpad, g = _gated_inputs(B, L, H, d, torch.float32, card)
+    leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v, u, gamma, beta)]
+    before = (K.hstu_stu_gated_bwd.launches, K.hstu_attn_bwd.launches)
+    K.hstu_stu_gated_fwd(*leaves, nonpad, H).backward(g)
+    want = K.hstu_stu_gated_bwd(q, k, v, u, gamma, beta, nonpad, g, H)
+    for leaf, w in zip(leaves, want):
+        torch.testing.assert_close(leaf.grad, w, atol=0, rtol=0)
+    heads = [x.detach().reshape(B, L, H, d).clone().requires_grad_(True) for x in (q, k, v)]
+    out = K.hstu_attention_v2(*heads, nonpad)
+    out.backward(g.reshape(B, L, H, d))
+    torch.cuda.synchronize()
+    assert (K.hstu_stu_gated_bwd.launches, K.hstu_attn_bwd.launches) == \
+        (before[0] + 2, before[1] + 1)
+    flat = [x.detach().transpose(1, 2).reshape(B * H, L, d).requires_grad_(True) for x in heads]
+    K.hstu_attention_bhld(*flat, nonpad.repeat_interleave(H, dim=0)).backward(
+        g.reshape(B, L, H, d).transpose(1, 2).reshape(B * H, L, d))
+    for x, f in zip(heads, flat):
+        _close(f.grad.reshape(B, H, L, d).transpose(1, 2), x.grad, torch.float32)
+
+
+@pytest.mark.parametrize("D", [96, 1024])
+@pytest.mark.parametrize("wd,step", [(0.0, 0), (0.01, 7)])
+def test_row_adamw_equals_plain_bit_for_bit(card, D, wd, step):
+    from mhrec_tpu_torch.ops.row_adam_cuda import row_adamw
+    from mhrec_tpu_torch.trainer.sparse_adam import SparseAdamConfig, sparse_adamw_row_update
+
+    gen = torch.Generator().manual_seed(3)
+    N, U, n_real = 5000, 1536, 1200
+    table = torch.randn(N, D, generator=gen)
+    m = 0.01 * torch.randn(N, D, generator=gen)
+    v = 0.01 * torch.randn(N, D, generator=gen).abs()
+    ids = torch.full((U,), -1, dtype=torch.long)
+    ids[:n_real] = torch.randperm(N, generator=gen)[:n_real]
+    g = torch.randn(U, D, generator=gen)
+    cfg = SparseAdamConfig(weight_decay=wd)
+    ref = [t.to(card) for t in (table, m, v)]
+    out = [t.to(card) for t in (table, m, v)]
+    before = row_adamw.launches
+    row_adamw(*out, ids.to(card), g.to(card), 1e-3, step, cfg)
+    sparse_adamw_row_update(*ref, ids.to(card), g.to(card), 1e-3, step, cfg)
+    torch.cuda.synchronize()
+    assert row_adamw.launches == before + 1
+    for o, r in zip(out, ref):
+        assert torch.equal(o, r)
+    untouched = torch.ones(N, dtype=torch.bool)
+    untouched[ids[:n_real]] = False
+    assert torch.equal(out[0].cpu()[untouched], table[untouched])
+
+
+def test_backward_kernels_refuse_cpu_and_gpu_mix(card):
+    from mhrec_tpu_torch.ops.row_adam_cuda import row_adamw
+    from mhrec_tpu_torch.trainer.sparse_adam import SparseAdamConfig
+
+    x = torch.zeros(1, 2, 4, 8, device=card)
+    with pytest.raises(ValueError, match="must be on"):
+        K.hstu_attn_bwd(x, x, x, x.cpu(), torch.ones(1, 4, dtype=torch.bool, device=card))
+    t = torch.zeros(4, 8, device=card)
+    with pytest.raises(ValueError, match="ids"):
+        row_adamw(t, t.clone(), t.clone(), torch.zeros(2, dtype=torch.long), torch.zeros(2, 8),
+                  1e-3, 0, SparseAdamConfig())

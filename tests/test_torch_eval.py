@@ -142,6 +142,6 @@ def test_entry_points_refuse_to_leave_the_card_unasked(prior_config, monkeypatch
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["--config_file", "IDNet/hstu-size1.yaml", "overall/ID.yaml", "IDNet/hstu.yaml",
               "--", "--val_only", "True"])
-    with pytest.raises(NotImplementedError, match="training is not ported"):
-        main(["--config_file", "IDNet/hstu-size1.yaml", "overall/ID.yaml", "IDNet/hstu.yaml",
-              "--device", "cpu"])
+    # the training path (no --val_only) as well
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["--config_file", "IDNet/hstu-size1.yaml", "overall/ID.yaml", "IDNet/hstu.yaml"])

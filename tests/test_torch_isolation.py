@@ -1,7 +1,7 @@
 """The port stands alone: ``mhrec_tpu_torch`` and ``chip_smoke.py`` import
-nothing of JAX and nothing of the JAX package, and the serving path that
-``chip_smoke.py`` drives imports neither PyYAML nor pandas nor pyarrow (the
-machine with the card has none of them)."""
+nothing of JAX and nothing of the JAX package, and the serving and training
+paths that ``chip_smoke.py`` drives import neither PyYAML nor pandas nor
+pyarrow (the machine with the card has none of them)."""
 
 import ast
 import os
@@ -93,6 +93,41 @@ def test_serving_path_imports_nothing_it_must_not():
     it loaded."""
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     proc = subprocess.run([sys.executable, "-c", _SERVE], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "BAD []" in proc.stdout, proc.stdout
+
+
+_TRAIN = """
+import sys, tempfile
+import torch
+import chip_smoke
+from mhrec_tpu_torch.data.synthetic import InMemoryInteractionData
+from mhrec_tpu_torch.run import train
+
+torch.set_num_threads(2)
+cfg = chip_smoke.train_config(tempfile.mkdtemp())
+for k, v in dict(n_layers=1, n_heads=2, item_embedding_size=128, hstu_embedding_size=128,
+                 eval_batch_size=32, eval_item_chunk_size=700, MAX_ITEM_LIST_LENGTH=6,
+                 train_batch_size=8, num_negatives=64, total_iters=2, eval_interval=2).items():
+    cfg[k] = v
+data = InMemoryInteractionData(num_users=40, num_items=1000, seq_len=2 * 6 + 16,
+                               num_categories=8, eval_pred_len=8, max_item_list_length=6)
+trainer, stats, result = train(cfg, data, device="cpu")
+assert stats["iters"] == 2 and "pred_7" in result
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in {"jax", "jaxlib", "flax", "optax", "mhrec_tpu",
+                                    "yaml", "pandas", "pyarrow"})
+print("BAD", bad)
+"""
+
+
+def test_training_path_imports_nothing_it_must_not():
+    """Drive a tiny training run on the CPU in a fresh interpreter (the
+    configuration chip_smoke.py trains, cut to a few widths) and look at
+    what it loaded."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", _TRAIN], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "BAD []" in proc.stdout, proc.stdout

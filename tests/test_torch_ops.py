@@ -213,3 +213,111 @@ def test_library_name_tracks_sources_and_flags(monkeypatch):
     assert a != cuda_build.library_path("hstu_stu_gated_fwd")
     monkeypatch.setattr(cuda_build, "NVCC_FLAGS", cuda_build.NVCC_FLAGS + ("-lineinfo",))
     assert cuda_build.library_path("hstu_attn_fwd") != a
+
+
+# ----------------------------------------------------------------------------
+# backward kernels #4-#6: the plain backward versions (what the CUDA kernels
+# compute) against jax.vjp of the Pallas kernels in interpret mode. Gradients
+# of the attention inputs to 2e-5; dγ and dβ, sums over every row, to 1e-4.
+# ----------------------------------------------------------------------------
+GRAD_TOL = dict(rtol=2e-5, atol=2e-5)
+AFFINE_TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("B,L", [(2, 20), (3, 50), (2, 70)])
+def test_stu_gated_bwd_plain_matches_pallas(B, L):
+    import jax
+
+    D, h = 128, 2
+    rng = np.random.default_rng(7)
+    q, k, v, u = (rng.normal(size=(B, L, D)).astype(np.float32) * 0.5 for _ in range(4))
+    gamma = (1.0 + 0.1 * rng.normal(size=(D,))).astype(np.float32)
+    beta = (0.05 * rng.normal(size=(D,))).astype(np.float32)
+    g = rng.normal(size=(B, L, D)).astype(np.float32)
+    nonpad = _nonpad(B, L, rng)
+    mask = _jax_mask(nonpad)
+    _, vjp = jax.vjp(lambda *a: hstu_attention_gated_pallas(*a, mask, h, interpret=True),
+                     *map(jnp.asarray, (q, k, v, u, gamma, beta)))
+    ref = vjp(jnp.asarray(g))
+    leaves = [_t(x).requires_grad_(True) for x in (q, k, v, u, gamma, beta)]
+    before = K.hstu_stu_gated_bwd.launches
+    K.hstu_stu_gated_fwd(*leaves, _t(nonpad), h).backward(_t(g))
+    assert K.hstu_stu_gated_bwd.launches == before  # CPU tensors: the plain version
+    for i, (name, leaf) in enumerate(zip(("dq", "dk", "dv", "du", "dgamma", "dbeta"), leaves)):
+        tol = AFFINE_TOL if i >= 4 else GRAD_TOL
+        np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(ref[i]), err_msg=name, **tol)
+    if B > 2:
+        # the all-pad row: no key reaches it, so only u and β see its gradient
+        for leaf in leaves[:3]:
+            assert not leaf.grad[2].any()
+
+
+@pytest.mark.parametrize("B,L", [(2, 20), (3, 50), (2, 70)])
+def test_attention_v2_bwd_plain_matches_pallas_v2(B, L):
+    import jax
+
+    H, d = 2, 16
+    rng = np.random.default_rng(8)
+    q, k, v, g = (rng.normal(size=(B, L, H, d)).astype(np.float32) for _ in range(4))
+    nonpad = _nonpad(B, L, rng)
+    mask = _jax_mask(nonpad)
+    _, vjp = jax.vjp(lambda *a: hstu_attention_pallas_v2(*a, mask, interpret=True),
+                     *map(jnp.asarray, (q, k, v)))
+    ref = vjp(jnp.asarray(g))
+    leaves = [_t(x).requires_grad_(True) for x in (q, k, v)]
+    hstu_attention(*leaves, _t(nonpad), impl="pallas").backward(_t(g))
+    for name, leaf, r in zip(("dq", "dk", "dv"), leaves, ref):
+        np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(r), err_msg=name, **GRAD_TOL)
+    if B > 2:
+        assert not any(leaf.grad[2].any() for leaf in leaves)  # fully padded row
+
+
+def test_attention_bhld_bwd_plain_matches_pallas_v1():
+    """Kernel #6 (``_bwd`` behind ``hstu_attention_pallas``) through the
+    layout wrapper's autograd over the pointwise backward."""
+    import jax
+
+    B, L, H, d = 2, 50, 2, 16
+    rng = np.random.default_rng(9)
+    q, k, v, g = (rng.normal(size=(B, L, H, d)).astype(np.float32) for _ in range(4))
+    nonpad = rng.random((B, L)) > 0.25
+    nonpad[:, -1] = True
+    _, vjp = jax.vjp(lambda *a: hstu_attention_pallas(*a, _jax_mask(nonpad), interpret=True),
+                     *map(jnp.asarray, (q, k, v)))
+    ref = vjp(jnp.asarray(g))
+
+    def bhld(x):
+        return _t(x.transpose(0, 2, 1, 3).reshape(B * H, L, -1))
+
+    leaves = [bhld(x).requires_grad_(True) for x in (q, k, v)]
+    out = K.hstu_attention_bhld(*leaves, _t(np.repeat(nonpad, H, axis=0)))
+    out.backward(bhld(g))
+    for name, leaf, r in zip(("dq", "dk", "dv"), leaves, ref):
+        mine = leaf.grad.reshape(B, H, L, d).transpose(1, 2).numpy()
+        np.testing.assert_allclose(mine, np.asarray(r), err_msg=name, **GRAD_TOL)
+
+
+def test_backward_wrappers_on_cpu_run_the_plain_versions():
+    rng = np.random.default_rng(4)
+    B, L, H, d = 2, 9, 2, 64
+    q, k, v, g = (_t(rng.normal(size=(B, H, L, d)).astype(np.float32)) for _ in range(4))
+    nonpad = _t(_nonpad(B, L, rng))
+    before = (K.hstu_attn_bwd.launches, K.hstu_stu_gated_bwd.launches)
+    for a, b in zip(K.hstu_attn_bwd(q, k, v, g, nonpad), K.hstu_attn_bwd_plain(q, k, v, g, nonpad)):
+        assert torch.equal(a, b)
+    flat = [x.transpose(1, 2).reshape(B, L, H * d) for x in (q, k, v, v, g)]
+    gam, bet = torch.ones(H * d), torch.zeros(H * d)
+    args = (*flat[:4], gam, bet, nonpad, flat[4], H)
+    for a, b in zip(K.hstu_stu_gated_bwd(*args), K.hstu_stu_gated_bwd_plain(*args)):
+        assert torch.equal(a, b)
+    assert (K.hstu_attn_bwd.launches, K.hstu_stu_gated_bwd.launches) == before
+
+
+def test_backward_wrappers_refuse_what_the_kernels_do_not_take():
+    args = _meta_stu_inputs()
+    g = torch.empty(2, 8, 64, device="meta")
+    with pytest.raises(ValueError, match="shaped as v"):
+        K.hstu_stu_gated_bwd(*args[:7], g, 2)
+    x = torch.empty(2, 2, 8, 64, device="meta")
+    with pytest.raises(ValueError, match="shaped as v"):
+        K.hstu_attn_bwd(x, x, x, x[..., :32], torch.empty(2, 8, device="meta", dtype=torch.bool))
