@@ -6,11 +6,16 @@
 Builds the port's CUDA kernels from ``mhrec_tpu_torch/csrc`` (one ``nvcc``
 per source, in parallel) and holds each against its plain PyTorch version on
 the card: the forward kernels of the fused STU block and of the pointwise
-attention, their backward kernels, and the row-sparse AdamW. Then it drives
-the port's two main paths on the paper's headline model — HSTU size4 (1024d,
-16 layers, 16 heads, window 50) with 8-category prior heads, 4 segment heads,
-additive interaction and the prior switch — over 4096 users and a
-200,000-item catalog, with random weights from seed 0:
+attention, their backward kernels, the row-sparse AdamW, and the packed
+segment attention of the HLLM item tower (at the corpus shape: 16 chunk rows
+of 2048 tokens, 32 heads over 4 KV heads of width 64, band 257, segments of
+1-257 tokens and trailing padding; also timed against one
+``scaled_dot_product_attention`` call with the same mask, which the port
+never calls). Then it drives the port's two HSTU paths on the paper's
+headline model — HSTU size4 (1024d, 16 layers, 16 heads, window 50) with
+8-category prior heads, 4 segment heads, additive interaction and the prior
+switch — over 4096 users and a 200,000-item catalog, with random weights
+from seed 0:
 
 * serving (``run.serve``, what ``run.py --val_only True`` runs): the test
   split evaluated, kernel A launched 64 times; two more passes run one eval
@@ -28,13 +33,35 @@ additive interaction and the prior switch — over 4096 users and a
   row update of ``sparse_adam_impl: xla`` (the plain version) against the
   kernel's.
 
+and the HLLM serving path (``run.serve`` with ``model: HLLM``) as
+``reproduce/HLLM-EBNerd-prior.sh`` sets it up: TinyLlama-1.1B item and user
+towers (22 layers, 2048 wide, 32 heads over 4 KV heads, SwiGLU 5632, vocab
+32000; the ``config.json`` of ``tools/dryrun_hllm_1b.py`` written to a
+temporary directory, random weights from seed 0), hierarchical prior heads
+(11 categories × 2 segment heads, one medusa layer, segment embeddings),
+``pred_len`` 4, ``eval_pred_len`` 8, windows of 24 items, texts of up to 256
+tokens, the packed item tower and the packed corpus pass, over 4096 users
+and a 16,384-item catalog of in-memory texts (``train_batch_size`` 128, so a
+corpus batch holds 3,072 items and the pass runs 6 of them, each launching
+``packed_attn_fwd`` once per layer). Its evaluation is repeated and must give
+the same metrics. A last pass takes the first corpus batch through the dense
+padded item tower (no kernel) and holds its item embeddings to the packed
+route's, in bfloat16 and on a float32 copy of the model (the copy on the
+batch's first 768 items). Cuts against the script: the catalog (EB-NeRD has
+more items), random tower weights instead of the TinyLlama checkpoints, the
+synthetic texts' keys (title, tag, description) instead of EB-NeRD's,
+``log_detailed_results`` off, no image tower, and the data-loader knobs of
+the parquet reader (``tag_version``, ``min_seq_len``, ``cluster_as_tag``),
+which the in-memory data does not read.
+
 Prints one JSON object per line: the card's name and power limit, build
 seconds, each kernel phase (error against tolerance; kernel, plain and bound
-times), the serve, impl, train and train-impl phases, a ``kernels`` summary,
-and last ``{"ok": true, "device": {...}}``. Any failure exits non-zero
-without the last line. ``--profile`` adds phases that run one evaluation of
-the test split and five train steps under ``torch.profiler`` and print device
-time by kernel group and the top kernels. float32 products run in full
+times), the serve, impl, train, train-impl, hllm_serve and hllm_impl phases, a
+``kernels`` summary, and last ``{"ok": true, "device": {...}}``. Any
+failure exits non-zero without the last line. ``--profile`` adds phases that
+run one evaluation of the test split, five train steps and one HLLM
+evaluation under ``torch.profiler`` and print device time by kernel group
+and the top kernels. float32 products run in full
 float32: TF32 is switched off for matmuls and cuDNN.
 """
 
@@ -73,6 +100,25 @@ IMPL_TOL = 5e-2
 F32_GRAD_TOL = 1e-2
 
 TRAIN_STEPS = 30
+
+# the HLLM item embeddings of the dense padded and the packed item tower,
+# unit-normalized, max abs difference: in bfloat16 the two routes round at
+# other places over 22 layers (IMPL_TOL, as for the HSTU routes); in
+# float32 they differ only in the order of sums
+HLLM_F32_TOL = 1e-4
+
+# TinyLlama-1.1B's topology (tools/dryrun_hllm_1b.py:36-47), the towers of
+# reproduce/HLLM-EBNerd-prior.sh
+TINYLLAMA_1B = {
+    "model_type": "llama", "vocab_size": 32000, "hidden_size": 2048,
+    "intermediate_size": 5632, "num_hidden_layers": 22, "num_attention_heads": 32,
+    "num_key_value_heads": 4, "rms_norm_eps": 1e-5, "rope_theta": 10000.0,
+    "max_position_embeddings": 2048,
+}
+
+# the packed attention's corpus shape: chunk rows, tokens a row, heads, KV
+# heads, head width, band (MAX_TEXT_LENGTH + the emb slot)
+PACKED_SHAPE = (16, 2048, 32, 4, 64, 257)
 
 
 def emit(obj):
@@ -214,6 +260,10 @@ KERNELS = {
         name="row_adamw", source="mhrec_tpu_torch/csrc/row_adamw.cu",
         replaces="mhrec_tpu/ops/pallas/row_adam_tpu.py:231",
     ),
+    "packed": dict(
+        name="packed_attn_fwd", source="mhrec_tpu_torch/csrc/packed_attn_fwd.cu",
+        replaces="mhrec_tpu/models/llm/packed.py:45",
+    ),
 }
 
 
@@ -299,6 +349,105 @@ def row_adamw_phase(N=200_000, D=1024, U=77_824, n_real=65_000, seed=0):
     return rec
 
 
+def packed_inputs(C, S, H, Hkv, dh, window, dtype, seed=0):
+    """q/k/v and segment ids packed as ``pack_items`` packs a corpus batch:
+    from the start of each chunk row, segments of 1..window tokens (an
+    item's text and its emb slot) until the row is at least half full, then
+    trailing padding."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    seg = torch.zeros(C, S, dtype=torch.int32)
+    sid = 0
+    for c in range(C):
+        off, fill = 0, int(torch.randint(S // 2, S + 1, (1,), generator=gen))
+        while True:
+            n = int(torch.randint(1, window + 1, (1,), generator=gen))
+            if off + n > fill:
+                break
+            sid += 1
+            seg[c, off:off + n] = sid
+            off += n
+    dev = torch.device("cuda")
+    q = (0.5 * torch.randn(C, S, H, dh, generator=gen)).to(dev, dtype)
+    k, v = ((0.5 * torch.randn(C, S, Hkv, dh, generator=gen)).to(dev, dtype) for _ in range(2))
+    return q, k, v, seg.to(dev)
+
+
+def packed_pairs(seg, window: int) -> int:
+    """(query, key) pairs the packed attention computes on these segments:
+    token t of a segment sees min(t, window) + 1 keys."""
+    import torch
+
+    flat = seg.flatten().cpu()
+    ids, counts = torch.unique_consecutive(flat, return_counts=True)
+    n = counts[ids > 0].long()
+    w = int(window)
+    full = torch.clamp(n, max=w + 1)  # tokens before the band fills
+    return int((full * (full + 1) // 2 + (n - full) * (w + 1)).sum())
+
+
+def packed_mask(seg, window: int):
+    """[C, 1, S, S] bool: key j ≤ query i, same segment > 0, i − j ≤ window."""
+    import torch
+
+    S = seg.shape[1]
+    idx = torch.arange(S, device=seg.device)
+    band = (idx[:, None] >= idx[None, :]) & (idx[:, None] - idx[None, :] <= window)
+    same = (seg[:, :, None] == seg[:, None, :]) & (seg > 0)[:, None, :]
+    return (same & band)[:, None]
+
+
+def packed_kernel_phase(dtype, seed=0):
+    """``packed_attn_fwd`` against its plain version at the corpus shape on
+    real tokens (padding rows must be zeros), its times (plain, kernel,
+    kernel, plain), its bound from this run's segments, and one
+    ``scaled_dot_product_attention`` call with the same boolean mask and
+    ``enable_gqa`` as the library's time."""
+    import torch
+    import torch.nn.functional as F
+
+    from mhrec_tpu_torch.models.llm.packed import packed_attention_plain
+    from mhrec_tpu_torch.ops.packed_attention_cuda import packed_attn_fwd
+
+    C, S, H, Hkv, dh, w = PACKED_SHAPE
+    q, k, v, seg = packed_inputs(C, S, H, Hkv, dh, w, dtype, seed)
+    out = packed_attn_fwd(q, k, v, seg, w)
+    torch.cuda.synchronize()
+    ref = packed_attention_plain(q, k, v, seg, w)
+    real = seg > 0
+    dname = str(dtype).replace("torch.", "")
+    err, excess = excess_error(out[real], ref[real], dname)
+    pads_zero = not bool(out[~real].any())
+    mask = packed_mask(seg, w)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+    def library():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)
+
+    p1, k1, k2, p2 = (cuda_ms(lambda f=f: f(q, k, v, seg, w), iters=10)
+                      for f in (packed_attention_plain, packed_attn_fwd, packed_attn_fwd,
+                                packed_attention_plain))
+    try:  # a yardstick only: the port never calls it
+        lib_err = float((library().transpose(1, 2)[real].float() - ref[real].float()).abs().max())
+        lib_ms, lib_note = cuda_ms(library, iters=10), None
+    except RuntimeError as exc:
+        lib_err = lib_ms = None
+        lib_note = str(exc)[:300]
+    pairs = packed_pairs(seg, w)
+    bound, bound_by = _bound(_nbytes(q, k, v, seg, q), 4 * dh * H * pairs,
+                             PEAK_FLOPS[dname])
+    rec = {"phase": "kernel", "kernel": "packed_attn_fwd", "shape": "corpus", "C": C, "S": S,
+           "H": H, "Hkv": Hkv, "dh": dh, "window": w, "dtype": dname,
+           "real_tokens": int(real.sum()), "pairs": pairs, "max_abs_err": err,
+           "atol": TOL[dname][0], "rtol": TOL[dname][1], "pad_rows_zero": pads_zero,
+           "ms": min(k1, k2), "plain_ms": min(p1, p2), "bound_ms": bound, "bound_by": bound_by,
+           "library_ms": lib_ms, "library_max_abs_err": lib_err, "library_error": lib_note,
+           "ok": bool(torch.isfinite(out).all()) and excess <= 0 and pads_zero}
+    emit(rec)
+    return rec
+
+
 def base_config(**over):
     from mhrec_tpu_torch.config import Config
 
@@ -365,22 +514,22 @@ def check_streamed_topk(trainer, batch, n_users=16):
             and float((at_idx - vals)[finite].abs().max()) <= 1e-5)
 
 
-def reset_launches():
+def kernel_wrappers():
     from mhrec_tpu_torch.ops import hstu_attention_cuda as K
+    from mhrec_tpu_torch.ops.packed_attention_cuda import packed_attn_fwd
     from mhrec_tpu_torch.ops.row_adam_cuda import row_adamw
 
-    for fn in (K.hstu_stu_gated_fwd, K.hstu_attn_fwd, K.hstu_stu_gated_bwd, K.hstu_attn_bwd,
-               row_adamw):
+    return (K.hstu_stu_gated_fwd, K.hstu_attn_fwd, K.hstu_stu_gated_bwd, K.hstu_attn_bwd,
+            row_adamw, packed_attn_fwd)
+
+
+def reset_launches():
+    for fn in kernel_wrappers():
         fn.launches = 0
 
 
 def read_launches():
-    from mhrec_tpu_torch.ops import hstu_attention_cuda as K
-    from mhrec_tpu_torch.ops.row_adam_cuda import row_adamw
-
-    return {fn.__name__: fn.launches for fn in (K.hstu_stu_gated_fwd, K.hstu_attn_fwd,
-                                                 K.hstu_stu_gated_bwd, K.hstu_attn_bwd,
-                                                 row_adamw)}
+    return {fn.__name__: fn.launches for fn in kernel_wrappers()}
 
 
 def serve_phase(data):
@@ -603,8 +752,160 @@ def train_impl_phase(trainer, data):
     return pallas_launches, ok_all
 
 
+def hllm_config(pretrain_dir, work_dir):
+    """reproduce/HLLM-EBNerd-prior.sh's flags that serving reads: TinyLlama
+    towers from ``pretrain_dir`` (a ``config.json`` alone: random weights
+    from ``seed``), 11 prior heads × 2 segment heads, hierarchical, segment
+    embeddings, the packed item tower and the packed corpus pass;
+    ``train_batch_size`` 128 sets the corpus batch to 24 · 128 = 3,072
+    items. The token cache and the (absent) checkpoint live under
+    ``work_dir``."""
+    from mhrec_tpu_torch.config import Config
+
+    C = 11
+    return Config(
+        config_file_list=["overall/LLM.yaml", "HLLM/HLLM.yaml"],
+        config_dict=dict(
+            dataset="synthetic", seed=0, data_path=work_dir,
+            checkpoint_dir=os.path.join(work_dir, "ckpt"),
+            item_pretrain_dir=pretrain_dir, user_pretrain_dir=pretrain_dir,
+            MAX_TEXT_LENGTH=256, gradient_checkpointing=True, MAX_ITEM_LIST_LENGTH=24,
+            loss="prior", train_batch_size=128, suppress_history=False,
+            medusa_num_layers=1, num_segment_head=2, num_prior_head=C,
+            head_interaction="hierarchical", split_mode="combine", use_image=False,
+            pred_len=4, eval_pred_len=8, medusa_lambda=0.99, eval_num_cats=C,
+            weighted_prior_loss=True, outlier_user_metrics="category", segment_embed=True,
+            eval_by_cat=False, packed_item_tower=True, packed_corpus_pass=True,
+            val_only=True,
+            int_to_category={i: f"cat_{i}" for i in range(C)}),
+    ).finalize()
+
+
+def hllm_serve_phase(config, data):
+    """The HLLM serving path: ``run.serve`` with the launch counts set to 0
+    just before and read just after; ``packed_attn_fwd`` must run once per
+    layer per corpus batch. ``serve_seconds`` is that call, set-up included
+    (random init of both towers, tokenizing the corpus); then, warm, the
+    corpus pass alone (``items_per_s``, ``tokens_per_s``: real tokens and emb
+    slots) and a whole repeated evaluation (``users_per_s``), which must
+    give the same metrics."""
+    import numpy as np
+    import torch
+
+    from mhrec_tpu_torch.run import serve
+
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer, test_loader, result = serve(config, data)
+    torch.cuda.synchronize()
+    serve_seconds = time.perf_counter() - t0
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    batcher = trainer._corpus_batcher
+    n_batches = math.ceil(data.item_num / batcher.batch_size)
+    layers = trainer.model.item_config.num_hidden_layers
+    t0 = time.perf_counter()
+    table = trainer.compute_item_feature()
+    torch.cuda.synchronize()
+    corpus_seconds = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    again = trainer.evaluate(test_loader)
+    torch.cuda.synchronize()
+    eval_seconds = time.perf_counter() - t0
+    _, lens = batcher.text_cache.batch(np.arange(data.item_num))
+    tokens = int(lens.sum()) + data.item_num * batcher.n_emb
+    values = [v for sec in result.values() for v in sec.values()]
+    sane = (all(math.isfinite(v) for v in values)
+            and all(0.0 <= result[f"pred_{p}"][m] <= 1.0 for p in config["metrics_pred_len_list"]
+                    for m in result[f"pred_{p}"]))
+    others = sum(n for k, n in launches.items() if k != "packed_attn_fwd")
+    ok = (sane and again == result and bool(torch.isfinite(table).all())
+          and table.shape == (data.item_num, 2048)
+          and launches["packed_attn_fwd"] == layers * n_batches and others == 0
+          and "pred_7" in result and "shared" in result)
+    n_users = len(test_loader)
+    emit({"phase": "hllm_serve", "users": n_users, "items": int(data.item_num),
+          "corpus_batches": n_batches, "corpus_batch_items": batcher.batch_size,
+          "chunk_rows": batcher._chunk_rows_hw, "corpus_tokens": tokens,
+          "serve_seconds": serve_seconds, "corpus_seconds": corpus_seconds,
+          "items_per_s": data.item_num / corpus_seconds, "tokens_per_s": tokens / corpus_seconds,
+          "eval_seconds": eval_seconds, "users_per_s": n_users / eval_seconds,
+          "users_per_s_after_corpus": n_users / max(eval_seconds - corpus_seconds, 1e-9),
+          "peak_mem_gb": peak_gb, "launches": launches, "repeat_matches": again == result,
+          "metrics": result, "ok": bool(ok)})
+    return trainer, test_loader, launches, ok
+
+
+def hllm_routes(model, tokens, lens, sub: int = 384):
+    """Item embeddings of one batch through the packed route (the kernel)
+    and the dense padded route (no kernel, in sub-batches of ``sub`` items),
+    with each route's launches."""
+    import torch
+
+    from mhrec_tpu_torch.models.llm.packed import pack_items
+
+    dev = next(model.parameters()).device
+    p = pack_items(tokens, lens, n_emb=1, chunk=2048, chunk_round=1)
+    with torch.no_grad():
+        reset_launches()
+        packed = model.encode_items_packed(
+            torch.as_tensor(p["packed_tokens"], dtype=torch.long, device=dev),
+            torch.as_tensor(p["packed_segment_ids"], device=dev),
+            torch.as_tensor(p["packed_positions"], dtype=torch.long, device=dev),
+            torch.as_tensor(p["emb_slots"], dtype=torch.long, device=dev))
+        torch.cuda.synchronize()
+        packed_launches = read_launches()
+        reset_launches()
+        dense = torch.cat([
+            model.encode_items(torch.as_tensor(tokens[i:i + sub], dtype=torch.long, device=dev),
+                               torch.as_tensor(lens[i:i + sub], dtype=torch.long, device=dev))
+            for i in range(0, len(lens), sub)])
+        torch.cuda.synchronize()
+        dense_launches = read_launches()
+    return packed, dense, packed_launches, dense_launches
+
+
+def hllm_impl_phase(trainer, data):
+    """The first corpus batch (3,072 items) through the packed and the dense
+    padded item tower of the bfloat16 model, and the batch's first 768 items
+    through both routes of a float32 copy; unit-normalized embeddings must
+    agree to IMPL_TOL (bfloat16) and HLLM_F32_TOL (float32)."""
+    import numpy as np
+    import torch
+
+    from mhrec_tpu_torch.models.layers import cosine_normalize
+    from mhrec_tpu_torch.trainer import Trainer
+
+    batcher = trainer._corpus_batcher
+    tokens, lens = batcher.text_cache.batch(np.arange(batcher.batch_size))
+    layers = trainer.model.item_config.num_hidden_layers
+    recs, ok_all = {}, True
+    f32 = Trainer(trainer.config, data, dtype=torch.float32)
+    f32.model.load_state_dict(trainer.model.state_dict())
+    for dname, model, n, tol in (("bfloat16", trainer.model, len(lens), IMPL_TOL),
+                                 ("float32", f32.model, 768, HLLM_F32_TOL)):
+        packed, dense, pl, dl = hllm_routes(model, tokens[:n], lens[:n])
+        a, b = cosine_normalize(packed), cosine_normalize(dense)
+        err = float((a - b).abs().max())
+        cos = float((a * b).sum(-1).min())
+        want = {k: 0 for k in pl}
+        ok = (err <= tol and pl == dict(want, packed_attn_fwd=layers) and dl == want
+              and bool(torch.isfinite(packed).all()))
+        ok_all &= ok
+        recs[dname] = {"items": n, "unit_emb_max_abs_err": err, "min_cosine": cos,
+                       "raw_emb_max_abs_err": float((packed - dense).abs().max()),
+                       "tolerance": tol, "packed_launches": pl, "dense_launches": dl,
+                       "ok": bool(ok)}
+    del f32
+    emit({"phase": "hllm_impl", **recs, "ok": bool(ok_all)})
+    return ok_all
+
+
 # the profile phases' groups of device kernels, by name (first match wins)
 PROFILE_GROUPS = (
+    ("packed_attn_fwd", "packed_attn"),
     ("hstu_stu_gated_fwd", "stu_gated_fwd"),
     ("hstu_stu_gated_bwd", "stu_gated_bwd|attn_bwd"),
     ("hstu_attn_fwd", "attn_fwd_kernel"),
@@ -718,6 +1019,11 @@ def main(argv=None) -> int:
         kernel_recs["row_adamw"] = row_adamw_phase()
         if not kernel_recs["row_adamw"]["ok"]:
             failed.append("row_adamw")
+        for dtype in (torch.float32, torch.bfloat16):
+            # the corpus pass runs the towers in bfloat16
+            rec = kernel_recs["packed"] = packed_kernel_phase(dtype)
+            if not rec["ok"]:
+                failed.append(f"packed/{dtype}")
 
     data = InMemoryInteractionData(
         num_users=4096, num_items=200_000, seq_len=2 * 50 + 2 * 8, num_categories=8,
@@ -749,17 +1055,43 @@ def main(argv=None) -> int:
             profile_train_steps(trainer, data)
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
+    del trainer, data
+    torch.cuda.empty_cache()
+
+    work_dir = tempfile.mkdtemp(prefix="chip_smoke_hllm_")
+    try:
+        pretrain_dir = os.path.join(work_dir, "tinyllama")
+        os.makedirs(pretrain_dir)
+        with open(os.path.join(pretrain_dir, "config.json"), "w") as fh:
+            json.dump(TINYLLAMA_1B, fh)
+        config = hllm_config(pretrain_dir, work_dir)
+        data = InMemoryInteractionData(
+            num_users=4096, num_items=16_384, seq_len=2 * 24 + 2 * 8, num_categories=11,
+            eval_pred_len=8, max_item_list_length=24, seed=0, item_texts=True,
+        )
+        trainer, test_loader, hllm_launches, ok = hllm_serve_phase(config, data)
+        if not ok:
+            failed.append("hllm_serve")
+        if "--profile" in args:
+            profile_phase("hllm_serve", lambda: trainer.evaluate(test_loader))
+        if not hllm_impl_phase(trainer, data):
+            failed.append("hllm_impl")
+        del trainer
+    finally:
+        shutil.rmtree(work_dir, ignore_errors=True)
 
     launches = {"stu": serve_launches["hstu_stu_gated_fwd"],
                 "attn": pallas_launches["hstu_attn_fwd"],
                 "stu_bwd": train_launches["hstu_stu_gated_bwd"],
                 "attn_bwd": impl_train_launches["hstu_attn_bwd"],
-                "row_adamw": train_launches["row_adamw"]}
+                "row_adamw": train_launches["row_adamw"],
+                "packed": hllm_launches["packed_attn_fwd"]}
     emit({"kernels": [
         dict(KERNELS[kind], route="cuda", launches=launches[kind],
              max_abs_err=kernel_recs[kind]["max_abs_err"], ms=kernel_recs[kind]["ms"],
              plain_ms=kernel_recs[kind]["plain_ms"], bound_ms=kernel_recs[kind]["bound_ms"],
-             bound_by=kernel_recs[kind]["bound_by"], library_ms=None)
+             bound_by=kernel_recs[kind]["bound_by"],
+             library_ms=kernel_recs[kind].get("library_ms"))
         for kind in KERNELS
     ]})
     if failed:

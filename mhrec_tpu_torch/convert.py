@@ -1,11 +1,13 @@
-"""Weight bridge: the JAX package's flax ``HSTU`` parameter tree → this
-package's ``HSTU`` ``state_dict``.
+"""Weight bridge: the JAX package's flax ``HSTU`` or ``HLLM`` parameter
+tree → this package's ``state_dict`` of the same model.
 
 Flax ``Dense`` kernels are [in, out] and become ``nn.Linear`` weights
 [out, in]; the fused ``uvqk`` projection keeps its [D, 4 splits] layout
-(split order u, v, q, k, silu before the split — hstu.py:62-69). The key walk
-follows ``tools/convert_reference_ckpt.py:208-248``. A flax parameter the
-walk does not use, or one it needs and does not find, raises.
+(split order u, v, q, k, silu before the split — hstu.py:62-69). The Llama
+towers' ``DenseGeneral`` attention kernels [D, heads, dh] become [heads·dh,
+D] weights. The key walk follows ``tools/convert_reference_ckpt.py:208-248``.
+A flax parameter the walk does not use, or one it needs and does not find,
+raises.
 """
 
 from __future__ import annotations
@@ -27,53 +29,117 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
     return flat
 
 
-def state_dict_from_flax(params: Mapping, config) -> Dict[str, torch.Tensor]:
-    """``params``: nested dict of numpy arrays (the flax ``params``
-    collection of ``mhrec_tpu.models.idnet.hstu.HSTU``); ``config``: the
-    Config the model was built from."""
-    flat = _flatten(params)
-    used = set()
-    sd: Dict[str, torch.Tensor] = {}
+class _Walk:
+    """Flax paths → state_dict keys, with the paths used kept track of."""
 
-    def take(path: str) -> np.ndarray:
-        if path not in flat:
+    def __init__(self, params: Mapping):
+        self.flat = _flatten(params)
+        self.used = set()
+        self.sd: Dict[str, torch.Tensor] = {}
+
+    def has(self, path: str) -> bool:
+        return path in self.flat
+
+    def take(self, path: str) -> np.ndarray:
+        if path not in self.flat:
             raise KeyError(f"flax parameter {path!r} is missing")
-        used.add(path)
-        return flat[path]
+        self.used.add(path)
+        return self.flat[path]
 
-    def put(key: str, path: str, transpose: bool = False):
-        arr = take(path)
-        sd[key] = torch.from_numpy(np.array(arr.T if transpose else arr))  # owned copy
+    def put(self, key: str, path: str, transpose: bool = False):
+        arr = self.take(path)
+        self.sd[key] = torch.from_numpy(np.array(arr.T if transpose else arr))  # owned copy
 
-    def put_dense(prefix: str, path: str):
-        put(f"{prefix}.weight", f"{path}/kernel", transpose=True)
-        put(f"{prefix}.bias", f"{path}/bias")
+    def put_dense(self, prefix: str, path: str):
+        self.put(f"{prefix}.weight", f"{path}/kernel", transpose=True)
+        self.put(f"{prefix}.bias", f"{path}/bias")
 
-    def put_norm(prefix: str, path: str):
-        put(f"{prefix}.weight", f"{path}/scale")
-        put(f"{prefix}.bias", f"{path}/bias")
+    def put_norm(self, prefix: str, path: str):
+        self.put(f"{prefix}.weight", f"{path}/scale")
+        self.put(f"{prefix}.bias", f"{path}/bias")
 
-    def put_resblocks(prefix: str, path: str):
+    def put_resblocks(self, prefix: str, path: str):
         r = 0
-        while f"{path}/res_{r}/Dense_0/kernel" in flat:
-            put_dense(f"{prefix}.res.{r}.linear", f"{path}/res_{r}/Dense_0")
-            if f"{path}/res_{r}/LayerNorm_0/scale" in flat:
-                put_norm(f"{prefix}.res.{r}.norm", f"{path}/res_{r}/LayerNorm_0")
+        while self.has(f"{path}/res_{r}/Dense_0/kernel"):
+            self.put_dense(f"{prefix}.res.{r}.linear", f"{path}/res_{r}/Dense_0")
+            if self.has(f"{path}/res_{r}/LayerNorm_0/scale"):
+                self.put_norm(f"{prefix}.res.{r}.norm", f"{path}/res_{r}/LayerNorm_0")
             r += 1
 
-    put("item_embedding.weight", "item_embedding/embedding")
-    if "item_proj/kernel" in flat:
-        put("item_proj.weight", "item_proj/kernel", transpose=True)
-    put("position_embedding.weight", "position_embedding/embedding")
-    for i in range(int(config["n_layers"])):
-        p, t = f"stu_{i}", f"stu_layers.{i}"
-        put_norm(f"{t}.input_norm", f"{p}/input_norm")
-        put(f"{t}.uvqk", f"{p}/uvqk")
-        put_norm(f"{t}.attn_norm", f"{p}/attn_norm")
-        put_dense(f"{t}.o_proj", f"{p}/o_proj")
-        if config["enable_relative_attention_bias"]:
-            put(f"rel_bias.{i}.ts_w", f"rel_bias_{i}/ts_w")
-            put(f"rel_bias.{i}.pos_w", f"rel_bias_{i}/pos_w")
+    def put_tower(self, tower: str):
+        """A Llama backbone (or the dummy backend) under ``tower``: its
+        ``DenseGeneral`` attention kernels [D, heads, dh] become [heads·dh, D]."""
+        if self.has(f"{tower}/embed_layer/kernel"):  # DummyLLM
+            if self.has(f"{tower}/input_layer/embedding"):
+                self.put(f"{tower}.input_layer.weight", f"{tower}/input_layer/embedding")
+            self.put_dense(f"{tower}.embed_layer", f"{tower}/embed_layer")
+            return
+        # a tower fed only inputs_embeds has no token table
+        if self.has(f"{tower}/embed_tokens/embedding"):
+            self.put(f"{tower}.embed_tokens.weight", f"{tower}/embed_tokens/embedding")
+        self.put(f"{tower}.norm.weight", f"{tower}/norm/weight")
+        i = 0
+        while self.has(f"{tower}/layers_{i}/input_layernorm/weight"):
+            p, t = f"{tower}/layers_{i}", f"{tower}.layers.{i}"
+            for norm in ("input_layernorm", "post_attention_layernorm"):
+                self.put(f"{t}.{norm}.weight", f"{p}/{norm}/weight")
+            for proj in ("q_proj", "k_proj", "v_proj"):
+                kernel = self.take(f"{p}/self_attn/{proj}/kernel")
+                self.sd[f"{t}.self_attn.{proj}.weight"] = torch.from_numpy(
+                    np.array(kernel.reshape(kernel.shape[0], -1).T))
+                if self.has(f"{p}/self_attn/{proj}/bias"):
+                    self.sd[f"{t}.self_attn.{proj}.bias"] = torch.from_numpy(
+                        np.array(self.take(f"{p}/self_attn/{proj}/bias").reshape(-1)))
+            self.put(f"{t}.self_attn.o_proj.weight", f"{p}/self_attn/o_proj/kernel",
+                     transpose=True)
+            for proj in ("gate_proj", "up_proj", "down_proj"):
+                self.put(f"{t}.mlp.{proj}.weight", f"{p}/mlp/{proj}/kernel", transpose=True)
+            i += 1
+
+    def finish(self) -> Dict[str, torch.Tensor]:
+        unused = sorted(set(self.flat) - self.used)
+        if unused:
+            raise ValueError(f"flax parameters with no counterpart in the port: {unused}")
+        return self.sd
+
+
+def llama_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The flax params of one ``LlamaBackbone`` (or ``DummyLLM``) → the
+    ``state_dict`` of this package's counterpart."""
+    walk = _Walk({"tower": params})
+    walk.put_tower("tower")
+    return {k[len("tower."):]: v for k, v in walk.finish().items()}
+
+
+def state_dict_from_flax(params: Mapping, config) -> Dict[str, torch.Tensor]:
+    """``params``: nested dict of numpy arrays (the flax ``params``
+    collection of ``mhrec_tpu.models.idnet.hstu.HSTU`` or
+    ``mhrec_tpu.models.hllm.hllm.HLLM``); ``config``: the Config the model
+    was built from."""
+    walk = _Walk(params)
+    flat, put, put_dense, put_norm = walk.flat, walk.put, walk.put_dense, walk.put_norm
+    put_resblocks = walk.put_resblocks
+
+    if str(config["model"] or "HSTU") == "HLLM":
+        if "item_llm" in params:
+            walk.put_tower("item_llm")
+        walk.put_tower("user_llm")
+        if "item_emb_tokens" in flat:
+            put("item_emb_tokens", "item_emb_tokens")
+    else:
+        put("item_embedding.weight", "item_embedding/embedding")
+        if "item_proj/kernel" in flat:
+            put("item_proj.weight", "item_proj/kernel", transpose=True)
+        put("position_embedding.weight", "position_embedding/embedding")
+        for i in range(int(config["n_layers"])):
+            p, t = f"stu_{i}", f"stu_layers.{i}"
+            put_norm(f"{t}.input_norm", f"{p}/input_norm")
+            put(f"{t}.uvqk", f"{p}/uvqk")
+            put_norm(f"{t}.attn_norm", f"{p}/attn_norm")
+            put_dense(f"{t}.o_proj", f"{p}/o_proj")
+            if config["enable_relative_attention_bias"]:
+                put(f"rel_bias.{i}.ts_w", f"rel_bias_{i}/ts_w")
+                put(f"rel_bias.{i}.pos_w", f"rel_bias_{i}/pos_w")
     if not config["fix_temp"]:
         put("logit_scale", "logit_scale")
 
@@ -104,7 +170,4 @@ def state_dict_from_flax(params: Mapping, config) -> Dict[str, torch.Tensor]:
         for c in range(1 if config.get("master_switch", False) else C):
             put_dense(f"aux_cat_head.{c}", f"aux_cat_head_{c}")
 
-    unused = sorted(set(flat) - used)
-    if unused:
-        raise ValueError(f"flax parameters with no counterpart in the port: {unused}")
-    return sd
+    return walk.finish()

@@ -1,5 +1,6 @@
 """Dataloader factory (reference ``REC/data/utils.py:13-77``; port of
-``mhrec_tpu/data/loaders.py`` for the ID models, one process)."""
+``mhrec_tpu/data/loaders.py``, one process). Every model evaluates through
+``SeqEvalBatcher``; HLLM's text train batcher is not ported yet."""
 
 from __future__ import annotations
 
@@ -16,5 +17,5 @@ def build_eval_dataloaders(config, dataload):
 def build_dataloader(config, dataload):
     """Returns the (train, valid, test) batchers of one process."""
     if str(config["model"] or "HSTU") == "HLLM":
-        raise NotImplementedError("the HLLM text batcher is not ported yet")
+        raise NotImplementedError("the HLLM text train batcher is not ported yet")
     return (SEQTrainBatcher(config, dataload), *build_eval_dataloaders(config, dataload))

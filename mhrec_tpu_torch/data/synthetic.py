@@ -5,11 +5,31 @@ duck-typed ``InteractionData`` fabricated directly from numpy with the same
 rng stream, so a serving run at corpus scale needs no parquet round-trip (and
 no pandas). The parquet fixture generator stays with the JAX package; the
 port's tests read its files through ``data/interaction.py``.
+
+``item_texts=True`` adds item texts for the HLLM item tower, a test fixture
+rather than a feature: the columns ``generate_synthetic_dataset`` writes
+(title, tag, description with filler words), with each item's filler word
+count drawn from the seed so that token lengths spread over about 16-256
+and packing the corpus is real varlen work. Without texts every item
+renders the bare prompt.
 """
 
 from __future__ import annotations
 
+from typing import Dict, List
+
 import numpy as np
+
+
+class ItemTextTable:
+    """Item text columns held in memory, read as the text renderer reads the
+    parquet reader's DataFrame: ``item_id in table.index`` and
+    ``table.loc[item_id][column]``."""
+
+    def __init__(self, item_ids, columns: Dict[str, List[str]]):
+        self.index = frozenset(int(i) for i in item_ids)
+        self.loc = {int(i): {k: col[n] for k, col in columns.items()}
+                    for n, i in enumerate(item_ids)}
 
 
 class InMemoryInteractionData:
@@ -26,6 +46,8 @@ class InMemoryInteractionData:
         eval_pred_len: int = 1,
         max_item_list_length: int = 50,
         seed: int = 0,
+        item_texts: bool = False,
+        max_filler_words: int = 240,
     ):
         rng = np.random.default_rng(seed)
         self.user_num = num_users + 1
@@ -61,7 +83,7 @@ class InMemoryInteractionData:
         self.item_interact_weights = None
         self.item_weights_by_cat = None
         self.item_fine_tag = None
-        self.item_text = None  # text batchers render "unknown item"
+        self.item_text = None  # text batchers render the bare prompt
         self.counter = {"user_id": {}, "item_id": {}}
         if num_categories > 1:
             cat = rng.integers(0, num_categories, size=num_items)
@@ -81,6 +103,28 @@ class InMemoryInteractionData:
             self.item_tag_matrix = None
             self.item_orig_tag_matrix = None
             self.int_category_to_item_id = None
+        if item_texts:
+            self.item_text = self._texts(num_items, num_categories, seed, max_filler_words)
+
+    def _texts(self, num_items: int, num_categories: int, seed: int, max_filler: int):
+        """Texts of items 1..num_items-1 (item x is token ``i{x-1}``), drawn
+        from a stream of their own so the interactions stay as without."""
+        rng = np.random.default_rng((seed, 1))
+        fillers = rng.integers(0, max_filler + 1, size=num_items)
+        cats = (self.item_tag_matrix.argmax(axis=1) if self.item_tag_matrix is not None
+                else np.zeros(num_items, dtype=np.int64))
+        ids = np.arange(1, num_items)
+        x = ids - 1
+        columns = {
+            "title": [f"Item number {i}" for i in x],
+            "tag": [f"tag_{int(cats[i])}" for i in ids],
+            "description": [
+                " ".join([f"Synthetic item {i} description."]
+                         + [f"w{(i * 37 + j) % 9973}" for j in range(int(fillers[n]))])
+                for n, i in zip(ids, x)
+            ],
+        }
+        return ItemTextTable(ids, columns)
 
     def seq_of(self, uid):
         return self.flat_items[self.seq_offsets[uid] : self.seq_offsets[uid + 1]]

@@ -1,0 +1,332 @@
+"""HLLM — two-tower LLM recommender, serving half (port of
+``mhrec_tpu/models/hllm/hllm.py``).
+
+* the **item tower** encodes each item's text into one embedding: the hidden
+  state at the trailing learnable ``item_emb_tokens`` slot
+  (``item_emb_token_n`` ≥ 1) or masked mean pooling (0, and the dummy
+  backend), over a dense padded batch (``encode_items``) or packed chunk
+  rows (``encode_items_packed``, through the packed attention kernel);
+* the **user tower** runs over the sequence of item embeddings
+  (``inputs_embeds``) with the user attention mask; its last hidden state
+  feeds the same multi-head machinery as HSTU (``MedusaHeads``), and
+  ``score_items`` is HSTU's;
+* ``freeze_item_llm`` swaps the item tower for a precomputed table.
+
+Not ported yet (they raise): the training forward (``forward``), the image
+and video towers, BERT towers, and loading pretrained tower weights.
+"""
+
+from __future__ import annotations
+
+import glob
+import logging
+import math
+import os
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from mhrec_tpu_torch.models.idnet.hstu import MedusaHeads
+from mhrec_tpu_torch.models.layers import LayerNorm
+from mhrec_tpu_torch.models.llm.config import LLMConfig
+from mhrec_tpu_torch.models.llm.dummy import DummyLLM
+from mhrec_tpu_torch.models.llm.llama import LlamaBackbone
+from mhrec_tpu_torch.models.multihead import predict_switch_and_heads
+from mhrec_tpu_torch.utils.enums import InputType
+
+logger = logging.getLogger(__name__)
+
+# the weight files of a local HF checkpoint (mhrec_tpu/models/llm/loader.py)
+_WEIGHT_GLOBS = ("*.safetensors", "pytorch_model*.bin")
+
+
+class HLLM(MedusaHeads, nn.Module):
+    input_type = InputType.SEQ
+    needs_item_corpus_pass = True  # the trainer runs the text-encode pass
+
+    def __init__(
+        self,
+        item_config: LLMConfig,
+        user_config: LLMConfig,
+        max_seq_length: int,
+        pred_len: int,
+        dummy_llm: bool = False,
+        freeze_item_llm: bool = False,
+        packed_item_tower: bool = False,
+        item_num: int = 0,
+        item_emb_token_n: int = 1,
+        gradient_checkpointing: bool = False,
+        loss_type: str = "nce",
+        fix_temp: bool = False,
+        medusa_lambda: float = 0.99,
+        medusa_num_layers: int = 0,
+        num_segment_head: int = 1,
+        num_prior_head: int = 1,
+        head_interaction: str = "multiplicative",
+        prior_loss_weight: Tuple[float, ...] = (1.0,),
+        prior_switch: Optional[str] = None,
+        master_switch: bool = False,
+        eval_pred_len: int = 1,
+        prior_given_at_test: bool = False,
+        given_prior_len: int = 1,
+        use_prior_switch_test: bool = False,
+        int_to_category: Tuple[str, ...] = (),
+        head_norm: bool = False,
+        cat_bottleneck: bool = False,
+        cat_bottleneck_dim: int = 0,
+        share_seg_weights: bool = False,
+        use_seg_embed: bool = False,
+        dtype=torch.bfloat16,
+    ):
+        super().__init__()
+        self.item_config, self.user_config = item_config, user_config
+        self.max_seq_length = max_seq_length
+        self.pred_len = pred_len
+        self.dummy_llm = dummy_llm
+        self.freeze_item_llm = freeze_item_llm
+        self.packed_item_tower = packed_item_tower
+        self.item_num = item_num
+        self.item_emb_token_n = item_emb_token_n
+        self.loss_type = loss_type
+        self.fix_temp = fix_temp
+        self.medusa_lambda = medusa_lambda
+        self.medusa_num_layers = medusa_num_layers
+        self.num_segment_head = num_segment_head
+        self.num_prior_head = num_prior_head
+        self.head_interaction = head_interaction
+        self.prior_loss_weight = tuple(prior_loss_weight)
+        self.prior_switch = prior_switch
+        self.master_switch = master_switch
+        self.eval_pred_len = eval_pred_len
+        self.prior_given_at_test = prior_given_at_test
+        self.given_prior_len = given_prior_len
+        self.use_prior_switch_test = use_prior_switch_test
+        self.int_to_category = int_to_category
+        self.dtype = dtype
+
+        def make_llm(cfg: LLMConfig, token_embeddings: bool):
+            if dummy_llm:
+                return DummyLLM(cfg.vocab_size, cfg.hidden_size,
+                                token_embeddings=token_embeddings)
+            if cfg.model_type == "bert":
+                raise NotImplementedError("BERT towers are not ported yet")
+            # llama / mistral / qwen2 / tinyllama / baichuan share the
+            # decoder topology (RMSNorm + RoPE + GQA + SwiGLU)
+            return LlamaBackbone(cfg, dtype=dtype, gradient_checkpointing=gradient_checkpointing,
+                                 token_embeddings=token_embeddings)
+
+        if freeze_item_llm:
+            # the precomputed table, filled by the trainer from
+            # ``all_item_embeds_path``
+            self.register_buffer("all_item_embeds",
+                                 torch.zeros(item_num, item_config.hidden_size))
+        else:
+            self.item_llm = make_llm(item_config, token_embeddings=True)
+        # the user tower reads item embeddings, never token ids
+        self.user_llm = make_llm(user_config, token_embeddings=False)
+        D = user_config.hidden_size
+        if item_emb_token_n > 0 and not freeze_item_llm:
+            self.item_emb_tokens = nn.Parameter(
+                torch.empty(1, item_emb_token_n, item_config.hidden_size))
+        if fix_temp:
+            self.register_buffer("logit_scale", torch.tensor(math.log(1 / 0.07)))
+        else:
+            self.logit_scale = nn.Parameter(torch.tensor(math.log(1 / 0.07)))
+        self._build_heads(D, head_norm, cat_bottleneck, cat_bottleneck_dim,
+                          share_seg_weights, use_seg_embed)
+
+    @torch.no_grad()
+    def init_parameters(self, gen: torch.Generator):
+        """Random initialisation from ``gen`` with the JAX package's
+        initialiser families: normal 0.02 for the towers and the emb-token
+        slots, truncated normal 0.02 for the heads, logit scale ln(1/0.07)."""
+        for m in self.modules():
+            if m is not self and hasattr(m, "init_parameters"):
+                m.init_parameters(gen)  # towers, res blocks
+            elif isinstance(m, LayerNorm):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+        if hasattr(self, "item_emb_tokens"):
+            self.item_emb_tokens.normal_(0.0, 0.02, generator=gen)
+        if not self.fix_temp:
+            self.logit_scale.fill_(math.log(1 / 0.07))
+        self._init_head_parameters(gen)
+
+    # ------------------------------------------------------------------
+    def encode_items(self, tokens: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
+        """Item tower over a padded token batch [N, T + n_emb] → [N, D_item]
+        float32."""
+        N, T = tokens.shape
+        col = torch.arange(T, device=tokens.device)[None, :]
+        if self.item_emb_token_n > 0 and not self.dummy_llm:
+            n_emb = self.item_emb_token_n
+            # the n trailing emb slots attend; the embedding is read from
+            # the last one (it attends to the text and the earlier slots)
+            attn_mask = (col < lens[:, None] + n_emb).int()
+            hidden = self.item_llm(input_ids=tokens, attention_mask=attn_mask,
+                                   emb_tokens=self.item_emb_tokens, emb_pos=lens)
+            emb = hidden[torch.arange(N, device=tokens.device), lens + (n_emb - 1)]
+        else:  # mean pooling over the real tokens
+            attn_mask = (col < lens[:, None]).int()
+            hidden = self.item_llm(input_ids=tokens, attention_mask=attn_mask)
+            m = attn_mask[..., None].to(hidden.dtype)
+            emb = (hidden * m).sum(dim=1) / torch.clamp(lens[:, None].to(hidden.dtype), min=1)
+        return emb.float()
+
+    def encode_items_packed(self, packed_tokens, segment_ids, positions, emb_slots):
+        """Packed item tower: chunk rows [C, chunk] (or one flat stream [S])
+        of tokens, segment ids and within-segment positions; ``emb_slots``
+        [N] flat index of each item's first trailing emb slot → [N, D_item]
+        float32 read from each item's last slot."""
+        if self.item_emb_token_n <= 0:
+            raise ValueError("the packed item tower reads the emb-token slot "
+                             "(item_emb_token_n >= 1)")
+        flat_mode = packed_tokens.dim() == 1
+        if flat_mode:
+            packed_tokens, positions = packed_tokens[None], positions[None]
+        hidden = self.item_llm(input_ids=packed_tokens, position_ids=positions,
+                               segment_ids=segment_ids, emb_tokens=self.item_emb_tokens,
+                               emb_pos=emb_slots)
+        flat = hidden.reshape(-1, hidden.shape[-1])
+        return flat[emb_slots + (self.item_emb_token_n - 1)].float()
+
+    def compute_item_chunk(self, tokens, lens):
+        """Corpus-embedding pass chunk (reference compute_item)."""
+        return self.encode_items(tokens, lens)
+
+    def forward(self, batch, *args, **kwargs):
+        raise NotImplementedError("HLLM training is not ported yet")
+
+    # ------------------------------------------------------------------
+    def predict_embeddings(self, item_seq, target_tags=None, item_feature_table=None,
+                           seq_embeds=None):
+        """Eval path: the user tower over the raw item-embedding table's rows
+        of ``item_seq`` (or the given ``seq_embeds`` [B, L, D]); see
+        ``predict_switch_and_heads`` for the returned dict."""
+        attn = (item_seq > 0).int()
+        if seq_embeds is None:
+            if item_feature_table is None:
+                raise ValueError("HLLM predict needs the item table")
+            seq_embeds = item_feature_table[item_seq]
+        hidden = self.user_llm(inputs_embeds=seq_embeds.to(self.dtype), attention_mask=attn)
+        return predict_switch_and_heads(self, hidden[:, -1], target_tags)
+
+
+def load_pretrained_towers(model: HLLM, config) -> HLLM:
+    """Local HF checkpoint weights for the towers (reference create_llm
+    from_pretrained, hllm.py:294-376). Loading them is not ported yet: a
+    pretrain directory that holds weight files raises; one that holds only
+    a ``config.json`` keeps the random initialisation, as the JAX package
+    does. ``item_emb_pretrain`` warm-starts the emb-token slots from a
+    ``.npy`` file or a saved tensor."""
+    for tower, dir_key, init_key in (("item_llm", "item_pretrain_dir", "item_llm_init"),
+                                     ("user_llm", "user_pretrain_dir", "user_llm_init")):
+        path = config.get(dir_key)
+        if not hasattr(model, tower) or not path or not os.path.isdir(str(path)):
+            continue
+        if config.get(init_key, True) is False:
+            continue
+        if any(glob.glob(os.path.join(str(path), g)) for g in _WEIGHT_GLOBS):
+            raise NotImplementedError(
+                f"loading pretrained tower weights ({path}) is not ported yet")
+    pre = config.get("item_emb_pretrain")
+    if pre and hasattr(model, "item_emb_tokens"):
+        if str(pre).endswith(".npy"):
+            arr = torch.from_numpy(np.load(pre))
+        else:
+            arr = torch.load(pre, map_location="cpu", weights_only=True)
+        cur = model.item_emb_tokens
+        with torch.no_grad():
+            cur.copy_(arr.float().reshape(cur.shape))
+        logger.info("loaded item_emb_tokens from %s with %s", pre, tuple(arr.shape))
+    return model
+
+
+def compute_dtype(config) -> torch.dtype:
+    """The towers' compute type from the reference's ``precision`` key
+    (bf16-mixed by default; '32' / 'fp32' give float32), hllm.py:677-681."""
+    prec = str(config.get("precision") or "bf16-mixed")
+    return torch.float32 if "32" in prec and "bf16" not in prec else torch.bfloat16
+
+
+def hllm_from_config(config, dataload, dtype=None) -> HLLM:
+    """Build an HLLM from a Config + InteractionData (the JAX package's
+    ``hllm_from_config``, hllm.py:592-730, one device). ``dtype`` overrides
+    the compute type that ``precision`` selects."""
+    loss = config["loss"]
+    num_prior = config["num_prior_head"] or 1
+    if loss == "prior" and config["weighted_prior_loss"]:
+        total_count = sum(dataload.category_counts.values())
+        weights = [0.0] * num_prior
+        for cat, cnt in dataload.category_counts.items():
+            weights[dataload.category_to_int[cat]] = cnt / total_count
+    else:
+        weights = [1.0 / num_prior] * num_prior
+
+    dummy = bool(config.get("dummy_llm", False))
+    item_dir = config.get("item_pretrain_dir")
+    user_dir = config.get("user_pretrain_dir")
+    if dummy or not item_dir:
+        vs = config.get("dummy_vocab_size", 1024)
+        hs = config.get("dummy_hidden_size", 64)
+        item_cfg = LLMConfig.tiny(vs, hs)
+        user_cfg = LLMConfig.tiny(vs, hs)
+        # random_init_towers: real (tiny) Llama towers without checkpoints;
+        # the default keeps the reference's dummy_llm semantics
+        dummy = not bool(config.get("random_init_towers", False)) or dummy
+    else:
+        item_cfg = LLMConfig.from_pretrained_dir(item_dir)
+        user_cfg = LLMConfig.from_pretrained_dir(user_dir or item_dir)
+
+    import dataclasses
+
+    if int(config.get("tp_size", 1) or 1) > 1:
+        raise NotImplementedError("tensor-parallel towers (tp_size > 1) are not ported yet")
+    if config.get("use_image", False) or config.get("use_video", False):
+        raise NotImplementedError("the image and video item towers are not ported yet")
+    if config.get("packed_item_tower", False):
+        # bound the packed attention to a causal band of the max segment
+        # length: the text and its emb slots
+        window = int(config.get("MAX_TEXT_LENGTH", 64)) + int(
+            config.get("item_emb_token_n", 1) or 0)
+        item_cfg = dataclasses.replace(item_cfg, packed_window=window)
+
+    i2c = config["int_to_category"] or {}
+    eval_pred_len = config["eval_pred_len"]
+    prior_given = bool(config.get("prior_given_at_test", False))
+    return HLLM(
+        dtype=dtype or compute_dtype(config),
+        item_config=item_cfg,
+        user_config=user_cfg,
+        max_seq_length=config["MAX_ITEM_LIST_LENGTH"],
+        pred_len=config["pred_len"],
+        dummy_llm=dummy,
+        freeze_item_llm=bool(config.get("freeze_item_llm", False)),
+        packed_item_tower=bool(config.get("packed_item_tower", False)),
+        item_num=dataload.item_num,
+        item_emb_token_n=config.get("item_emb_token_n", 1) or 0,
+        gradient_checkpointing=bool(config.get("gradient_checkpointing", False)),
+        loss_type=loss,
+        fix_temp=bool(config["fix_temp"]),
+        medusa_lambda=config["medusa_lambda"],
+        medusa_num_layers=config["medusa_num_layers"] or 0,
+        num_segment_head=config["num_segment_head"] or 1,
+        num_prior_head=num_prior,
+        head_interaction=config["head_interaction"],
+        prior_loss_weight=tuple(weights),
+        prior_switch=config["prior_switch"],
+        master_switch=config.get("master_switch", False),
+        eval_pred_len=eval_pred_len,
+        prior_given_at_test=prior_given,
+        given_prior_len=(config.get("given_prior_len", eval_pred_len)
+                         if prior_given else eval_pred_len),
+        use_prior_switch_test=config.get("use_prior_switch_test", False),
+        int_to_category=tuple(i2c.get(i, str(i)) for i in range(num_prior)),
+        head_norm=config.get("head_norm", False),
+        cat_bottleneck=config.get("cat_bottleneck", False),
+        cat_bottleneck_dim=config.get("cat_bottleneck_dim", 0) or 0,
+        share_seg_weights=config.get("share_seg_weights", False),
+        use_seg_embed=config.get("segment_embed", False),
+    )

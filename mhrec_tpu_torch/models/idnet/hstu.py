@@ -133,7 +133,151 @@ class _CatBottleneck(nn.Module):
         return self.up(F.silu(self.down(self.norm(x))))
 
 
-class HSTU(nn.Module):
+class MedusaHeads:
+    """The multi-head ("medusa") decoding that HSTU and HLLM share: the head
+    modules (hierarchical category → segment heads or a flat list, the
+    prior-switch classifiers), ``compute_heads`` and ``score_items`` with
+    the per-head category masks. A model mixes it in before ``nn.Module``,
+    sets loss_type, medusa_num_layers, num_segment_head, num_prior_head,
+    head_interaction, prior_switch, master_switch, pred_len, medusa_lambda,
+    prior_given_at_test, given_prior_len and use_prior_switch_test, then
+    calls ``_build_heads``."""
+
+    def _build_heads(self, D: int, head_norm: bool = False, cat_bottleneck: bool = False,
+                     cat_bottleneck_dim: int = 0, share_seg_weights: bool = False,
+                     use_seg_embed: bool = False):
+        S, C, layers = self.num_segment_head, self.num_prior_head, self.medusa_num_layers
+        self.share_seg_weights = share_seg_weights
+        self.use_seg_embed = use_seg_embed
+        self.hierarchical = self.head_interaction == "hierarchical" and layers > 0
+        if self.hierarchical:
+            if use_seg_embed:
+                self.segment_emb = nn.Embedding(S, D)
+            cat_heads = []
+            for _ in range(C):
+                blocks: List[nn.Module] = []
+                if cat_bottleneck:
+                    blocks.append(_CatBottleneck(D, cat_bottleneck_dim or D // 2))
+                blocks.append(MedusaHead(D, layers, use_norm=head_norm))
+                cat_heads.append(nn.ModuleList(blocks))
+            self.medusa_cat_head = nn.ModuleList(cat_heads)
+            if share_seg_weights:
+                self.medusa_seg_head = nn.ModuleList(
+                    MedusaHead(D, layers, use_norm=head_norm) for _ in range(C)
+                )
+            else:
+                self.medusa_seg_head = nn.ModuleList(
+                    nn.ModuleList(MedusaHead(D, layers, use_norm=head_norm)
+                                  for _ in range(S))
+                    for _ in range(C)
+                )
+        else:
+            self.medusa_head = nn.ModuleList(
+                MedusaHead(D, layers) for _ in range(self.medusa_num_heads)
+            )
+        if self.loss_type == "prior" and self.prior_switch is not None:
+            # one classifier per category, or the master switch's one (the
+            # JAX tree holds only the classifiers that are ever called)
+            in_dim = D if self.prior_switch == "in" else 2 * D
+            self.aux_cat_head = nn.ModuleList(
+                nn.Linear(in_dim, 1) for _ in range(1 if self.master_switch else C))
+
+    @torch.no_grad()
+    def _init_head_parameters(self, gen: torch.Generator):
+        """Truncated normal 0.02 on the segment embedding, the bottleneck
+        and the switch classifiers (the res blocks initialise themselves)."""
+        linears = []
+        if self.hierarchical:
+            if self.use_seg_embed:
+                trunc_normal_init(self.segment_emb.weight, gen)
+            for blocks in self.medusa_cat_head:
+                for b in blocks:
+                    if isinstance(b, _CatBottleneck):
+                        linears += [b.down, b.up]
+        if hasattr(self, "aux_cat_head"):
+            linears += list(self.aux_cat_head)
+        for lin in linears:
+            trunc_normal_init(lin.weight, gen)
+            trunc_normal_init(lin.bias, gen)
+
+    @property
+    def medusa_num_heads(self) -> int:
+        if self.head_interaction in ("multiplicative", "hierarchical"):
+            return self.num_segment_head * self.num_prior_head
+        if self.head_interaction == "additive":
+            return self.num_segment_head + self.num_prior_head
+        raise ValueError(f"Unknown head_interaction: {self.head_interaction}")
+
+    @property
+    def seg_len(self) -> int:
+        if self.medusa_num_layers > 0:
+            if self.pred_len % self.num_segment_head:
+                raise ValueError("pred_len must divide by num_segment_head")
+            return self.pred_len // self.num_segment_head
+        return self.pred_len
+
+    def horizon_discount(self) -> torch.Tensor:
+        return horizon_discount(self.medusa_lambda, self.pred_len)
+
+    def _seg_head(self, c: int, s: int) -> MedusaHead:
+        if self.share_seg_weights:
+            return self.medusa_seg_head[c]
+        return self.medusa_seg_head[c][s]
+
+    def compute_heads(self, output_embs):
+        """Apply medusa heads. [..., D] → [batch-dims, H, ..., D]."""
+        if self.hierarchical:
+            cat_embs = []
+            for blocks in self.medusa_cat_head:
+                h = output_embs
+                for block in blocks:
+                    h = block(h)
+                cat_embs.append(h)
+            outs = []
+            for s in range(self.num_segment_head):
+                seg_bias = self.segment_emb.weight[s] if self.use_seg_embed else None
+                for c in range(self.num_prior_head):
+                    seg_in = cat_embs[c] if seg_bias is None else cat_embs[c] + seg_bias
+                    outs.append(self._seg_head(c, s)(seg_in))
+            return torch.stack(outs, dim=1)
+        return torch.stack([h(output_embs) for h in self.medusa_head], dim=1)
+
+    def score_items(self, head_embs, item_feats, item_tags, target_tags, switch_pred):
+        """Cosine scores + prior masks for a (chunk of the) item corpus.
+
+        head_embs [B, H, D] and item_feats [I, D] normalized f32, item_tags
+        [I, C] bool, target_tags [B, P, C], switch_pred [B, switch_range]
+        bool → [B, H, I] f32. Mask semantics per reference predict
+        (hstu.py:982-1015)."""
+        scores = torch.matmul(head_embs, item_feats.t())
+        if self.loss_type != "prior":
+            return scores
+        S, C = self.num_segment_head, self.num_prior_head
+        additive = self.head_interaction == "additive"
+
+        def keep_only(on):  # on: [B|1, C, 1|I] bool
+            if additive:
+                scores[:, S:].masked_fill_(~on, _NEG_INF)
+            else:
+                scores.masked_fill_(~on.repeat(1, S, 1), _NEG_INF)
+
+        if self.prior_given_at_test and target_tags is not None:
+            given = target_tags[:, : self.given_prior_len].bool().any(dim=1)  # [B, C]
+            keep_only(given[:, :, None])
+        if item_tags is not None:
+            keep_only(item_tags.bool().t()[None])                          # [1, C, I]
+        if self.prior_switch is not None and self.use_prior_switch_test \
+                and switch_pred is not None:
+            if self.master_switch:
+                first = switch_pred[:, :1]
+                on = torch.cat([~first, first.repeat(1, C - 1)], dim=1)  # [B, C]
+            else:
+                on = switch_pred
+            keep_only(on[:, :, None])
+        return scores
+
+
+class HSTU(MedusaHeads, nn.Module):
     """Multi-head prior-aware HSTU model. ``forward`` is the training
     forward (a dict with 'loss'); ``predict_embeddings`` and ``score_items``
     serve."""
@@ -219,8 +363,6 @@ class HSTU(nn.Module):
         self.given_prior_len = given_prior_len
         self.use_prior_switch_test = use_prior_switch_test
         self.int_to_category = int_to_category
-        self.share_seg_weights = share_seg_weights
-        self.use_seg_embed = use_seg_embed
         self.dtype = dtype
         D = hstu_embedding_size
 
@@ -250,59 +392,8 @@ class HSTU(nn.Module):
         else:
             self.logit_scale = nn.Parameter(torch.tensor(math.log(1 / 0.05)))
 
-        S, C = num_segment_head, num_prior_head
-        self.hierarchical = head_interaction == "hierarchical" and medusa_num_layers > 0
-        if self.hierarchical:
-            if use_seg_embed:
-                self.segment_emb = nn.Embedding(S, D)
-            cat_heads = []
-            for _ in range(C):
-                blocks: List[nn.Module] = []
-                if cat_bottleneck:
-                    blocks.append(_CatBottleneck(D, cat_bottleneck_dim or D // 2))
-                blocks.append(MedusaHead(D, medusa_num_layers, use_norm=head_norm))
-                cat_heads.append(nn.ModuleList(blocks))
-            self.medusa_cat_head = nn.ModuleList(cat_heads)
-            if share_seg_weights:
-                self.medusa_seg_head = nn.ModuleList(
-                    MedusaHead(D, medusa_num_layers, use_norm=head_norm) for _ in range(C)
-                )
-            else:
-                self.medusa_seg_head = nn.ModuleList(
-                    nn.ModuleList(MedusaHead(D, medusa_num_layers, use_norm=head_norm)
-                                  for _ in range(S))
-                    for _ in range(C)
-                )
-        else:
-            self.medusa_head = nn.ModuleList(
-                MedusaHead(D, medusa_num_layers) for _ in range(self.medusa_num_heads)
-            )
-        if loss_type == "prior" and prior_switch is not None:
-            # one classifier per category, or the master switch's one (the
-            # JAX tree holds only the classifiers that are ever called)
-            in_dim = D if prior_switch == "in" else 2 * D
-            self.aux_cat_head = nn.ModuleList(
-                nn.Linear(in_dim, 1) for _ in range(1 if master_switch else C))
-
-    # ------------------------------------------------------------------
-    @property
-    def medusa_num_heads(self) -> int:
-        if self.head_interaction in ("multiplicative", "hierarchical"):
-            return self.num_segment_head * self.num_prior_head
-        if self.head_interaction == "additive":
-            return self.num_segment_head + self.num_prior_head
-        raise ValueError(f"Unknown head_interaction: {self.head_interaction}")
-
-    @property
-    def seg_len(self) -> int:
-        if self.medusa_num_layers > 0:
-            if self.pred_len % self.num_segment_head:
-                raise ValueError("pred_len must divide by num_segment_head")
-            return self.pred_len // self.num_segment_head
-        return self.pred_len
-
-    def horizon_discount(self) -> torch.Tensor:
-        return horizon_discount(self.medusa_lambda, self.pred_len)
+        self._build_heads(D, head_norm, cat_bottleneck, cat_bottleneck_dim,
+                          share_seg_weights, use_seg_embed)
 
     @torch.no_grad()
     def init_parameters(self, gen: torch.Generator):
@@ -321,19 +412,7 @@ class HSTU(nn.Module):
             trunc_normal_init(self.item_proj.weight, gen)
         if not self.fix_temp:
             self.logit_scale.fill_(math.log(1 / 0.05))
-        linears = []
-        if self.hierarchical:
-            if self.use_seg_embed:
-                trunc_normal_init(self.segment_emb.weight, gen)
-            for blocks in self.medusa_cat_head:
-                for b in blocks:
-                    if isinstance(b, _CatBottleneck):
-                        linears += [b.down, b.up]
-        if hasattr(self, "aux_cat_head"):
-            linears += list(self.aux_cat_head)
-        for lin in linears:
-            trunc_normal_init(lin.weight, gen)
-            trunc_normal_init(lin.bias, gen)
+        self._init_head_parameters(gen)
 
     # ------------------------------------------------------------------
     def _embed_items(self, items, sub=None):
@@ -360,29 +439,6 @@ class HSTU(nn.Module):
                 bias = self.rel_bias[i](None)[:, :L, :L]
             x = layer(x, nonpad, attn_bias=bias, generator=generator)
         return x
-
-    def _seg_head(self, c: int, s: int) -> MedusaHead:
-        if self.share_seg_weights:
-            return self.medusa_seg_head[c]
-        return self.medusa_seg_head[c][s]
-
-    def compute_heads(self, output_embs):
-        """Apply medusa heads. [..., D] → [batch-dims, H, ..., D]."""
-        if self.hierarchical:
-            cat_embs = []
-            for blocks in self.medusa_cat_head:
-                h = output_embs
-                for block in blocks:
-                    h = block(h)
-                cat_embs.append(h)
-            outs = []
-            for s in range(self.num_segment_head):
-                seg_bias = self.segment_emb.weight[s] if self.use_seg_embed else None
-                for c in range(self.num_prior_head):
-                    seg_in = cat_embs[c] if seg_bias is None else cat_embs[c] + seg_bias
-                    outs.append(self._seg_head(c, s)(seg_in))
-            return torch.stack(outs, dim=1)
-        return torch.stack([h(output_embs) for h in self.medusa_head], dim=1)
 
     def forward(self, batch, sub=None, generator=None):
         """Training forward → dict with 'loss' and detached logging scalars
@@ -412,40 +468,6 @@ class HSTU(nn.Module):
         ``predict_switch_and_heads`` for the returned dict."""
         output_embs = self.encode(item_seq)
         return predict_switch_and_heads(self, output_embs[:, -1], target_tags)
-
-    def score_items(self, head_embs, item_feats, item_tags, target_tags, switch_pred):
-        """Cosine scores + prior masks for a (chunk of the) item corpus.
-
-        head_embs [B, H, D] and item_feats [I, D] normalized f32, item_tags
-        [I, C] bool, target_tags [B, P, C], switch_pred [B, switch_range]
-        bool → [B, H, I] f32. Mask semantics per reference predict
-        (hstu.py:982-1015)."""
-        scores = torch.matmul(head_embs, item_feats.t())
-        if self.loss_type != "prior":
-            return scores
-        S, C = self.num_segment_head, self.num_prior_head
-        additive = self.head_interaction == "additive"
-
-        def keep_only(on):  # on: [B|1, C, 1|I] bool
-            if additive:
-                scores[:, S:].masked_fill_(~on, _NEG_INF)
-            else:
-                scores.masked_fill_(~on.repeat(1, S, 1), _NEG_INF)
-
-        if self.prior_given_at_test and target_tags is not None:
-            given = target_tags[:, : self.given_prior_len].bool().any(dim=1)  # [B, C]
-            keep_only(given[:, :, None])
-        if item_tags is not None:
-            keep_only(item_tags.bool().t()[None])                          # [1, C, I]
-        if self.prior_switch is not None and self.use_prior_switch_test \
-                and switch_pred is not None:
-            if self.master_switch:
-                first = switch_pred[:, :1]
-                on = torch.cat([~first, first.repeat(1, C - 1)], dim=1)  # [B, C]
-            else:
-                on = switch_pred
-            keep_only(on[:, :, None])
-        return scores
 
     def compute_item_all(self):
         """Normalized full item-embedding matrix (reference hstu.py:1018-1021)."""

@@ -1,0 +1,284 @@
+"""Decoder backbone for the Llama family (llama / TinyLlama / mistral / qwen2
+/ baichuan-7B topology), port of ``mhrec_tpu/models/llm/llama.py``: RMSNorm
+→ GQA attention with RoPE → SwiGLU MLP, pre-norm residuals, final RMSNorm.
+
+Parameters are float32; the layers compute in ``dtype`` (bfloat16 by
+default), as flax's ``Dense(dtype=...)`` does. Item texts run either as a
+dense padded ``[N, T]`` batch whose mask removes pad keys, or packed
+(``segment_ids`` given): items concatenated into chunk rows, attention
+causal within each segment through ``packed_attention`` — the hand-written
+CUDA kernel on the card. The learnable item-embedding token is scattered
+into each item's trailing slot (reference ``modeling_llama.py:1220-1228``).
+
+Products stay ``F.linear`` / ``torch.matmul`` (the JAX package leaves them
+to XLA), and the dense padded attention of the user tower is plain PyTorch
+for the same reason. Not ported yet (they raise): the image splice, M-RoPE,
+ALiBi and gradient checkpointing.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from mhrec_tpu_torch.models.llm.config import LLMConfig
+from mhrec_tpu_torch.models.llm.packed import packed_attention
+
+
+class RMSNorm(nn.Module):
+    """Statistics and scale in float32, result cast back to the input type."""
+
+    def __init__(self, dim: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim))
+
+    def forward(self, x):
+        xf = x.float()
+        var = (xf * xf).mean(-1, keepdim=True)
+        xf = xf * torch.rsqrt(var + self.eps)
+        return (xf * self.weight.float()).to(x.dtype)
+
+
+def rope_parameters(c, head_dim: int, seq_len: int | None = None):
+    """(inv_freq [head_dim//2] float32 numpy, attention_scaling) for the
+    configured RoPE scaling variant — semantics of the reference's vendored
+    HF ``modeling_rope_utils.py`` (``_compute_{linear,dynamic_ntk,yarn}_
+    parameters``), copied from the JAX package."""
+    base = c.rope_theta
+    d = head_dim
+    exp = np.arange(0, d, 2, dtype=np.float32) / d
+    t = c.rope_scaling_type
+    if t is None:
+        return 1.0 / (base ** exp), 1.0
+    f = c.rope_scaling_factor
+    if t == "linear":
+        return 1.0 / (base ** exp) / f, 1.0
+    if t == "dynamic":
+        # NTK: HF uses max_position_embeddings as the window and clamps
+        # seq_len from below, so at/below the window the frequencies are
+        # unscaled; the backbone passes its T
+        orig = c.max_position_embeddings
+        L = max(seq_len or orig, orig)
+        base2 = base * ((f * L / orig) - (f - 1)) ** (d / (d - 2))
+        return 1.0 / (base2 ** exp), 1.0
+    orig = c.rope_orig_max_pos or c.max_position_embeddings
+    if t == "yarn":
+        pos_freqs = base ** exp
+        inv_extrapolation = 1.0 / pos_freqs
+        inv_interpolation = 1.0 / (f * pos_freqs)
+
+        def corr_dim(n_rot):
+            return (d * math.log(orig / (n_rot * 2 * math.pi))) / (2 * math.log(base))
+
+        low = max(math.floor(corr_dim(c.rope_beta_fast)), 0)
+        high = min(math.ceil(corr_dim(c.rope_beta_slow)), d - 1)
+        if low == high:
+            high += 0.001  # HF's divide-by-zero guard
+        ramp = (np.arange(d // 2, dtype=np.float32) - low) / (high - low)
+        extrapolation_factor = 1.0 - np.clip(ramp, 0.0, 1.0)
+        inv = (inv_interpolation * (1.0 - extrapolation_factor)
+               + inv_extrapolation * extrapolation_factor)
+        att = c.rope_attention_factor
+        if att is None:
+            att = 0.1 * math.log(f) + 1.0 if f > 1.0 else 1.0
+        return inv.astype(np.float32), float(att)
+    raise ValueError(f"unsupported rope_scaling type: {t!r}")
+
+
+def rotary_embedding(positions: torch.Tensor, head_dim: int, config,
+                     seq_len: int | None = None):
+    """cos/sin tables in float32: positions [B, T] → [B, T, head_dim//2]
+    each. ``config`` is an LLMConfig (scaling-aware) or a plain theta."""
+    if isinstance(config, (int, float)):
+        inv_freq = 1.0 / (config ** (np.arange(0, head_dim, 2, dtype=np.float32) / head_dim))
+        scale = 1.0
+    else:
+        inv_freq, scale = rope_parameters(config, head_dim, seq_len)
+    inv = torch.from_numpy(np.asarray(inv_freq, dtype=np.float32)).to(positions.device)
+    freqs = positions[..., None].float() * inv
+    return torch.cos(freqs) * scale, torch.sin(freqs) * scale
+
+
+def apply_rope(x, cos, sin):
+    """x: [B, T, H, D]; rotate-half convention (HF Llama), computed in
+    float32 and cast back to x's type."""
+    d2 = x.shape[-1] // 2
+    x1, x2 = x[..., :d2], x[..., d2:]
+    cos = cos[:, :, None, :]
+    sin = sin[:, :, None, :]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def _linear(layer: nn.Linear, x, dtype):
+    """flax ``Dense(dtype=dtype)``: input, kernel and bias cast to dtype."""
+    bias = None if layer.bias is None else layer.bias.to(dtype)
+    return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
+
+
+class LlamaAttention(nn.Module):
+    def __init__(self, config: LLMConfig, dtype=torch.bfloat16):
+        super().__init__()
+        c = self.config = config
+        self.dtype = dtype
+        D, h, hk = c.hidden_size, c.num_attention_heads, c.num_key_value_heads
+        dh = D // h
+        self.q_proj = nn.Linear(D, h * dh, bias=c.attention_bias)
+        self.k_proj = nn.Linear(D, hk * dh, bias=c.attention_bias)
+        self.v_proj = nn.Linear(D, hk * dh, bias=c.attention_bias)
+        self.o_proj = nn.Linear(D, D, bias=False)
+
+    def forward(self, x, mask_bias, cos, sin, segment_ids=None):
+        c = self.config
+        B, T, D = x.shape
+        h, hk = c.num_attention_heads, c.num_key_value_heads
+        dh = D // h
+        q = apply_rope(_linear(self.q_proj, x, self.dtype).view(B, T, h, dh), cos, sin)
+        k = apply_rope(_linear(self.k_proj, x, self.dtype).view(B, T, hk, dh), cos, sin)
+        v = _linear(self.v_proj, x, self.dtype).view(B, T, hk, dh)
+        if segment_ids is not None:
+            # packed varlen batch: causal-within-segment attention (reference
+            # flash_attn_varlen path). A sliding window tighter than the
+            # packed band wins: the band allows i - j <= w, so mistral's
+            # "attend to the last `sw` tokens" is w = sw - 1 (llama.py:219-221)
+            w = c.packed_window or None
+            if c.sliding_window and (w is None or c.sliding_window - 1 < w):
+                w = c.sliding_window - 1
+            if segment_ids.dim() == 2:  # chunked packing [C, chunk]
+                ctx = packed_attention(q, k, v, segment_ids, window=w)
+            else:  # one flat stream [S]
+                ctx = packed_attention(q, k, v, segment_ids[None], window=w)
+            ctx = ctx.reshape(B, T, D)
+        else:
+            if hk != h:
+                k = k.repeat_interleave(h // hk, dim=2)
+                v = v.repeat_interleave(h // hk, dim=2)
+            # scores rounded to the compute type, then divided in float32
+            # (the JAX package divides by an np.float64, which promotes)
+            scores = torch.einsum("bthd,bshd->bhts", q, k).float() / math.sqrt(dh)
+            probs = torch.softmax(scores + mask_bias, dim=-1).to(self.dtype)
+            ctx = torch.einsum("bhts,bshd->bthd", probs, v).reshape(B, T, D)
+        return _linear(self.o_proj, ctx, self.dtype)
+
+
+class LlamaMLP(nn.Module):
+    def __init__(self, config: LLMConfig, dtype=torch.bfloat16):
+        super().__init__()
+        self.dtype = dtype
+        D, I = config.hidden_size, config.intermediate_size
+        self.gate_proj = nn.Linear(D, I, bias=False)
+        self.up_proj = nn.Linear(D, I, bias=False)
+        self.down_proj = nn.Linear(I, D, bias=False)
+
+    def forward(self, x):
+        gate = _linear(self.gate_proj, x, self.dtype)
+        up = _linear(self.up_proj, x, self.dtype)
+        return _linear(self.down_proj, F.silu(gate) * up, self.dtype)
+
+
+class LlamaLayer(nn.Module):
+    def __init__(self, config: LLMConfig, dtype=torch.bfloat16):
+        super().__init__()
+        self.input_layernorm = RMSNorm(config.hidden_size, config.rms_norm_eps)
+        self.self_attn = LlamaAttention(config, dtype)
+        self.post_attention_layernorm = RMSNorm(config.hidden_size, config.rms_norm_eps)
+        self.mlp = LlamaMLP(config, dtype)
+
+    def forward(self, x, mask_bias, cos, sin, segment_ids=None):
+        x = x + self.self_attn(self.input_layernorm(x), mask_bias, cos, sin, segment_ids)
+        return x + self.mlp(self.post_attention_layernorm(x))
+
+
+class LlamaBackbone(nn.Module):
+    """Decoder stack returning the last hidden states [B, T, D]."""
+
+    def __init__(self, config: LLMConfig, dtype=torch.bfloat16,
+                 gradient_checkpointing: bool = False, token_embeddings: bool = True):
+        """``token_embeddings=False`` leaves out the token table of a tower
+        that only ever takes ``inputs_embeds`` (the user tower), as flax
+        creates it only when token ids arrive."""
+        super().__init__()
+        self.config = config
+        self.dtype = dtype
+        self.gradient_checkpointing = gradient_checkpointing
+        if token_embeddings:
+            self.embed_tokens = nn.Embedding(config.vocab_size, config.hidden_size)
+        self.layers = nn.ModuleList(LlamaLayer(config, dtype)
+                                    for _ in range(config.num_hidden_layers))
+        self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps)
+
+    @torch.no_grad()
+    def init_parameters(self, gen: torch.Generator):
+        """flax's initialisers: normal(0.02) kernels and embeddings, zero
+        biases, unit RMSNorm weights."""
+        for m in self.modules():
+            if isinstance(m, (nn.Linear, nn.Embedding)):
+                m.weight.normal_(0.0, 0.02, generator=gen)
+                if getattr(m, "bias", None) is not None:
+                    m.bias.zero_()
+            elif isinstance(m, RMSNorm):
+                m.weight.fill_(1.0)
+
+    def forward(
+        self,
+        input_ids: Optional[torch.Tensor] = None,
+        inputs_embeds: Optional[torch.Tensor] = None,
+        attention_mask: Optional[torch.Tensor] = None,  # [B, T] 1 = keep
+        position_ids: Optional[torch.Tensor] = None,
+        causal: bool = True,
+        emb_tokens: Optional[torch.Tensor] = None,  # [1, n, D] learnable slots
+        emb_pos: Optional[torch.Tensor] = None,     # [B] or flat [N] first slot
+        segment_ids: Optional[torch.Tensor] = None,  # [S] or [C, chunk]: packed
+        image_embeds: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        c = self.config
+        if image_embeds is not None:
+            raise NotImplementedError("the image splice of the item tower is not ported yet")
+        if c.alibi:
+            raise NotImplementedError("ALiBi towers are not ported yet")
+        if self.gradient_checkpointing and torch.is_grad_enabled():
+            raise NotImplementedError("gradient checkpointing is not ported yet")
+        if inputs_embeds is None:
+            inputs_embeds = self.embed_tokens(input_ids)
+        if emb_tokens is not None and emb_pos is not None:
+            # the learnable item-embedding token(s) into each item's trailing
+            # slot(s): slot emb_pos + i takes token i (llama.py:345-373); in
+            # packed modes emb_pos are flat indices into the [B·T] stream
+            B, T, D = inputs_embeds.shape
+            flat = inputs_embeds.reshape(B * T, D).clone()
+            base = emb_pos if segment_ids is not None else (
+                torch.arange(B, device=emb_pos.device) * T + emb_pos)
+            for i in range(emb_tokens.shape[1]):
+                flat[base + i] = emb_tokens[0, i].to(flat.dtype)
+            inputs_embeds = flat.reshape(B, T, D)
+        x = inputs_embeds.to(self.dtype)
+        B, T, _ = x.shape
+        mask_bias = None
+        if segment_ids is None:  # dense padded batch: additive mask
+            if attention_mask is None:
+                attention_mask = torch.ones((B, T), dtype=torch.int32, device=x.device)
+            mask = attention_mask.bool()[:, None, None, :]
+            if causal:
+                idx = torch.arange(T, device=x.device)
+                tri = idx[:, None] >= idx[None, :]
+                if c.sliding_window:
+                    # mistral: token i attends to j ∈ (i - sliding_window, i]
+                    tri = tri & (idx[:, None] - idx[None, :] < c.sliding_window)
+                mask = mask & tri
+            mask_bias = torch.where(mask, 0.0, torch.finfo(torch.float32).min)
+        if position_ids is None:
+            position_ids = torch.arange(T, device=x.device)[None].expand(B, T)
+        if position_ids.dim() == 3:
+            if c.mrope_section:
+                raise NotImplementedError("multimodal RoPE (M-RoPE) is not ported yet")
+            position_ids = position_ids[0]
+        cos, sin = rotary_embedding(position_ids, c.hidden_size // c.num_attention_heads, c,
+                                    seq_len=T)
+        for layer in self.layers:
+            x = layer(x, mask_bias, cos, sin, segment_ids)
+        return self.norm(x)

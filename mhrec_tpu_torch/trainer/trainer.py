@@ -16,15 +16,18 @@ one device).
   seeded from (seed, step), so a resumed run draws what the first run drew;
 * checkpoints (``torch.save``, synchronous): parameters, optimizer state,
   the item table's row moments, step and best score;
-* the evaluation pipeline (trainer.py:698-1152): corpus item embeddings →
-  per-user-batch head embeddings → **streamed** full-corpus cosine scoring
+* the evaluation pipeline (trainer.py:698-1152): corpus item embeddings
+  (the item table of an ID model; for HLLM the item tower over every
+  item's text, dense or packed, trainer.py:953-1054) → per-user-batch head
+  embeddings → **streamed** full-corpus cosine scoring
   with pad-item masking and history suppression, per-head top-k merged over
   item chunks on the card → host collector → metrics → sample-count
   normalization. The item table stays on the card; each chunk's
   ``[B, H, chunk]`` score block is the largest object.
 
 Not ported yet: ``accumulate_grad > 1`` (with ``dedup_touched_rows``),
-``item_table_dtype: bfloat16`` and asynchronous checkpoints.
+``item_table_dtype: bfloat16``, asynchronous checkpoints, HLLM training and
+the host-memory item table of ``host_item_table``.
 """
 
 from __future__ import annotations
@@ -39,8 +42,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from mhrec_tpu_torch.data.textset import BatchTextBatcher
+from mhrec_tpu_torch.data.trainset import _prefetch_iterator
 from mhrec_tpu_torch.evaluator import Collector, Evaluator
 from mhrec_tpu_torch.models.factory import build_model
+from mhrec_tpu_torch.models.layers import cosine_normalize
 from mhrec_tpu_torch.ops import row_adam_cuda
 from mhrec_tpu_torch.trainer.lr_schedule import build_schedule
 from mhrec_tpu_torch.trainer.optim import build_optimizer, clip_grad_norm
@@ -69,13 +75,18 @@ def topk_first(x: torch.Tensor, k: int):
 
 
 class Trainer:
-    def __init__(self, config, dataload, device=None, dtype=torch.bfloat16):
+    def __init__(self, config, dataload, device=None, dtype=None):
         """``device``: None for the card (raises if there is none), or an
-        explicit device such as "cpu". ``dtype``: the trunk's compute type."""
+        explicit device such as "cpu". ``dtype``: the trunk's compute type
+        (None: the model's default, bfloat16 for HSTU and ``precision`` for
+        HLLM)."""
         self.config = config
         self.dataload = dataload
         self.device = resolve_device(device)
-        self.model = build_model(config, dataload, dtype=dtype).to(self.device)
+        # parameters are made on the device: a 1B-parameter tower never
+        # passes through host memory
+        with self.device:
+            self.model = build_model(config, dataload, dtype=dtype).to(self.device)
         self.model.eval()
         self.collector = Collector(config)
         self.evaluator = Evaluator(config)
@@ -84,6 +95,7 @@ class Trainer:
         self.suppress_history = config.get("suppress_history", True)
         self.item_chunk_size = int(config.get("eval_item_chunk_size", 131072))
         self.results_rows: list = []
+        self._corpus_batcher = None  # HLLM: the corpus text batcher, kept across evals
 
         optim_args = dict(config["optim_args"] or {})
         self.learning_rate = float(optim_args.get("learning_rate", 1e-3))
@@ -96,6 +108,10 @@ class Trainer:
         self.valid_metric_bigger = bool(config["valid_metric_bigger"])
         self.debug = bool(config.get("debug", False))
         self.sparse_item_adam = bool(config.get("sparse_item_adam", False))
+        if self.sparse_item_adam and str(config["model"]) == "HLLM":
+            raise ValueError(
+                "sparse_item_adam applies to ID-embedding models — the HLLM item "
+                "tower is an LLM, not an embedding table")
         table_dtype = str(config.get("item_table_dtype") or "float32").lower()
         if table_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"item_table_dtype must be float32|bfloat16, got {table_dtype}")
@@ -140,6 +156,14 @@ class Trainer:
         seed = int(seed if seed is not None else (self.config["seed"] or 0))
         gen = torch.Generator(device=self.device).manual_seed(seed)
         self.model.init_parameters(gen)
+        if str(self.config["model"]) == "HLLM":
+            from mhrec_tpu_torch.models.hllm.hllm import load_pretrained_towers
+
+            if not self.config.get("dummy_llm", False):
+                load_pretrained_towers(self.model, self.config)
+            if self.model.freeze_item_llm and self.config.get("all_item_embeds_path"):
+                table = np.load(self.config["all_item_embeds_path"])
+                self.model.all_item_embeds.copy_(torch.as_tensor(table))
         n_params = sum(p.numel() for p in self.model.parameters())
         logger.info("Trainable parameters: %d", n_params)
         self.optimizer, self.group_schedules, frozen = build_optimizer(
@@ -354,9 +378,36 @@ class Trainer:
     # ------------------------------------------------------------------
     @torch.no_grad()
     def compute_item_feature(self):
-        """Corpus item embeddings: the normalized item table (reference
-        compute_item_feature, ID-model branch)."""
-        return self.model.compute_item_all()
+        """Corpus item embeddings (reference compute_item_feature,
+        trainer.py:731-824). ID models: the normalized item table. Text
+        models: the item tower over the whole corpus in batches of
+        ``MAX_ITEM_LIST_LENGTH · train_batch_size`` items, dense or packed
+        (``packed_corpus_pass``), the last batch padded to that size → the
+        RAW embedding table [item_num, D] float32 (``evaluate`` normalizes a
+        copy for scoring, as the reference's predict does)."""
+        if not getattr(self.model, "needs_item_corpus_pass", False):
+            return self.model.compute_item_all()
+        if self.model.freeze_item_llm:
+            return self.model.all_item_embeds
+        if self._corpus_batcher is None:
+            # kept across evaluations: its cache holds every item's tokens
+            self._corpus_batcher = BatchTextBatcher(self.config, self.dataload)
+
+        def put(x, dtype=torch.long):
+            return torch.as_tensor(np.asarray(x), dtype=dtype).to(self.device, non_blocking=True)
+
+        chunks = []
+        # the host tokenizes and packs the next batch while the card
+        # encodes this one
+        for cb in _prefetch_iterator(self._corpus_batcher.batches(), 2):
+            if "packed_tokens" in cb:
+                emb = self.model.encode_items_packed(
+                    put(cb["packed_tokens"]), put(cb["packed_segment_ids"], torch.int32),
+                    put(cb["packed_positions"]), put(cb["emb_slots"]))
+            else:
+                emb = self.model.compute_item_chunk(put(cb["tokens"]), put(cb["lens"]))
+            chunks.append(emb[: cb["n_real"]])
+        return torch.cat(chunks)
 
     @torch.no_grad()
     def evaluate(self, eval_batcher, load_best_model: bool = False):
@@ -367,12 +418,20 @@ class Trainer:
             if self.collector.register.need(key):
                 raise NotImplementedError(
                     f"metrics needing {key} (GAUC / VALUE / raw scores) are not ported yet")
-        if str(self.config.get("host_item_table", "auto")) in ("True", "true"):
-            raise NotImplementedError("host_item_table is not ported yet")
+        needs_corpus = getattr(self.model, "needs_item_corpus_pass", False)
+        if self._use_host_item_table(needs_corpus):
+            raise NotImplementedError(
+                "host_item_table (the corpus table kept in host memory) is not ported yet")
         if self.config.get("save_for_eval") or self.config.get("log_detailed_results"):
             raise NotImplementedError("save_for_eval / log_detailed_results are not ported yet")
         self.collector.set_logit_scale(self._eval_logit_scale())
         item_feats = self.compute_item_feature()
+        raw_item_table = None
+        if needs_corpus:
+            # text models: the raw table feeds the user tower, a normalized
+            # copy the cosine scoring (trainer.py:1102-1108)
+            raw_item_table = item_feats
+            item_feats = cosine_normalize(item_feats)
         item_tags = None
         if self.dataload.item_tag_matrix is not None:
             item_tags = torch.as_tensor(self.dataload.item_tag_matrix, device=self.device)
@@ -385,7 +444,7 @@ class Trainer:
         switch_correct_sum = None
         n_eval_samples = 0
         for batch, n_real, topk_vals, topk_idx, pe in self._device_topk_results(
-                eval_batcher, item_feats, item_tags, top_k):
+                eval_batcher, item_feats, item_tags, top_k, raw_item_table):
             self.collector.eval_batch_collect(
                 positive_i=batch["item_target"][:n_real],
                 tag_category=batch["target_tags"][:n_real],
@@ -447,6 +506,24 @@ class Trainer:
         return out, switch_accs
 
     # ------------------------------------------------------------------
+    def _use_host_item_table(self, needs_corpus: bool) -> bool:
+        """Whether the corpus table would stay in host memory (JAX
+        trainer.py:1310-1334; config ``host_item_table``: auto | true |
+        false, budget ``item_table_hbm_budget_gb``): never for ID models or a
+        frozen table; under auto, when the raw float32 table exceeds the
+        budget."""
+        mode = self.config.get("host_item_table", "auto")
+        if mode in (False, "false", "False") or not needs_corpus:
+            return False
+        if self.config.get("freeze_item_llm", False):
+            return False
+        if mode in (True, "true", "True"):
+            return True
+        D = getattr(getattr(self.model, "item_config", None), "hidden_size", 0)
+        est_bytes = float(self.dataload.item_num) * max(D, 1) * 4
+        budget = float(self.config.get("item_table_hbm_budget_gb", 4.0) or 4.0)
+        return est_bytes > budget * (1 << 30)
+
     def _eval_device_batch(self, batch):
         """Card-side view of an eval batch: item_seq / target_tags and the
         fixed-size history-suppression buffers (col -1 = padding)."""
@@ -480,12 +557,14 @@ class Trainer:
         done.record()
         return host, done
 
-    def _device_topk_results(self, eval_batcher, item_feats, item_tags, top_k):
-        """Per-batch predict + streamed top-k. One-deep pipelining: batch
-        i's results are copied to the host as soon as its work is enqueued,
-        then batch i+1's work is enqueued, and only then does the host wait
-        for batch i's copies — so the card computes batch i+1 while the
-        collector runs on batch i."""
+    def _device_topk_results(self, eval_batcher, item_feats, item_tags, top_k,
+                             raw_item_table=None):
+        """Per-batch predict + streamed top-k; a text model's user tower
+        reads the raw table ``raw_item_table`` (trainer.py:1426-1427).
+        One-deep pipelining: batch i's results are copied to the host as
+        soon as its work is enqueued, then batch i+1's work is enqueued, and
+        only then does the host wait for batch i's copies — so the card
+        computes batch i+1 while the collector runs on batch i."""
 
         def materialize(p):
             batch, n_real, (host, done) = p
@@ -501,7 +580,11 @@ class Trainer:
             if n_real == 0:
                 continue
             dev = self._eval_device_batch(batch)
-            pe = self.model.predict_embeddings(dev["item_seq"], dev["target_tags"])
+            if raw_item_table is None:
+                pe = self.model.predict_embeddings(dev["item_seq"], dev["target_tags"])
+            else:
+                pe = self.model.predict_embeddings(dev["item_seq"], dev["target_tags"],
+                                                   raw_item_table)
             topk_vals, topk_idx = self._stream_score_topk(pe, item_feats, item_tags, dev, top_k)
             # only the consumer's arrays cross to the host
             out = [topk_vals[:n_real], topk_idx[:n_real]]

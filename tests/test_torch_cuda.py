@@ -190,3 +190,92 @@ def test_backward_kernels_refuse_cpu_and_gpu_mix(card):
     with pytest.raises(ValueError, match="ids"):
         row_adamw(t, t.clone(), t.clone(), torch.zeros(2, dtype=torch.long), torch.zeros(2, 8),
                   1e-3, 0, SparseAdamConfig())
+
+
+def _packed_inputs(C, S, H, Hkv, dh, window, dtype, device, seed=4):
+    """Random q/k/v and segment ids packed as ``pack_items`` packs: runs of
+    1..window+1 tokens from the start of each row, then trailing padding."""
+    gen = torch.Generator().manual_seed(seed)
+    seg = torch.zeros(C, S, dtype=torch.int32)
+    sid = 0
+    for c in range(C):
+        off, fill = 0, int(torch.randint(S // 2, S + 1, (1,), generator=gen))
+        while True:
+            n = int(torch.randint(1, window + 2, (1,), generator=gen))
+            if off + n > fill:
+                break
+            sid += 1
+            seg[c, off:off + n] = sid
+            off += n
+    q = (0.5 * torch.randn(C, S, H, dh, generator=gen)).to(device, dtype)
+    k, v = ((0.5 * torch.randn(C, S, Hkv, dh, generator=gen)).to(device, dtype)
+            for _ in range(2))
+    return q, k, v, seg.to(device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("shape", ["corpus", "tiny"])
+def test_packed_attn_kernel_matches_plain(card, shape, dtype):
+    from mhrec_tpu_torch.models.llm.packed import packed_attention_plain
+    from mhrec_tpu_torch.ops.packed_attention_cuda import packed_attn_fwd
+
+    C, S, H, Hkv, dh, w = {"corpus": (2, 2048, 32, 4, 64, 257),
+                           "tiny": (3, 200, 4, 2, 16, 20)}[shape]
+    q, k, v, seg = _packed_inputs(C, S, H, Hkv, dh, w, dtype, card)
+    before = packed_attn_fwd.launches
+    out = packed_attn_fwd(q, k, v, seg, w)
+    torch.cuda.synchronize()
+    assert packed_attn_fwd.launches == before + 1
+    assert out.dtype == dtype and out.shape == q.shape and bool(torch.isfinite(out).all())
+    ref = packed_attention_plain(q, k, v, seg, w)
+    real = seg > 0
+    _close(out[real], ref[real], dtype)
+    assert not bool(out[~real].any())
+    # no band: the rows' runs alone bound the keys
+    _close(packed_attn_fwd(q, k, v, seg)[real], packed_attention_plain(q, k, v, seg)[real], dtype)
+
+
+def test_packed_attn_kernel_refuses_split_heads(card):
+    from mhrec_tpu_torch.ops.packed_attention_cuda import packed_attn_fwd
+
+    q, k, v, seg = _packed_inputs(1, 64, 4, 2, 16, 8, torch.float32, card)
+    with pytest.raises(ValueError, match="contiguous heads"):
+        packed_attn_fwd(q.transpose(1, 2).contiguous().transpose(1, 2), k, v, seg, 8)
+    with pytest.raises(ValueError, match="segment_ids"):
+        packed_attn_fwd(q, k, v, seg.long(), 8)
+
+
+def test_llama_item_tower_runs_the_packed_kernel(card):
+    """A tiny packed item tower on the card launches the kernel once per
+    layer and agrees with the same tower on the CPU (the plain version)."""
+    import copy
+    import dataclasses
+
+    import numpy as np
+
+    from mhrec_tpu_torch.models.llm.config import LLMConfig
+    from mhrec_tpu_torch.models.llm.llama import LlamaBackbone
+    from mhrec_tpu_torch.models.llm.packed import pack_items
+    from mhrec_tpu_torch.ops.packed_attention_cuda import packed_attn_fwd
+
+    cfg = dataclasses.replace(LLMConfig.tiny(), packed_window=33)
+    cpu = LlamaBackbone(cfg, dtype=torch.float32)
+    cpu.init_parameters(torch.Generator().manual_seed(0))
+    gpu = copy.deepcopy(cpu).to(card)
+    rng = np.random.default_rng(0)
+    lens = rng.integers(1, 33, size=40).astype(np.int32)
+    tokens = np.zeros((40, 33), np.int32)
+    for i, n in enumerate(lens):
+        tokens[i, :n] = rng.integers(2, 1024, size=n)
+    p = pack_items(tokens, lens, chunk=256, chunk_round=1)
+    args = dict(input_ids=torch.from_numpy(p["packed_tokens"]).long(),
+                position_ids=torch.from_numpy(p["packed_positions"]).long(),
+                segment_ids=torch.from_numpy(p["packed_segment_ids"]))
+    before = packed_attn_fwd.launches
+    with torch.no_grad():
+        out = gpu(**{k: v.to(card) for k, v in args.items()})
+        torch.cuda.synchronize()
+        ref = cpu(**args)
+    assert packed_attn_fwd.launches == before + cfg.num_hidden_layers
+    real = args["segment_ids"] > 0
+    _close(out.cpu()[real], ref[real], torch.float32)

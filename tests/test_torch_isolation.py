@@ -1,7 +1,8 @@
 """The port stands alone: ``mhrec_tpu_torch`` and ``chip_smoke.py`` import
 nothing of JAX and nothing of the JAX package, and the serving and training
-paths that ``chip_smoke.py`` drives import neither PyYAML nor pandas nor
-pyarrow (the machine with the card has none of them)."""
+paths that ``chip_smoke.py`` drives (HSTU serving and training, HLLM
+serving) import neither PyYAML nor pandas nor pyarrow (the machine with the
+card has none of them), nor, on the HLLM path, ``transformers``."""
 
 import ast
 import os
@@ -128,6 +129,50 @@ def test_training_path_imports_nothing_it_must_not():
     what it loaded."""
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     proc = subprocess.run([sys.executable, "-c", _TRAIN], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "BAD []" in proc.stdout, proc.stdout
+
+
+_HLLM_SERVE = """
+import json, os, sys, tempfile
+import torch
+import chip_smoke
+from mhrec_tpu_torch.data.synthetic import InMemoryInteractionData
+from mhrec_tpu_torch.run import serve
+
+torch.set_num_threads(2)
+work = tempfile.mkdtemp()
+tower = os.path.join(work, "tower")
+os.makedirs(tower)
+# chip_smoke.py's TinyLlama config.json, cut to LLMConfig.tiny's widths
+with open(os.path.join(tower, "config.json"), "w") as fh:
+    json.dump(dict(chip_smoke.TINYLLAMA_1B, vocab_size=1024, hidden_size=64,
+                   intermediate_size=128, num_hidden_layers=2, num_attention_heads=4,
+                   num_key_value_heads=2), fh)
+cfg = chip_smoke.hllm_config(tower, work)
+for k, v in dict(MAX_TEXT_LENGTH=24, MAX_ITEM_LIST_LENGTH=6, train_batch_size=8,
+                 eval_batch_size=32, pack_chunk=128).items():
+    cfg[k] = v
+data = InMemoryInteractionData(num_users=40, num_items=300, seq_len=2 * 6 + 16,
+                               num_categories=11, eval_pred_len=8, max_item_list_length=6,
+                               item_texts=True, max_filler_words=12)
+trainer, _, result = serve(cfg, data, device="cpu")
+assert "pred_7" in result and "shared" in result
+assert trainer.compute_item_feature().shape == (300, 64)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in {"jax", "jaxlib", "flax", "optax", "mhrec_tpu",
+                                    "yaml", "pandas", "pyarrow", "transformers"})
+print("BAD", bad)
+"""
+
+
+def test_hllm_serving_path_imports_nothing_it_must_not():
+    """Drive a tiny HLLM serve on the CPU in a fresh interpreter (the
+    configuration chip_smoke.py serves, cut to a few widths, with the packed
+    corpus pass) and look at what it loaded."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", _HLLM_SERVE], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "BAD []" in proc.stdout, proc.stdout
