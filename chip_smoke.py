@@ -7,14 +7,14 @@ Builds the port's CUDA kernels from ``mhrec_tpu_torch/csrc`` (one ``nvcc``
 per source, in parallel) and holds each against its plain PyTorch version on
 the card: the forward kernels of the fused STU block and of the pointwise
 attention, their backward kernels, the row-sparse AdamW, and the packed
-segment attention of the HLLM item tower (at the corpus shape: 16 chunk rows
-of 2048 tokens, 32 heads over 4 KV heads of width 64, band 257, segments of
-1-257 tokens and trailing padding; also timed against one
-``scaled_dot_product_attention`` call with the same mask, which the port
-never calls). Then it drives the port's two HSTU paths on the paper's
-headline model — HSTU size4 (1024d, 16 layers, 16 heads, window 50) with
-8-category prior heads, 4 segment heads, additive interaction and the prior
-switch — over 4096 users and a 200,000-item catalog, with random weights
+segment attention of the HLLM item tower, forward (with its log-sum-exp)
+and backward (at the corpus shape: 16 chunk rows of 2048 tokens, 32 heads
+over 4 KV heads of width 64, band 257, segments of 1-257 tokens and
+trailing padding; also timed against ``scaled_dot_product_attention`` with
+the same mask, forward and backward, which the port never calls). Then it
+drives the port's two HSTU paths on the paper's headline model — HSTU
+size4 (1024d, 16 layers, 16 heads, window 50) with 8-category prior heads,
+4 segment heads, additive interaction and the prior switch — over 4096 users and a 200,000-item catalog, with random weights
 from seed 0:
 
 * serving (``run.serve``, what ``run.py --val_only True`` runs): the test
@@ -54,15 +54,34 @@ synthetic texts' keys (title, tag, description) instead of EB-NeRD's,
 the parquet reader (``tag_version``, ``min_seq_len``, ``cluster_as_tag``),
 which the in-memory data does not read.
 
+Then the HLLM training path (``run.train`` with ``model: HLLM``) on the same
+towers, heads and catalog with the script's training flags: learning rate
+1e-4, the weighted prior loss with negatives drawn per category, gradient
+checkpointing, the packed item tower; ``train_batch_size`` 8 with 64
+negatives (8 a sample for each of the 12 pools, as the script's 4096 over
+its global batch of 512), so a step encodes 992 items (about 138k tokens in
+about 72 chunk rows of 2048) and launches ``packed_attn_fwd`` twice per
+item-tower layer (the forward and its recompute) and ``packed_attn_bwd``
+once; 10 steps, an evaluation of the valid split with a best-checkpoint save
+(parameters and AdamW moments, about 24 GB, under a temporary directory),
+and the test split evaluated from that checkpoint. Cuts against the script:
+the batch (it runs 32 a card on 16 cards), the steps (3000), and as above
+the catalog, the weights and the texts' keys. A last pass takes one batch
+of 2 sequences (248 items) through the packed route (the kernels forward and
+backward) and the dense padded route (no kernel): on a float32 model of 2
+layers at TinyLlama's widths, the loss and every gradient; on the trained
+bfloat16 model, the loss.
+
 Prints one JSON object per line: the card's name and power limit, build
 seconds, each kernel phase (error against tolerance; kernel, plain and bound
-times), the serve, impl, train, train-impl, hllm_serve and hllm_impl phases, a
+times), the serve, impl, train, train-impl, hllm_serve, hllm_impl,
+hllm_train and hllm_train_impl phases, the seconds of each phase, a
 ``kernels`` summary, and last ``{"ok": true, "device": {...}}``. Any
 failure exits non-zero without the last line. ``--profile`` adds phases that
-run one evaluation of the test split, five train steps and one HLLM
-evaluation under ``torch.profiler`` and print device time by kernel group
-and the top kernels. float32 products run in full
-float32: TF32 is switched off for matmuls and cuDNN.
+run one evaluation of the test split, five train steps, one HLLM evaluation
+and three HLLM train steps under ``torch.profiler`` and print device time
+by kernel group and the top kernels. float32 products run in full float32:
+TF32 is switched off for matmuls and cuDNN.
 """
 
 from __future__ import annotations
@@ -100,6 +119,10 @@ IMPL_TOL = 5e-2
 F32_GRAD_TOL = 1e-2
 
 TRAIN_STEPS = 30
+
+# the HLLM training phase: sequences a step and steps
+HLLM_TRAIN_BATCH = 8
+HLLM_TRAIN_STEPS = 10
 
 # the HLLM item embeddings of the dense padded and the packed item tower,
 # unit-normalized, max abs difference: in bfloat16 the two routes round at
@@ -264,6 +287,13 @@ KERNELS = {
         name="packed_attn_fwd", source="mhrec_tpu_torch/csrc/packed_attn_fwd.cu",
         replaces="mhrec_tpu/models/llm/packed.py:45",
     ),
+    "packed_bwd": dict(
+        name="packed_attn_bwd", source="mhrec_tpu_torch/csrc/packed_attn_bwd.cu",
+        # _splash_call's backward: _splash_attention_bwd_dq (pallas_call at
+        # jax/experimental/pallas/ops/tpu/splash_attention/
+        # splash_attention_kernel.py:1635) and _splash_attention_bwd_dkv (:2196)
+        replaces="mhrec_tpu/models/llm/packed.py:45",
+    ),
 }
 
 
@@ -407,18 +437,23 @@ def packed_kernel_phase(dtype, seed=0):
     import torch
     import torch.nn.functional as F
 
-    from mhrec_tpu_torch.models.llm.packed import packed_attention_plain
+    from mhrec_tpu_torch.models.llm.packed import packed_attention_plain, packed_lse_plain
     from mhrec_tpu_torch.ops.packed_attention_cuda import packed_attn_fwd
 
     C, S, H, Hkv, dh, w = PACKED_SHAPE
     q, k, v, seg = packed_inputs(C, S, H, Hkv, dh, w, dtype, seed)
-    out = packed_attn_fwd(q, k, v, seg, w)
+    out, lse = packed_attn_fwd(q, k, v, seg, w, return_lse=True)
     torch.cuda.synchronize()
     ref = packed_attention_plain(q, k, v, seg, w)
     real = seg > 0
     dname = str(dtype).replace("torch.", "")
     err, excess = excess_error(out[real], ref[real], dname)
     pads_zero = not bool(out[~real].any())
+    # the log-sum-exp the training path saves: float32 whatever the inputs
+    lse_ref = packed_lse_plain(q, k, seg, w).transpose(1, 2)
+    lse = lse.transpose(1, 2)
+    lse_err, lse_excess = excess_error(lse[real], lse_ref[real], "float32")
+    lse_pads = bool((lse[~real] == -math.inf).all())
     mask = packed_mask(seg, w)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
 
@@ -443,7 +478,94 @@ def packed_kernel_phase(dtype, seed=0):
            "atol": TOL[dname][0], "rtol": TOL[dname][1], "pad_rows_zero": pads_zero,
            "ms": min(k1, k2), "plain_ms": min(p1, p2), "bound_ms": bound, "bound_by": bound_by,
            "library_ms": lib_ms, "library_max_abs_err": lib_err, "library_error": lib_note,
-           "ok": bool(torch.isfinite(out).all()) and excess <= 0 and pads_zero}
+           "lse_max_abs_err": lse_err, "lse_pad_rows_neg_inf": lse_pads,
+           "ok": (bool(torch.isfinite(out).all()) and excess <= 0 and pads_zero
+                  and lse_excess <= 0 and lse_pads)}
+    emit(rec)
+    return rec
+
+
+def packed_bwd_kernel_phase(dtype, seed=0):
+    """``packed_attn_bwd`` against its plain version (torch's autograd of
+    ``packed_attention_plain``) at the corpus shape, for a random cotangent
+    that is zero on padding rows: dq, dk, dv within TOL everywhere, zeros on
+    padding rows (dq) and keys (dk, dv), the same bits on a repeat. The
+    reference is the plain version on the float32 values of the same inputs:
+    the kernel keeps every product and sum in float32 and rounds dq, dk, dv
+    once, while the plain version in bfloat16 also rounds the scores, the
+    probabilities, dP and dS and the GQA sums to bfloat16 (its distance to
+    the kernel is reported beside, per gradient). Times (plain, kernel,
+    kernel, plain): the kernel's call, the plain version's forward and
+    backward in the inputs' type; the library's is the backward alone of
+    ``scaled_dot_product_attention`` with the same mask and ``enable_gqa``
+    (``torch.autograd.grad`` on a kept graph). The bound: q, k, v, the
+    output, its cotangent and lse read once, dq, dk, dv written once,
+    against 10·dh flops per (pair, head) of this run's band (the scores and
+    dP recomputed, dq, dk and dv: 2.5 times the forward's)."""
+    import torch
+    import torch.nn.functional as F
+
+    from mhrec_tpu_torch.models.llm.packed import packed_attn_bwd_plain
+    from mhrec_tpu_torch.ops.packed_attention_cuda import packed_attn_bwd, packed_attn_fwd
+
+    C, S, H, Hkv, dh, w = PACKED_SHAPE
+    q, k, v, seg = packed_inputs(C, S, H, Hkv, dh, w, dtype, seed)
+    real = seg > 0
+    gen = torch.Generator(device=q.device).manual_seed(seed + 1)
+    dout = (torch.randn(q.shape, generator=gen, device=q.device)
+            * real[..., None, None]).to(dtype)
+    out, lse = packed_attn_fwd(q, k, v, seg, w, return_lse=True)
+    grads = packed_attn_bwd(q, k, v, out, dout, lse, seg, w)
+    again = packed_attn_bwd(q, k, v, out, dout, lse, seg, w)
+    torch.cuda.synchronize()
+    repeat_equal = all(bool(torch.equal(a, b)) for a, b in zip(grads, again))
+    del again
+    dname = str(dtype).replace("torch.", "")
+    ref = packed_attn_bwd_plain(*(x.float() for x in (q, k, v, dout)), seg, w)
+    err, excess = excess_error(grads, ref, dname)
+    per_grad = {n: excess_error(g, r, dname) for n, g, r in zip(("dq", "dk", "dv"), grads, ref)}
+    del ref
+    if dtype != torch.float32:
+        same = packed_attn_bwd_plain(q, k, v, dout, seg, w)
+        for n, g, r in zip(("dq", "dk", "dv"), grads, same):
+            per_grad[n] += excess_error(g, r, dname)
+        del same
+    zeros = not any(bool(g[~real].any()) for g in grads)
+    finite = all(bool(torch.isfinite(g).all()) for g in grads)
+
+    def kernel():
+        return packed_attn_bwd(q, k, v, out, dout, lse, seg, w)
+
+    def plain():
+        return packed_attn_bwd_plain(q, k, v, dout, seg, w)
+
+    p1, k1, k2, p2 = (cuda_ms(f, iters=5, warmup=1) for f in (plain, kernel, kernel, plain))
+    lib_ms = lib_note = None
+    try:  # a yardstick only: the port never calls it
+        with torch.enable_grad():
+            leaves = [x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v)]
+            lib_out = F.scaled_dot_product_attention(*leaves, attn_mask=packed_mask(seg, w),
+                                                     enable_gqa=True)
+            g = dout.transpose(1, 2)
+            lib_ms = cuda_ms(lambda: torch.autograd.grad(lib_out, leaves, g, retain_graph=True),
+                             iters=5, warmup=1)
+            del lib_out, leaves
+    except RuntimeError as exc:
+        lib_note = str(exc)[:300]
+    pairs = packed_pairs(seg, w)
+    nbytes = _nbytes(q, k, v, out, dout, lse, seg, *grads)
+    bound, bound_by = _bound(nbytes, 10 * dh * H * pairs, PEAK_FLOPS[dname])
+    rec = {"phase": "kernel", "kernel": "packed_attn_bwd", "shape": "corpus", "C": C, "S": S,
+           "H": H, "Hkv": Hkv, "dh": dh, "window": w, "dtype": dname,
+           "real_tokens": int(real.sum()), "pairs": pairs, "max_abs_err": err,
+           "atol": TOL[dname][0], "rtol": TOL[dname][1],
+           # per gradient: (max abs error, excess over TOL) against the
+           # float32 reference, then against the plain version in bfloat16
+           "per_grad_err": per_grad, "pad_rows_and_keys_zero": zeros,
+           "repeat_bit_equal": repeat_equal, "ms": min(k1, k2), "plain_ms": min(p1, p2),
+           "bound_ms": bound, "bound_by": bound_by, "library_ms": lib_ms,
+           "library_error": lib_note,
+           "ok": finite and excess <= 0 and zeros and repeat_equal}
     emit(rec)
     return rec
 
@@ -516,11 +638,11 @@ def check_streamed_topk(trainer, batch, n_users=16):
 
 def kernel_wrappers():
     from mhrec_tpu_torch.ops import hstu_attention_cuda as K
-    from mhrec_tpu_torch.ops.packed_attention_cuda import packed_attn_fwd
+    from mhrec_tpu_torch.ops.packed_attention_cuda import packed_attn_bwd, packed_attn_fwd
     from mhrec_tpu_torch.ops.row_adam_cuda import row_adamw
 
     return (K.hstu_stu_gated_fwd, K.hstu_attn_fwd, K.hstu_stu_gated_bwd, K.hstu_attn_bwd,
-            row_adamw, packed_attn_fwd)
+            row_adamw, packed_attn_fwd, packed_attn_bwd)
 
 
 def reset_launches():
@@ -752,33 +874,50 @@ def train_impl_phase(trainer, data):
     return pallas_launches, ok_all
 
 
-def hllm_config(pretrain_dir, work_dir):
+def hllm_config(pretrain_dir, work_dir, **over):
     """reproduce/HLLM-EBNerd-prior.sh's flags that serving reads: TinyLlama
     towers from ``pretrain_dir`` (a ``config.json`` alone: random weights
     from ``seed``), 11 prior heads × 2 segment heads, hierarchical, segment
     embeddings, the packed item tower and the packed corpus pass;
     ``train_batch_size`` 128 sets the corpus batch to 24 · 128 = 3,072
     items. The token cache and the (absent) checkpoint live under
-    ``work_dir``."""
+    ``work_dir``; ``over`` overrides any key."""
     from mhrec_tpu_torch.config import Config
 
     C = 11
     return Config(
         config_file_list=["overall/LLM.yaml", "HLLM/HLLM.yaml"],
         config_dict=dict(
-            dataset="synthetic", seed=0, data_path=work_dir,
-            checkpoint_dir=os.path.join(work_dir, "ckpt"),
-            item_pretrain_dir=pretrain_dir, user_pretrain_dir=pretrain_dir,
-            MAX_TEXT_LENGTH=256, gradient_checkpointing=True, MAX_ITEM_LIST_LENGTH=24,
-            loss="prior", train_batch_size=128, suppress_history=False,
-            medusa_num_layers=1, num_segment_head=2, num_prior_head=C,
-            head_interaction="hierarchical", split_mode="combine", use_image=False,
-            pred_len=4, eval_pred_len=8, medusa_lambda=0.99, eval_num_cats=C,
-            weighted_prior_loss=True, outlier_user_metrics="category", segment_embed=True,
-            eval_by_cat=False, packed_item_tower=True, packed_corpus_pass=True,
-            val_only=True,
-            int_to_category={i: f"cat_{i}" for i in range(C)}),
+            dict(dataset="synthetic", seed=0, data_path=work_dir,
+                 checkpoint_dir=os.path.join(work_dir, "ckpt"),
+                 item_pretrain_dir=pretrain_dir, user_pretrain_dir=pretrain_dir,
+                 MAX_TEXT_LENGTH=256, gradient_checkpointing=True, MAX_ITEM_LIST_LENGTH=24,
+                 loss="prior", train_batch_size=128, suppress_history=False,
+                 medusa_num_layers=1, num_segment_head=2, num_prior_head=C,
+                 head_interaction="hierarchical", split_mode="combine", use_image=False,
+                 pred_len=4, eval_pred_len=8, medusa_lambda=0.99, eval_num_cats=C,
+                 weighted_prior_loss=True, outlier_user_metrics="category", segment_embed=True,
+                 eval_by_cat=False, packed_item_tower=True, packed_corpus_pass=True,
+                 val_only=True,
+                 int_to_category={i: f"cat_{i}" for i in range(C)}),
+            **over),
     ).finalize()
+
+
+def hllm_train_config(pretrain_dir, work_dir, **over):
+    """The script's training flags on ``hllm_config``'s model: learning rate
+    1e-4 (weight decay 0.01, cosine schedule, LLM.yaml), gradient
+    checkpointing, the weighted prior loss with negatives drawn per
+    category, the packed item tower; cut to ``train_batch_size``
+    HLLM_TRAIN_BATCH (the script: 32 a card on 16 cards) with 64 negatives,
+    which keeps its 8 negatives a sample for each of the 12 pools (4096 over
+    its global batch of 512), and HLLM_TRAIN_STEPS steps (3000) with one
+    evaluation at the end; every step's loss is fetched."""
+    return hllm_config(pretrain_dir, work_dir, **dict(
+        dict(val_only=False, train_batch_size=HLLM_TRAIN_BATCH, num_negatives=64,
+             neg_sample_by_cat=True, optim_args={"learning_rate": 1e-4, "weight_decay": 0.01},
+             total_iters=HLLM_TRAIN_STEPS, eval_interval=HLLM_TRAIN_STEPS, update_interval=1),
+        **over))
 
 
 def hllm_serve_phase(config, data):
@@ -903,13 +1042,163 @@ def hllm_impl_phase(trainer, data):
     return ok_all
 
 
+def hllm_train_phase(config, data):
+    """The HLLM training path: ``run.train`` (fit with one evaluation of the
+    valid split and a best-checkpoint save, then the test split evaluated
+    from that checkpoint) with the launch counts set to 0 just before and
+    read just after. Per step, ``packed_attn_fwd`` must run twice per
+    item-tower layer (the forward and its recompute under gradient
+    checkpointing) and ``packed_attn_bwd`` once; each evaluation's corpus
+    pass adds one forward launch per layer per corpus batch; no other
+    kernel runs. Every step's loss must be finite. The items and tokens a
+    step are counted on the fit's batches, made again from the seeded
+    stream."""
+    import torch
+
+    from mhrec_tpu_torch.data import build_dataloader
+    from mhrec_tpu_torch.run import train
+
+    free_gb = shutil.disk_usage(os.path.dirname(config["checkpoint_dir"])).free / 2**30
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer, stats, result = train(config, data)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    layers = trainer.model.item_config.num_hidden_layers
+    steps = stats["iters"]
+    # the valid and the test evaluation each encode the whole catalog
+    corpus_batches = 2 * math.ceil(data.item_num / trainer._corpus_batcher.batch_size)
+    per_step = {"packed_attn_fwd": (launches["packed_attn_fwd"] - layers * corpus_batches)
+                / max(steps, 1),
+                "packed_attn_bwd": launches["packed_attn_bwd"] / max(steps, 1)}
+    others = sum(n for k, n in launches.items() if k not in per_step)
+    stream = build_dataloader(config, data)[0].epoch_batches(0)
+    batches = [next(stream) for _ in range(steps)]
+    items = sum(len(b["emb_slots"]) for b in batches) / steps
+    tokens = sum(int((b["packed_segment_ids"] > 0).sum()) for b in batches) / steps
+    rows = [int(b["packed_tokens"].shape[0]) for b in batches]
+    del batches
+    step_s = config["train_batch_size"] / stats["steady_examples_per_s"]
+    losses = [loss for _, loss in trainer.fetched_losses]
+    values = [v for sec in result.values() for v in sec.values()]
+    ckpt = trainer.checkpoint_stats
+    ok = (steps == HLLM_TRAIN_STEPS and len(losses) == steps
+          and all(math.isfinite(x) for x in losses) and int(trainer.nan_step) < 0
+          and per_step == {"packed_attn_fwd": 2 * layers, "packed_attn_bwd": layers}
+          and others == 0 and os.path.isfile(trainer.checkpoint_path())
+          and "load_s" in ckpt and all(math.isfinite(v) for v in values)
+          and "pred_7" in result)
+    emit({"phase": "hllm_train", "steps": steps, "batch": config["train_batch_size"],
+          "num_negatives": config["num_negatives"], "items": int(data.item_num),
+          "seconds": seconds, "fit_wall_s": stats["wall_s"], "fit_eval_s": stats["eval_s"],
+          "steady_examples_per_s": stats["steady_examples_per_s"],
+          "examples_per_s": stats["examples_per_s"], "steady_step_s": step_s,
+          "items_per_step": items, "tokens_per_step": tokens, "chunk_rows_per_step": rows,
+          "item_tower_items_per_s": items / step_s, "item_tower_tokens_per_s": tokens / step_s,
+          "losses": losses, "nan_step": int(trainer.nan_step), "peak_mem_gb": peak_gb,
+          "launches": launches, "launches_per_step": per_step,
+          "corpus_batches": corpus_batches, "checkpoint": ckpt,
+          "disk_free_gb_before": free_gb, "metrics": result, "ok": bool(ok)})
+    return trainer, launches, ok
+
+
+def hllm_loss_and_grads(trainer, batch, packed: bool, grads: bool = True):
+    """One train batch's loss (and every gradient) through the packed item
+    tower (``packed`` True: the batch holds packed keys) or the dense padded
+    one, without an optimizer step, with that pass's launches."""
+    import torch
+
+    model = trainer.model
+    model.packed_item_tower = packed
+    model.train()
+    dev = trainer._train_device_batch(batch)
+    for p in model.parameters():
+        p.grad = None
+    reset_launches()
+    with torch.set_grad_enabled(grads):
+        out = model(dev, generator=trainer.step_generator(0))
+        if grads:
+            out["loss"].backward()
+    torch.cuda.synchronize()
+    launches = read_launches()
+    got = {n: p.grad.detach().clone() for n, p in model.named_parameters() if p.grad is not None}
+    for p in model.parameters():
+        p.grad = None
+    return float(out["loss"].detach()), got, launches
+
+
+def hllm_train_impl_phase(trainer, data, work_dir):
+    """One train batch of 2 sequences (248 items) through the packed item
+    tower (the kernels forward and backward) and the dense padded one (no
+    kernel): on a float32 HLLM of 2 layers at TinyLlama's widths (random
+    weights from seed 0), the loss and every gradient to a relative L2
+    error of F32_GRAD_TOL, and the launches of each route (packed: 2 + 2
+    forward with the recompute, 2 backward; dense: none); on the trained
+    bfloat16 model the loss alone, to IMPL_TOL."""
+    import torch
+
+    from mhrec_tpu_torch.data import build_dataloader
+    from mhrec_tpu_torch.trainer import Trainer
+
+    narrow_dir = os.path.join(work_dir, "tinyllama_2l")
+    os.makedirs(narrow_dir, exist_ok=True)
+    with open(os.path.join(narrow_dir, "config.json"), "w") as fh:
+        json.dump(dict(TINYLLAMA_1B, num_hidden_layers=2), fh)
+    pretrain_dir = trainer.config["item_pretrain_dir"]
+    batches = {}
+    for packed in (True, False):
+        # 2 sequences of 28 items and 8 negatives a sample for each of the
+        # 12 pools: 248 items
+        cfg = hllm_train_config(pretrain_dir, work_dir, train_batch_size=2, num_negatives=16,
+                                packed_item_tower=packed)
+        batches[packed] = next(build_dataloader(cfg, data)[0].epoch_batches(5))
+    same_items = all((batches[True][k] == batches[False][k]).all()
+                     for k in ("items", "neg_items"))
+    n_items = len(batches[True]["emb_slots"])
+    recs, ok_all = {}, same_items
+    loss_bf16 = {p: hllm_loss_and_grads(trainer, batches[p], p, grads=False) for p in batches}
+    trainer.model.packed_item_tower = True
+    rel = abs(loss_bf16[True][0] - loss_bf16[False][0]) / abs(loss_bf16[False][0])
+    ok = rel <= IMPL_TOL and loss_bf16[False][2]["packed_attn_fwd"] == 0
+    ok_all &= ok
+    recs["bfloat16"] = {"layers": trainer.model.item_config.num_hidden_layers,
+                        "loss_packed": loss_bf16[True][0], "loss_dense": loss_bf16[False][0],
+                        "loss_rel_diff": rel, "tolerance": IMPL_TOL, "ok": bool(ok)}
+    f32 = Trainer(hllm_train_config(narrow_dir, work_dir, train_batch_size=2, num_negatives=16),
+                  data, dtype=torch.float32)
+    f32.setup_model()
+    (lp, gp, launch_p), (ld, gd, launch_d) = (hllm_loss_and_grads(f32, batches[p], p)
+                                              for p in (True, False))
+    rel = abs(lp - ld) / abs(ld)
+    grad_rel, cos = _grad_agreement(gp, gd)
+    want = {k: 0 for k in launch_p}
+    ok = (rel <= F32_GRAD_TOL and grad_rel <= F32_GRAD_TOL and set(gp) == set(gd)
+          and launch_p == dict(want, packed_attn_fwd=4, packed_attn_bwd=2) and launch_d == want
+          and math.isfinite(lp))
+    ok_all &= ok
+    recs["float32"] = {"layers": 2, "loss_packed": lp, "loss_dense": ld, "loss_rel_diff": rel,
+                       "grad_max_rel_l2": grad_rel, "grad_cosine": cos, "grads": len(gp),
+                       "packed_launches": launch_p, "dense_launches": launch_d,
+                       "tolerance": F32_GRAD_TOL, "ok": bool(ok)}
+    del f32
+    emit({"phase": "hllm_train_impl", "items": n_items, "same_items": bool(same_items), **recs,
+          "ok": bool(ok_all)})
+    return ok_all
+
+
 # the profile phases' groups of device kernels, by name (first match wins)
 PROFILE_GROUPS = (
+    ("packed_attn_bwd", "packed_attn_bwd"),
     ("packed_attn_fwd", "packed_attn"),
     ("hstu_stu_gated_fwd", "stu_gated_fwd"),
     ("hstu_stu_gated_bwd", "stu_gated_bwd|attn_bwd"),
     ("hstu_attn_fwd", "attn_fwd_kernel"),
     ("row_adamw", "row_adamw"),
+    ("adamw", "[Aa]dam|multi_tensor"),
     ("matmul", "gemm|nvjet|xmma|cutlass"),
     ("topk_and_sort", "topk|sort|radix"),
     ("copy_to_host", "Memcpy DtoH"),
@@ -952,7 +1241,8 @@ def profile_phase(name, fn, top: int = 40):
           "device_events": sum(r["count"] for r in rows), "top": rows[:top]})
 
 
-def profile_train_steps(trainer, data, n=5):
+def profile_train_steps(trainer, data, n=5, name="train"):
+    """``n`` train steps under the profiler, after one warm step."""
     import torch
 
     from mhrec_tpu_torch.data import build_dataloader
@@ -966,7 +1256,7 @@ def profile_train_steps(trainer, data, n=5):
         for b in batches[1:]:
             trainer.train_step(b)
 
-    profile_phase("train", run)
+    profile_phase(name, run)
 
 
 def main(argv=None) -> int:
@@ -999,6 +1289,8 @@ def main(argv=None) -> int:
 
     failed = []
     kernel_recs = {}
+    seconds = {}  # wall seconds of each phase
+    t0 = time.perf_counter()
     shapes = {"size4": (64, 50, 16, 64), "merrec": (32, 400, 8, 64)}
     with torch.no_grad():
         for kind in ("stu", "attn", "stu_bwd", "attn_bwd"):
@@ -1020,11 +1312,17 @@ def main(argv=None) -> int:
         if not kernel_recs["row_adamw"]["ok"]:
             failed.append("row_adamw")
         for dtype in (torch.float32, torch.bfloat16):
-            # the corpus pass runs the towers in bfloat16
+            # the corpus pass and the item tower's training run in bfloat16
             rec = kernel_recs["packed"] = packed_kernel_phase(dtype)
             if not rec["ok"]:
                 failed.append(f"packed/{dtype}")
+            rec = kernel_recs["packed_bwd"] = packed_bwd_kernel_phase(dtype)
+            if not rec["ok"]:
+                failed.append(f"packed_bwd/{dtype}")
+    torch.cuda.empty_cache()
+    seconds["kernels"] = time.perf_counter() - t0
 
+    t0 = time.perf_counter()
     data = InMemoryInteractionData(
         num_users=4096, num_items=200_000, seq_len=2 * 50 + 2 * 8, num_categories=8,
         eval_pred_len=8, max_item_list_length=50, seed=0,
@@ -1042,7 +1340,9 @@ def main(argv=None) -> int:
         profile_phase("serve", lambda: trainer.evaluate(test_loader))
     del trainer
     torch.cuda.empty_cache()
+    seconds["serve"] = time.perf_counter() - t0
 
+    t0 = time.perf_counter()
     ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     try:
         trainer, train_launches, ok = train_phase(data, ckpt_dir)
@@ -1057,35 +1357,53 @@ def main(argv=None) -> int:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
     del trainer, data
     torch.cuda.empty_cache()
+    seconds["train"] = time.perf_counter() - t0
 
+    t0 = time.perf_counter()
     work_dir = tempfile.mkdtemp(prefix="chip_smoke_hllm_")
     try:
         pretrain_dir = os.path.join(work_dir, "tinyllama")
         os.makedirs(pretrain_dir)
         with open(os.path.join(pretrain_dir, "config.json"), "w") as fh:
             json.dump(TINYLLAMA_1B, fh)
-        config = hllm_config(pretrain_dir, work_dir)
         data = InMemoryInteractionData(
             num_users=4096, num_items=16_384, seq_len=2 * 24 + 2 * 8, num_categories=11,
             eval_pred_len=8, max_item_list_length=24, seed=0, item_texts=True,
         )
-        trainer, test_loader, hllm_launches, ok = hllm_serve_phase(config, data)
+        trainer, test_loader, hllm_launches, ok = hllm_serve_phase(
+            hllm_config(pretrain_dir, work_dir), data)
         if not ok:
             failed.append("hllm_serve")
         if "--profile" in args:
             profile_phase("hllm_serve", lambda: trainer.evaluate(test_loader))
         if not hllm_impl_phase(trainer, data):
             failed.append("hllm_impl")
+        del trainer, test_loader
+        torch.cuda.empty_cache()
+        seconds["hllm_serve"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        trainer, hllm_train_launches, ok = hllm_train_phase(
+            hllm_train_config(pretrain_dir, work_dir), data)
+        if not ok:
+            failed.append("hllm_train")
+        if not hllm_train_impl_phase(trainer, data, work_dir):
+            failed.append("hllm_train_impl")
+        if "--profile" in args:
+            profile_train_steps(trainer, data, n=3, name="hllm_train")
         del trainer
+        seconds["hllm_train"] = time.perf_counter() - t0
     finally:
         shutil.rmtree(work_dir, ignore_errors=True)
+    emit({"phase_seconds": seconds})
 
     launches = {"stu": serve_launches["hstu_stu_gated_fwd"],
                 "attn": pallas_launches["hstu_attn_fwd"],
                 "stu_bwd": train_launches["hstu_stu_gated_bwd"],
                 "attn_bwd": impl_train_launches["hstu_attn_bwd"],
                 "row_adamw": train_launches["row_adamw"],
-                "packed": hllm_launches["packed_attn_fwd"]}
+                "packed": hllm_launches["packed_attn_fwd"],
+                "packed_bwd": hllm_train_launches["packed_attn_bwd"]}
     emit({"kernels": [
         dict(KERNELS[kind], route="cuda", launches=launches[kind],
              max_abs_err=kernel_recs[kind]["max_abs_err"], ms=kernel_recs[kind]["ms"],

@@ -5,7 +5,10 @@
 // for q [C, S, H, dh] and k, v [C, S, Hkv, dh] (float32 or bfloat16), segment
 // ids [C, S] int32 (0 = padding). Softmax statistics and sums are float32;
 // the output is [C, S, H, dh] in the input type. Rows of segment 0 are
-// written as zeros.
+// written as zeros. When asked (training), the kernel also writes each row's
+// float32 log-sum-exp of its scaled scores, lse [C, H, S] (-inf on rows of
+// segment 0): the residual splash's forward saves under its custom_vjp
+// (save_residuals), which the backward (packed_attn_bwd.cu) reads.
 //
 // Replaces the TPU kernel reached by _splash_call
 // (mhrec_tpu/models/llm/packed.py:45, JAX's splash attention with
@@ -30,30 +33,9 @@
 // value tiles of TK rows stream through shared memory in float32, and an
 // online softmax (running max and sum per row, in registers) folds each tile
 // into TQ·dh accumulators, 16 a thread. Tensor cores and TMA are later work.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cmath>
+#include "packed_attn_common.cuh"
 
 namespace packed {
-
-constexpr int TQ = 64;             // query rows per block
-constexpr int TK = 64;             // key rows per shared-memory tile
-constexpr int NT = 256;            // threads per block, a 16 x 16 grid
-constexpr int RQ = TQ / 16;        // query rows per thread
-constexpr int RK = TK / 16;        // score columns per thread
-
-template <typename T> __device__ __forceinline__ float to_f(T x);
-template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
-    return __bfloat162float(x);
-}
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-    return __float2bfloat16(x);  // round to nearest even, as torch's .to(bfloat16)
-}
 
 __host__ __device__ constexpr int smem_floats(int dh) {
     return TQ * (dh + 1) + TK * (dh + 1) + TK * dh + TQ * (TK + 1);
@@ -67,7 +49,7 @@ template <typename T, int DH>
 __global__ void __launch_bounds__(NT)
 packed_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, const int* __restrict__ seg,
-                       T* __restrict__ out, int S, int H, int Hkv,
+                       T* __restrict__ out, float* __restrict__ lse, int S, int H, int Hkv,
                        long long sqc, long long sqs, long long skc, long long sks,
                        long long svc, long long svs, int window, float scale) {
     constexpr int LD = DH + 1;
@@ -94,9 +76,11 @@ packed_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int my_seg = tid < qn ? segc[q0 + tid] : 0;  // NT >= TQ
     if (tid < TQ) qseg[tid] = my_seg;
     T* ob = out + ((long long)c * S * H + h) * DH;
+    float* lb = lse == nullptr ? nullptr : lse + ((long long)c * H + h) * S + q0;
     if (!__syncthreads_or(my_seg > 0)) {  // a tile of padding rows: zeros
         for (int e = tid; e < qn * DH; e += NT)
             ob[(long long)(q0 + e / DH) * H * DH + e % DH] = from_f<T>(0.f);
+        if (lb != nullptr && tid < qn) lb[tid] = -INFINITY;
         return;
     }
     for (int e = tid; e < TQ * DH; e += NT) {
@@ -177,9 +161,7 @@ packed_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 sp[i * (TK + 1) + tx + 16 * j] = p;
                 psum += p;
             }
-#pragma unroll
-            for (int o = 8; o > 0; o >>= 1) psum += __shfl_xor_sync(0xffffffffu, psum, o);
-            l[r] = l[r] * alpha + psum;
+            l[r] = l[r] * alpha + half_warp_sum(psum);
             m[r] = mnew;
 #pragma unroll
             for (int n = 0; n < NJ; ++n) acc[r][n] *= alpha;
@@ -207,12 +189,14 @@ packed_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int n = 0; n < NJ; ++n)
             ob[(long long)(q0 + i) * H * DH + tx + 16 * n] = from_f<T>(acc[r][n] * inv);
+        // every lane of the row's half-warp holds the same m and l
+        if (lb != nullptr && tx == 0) lb[i] = l[r] > 0.f ? m[r] + logf(l[r]) : -INFINITY;
     }
 }
 
 template <typename T, int DH>
 int launch(const void* q, const void* k, const void* v, const int* seg, void* out,
-           int C, int S, int H, int Hkv, long long sqc, long long sqs, long long skc,
+           float* lse, int C, int S, int H, int Hkv, long long sqc, long long sqs, long long skc,
            long long sks, long long svc, long long svs, int window, float scale,
            cudaStream_t stream) {
     const size_t smem = sizeof(float) * (size_t)smem_floats(DH);
@@ -222,23 +206,23 @@ int launch(const void* q, const void* k, const void* v, const int* seg, void* ou
     const dim3 grid((S + TQ - 1) / TQ, H, C);
     packed_attn_fwd_kernel<T, DH><<<grid, NT, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), seg,
-        static_cast<T*>(out), S, H, Hkv, sqc, sqs, skc, sks, svc, svs, window, scale);
+        static_cast<T*>(out), lse, S, H, Hkv, sqc, sqs, skc, sks, svc, svs, window, scale);
     return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch(int dh, const void* q, const void* k, const void* v, const int* seg, void* out,
-             int C, int S, int H, int Hkv, long long sqc, long long sqs, long long skc,
+             float* lse, int C, int S, int H, int Hkv, long long sqc, long long sqs, long long skc,
              long long sks, long long svc, long long svs, int window, float scale,
              cudaStream_t st) {
     switch (dh) {
-        case 16: return launch<T, 16>(q, k, v, seg, out, C, S, H, Hkv, sqc, sqs, skc, sks,
+        case 16: return launch<T, 16>(q, k, v, seg, out, lse, C, S, H, Hkv, sqc, sqs, skc, sks,
                                       svc, svs, window, scale, st);
-        case 32: return launch<T, 32>(q, k, v, seg, out, C, S, H, Hkv, sqc, sqs, skc, sks,
+        case 32: return launch<T, 32>(q, k, v, seg, out, lse, C, S, H, Hkv, sqc, sqs, skc, sks,
                                       svc, svs, window, scale, st);
-        case 64: return launch<T, 64>(q, k, v, seg, out, C, S, H, Hkv, sqc, sqs, skc, sks,
+        case 64: return launch<T, 64>(q, k, v, seg, out, lse, C, S, H, Hkv, sqc, sqs, skc, sks,
                                       svc, svs, window, scale, st);
-        case 128: return launch<T, 128>(q, k, v, seg, out, C, S, H, Hkv, sqc, sqs, skc, sks,
+        case 128: return launch<T, 128>(q, k, v, seg, out, lse, C, S, H, Hkv, sqc, sqs, skc, sks,
                                         svc, svs, window, scale, st);
         default: return (int)cudaErrorInvalidValue;
     }
@@ -249,20 +233,21 @@ int dispatch(int dh, const void* q, const void* k, const void* v, const int* seg
 // C interface, loaded with ctypes. q is [C, S, H, dh], k and v [C, S, Hkv, dh],
 // each with its heads contiguous (head stride dh, last stride 1); the strides
 // of the chunk-row and token dimensions are in elements. seg is a contiguous
-// int32 [C, S]; out a contiguous [C, S, H, dh]. window >= 0 bounds i - j (pass
-// S - 1 for none). dtype: 0 = float32, 1 = bfloat16; dh one of 16, 32, 64,
+// int32 [C, S]; out a contiguous [C, S, H, dh]; lse a contiguous float32
+// [C, H, S], or null to skip it. window >= 0 bounds i - j (pass S - 1 for
+// none). dtype: 0 = float32, 1 = bfloat16; dh one of 16, 32, 64,
 // 128. Returns the cudaError_t of the launch (0 = cudaSuccess).
 extern "C" int packed_attn_fwd(
-    const void* q, const void* k, const void* v, const int* seg, void* out,
+    const void* q, const void* k, const void* v, const int* seg, void* out, float* lse,
     int C, int S, int H, int Hkv, int dh,
     long long sqc, long long sqs, long long skc, long long sks, long long svc, long long svs,
     int window, float scale, int dtype, void* stream) {
     auto st = static_cast<cudaStream_t>(stream);
     if (dtype == 1)
-        return packed::dispatch<__nv_bfloat16>(dh, q, k, v, seg, out, C, S, H, Hkv, sqc, sqs,
+        return packed::dispatch<__nv_bfloat16>(dh, q, k, v, seg, out, lse, C, S, H, Hkv, sqc, sqs,
                                                skc, sks, svc, svs, window, scale, st);
     if (dtype == 0)
-        return packed::dispatch<float>(dh, q, k, v, seg, out, C, S, H, Hkv, sqc, sqs, skc, sks,
+        return packed::dispatch<float>(dh, q, k, v, seg, out, lse, C, S, H, Hkv, sqc, sqs, skc, sks,
                                        svc, svs, window, scale, st);
     return (int)cudaErrorInvalidValue;
 }

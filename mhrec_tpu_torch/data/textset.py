@@ -1,5 +1,5 @@
-"""Text batching for the HLLM item tower (port of the serving half of
-``mhrec_tpu/data/textset.py``).
+"""Text batching for the HLLM item tower (port of
+``mhrec_tpu/data/textset.py``, one process).
 
 Each item's text is rendered as ``{item_prompt}Title: .. Tag: ..
 Description: ..`` and tokenized to at most ``MAX_TEXT_LENGTH`` tokens, with
@@ -7,12 +7,17 @@ one trailing slot per learnable item-embedding token. ``BatchTextBatcher``
 walks the whole corpus for the item-embedding pass of an evaluation, as
 dense padded token matrices or, under ``packed_corpus_pass``, packed into
 chunk rows with segment ids (``models/llm/packed.py::pack_items``).
+``TextSEQTrainBatcher`` adds the texts of every item of a training batch
+(positives, then negatives) to ``SEQTrainBatcher``'s batch: dense padded
+matrices, packed chunk rows (``packed_item_tower``) or, under
+``dedup_items``, each distinct item once with the gather back.
 
 The tokenizer is the JAX package's deterministic hashing tokenizer, which
 that package falls back to when ``transformers`` cannot load a tokenizer: the
 machine with the card has no ``transformers``, so a pretrain directory that
 holds tokenizer files raises instead of tokenizing differently. The image
-and video keys and the text train batcher are not ported yet.
+and video keys are not ported yet (they raise), nor the multi-host batch
+layouts of the JAX package.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from typing import Dict, Iterator, Optional
 
 import numpy as np
 
+from mhrec_tpu_torch.data.trainset import SEQTrainBatcher
 from mhrec_tpu_torch.models.llm.packed import pack_items
 
 logger = logging.getLogger(__name__)
@@ -203,6 +209,84 @@ def token_cache_dir(config) -> Optional[str]:
     if config.get("data_path"):
         return os.path.join(str(config["data_path"]), ".token_cache")
     return None
+
+
+class TextSEQTrainBatcher(SEQTrainBatcher):
+    """``SEQTrainBatcher`` + the token matrices of every item occurrence of
+    a batch (JAX ``TextSEQTrainBatcher``, textset.py:425-560, one process).
+    The keys it adds:
+
+    * dense: pos_tokens [B·(L+P), T+n], pos_token_lens, neg_tokens
+      [B·NC·K, T+n], neg_token_lens;
+    * ``packed_item_tower``: the positives then the negatives packed into
+      [C, pack_chunk] chunk rows (packed_tokens, packed_segment_ids,
+      packed_positions, emb_slots, n_pos_items), C never below the largest
+      C so far, so that steady batches keep one shape;
+    * ``dedup_items`` (not packed): each distinct item once, uniq_tokens
+      [U, T+n] with U padded to a multiple of ``dedup_bucket_quantum``,
+      uniq_token_lens and uniq_inverse, when that is fewer rows than the
+      occurrences; else the dense keys.
+
+    None under ``freeze_item_llm``. The token cache is load-only here: the
+    corpus pass writes it."""
+
+    def __init__(self, config, dataload):
+        if config.get("use_image", False) or config.get("use_video", False):
+            raise NotImplementedError("the image and video item keys are not ported yet")
+        super().__init__(config, dataload)
+        self.freeze_item_llm = bool(config.get("freeze_item_llm", False))
+        self.packed_item_tower = bool(config.get("packed_item_tower", False))
+        self.dedup_items = bool(config.get("dedup_items", False))
+        self.dedup_quantum = int(config.get("dedup_bucket_quantum", 256))
+        self.pack_bucket = int(config.get("pack_bucket", 2048))
+        self.pack_chunk = int(config.get("pack_chunk", 2048) or 0)
+        self._chunk_rows_hw = 0
+        self.max_text_length = int(config.get("MAX_TEXT_LENGTH", 64))
+        tokenizer = build_tokenizer(config.get("item_pretrain_dir"),
+                                    config.get("dummy_vocab_size", 1024))
+        self.n_emb = max(int(config.get("item_emb_token_n", 1) or 0), 1)
+        self.text_cache = ItemTextCache(
+            dataload, tokenizer, config["text_keys"], config.get("item_prompt", ""),
+            self.max_text_length, n_emb=self.n_emb,
+        )
+        cache_dir = token_cache_dir(config)
+        if cache_dir is not None:
+            # load-only: the batcher touches items lazily, so it never pays
+            # for tokenizing the corpus, but uses a cache a corpus pass wrote
+            self.text_cache.load_disk_cache(
+                cache_dir, str(config.get("dataset") or "ds"), dataload.item_num)
+
+    def make_batch(self, rng, loc_idx):
+        batch = super().make_batch(rng, loc_idx)
+        if self.freeze_item_llm:
+            return batch
+        if self.dedup_items and not self.packed_item_tower:
+            ids_all = np.concatenate([batch["items"].ravel(), batch["neg_items"].ravel()])
+            uniq, inv = np.unique(ids_all, return_inverse=True)
+            q = self.dedup_quantum
+            bucket = max(q, -(-len(uniq) // q) * q)
+            if bucket < len(ids_all):
+                uniq_p = np.zeros(bucket, dtype=uniq.dtype)
+                uniq_p[: len(uniq)] = uniq
+                batch["uniq_tokens"], batch["uniq_token_lens"] = self.text_cache.batch(uniq_p)
+                batch["uniq_inverse"] = inv.astype(np.int32)
+                return batch
+        pos_tokens, pos_lens = self.text_cache.batch(batch["items"].ravel())
+        neg_tokens, neg_lens = self.text_cache.batch(batch["neg_items"].ravel())
+        if self.packed_item_tower:
+            # one device: chunk_round = 1 (see round_chunk_rows)
+            packed = pack_items(np.concatenate([pos_tokens, neg_tokens]),
+                                np.concatenate([pos_lens, neg_lens]),
+                                bucket=self.pack_bucket, n_emb=self.n_emb, chunk=self.pack_chunk,
+                                chunk_round=1, min_rows=self._chunk_rows_hw)
+            if self.pack_chunk:
+                self._chunk_rows_hw = max(self._chunk_rows_hw, packed["packed_tokens"].shape[0])
+            batch.update(packed)
+            batch["n_pos_items"] = np.asarray(pos_tokens.shape[0], np.int32)
+        else:
+            batch["pos_tokens"], batch["pos_token_lens"] = pos_tokens, pos_lens
+            batch["neg_tokens"], batch["neg_token_lens"] = neg_tokens, neg_lens
+        return batch
 
 
 class BatchTextBatcher:

@@ -1,4 +1,4 @@
-"""HLLM — two-tower LLM recommender, serving half (port of
+"""HLLM — two-tower LLM recommender (port of
 ``mhrec_tpu/models/hllm/hllm.py``).
 
 * the **item tower** encodes each item's text into one embedding: the hidden
@@ -10,10 +10,14 @@
   (``inputs_embeds``) with the user attention mask; its last hidden state
   feeds the same multi-head machinery as HSTU (``MedusaHeads``), and
   ``score_items`` is HSTU's;
-* ``freeze_item_llm`` swaps the item tower for a precomputed table.
+* ``freeze_item_llm`` swaps the item tower for a precomputed table;
+* ``forward`` is the training forward: the items of a batch (positives and
+  negatives) through the item tower — packed, deduplicated or dense, as the
+  text train batcher lays them out — or the frozen table, the positives
+  through the user tower, then ``compute_multihead_losses`` as for HSTU.
 
-Not ported yet (they raise): the training forward (``forward``), the image
-and video towers, BERT towers, and loading pretrained tower weights.
+Not ported yet (they raise): the image and video towers, BERT towers, and
+loading pretrained tower weights.
 """
 
 from __future__ import annotations
@@ -29,11 +33,11 @@ import torch
 import torch.nn as nn
 
 from mhrec_tpu_torch.models.idnet.hstu import MedusaHeads
-from mhrec_tpu_torch.models.layers import LayerNorm
+from mhrec_tpu_torch.models.layers import LayerNorm, cosine_normalize
 from mhrec_tpu_torch.models.llm.config import LLMConfig
 from mhrec_tpu_torch.models.llm.dummy import DummyLLM
 from mhrec_tpu_torch.models.llm.llama import LlamaBackbone
-from mhrec_tpu_torch.models.multihead import predict_switch_and_heads
+from mhrec_tpu_torch.models.multihead import compute_multihead_losses, predict_switch_and_heads
 from mhrec_tpu_torch.utils.enums import InputType
 
 logger = logging.getLogger(__name__)
@@ -58,16 +62,28 @@ class HLLM(MedusaHeads, nn.Module):
         item_num: int = 0,
         item_emb_token_n: int = 1,
         gradient_checkpointing: bool = False,
+        remat_policy: str = "full",
+        nce_impl: str = "banded",
+        prior_loss_impl: str = "loop",
         loss_type: str = "nce",
+        nce_thres: float = 0.99,
         fix_temp: bool = False,
         medusa_lambda: float = 0.99,
         medusa_num_layers: int = 0,
         num_segment_head: int = 1,
         num_prior_head: int = 1,
         head_interaction: str = "multiplicative",
+        neg_sample_by_cat: bool = False,
+        pos_sample_mix_ratio: float = 0.0,
         prior_loss_weight: Tuple[float, ...] = (1.0,),
         prior_switch: Optional[str] = None,
+        prior_switch_loss_weight: float = 0.0,
+        use_asym_switch_loss: bool = False,
+        gamma_pos: float = 4.0,
+        gamma_neg: float = 0.0,
+        switch_last_only: bool = False,
         master_switch: bool = False,
+        detach_aux_in: bool = False,
         eval_pred_len: int = 1,
         prior_given_at_test: bool = False,
         given_prior_len: int = 1,
@@ -89,16 +105,27 @@ class HLLM(MedusaHeads, nn.Module):
         self.packed_item_tower = packed_item_tower
         self.item_num = item_num
         self.item_emb_token_n = item_emb_token_n
+        self.nce_impl = nce_impl
+        self.prior_loss_impl = prior_loss_impl
         self.loss_type = loss_type
+        self.nce_thres = nce_thres
         self.fix_temp = fix_temp
         self.medusa_lambda = medusa_lambda
         self.medusa_num_layers = medusa_num_layers
         self.num_segment_head = num_segment_head
         self.num_prior_head = num_prior_head
         self.head_interaction = head_interaction
+        self.neg_sample_by_cat = neg_sample_by_cat
+        self.pos_sample_mix_ratio = pos_sample_mix_ratio
         self.prior_loss_weight = tuple(prior_loss_weight)
         self.prior_switch = prior_switch
+        self.prior_switch_loss_weight = prior_switch_loss_weight
+        self.use_asym_switch_loss = use_asym_switch_loss
+        self.gamma_pos = gamma_pos
+        self.gamma_neg = gamma_neg
+        self.switch_last_only = switch_last_only
         self.master_switch = master_switch
+        self.detach_aux_in = detach_aux_in
         self.eval_pred_len = eval_pred_len
         self.prior_given_at_test = prior_given_at_test
         self.given_prior_len = given_prior_len
@@ -115,7 +142,7 @@ class HLLM(MedusaHeads, nn.Module):
             # llama / mistral / qwen2 / tinyllama / baichuan share the
             # decoder topology (RMSNorm + RoPE + GQA + SwiGLU)
             return LlamaBackbone(cfg, dtype=dtype, gradient_checkpointing=gradient_checkpointing,
-                                 token_embeddings=token_embeddings)
+                                 token_embeddings=token_embeddings, remat_policy=remat_policy)
 
         if freeze_item_llm:
             # the precomputed table, filled by the trainer from
@@ -196,8 +223,55 @@ class HLLM(MedusaHeads, nn.Module):
         """Corpus-embedding pass chunk (reference compute_item)."""
         return self.encode_items(tokens, lens)
 
-    def forward(self, batch, *args, **kwargs):
-        raise NotImplementedError("HLLM training is not ported yet")
+    def forward(self, batch, generator: Optional[torch.Generator] = None):
+        """Training forward → dict with 'loss' and detached logging scalars
+        (JAX ``HLLM.__call__``, hllm.py:411-493).
+
+        batch: items [B, L+P], neg_items [B, NC, K], masked_index [B, L+P],
+        tag_categories [B, L+P, C] (prior loss), and the items' texts in the
+        text train batcher's layout — packed (packed_tokens,
+        packed_segment_ids, packed_positions [C, chunk] and emb_slots over
+        the B·(L+P) positives, then the B·NC·K negatives), deduplicated
+        (uniq_tokens, uniq_token_lens, uniq_inverse) or dense (pos_tokens,
+        pos_token_lens, neg_tokens, neg_token_lens) — or none of them under
+        ``freeze_item_llm``. ``generator`` draws the positive-mix draws."""
+        user_mask = batch["masked_index"].bool()
+        L = self.max_seq_length
+        B, W = batch["items"].shape
+        if self.freeze_item_llm:
+            table = self.all_item_embeds
+            pos_items_embs = table[batch["items"]]
+
+            def neg_of(col):
+                return table[batch["neg_items"][:, col]]
+        else:
+            if self.packed_item_tower:
+                all_embs = self.encode_items_packed(
+                    batch["packed_tokens"], batch["packed_segment_ids"],
+                    batch["packed_positions"], batch["emb_slots"])
+            elif "uniq_tokens" in batch:
+                # each distinct item encoded once, gathered per occurrence
+                all_embs = self.encode_items(batch["uniq_tokens"],
+                                             batch["uniq_token_lens"])[batch["uniq_inverse"]]
+            else:
+                all_embs = torch.cat([
+                    self.encode_items(batch["pos_tokens"], batch["pos_token_lens"]),
+                    self.encode_items(batch["neg_tokens"], batch["neg_token_lens"])])
+            pos_items_embs = all_embs[:B * W].reshape(B, W, -1)
+            neg_embs = all_embs[B * W:].reshape(B, batch["neg_items"].shape[1], -1,
+                                                 all_embs.shape[-1])
+
+            def neg_of(col):
+                return neg_embs[:, col]
+
+        def neg_norm(col):
+            neg = neg_of(col)
+            return cosine_normalize(neg.float()).reshape(-1, neg.shape[-1])
+
+        user_hidden = self.user_llm(inputs_embeds=pos_items_embs[:, :L].to(self.dtype),
+                                    attention_mask=user_mask[:, :L].int()).float()
+        return compute_multihead_losses(self, user_hidden, pos_items_embs.float(), user_mask,
+                                        batch.get("tag_categories"), neg_norm, generator)
 
     # ------------------------------------------------------------------
     def predict_embeddings(self, item_seq, target_tags=None, item_feature_table=None,
@@ -308,16 +382,28 @@ def hllm_from_config(config, dataload, dtype=None) -> HLLM:
         item_num=dataload.item_num,
         item_emb_token_n=config.get("item_emb_token_n", 1) or 0,
         gradient_checkpointing=bool(config.get("gradient_checkpointing", False)),
+        remat_policy=str(config.get("remat_policy") or "full"),
+        nce_impl=str(config.get("nce_impl") or "banded"),
+        prior_loss_impl=str(config.get("prior_loss_impl") or "loop"),
         loss_type=loss,
+        nce_thres=config["nce_thres"] or 0.99,
         fix_temp=bool(config["fix_temp"]),
         medusa_lambda=config["medusa_lambda"],
         medusa_num_layers=config["medusa_num_layers"] or 0,
         num_segment_head=config["num_segment_head"] or 1,
         num_prior_head=num_prior,
         head_interaction=config["head_interaction"],
+        neg_sample_by_cat=bool(config["neg_sample_by_cat"]) and loss == "prior",
+        pos_sample_mix_ratio=config["pos_sample_mix_ratio"] or 0.0,
         prior_loss_weight=tuple(weights),
         prior_switch=config["prior_switch"],
+        prior_switch_loss_weight=config["prior_switch_loss_weight"] or 0.0,
+        use_asym_switch_loss=config.get("asym_switch_loss", False),
+        gamma_pos=config.get("gamma_pos", 4.0),
+        gamma_neg=config.get("gamma_neg", 0.0),
+        switch_last_only=config.get("switch_last_only", False),
         master_switch=config.get("master_switch", False),
+        detach_aux_in=config.get("detach_aux_in", False),
         eval_pred_len=eval_pred_len,
         prior_given_at_test=prior_given,
         given_prior_len=(config.get("given_prior_len", eval_pred_len)

@@ -12,8 +12,10 @@ into each item's trailing slot (reference ``modeling_llama.py:1220-1228``).
 
 Products stay ``F.linear`` / ``torch.matmul`` (the JAX package leaves them
 to XLA), and the dense padded attention of the user tower is plain PyTorch
-for the same reason. Not ported yet (they raise): the image splice, M-RoPE,
-ALiBi and gradient checkpointing.
+for the same reason. Gradient checkpointing recomputes each layer in the
+backward (``nn.remat`` with the default "full" policy in the JAX package).
+Not ported yet (they raise): the image splice, M-RoPE, ALiBi and the
+``remat_policy: dots`` checkpointing policy.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from mhrec_tpu_torch.models.llm.config import LLMConfig
 from mhrec_tpu_torch.models.llm.packed import packed_attention
@@ -198,14 +201,18 @@ class LlamaBackbone(nn.Module):
     """Decoder stack returning the last hidden states [B, T, D]."""
 
     def __init__(self, config: LLMConfig, dtype=torch.bfloat16,
-                 gradient_checkpointing: bool = False, token_embeddings: bool = True):
+                 gradient_checkpointing: bool = False, token_embeddings: bool = True,
+                 remat_policy: str = "full"):
         """``token_embeddings=False`` leaves out the token table of a tower
         that only ever takes ``inputs_embeds`` (the user tower), as flax
-        creates it only when token ids arrive."""
+        creates it only when token ids arrive. ``gradient_checkpointing``
+        keeps only each layer's input for the backward, which runs the layer
+        again (policy ``remat_policy``: only "full" is ported)."""
         super().__init__()
         self.config = config
         self.dtype = dtype
         self.gradient_checkpointing = gradient_checkpointing
+        self.remat_policy = remat_policy
         if token_embeddings:
             self.embed_tokens = nn.Embedding(config.vocab_size, config.hidden_size)
         self.layers = nn.ModuleList(LlamaLayer(config, dtype)
@@ -241,8 +248,10 @@ class LlamaBackbone(nn.Module):
             raise NotImplementedError("the image splice of the item tower is not ported yet")
         if c.alibi:
             raise NotImplementedError("ALiBi towers are not ported yet")
-        if self.gradient_checkpointing and torch.is_grad_enabled():
-            raise NotImplementedError("gradient checkpointing is not ported yet")
+        remat = self.gradient_checkpointing and torch.is_grad_enabled()
+        if remat and self.remat_policy != "full":
+            raise NotImplementedError(
+                f"remat_policy: {self.remat_policy} is not ported yet (only 'full')")
         if inputs_embeds is None:
             inputs_embeds = self.embed_tokens(input_ids)
         if emb_tokens is not None and emb_pos is not None:
@@ -280,5 +289,12 @@ class LlamaBackbone(nn.Module):
         cos, sin = rotary_embedding(position_ids, c.hidden_size // c.num_attention_heads, c,
                                     seq_len=T)
         for layer in self.layers:
-            x = layer(x, mask_bias, cos, sin, segment_ids)
+            if remat:
+                # non-reentrant: the backward reruns the layer's forward (the
+                # packed attention kernel included) with grad on; the layers
+                # draw no random numbers, so no RNG state is kept
+                x = checkpoint(layer, x, mask_bias, cos, sin, segment_ids,
+                               use_reentrant=False, preserve_rng_state=False)
+            else:
+                x = layer(x, mask_bias, cos, sin, segment_ids)
         return self.norm(x)

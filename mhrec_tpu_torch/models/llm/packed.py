@@ -8,10 +8,17 @@ items first-fit into rows of ``chunk`` tokens ([C, chunk] arrays).
 
 * ``pack_items`` / ``round_chunk_rows`` — host-side packing, copied;
 * ``packed_attention_plain`` — the plain version: the math of the JAX
-  package's ``packed_attention_dense`` per chunk row;
-* ``packed_attention`` — the dispatch: the hand-written CUDA kernel
-  ``packed_attn_fwd`` (``ops/packed_attention_cuda.py``) on CUDA tensors,
-  the plain version on CPU tensors.
+  package's ``packed_attention_dense`` per chunk row; ``packed_lse_plain``
+  and ``packed_attn_bwd_plain`` — its log-sum-exp and its gradients (torch's
+  autograd of it), the plain versions of what the CUDA kernels add for
+  training;
+* ``PackedAttention`` — the ``torch.autograd.Function`` around the kernels:
+  the forward ``packed_attn_fwd`` saves its log-sum-exp, the backward runs
+  ``packed_attn_bwd`` (the splash kernel's ``custom_vjp`` on the TPU);
+* ``packed_attention`` — the dispatch: the hand-written CUDA kernels
+  (``ops/packed_attention_cuda.py``) on CUDA tensors, through
+  ``PackedAttention`` where a gradient is wanted; the plain version under
+  torch's own autograd on CPU tensors.
 """
 
 from __future__ import annotations
@@ -55,10 +62,78 @@ def packed_attention_plain(q, k, v, segment_ids, window: Optional[int] = None):
     return out
 
 
+def _band_mask(segment_ids, window: Optional[int]):
+    """[C, S, S] bool: key j ≤ query i, both of the same segment > 0,
+    i − j ≤ ``window``."""
+    S = segment_ids.shape[1]
+    idx = torch.arange(S, device=segment_ids.device)
+    causal = idx[:, None] >= idx[None, :]
+    if window is not None:
+        causal = causal & (idx[:, None] - idx[None, :] <= window)
+    same = segment_ids[:, :, None] == segment_ids[:, None, :]
+    return same & (segment_ids > 0)[:, None, :] & causal
+
+
+def packed_lse_plain(q, k, segment_ids, window: Optional[int] = None):
+    """[C, H, S] float32 log-sum-exp over each query's keys of its float32
+    scores scaled by 1/√dh (−inf on rows of segment 0): the residual the
+    forward kernel saves for the backward."""
+    C, S, H, dh = q.shape
+    rep = H // k.shape[2]
+    out = torch.empty((C, H, S), dtype=torch.float32, device=q.device)
+    for c in range(C):
+        mask = _band_mask(segment_ids[c:c + 1], window)[0]
+        qh = q[c].float().transpose(0, 1)
+        kh = k[c].float().repeat_interleave(rep, dim=1).transpose(0, 1)
+        scores = torch.matmul(qh, kh.transpose(-1, -2)) / math.sqrt(dh)
+        out[c] = torch.logsumexp(scores.masked_fill(~mask[None], -math.inf), dim=-1)
+    return out
+
+
+def packed_attn_bwd_plain(q, k, v, dout, segment_ids, window: Optional[int] = None):
+    """(dq, dk, dv): torch's autograd of ``packed_attention_plain`` for the
+    cotangent ``dout``."""
+    with torch.enable_grad():
+        leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        out = packed_attention_plain(*leaves, segment_ids, window)
+        return torch.autograd.grad(out, leaves, dout)
+
+
+class PackedAttention(torch.autograd.Function):
+    """The packed attention with a backward of its own: the forward kernel
+    also returns each row's log-sum-exp, which is saved with q, k, v, the
+    output and the segment ids; the backward kernel recomputes the
+    probabilities from them. On CPU tensors both wrappers run their plain
+    versions."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, segment_ids, window):
+        from mhrec_tpu_torch.ops.packed_attention_cuda import packed_attn_fwd
+
+        out, lse = packed_attn_fwd(q, k, v, segment_ids, window, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse, segment_ids)
+        ctx.window = window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        from mhrec_tpu_torch.ops.packed_attention_cuda import packed_attn_bwd
+
+        q, k, v, out, lse, segment_ids = ctx.saved_tensors
+        dq, dk, dv = packed_attn_bwd(q, k, v, out, dout, lse, segment_ids, ctx.window)
+        return dq, dk, dv, None, None
+
+
 def packed_attention(q, k, v, segment_ids, window: Optional[int] = None):
     """[C, S, H, dh] queries over [C, S, Hkv, dh] keys/values and [C, S]
-    segment ids → [C, S, H, dh]: the CUDA kernel on the card, the plain
-    version on the CPU (``ops.packed_attention_cuda.packed_attn_fwd``)."""
+    segment ids → [C, S, H, dh]. On the card the CUDA kernels: through
+    ``PackedAttention`` when a gradient is wanted (training, and its
+    recompute under gradient checkpointing), else the forward kernel alone
+    (serving). On the CPU the plain version, differentiated by torch."""
+    if q.device.type == "cpu":
+        return packed_attention_plain(q, k, v, segment_ids, window)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        return PackedAttention.apply(q, k, v, segment_ids, window)
     from mhrec_tpu_torch.ops.packed_attention_cuda import packed_attn_fwd
 
     return packed_attn_fwd(q, k, v, segment_ids, window)

@@ -15,7 +15,10 @@ one device).
 * dropout and the positive-mix draws come from a generator on the device
   seeded from (seed, step), so a resumed run draws what the first run drew;
 * checkpoints (``torch.save``, synchronous): parameters, optimizer state,
-  the item table's row moments, step and best score;
+  the item table's row moments, step and best score; loaded through a
+  memory map to host memory, the optimizer's old state dropped first, so a
+  2B-parameter HLLM (24 GB with its moments) reloads without a second copy
+  on the card;
 * the evaluation pipeline (trainer.py:698-1152): corpus item embeddings
   (the item table of an ID model; for HLLM the item tower over every
   item's text, dense or packed, trainer.py:953-1054) → per-user-batch head
@@ -26,8 +29,8 @@ one device).
   ``[B, H, chunk]`` score block is the largest object.
 
 Not ported yet: ``accumulate_grad > 1`` (with ``dedup_touched_rows``),
-``item_table_dtype: bfloat16``, asynchronous checkpoints, HLLM training and
-the host-memory item table of ``host_item_table``.
+``item_table_dtype: bfloat16``, asynchronous checkpoints and the
+host-memory item table of ``host_item_table``.
 """
 
 from __future__ import annotations
@@ -145,6 +148,8 @@ class Trainer:
         self.nan_step = torch.tensor(-1, dtype=torch.long, device=self.device)
         self.best_valid_score: Optional[float] = None
         self.best_valid_result = None
+        # bytes and seconds of the last checkpoint save and load
+        self.checkpoint_stats: Dict[str, float] = {}
 
     # ------------------------------------------------------------------
     def setup_model(self, seed: Optional[int] = None):
@@ -189,11 +194,24 @@ class Trainer:
     # ------------------------------------------------------------------
     # training
     # ------------------------------------------------------------------
+    # the keys of a train batch that index or count (int64 on the device):
+    # item ids and masks, and the text train batcher's tokens, lengths,
+    # positions and gathers
+    _LONG_KEYS = ("items", "neg_items", "masked_index", "unique_ids",
+                  "pos_tokens", "pos_token_lens", "neg_tokens", "neg_token_lens",
+                  "uniq_tokens", "uniq_token_lens", "uniq_inverse",
+                  "packed_tokens", "packed_positions", "emb_slots")
+
     def _train_device_batch(self, batch) -> Dict[str, torch.Tensor]:
         out = {}
-        for key in ("items", "neg_items", "masked_index", "unique_ids"):
+        for key in self._LONG_KEYS:
             if key in batch:
                 out[key] = torch.as_tensor(np.asarray(batch[key]), dtype=torch.long).to(
+                    self.device, non_blocking=True)
+        if "packed_segment_ids" in batch:
+            # the packed attention kernels take contiguous int32 segment ids
+            out["packed_segment_ids"] = torch.as_tensor(
+                np.ascontiguousarray(batch["packed_segment_ids"], dtype=np.int32)).to(
                     self.device, non_blocking=True)
         tags = np.asarray(batch["tag_categories"])
         if tags.size:
@@ -354,25 +372,39 @@ class Trainer:
             payload["table_v"] = self.table_v
         path = self.checkpoint_path()
         tmp = f"{path}.{os.getpid()}.tmp"
+        t0 = time.perf_counter()
         torch.save(payload, tmp)
         os.replace(tmp, path)
+        self.checkpoint_stats.update(bytes=os.path.getsize(path),
+                                     save_s=time.perf_counter() - t0)
+        logger.info("checkpoint saved: %d bytes in %.1fs", self.checkpoint_stats["bytes"],
+                    self.checkpoint_stats["save_s"])
 
     def load_checkpoint(self) -> bool:
         """Restore the run's checkpoint; False when there is none."""
         path = self.checkpoint_path()
         if not os.path.isfile(path):
             return False
-        # read to host memory: the copies below move each tensor to its
-        # parameter's device, while the optimizer's step counts stay on the
-        # host (on the card they would cost a synchronisation each per step)
-        payload = torch.load(path, map_location="cpu", weights_only=True)
+        t0 = time.perf_counter()
+        # read to host memory, mapped rather than copied: the copies below
+        # move each tensor to its parameter's device, while the optimizer's
+        # step counts stay where its policy keeps them (on the host unless
+        # fused: on the card they would cost a synchronisation each per step)
+        payload = torch.load(path, map_location="cpu", weights_only=True, mmap=True)
         self.model.load_state_dict(payload["params"])
+        # the gradients and moments in memory are dropped before the loaded
+        # ones arrive, so the card never holds two sets (the next step makes
+        # its gradients anew)
+        for p in self.dense_params:
+            p.grad = None
+        self.optimizer.state.clear()
         self.optimizer.load_state_dict(payload["optimizer"])
         if self.table_m is not None:
             self.table_m.copy_(payload["table_m"])
             self.table_v.copy_(payload["table_v"])
         self.step = int(payload["step"])
         self.best_valid_score = payload["best_valid_score"]
+        self.checkpoint_stats["load_s"] = time.perf_counter() - t0
         return True
 
     # ------------------------------------------------------------------

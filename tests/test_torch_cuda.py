@@ -279,3 +279,124 @@ def test_llama_item_tower_runs_the_packed_kernel(card):
     assert packed_attn_fwd.launches == before + cfg.num_hidden_layers
     real = args["segment_ids"] > 0
     _close(out.cpu()[real], ref[real], torch.float32)
+
+
+def _packed_bwd_inputs(C, S, H, Hkv, dh, w, dtype, card):
+    q, k, v, seg = _packed_inputs(C, S, H, Hkv, dh, w, dtype, card)
+    gen = torch.Generator().manual_seed(5)
+    real = seg > 0
+    dout = (torch.randn(q.shape, generator=gen).to(card) * real[..., None, None]).to(dtype)
+    return q, k, v, seg, dout, real
+
+
+@pytest.mark.parametrize("window", [True, False], ids=["band", "no_band"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("shape", ["corpus", "tiny"])
+def test_packed_attn_bwd_kernel_matches_plain(card, shape, dtype, window):
+    """dq, dk, dv against torch's autograd of the plain version on the float32
+    values of the same inputs (the kernel keeps its sums in float32 and
+    rounds once), zeros on padding rows and keys, and the same bits on a
+    repeat."""
+    from mhrec_tpu_torch.models.llm.packed import packed_attn_bwd_plain, packed_lse_plain
+    from mhrec_tpu_torch.ops.packed_attention_cuda import packed_attn_bwd, packed_attn_fwd
+
+    C, S, H, Hkv, dh, w = {"corpus": (2, 2048, 32, 4, 64, 257),
+                           "tiny": (3, 200, 4, 2, 16, 20)}[shape]
+    q, k, v, seg, dout, real = _packed_bwd_inputs(C, S, H, Hkv, dh, w, dtype, card)
+    w = w if window else None
+    out, lse = packed_attn_fwd(q, k, v, seg, w, return_lse=True)
+    torch.testing.assert_close(lse.transpose(1, 2)[real],
+                               packed_lse_plain(q, k, seg, w).transpose(1, 2)[real],
+                               atol=1e-5, rtol=1e-5)
+    assert bool((lse.transpose(1, 2)[~real] == -float("inf")).all())
+    before = packed_attn_bwd.launches
+    grads = packed_attn_bwd(q, k, v, out, dout, lse, seg, w)
+    again = packed_attn_bwd(q, k, v, out, dout, lse, seg, w)
+    torch.cuda.synchronize()
+    assert packed_attn_bwd.launches == before + 2
+    ref = packed_attn_bwd_plain(*(x.float() for x in (q, k, v, dout)), seg, w)
+    for name, g, r, x, a in zip(("dq", "dk", "dv"), grads, ref, (q, k, v), again):
+        assert g.dtype == dtype and g.shape == x.shape, name
+        assert bool(torch.isfinite(g).all()) and torch.equal(g, a), name
+        assert not bool(g[~real].any()), name
+        _close(g, r, dtype)
+
+
+def test_packed_attention_autograd_under_checkpoint(card):
+    """``PackedAttention`` under non-reentrant checkpointing: the forward
+    kernel runs twice (the forward and its recompute), the backward kernel
+    once, and the gradients are those of one direct backward call."""
+    from torch.utils.checkpoint import checkpoint
+
+    from mhrec_tpu_torch.models.llm.packed import packed_attention
+    from mhrec_tpu_torch.ops.packed_attention_cuda import packed_attn_bwd, packed_attn_fwd
+
+    q, k, v, seg, dout, _ = _packed_bwd_inputs(3, 200, 4, 2, 16, 20, torch.float32, card)
+    leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+    before = (packed_attn_fwd.launches, packed_attn_bwd.launches)
+    out = checkpoint(packed_attention, *leaves, seg, 20, use_reentrant=False)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    assert (packed_attn_fwd.launches, packed_attn_bwd.launches) == (before[0] + 2, before[1] + 1)
+    o, lse = packed_attn_fwd(q, k, v, seg, 20, return_lse=True)
+    for leaf, want in zip(leaves, packed_attn_bwd(q, k, v, o, dout, lse, seg, 20)):
+        torch.testing.assert_close(leaf.grad, want, atol=0, rtol=0)
+
+
+def test_llama_item_tower_trains_through_the_packed_kernels(card):
+    """A tiny packed item tower with gradient checkpointing on the card:
+    per layer two forward launches and one backward, and the gradients of
+    every parameter agree with the same tower on the CPU (the plain
+    version under torch's autograd)."""
+    import copy
+    import dataclasses
+
+    import numpy as np
+
+    from mhrec_tpu_torch.models.llm.config import LLMConfig
+    from mhrec_tpu_torch.models.llm.llama import LlamaBackbone
+    from mhrec_tpu_torch.models.llm.packed import pack_items
+    from mhrec_tpu_torch.ops.packed_attention_cuda import packed_attn_bwd, packed_attn_fwd
+
+    cfg = dataclasses.replace(LLMConfig.tiny(), packed_window=33)
+    cpu = LlamaBackbone(cfg, dtype=torch.float32, gradient_checkpointing=True)
+    cpu.init_parameters(torch.Generator().manual_seed(0))
+    gpu = copy.deepcopy(cpu).to(card)
+    rng = np.random.default_rng(1)
+    lens = rng.integers(1, 33, size=40).astype(np.int32)
+    tokens = np.zeros((40, 33), np.int32)
+    for i, n in enumerate(lens):
+        tokens[i, :n] = rng.integers(2, 1024, size=n)
+    p = pack_items(tokens, lens, chunk=256, chunk_round=1)
+    args = dict(input_ids=torch.from_numpy(p["packed_tokens"]).long(),
+                position_ids=torch.from_numpy(p["packed_positions"]).long(),
+                segment_ids=torch.from_numpy(p["packed_segment_ids"]))
+    real = args["segment_ids"] > 0
+    cot = torch.randn(*real.shape, cfg.hidden_size, generator=torch.Generator().manual_seed(2))
+    cot = cot * real[..., None]
+    before = (packed_attn_fwd.launches, packed_attn_bwd.launches)
+    gpu(**{k: v.to(card) for k, v in args.items()}).backward(cot.to(card))
+    torch.cuda.synchronize()
+    L = cfg.num_hidden_layers
+    assert (packed_attn_fwd.launches, packed_attn_bwd.launches) == (before[0] + 2 * L,
+                                                                    before[1] + L)
+    cpu(**args).backward(cot)
+    for (name, a), b in zip(gpu.named_parameters(), cpu.parameters()):
+        err = float((a.grad.cpu() - b.grad).norm() / b.grad.norm().clamp_min(1e-30))
+        assert err <= 1e-4, (name, err)
+
+
+def test_packed_attn_bwd_refuses_what_it_cannot_take(card):
+    from mhrec_tpu_torch.ops.packed_attention_cuda import packed_attn_bwd, packed_attn_fwd
+
+    q, k, v, seg, dout, _ = _packed_bwd_inputs(1, 64, 4, 2, 16, 8, torch.float32, card)
+    out, lse = packed_attn_fwd(q, k, v, seg, 8, return_lse=True)
+    with pytest.raises(ValueError, match="dout must be"):
+        packed_attn_bwd(q, k, v, out, dout.cpu(), lse, seg, 8)
+    with pytest.raises(ValueError, match="lse must be"):
+        packed_attn_bwd(q, k, v, out, dout, lse.cpu(), seg, 8)
+    with pytest.raises(ValueError, match="segment_ids"):
+        packed_attn_bwd(q, k, v, out, dout, lse, seg.long(), 8)
+    with pytest.raises(ValueError, match="contiguous heads"):
+        packed_attn_bwd(q.transpose(1, 2).contiguous().transpose(1, 2), k, v, out, dout, lse,
+                        seg, 8)

@@ -286,8 +286,13 @@ def test_hllm_raises_on_what_is_not_ported(hllm, tmp_path, case):
         with pytest.raises(ValueError, match="sparse_item_adam"):
             Trainer(_cfg(dict(over, sparse_item_adam=True)), hllm["data"],
                     device="cpu")
-    else:
-        with pytest.raises(NotImplementedError, match="text train batcher"):
-            build_dataloader(hllm["tcfg"], hllm["data"])
-        with pytest.raises(NotImplementedError, match="HLLM training"):
-            hllm["tt"].model({})
+    else:  # training: the remat policy that saves products, and image items
+        t = Trainer(_cfg(dict(over, gradient_checkpointing=True, remat_policy="dots")),
+                    hllm["data"], device="cpu")
+        t.setup_model()
+        batch = next(build_dataloader(t.config, hllm["data"])[0].epoch_batches(0))
+        with pytest.raises(NotImplementedError, match="remat_policy: dots"):
+            t.train_step(batch)
+        with pytest.raises(NotImplementedError, match="image and video item keys"):
+            build_dataloader(_cfg(dict(over, use_image=True, packed_item_tower=False)),
+                             hllm["data"])

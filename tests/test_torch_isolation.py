@@ -1,8 +1,9 @@
 """The port stands alone: ``mhrec_tpu_torch`` and ``chip_smoke.py`` import
 nothing of JAX and nothing of the JAX package, and the serving and training
 paths that ``chip_smoke.py`` drives (HSTU serving and training, HLLM
-serving) import neither PyYAML nor pandas nor pyarrow (the machine with the
-card has none of them), nor, on the HLLM path, ``transformers``."""
+serving and training) import neither PyYAML nor pandas nor pyarrow (the
+machine with the card has none of them), nor, on the HLLM paths,
+``transformers``."""
 
 import ast
 import os
@@ -173,6 +174,49 @@ def test_hllm_serving_path_imports_nothing_it_must_not():
     corpus pass) and look at what it loaded."""
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     proc = subprocess.run([sys.executable, "-c", _HLLM_SERVE], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "BAD []" in proc.stdout, proc.stdout
+
+
+_HLLM_TRAIN = """
+import json, os, sys, tempfile
+import torch
+import chip_smoke
+from mhrec_tpu_torch.data.synthetic import InMemoryInteractionData
+from mhrec_tpu_torch.run import train
+
+torch.set_num_threads(2)
+work = tempfile.mkdtemp()
+tower = os.path.join(work, "tower")
+os.makedirs(tower)
+with open(os.path.join(tower, "config.json"), "w") as fh:
+    json.dump(dict(chip_smoke.TINYLLAMA_1B, vocab_size=1024, hidden_size=64,
+                   intermediate_size=128, num_hidden_layers=2, num_attention_heads=4,
+                   num_key_value_heads=2), fh)
+cfg = chip_smoke.hllm_train_config(tower, work)
+for k, v in dict(MAX_TEXT_LENGTH=24, MAX_ITEM_LIST_LENGTH=6, eval_batch_size=32,
+                 pack_chunk=128, num_negatives=16, total_iters=2, eval_interval=2).items():
+    cfg[k] = v
+data = InMemoryInteractionData(num_users=40, num_items=300, seq_len=2 * 6 + 16,
+                               num_categories=11, eval_pred_len=8, max_item_list_length=6,
+                               item_texts=True, max_filler_words=12)
+trainer, stats, result = train(cfg, data, device="cpu")
+assert stats["iters"] == 2 and "pred_7" in result and trainer.checkpoint_stats["bytes"] > 0
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in {"jax", "jaxlib", "flax", "optax", "mhrec_tpu",
+                                    "yaml", "pandas", "pyarrow", "transformers"})
+print("BAD", bad)
+"""
+
+
+def test_hllm_training_path_imports_nothing_it_must_not():
+    """Drive a tiny HLLM training run on the CPU in a fresh interpreter (the
+    configuration chip_smoke.py trains, cut to a few widths: two steps, an
+    evaluation with a checkpoint save, the test split from the checkpoint)
+    and look at what it loaded."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", _HLLM_TRAIN], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "BAD []" in proc.stdout, proc.stdout
