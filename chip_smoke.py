@@ -123,6 +123,8 @@ TRAIN_STEPS = 30
 # the HLLM training phase: sequences a step and steps
 HLLM_TRAIN_BATCH = 8
 HLLM_TRAIN_STEPS = 10
+# chunk rows of 2048 tokens that a train step's 992 items pack into
+HLLM_TRAIN_CHUNK_ROWS = 72
 
 # the HLLM item embeddings of the dense padded and the packed item tower,
 # unit-normalized, max abs difference: in bfloat16 the two routes round at
@@ -501,7 +503,11 @@ def packed_bwd_kernel_phase(dtype, seed=0):
     (``torch.autograd.grad`` on a kept graph). The bound: q, k, v, the
     output, its cotangent and lse read once, dq, dk, dv written once,
     against 10·dh flops per (pair, head) of this run's band (the scores and
-    dP recomputed, dq, dk and dv: 2.5 times the forward's)."""
+    dP recomputed, dq, dk and dv: 2.5 times the forward's); ``band_tflops``
+    is that work over the kernel's time. ``route`` names the kernels that
+    the input type selects (bfloat16: tensor cores; float32: CUDA cores),
+    and in bfloat16 ``train_rows`` times the kernel alone at the train
+    step's chunk rows (``packed_bwd_train_rows``)."""
     import torch
     import torch.nn.functional as F
 
@@ -555,19 +561,50 @@ def packed_bwd_kernel_phase(dtype, seed=0):
     pairs = packed_pairs(seg, w)
     nbytes = _nbytes(q, k, v, out, dout, lse, seg, *grads)
     bound, bound_by = _bound(nbytes, 10 * dh * H * pairs, PEAK_FLOPS[dname])
+    ms = min(k1, k2)
+    train_rows = None
+    if dtype == torch.bfloat16:
+        del q, k, v, seg, out, dout, lse, grads
+        train_rows = packed_bwd_train_rows(ms / pairs, dtype, seed)
     rec = {"phase": "kernel", "kernel": "packed_attn_bwd", "shape": "corpus", "C": C, "S": S,
            "H": H, "Hkv": Hkv, "dh": dh, "window": w, "dtype": dname,
+           # bfloat16 runs the tensor-core kernels, float32 the CUDA-core ones
+           "route": "tensor_core" if dtype == torch.bfloat16 else "cuda_core",
+           "band_tflops": 10 * dh * H * pairs / ms / 1e9, "train_rows": train_rows,
            "real_tokens": int(real.sum()), "pairs": pairs, "max_abs_err": err,
            "atol": TOL[dname][0], "rtol": TOL[dname][1],
            # per gradient: (max abs error, excess over TOL) against the
            # float32 reference, then against the plain version in bfloat16
            "per_grad_err": per_grad, "pad_rows_and_keys_zero": zeros,
-           "repeat_bit_equal": repeat_equal, "ms": min(k1, k2), "plain_ms": min(p1, p2),
+           "repeat_bit_equal": repeat_equal, "ms": ms, "plain_ms": min(p1, p2),
            "bound_ms": bound, "bound_by": bound_by, "library_ms": lib_ms,
            "library_error": lib_note,
            "ok": finite and excess <= 0 and zeros and repeat_equal}
     emit(rec)
     return rec
+
+
+def packed_bwd_train_rows(corpus_ms_per_pair, dtype, seed=0):
+    """``packed_attn_bwd`` alone at the HLLM train step's chunk rows
+    (``HLLM_TRAIN_CHUNK_ROWS``, the rest of ``PACKED_SHAPE``): its time, its
+    band TFLOP/s, and its time per band pair over the corpus shape's, which
+    says how much of a train-step launch's excess over the 16-row time the
+    kernel shows on its own."""
+    import torch
+
+    from mhrec_tpu_torch.ops.packed_attention_cuda import packed_attn_bwd, packed_attn_fwd
+
+    _, S, H, Hkv, dh, w = PACKED_SHAPE
+    C = HLLM_TRAIN_CHUNK_ROWS
+    q, k, v, seg = packed_inputs(C, S, H, Hkv, dh, w, dtype, seed)
+    gen = torch.Generator(device=q.device).manual_seed(seed + 1)
+    dout = (torch.randn(q.shape, generator=gen, device=q.device)
+            * (seg > 0)[..., None, None]).to(dtype)
+    out, lse = packed_attn_fwd(q, k, v, seg, w, return_lse=True)
+    ms = cuda_ms(lambda: packed_attn_bwd(q, k, v, out, dout, lse, seg, w), iters=5, warmup=1)
+    pairs = packed_pairs(seg, w)
+    return {"C": C, "ms": ms, "pairs": pairs, "band_tflops": 10 * dh * H * pairs / ms / 1e9,
+            "ms_per_pair_over_corpus": ms / pairs / corpus_ms_per_pair}
 
 
 def base_config(**over):

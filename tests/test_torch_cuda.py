@@ -322,6 +322,76 @@ def test_packed_attn_bwd_kernel_matches_plain(card, shape, dtype, window):
         _close(g, r, dtype)
 
 
+def _edge_segments(C, S, window, seed):
+    """Segment ids whose runs straddle the kernels' 64-row tile edges: from
+    the start of each row, runs of 1, 63, 1, 1, 65, 2, 200 (longer than the
+    band), 1 and 30 tokens, then random runs of 1..2·window tokens, then
+    trailing padding; the last chunk row is all padding."""
+    gen = torch.Generator().manual_seed(seed)
+    seg = torch.zeros(C, S, dtype=torch.int32)
+    sid = 0
+    for c in range(C - 1):
+        lens = [1, 63, 1, 1, 65, 2, 200, 1, 30]
+        off, fill = 0, S - int(torch.randint(1, 40, (1,), generator=gen))
+        while True:
+            n = lens.pop(0) if lens else int(torch.randint(1, 2 * window + 1, (1,), generator=gen))
+            if off + n > fill:
+                break
+            sid += 1
+            seg[c, off:off + n] = sid
+            off += n
+    return seg
+
+
+@pytest.mark.parametrize("window", [70, None], ids=["band", "no_band"])
+@pytest.mark.parametrize("layout", ["contiguous", "fused", "misaligned"])
+@pytest.mark.parametrize("heads", [(4, 4), (16, 2)], ids=["mha", "gqa8"])
+@pytest.mark.parametrize("dh", [32, 128])
+def test_packed_attn_bwd_tensor_core_route(card, dh, heads, layout, window):
+    """The bfloat16 route (tensor-core kernels) at the head widths and GQA
+    ratios the main path does not take, on segments that straddle tile
+    edges (1-token runs, a run longer than the band, a chunk row all
+    padding, a ragged S): dq, dk, dv against torch's autograd of the plain
+    version on the float32 values of the same inputs, zeros on padding rows
+    and keys, the same bits on a repeat. ``fused``: q, k, v are strided
+    views of one projection, token stride (H + 2·Hkv)·dh; ``misaligned``:
+    their rows miss the 16-byte boundary the kernels' copies need."""
+    from mhrec_tpu_torch.models.llm.packed import packed_attn_bwd_plain
+    from mhrec_tpu_torch.ops.packed_attention_cuda import packed_attn_bwd, packed_attn_fwd
+
+    C, S, (H, Hkv), dtype = 3, 450, heads, torch.bfloat16
+    seg = _edge_segments(C, S, 70, seed=dh + H).to(card)
+    real = seg > 0
+    gen = torch.Generator().manual_seed(6)
+    if layout == "fused":
+        proj = (0.5 * torch.randn(C, S, (H + 2 * Hkv) * dh, generator=gen)).to(card, dtype)
+        q, k, v = (x.unflatten(-1, (-1, dh))
+                   for x in proj.split([H * dh, Hkv * dh, Hkv * dh], dim=-1))
+        assert q.stride(1) == (H + 2 * Hkv) * dh and not q.is_contiguous()
+    elif layout == "misaligned":  # rows 8 bytes past a 16-byte boundary: the wrapper copies
+        sizes = [C * S * H * dh, C * S * Hkv * dh, C * S * Hkv * dh]
+        flat = (0.5 * torch.randn(sum(sizes) + 4, generator=gen)).to(card, dtype)[4:]
+        q, k, v = (x.view(C, S, -1, dh) for x in flat.split(sizes))
+        assert q.data_ptr() % 16 == 8
+    else:
+        q = (0.5 * torch.randn(C, S, H, dh, generator=gen)).to(card, dtype)
+        k, v = ((0.5 * torch.randn(C, S, Hkv, dh, generator=gen)).to(card, dtype)
+                for _ in range(2))
+    dout = (torch.randn(C, S, H, dh, generator=gen).to(card) * real[..., None, None]).to(dtype)
+    out, lse = packed_attn_fwd(q, k, v, seg, window, return_lse=True)
+    before = packed_attn_bwd.launches
+    grads = packed_attn_bwd(q, k, v, out, dout, lse, seg, window)
+    again = packed_attn_bwd(q, k, v, out, dout, lse, seg, window)
+    torch.cuda.synchronize()
+    assert packed_attn_bwd.launches == before + 2
+    ref = packed_attn_bwd_plain(*(x.float() for x in (q, k, v, dout)), seg, window)
+    for name, g, r, x, a in zip(("dq", "dk", "dv"), grads, ref, (q, k, v), again):
+        assert g.dtype == dtype and g.shape == x.shape, name
+        assert bool(torch.isfinite(g).all()) and torch.equal(g, a), name
+        assert not bool(g[~real].any()), name
+        _close(g, r, dtype)
+
+
 def test_packed_attention_autograd_under_checkpoint(card):
     """``PackedAttention`` under non-reentrant checkpointing: the forward
     kernel runs twice (the forward and its recompute), the backward kernel
