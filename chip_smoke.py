@@ -11,7 +11,11 @@ segment attention of the HLLM item tower, forward (with its log-sum-exp)
 and backward (at the corpus shape: 16 chunk rows of 2048 tokens, 32 heads
 over 4 KV heads of width 64, band 257, segments of 1-257 tokens and
 trailing padding; also timed against ``scaled_dot_product_attention`` with
-the same mask, forward and backward, which the port never calls). Then it
+the same mask, forward and backward, which the port never calls, and alone
+at the train step's 72 chunk rows). The bfloat16 routes of the fused STU
+forward and of the packed attention, forward and backward, run their
+products on the tensor cores (``mma.sync``); each kernel phase names the
+route it took. Then it
 drives the port's two HSTU paths on the paper's headline model — HSTU
 size4 (1024d, 16 layers, 16 heads, window 50) with 8-category prior heads,
 4 segment heads, additive interaction and the prior switch — over 4096 users and a 200,000-item catalog, with random weights
@@ -268,26 +272,32 @@ KERNELS = {
     "stu": dict(
         name="hstu_stu_gated_fwd", source="mhrec_tpu_torch/csrc/hstu_stu_gated_fwd.cu",
         replaces="mhrec_tpu/ops/pallas/hstu_attention_tpu.py:497",
+        products="bf16: tensor cores, mma.sync m16n8k16; f32: CUDA cores",
     ),
     "attn": dict(
         name="hstu_attn_fwd", source="mhrec_tpu_torch/csrc/hstu_attn_fwd.cu",
         replaces="mhrec_tpu/ops/pallas/hstu_attention_tpu.py:269",
+        products="CUDA cores",
     ),
     "stu_bwd": dict(
         name="hstu_stu_gated_bwd", source="mhrec_tpu_torch/csrc/hstu_stu_gated_bwd.cu",
         replaces="mhrec_tpu/ops/pallas/hstu_attention_tpu.py:537",
+        products="CUDA cores",
     ),
     "attn_bwd": dict(
         name="hstu_attn_bwd", source="mhrec_tpu_torch/csrc/hstu_attn_bwd.cu",
         replaces="mhrec_tpu/ops/pallas/hstu_attention_tpu.py:307",
+        products="CUDA cores",
     ),
     "row_adamw": dict(
         name="row_adamw", source="mhrec_tpu_torch/csrc/row_adamw.cu",
         replaces="mhrec_tpu/ops/pallas/row_adam_tpu.py:231",
+        products="CUDA cores",
     ),
     "packed": dict(
         name="packed_attn_fwd", source="mhrec_tpu_torch/csrc/packed_attn_fwd.cu",
         replaces="mhrec_tpu/models/llm/packed.py:45",
+        products="bf16: tensor cores, mma.sync m16n8k16; f32: CUDA cores",
     ),
     "packed_bwd": dict(
         name="packed_attn_bwd", source="mhrec_tpu_torch/csrc/packed_attn_bwd.cu",
@@ -295,6 +305,7 @@ KERNELS = {
         # jax/experimental/pallas/ops/tpu/splash_attention/
         # splash_attention_kernel.py:1635) and _splash_attention_bwd_dkv (:2196)
         replaces="mhrec_tpu/models/llm/packed.py:45",
+        products="bf16: tensor cores, mma.sync m16n8k16; f32: CUDA cores",
     ),
 }
 
@@ -329,6 +340,10 @@ def kernel_phase(kind, shape_name, B, L, H, d, dtype, seed=0):
            "B": B, "L": L, "H": H, "d": d, "dtype": dname, "max_abs_err": err,
            "atol": TOL[dname][0], "rtol": TOL[dname][1],
            "ok": finite and excess <= 0}
+    if kind == "stu":  # bfloat16 at these widths: the tensor-core kernel
+        from mhrec_tpu_torch.ops.hstu_attention_cuda import stu_gated_fwd_route
+
+        rec["route"] = stu_gated_fwd_route(dtype, L, H, d, d)
     p1, k1, k2, p2 = (cuda_ms(lambda f=f: f(*args)) for f in (plain, fn, fn, plain))
     rec["ms"], rec["plain_ms"] = min(k1, k2), min(p1, p2)
     rec["bound_ms"], rec["bound_by"] = bound_ms(kind, args)
@@ -435,7 +450,11 @@ def packed_kernel_phase(dtype, seed=0):
     real tokens (padding rows must be zeros), its times (plain, kernel,
     kernel, plain), its bound from this run's segments, and one
     ``scaled_dot_product_attention`` call with the same boolean mask and
-    ``enable_gqa`` as the library's time."""
+    ``enable_gqa`` as the library's time. ``route`` names the kernel the
+    input type selects (bfloat16: tensor cores; float32: CUDA cores);
+    ``band_tflops`` is the band's 4·dh flops a pair and head over the
+    kernel's time; in bfloat16 ``train_rows`` times the kernel alone at the
+    train step's chunk rows (``packed_fwd_train_rows``)."""
     import torch
     import torch.nn.functional as F
 
@@ -451,6 +470,7 @@ def packed_kernel_phase(dtype, seed=0):
     dname = str(dtype).replace("torch.", "")
     err, excess = excess_error(out[real], ref[real], dname)
     pads_zero = not bool(out[~real].any())
+    finite = bool(torch.isfinite(out).all())
     # the log-sum-exp the training path saves: float32 whatever the inputs
     lse_ref = packed_lse_plain(q, k, seg, w).transpose(1, 2)
     lse = lse.transpose(1, 2)
@@ -474,17 +494,43 @@ def packed_kernel_phase(dtype, seed=0):
     pairs = packed_pairs(seg, w)
     bound, bound_by = _bound(_nbytes(q, k, v, seg, q), 4 * dh * H * pairs,
                              PEAK_FLOPS[dname])
+    ms = min(k1, k2)
+    train_rows = packed_fwd_train_rows(ms / pairs, seed) if dtype == torch.bfloat16 else None
     rec = {"phase": "kernel", "kernel": "packed_attn_fwd", "shape": "corpus", "C": C, "S": S,
            "H": H, "Hkv": Hkv, "dh": dh, "window": w, "dtype": dname,
+           # bfloat16 runs the tensor-core kernel, float32 the CUDA-core one
+           "route": "tensor_core" if dtype == torch.bfloat16 else "cuda_core",
+           "band_tflops": 4 * dh * H * pairs / ms / 1e9, "train_rows": train_rows,
            "real_tokens": int(real.sum()), "pairs": pairs, "max_abs_err": err,
            "atol": TOL[dname][0], "rtol": TOL[dname][1], "pad_rows_zero": pads_zero,
-           "ms": min(k1, k2), "plain_ms": min(p1, p2), "bound_ms": bound, "bound_by": bound_by,
+           "ms": ms, "plain_ms": min(p1, p2), "bound_ms": bound, "bound_by": bound_by,
            "library_ms": lib_ms, "library_max_abs_err": lib_err, "library_error": lib_note,
            "lse_max_abs_err": lse_err, "lse_pad_rows_neg_inf": lse_pads,
-           "ok": (bool(torch.isfinite(out).all()) and excess <= 0 and pads_zero
-                  and lse_excess <= 0 and lse_pads)}
+           "ok": finite and excess <= 0 and pads_zero and lse_excess <= 0 and lse_pads}
     emit(rec)
     return rec
+
+
+def packed_fwd_train_rows(corpus_ms_per_pair, seed=0):
+    """``packed_attn_fwd`` in bfloat16 alone at the HLLM train step's chunk
+    rows (``HLLM_TRAIN_CHUNK_ROWS``, the rest of ``PACKED_SHAPE``): its time
+    without and with the log-sum-exp (the train step asks for it), its band
+    TFLOP/s, and its time per band pair over the corpus shape's, which says
+    how much of a train-step launch's excess over the 16-row rate the kernel
+    shows on its own."""
+    import torch
+
+    from mhrec_tpu_torch.ops.packed_attention_cuda import packed_attn_fwd
+
+    _, S, H, Hkv, dh, w = PACKED_SHAPE
+    C = HLLM_TRAIN_CHUNK_ROWS
+    q, k, v, seg = packed_inputs(C, S, H, Hkv, dh, w, torch.bfloat16, seed)
+    ms = cuda_ms(lambda: packed_attn_fwd(q, k, v, seg, w), iters=10)
+    ms_lse = cuda_ms(lambda: packed_attn_fwd(q, k, v, seg, w, return_lse=True), iters=10)
+    pairs = packed_pairs(seg, w)
+    return {"C": C, "ms": ms, "ms_with_lse": ms_lse, "pairs": pairs,
+            "band_tflops": 4 * dh * H * pairs / ms / 1e9,
+            "ms_per_pair_over_corpus": ms / pairs / corpus_ms_per_pair}
 
 
 def packed_bwd_kernel_phase(dtype, seed=0):

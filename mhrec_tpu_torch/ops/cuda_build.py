@@ -21,6 +21,8 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable
 
+import torch
+
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -87,6 +89,15 @@ def build(names: Iterable[str] = SOURCES, verbose: bool = False) -> Dict[str, fl
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return seconds
+
+
+def aligned16(t):
+    """``t`` when its pointer and every stride above the last are 16-byte
+    multiples, as the bfloat16 kernels' 16-byte ``cp.async`` copies need,
+    else a contiguous copy (whose rows are, for the widths they take)."""
+    ok = t.data_ptr() % 16 == 0 and all(s * t.element_size() % 16 == 0
+                                        for s in t.stride()[:-1])
+    return t if ok else t.clone(memory_format=torch.contiguous_format)
 
 
 def load(name: str) -> ctypes.CDLL:

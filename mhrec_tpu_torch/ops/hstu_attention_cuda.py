@@ -5,7 +5,8 @@ Counterpart of ``mhrec_tpu/ops/pallas/hstu_attention_tpu.py``:
 
 * ``hstu_stu_gated_fwd`` — the fused STU block ``u ⊙ LN(attention)``
   (``csrc/hstu_stu_gated_fwd.cu``), replacing ``_fwd_gated_kernel`` /
-  ``hstu_attention_gated_pallas``; differentiable, its backward is
+  ``hstu_attention_gated_pallas``, on the tensor cores in bfloat16
+  (``stu_gated_fwd_route``); differentiable, its backward is
   ``hstu_stu_gated_bwd`` (``csrc/hstu_stu_gated_bwd.cu``), replacing
   ``_bwd_gated_kernel``;
 * ``hstu_attn_fwd`` — the pointwise attention over ``[B, H, L, d]``
@@ -36,8 +37,10 @@ import torch
 
 from mhrec_tpu_torch.ops import cuda_build
 
-# shared-memory layouts of csrc/hstu_attn_common.cuh and csrc/hstu_attn_bwd.cuh
+# shared-memory layouts of csrc/hstu_attn_common.cuh and csrc/hstu_attn_bwd.cuh,
+# and the warps and key-tile rows of the tensor-core kernel (hstu_stu_gated_fwd.cu)
 _TQ, _TK, _MAX_D, _BT = 16, 64, 128, 32
+_TC_WARPS, _TC_TK = 4, 32
 _SMEM_LIMIT = 232448  # bytes of shared memory one block may use on sm_90
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -47,6 +50,25 @@ _LLP = ctypes.POINTER(ctypes.c_longlong)
 
 def _head_smem_bytes(dqk: int, dv: int) -> int:
     return 4 * (_TQ * (dqk + 1) + _TK * (dqk + 1) + _TK * dv + _TQ * (_TK + 1))
+
+
+def _tc_smem_bytes(dqk: int, dv: int, L: int, H: int) -> int:
+    """Shared memory of the fused STU forward's tensor-core kernel with one
+    stage a warp (``tc_smem_bytes`` of csrc/hstu_stu_gated_fwd.cu)."""
+    dp = next(d for d in (16, 32, 64, 128) if d >= max(dqk, dv))
+    return (4 * _TQ * (H * dv + 8) + 2 * _TC_WARPS * (_TQ + 2 * _TC_TK) * (dp + 8)
+            + -(-L // 16) * 16)
+
+
+def stu_gated_fwd_route(dtype, L: int, H: int, dqk: int, dv: int) -> str:
+    """Which kernel ``hstu_stu_gated_fwd`` launches on the card: bfloat16
+    with head widths that are multiples of 8 runs on the tensor cores where
+    its shared memory fits (every size the models build: widths 32 and 64
+    up to F = 2048); float32, bfloat16 at other widths, and rows too wide for
+    its shared memory on the CUDA cores."""
+    tc = (dtype == torch.bfloat16 and dqk % 8 == 0 and dv % 8 == 0
+          and _tc_smem_bytes(dqk, dv, L, H) <= _SMEM_LIMIT)
+    return "tensor_cores" if tc else "cuda_cores"
 
 
 def _bwd_smem_bytes(dqk: int, dv: int) -> int:
@@ -177,13 +199,17 @@ def _stu_gated_fwd_launch(q, k, v, u, gamma, beta, nonpad, num_heads: int, eps: 
     name = "hstu_stu_gated_fwd"
     _check_cuda_inputs(name, (q, k, v, u), nonpad)
     B, L, H, dqk, dv = _check_gated_inputs(name, q, k, v, u, gamma, beta, nonpad, num_heads)
+    code = _DTYPES[q.dtype]
+    if stu_gated_fwd_route(q.dtype, L, H, dqk, dv) == "tensor_cores":
+        q, k, v, u, gamma, beta = (cuda_build.aligned16(t) for t in (q, k, v, u, gamma, beta))
+        code = 2
     fn = _lib(name, [_P] * 8 + [_I] * 5 + [_LL] * 8 + [_F, _F, _I, _P])
     out = torch.empty((B, L, H * dv), dtype=q.dtype, device=q.device)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), u.data_ptr(), gamma.data_ptr(),
              beta.data_ptr(), nonpad.data_ptr(), out.data_ptr(), B, L, H, dqk, dv,
              q.stride(0), q.stride(1), k.stride(0), k.stride(1),
              v.stride(0), v.stride(1), u.stride(0), u.stride(1),
-             1.0 / L, eps, _DTYPES[q.dtype], _stream(q))
+             1.0 / L, eps, code, _stream(q))
     _launch_error(name, err)
     hstu_stu_gated_fwd.launches += 1
     return out

@@ -1,7 +1,8 @@
 """Packed (varlen) segment attention of the HLLM item tower as hand-written
 CUDA kernels: the forward (``csrc/packed_attn_fwd.cu``) and the backward
-(``csrc/packed_attn_bwd.cu``: a dq pass and a dk/dv pass, on the tensor
-cores for bfloat16 and on the CUDA cores in full float32 for float32).
+(``csrc/packed_attn_bwd.cu``: a dq pass and a dk/dv pass). Each routes by
+the input type: bfloat16 runs on the tensor cores, float32 on the CUDA
+cores in full float32.
 
 Counterparts of the splash-attention call ``_splash_call``
 (``mhrec_tpu/models/llm/packed.py:45``) behind ``packed_attention_splash``
@@ -61,15 +62,6 @@ def _check_inputs(name, q, k, v, segment_ids, window):
     return C, S, H, Hkv, dh, min(w, S)
 
 
-def _rows16(t):
-    """``t`` when each of its head rows starts on a 16-byte boundary, as the
-    bfloat16 backward's 16-byte ``cp.async`` copies need (pointer and the
-    strides above the head width), else a contiguous copy, which does."""
-    aligned = t.data_ptr() % 16 == 0 and all(s * t.element_size() % 16 == 0
-                                             for s in t.stride()[:2])
-    return t if aligned else t.clone(memory_format=torch.contiguous_format)
-
-
 def _fn(name: str, argtypes):
     fn = getattr(cuda_build.load(name), name)
     if fn.argtypes is None:
@@ -95,6 +87,8 @@ def packed_attn_fwd(q, k, v, segment_ids, window: Optional[int] = None,
         return (out, packed_lse_plain(q, k, segment_ids, window)) if return_lse else out
     name = "packed_attn_fwd"
     C, S, H, Hkv, dh, w = _check_inputs(name, q, k, v, segment_ids, window)
+    if q.dtype == torch.bfloat16:
+        q, k, v = (cuda_build.aligned16(t) for t in (q, k, v))
     fn = _fn(name, [_P] * 6 + [_I] * 5 + [_LL] * 6 + [_I, _F, _I, _P])
     out = torch.empty((C, S, H, dh), dtype=q.dtype, device=q.device)
     lse = (torch.empty((C, H, S), dtype=torch.float32, device=q.device)
@@ -132,7 +126,7 @@ def packed_attn_bwd(q, k, v, out, dout, lse, segment_ids, window: Optional[int] 
            f"{name}: lse must be a contiguous float32 [{C}, {H}, {S}] tensor on {dev}")
     out, dout = out.contiguous(), dout.contiguous()
     if dtype == torch.bfloat16:
-        q, k, v, out, dout = (_rows16(t) for t in (q, k, v, out, dout))
+        q, k, v, out, dout = (cuda_build.aligned16(t) for t in (q, k, v, out, dout))
     fn = _fn(name, [_P] * 11 + [_I] * 5 + [_LL] * 6 + [_I, _F, _I, _P])
     dq = torch.empty((C, S, H, dh), dtype=dtype, device=dev)
     dk = torch.empty((C, S, Hkv, dh), dtype=dtype, device=dev)

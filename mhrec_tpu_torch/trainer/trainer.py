@@ -59,19 +59,26 @@ from mhrec_tpu_torch.utils.misc import calculate_valid_score, early_stopping, re
 logger = logging.getLogger(__name__)
 
 
+def _tie_keys(x: torch.Tensor, kth: torch.Tensor) -> torch.Tensor:
+    """Integer keys whose k largest are ``topk_first``'s picks: n + 1 above
+    the k-th value ``kth`` [..., 1], n..1 by position where x equals it, 0
+    below. Integers keep neighbouring ranks apart at any length (a float32
+    rank merges them past 2^24 positions); int32 while n + 1 fits it."""
+    n = x.shape[-1]
+    dtype = torch.int32 if n < 2**31 - 1 else torch.int64
+    key = (x == kth) * torch.arange(n, 0, -1, device=x.device, dtype=dtype)
+    return key.masked_fill_(x > kth, n + 1)
+
+
 def topk_first(x: torch.Tensor, k: int):
     """Top-k along the last dim, largest first, ties broken by the LOWER
     position — the order ``jax.lax.top_k`` gives. ``torch.topk`` promises no
     tie order on CUDA, and ties are common here: a head the prior switch
     turns off is all −inf. Returns (values, positions)."""
-    n = x.shape[-1]
     kth = torch.topk(x, k, dim=-1).values.min(dim=-1, keepdim=True).values
     # every entry above the k-th value is in; the rest of the k slots go to
-    # the lowest positions holding the k-th value (keys n..1 by position)
-    rank = torch.arange(n, 0, -1, device=x.device, dtype=torch.float32)
-    key = (x == kth) * rank
-    key.masked_fill_(x > kth, float(n + 1))
-    sel = torch.topk(key, k, dim=-1, sorted=False).indices.sort(dim=-1).values
+    # the lowest positions holding the k-th value
+    sel = torch.topk(_tie_keys(x, kth), k, dim=-1, sorted=False).indices.sort(dim=-1).values
     vals = torch.gather(x, -1, sel)
     order = torch.sort(vals, dim=-1, descending=True, stable=True).indices
     return torch.gather(vals, -1, order), torch.gather(sel, -1, order)

@@ -342,6 +342,26 @@ def _edge_segments(C, S, window, seed):
             off += n
     return seg
 
+def _packed_layout(layout, C, S, H, Hkv, dh, dtype, card, gen):
+    """q, k, v [C, S, ·, dh] as ``contiguous`` tensors, as ``fused`` strided
+    views of one projection (token stride (H + 2·Hkv)·dh), or ``misaligned``:
+    rows 8 bytes past a 16-byte boundary, which the wrappers copy."""
+    if layout == "fused":
+        proj = (0.5 * torch.randn(C, S, (H + 2 * Hkv) * dh, generator=gen)).to(card, dtype)
+        q, k, v = (x.unflatten(-1, (-1, dh))
+                   for x in proj.split([H * dh, Hkv * dh, Hkv * dh], dim=-1))
+        assert q.stride(1) == (H + 2 * Hkv) * dh and not q.is_contiguous()
+    elif layout == "misaligned":
+        sizes = [C * S * H * dh, C * S * Hkv * dh, C * S * Hkv * dh]
+        flat = (0.5 * torch.randn(sum(sizes) + 4, generator=gen)).to(card, dtype)[4:]
+        q, k, v = (x.view(C, S, -1, dh) for x in flat.split(sizes))
+        assert q.data_ptr() % 16 == 8
+    else:
+        q = (0.5 * torch.randn(C, S, H, dh, generator=gen)).to(card, dtype)
+        k, v = ((0.5 * torch.randn(C, S, Hkv, dh, generator=gen)).to(card, dtype)
+                for _ in range(2))
+    return q, k, v
+
 
 @pytest.mark.parametrize("window", [70, None], ids=["band", "no_band"])
 @pytest.mark.parametrize("layout", ["contiguous", "fused", "misaligned"])
@@ -363,20 +383,7 @@ def test_packed_attn_bwd_tensor_core_route(card, dh, heads, layout, window):
     seg = _edge_segments(C, S, 70, seed=dh + H).to(card)
     real = seg > 0
     gen = torch.Generator().manual_seed(6)
-    if layout == "fused":
-        proj = (0.5 * torch.randn(C, S, (H + 2 * Hkv) * dh, generator=gen)).to(card, dtype)
-        q, k, v = (x.unflatten(-1, (-1, dh))
-                   for x in proj.split([H * dh, Hkv * dh, Hkv * dh], dim=-1))
-        assert q.stride(1) == (H + 2 * Hkv) * dh and not q.is_contiguous()
-    elif layout == "misaligned":  # rows 8 bytes past a 16-byte boundary: the wrapper copies
-        sizes = [C * S * H * dh, C * S * Hkv * dh, C * S * Hkv * dh]
-        flat = (0.5 * torch.randn(sum(sizes) + 4, generator=gen)).to(card, dtype)[4:]
-        q, k, v = (x.view(C, S, -1, dh) for x in flat.split(sizes))
-        assert q.data_ptr() % 16 == 8
-    else:
-        q = (0.5 * torch.randn(C, S, H, dh, generator=gen)).to(card, dtype)
-        k, v = ((0.5 * torch.randn(C, S, Hkv, dh, generator=gen)).to(card, dtype)
-                for _ in range(2))
+    q, k, v = _packed_layout(layout, C, S, H, Hkv, dh, dtype, card, gen)
     dout = (torch.randn(C, S, H, dh, generator=gen).to(card) * real[..., None, None]).to(dtype)
     out, lse = packed_attn_fwd(q, k, v, seg, window, return_lse=True)
     before = packed_attn_bwd.launches
@@ -390,6 +397,139 @@ def test_packed_attn_bwd_tensor_core_route(card, dh, heads, layout, window):
         assert bool(torch.isfinite(g).all()) and torch.equal(g, a), name
         assert not bool(g[~real].any()), name
         _close(g, r, dtype)
+
+
+
+
+@pytest.mark.parametrize("window", [70, None], ids=["band", "no_band"])
+@pytest.mark.parametrize("layout", ["contiguous", "fused", "misaligned"])
+@pytest.mark.parametrize("heads", [(4, 4), (16, 2)], ids=["mha", "gqa8"])
+@pytest.mark.parametrize("dh", [16, 32, 64, 128])
+def test_packed_attn_fwd_tensor_core_route(card, dh, heads, layout, window):
+    """The bfloat16 forward (tensor-core kernel) at every head width the
+    wrapper takes, on segments that straddle tile edges (1-token runs, a run
+    longer than the band, a chunk row all padding, a ragged S): out and lse
+    against the plain version on the float32 values of the same inputs,
+    zeros and −inf on padding rows, the same bits on a repeat."""
+    from mhrec_tpu_torch.models.llm.packed import packed_attention_plain, packed_lse_plain
+    from mhrec_tpu_torch.ops.packed_attention_cuda import packed_attn_fwd
+
+    C, S, (H, Hkv), dtype = 3, 450, heads, torch.bfloat16
+    seg = _edge_segments(C, S, 70, seed=dh + H).to(card)
+    real = seg > 0
+    q, k, v = _packed_layout(layout, C, S, H, Hkv, dh, dtype, card,
+                             torch.Generator().manual_seed(7))
+    before = packed_attn_fwd.launches
+    out, lse = packed_attn_fwd(q, k, v, seg, window, return_lse=True)
+    again, lse2 = packed_attn_fwd(q, k, v, seg, window, return_lse=True)
+    torch.cuda.synchronize()
+    assert packed_attn_fwd.launches == before + 2
+    assert out.dtype == dtype and out.shape == q.shape and out.is_contiguous()
+    assert torch.equal(out, again) and torch.equal(lse, lse2)
+    qf, kf, vf = (x.float() for x in (q, k, v))
+    _close(out[real], packed_attention_plain(qf, kf, vf, seg, window)[real], dtype)
+    assert not bool(out[~real].any())
+    lse = lse.transpose(1, 2)
+    lse_ref = packed_lse_plain(qf, kf, seg, window).transpose(1, 2)
+    torch.testing.assert_close(lse[real], lse_ref[real], atol=1e-5, rtol=1e-5)
+    assert bool((lse[~real] == -float("inf")).all())
+
+
+def test_packed_attn_fwd_tensor_core_window_zero(card):
+    """Window 0 keeps the diagonal alone: each real row's output is its own
+    value row (through the bf16 probability 1), as the plain version."""
+    from mhrec_tpu_torch.models.llm.packed import packed_attention_plain
+    from mhrec_tpu_torch.ops.packed_attention_cuda import packed_attn_fwd
+
+    seg = _edge_segments(2, 300, 70, seed=3).to(card)
+    q, k, v = _packed_layout("contiguous", 2, 300, 8, 2, 64, torch.bfloat16, card,
+                             torch.Generator().manual_seed(8))
+    out = packed_attn_fwd(q, k, v, seg, 0)
+    real = seg > 0
+    ref = packed_attention_plain(q, k, v, seg, 0)
+    assert torch.equal(out[real], ref[real])
+    assert torch.equal(out[real], v.repeat_interleave(4, dim=2)[real])
+    assert not bool(out[~real].any())
+
+
+GATED_TC_SHAPES = {"size4": (4, 50, 16, 64), "merrec": (2, 400, 8, 64),
+                   "f2048": (2, 50, 32, 64), "size1": (3, 50, 4, 32), "d128": (2, 70, 8, 128)}
+
+
+@pytest.mark.parametrize("layout", ["uvqk", "misaligned"])
+@pytest.mark.parametrize("shape", list(GATED_TC_SHAPES))
+def test_stu_gated_fwd_tensor_core_route(card, shape, layout):
+    """The bfloat16 fused STU forward (tensor-core kernel) at the size4,
+    merrec, hstu-1b (F = 2048) and size1 widths and at head width 128: q,
+    k, v, u as the strided splits of the uvqk projection (no copy) or
+    misaligned by 8 bytes (the wrapper copies), batch row 1 all padding;
+    against the plain version within TOL, the same bits on a repeat."""
+    B, L, H, d = GATED_TC_SHAPES[shape]
+    dtype = torch.bfloat16
+    assert K.stu_gated_fwd_route(dtype, L, H, d, d) == "tensor_cores"
+    q, k, v, u, gamma, beta, nonpad, _ = _gated_inputs(B, L, H, d, dtype, card, seed=d + H)
+    nonpad[1] = False
+    if layout == "misaligned":
+        F = H * d
+        flat = torch.empty(4 * B * L * F + 4, dtype=dtype, device=card)[4:]
+        q, k, v, u = (x.copy_(y) for x, y in zip(
+            (t.view(B, L, F) for t in flat.split(B * L * F)), (q, k, v, u)))
+        assert q.data_ptr() % 16 == 8
+    before = K.hstu_stu_gated_fwd.launches
+    out = K.hstu_stu_gated_fwd(q, k, v, u, gamma, beta, nonpad, H)
+    again = K.hstu_stu_gated_fwd(q, k, v, u, gamma, beta, nonpad, H)
+    torch.cuda.synchronize()
+    assert K.hstu_stu_gated_fwd.launches == before + 2
+    assert out.dtype == dtype and out.shape == (B, L, H * d) and torch.equal(out, again)
+    _close(out, K.hstu_stu_gated_fwd_plain(q, k, v, u, gamma, beta, nonpad, H), dtype)
+
+
+def test_stu_gated_fwd_tensor_core_unequal_widths(card):
+    """q/k heads of 32 and v/u heads of 64 (the splits of one projection, as
+    an STU layer with attention_dim 32 and linear_dim 64 makes them) on the
+    tensor-core route: its tiles are laid out for 64 with q/k zero past 32."""
+    B, L, H, dqk, dv = 3, 70, 8, 32, 64
+    assert K.stu_gated_fwd_route(torch.bfloat16, L, H, dqk, dv) == "tensor_cores"
+    gen = torch.Generator().manual_seed(9)
+    F, Fq = H * dv, H * dqk
+    mixed = (0.5 * torch.randn(B, L, 2 * F + 2 * Fq, generator=gen)).to(card, torch.bfloat16)
+    u, v, q, k = torch.split(mixed, [F, F, Fq, Fq], dim=-1)
+    gamma = (1 + 0.1 * torch.randn(F, generator=gen)).to(card)
+    beta = (0.05 * torch.randn(F, generator=gen)).to(card)
+    nonpad = _nonpad(B, L, gen, card)
+    out = K.hstu_stu_gated_fwd(q, k, v, u, gamma, beta, nonpad, H)
+    assert out.shape == (B, L, F)
+    _close(out, K.hstu_stu_gated_fwd_plain(q, k, v, u, gamma, beta, nonpad, H), torch.bfloat16)
+
+
+def test_stu_gated_fwd_cuda_core_widths(card):
+    """bfloat16 at a head width the 16-byte copies cannot take runs the
+    CUDA-core kernel, and agrees with the plain version as well."""
+    B, L, H, d = 3, 40, 4, 12
+    assert K.stu_gated_fwd_route(torch.bfloat16, L, H, d, d) == "cuda_cores"
+    q, k, v, u, gamma, beta, nonpad, _ = _gated_inputs(B, L, H, d, torch.bfloat16, card)
+    out = K.hstu_stu_gated_fwd(q, k, v, u, gamma, beta, nonpad, H)
+    _close(out, K.hstu_stu_gated_fwd_plain(q, k, v, u, gamma, beta, nonpad, H), torch.bfloat16)
+
+
+@pytest.mark.parametrize("kind,k", [("neg_inf", 4), ("ties", 3), ("ties", 5)])
+def test_topk_first_breaks_ties_by_lower_position_past_2_24(card, kind, k):
+    """On the card, where ``torch.topk`` breaks ties in no set order, a row
+    of 2^24 + 1024 positions: the k largest, ties to the lower position (a
+    stable descending sort, the order of ``jax.lax.top_k``)."""
+    import numpy as np
+
+    from mhrec_tpu_torch.trainer.trainer import topk_first
+
+    n = 2**24 + 1024
+    x = np.full(n, -np.inf, np.float32)
+    if kind == "ties":
+        x[[2**24 + 3, 2**24 + 900]] = 2.0
+        x[[0, 1, 2, 5, 2**24 + 1, 2**24 + 7]] = 1.0
+    ref = np.argsort(-x, kind="stable")[:k]
+    vals, pos = topk_first(torch.from_numpy(x[None]).to(card), k)
+    assert pos.cpu().numpy()[0].tolist() == ref.tolist()
+    assert vals.cpu().numpy()[0].tolist() == x[ref].tolist()
 
 
 def test_packed_attention_autograd_under_checkpoint(card):

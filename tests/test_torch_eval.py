@@ -15,6 +15,7 @@ classifier's bias set to -1e4), so head 0 scores every item −inf and its
 top-k is decided by tie order alone.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -27,7 +28,7 @@ from mhrec_tpu_torch.config import Config
 from mhrec_tpu_torch.convert import state_dict_from_flax
 from mhrec_tpu_torch.data import InteractionData, build_eval_dataloaders
 from mhrec_tpu_torch.trainer import Trainer
-from mhrec_tpu_torch.trainer.trainer import topk_first
+from mhrec_tpu_torch.trainer.trainer import _tie_keys, topk_first
 
 torch.set_num_threads(2)
 
@@ -130,6 +131,45 @@ def test_topk_first_breaks_ties_by_lower_position():
     assert vals.tolist() == [[3.0, 3.0, 3.0, 2.0, 1.0]]
     vals, pos = topk_first(torch.full((2, 3, 9), -np.inf), 4)
     assert pos.tolist() == [[[0, 1, 2, 3]] * 3] * 2
+
+
+# a chunk longer than 2^24 positions: a float32 rank n..1 would merge
+# neighbouring ranks above 2^24, i.e. at the first 1024 positions
+LONG_ROW = 2**24 + 1024
+
+
+def _long_row(kind):
+    """[1, LONG_ROW] float32: all −inf (a switched-off head), or −inf with two
+    entries above the k-th value past 2^24 and the k-th value tied at
+    positions 0, 1, 2, 5 and two past 2^24."""
+    x = np.full(LONG_ROW, -np.inf, np.float32)
+    if kind == "ties":
+        x[[2**24 + 3, 2**24 + 900]] = 2.0
+        x[[0, 1, 2, 5, 2**24 + 1, 2**24 + 7]] = 1.0
+    return x[None]
+
+
+@pytest.mark.parametrize("kind,k", [("neg_inf", 4), ("ties", 5)])
+def test_tie_keys_stay_distinct_past_2_24(kind, k):
+    """Over the positions tied at the k-th value the keys fall strictly with
+    the position, so the lower position always ranks first."""
+    x = torch.from_numpy(_long_row(kind))
+    kth = torch.topk(x, k, dim=-1).values.min(dim=-1, keepdim=True).values
+    key = _tie_keys(x, kth)[0]
+    tied = key[(x == kth)[0]]
+    assert tied.numel() == (LONG_ROW if kind == "neg_inf" else 6)
+    assert bool((tied[1:] < tied[:-1]).all())
+    assert bool((key[(x > kth)[0]] > tied.max()).all())
+
+
+@pytest.mark.parametrize("kind,k", [("neg_inf", 4), ("neg_inf", 7), ("ties", 3),
+                                    ("ties", 5), ("ties", 8)])
+def test_topk_first_matches_lax_top_k_past_2_24(kind, k):
+    x = _long_row(kind)
+    ref_vals, ref_pos = jax.lax.top_k(jnp.asarray(x), k)
+    vals, pos = topk_first(torch.from_numpy(x), k)
+    np.testing.assert_array_equal(pos.numpy(), np.asarray(ref_pos))
+    np.testing.assert_array_equal(vals.numpy(), np.asarray(ref_vals))
 
 
 def test_entry_points_refuse_to_leave_the_card_unasked(prior_config, monkeypatch):

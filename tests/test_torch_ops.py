@@ -224,6 +224,38 @@ GRAD_TOL = dict(rtol=2e-5, atol=2e-5)
 AFFINE_TOL = dict(rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("dtype,L,H,d,route", [
+    (torch.bfloat16, 50, 16, 64, "tensor_cores"),    # size4, serving and training
+    (torch.bfloat16, 400, 8, 64, "tensor_cores"),    # merrec
+    (torch.bfloat16, 50, 32, 64, "tensor_cores"),    # hstu-1b, F = 2048
+    (torch.bfloat16, 50, 4, 32, "tensor_cores"),     # size1
+    (torch.bfloat16, 50, 16, 128, "tensor_cores"),
+    (torch.bfloat16, 50, 4, 12, "cuda_cores"),       # a width the 16-byte copies cannot take
+    (torch.bfloat16, 50, 18, 128, "cuda_cores"),     # F = 2304 at width 128: rows too wide
+    (torch.float32, 50, 16, 64, "cuda_cores"),
+], ids=["size4", "merrec", "1b", "size1", "d128", "d12", "d128-F2304", "f32"])
+def test_stu_gated_fwd_route(dtype, L, H, d, route):
+    """bfloat16 takes the tensor-core kernel at every width the models build;
+    the rest the CUDA-core kernel, which admits them (its shared memory)."""
+    assert K.stu_gated_fwd_route(dtype, L, H, d, d) == route
+    assert 4 * K._TQ * (H * d + 2) + K._head_smem_bytes(d, d) <= K._SMEM_LIMIT
+
+
+def test_aligned16_copies_only_rows_that_miss_16_bytes():
+    from mhrec_tpu_torch.ops.cuda_build import aligned16
+
+    mixed = torch.zeros(2, 5, 4 * 64, dtype=torch.bfloat16)
+    q = mixed[..., 128:192]  # a split of the uvqk projection: aligned rows
+    assert aligned16(q) is q
+    heads = mixed.unflatten(-1, (-1, 16))[:, :, 8:12]  # [C, S, H, dh] views of a projection
+    assert aligned16(heads) is heads
+    flat = torch.zeros(2 * 5 * 64 + 4, dtype=torch.bfloat16)[4:].view(2, 5, 64)
+    moved = aligned16(flat)  # 8 bytes past a 16-byte boundary: copied
+    assert moved.data_ptr() % 16 == 0 and moved.is_contiguous() and torch.equal(moved, flat)
+    gamma = torch.ones(68)[4:]
+    assert aligned16(gamma) is gamma
+
+
 @pytest.mark.parametrize("B,L", [(2, 20), (3, 50), (2, 70)])
 def test_stu_gated_bwd_plain_matches_pallas(B, L):
     import jax
