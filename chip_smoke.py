@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``mhrec_tpu_torch``) on one CUDA card.
 
-    python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py [--profile | --train-only]
 
 Builds the port's CUDA kernels from ``mhrec_tpu_torch/csrc`` (one ``nvcc``
 per source, in parallel) and holds each against its plain PyTorch version on
@@ -13,9 +13,11 @@ over 4 KV heads of width 64, band 257, segments of 1-257 tokens and
 trailing padding; also timed against ``scaled_dot_product_attention`` with
 the same mask, forward and backward, which the port never calls, and alone
 at the train step's 72 chunk rows). The bfloat16 routes of the fused STU
-forward and of the packed attention, forward and backward, run their
-products on the tensor cores (``mma.sync``); each kernel phase names the
-route it took. Then it
+block and of the pointwise attention's backward, and of the packed
+attention, forward and backward, run their products on the tensor cores
+(``mma.sync``); each kernel phase names the route it took, and the two
+HSTU backward kernels are also timed on their CUDA-core route and split by
+the kernels a call runs (``torch.profiler``). Then it
 drives the port's two HSTU paths on the paper's headline model — HSTU
 size4 (1024d, 16 layers, 16 heads, window 50) with 8-category prior heads,
 4 segment heads, additive interaction and the prior switch — over 4096 users and a 200,000-item catalog, with random weights
@@ -33,7 +35,8 @@ from seed 0:
   test split evaluated from that checkpoint; kernel A runs 16 times forward
   and 16 times backward per step and ``row_adamw`` once. A last pass takes
   one batch through ``attn_impl: pallas`` and ``xla`` and holds the loss and
-  (on a float32 copy of the model) the gradients against ``auto``'s, and one
+  (on a float32 copy of the model) the gradients against ``auto``'s, each
+  bfloat16 route's gradients against the float32 copy's, and one
   row update of ``sparse_adam_impl: xla`` (the plain version) against the
   kernel's.
 
@@ -85,7 +88,11 @@ failure exits non-zero without the last line. ``--profile`` adds phases that
 run one evaluation of the test split, five train steps, one HLLM evaluation
 and three HLLM train steps under ``torch.profiler`` and print device time
 by kernel group and the top kernels. float32 products run in full float32:
-TF32 is switched off for matmuls and cuDNN.
+TF32 is switched off for matmuls and cuDNN. ``--train-only`` builds the
+kernels and runs the HSTU train phase alone, without the last line: a copy
+of this script beside another tree's ``mhrec_tpu_torch`` (a parent commit
+unpacked with ``git archive``) runs that tree's training, so two trees can
+be timed in turns within one call.
 """
 
 from __future__ import annotations
@@ -116,9 +123,11 @@ TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 2e-2)}  # (atol, rtol)
 # still agree to this. Gradients are compared on a float32 copy of the
 # model, where the routes differ only in the order of sums and in the
 # bfloat16 logit tables of the loss: each gradient tensor to a relative L2
-# error of F32_GRAD_TOL (bfloat16 gradients of the early layers differ by
-# tens of percent between routes at 16 layers, PERF.md: rounding noise grows
-# through the backward, so they are reported and not held to a bound)
+# error of F32_GRAD_TOL. bfloat16 gradients of the early layers differ by
+# tens of percent between routes at 16 layers, but every bf16 route (auto,
+# pallas, xla) lies about as far from the float32 copy's gradients
+# (train_impl's bf16_vs_f32_auto, PERF.md §7): rounding noise grown through
+# the backward, so they are reported and not held to a bound
 IMPL_TOL = 5e-2
 F32_GRAD_TOL = 1e-2
 
@@ -282,12 +291,12 @@ KERNELS = {
     "stu_bwd": dict(
         name="hstu_stu_gated_bwd", source="mhrec_tpu_torch/csrc/hstu_stu_gated_bwd.cu",
         replaces="mhrec_tpu/ops/pallas/hstu_attention_tpu.py:537",
-        products="CUDA cores",
+        products="bf16: tensor cores, mma.sync m16n8k16; f32: CUDA cores",
     ),
     "attn_bwd": dict(
         name="hstu_attn_bwd", source="mhrec_tpu_torch/csrc/hstu_attn_bwd.cu",
         replaces="mhrec_tpu/ops/pallas/hstu_attention_tpu.py:307",
-        products="CUDA cores",
+        products="bf16: tensor cores, mma.sync m16n8k16; f32: CUDA cores",
     ),
     "row_adamw": dict(
         name="row_adamw", source="mhrec_tpu_torch/csrc/row_adamw.cu",
@@ -321,10 +330,28 @@ def kernel_fns(kind):
     }[kind]
 
 
+def kernel_route(kind, dtype, L, H, d):
+    """The route the wrapper of ``kind`` takes on these inputs, where it has
+    more than one (bfloat16: tensor cores; float32: CUDA cores)."""
+    from mhrec_tpu_torch.ops import hstu_attention_cuda as K
+
+    if kind == "stu":
+        return K.stu_gated_fwd_route(dtype, L, H, d, d)
+    if kind == "stu_bwd":
+        return K.stu_gated_bwd_route(dtype, L, H, d, d)
+    if kind == "attn_bwd":
+        return K.attn_bwd_route(dtype, L, d, d)
+    return None
+
+
 def kernel_phase(kind, shape_name, B, L, H, d, dtype, seed=0):
     """Compare one kernel with its plain version on the card, time both
-    (plain, kernel, kernel, plain) and compute the bound. The comparison
-    and timing launches are counted outside the main paths' runs."""
+    (plain, kernel, kernel, plain) and compute the bound. A backward kernel
+    whose bfloat16 route runs on the tensor cores is also timed on its
+    CUDA-core route (``cuda_core_ms``, between the kernel's two timings), so
+    that the two designs are compared in one call on one card. The
+    comparison and timing launches are counted outside the main paths'
+    runs."""
     import torch
 
     fn, plain = kernel_fns(kind)
@@ -340,13 +367,45 @@ def kernel_phase(kind, shape_name, B, L, H, d, dtype, seed=0):
            "B": B, "L": L, "H": H, "d": d, "dtype": dname, "max_abs_err": err,
            "atol": TOL[dname][0], "rtol": TOL[dname][1],
            "ok": finite and excess <= 0}
-    if kind == "stu":  # bfloat16 at these widths: the tensor-core kernel
-        from mhrec_tpu_torch.ops.hstu_attention_cuda import stu_gated_fwd_route
-
-        rec["route"] = stu_gated_fwd_route(dtype, L, H, d, d)
-    p1, k1, k2, p2 = (cuda_ms(lambda f=f: f(*args)) for f in (plain, fn, fn, plain))
+    route = kernel_route(kind, dtype, L, H, d)
+    if route is not None:
+        rec["route"] = route
+    p1, k1 = (cuda_ms(lambda f=f: f(*args)) for f in (plain, fn))
+    if kind in ("stu_bwd", "attn_bwd") and route == "tensor_cores":
+        rec["cuda_core_ms"] = min(cuda_ms(lambda: fn(*args, route="cuda_cores"))
+                                  for _ in range(2))
+    k2, p2 = (cuda_ms(lambda f=f: f(*args)) for f in (fn, plain))
     rec["ms"], rec["plain_ms"] = min(k1, k2), min(p1, p2)
     rec["bound_ms"], rec["bound_by"] = bound_ms(kind, args)
+    emit(rec)
+    return rec
+
+
+def kernel_breakdown(kind, shape_name, B, L, H, d, dtype, iters=20, seed=0, **kw):
+    """Device time of one wrapper call split by the CUDA kernels it runs
+    (its own launches, and the copies and reductions around them), from
+    ``torch.profiler`` over ``iters`` calls after a warm one; ms per call.
+    ``kw`` goes to the wrapper."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn, _ = kernel_fns(kind)
+    args = kernel_inputs(kind, B, L, H, d, dtype, seed)
+    fn(*args, **kw)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn(*args, **kw)
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            us = e.time_range.end - e.time_range.start
+            by_name[e.name[:100]] = by_name.get(e.name[:100], 0.0) + us / 1e3 / iters
+    rec = {"phase": "kernel_breakdown", "kernel": KERNELS[kind]["name"], "shape": shape_name,
+           "B": B, "L": L, "H": H, "d": d, "dtype": str(dtype).replace("torch.", ""), **kw,
+           "ms_per_call": by_name, "device_ms_per_call": sum(by_name.values())}
     emit(rec)
     return rec
 
@@ -883,23 +942,28 @@ def loss_and_grads(trainer, batch, step):
 
 
 def _grad_agreement(grads, ref):
-    """(max per-tensor relative L2 error, cosine of the whole gradient)."""
+    """(max per-tensor relative L2 error, cosine of the whole gradient, the
+    tensor of the max)."""
     import torch
 
-    rel = max(float(torch.linalg.vector_norm(grads[n] - g) / torch.linalg.vector_norm(g))
-              for n, g in ref.items() if bool(g.any()))
+    rel = {n: float(torch.linalg.vector_norm(grads[n].float() - g.float())
+                    / torch.linalg.vector_norm(g.float()))
+           for n, g in ref.items() if bool(g.any())}
+    worst = max(rel, key=rel.get)
     flat_a = torch.cat([g.flatten().double() for g in grads.values()])
     flat_b = torch.cat([g.flatten().double() for g in ref.values()])
-    return rel, float(torch.nn.functional.cosine_similarity(flat_a, flat_b, dim=0))
+    return rel[worst], float(torch.nn.functional.cosine_similarity(flat_a, flat_b, dim=0)), worst
 
 
 def train_impl_phase(trainer, data):
     """One batch of the trained model's loss and gradients under
     ``attn_impl: pallas`` (kernel B forward and backward, 16 launches each)
     and ``xla`` (the plain path, no kernel) against ``auto`` (kernel A), in
-    the model's bfloat16 and on a float32 copy; and one row update of
-    ``sparse_adam_impl: xla`` (the plain version) against the kernel's,
-    which must be bit-equal."""
+    the model's bfloat16 and on a float32 copy; each bfloat16 route's
+    gradients (``auto``, ``pallas``, ``xla``) against the float32 copy's
+    ``auto`` gradients (``bf16_vs_f32_auto``: how far bfloat16 rounding
+    alone takes each route); and one row update of ``sparse_adam_impl: xla`` (the plain
+    version) against the kernel's, which must be bit-equal."""
     import torch
 
     from mhrec_tpu_torch.data import build_dataloader
@@ -912,11 +976,12 @@ def train_impl_phase(trainer, data):
     f32 = Trainer(trainer.config, data, dtype=torch.float32)
     f32.model.load_state_dict(trainer.model.state_dict())
     L = len(trainer.model.stu_layers)
-    recs, ok_all, pallas_launches = {}, True, None
+    recs, ok_all, pallas_launches, bf16_grads = {}, True, None, {}
     for dname, tr in (("bfloat16", trainer), ("float32", f32)):
         loss_ref, g_ref, ids = loss_and_grads(tr, batch, step)
         if dname == "bfloat16":
             g_rows, ids_rows = g_ref["item_rows"], ids
+            bf16_grads["auto"] = g_ref
         for impl in ("pallas", "xla"):
             set_attn_impl(tr.model, impl)
             reset_launches()
@@ -925,20 +990,28 @@ def train_impl_phase(trainer, data):
             launches = read_launches()
             set_attn_impl(tr.model, "auto")
             loss_rel = abs(loss - loss_ref) / abs(loss_ref)
-            grad_rel, cos = _grad_agreement(grads, g_ref)
+            grad_rel, cos, worst = _grad_agreement(grads, g_ref)
             want = {k: 0 for k in launches}
             if impl == "pallas":
                 want.update(hstu_attn_fwd=L, hstu_attn_bwd=L)
                 if dname == "bfloat16":
                     pallas_launches = launches
+            if dname == "bfloat16":
+                bf16_grads[impl] = grads
             ok = (loss_rel <= IMPL_TOL and launches == want
                   and (dname == "bfloat16" or grad_rel <= F32_GRAD_TOL))
             ok_all &= ok
             recs[f"{impl}_{dname}"] = {
                 "loss": loss, "loss_auto": loss_ref, "loss_rel_diff": loss_rel,
-                "grad_max_rel_l2": grad_rel, "grad_cosine": cos, "launches": launches,
-                "ok": bool(ok)}
-    del f32
+                "grad_max_rel_l2": grad_rel, "grad_worst_tensor": worst, "grad_cosine": cos,
+                "launches": launches, "ok": bool(ok)}
+    # g_ref now holds the float32 copy's auto gradients
+    vs_f32 = {}
+    for impl, grads in bf16_grads.items():
+        grad_rel, cos, worst = _grad_agreement(grads, g_ref)
+        vs_f32[impl] = {"grad_max_rel_l2": grad_rel, "grad_worst_tensor": worst,
+                        "grad_cosine": cos}
+    del f32, bf16_grads
     model = trainer.model
     cfg = SparseAdamConfig(weight_decay=trainer.weight_decay)
     states = []
@@ -952,7 +1025,7 @@ def train_impl_phase(trainer, data):
     del states
     ok_all &= row_equal
     emit({"phase": "train_impl", "loss_tolerance": IMPL_TOL,
-          "f32_grad_tolerance": F32_GRAD_TOL, **recs,
+          "f32_grad_tolerance": F32_GRAD_TOL, **recs, "bf16_vs_f32_auto": vs_f32,
           "row_update_xla_equals_kernel": row_equal, "ok": bool(ok_all)})
     return pallas_launches, ok_all
 
@@ -1257,7 +1330,7 @@ def hllm_train_impl_phase(trainer, data, work_dir):
     (lp, gp, launch_p), (ld, gd, launch_d) = (hllm_loss_and_grads(f32, batches[p], p)
                                               for p in (True, False))
     rel = abs(lp - ld) / abs(ld)
-    grad_rel, cos = _grad_agreement(gp, gd)
+    grad_rel, cos, _ = _grad_agreement(gp, gd)
     want = {k: 0 for k in launch_p}
     ok = (rel <= F32_GRAD_TOL and grad_rel <= F32_GRAD_TOL and set(gp) == set(gd)
           and launch_p == dict(want, packed_attn_fwd=4, packed_attn_bwd=2) and launch_d == want
@@ -1370,6 +1443,18 @@ def main(argv=None) -> int:
     per_source = cuda_build.build(verbose=True)
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "per_source": per_source})
 
+    # the HSTU phases' users and catalog
+    hstu_data = dict(num_users=4096, num_items=200_000, seq_len=2 * 50 + 2 * 8,
+                     num_categories=8, eval_pred_len=8, max_item_list_length=50, seed=0)
+    if "--train-only" in args:
+        data = InMemoryInteractionData(**hstu_data)
+        ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+        try:
+            ok = train_phase(data, ckpt_dir)[2]
+        finally:
+            shutil.rmtree(ckpt_dir, ignore_errors=True)
+        return 0 if ok else 1
+
     failed = []
     kernel_recs = {}
     seconds = {}  # wall seconds of each phase
@@ -1380,7 +1465,9 @@ def main(argv=None) -> int:
             for shape_name, (B, L, H, d) in shapes.items():
                 for dtype in (torch.float32, torch.bfloat16):
                     rec = kernel_phase(kind, shape_name, B, L, H, d, dtype)
-                    if not rec["ok"]:
+                    # every bfloat16 route here runs on the tensor cores but #2's
+                    if not rec["ok"] or (dtype == torch.bfloat16 and kind != "attn"
+                                         and rec["route"] != "tensor_cores"):
                         failed.append(f"{kind}/{shape_name}/{dtype}")
                     if shape_name == "size4" and dtype == torch.bfloat16:
                         # the train step's shape (batch 64, window 50, bf16)
@@ -1391,6 +1478,16 @@ def main(argv=None) -> int:
                 kernel_recs[kind] = rec
                 if not rec["ok"]:
                     failed.append(f"{kind}/serve")
+            if kind == "stu_bwd":
+                # hstu-1b's width (F = 2048), where one block holds an SM
+                rec = kernel_phase(kind, "1b", 64, 50, 32, 64, torch.bfloat16)
+                if not (rec["ok"] and rec["route"] == "tensor_cores"):
+                    failed.append(f"{kind}/1b")
+            if kind in ("stu_bwd", "attn_bwd"):
+                # the train step's shape, split by the kernels a call runs,
+                # on both routes
+                for route in ("tensor_cores", "cuda_cores"):
+                    kernel_breakdown(kind, "size4", 64, 50, 16, 64, torch.bfloat16, route=route)
         kernel_recs["row_adamw"] = row_adamw_phase()
         if not kernel_recs["row_adamw"]["ok"]:
             failed.append("row_adamw")
@@ -1406,10 +1503,7 @@ def main(argv=None) -> int:
     seconds["kernels"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    data = InMemoryInteractionData(
-        num_users=4096, num_items=200_000, seq_len=2 * 50 + 2 * 8, num_categories=8,
-        eval_pred_len=8, max_item_list_length=50, seed=0,
-    )
+    data = InMemoryInteractionData(**hstu_data)
     trainer, test_loader, serve_launches, ok = serve_phase(data)
     batch0 = next(iter(test_loader.batches()))
     if not ok:

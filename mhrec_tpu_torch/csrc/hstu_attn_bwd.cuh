@@ -13,18 +13,47 @@
 // three gradient products, which are summed in f32 and rounded to the
 // input type on the way out.
 //
-// Design: two passes, each recomputing the scores, so that no two blocks
-// write the same output row and no atomics are needed (the result does not
-// depend on the block schedule). The dk/dv pass gives each block BT key
-// rows of one head and walks the query tiles at or below the causal
-// diagonal; the dq pass gives each block BT query rows and walks the key
-// tiles up to its causal edge. Tiles live in shared memory as f32, rows
-// padded by one float so the score loop reads them without bank conflicts;
-// products are CUDA-core FMAs. Tensor cores and a single fused pass are
-// later work.
+// No two blocks write the same output row and no atomics are used, so the
+// result does not depend on the block schedule and a repeat gives the same
+// bits. Two routes, chosen by the callers:
+// * float32, and bfloat16 at other head widths (attn_bwd_dkdv_kernel,
+//   attn_bwd_dq_kernel): two passes, each recomputing the scores. The dk/dv
+//   pass gives each block BT key rows of one head and walks the query tiles
+//   at or below the causal diagonal; the dq pass gives each block BT query
+//   rows and walks the key tiles up to its causal edge. Tiles live in shared
+//   memory as f32, rows padded by one float so the score loop reads them
+//   without bank conflicts; products are CUDA-core FMAs, which keep float32
+//   in full float32 (the tensor cores would take it as TF32).
+// * bfloat16 with head widths that are multiples of 8 up to 128 (the
+//   tensor-core kernels at the end of this file): every product is an
+//   mma.sync m16n8k16 with bf16 operands from ldmatrix and float32
+//   accumulators, tiles are bf16 in shared memory (rows padded by 16 bytes,
+//   widths zero-filled up to DP) copied with 16-byte cp.async, and 4 warps
+//   each own 16 rows of the block's tile. A warp computes a [16, 8·NB] tile
+//   of x and of dA (= g·vᵀ) in one orientation, applies the mask, silu and
+//   silu′ and 1/n in f32 registers, and rounds A and ds to bf16 straight
+//   from the accumulators into the A fragments of the next products (two
+//   m16n8 C tiles are one A fragment), so A and ds never pass through
+//   shared memory. With query rows as the warp's rows the fragments give
+//   dQ = ds·K; with key rows (x and dA computed transposed, Sᵀ = K·Qᵀ and
+//   dAᵀ = V·Gᵀ) they give dV = Aᵀ·G and dK = dsᵀ·Q. 16-row blocks past the
+//   causal edge are neither scored nor multiplied.
+//   - Windows of at most 64 rows (every HSTU config: window 50) take one
+//     block per (batch row, head) holding the whole window
+//     (attn_bwd_tc_window_kernel): Q, K, V and G are read once, and each
+//     warp runs both orientations on its 16 rows, so the scores are computed
+//     twice (once a side) instead of passing A and ds through shared memory
+//     and a block barrier.
+//   - Longer windows take a dq pass over 64-row query tiles that walks the
+//     key tiles up to its causal edge, and a dk/dv pass over 64-row key
+//     tiles that walks the query tiles from its diagonal on (32-row tiles at
+//     DP = 128, to keep dK, dV and the scores in registers), each streaming
+//     its tiles through a ring of two cp.async stages (attn_bwd_dq_tc_kernel,
+//     attn_bwd_dkv_tc_kernel).
 #pragma once
 
 #include "hstu_attn_common.cuh"
+#include "tc_bf16.cuh"
 
 namespace hstu {
 
@@ -242,5 +271,390 @@ int launch_attn_bwd(const BwdArgs& p, int B, cudaStream_t stream) {
     attn_bwd_dq_kernel<T><<<grid, NT, smem, stream>>>(p);
     return (int)cudaGetLastError();
 }
+
+// ---- the bfloat16 route: tensor-core kernels --------------------------------
+
+using bf16 = __nv_bfloat16;
+
+constexpr int TB_WARPS = 4;
+constexpr int TB_NT = 32 * TB_WARPS;  // threads a block
+constexpr int TB_M = 16 * TB_WARPS;   // rows of a block's own tile, 16 a warp
+constexpr int TB_WINDOW = TB_M;       // the longest window one block holds whole
+
+// query rows of a streamed tile of the dk/dv pass
+template <int DP>
+__host__ __device__ constexpr int tb_dkv_tq() { return DP == 128 ? 32 : 64; }
+
+// bytes of dynamic shared memory of each tensor-core kernel
+template <int DP>
+__host__ __device__ constexpr size_t tb_smem_window() {  // q, k, v, g, the warps' staging
+    return sizeof(bf16) * (size_t)(4 * TB_M + TB_M) * (DP + tc::PAD);
+}
+template <int DP>
+__host__ __device__ constexpr size_t tb_smem_dq() {  // q, g; two stages of k, v
+    return sizeof(bf16) * (size_t)(2 * TB_M + 4 * TB_M) * (DP + tc::PAD);
+}
+template <int DP>
+__host__ __device__ constexpr size_t tb_smem_dkv() {  // k, v; two stages of q, g
+    return sizeof(bf16) * (size_t)(2 * TB_M + 4 * tb_dkv_tq<DP>()) * (DP + tc::PAD);
+}
+
+// A warp's score tiles s = R_a · C_aᵀ and d = R_b · C_bᵀ: R_a, R_b the warp's
+// 16 rows (pitch DP + PAD), C_a, C_b tiles of 8·NB rows; only the 16-column
+// blocks [blo, bhi) are computed.
+template <int DP, int NB>
+__device__ __forceinline__ void score_pair(float (&s)[NB][4], float (&d)[NB][4],
+                                           const bf16* ra, const bf16* rb, const bf16* ca,
+                                           const bf16* cb, int blo, int bhi, int lane) {
+    constexpr int LD = DP + tc::PAD;
+#pragma unroll
+    for (int n = 0; n < NB; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = d[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+        uint32_t a[4], w[4];
+        tc::ld_a(a, ra, LD, kk * 16, lane);
+        tc::ld_a(w, rb, LD, kk * 16, lane);
+#pragma unroll
+        for (int np = 0; np < NB / 2; ++np) {
+            if (np >= blo && np < bhi) {
+                uint32_t b[4], x[4];
+                tc::ld_b_nk(b, ca, LD, np * 16, kk * 16, lane);
+                tc::ld_b_nk(x, cb, LD, np * 16, kk * 16, lane);
+                tc::mma(s[2 * np], a, b[0], b[1]);
+                tc::mma(s[2 * np + 1], a, b[2], b[3]);
+                tc::mma(d[2 * np], w, x[0], x[1]);
+                tc::mma(d[2 * np + 1], w, x[2], x[3]);
+            }
+        }
+    }
+}
+
+// A = mask ⊙ silu(x)/n and ds = mask ⊙ dA ⊙ silu′(x)/n of a warp's score
+// tiles (x = s, dA = d), rounded to bf16 as the A fragments af, dsf of the
+// next products (depth: the tiles' columns), over the 16-column blocks
+// [blo, bhi). Entry (r, c) is row row0 + r and column col0 + c; with
+// ROWS_ARE_QUERIES the rows are queries and the columns keys, else the
+// other way round. kf[key − kf0] is the key's nonpad flag.
+template <int NB, bool ROWS_ARE_QUERIES>
+__device__ __forceinline__ void silu_grad_frags(const float (&s)[NB][4], const float (&d)[NB][4],
+                                                int row0, int col0, const unsigned char* kf,
+                                                int kf0, int L, float inv_n, int blo, int bhi,
+                                                int lane, uint32_t (&af)[NB / 2][4],
+                                                uint32_t (&dsf)[NB / 2][4]) {
+    const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+    for (int n = 0; n < NB; ++n) {
+        if (n >= 2 * blo && n < 2 * bhi) {
+            float a[4], ds[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const int row = row0 + g + (e & 2) * 4, col = col0 + n * 8 + 2 * t4 + (e & 1);
+                const int query = ROWS_ARE_QUERIES ? row : col, key = ROWS_ARE_QUERIES ? col : row;
+                const bool keep = key <= query && query < L && kf[key - kf0];
+                const float x = s[n][e];
+                const float sig = 1.f / (1.f + expf(-x));
+                a[e] = keep ? x * sig * inv_n : 0.f;
+                ds[e] = keep ? d[n][e] * (sig * (1.f + x * (1.f - sig))) * inv_n : 0.f;
+            }
+            af[n >> 1][(n & 1) * 2] = tc::pack_bf16(a[0], a[1]);
+            af[n >> 1][(n & 1) * 2 + 1] = tc::pack_bf16(a[2], a[3]);
+            dsf[n >> 1][(n & 1) * 2] = tc::pack_bf16(ds[0], ds[1]);
+            dsf[n >> 1][(n & 1) * 2 + 1] = tc::pack_bf16(ds[2], ds[3]);
+        }
+    }
+}
+
+// acc += f · T over the depth blocks [blo, bhi): f the A fragments of a
+// [16, 16·KB] bf16 tile, T a tile of 16·KB rows stored [depth][DP]
+template <int DP, int KB>
+__device__ __forceinline__ void mma_frags(float (&acc)[DP / 8][4], const uint32_t (&f)[KB][4],
+                                          const bf16* tile, int blo, int bhi, int lane) {
+    constexpr int LD = DP + tc::PAD;
+#pragma unroll
+    for (int kk = 0; kk < KB; ++kk) {
+        if (kk >= blo && kk < bhi) {
+#pragma unroll
+            for (int np = 0; np < DP / 16; ++np) {
+                uint32_t b[4];
+                tc::ld_b_kn(b, tile, LD, kk * 16, np * 16, lane);
+                tc::mma(acc[2 * np], f[kk], b[0], b[1]);
+                tc::mma(acc[2 * np + 1], f[kk], b[2], b[3]);
+            }
+        }
+    }
+}
+
+template <int DP>
+__device__ __forceinline__ void zero_acc(float (&acc)[DP / 8][4]) {
+#pragma unroll
+    for (int n = 0; n < DP / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+}
+
+// A warp's [16, DP] accumulator rounded to bf16 once and written to rows
+// [0, nrows) and 16-byte chunks [0, cw) of out (row stride ld), through the
+// warp's own [16][DP + PAD] staging rows st, so that the stores are 16 bytes
+// a lane
+template <int DP>
+__device__ __forceinline__ void store_rows(const float (&acc)[DP / 8][4], bf16* st, bf16* out,
+                                           long long ld, int nrows, int cw, int lane) {
+    constexpr int LD = DP + tc::PAD;
+    const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+    for (int n = 0; n < DP / 8; ++n) {
+        const int col = n * 8 + 2 * t4;
+        *reinterpret_cast<uint32_t*>(st + g * LD + col) = tc::pack_bf16(acc[n][0], acc[n][1]);
+        *reinterpret_cast<uint32_t*>(st + (g + 8) * LD + col) = tc::pack_bf16(acc[n][2], acc[n][3]);
+    }
+    __syncwarp();
+#pragma unroll
+    for (int e = lane; e < 16 * (DP / 8); e += 32) {
+        const int r = e / (DP / 8), ch = e % (DP / 8);
+        if (r < nrows && ch < cw)
+            *reinterpret_cast<uint4*>(out + r * ld + ch * 8) =
+                *reinterpret_cast<const uint4*>(st + r * LD + ch * 8);
+    }
+    __syncwarp();  // the staging rows are free again
+}
+
+// row r of tensor t (0..6: q, k, v, g, dq, dk, dv) of head (b, h)
+template <typename P>
+__device__ __forceinline__ P* row_ptr(P* base, const long long (&s)[3], int b, int h, int r) {
+    return base + b * s[0] + h * s[1] + r * s[2];
+}
+
+// The whole window (L <= TB_WINDOW) of head (blockIdx.y, batch row blockIdx.z).
+template <int DP>
+__global__ void __launch_bounds__(TB_NT) attn_bwd_tc_window_kernel(BwdArgs p) {
+    constexpr int LD = DP + tc::PAD, NB = TB_M / 8, KB = TB_M / 16;
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    bf16* sq = reinterpret_cast<bf16*>(smem_raw);  // [TB_M][LD]
+    bf16* sk = sq + TB_M * LD;                     // [TB_M][LD]
+    bf16* sv = sk + TB_M * LD;                     // [TB_M][LD]
+    bf16* sg = sv + TB_M * LD;                     // [TB_M][LD]
+    bf16* sst = sg + TB_M * LD;                    // [TB_WARPS][16][LD] staging
+    __shared__ unsigned char kf[TB_M];
+    const int h = blockIdx.y, b = blockIdx.z, L = p.L;
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int cq = p.dqk / 8, cv = p.dv / 8;
+    tc::stage_rows<TB_M, DP, TB_NT>(sq, row_ptr(static_cast<const bf16*>(p.q), p.s[0], b, h, 0),
+                                    p.s[0][2], L, tid, cq);
+    tc::stage_rows<TB_M, DP, TB_NT>(sk, row_ptr(static_cast<const bf16*>(p.k), p.s[1], b, h, 0),
+                                    p.s[1][2], L, tid, cq);
+    tc::stage_rows<TB_M, DP, TB_NT>(sv, row_ptr(static_cast<const bf16*>(p.v), p.s[2], b, h, 0),
+                                    p.s[2][2], L, tid, cv);
+    tc::stage_rows<TB_M, DP, TB_NT>(sg, row_ptr(static_cast<const bf16*>(p.g), p.s[3], b, h, 0),
+                                    p.s[3][2], L, tid, cv);
+    tc::cp_async_commit();
+    if (tid < TB_M) kf[tid] = tid < L ? p.nonpad[(long long)b * L + tid] : 0;
+    tc::cp_async_wait<0>();
+    __syncthreads();  // every tile is read-only from here on
+
+    const int r0 = 16 * warp;  // the warp's rows: queries for dq, keys for dk and dv
+    if (r0 >= L) return;
+    const int nr = min(16, L - r0), nb = (L + 15) / 16;
+    bf16* st = sst + r0 * LD;
+    float s[NB][4], d[NB][4], acc[DP / 8][4];
+    uint32_t af[KB][4], dsf[KB][4];
+
+    // dq of query rows r0..: keys of the 16-blocks 0..warp
+    score_pair<DP, NB>(s, d, sq + r0 * LD, sg + r0 * LD, sk, sv, 0, warp + 1, lane);
+    silu_grad_frags<NB, true>(s, d, r0, 0, kf, 0, L, p.inv_n, 0, warp + 1, lane, af, dsf);
+    zero_acc<DP>(acc);
+    mma_frags<DP, KB>(acc, dsf, sk, 0, warp + 1, lane);
+    store_rows<DP>(acc, st, row_ptr(static_cast<bf16*>(p.gq), p.s[4], b, h, r0), p.s[4][2], nr,
+                   cq, lane);
+
+    // dv and dk of key rows r0..: queries of the 16-blocks warp..nb-1
+    score_pair<DP, NB>(s, d, sk + r0 * LD, sv + r0 * LD, sq, sg, warp, nb, lane);
+    silu_grad_frags<NB, false>(s, d, r0, 0, kf, 0, L, p.inv_n, warp, nb, lane, af, dsf);
+    zero_acc<DP>(acc);
+    mma_frags<DP, KB>(acc, af, sg, warp, nb, lane);
+    store_rows<DP>(acc, st, row_ptr(static_cast<bf16*>(p.gv), p.s[6], b, h, r0), p.s[6][2], nr,
+                   cv, lane);
+    zero_acc<DP>(acc);
+    mma_frags<DP, KB>(acc, dsf, sq, warp, nb, lane);
+    store_rows<DP>(acc, st, row_ptr(static_cast<bf16*>(p.gk), p.s[5], b, h, r0), p.s[5][2], nr,
+                   cq, lane);
+}
+
+// dq of query rows [q0, q0 + TB_M) of head (blockIdx.y, batch row
+// blockIdx.z), q0 = blockIdx.x · TB_M. Key and value tiles of TB_M rows
+// stream through a ring of two stages.
+template <int DP>
+__global__ void __launch_bounds__(TB_NT) attn_bwd_dq_tc_kernel(BwdArgs p) {
+    constexpr int LD = DP + tc::PAD, NB = TB_M / 8, KB = TB_M / 16;
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    bf16* sq = reinterpret_cast<bf16*>(smem_raw);  // [TB_M][LD]
+    bf16* sg = sq + TB_M * LD;                     // [TB_M][LD]
+    bf16* sk = sg + TB_M * LD;                     // [2][TB_M][LD]
+    bf16* sv = sk + 2 * TB_M * LD;                 // [2][TB_M][LD]
+    __shared__ unsigned char kf[2][TB_M];
+    const int q0 = blockIdx.x * TB_M, h = blockIdx.y, b = blockIdx.z, L = p.L;
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int cq = p.dqk / 8, cv = p.dv / 8;
+    const int qn = min(TB_M, L - q0), kend = q0 + qn;  // kend: the tile's causal edge
+    const bf16* kh = row_ptr(static_cast<const bf16*>(p.k), p.s[1], b, h, 0);
+    const bf16* vh = row_ptr(static_cast<const bf16*>(p.v), p.s[2], b, h, 0);
+    const unsigned char* np = p.nonpad + (long long)b * L;
+    tc::stage_rows<TB_M, DP, TB_NT>(sq, row_ptr(static_cast<const bf16*>(p.q), p.s[0], b, h, q0),
+                                    p.s[0][2], qn, tid, cq);
+    tc::stage_rows<TB_M, DP, TB_NT>(sg, row_ptr(static_cast<const bf16*>(p.g), p.s[3], b, h, q0),
+                                    p.s[3][2], qn, tid, cv);
+    tc::cp_async_commit();
+
+    auto load_kv = [&](int tile, int buf) {
+        const int k0 = tile * TB_M, nk = min(TB_M, kend - k0);
+        tc::stage_rows<TB_M, DP, TB_NT>(sk + buf * TB_M * LD, kh + k0 * p.s[1][2], p.s[1][2], nk,
+                                        tid, cq);
+        tc::stage_rows<TB_M, DP, TB_NT>(sv + buf * TB_M * LD, vh + k0 * p.s[2][2], p.s[2][2], nk,
+                                        tid, cv);
+        if (tid < TB_M) kf[buf][tid] = tid < nk ? np[k0 + tid] : 0;
+    };
+    const int ntiles = (kend + TB_M - 1) / TB_M;
+    load_kv(0, 0);
+    tc::cp_async_commit();
+
+    const int r0 = q0 + 16 * warp;             // the warp's first query row
+    const int last = min(r0 + 15, L - 1);      // its last (no rows when r0 >= L)
+    float acc[DP / 8][4];
+    zero_acc<DP>(acc);
+    for (int tile = 0; tile < ntiles; ++tile) {
+        const int buf = tile & 1;
+        if (tile + 1 < ntiles) load_kv(tile + 1, buf ^ 1);
+        tc::cp_async_commit();
+        tc::cp_async_wait<1>();  // this tile (and q, g) have landed
+        __syncthreads();
+        const int k0 = tile * TB_M;
+        const int hi = r0 < L && last >= k0 ? min(KB, (last - k0) / 16 + 1) : 0;
+        if (hi > 0) {
+            const bf16* skb = sk + buf * TB_M * LD;
+            float s[NB][4], d[NB][4];
+            uint32_t af[KB][4], dsf[KB][4];
+            score_pair<DP, NB>(s, d, sq + 16 * warp * LD, sg + 16 * warp * LD, skb,
+                               sv + buf * TB_M * LD, 0, hi, lane);
+            silu_grad_frags<NB, true>(s, d, r0, k0, kf[buf], k0, L, p.inv_n, 0, hi, lane, af,
+                                      dsf);
+            mma_frags<DP, KB>(acc, dsf, skb, 0, hi, lane);
+        }
+        __syncthreads();  // the readers of this stage are done before it is refilled
+    }
+    if (r0 < L)  // the warp's rows of sq, read by it alone, stage the stores
+        store_rows<DP>(acc, sq + 16 * warp * LD,
+                       row_ptr(static_cast<bf16*>(p.gq), p.s[4], b, h, r0), p.s[4][2],
+                       min(16, L - r0), cq, lane);
+}
+
+// dk and dv of key rows [k0, k0 + TB_M) of head (blockIdx.y, batch row
+// blockIdx.z), k0 = blockIdx.x · TB_M. Query and gradient tiles of TQ rows
+// from the diagonal on stream through a ring of two stages.
+template <int DP>
+__global__ void __launch_bounds__(TB_NT) attn_bwd_dkv_tc_kernel(BwdArgs p) {
+    constexpr int LD = DP + tc::PAD, TQ = tb_dkv_tq<DP>(), NB = TQ / 8, KB = TQ / 16;
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    bf16* sk = reinterpret_cast<bf16*>(smem_raw);  // [TB_M][LD]
+    bf16* sv = sk + TB_M * LD;                     // [TB_M][LD]
+    bf16* sq = sv + TB_M * LD;                     // [2][TQ][LD]
+    bf16* sg = sq + 2 * TQ * LD;                   // [2][TQ][LD]
+    __shared__ unsigned char kf[TB_M];
+    const int k0 = blockIdx.x * TB_M, h = blockIdx.y, b = blockIdx.z, L = p.L;
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int cq = p.dqk / 8, cv = p.dv / 8;
+    const int nk = min(TB_M, L - k0);
+    const bf16* qh = row_ptr(static_cast<const bf16*>(p.q), p.s[0], b, h, 0);
+    const bf16* gh = row_ptr(static_cast<const bf16*>(p.g), p.s[3], b, h, 0);
+    tc::stage_rows<TB_M, DP, TB_NT>(sk, row_ptr(static_cast<const bf16*>(p.k), p.s[1], b, h, k0),
+                                    p.s[1][2], nk, tid, cq);
+    tc::stage_rows<TB_M, DP, TB_NT>(sv, row_ptr(static_cast<const bf16*>(p.v), p.s[2], b, h, k0),
+                                    p.s[2][2], nk, tid, cv);
+    tc::cp_async_commit();
+    if (tid < TB_M) kf[tid] = tid < nk ? p.nonpad[(long long)b * L + k0 + tid] : 0;
+
+    auto load_qg = [&](int tile, int buf) {
+        const int q0 = k0 + tile * TQ, nq = min(TQ, L - q0);
+        tc::stage_rows<TQ, DP, TB_NT>(sq + buf * TQ * LD, qh + q0 * p.s[0][2], p.s[0][2], nq, tid,
+                                      cq);
+        tc::stage_rows<TQ, DP, TB_NT>(sg + buf * TQ * LD, gh + q0 * p.s[3][2], p.s[3][2], nq, tid,
+                                      cv);
+    };
+    const int ntiles = (L - k0 + TQ - 1) / TQ;
+    load_qg(0, 0);
+    tc::cp_async_commit();
+
+    const int r0 = k0 + 16 * warp;  // the warp's first key row
+    float ak[DP / 8][4], av[DP / 8][4];
+    zero_acc<DP>(ak);
+    zero_acc<DP>(av);
+    for (int tile = 0; tile < ntiles; ++tile) {
+        const int buf = tile & 1;
+        if (tile + 1 < ntiles) load_qg(tile + 1, buf ^ 1);
+        tc::cp_async_commit();
+        tc::cp_async_wait<1>();  // this tile (and k, v) have landed
+        __syncthreads();
+        const int q0 = k0 + tile * TQ;
+        // query blocks holding a query at or past the warp's first key
+        const int lo = max(0, (r0 - q0) / 16), hi = min(KB, (L - q0 + 15) / 16);
+        if (r0 < L && lo < hi) {
+            const bf16* sqb = sq + buf * TQ * LD;
+            const bf16* sgb = sg + buf * TQ * LD;
+            float s[NB][4], d[NB][4];
+            uint32_t af[KB][4], dsf[KB][4];
+            score_pair<DP, NB>(s, d, sk + 16 * warp * LD, sv + 16 * warp * LD, sqb, sgb, lo, hi,
+                               lane);
+            silu_grad_frags<NB, false>(s, d, r0, q0, kf, k0, L, p.inv_n, lo, hi, lane, af, dsf);
+            mma_frags<DP, KB>(av, af, sgb, lo, hi, lane);
+            mma_frags<DP, KB>(ak, dsf, sqb, lo, hi, lane);
+        }
+        __syncthreads();  // the readers of this stage are done before it is refilled
+    }
+    if (r0 < L) {  // the warp's rows of sk and sv, read by it alone, stage the stores
+        const int nr = min(16, L - r0);
+        store_rows<DP>(av, sv + 16 * warp * LD,
+                       row_ptr(static_cast<bf16*>(p.gv), p.s[6], b, h, r0), p.s[6][2], nr, cv,
+                       lane);
+        store_rows<DP>(ak, sk + 16 * warp * LD,
+                       row_ptr(static_cast<bf16*>(p.gk), p.s[5], b, h, r0), p.s[5][2], nr, cq,
+                       lane);
+    }
+}
+
+template <typename K>
+int set_smem(K kernel, size_t bytes) {
+    return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                     (int)bytes);
+}
+
+template <int DP>
+int launch_attn_bwd_tc(const BwdArgs& p, int B, cudaStream_t stream) {
+    int err;
+    if (p.L <= TB_WINDOW) {
+        if ((err = set_smem(attn_bwd_tc_window_kernel<DP>, tb_smem_window<DP>()))) return err;
+        attn_bwd_tc_window_kernel<DP>
+            <<<dim3(1, p.H, B), TB_NT, tb_smem_window<DP>(), stream>>>(p);
+        return (int)cudaGetLastError();
+    }
+    // the two passes write different outputs and read only the inputs
+    const dim3 grid((p.L + TB_M - 1) / TB_M, p.H, B);
+    if ((err = set_smem(attn_bwd_dq_tc_kernel<DP>, tb_smem_dq<DP>()))) return err;
+    if ((err = set_smem(attn_bwd_dkv_tc_kernel<DP>, tb_smem_dkv<DP>()))) return err;
+    attn_bwd_dkv_tc_kernel<DP><<<grid, TB_NT, tb_smem_dkv<DP>(), stream>>>(p);
+    if ((err = (int)cudaGetLastError())) return err;
+    attn_bwd_dq_tc_kernel<DP><<<grid, TB_NT, tb_smem_dq<DP>(), stream>>>(p);
+    return (int)cudaGetLastError();
+}
+
+// The tensor-core route on bf16 inputs: dqk and dv multiples of 8 up to 128;
+// every tensor 16-byte aligned with strides above the last that are
+// multiples of 8. Returns the first cudaError_t (0 = success).
+inline int launch_attn_bwd_bf16_tc(const BwdArgs& p, int B, cudaStream_t stream) {
+    const int d = p.dqk > p.dv ? p.dqk : p.dv;
+    if (d <= 16) return launch_attn_bwd_tc<16>(p, B, stream);
+    if (d <= 32) return launch_attn_bwd_tc<32>(p, B, stream);
+    if (d <= 64) return launch_attn_bwd_tc<64>(p, B, stream);
+    if (d <= 128) return launch_attn_bwd_tc<128>(p, B, stream);
+    return (int)cudaErrorInvalidValue;
+}
+
 
 }  // namespace hstu

@@ -47,17 +47,18 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // rows [0, n) of an R x W bf16 tile at src (row stride `stride` elements,
 // rows 16-byte aligned) into shared memory at dst (pitch W + PAD); rows n..R-1
-// are zero-filled. All NTH threads of the block take part.
+// and the 16-byte chunks of a row from cw on are zero-filled. All NTH threads
+// of the block take part.
 template <int R, int W, int NTH>
 __device__ __forceinline__ void stage_rows(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                           long long stride, int n, int tid) {
+                                           long long stride, int n, int tid, int cw = W / 8) {
     constexpr int CPR = W / 8;  // 16-byte chunks a row
     static_assert((R * CPR) % NTH == 0, "a tile must split evenly over the block");
 #pragma unroll
     for (int it = 0; it < R * CPR / NTH; ++it) {
         const int e = tid + it * NTH, r = e / CPR, ch = e % CPR;
-        const bool in = r < n;
-        cp_async16(dst + r * (W + PAD) + ch * 8, src + (in ? r : 0) * stride + ch * 8, in);
+        const bool in = r < n && ch < cw;
+        cp_async16(dst + r * (W + PAD) + ch * 8, in ? src + r * stride + ch * 8 : src, in);
     }
 }
 

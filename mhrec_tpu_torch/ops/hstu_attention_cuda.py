@@ -8,12 +8,14 @@ Counterpart of ``mhrec_tpu/ops/pallas/hstu_attention_tpu.py``:
   ``hstu_attention_gated_pallas``, on the tensor cores in bfloat16
   (``stu_gated_fwd_route``); differentiable, its backward is
   ``hstu_stu_gated_bwd`` (``csrc/hstu_stu_gated_bwd.cu``), replacing
-  ``_bwd_gated_kernel``;
+  ``_bwd_gated_kernel``, on the tensor cores in bfloat16
+  (``stu_gated_bwd_route``);
 * ``hstu_attn_fwd`` — the pointwise attention over ``[B, H, L, d]``
   (``csrc/hstu_attn_fwd.cu``), replacing ``_fwd_kernel_v2`` /
   ``hstu_attention_pallas_v2``; differentiable, its backward is
   ``hstu_attn_bwd`` (``csrc/hstu_attn_bwd.cu``), replacing
-  ``_bwd_kernel_v2``. ``hstu_attention_v2`` and ``hstu_attention_bhld`` are
+  ``_bwd_kernel_v2``, on the tensor cores in bfloat16
+  (``attn_bwd_route``). ``hstu_attention_v2`` and ``hstu_attention_bhld`` are
   its layout wrappers for ``[B, L, H, d]`` and ``[B·H, L, d]`` (the latter
   replacing ``_fwd_kernel`` / ``_bwd_kernel`` behind
   ``hstu_attention_pallas``), differentiable through it.
@@ -37,10 +39,12 @@ import torch
 
 from mhrec_tpu_torch.ops import cuda_build
 
-# shared-memory layouts of csrc/hstu_attn_common.cuh and csrc/hstu_attn_bwd.cuh,
-# and the warps and key-tile rows of the tensor-core kernel (hstu_stu_gated_fwd.cu)
-_TQ, _TK, _MAX_D, _BT = 16, 64, 128, 32
+# shared-memory layout of csrc/hstu_attn_common.cuh, the warps and key-tile
+# rows of the fused STU block's tensor-core kernels (csrc/hstu_stu_tc.cuh),
+# and the bytes of per-row statistics that the backward's kernel holds on top
+_TQ, _TK, _MAX_D = 16, 64, 128
 _TC_WARPS, _TC_TK = 4, 32
+_TC_BWD_STATS = 4 * 4 * _TQ
 _SMEM_LIMIT = 232448  # bytes of shared memory one block may use on sm_90
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -53,8 +57,8 @@ def _head_smem_bytes(dqk: int, dv: int) -> int:
 
 
 def _tc_smem_bytes(dqk: int, dv: int, L: int, H: int) -> int:
-    """Shared memory of the fused STU forward's tensor-core kernel with one
-    stage a warp (``tc_smem_bytes`` of csrc/hstu_stu_gated_fwd.cu)."""
+    """Shared memory of the fused STU block's tensor-core kernels with one
+    stage a warp (``tc_smem_bytes`` of csrc/hstu_stu_tc.cuh)."""
     dp = next(d for d in (16, 32, 64, 128) if d >= max(dqk, dv))
     return (4 * _TQ * (H * dv + 8) + 2 * _TC_WARPS * (_TQ + 2 * _TC_TK) * (dp + 8)
             + -(-L // 16) * 16)
@@ -71,8 +75,43 @@ def stu_gated_fwd_route(dtype, L: int, H: int, dqk: int, dv: int) -> str:
     return "tensor_cores" if tc else "cuda_cores"
 
 
-def _bwd_smem_bytes(dqk: int, dv: int) -> int:
-    return 4 * (2 * _BT * (dqk + 1) + 2 * _BT * (dv + 1) + 2 * _BT * (_BT + 1))
+def _tc_widths(dqk: int, dv: int) -> bool:
+    """Head widths the bfloat16 tensor-core kernels take: multiples of 8
+    (their 16-byte copies) up to 128."""
+    return dqk % 8 == 0 and dv % 8 == 0 and max(dqk, dv) <= _MAX_D
+
+
+def stu_gated_bwd_route(dtype, L: int, H: int, dqk: int, dv: int) -> str:
+    """Which kernels ``hstu_stu_gated_bwd`` launches on the card: bfloat16
+    with head widths that are multiples of 8 up to 128 runs on the tensor
+    cores where the recompute's shared memory (the forward's, plus the rows'
+    statistics) fits — every size the models build, F = 2048 included;
+    float32, bfloat16 at other widths, and rows too wide on the CUDA cores
+    (the tensor cores would take float32 as TF32)."""
+    tc = (dtype == torch.bfloat16 and _tc_widths(dqk, dv)
+          and _tc_smem_bytes(dqk, dv, L, H) + _TC_BWD_STATS <= _SMEM_LIMIT)
+    return "tensor_cores" if tc else "cuda_cores"
+
+
+def attn_bwd_route(dtype, L: int, dqk: int, dv: int) -> str:
+    """Which kernels ``hstu_attn_bwd`` launches on the card: bfloat16 with
+    head widths that are multiples of 8 up to 128 on the tensor cores;
+    float32 and bfloat16 at other widths on the CUDA cores. The window
+    length L picks the kernels within the tensor-core route (up to 64 rows
+    one block a head, beyond that a dq and a dk/dv pass over 64-row tiles),
+    not the route."""
+    tc = dtype == torch.bfloat16 and _tc_widths(dqk, dv)
+    return "tensor_cores" if tc else "cuda_cores"
+
+
+def _pick_route(name: str, route, auto: str) -> str:
+    """``route`` as asked (None: ``auto``, the route the inputs select);
+    the tensor cores only where the inputs allow them."""
+    route = auto if route is None else route
+    _check(route in ("tensor_cores", "cuda_cores"), f"{name}: unknown route {route!r}")
+    _check(route == "cuda_cores" or auto == "tensor_cores",
+           f"{name}: these inputs cannot take the tensor-core route")
+    return route
 
 
 def _lib(name: str, argtypes) -> ctypes.CDLL:
@@ -246,11 +285,13 @@ def hstu_stu_gated_bwd_plain(q, k, v, u, gamma, beta, nonpad, g, num_heads: int,
 
 
 def hstu_stu_gated_bwd(q, k, v, u, gamma, beta, nonpad, g, num_heads: int,
-                       eps: float = 1e-6):
+                       eps: float = 1e-6, route=None):
     """Gradients (dq, dk, dv, du, dγ, dβ) of ``hstu_stu_gated_fwd`` given its
     output gradient g [B, L, H·dv]. dq, dk, dv, du come back contiguous in
     the inputs' dtype, dγ and dβ in float32. One call is one launch of the
-    backward kernel (two steps on one stream, ``csrc/hstu_stu_gated_bwd.cu``)."""
+    backward kernel (two steps on one stream, ``csrc/hstu_stu_gated_bwd.cu``).
+    ``route``: None takes ``stu_gated_bwd_route``; "cuda_cores" runs the
+    CUDA-core kernels on bfloat16 too (to time the two designs side by side)."""
     if q.device.type == "cpu":
         return hstu_stu_gated_bwd_plain(q, k, v, u, gamma, beta, nonpad, g, num_heads, eps)
     name = "hstu_stu_gated_bwd"
@@ -258,6 +299,11 @@ def hstu_stu_gated_bwd(q, k, v, u, gamma, beta, nonpad, g, num_heads: int,
     _check_cuda_inputs(name, (q, k, v, u, g), nonpad)
     B, L, H, dqk, dv = _check_gated_inputs(name, q, k, v, u, gamma, beta, nonpad, num_heads)
     _check(g.shape == v.shape, f"{name}: g{tuple(g.shape)} must be shaped as v{tuple(v.shape)}")
+    code = _DTYPES[q.dtype]
+    if _pick_route(name, route, stu_gated_bwd_route(q.dtype, L, H, dqk, dv)) == "tensor_cores":
+        q, k, v, u, gamma, beta, g = (cuda_build.aligned16(t)
+                                      for t in (q, k, v, u, gamma, beta, g))
+        code = 2
     fn = _lib(name, [_P] * 15 + [_I] * 5 + [_LLP] + [_F, _F, _I, _P])
     F, Fq = H * dv, H * dqk
     dq, dk = (torch.empty((B, L, Fq), dtype=q.dtype, device=q.device) for _ in range(2))
@@ -268,8 +314,7 @@ def hstu_stu_gated_bwd(q, k, v, u, gamma, beta, nonpad, g, num_heads: int,
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), u.data_ptr(), gamma.data_ptr(),
              beta.data_ptr(), nonpad.data_ptr(), g.data_ptr(), dq.data_ptr(), dk.data_ptr(),
              dvv.data_ptr(), du.data_ptr(), dattn.data_ptr(), parts[0].data_ptr(),
-             parts[1].data_ptr(), B, L, H, dqk, dv, strides, 1.0 / L, eps,
-             _DTYPES[q.dtype], _stream(q))
+             parts[1].data_ptr(), B, L, H, dqk, dv, strides, 1.0 / L, eps, code, _stream(q))
     _launch_error(name, err)
     hstu_stu_gated_bwd.launches += 1
     dgamma, dbeta = parts.sum(1)
@@ -353,15 +398,21 @@ def hstu_attn_bwd_plain(q, k, v, g, nonpad):
     return _attn_bwd_math(q, k, v, g, nonpad, q.shape[-2])
 
 
-def hstu_attn_bwd(q, k, v, g, nonpad):
+def hstu_attn_bwd(q, k, v, g, nonpad, route=None):
     """Gradients (dq, dk, dv) of ``hstu_attn_fwd`` given its output gradient
     g [B, H, L, dv]; inputs at any strides with a contiguous last dim,
-    gradients contiguous [B, H, L, d] in the inputs' dtype."""
+    gradients contiguous [B, H, L, d] in the inputs' dtype. ``route``: None
+    takes ``attn_bwd_route``; "cuda_cores" runs the CUDA-core kernels on
+    bfloat16 too (to time the two designs side by side)."""
     if q.device.type == "cpu":
         return hstu_attn_bwd_plain(q, k, v, g, nonpad)
     name = "hstu_attn_bwd"
     B, H, L, dqk, dv = _check_attn_inputs(name, (q, k, v, g), nonpad)
     _check(g.shape == v.shape, f"{name}: g{tuple(g.shape)} must be shaped as v{tuple(v.shape)}")
+    code = _DTYPES[q.dtype]
+    if _pick_route(name, route, attn_bwd_route(q.dtype, L, dqk, dv)) == "tensor_cores":
+        q, k, v, g = (cuda_build.aligned16(t) for t in (q, k, v, g))
+        code = 2
     fn = _lib(name, [_P] * 8 + [_I] * 5 + [_LLP] + [_F, _I, _P])
     dq, dk = (torch.empty((B, H, L, dqk), dtype=q.dtype, device=q.device) for _ in range(2))
     dvv = torch.empty((B, H, L, dv), dtype=q.dtype, device=q.device)
@@ -369,7 +420,7 @@ def hstu_attn_bwd(q, k, v, g, nonpad):
                                          for s in t.stride()[:3]))
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), nonpad.data_ptr(),
              dq.data_ptr(), dk.data_ptr(), dvv.data_ptr(), B, H, L, dqk, dv, strides,
-             1.0 / L, _DTYPES[q.dtype], _stream(q))
+             1.0 / L, code, _stream(q))
     _launch_error(name, err)
     hstu_attn_bwd.launches += 1
     return dq, dk, dvv

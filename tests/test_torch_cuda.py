@@ -610,3 +610,157 @@ def test_packed_attn_bwd_refuses_what_it_cannot_take(card):
     with pytest.raises(ValueError, match="contiguous heads"):
         packed_attn_bwd(q.transpose(1, 2).contiguous().transpose(1, 2), k, v, out, dout, lse,
                         seg, 8)
+
+
+# window lengths around the one-block window (64) and its two-pass
+# continuation, the widths of size1 / size4 / merrec / hstu-1b and 128
+BWD_TC_SHAPES = {"L1": (3, 1, 4, 64), "L16": (3, 16, 4, 64), "size4": (4, 50, 16, 64),
+                 "L64": (3, 64, 4, 64), "L65": (3, 65, 4, 64), "merrec": (2, 400, 8, 64),
+                 "d32": (3, 50, 4, 32), "d128": (2, 70, 8, 128), "f2048": (2, 50, 32, 64)}
+
+
+def _misaligned(tensors, dtype, card):
+    """Copies of ``tensors`` (same shapes, contiguous) in one buffer that
+    starts 8 bytes past a 16-byte boundary, so every copy does too."""
+    n = sum(t.numel() for t in tensors)
+    flat = torch.empty(n + 4, dtype=dtype, device=card)[4:]
+    out, at = [], 0
+    for t in tensors:
+        out.append(flat[at:at + t.numel()].view(t.shape).copy_(t))
+        at += t.numel()
+    assert out[0].data_ptr() % 16 == 8
+    return out
+
+
+@pytest.mark.parametrize("layout", ["uvqk", "misaligned"])
+@pytest.mark.parametrize("shape", list(BWD_TC_SHAPES))
+def test_stu_gated_bwd_tensor_core_route(card, shape, layout):
+    """The bfloat16 fused STU backward (tensor-core recompute and attention
+    backward): q, k, v, u as the strided splits of the uvqk projection (no
+    copy) or misaligned by 8 bytes (the wrapper copies), batch row 1 all
+    padding (zero dq, dk, dv there); against the plain version within TOL,
+    the same bits on a repeat."""
+    B, L, H, d = BWD_TC_SHAPES[shape]
+    dtype = torch.bfloat16
+    assert K.stu_gated_bwd_route(dtype, L, H, d, d) == "tensor_cores"
+    q, k, v, u, gamma, beta, nonpad, g = _gated_inputs(B, L, H, d, dtype, card, seed=d + H + L)
+    nonpad[1] = False
+    if layout == "misaligned":
+        q, k, v, u, g = _misaligned((q, k, v, u, g), dtype, card)
+    before = K.hstu_stu_gated_bwd.launches
+    out = K.hstu_stu_gated_bwd(q, k, v, u, gamma, beta, nonpad, g, H)
+    again = K.hstu_stu_gated_bwd(q, k, v, u, gamma, beta, nonpad, g, H)
+    torch.cuda.synchronize()
+    assert K.hstu_stu_gated_bwd.launches == before + 2
+    ref = K.hstu_stu_gated_bwd_plain(q, k, v, u, gamma, beta, nonpad, g, H)
+    for name, o, a, r in zip(("dq", "dk", "dv", "du", "dgamma", "dbeta"), out, again, ref):
+        assert o.dtype == r.dtype and o.shape == r.shape, name
+        assert torch.equal(o, a), name
+        _close(o, r, dtype)
+    for o in out[:3]:
+        assert not bool(o[1].any())
+
+
+def test_stu_gated_bwd_tensor_core_unequal_widths(card):
+    """q/k heads of 32 and v/u heads of 64 on the tensor-core backward, over
+    a window past 64 rows."""
+    B, L, H, dqk, dv = 3, 70, 8, 32, 64
+    assert K.stu_gated_bwd_route(torch.bfloat16, L, H, dqk, dv) == "tensor_cores"
+    gen = torch.Generator().manual_seed(9)
+    F, Fq = H * dv, H * dqk
+    mixed = (0.5 * torch.randn(B, L, 2 * F + 2 * Fq, generator=gen)).to(card, torch.bfloat16)
+    u, v, q, k = torch.split(mixed, [F, F, Fq, Fq], dim=-1)
+    gamma = (1 + 0.1 * torch.randn(F, generator=gen)).to(card)
+    beta = (0.05 * torch.randn(F, generator=gen)).to(card)
+    g = torch.randn(B, L, F, generator=gen).to(card, torch.bfloat16)
+    nonpad = _nonpad(B, L, gen, card)
+    out = K.hstu_stu_gated_bwd(q, k, v, u, gamma, beta, nonpad, g, H)
+    ref = K.hstu_stu_gated_bwd_plain(q, k, v, u, gamma, beta, nonpad, g, H)
+    for o, r in zip(out, ref):
+        assert o.shape == r.shape
+        _close(o, r, torch.bfloat16)
+
+
+def _attn_bwd_inputs(B, L, H, dqk, dv, card, seed):
+    """q, k [B, L, H, dqk], v, g [B, L, H, dv] viewed head-major (strided,
+    no copy), and nonpad with batch row 1 all padding."""
+    gen = torch.Generator().manual_seed(seed)
+    q, k = ((0.5 * torch.randn(B, L, H, dqk, generator=gen)).to(card, torch.bfloat16)
+            for _ in range(2))
+    v, g = ((0.5 * torch.randn(B, L, H, dv, generator=gen)).to(card, torch.bfloat16)
+            for _ in range(2))
+    nonpad = _nonpad(B, L, gen, card)
+    nonpad[1] = False
+    return [x.transpose(1, 2) for x in (q, k, v, g)], nonpad
+
+
+@pytest.mark.parametrize("layout", ["blhd", "misaligned"])
+@pytest.mark.parametrize("shape", list(BWD_TC_SHAPES))
+def test_attn_bwd_tensor_core_route(card, shape, layout):
+    """The bfloat16 pointwise attention backward on the tensor cores: inputs
+    as head-major views of [B, L, H, d] (strided, no copy) or contiguous and
+    misaligned by 8 bytes (the wrapper copies); zero gradients on the
+    all-padding batch row; against the plain version within TOL, the same
+    bits on a repeat."""
+    B, L, H, d = BWD_TC_SHAPES[shape]
+    assert K.attn_bwd_route(torch.bfloat16, L, d, d) == "tensor_cores"
+    args, nonpad = _attn_bwd_inputs(B, L, H, d, d, card, seed=d + L)
+    if layout == "misaligned":
+        args = _misaligned([x.contiguous() for x in args], torch.bfloat16, card)
+    before = K.hstu_attn_bwd.launches
+    out = K.hstu_attn_bwd(*args, nonpad)
+    again = K.hstu_attn_bwd(*args, nonpad)
+    torch.cuda.synchronize()
+    assert K.hstu_attn_bwd.launches == before + 2
+    for name, o, a, r in zip(("dq", "dk", "dv"), out, again, K.hstu_attn_bwd_plain(*args, nonpad)):
+        assert o.dtype == torch.bfloat16 and o.shape == r.shape, name
+        assert torch.equal(o, a), name
+        assert not bool(o[1].any()), name
+        _close(o, r, torch.bfloat16)
+
+
+@pytest.mark.parametrize("L", [50, 130])
+def test_attn_bwd_tensor_core_unequal_widths(card, L):
+    """q/k heads of 32 and v heads of 64, in one block (L = 50) and in two
+    passes (L = 130)."""
+    args, nonpad = _attn_bwd_inputs(3, L, 4, 32, 64, card, seed=L)
+    assert K.attn_bwd_route(torch.bfloat16, L, 32, 64) == "tensor_cores"
+    for o, r in zip(K.hstu_attn_bwd(*args, nonpad), K.hstu_attn_bwd_plain(*args, nonpad)):
+        assert o.shape == r.shape
+        _close(o, r, torch.bfloat16)
+
+
+@pytest.mark.parametrize("L", [50, 100])
+def test_attn_bwd_tensor_core_route_bhld(card, L):
+    """[B·H, L, d] through ``hstu_attention_bhld`` and autograd: one launch
+    of the tensor-core backward, gradients as the plain version's."""
+    B, H, d = 2, 4, 64
+    (q, k, v, g), nonpad = _attn_bwd_inputs(B, L, H, d, d, card, seed=7)
+    flat = [x.reshape(B * H, L, d).detach().requires_grad_(True) for x in (q, k, v)]
+    rows = nonpad.repeat_interleave(H, dim=0)
+    before = K.hstu_attn_bwd.launches
+    K.hstu_attention_bhld(*flat, rows).backward(g.reshape(B * H, L, d))
+    torch.cuda.synchronize()
+    assert K.hstu_attn_bwd.launches == before + 1
+    ref = K.hstu_attn_bwd_plain(*(x.detach()[:, None] for x in flat), g.reshape(B * H, 1, L, d),
+                                rows)
+    for x, r in zip(flat, ref):
+        _close(x.grad, r[:, 0], torch.bfloat16)
+
+
+def test_backward_kernels_cuda_core_route_on_request(card):
+    """``route="cuda_cores"`` runs the CUDA-core kernels on bfloat16 (as
+    ``chip_smoke.py`` times them beside the tensor cores), and they agree
+    with the plain versions too; float32 refuses the tensor cores."""
+    B, L, H, d = 3, 50, 4, 64
+    q, k, v, u, gamma, beta, nonpad, g = _gated_inputs(B, L, H, d, torch.bfloat16, card)
+    args = (q, k, v, u, gamma, beta, nonpad, g, H)
+    for o, r in zip(K.hstu_stu_gated_bwd(*args, route="cuda_cores"),
+                    K.hstu_stu_gated_bwd_plain(*args)):
+        _close(o, r, torch.bfloat16)
+    heads, nonpad = _attn_bwd_inputs(B, L, H, d, d, card, seed=3)
+    for o, r in zip(K.hstu_attn_bwd(*heads, nonpad, route="cuda_cores"),
+                    K.hstu_attn_bwd_plain(*heads, nonpad)):
+        _close(o, r, torch.bfloat16)
+    with pytest.raises(ValueError, match="tensor-core route"):
+        K.hstu_attn_bwd(*(x.float() for x in heads), nonpad, route="tensor_cores")

@@ -241,6 +241,61 @@ def test_stu_gated_fwd_route(dtype, L, H, d, route):
     assert 4 * K._TQ * (H * d + 2) + K._head_smem_bytes(d, d) <= K._SMEM_LIMIT
 
 
+@pytest.mark.parametrize("dtype,L,H,dqk,dv,route", [
+    (torch.bfloat16, 50, 16, 64, 64, "tensor_cores"),    # size4, the train step (F = 1024)
+    (torch.bfloat16, 400, 8, 64, 64, "tensor_cores"),    # merrec
+    (torch.bfloat16, 50, 32, 64, 64, "tensor_cores"),    # hstu-1b, F = 2048
+    (torch.bfloat16, 50, 4, 32, 32, "tensor_cores"),     # size1
+    (torch.bfloat16, 70, 8, 128, 128, "tensor_cores"),   # d = 128, F = 1024
+    (torch.bfloat16, 70, 8, 32, 64, "tensor_cores"),     # dqk != dv
+    (torch.bfloat16, 50, 4, 12, 12, "cuda_cores"),       # a width the 16-byte copies cannot take
+    (torch.bfloat16, 50, 4, 16, 12, "cuda_cores"),       # dv not a multiple of 8
+    (torch.bfloat16, 50, 18, 128, 128, "cuda_cores"),    # F = 2304 at width 128: rows too wide
+    (torch.float32, 50, 16, 64, 64, "cuda_cores"),
+    (torch.float32, 50, 32, 64, 64, "cuda_cores"),       # F = 2048
+], ids=["size4", "merrec", "1b", "size1", "d128", "dqk32-dv64", "d12", "dv12", "d128-F2304",
+        "f32", "f32-F2048"])
+def test_stu_gated_bwd_route(dtype, L, H, dqk, dv, route):
+    """bfloat16 takes the tensor-core backward at every width the models
+    build; the rest the CUDA-core kernels, which admit them (their shared
+    memory)."""
+    assert K.stu_gated_bwd_route(dtype, L, H, dqk, dv) == route
+    assert 4 * K._TQ * (H * dv + 2) + K._head_smem_bytes(dqk, dv) <= K._SMEM_LIMIT
+
+
+@pytest.mark.parametrize("dtype,L,dqk,dv,route", [
+    (torch.bfloat16, 50, 64, 64, "tensor_cores"),     # size4: one block a head
+    (torch.bfloat16, 1, 32, 32, "tensor_cores"),
+    (torch.bfloat16, 64, 128, 128, "tensor_cores"),   # the longest window one block holds
+    (torch.bfloat16, 65, 128, 128, "tensor_cores"),   # two passes from here on
+    (torch.bfloat16, 400, 64, 64, "tensor_cores"),    # merrec
+    (torch.bfloat16, 50, 32, 64, "tensor_cores"),     # dqk != dv
+    (torch.bfloat16, 50, 12, 12, "cuda_cores"),       # not a multiple of 8
+    (torch.bfloat16, 50, 64, 136, "cuda_cores"),      # wider than 128
+    (torch.float32, 50, 64, 64, "cuda_cores"),
+    (torch.float32, 400, 128, 128, "cuda_cores"),
+], ids=["size4", "L1", "L64-d128", "L65-d128", "merrec", "dqk32-dv64", "d12", "dv136",
+        "f32", "f32-merrec"])
+def test_attn_bwd_route(dtype, L, dqk, dv, route):
+    assert K.attn_bwd_route(dtype, L, dqk, dv) == route
+
+
+def test_backward_wrappers_refuse_a_route_the_inputs_cannot_take():
+    """The tensor cores only where the route check admits the inputs (never
+    float32); an unknown route name raises too. Asking for the CUDA cores is
+    always allowed."""
+    args = _meta_stu_inputs()
+    g = torch.empty(2, 8, 128, device="meta")
+    with pytest.raises(ValueError, match="tensor-core route"):
+        K.hstu_stu_gated_bwd(*args[:7], g, 2, route="tensor_cores")
+    x = torch.empty(2, 2, 8, 64, device="meta")
+    nonpad = torch.empty(2, 8, device="meta", dtype=torch.bool)
+    with pytest.raises(ValueError, match="tensor-core route"):
+        K.hstu_attn_bwd(x, x, x, x, nonpad, route="tensor_cores")
+    with pytest.raises(ValueError, match="unknown route"):
+        K.hstu_attn_bwd(x.to(torch.bfloat16), *[x.to(torch.bfloat16)] * 3, nonpad, route="tc")
+
+
 def test_aligned16_copies_only_rows_that_miss_16_bytes():
     from mhrec_tpu_torch.ops.cuda_build import aligned16
 
