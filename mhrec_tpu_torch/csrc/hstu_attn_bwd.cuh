@@ -50,10 +50,13 @@
 //     DP = 128, to keep dK, dV and the scores in registers), each streaming
 //     its tiles through a ring of two cp.async stages (attn_bwd_dq_tc_kernel,
 //     attn_bwd_dkv_tc_kernel).
+//   The block shape and the helpers the forward shares (score_tile,
+//   key_bits, masked_silu, mma_frags, store_rows) are in hstu_attn_tc.cuh,
+//   so A is recomputed here with the forward's own code.
 #pragma once
 
 #include "hstu_attn_common.cuh"
-#include "tc_bf16.cuh"
+#include "hstu_attn_tc.cuh"
 
 namespace hstu {
 
@@ -274,13 +277,6 @@ int launch_attn_bwd(const BwdArgs& p, int B, cudaStream_t stream) {
 
 // ---- the bfloat16 route: tensor-core kernels --------------------------------
 
-using bf16 = __nv_bfloat16;
-
-constexpr int TB_WARPS = 4;
-constexpr int TB_NT = 32 * TB_WARPS;  // threads a block
-constexpr int TB_M = 16 * TB_WARPS;   // rows of a block's own tile, 16 a warp
-constexpr int TB_WINDOW = TB_M;       // the longest window one block holds whole
-
 // query rows of a streamed tile of the dk/dv pass
 template <int DP>
 __host__ __device__ constexpr int tb_dkv_tq() { return DP == 128 ? 32 : 64; }
@@ -299,51 +295,22 @@ __host__ __device__ constexpr size_t tb_smem_dkv() {  // k, v; two stages of q, 
     return sizeof(bf16) * (size_t)(2 * TB_M + 4 * tb_dkv_tq<DP>()) * (DP + tc::PAD);
 }
 
-// A warp's score tiles s = R_a · C_aᵀ and d = R_b · C_bᵀ: R_a, R_b the warp's
-// 16 rows (pitch DP + PAD), C_a, C_b tiles of 8·NB rows; only the 16-column
-// blocks [blo, bhi) are computed.
-template <int DP, int NB>
-__device__ __forceinline__ void score_pair(float (&s)[NB][4], float (&d)[NB][4],
-                                           const bf16* ra, const bf16* rb, const bf16* ca,
-                                           const bf16* cb, int blo, int bhi, int lane) {
-    constexpr int LD = DP + tc::PAD;
-#pragma unroll
-    for (int n = 0; n < NB; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[n][e] = d[n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < DP / 16; ++kk) {
-        uint32_t a[4], w[4];
-        tc::ld_a(a, ra, LD, kk * 16, lane);
-        tc::ld_a(w, rb, LD, kk * 16, lane);
-#pragma unroll
-        for (int np = 0; np < NB / 2; ++np) {
-            if (np >= blo && np < bhi) {
-                uint32_t b[4], x[4];
-                tc::ld_b_nk(b, ca, LD, np * 16, kk * 16, lane);
-                tc::ld_b_nk(x, cb, LD, np * 16, kk * 16, lane);
-                tc::mma(s[2 * np], a, b[0], b[1]);
-                tc::mma(s[2 * np + 1], a, b[2], b[3]);
-                tc::mma(d[2 * np], w, x[0], x[1]);
-                tc::mma(d[2 * np + 1], w, x[2], x[3]);
-            }
-        }
-    }
-}
-
 // A = mask ⊙ silu(x)/n and ds = mask ⊙ dA ⊙ silu′(x)/n of a warp's score
 // tiles (x = s, dA = d), rounded to bf16 as the A fragments af, dsf of the
 // next products (depth: the tiles' columns), over the 16-column blocks
 // [blo, bhi). Entry (r, c) is row row0 + r and column col0 + c; with
 // ROWS_ARE_QUERIES the rows are queries and the columns keys, else the
-// other way round. kf[key − kf0] is the key's nonpad flag.
+// other way round. Bit key − k0 of kw is the key's nonpad flag (kw as
+// key_bits sets it for the keys k0 .. k0 + 63); A is the forward's
+// masked_silu.
 template <int NB, bool ROWS_ARE_QUERIES>
 __device__ __forceinline__ void silu_grad_frags(const float (&s)[NB][4], const float (&d)[NB][4],
-                                                int row0, int col0, const unsigned char* kf,
-                                                int kf0, int L, float inv_n, int blo, int bhi,
+                                                int row0, int col0, const unsigned (&kw)[2],
+                                                int k0, int L, float inv_n, int blo, int bhi,
                                                 int lane, uint32_t (&af)[NB / 2][4],
                                                 uint32_t (&dsf)[NB / 2][4]) {
     const int g = lane >> 2, t4 = lane & 3;
+    const unsigned long long kb = key_word(kw);
 #pragma unroll
     for (int n = 0; n < NB; ++n) {
         if (n >= 2 * blo && n < 2 * bhi) {
@@ -352,10 +319,11 @@ __device__ __forceinline__ void silu_grad_frags(const float (&s)[NB][4], const f
             for (int e = 0; e < 4; ++e) {
                 const int row = row0 + g + (e & 2) * 4, col = col0 + n * 8 + 2 * t4 + (e & 1);
                 const int query = ROWS_ARE_QUERIES ? row : col, key = ROWS_ARE_QUERIES ? col : row;
-                const bool keep = key <= query && query < L && kf[key - kf0];
+                const bool keep = key <= query && query < L && ((kb >> (key - k0)) & 1);
                 const float x = s[n][e];
-                const float sig = 1.f / (1.f + expf(-x));
-                a[e] = keep ? x * sig * inv_n : 0.f;
+                float den;
+                a[e] = masked_silu(x, keep, inv_n, den);
+                const float sig = __fdividef(1.f, den);
                 ds[e] = keep ? d[n][e] * (sig * (1.f + x * (1.f - sig))) * inv_n : 0.f;
             }
             af[n >> 1][(n & 1) * 2] = tc::pack_bf16(a[0], a[1]);
@@ -364,64 +332,6 @@ __device__ __forceinline__ void silu_grad_frags(const float (&s)[NB][4], const f
             dsf[n >> 1][(n & 1) * 2 + 1] = tc::pack_bf16(ds[2], ds[3]);
         }
     }
-}
-
-// acc += f · T over the depth blocks [blo, bhi): f the A fragments of a
-// [16, 16·KB] bf16 tile, T a tile of 16·KB rows stored [depth][DP]
-template <int DP, int KB>
-__device__ __forceinline__ void mma_frags(float (&acc)[DP / 8][4], const uint32_t (&f)[KB][4],
-                                          const bf16* tile, int blo, int bhi, int lane) {
-    constexpr int LD = DP + tc::PAD;
-#pragma unroll
-    for (int kk = 0; kk < KB; ++kk) {
-        if (kk >= blo && kk < bhi) {
-#pragma unroll
-            for (int np = 0; np < DP / 16; ++np) {
-                uint32_t b[4];
-                tc::ld_b_kn(b, tile, LD, kk * 16, np * 16, lane);
-                tc::mma(acc[2 * np], f[kk], b[0], b[1]);
-                tc::mma(acc[2 * np + 1], f[kk], b[2], b[3]);
-            }
-        }
-    }
-}
-
-template <int DP>
-__device__ __forceinline__ void zero_acc(float (&acc)[DP / 8][4]) {
-#pragma unroll
-    for (int n = 0; n < DP / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-}
-
-// A warp's [16, DP] accumulator rounded to bf16 once and written to rows
-// [0, nrows) and 16-byte chunks [0, cw) of out (row stride ld), through the
-// warp's own [16][DP + PAD] staging rows st, so that the stores are 16 bytes
-// a lane
-template <int DP>
-__device__ __forceinline__ void store_rows(const float (&acc)[DP / 8][4], bf16* st, bf16* out,
-                                           long long ld, int nrows, int cw, int lane) {
-    constexpr int LD = DP + tc::PAD;
-    const int g = lane >> 2, t4 = lane & 3;
-#pragma unroll
-    for (int n = 0; n < DP / 8; ++n) {
-        const int col = n * 8 + 2 * t4;
-        *reinterpret_cast<uint32_t*>(st + g * LD + col) = tc::pack_bf16(acc[n][0], acc[n][1]);
-        *reinterpret_cast<uint32_t*>(st + (g + 8) * LD + col) = tc::pack_bf16(acc[n][2], acc[n][3]);
-    }
-    __syncwarp();
-#pragma unroll
-    for (int e = lane; e < 16 * (DP / 8); e += 32) {
-        const int r = e / (DP / 8), ch = e % (DP / 8);
-        if (r < nrows && ch < cw)
-            *reinterpret_cast<uint4*>(out + r * ld + ch * 8) =
-                *reinterpret_cast<const uint4*>(st + r * LD + ch * 8);
-    }
-    __syncwarp();  // the staging rows are free again
-}
-
-// row r of tensor t (0..6: q, k, v, g, dq, dk, dv) of head (b, h)
-template <typename P>
-__device__ __forceinline__ P* row_ptr(P* base, const long long (&s)[3], int b, int h, int r) {
-    return base + b * s[0] + h * s[1] + r * s[2];
 }
 
 // The whole window (L <= TB_WINDOW) of head (blockIdx.y, batch row blockIdx.z).
@@ -434,7 +344,7 @@ __global__ void __launch_bounds__(TB_NT) attn_bwd_tc_window_kernel(BwdArgs p) {
     bf16* sv = sk + TB_M * LD;                     // [TB_M][LD]
     bf16* sg = sv + TB_M * LD;                     // [TB_M][LD]
     bf16* sst = sg + TB_M * LD;                    // [TB_WARPS][16][LD] staging
-    __shared__ unsigned char kf[TB_M];
+    __shared__ unsigned kw[2];
     const int h = blockIdx.y, b = blockIdx.z, L = p.L;
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     const int cq = p.dqk / 8, cv = p.dv / 8;
@@ -447,7 +357,7 @@ __global__ void __launch_bounds__(TB_NT) attn_bwd_tc_window_kernel(BwdArgs p) {
     tc::stage_rows<TB_M, DP, TB_NT>(sg, row_ptr(static_cast<const bf16*>(p.g), p.s[3], b, h, 0),
                                     p.s[3][2], L, tid, cv);
     tc::cp_async_commit();
-    if (tid < TB_M) kf[tid] = tid < L ? p.nonpad[(long long)b * L + tid] : 0;
+    key_bits(kw, p.nonpad + (long long)b * L, L, warp, lane);
     tc::cp_async_wait<0>();
     __syncthreads();  // every tile is read-only from here on
 
@@ -459,16 +369,18 @@ __global__ void __launch_bounds__(TB_NT) attn_bwd_tc_window_kernel(BwdArgs p) {
     uint32_t af[KB][4], dsf[KB][4];
 
     // dq of query rows r0..: keys of the 16-blocks 0..warp
-    score_pair<DP, NB>(s, d, sq + r0 * LD, sg + r0 * LD, sk, sv, 0, warp + 1, lane);
-    silu_grad_frags<NB, true>(s, d, r0, 0, kf, 0, L, p.inv_n, 0, warp + 1, lane, af, dsf);
+    score_tile<DP, NB>(s, sq + r0 * LD, sk, 0, warp + 1, lane);
+    score_tile<DP, NB>(d, sg + r0 * LD, sv, 0, warp + 1, lane);
+    silu_grad_frags<NB, true>(s, d, r0, 0, kw, 0, L, p.inv_n, 0, warp + 1, lane, af, dsf);
     zero_acc<DP>(acc);
     mma_frags<DP, KB>(acc, dsf, sk, 0, warp + 1, lane);
     store_rows<DP>(acc, st, row_ptr(static_cast<bf16*>(p.gq), p.s[4], b, h, r0), p.s[4][2], nr,
                    cq, lane);
 
     // dv and dk of key rows r0..: queries of the 16-blocks warp..nb-1
-    score_pair<DP, NB>(s, d, sk + r0 * LD, sv + r0 * LD, sq, sg, warp, nb, lane);
-    silu_grad_frags<NB, false>(s, d, r0, 0, kf, 0, L, p.inv_n, warp, nb, lane, af, dsf);
+    score_tile<DP, NB>(s, sk + r0 * LD, sq, warp, nb, lane);
+    score_tile<DP, NB>(d, sv + r0 * LD, sg, warp, nb, lane);
+    silu_grad_frags<NB, false>(s, d, r0, 0, kw, 0, L, p.inv_n, warp, nb, lane, af, dsf);
     zero_acc<DP>(acc);
     mma_frags<DP, KB>(acc, af, sg, warp, nb, lane);
     store_rows<DP>(acc, st, row_ptr(static_cast<bf16*>(p.gv), p.s[6], b, h, r0), p.s[6][2], nr,
@@ -490,7 +402,7 @@ __global__ void __launch_bounds__(TB_NT) attn_bwd_dq_tc_kernel(BwdArgs p) {
     bf16* sg = sq + TB_M * LD;                     // [TB_M][LD]
     bf16* sk = sg + TB_M * LD;                     // [2][TB_M][LD]
     bf16* sv = sk + 2 * TB_M * LD;                 // [2][TB_M][LD]
-    __shared__ unsigned char kf[2][TB_M];
+    __shared__ unsigned kw[2][2];
     const int q0 = blockIdx.x * TB_M, h = blockIdx.y, b = blockIdx.z, L = p.L;
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     const int cq = p.dqk / 8, cv = p.dv / 8;
@@ -510,7 +422,7 @@ __global__ void __launch_bounds__(TB_NT) attn_bwd_dq_tc_kernel(BwdArgs p) {
                                         tid, cq);
         tc::stage_rows<TB_M, DP, TB_NT>(sv + buf * TB_M * LD, vh + k0 * p.s[2][2], p.s[2][2], nk,
                                         tid, cv);
-        if (tid < TB_M) kf[buf][tid] = tid < nk ? np[k0 + tid] : 0;
+        key_bits(kw[buf], np + k0, nk, warp, lane);
     };
     const int ntiles = (kend + TB_M - 1) / TB_M;
     load_kv(0, 0);
@@ -532,9 +444,9 @@ __global__ void __launch_bounds__(TB_NT) attn_bwd_dq_tc_kernel(BwdArgs p) {
             const bf16* skb = sk + buf * TB_M * LD;
             float s[NB][4], d[NB][4];
             uint32_t af[KB][4], dsf[KB][4];
-            score_pair<DP, NB>(s, d, sq + 16 * warp * LD, sg + 16 * warp * LD, skb,
-                               sv + buf * TB_M * LD, 0, hi, lane);
-            silu_grad_frags<NB, true>(s, d, r0, k0, kf[buf], k0, L, p.inv_n, 0, hi, lane, af,
+            score_tile<DP, NB>(s, sq + 16 * warp * LD, skb, 0, hi, lane);
+            score_tile<DP, NB>(d, sg + 16 * warp * LD, sv + buf * TB_M * LD, 0, hi, lane);
+            silu_grad_frags<NB, true>(s, d, r0, k0, kw[buf], k0, L, p.inv_n, 0, hi, lane, af,
                                       dsf);
             mma_frags<DP, KB>(acc, dsf, skb, 0, hi, lane);
         }
@@ -557,7 +469,7 @@ __global__ void __launch_bounds__(TB_NT) attn_bwd_dkv_tc_kernel(BwdArgs p) {
     bf16* sv = sk + TB_M * LD;                     // [TB_M][LD]
     bf16* sq = sv + TB_M * LD;                     // [2][TQ][LD]
     bf16* sg = sq + 2 * TQ * LD;                   // [2][TQ][LD]
-    __shared__ unsigned char kf[TB_M];
+    __shared__ unsigned kw[2];
     const int k0 = blockIdx.x * TB_M, h = blockIdx.y, b = blockIdx.z, L = p.L;
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     const int cq = p.dqk / 8, cv = p.dv / 8;
@@ -569,7 +481,7 @@ __global__ void __launch_bounds__(TB_NT) attn_bwd_dkv_tc_kernel(BwdArgs p) {
     tc::stage_rows<TB_M, DP, TB_NT>(sv, row_ptr(static_cast<const bf16*>(p.v), p.s[2], b, h, k0),
                                     p.s[2][2], nk, tid, cv);
     tc::cp_async_commit();
-    if (tid < TB_M) kf[tid] = tid < nk ? p.nonpad[(long long)b * L + k0 + tid] : 0;
+    key_bits(kw, p.nonpad + (long long)b * L + k0, nk, warp, lane);
 
     auto load_qg = [&](int tile, int buf) {
         const int q0 = k0 + tile * TQ, nq = min(TQ, L - q0);
@@ -600,9 +512,9 @@ __global__ void __launch_bounds__(TB_NT) attn_bwd_dkv_tc_kernel(BwdArgs p) {
             const bf16* sgb = sg + buf * TQ * LD;
             float s[NB][4], d[NB][4];
             uint32_t af[KB][4], dsf[KB][4];
-            score_pair<DP, NB>(s, d, sk + 16 * warp * LD, sv + 16 * warp * LD, sqb, sgb, lo, hi,
-                               lane);
-            silu_grad_frags<NB, false>(s, d, r0, q0, kf, k0, L, p.inv_n, lo, hi, lane, af, dsf);
+            score_tile<DP, NB>(s, sk + 16 * warp * LD, sqb, lo, hi, lane);
+            score_tile<DP, NB>(d, sv + 16 * warp * LD, sgb, lo, hi, lane);
+            silu_grad_frags<NB, false>(s, d, r0, q0, kw, k0, L, p.inv_n, lo, hi, lane, af, dsf);
             mma_frags<DP, KB>(av, af, sgb, lo, hi, lane);
             mma_frags<DP, KB>(ak, dsf, sqb, lo, hi, lane);
         }
@@ -617,12 +529,6 @@ __global__ void __launch_bounds__(TB_NT) attn_bwd_dkv_tc_kernel(BwdArgs p) {
                        row_ptr(static_cast<bf16*>(p.gk), p.s[5], b, h, r0), p.s[5][2], nr, cq,
                        lane);
     }
-}
-
-template <typename K>
-int set_smem(K kernel, size_t bytes) {
-    return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                     (int)bytes);
 }
 
 template <int DP>

@@ -1,5 +1,6 @@
-// Shared device code of the two HSTU forward kernels (hstu_stu_gated_fwd.cu,
-// hstu_attn_fwd.cu): one head's pointwise attention
+// Shared device code of the CUDA-core routes of the two HSTU forward kernels
+// (hstu_stu_gated_fwd.cu, hstu_attn_fwd.cu: float32, and bfloat16 at widths
+// their tensor-core routes do not take): one head's pointwise attention
 //     A = mask ⊙ silu(q kᵀ) / n,   out = A v
 // for a tile of TQ query rows, with mask[i, j] = (j <= i) & nonpad[j].
 //

@@ -12,7 +12,8 @@ Counterpart of ``mhrec_tpu/ops/pallas/hstu_attention_tpu.py``:
   (``stu_gated_bwd_route``);
 * ``hstu_attn_fwd`` — the pointwise attention over ``[B, H, L, d]``
   (``csrc/hstu_attn_fwd.cu``), replacing ``_fwd_kernel_v2`` /
-  ``hstu_attention_pallas_v2``; differentiable, its backward is
+  ``hstu_attention_pallas_v2``, on the tensor cores in bfloat16
+  (``attn_fwd_route``); differentiable, its backward is
   ``hstu_attn_bwd`` (``csrc/hstu_attn_bwd.cu``), replacing
   ``_bwd_kernel_v2``, on the tensor cores in bfloat16
   (``attn_bwd_route``). ``hstu_attention_v2`` and ``hstu_attention_bhld`` are
@@ -93,15 +94,23 @@ def stu_gated_bwd_route(dtype, L: int, H: int, dqk: int, dv: int) -> str:
     return "tensor_cores" if tc else "cuda_cores"
 
 
-def attn_bwd_route(dtype, L: int, dqk: int, dv: int) -> str:
-    """Which kernels ``hstu_attn_bwd`` launches on the card: bfloat16 with
+def attn_fwd_route(dtype, L: int, dqk: int, dv: int) -> str:
+    """Which kernel ``hstu_attn_fwd`` launches on the card: bfloat16 with
     head widths that are multiples of 8 up to 128 on the tensor cores;
     float32 and bfloat16 at other widths on the CUDA cores. The window
-    length L picks the kernels within the tensor-core route (up to 64 rows
-    one block a head, beyond that a dq and a dk/dv pass over 64-row tiles),
-    not the route."""
+    length L picks the kernel within the tensor-core route (up to 64 rows
+    one block a head, beyond that one block a 64-row query tile), not the
+    route."""
     tc = dtype == torch.bfloat16 and _tc_widths(dqk, dv)
     return "tensor_cores" if tc else "cuda_cores"
+
+
+def attn_bwd_route(dtype, L: int, dqk: int, dv: int) -> str:
+    """Which kernels ``hstu_attn_bwd`` launches on the card: the forward's
+    rule (``attn_fwd_route``). Within the tensor-core route L picks the
+    kernels: up to 64 rows one block a head, beyond that a dq and a dk/dv
+    pass over 64-row tiles."""
+    return attn_fwd_route(dtype, L, dqk, dv)
 
 
 def _pick_route(name: str, route, auto: str) -> str:
@@ -292,15 +301,18 @@ def hstu_stu_gated_bwd(q, k, v, u, gamma, beta, nonpad, g, num_heads: int,
     backward kernel (two steps on one stream, ``csrc/hstu_stu_gated_bwd.cu``).
     ``route``: None takes ``stu_gated_bwd_route``; "cuda_cores" runs the
     CUDA-core kernels on bfloat16 too (to time the two designs side by side)."""
+    name = "hstu_stu_gated_bwd"
+    H = num_heads
+    route = _pick_route(name, route, stu_gated_bwd_route(q.dtype, q.shape[1], H,
+                                                         q.shape[-1] // H, v.shape[-1] // H))
     if q.device.type == "cpu":
         return hstu_stu_gated_bwd_plain(q, k, v, u, gamma, beta, nonpad, g, num_heads, eps)
-    name = "hstu_stu_gated_bwd"
     g = g.contiguous()
     _check_cuda_inputs(name, (q, k, v, u, g), nonpad)
     B, L, H, dqk, dv = _check_gated_inputs(name, q, k, v, u, gamma, beta, nonpad, num_heads)
     _check(g.shape == v.shape, f"{name}: g{tuple(g.shape)} must be shaped as v{tuple(v.shape)}")
     code = _DTYPES[q.dtype]
-    if _pick_route(name, route, stu_gated_bwd_route(q.dtype, L, H, dqk, dv)) == "tensor_cores":
+    if route == "tensor_cores":
         q, k, v, u, gamma, beta, g = (cuda_build.aligned16(t)
                                       for t in (q, k, v, u, gamma, beta, g))
         code = 2
@@ -377,16 +389,21 @@ def _check_attn_inputs(name, tensors, nonpad):
     return B, H, L, dqk, dv
 
 
-def _attn_fwd_launch(q, k, v, nonpad):
+def _attn_fwd_launch(q, k, v, nonpad, route=None):
+    name = "hstu_attn_fwd"
+    route = _pick_route(name, route, attn_fwd_route(q.dtype, *q.shape[-2:], v.shape[-1]))
     if q.device.type == "cpu":
         return hstu_attn_fwd_plain(q, k, v, nonpad)
-    name = "hstu_attn_fwd"
     B, H, L, dqk, dv = _check_attn_inputs(name, (q, k, v), nonpad)
+    code = _DTYPES[q.dtype]
+    if route == "tensor_cores":
+        q, k, v = (cuda_build.aligned16(t) for t in (q, k, v))
+        code = 2
     fn = _lib(name, [_P] * 5 + [_I] * 5 + [_LL] * 9 + [_F, _I, _P])
     out = torch.empty((B, H, L, dv), dtype=q.dtype, device=q.device)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), nonpad.data_ptr(), out.data_ptr(),
              B, H, L, dqk, dv, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-             1.0 / L, _DTYPES[q.dtype], _stream(q))
+             1.0 / L, code, _stream(q))
     _launch_error(name, err)
     hstu_attn_fwd.launches += 1
     return out
@@ -404,13 +421,14 @@ def hstu_attn_bwd(q, k, v, g, nonpad, route=None):
     gradients contiguous [B, H, L, d] in the inputs' dtype. ``route``: None
     takes ``attn_bwd_route``; "cuda_cores" runs the CUDA-core kernels on
     bfloat16 too (to time the two designs side by side)."""
+    name = "hstu_attn_bwd"
+    route = _pick_route(name, route, attn_bwd_route(q.dtype, *q.shape[-2:], v.shape[-1]))
     if q.device.type == "cpu":
         return hstu_attn_bwd_plain(q, k, v, g, nonpad)
-    name = "hstu_attn_bwd"
     B, H, L, dqk, dv = _check_attn_inputs(name, (q, k, v, g), nonpad)
     _check(g.shape == v.shape, f"{name}: g{tuple(g.shape)} must be shaped as v{tuple(v.shape)}")
     code = _DTYPES[q.dtype]
-    if _pick_route(name, route, attn_bwd_route(q.dtype, L, dqk, dv)) == "tensor_cores":
+    if route == "tensor_cores":
         q, k, v, g = (cuda_build.aligned16(t) for t in (q, k, v, g))
         code = 2
     fn = _lib(name, [_P] * 8 + [_I] * 5 + [_LLP] + [_F, _I, _P])
@@ -431,22 +449,24 @@ hstu_attn_bwd.launches = 0
 
 class _Attn(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, nonpad):
+    def forward(ctx, q, k, v, nonpad, route):
         ctx.save_for_backward(q, k, v, nonpad)
-        return _attn_fwd_launch(q, k, v, nonpad)
+        return _attn_fwd_launch(q, k, v, nonpad, route)
 
     @staticmethod
     def backward(ctx, g):
         q, k, v, nonpad = ctx.saved_tensors
-        return (*hstu_attn_bwd(q, k, v, g, nonpad), None)
+        return (*hstu_attn_bwd(q, k, v, g, nonpad), None, None)
 
 
-def hstu_attn_fwd(q, k, v, nonpad):
+def hstu_attn_fwd(q, k, v, nonpad, route=None):
     """q, k [B, H, L, dqk], v [B, H, L, dv] (any strides with a contiguous
     last dim), nonpad [B, L] bool → [B, H, L, dv] in q's dtype.
     Differentiable in q, k, v through ``hstu_attn_bwd``; ``.launches``
-    counts the forward kernel."""
-    return _Attn.apply(q, k, v, nonpad)
+    counts the forward kernel. ``route``: None takes ``attn_fwd_route``;
+    "cuda_cores" runs the CUDA-core kernel on bfloat16 too (to time the two
+    designs side by side)."""
+    return _Attn.apply(q, k, v, nonpad, route)
 
 
 hstu_attn_fwd.launches = 0

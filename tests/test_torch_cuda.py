@@ -40,6 +40,16 @@ def _close(out, ref, dtype):
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
 
 
+def _close_to_scale(out, ref, dtype):
+    """``_close`` with atol taken relative to the reference's scale,
+    TOL · min(1, max |ref|): the pointwise attention's outputs shrink as
+    1/sqrt(L) (about 0.1 at L = 400), where a fixed atol of 2e-2 would be as
+    large as they are."""
+    tol = TOL[dtype]
+    scale = min(1.0, float(ref.float().abs().max()))
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol * scale, rtol=tol)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
 @pytest.mark.parametrize("shape", list(SHAPES))
 def test_stu_gated_kernel_matches_plain(card, shape, dtype):
@@ -764,3 +774,94 @@ def test_backward_kernels_cuda_core_route_on_request(card):
         _close(o, r, torch.bfloat16)
     with pytest.raises(ValueError, match="tensor-core route"):
         K.hstu_attn_bwd(*(x.float() for x in heads), nonpad, route="tensor_cores")
+
+
+@pytest.mark.parametrize("layout", ["blhd", "misaligned"])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("L", [1, 16, 50, 64, 65, 130, 400])
+def test_attn_fwd_tensor_core_route(card, L, d, layout):
+    """The bfloat16 pointwise attention forward on the tensor cores, in one
+    block a head (L <= 64) and over 64-row query tiles (L > 64), at every
+    padded width: inputs as head-major views of [B, L, H, d] (strided, no
+    copy) or contiguous and misaligned by 8 bytes (the wrapper copies);
+    zeros on the all-padding batch row; against the plain version within
+    TOL (atol relative to the reference's scale), the same bits on a
+    repeat."""
+    assert K.attn_fwd_route(torch.bfloat16, L, d, d) == "tensor_cores"
+    (q, k, v, _), nonpad = _attn_bwd_inputs(3, L, 4, d, d, card, seed=d + L)
+    args = [q, k, v]
+    if layout == "misaligned":
+        args = _misaligned([x.contiguous() for x in args], torch.bfloat16, card)
+    before = K.hstu_attn_fwd.launches
+    with torch.no_grad():
+        out = K.hstu_attn_fwd(*args, nonpad)
+        again = K.hstu_attn_fwd(*args, nonpad)
+    torch.cuda.synchronize()
+    assert K.hstu_attn_fwd.launches == before + 2
+    ref = K.hstu_attn_fwd_plain(*args, nonpad)
+    assert out.dtype == torch.bfloat16 and out.shape == ref.shape == (3, 4, L, d)
+    assert torch.equal(out, again)
+    assert not bool(out[1].any())
+    _close_to_scale(out, ref, torch.bfloat16)
+
+
+@pytest.mark.parametrize("L", [50, 130])
+def test_attn_fwd_tensor_core_unequal_widths(card, L):
+    """q/k heads of 32 and v heads of 64, in one block (L = 50) and over
+    query tiles (L = 130)."""
+    (q, k, v, _), nonpad = _attn_bwd_inputs(3, L, 4, 32, 64, card, seed=L + 1)
+    assert K.attn_fwd_route(torch.bfloat16, L, 32, 64) == "tensor_cores"
+    with torch.no_grad():
+        out = K.hstu_attn_fwd(q, k, v, nonpad)
+    ref = K.hstu_attn_fwd_plain(q, k, v, nonpad)
+    assert out.shape == ref.shape == (3, 4, L, 64)
+    _close_to_scale(out, ref, torch.bfloat16)
+
+
+@pytest.mark.parametrize("wrapper", ["v2", "bhld"])
+@pytest.mark.parametrize("L", [50, 100])
+def test_attn_fwd_tensor_core_route_through_the_layout_wrappers(card, wrapper, L):
+    """``hstu_attention_v2`` ([B, L, H, d]) and ``hstu_attention_bhld``
+    ([B·H, L, d]) forward and autograd backward in bfloat16: one launch of
+    the forward and one of the backward, each the same bits as its
+    tensor-core route called directly, and within TOL of the plain
+    versions (atol relative to the reference's scale)."""
+    B, H, d = 2, 4, 64
+    (q, k, v, g), nonpad = _attn_bwd_inputs(B, L, H, d, d, card, seed=5)
+    if wrapper == "v2":
+        leaves = [x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v)]
+        rows, g_in = nonpad, g.transpose(1, 2)
+        fn, heads = K.hstu_attention_v2, (lambda t: t.transpose(1, 2))
+    else:
+        leaves = [x.reshape(B * H, L, d).detach().requires_grad_(True) for x in (q, k, v)]
+        rows, g_in = nonpad.repeat_interleave(H, dim=0), g.reshape(B * H, L, d)
+        fn, heads = K.hstu_attention_bhld, (lambda t: t[:, None])
+    before = (K.hstu_attn_fwd.launches, K.hstu_attn_bwd.launches)
+    out = fn(*leaves, rows)
+    out.backward(g_in)
+    torch.cuda.synchronize()
+    assert (K.hstu_attn_fwd.launches, K.hstu_attn_bwd.launches) == (before[0] + 1, before[1] + 1)
+    x = [heads(t.detach()) for t in leaves]
+    with torch.no_grad():
+        direct = K.hstu_attn_fwd(*x, rows, route="tensor_cores")
+        grads = K.hstu_attn_bwd(*x, heads(g_in), rows, route="tensor_cores")
+    assert torch.equal(heads(out.detach()), direct)
+    _close_to_scale(heads(out.detach()), K.hstu_attn_fwd_plain(*x, rows), torch.bfloat16)
+    for leaf, gd, r in zip(leaves, grads, K.hstu_attn_bwd_plain(*x, heads(g_in), rows)):
+        assert torch.equal(heads(leaf.grad), gd)
+        _close_to_scale(heads(leaf.grad), r, torch.bfloat16)
+
+
+def test_attn_fwd_cuda_core_route_on_request(card):
+    """``route="cuda_cores"`` runs the CUDA-core kernel on bfloat16 (as
+    ``chip_smoke.py`` times it beside the tensor cores), and it agrees with
+    the plain version too; float32 refuses the tensor cores."""
+    for L in (50, 130):
+        (q, k, v, _), nonpad = _attn_bwd_inputs(3, L, 4, 64, 64, card, seed=L + 2)
+        before = K.hstu_attn_fwd.launches
+        with torch.no_grad():
+            out = K.hstu_attn_fwd(q, k, v, nonpad, route="cuda_cores")
+        assert K.hstu_attn_fwd.launches == before + 1
+        _close_to_scale(out, K.hstu_attn_fwd_plain(q, k, v, nonpad), torch.bfloat16)
+        with pytest.raises(ValueError, match="tensor-core route"):
+            K.hstu_attn_fwd(q.float(), k.float(), v.float(), nonpad, route="tensor_cores")

@@ -296,6 +296,139 @@ def test_backward_wrappers_refuse_a_route_the_inputs_cannot_take():
         K.hstu_attn_bwd(x.to(torch.bfloat16), *[x.to(torch.bfloat16)] * 3, nonpad, route="tc")
 
 
+@pytest.mark.parametrize("dtype,L,dqk,dv,route", [
+    (torch.bfloat16, 50, 64, 64, "tensor_cores"),     # size4 and serving: one block a head
+    (torch.bfloat16, 1, 32, 32, "tensor_cores"),
+    (torch.bfloat16, 64, 128, 128, "tensor_cores"),   # the longest window one block holds
+    (torch.bfloat16, 65, 128, 128, "tensor_cores"),   # 64-row query tiles from here on
+    (torch.bfloat16, 400, 64, 64, "tensor_cores"),    # merrec
+    (torch.bfloat16, 50, 32, 64, "tensor_cores"),     # dqk != dv
+    (torch.bfloat16, 50, 12, 12, "cuda_cores"),       # not a multiple of 8
+    (torch.bfloat16, 50, 64, 136, "cuda_cores"),      # wider than 128
+    (torch.float32, 50, 64, 64, "cuda_cores"),
+    (torch.float32, 400, 128, 128, "cuda_cores"),
+], ids=["size4", "L1", "L64-d128", "L65-d128", "merrec", "dqk32-dv64", "d12", "dv136",
+        "f32", "f32-merrec"])
+def test_attn_fwd_route(dtype, L, dqk, dv, route):
+    assert K.attn_fwd_route(dtype, L, dqk, dv) == route
+
+
+def test_attn_fwd_refuses_a_route_the_inputs_cannot_take():
+    """The tensor cores only where ``attn_fwd_route`` admits the inputs
+    (never float32); an unknown route name raises; the CUDA cores are
+    always allowed."""
+    x = torch.empty(2, 2, 8, 64, device="meta")
+    nonpad = torch.empty(2, 8, device="meta", dtype=torch.bool)
+    with pytest.raises(ValueError, match="tensor-core route"):
+        K.hstu_attn_fwd(x, x, x, nonpad, route="tensor_cores")
+    xb = x.to(torch.bfloat16)
+    with pytest.raises(ValueError, match="unknown route"):
+        K.hstu_attn_fwd(xb, xb, xb, nonpad, route="tc")
+    for dtype, dqk in ((torch.float32, 64), (torch.bfloat16, 64), (torch.bfloat16, 12)):
+        auto = K.attn_fwd_route(dtype, 8, dqk, dqk)
+        assert K._pick_route("hstu_attn_fwd", "cuda_cores", auto) == "cuda_cores"
+        assert K._pick_route("hstu_attn_fwd", None, auto) == auto
+
+
+@pytest.mark.parametrize("route", [None, "tensor_cores", "cuda_cores"])
+def test_attn_fwd_cpu_call_with_a_route_runs_the_plain_version(route):
+    """On CPU tensors a route the inputs admit is checked and then runs the
+    plain version, bit for bit, with no launch counted."""
+    B, L, H, d = 3, 20, 2, 16
+    rng = np.random.default_rng(4)
+    q, k, v = (_t(rng.normal(size=(B, H, L, d)).astype(np.float32)).to(torch.bfloat16)
+               for _ in range(3))
+    nonpad = _t(_nonpad(B, L, rng))
+    before = K.hstu_attn_fwd.launches
+    out = K.hstu_attn_fwd(q, k, v, nonpad, route=route)
+    assert K.hstu_attn_fwd.launches == before
+    assert out.dtype == torch.bfloat16
+    assert torch.equal(out, K.hstu_attn_fwd_plain(q, k, v, nonpad))
+
+
+@pytest.mark.parametrize("wrapper", ["hstu_attn_fwd", "hstu_attn_bwd", "hstu_stu_gated_bwd"])
+@pytest.mark.parametrize("route,dtype,match", [
+    ("tc", torch.bfloat16, "unknown route"),
+    ("tensor_cores", torch.float32, "tensor-core route"),
+], ids=["unknown", "f32-tensor-cores"])
+def test_cpu_call_checks_the_route_as_the_card_does(wrapper, route, dtype, match):
+    """A route the inputs cannot take raises on CPU tensors too, before the
+    plain version runs, so that a bad route name fails on every device."""
+    B, L, H, d = 2, 8, 2, 16
+    x = torch.zeros(B, H, L, d, dtype=dtype)
+    nonpad = torch.ones(B, L, dtype=torch.bool)
+    calls = {
+        "hstu_attn_fwd": lambda: K.hstu_attn_fwd(x, x, x, nonpad, route=route),
+        "hstu_attn_bwd": lambda: K.hstu_attn_bwd(x, x, x, x, nonpad, route=route),
+        "hstu_stu_gated_bwd": lambda: K.hstu_stu_gated_bwd(
+            *[x.reshape(B, L, H * d)] * 4, torch.ones(H * d), torch.zeros(H * d), nonpad,
+            x.reshape(B, L, H * d), H, route=route),
+    }
+    with pytest.raises(ValueError, match=match):
+        calls[wrapper]()
+
+
+@pytest.mark.parametrize("mutant,caught", [
+    ("drop-key-63", True),
+    ("drop-tile-edge-keys", True),
+    ("drop-keys-64-79", True),
+    ("divide-by-448", True),
+    ("one-ulp-up", False),
+])
+def test_smoke_tolerance_tells_a_dropped_key_from_rounding(mutant, caught):
+    """``chip_smoke.py`` holds the bfloat16 pointwise attention to its plain
+    version with atol relative to the output's scale. At merrec's window
+    (L = 400, outputs about 0.1) that check rejects an output that leaves
+    out keys at the edges of the kernel's 64-key tiles, or one 16-key
+    block, or divides by the window padded to whole tiles (448, which a
+    fixed atol of 2e-2 lets pass), and admits an output one bf16 ulp off
+    everywhere (the rounding a sound kernel shows)."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    B, L, H, d = 2, 400, 8, 64
+    gen = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(B, H, L, d, generator=gen).mul_(0.5).to(torch.bfloat16)
+               for _ in range(3))
+    nonpad = torch.ones(B, L, dtype=torch.bool)
+    nonpad[1, :150] = False
+    ref = K.hstu_attn_fwd_plain(q, k, v, nonpad)
+    if mutant == "one-ulp-up":
+        out = torch.nextafter(ref, torch.full_like(ref, float("inf")))
+    elif mutant == "divide-by-448":
+        a = K._masked_silu_scores(q, k, nonpad, 448)
+        out = torch.matmul(a.to(v.dtype).float(), v.float()).to(q.dtype)
+    else:
+        dropped = {"drop-key-63": [63], "drop-tile-edge-keys": list(range(63, L, 64)),
+                   "drop-keys-64-79": list(range(64, 80))}[mutant]
+        a = K._masked_silu_scores(q, k, nonpad, L).clone()
+        a[..., dropped] = 0
+        out = torch.matmul(a.to(v.dtype).float(), v.float()).to(q.dtype)
+    _, excess = chip_smoke.excess_error(out, ref, "bfloat16", scaled=True)
+    assert (excess > 0) == caught
+
+
+@pytest.mark.parametrize("B,L", [(3, 50), (2, 70)])
+def test_attention_v2_bf16_plain_matches_pallas_v2(B, L):
+    """In bfloat16 the plain version (which the tensor-core route repeats)
+    rounds where ``_fwd_kernel_v2`` does: A once to bf16 before A·v, the
+    output once. The two differ only in the order of f32 sums, which can
+    move an A entry or an output by one bf16 ulp (2^-8 relative)."""
+    H, d = 2, 16
+    rng = np.random.default_rng(6)
+    q, k, v = (rng.normal(size=(B, L, H, d)).astype(np.float32) for _ in range(3))
+    nonpad = _nonpad(B, L, rng)
+    ref = hstu_attention_pallas_v2(*(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)),
+                                   _jax_mask(nonpad), interpret=True)
+    out = K.hstu_attention_v2(*(_t(x).to(torch.bfloat16) for x in (q, k, v)), _t(nonpad))
+    assert out.dtype == torch.bfloat16
+    np.testing.assert_allclose(out.float().numpy(), np.asarray(ref, np.float32),
+                               rtol=2e-2, atol=2e-2)
+
+
 def test_aligned16_copies_only_rows_that_miss_16_bytes():
     from mhrec_tpu_torch.ops.cuda_build import aligned16
 
