@@ -82,11 +82,29 @@ backward) and the dense padded route (no kernel): on a float32 model of 2
 layers at TinyLlama's widths, the loss and every gradient; on the trained
 bfloat16 model, the loss.
 
+Four phases drive the evaluation outputs and modes and gradient
+accumulation: ``eval_outputs`` evaluates the serving trainer again with
+``log_detailed_results`` and ``save_for_eval`` on, into a temporary
+directory (the metrics must equal the plain evaluation's, one dump per eval
+batch, the saved top-k equal to the streamed one); ``eval_streamed_metrics``
+evaluates it with GAUC, AUC, MAE, RMSE and LogLoss (the streamed rank
+counts and target scores), timed over every user, and holds the first
+FULL_SCORE_USERS users to the full-score path; ``train_accum`` trains size4
+as the train phase does with ``accumulate_grad`` 8 (the scripts' global
+batch of 512) for 4 optimizer steps, checking that nothing moves before a
+boundary, that the deduped union of the row blocks is unique and that the
+kernel's row update on it equals the plain version's; ``hllm_host_table``
+evaluates the HLLM serving trainer with its corpus table in host memory
+against the device table, then times the host-table scoring alone over a
+600,000 × 2048 table, which ``auto`` must choose by itself. Each path's
+launches are counted from 0 just before it (``path_launches``).
+
 Prints one JSON object per line: the card's name and power limit, build
 seconds, each kernel phase (error against tolerance; kernel, plain and bound
-times), the serve, impl, train, train-impl, hllm_serve, hllm_impl,
-hllm_train and hllm_train_impl phases, the seconds of each phase, a
-``kernels`` summary, and last ``{"ok": true, "device": {...}}``. Any
+times), the serve, impl, eval_outputs, eval_streamed_metrics, train,
+train-impl, train_accum, hllm_serve, hllm_impl, hllm_host_table, hllm_train
+and hllm_train_impl phases, the seconds of each phase, each path's
+launches, a ``kernels`` summary, and last ``{"ok": true, "device": {...}}``. Any
 failure exits non-zero without the last line. ``--profile`` adds phases that
 run one evaluation of the test split, five train steps, one HLLM evaluation
 and three HLLM train steps under ``torch.profiler`` and print device time
@@ -100,6 +118,7 @@ be timed in turns within one call.
 
 from __future__ import annotations
 
+import glob
 import json
 import math
 import os
@@ -956,7 +975,7 @@ def train_phase(data, checkpoint_dir):
           "peak_mem_gb": peak_gb, "launches": launches, "launches_per_step": per_step,
           "checkpoint_saved_and_loaded": ckpt, "test_metrics": result.get("pred_7"),
           "ok": bool(ok)})
-    return trainer, launches, ok
+    return trainer, launches, ok, stats
 
 
 def loss_and_grads(trainer, batch, step):
@@ -1167,7 +1186,7 @@ def hllm_serve_phase(config, data):
           "users_per_s_after_corpus": n_users / max(eval_seconds - corpus_seconds, 1e-9),
           "peak_mem_gb": peak_gb, "launches": launches, "repeat_matches": again == result,
           "metrics": result, "ok": bool(ok)})
-    return trainer, test_loader, launches, ok
+    return trainer, test_loader, launches, ok, result
 
 
 def hllm_routes(model, tokens, lens, sub: int = 384):
@@ -1383,6 +1402,405 @@ def hllm_train_impl_phase(trainer, data, work_dir):
     return ok_all
 
 
+# -- the evaluation outputs and modes, and gradient accumulation -------------
+# the metrics of the streamed GAUC / VALUE phase
+STREAMED_METRICS = ["Recall", "NDCG", "GAUC", "AUC", "MAE", "RMSE", "LogLoss"]
+# users held through both the streamed and the full-score path: 128, not
+# the 512 users first planned, whose host collector (argpartition and
+# argsort over [512, 12, 200000] scores) took 50.5 s of the phase
+FULL_SCORE_USERS = 128
+# the full-score path's [users, H, items] float32 tensor must stay below this
+FULL_SCORE_BYTES = 16 * 2**30
+# the CPU tests' tolerances (tests/test_torch_eval_outputs.py): streamed
+# against full scores, and the host table against the table on the card
+STREAMED_TOL = {"rank": 5e-4, "other": 2e-6}
+HOST_TABLE_TOL = {"rank": 2e-3, "other": 1e-6}
+# the host-table timing: a catalog past the default 4 GiB budget at width 2048
+HOST_TABLE_ITEMS = 600_000
+# gradient accumulation: micro-steps an optimizer step, optimizer steps
+ACCUM_K = 8
+ACCUM_STEPS = 4
+
+
+def results_close(out, ref, tol):
+    """Every metric of ``ref`` in ``out`` within ``tol["rank"]`` (gauc, auc)
+    or ``tol["other"]``; returns (ok, the largest difference by kind)."""
+    worst = {"rank": 0.0, "other": 0.0}
+    ok = set(ref) <= set(out)
+    for section, metrics in ref.items():
+        for key, v in metrics.items():
+            if key not in out.get(section, {}):
+                ok = False
+                continue
+            kind = "rank" if "auc" in key else "other"
+            d = abs(float(out[section][key]) - float(v))
+            worst[kind] = max(worst[kind], d)
+            ok &= d <= tol[kind]
+    return bool(ok), worst
+
+
+def record_topk(trainer):
+    """Wrap the collector so each batch's top-k indices are kept; returns
+    the list and a function that undoes the wrap."""
+    seen = []
+    collect = trainer.collector.eval_batch_collect
+
+    def wrapped(**kw):
+        if kw.get("topk_indices") is not None:
+            seen.append(kw["topk_indices"].copy())
+        return collect(**kw)
+
+    trainer.collector.eval_batch_collect = wrapped
+    return seen, lambda: setattr(trainer.collector, "eval_batch_collect", collect)
+
+
+def _dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, files in os.walk(path)
+               for f in files)
+
+
+def eval_outputs_phase(trainer, test_loader):
+    """The serve phase's trainer evaluated again with ``log_detailed_results``
+    and ``save_for_eval`` on, into a temporary directory, with the launch
+    counts set to 0 just before and read just after: the metrics must equal
+    the plain evaluation's exactly; one detailed dump per eval batch, every
+    ``recommend_items`` row holding K entries; the ``save_for_eval`` chunks'
+    top-k indices equal to the plain run's streamed top-k, and user
+    embeddings of the trunk's width. users/s with the dumps off and on;
+    returns (launches, ok, users/s with the dumps off)."""
+    import numpy as np
+    import torch
+
+    from mhrec_tpu_torch.utils.observability import load_log_dict
+
+    config = trainer.config
+    seen, undo = record_topk(trainer)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = trainer.evaluate(test_loader)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    undo()
+    work = tempfile.mkdtemp(prefix="chip_smoke_dumps_")
+    saved_dir = trainer.saved_model_dir
+    try:
+        trainer.saved_model_dir = work
+        config["log_detailed_results"] = config["save_for_eval"] = True
+        reset_launches()
+        t0 = time.perf_counter()
+        dumped = trainer.evaluate(test_loader)
+        torch.cuda.synchronize()
+        dump_s = time.perf_counter() - t0
+        launches = read_launches()
+        n_batches = math.ceil(len(test_loader) / config["eval_batch_size"])
+        top_k = max(config["topk"])
+        details = sorted(glob.glob(os.path.join(work, "detailed", "*.npz")))
+        chunks = sorted(glob.glob(os.path.join(work, "saved_eval", "eval_chunk_*.npz")))
+        rows_ok = all(len(row) == top_k for p in details
+                      for row in load_log_dict(p[:-4])["recommend_items"])
+        chunks_ok = len(chunks) == len(seen)
+        width = None
+        for path, ref in zip(chunks, seen):
+            with np.load(path) as z:
+                width = z["user_embs"].shape[1]
+                chunks_ok &= (np.array_equal(z["topk_indices"], ref)
+                              and z["user_embs"].shape == (ref.shape[0],
+                                                           config["hstu_embedding_size"])
+                              and z["head_embs"].shape[0] == ref.shape[0])
+        written = _dir_bytes(work)
+    finally:
+        config["log_detailed_results"] = config["save_for_eval"] = False
+        trainer.saved_model_dir = saved_dir
+        shutil.rmtree(work, ignore_errors=True)
+    n_users = len(test_loader)
+    layers = len(trainer.model.stu_layers)
+    ok = (dumped == plain and len(details) == n_batches
+          and len(chunks) == n_batches and rows_ok and chunks_ok
+          and launches == dict({k: 0 for k in launches}, hstu_stu_gated_fwd=layers * n_batches))
+    emit({"phase": "eval_outputs", "users": n_users, "eval_batches": n_batches,
+          "users_per_s_dumps_off": n_users / plain_s, "users_per_s_dumps_on": n_users / dump_s,
+          "seconds_dumps_off": plain_s, "seconds_dumps_on": dump_s, "bytes_written": written,
+          "detailed_dumps": len(details), "save_for_eval_chunks": len(chunks),
+          "recommend_items_rows_hold_k": rows_ok, "chunks_match_streamed_topk": bool(chunks_ok),
+          "user_emb_width": width, "metrics_equal_plain": dumped == plain,
+          "launches": launches, "ok": bool(ok)})
+    return launches, ok, n_users / plain_s
+
+
+class FirstUsers:
+    """The first ``n`` users of an eval batcher, as one batch (its history
+    buffers cut to those rows)."""
+
+    def __init__(self, loader, n):
+        self.loader, self.n = loader, n
+
+    def __len__(self):
+        return self.n
+
+    def batches(self):
+        import numpy as np
+
+        batch = dict(next(iter(self.loader.batches())))
+        keep = batch["history_row"] < self.n
+        batch["history_row"] = np.where(keep, batch["history_row"], 0)
+        batch["history_col"] = np.where(keep, batch["history_col"], -1)
+        for key in ("user_ids", "item_seq", "item_target", "target_tags", "outlier_users",
+                    "sample_weight"):
+            batch[key] = batch[key][: self.n]
+        yield batch
+
+
+def eval_streamed_phase(trainer, test_loader, plain_users_per_s):
+    """The serve phase's trainer with the metrics Recall, NDCG, GAUC, AUC,
+    MAE, RMSE and LogLoss: the streamed mean-rank and target-score path over
+    every user (timed, launch counts set to 0 just before and read just
+    after), and on the first FULL_SCORE_USERS users (fewer if their
+    [users, H, items] float32 scores would pass FULL_SCORE_BYTES) against
+    the full-score path at the CPU tests' tolerances."""
+    import torch
+
+    from mhrec_tpu_torch.evaluator import Collector, Evaluator
+
+    config = trainer.config
+    saved = config["metrics"], trainer.collector, trainer.evaluator
+    config["metrics"] = STREAMED_METRICS
+    try:
+        trainer.collector, trainer.evaluator = Collector(config), Evaluator(config)
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        streamed = trainer.evaluate(test_loader)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_launches()
+        heads = trainer.collector.medusa_num_heads
+        n = FULL_SCORE_USERS
+        while n * heads * trainer.dataload.item_num * 4 > FULL_SCORE_BYTES:
+            n //= 2
+        first = FirstUsers(test_loader, n)
+        sub_streamed = trainer.evaluate(first)
+        need = trainer.collector.register.need
+        trainer.collector.register.need = lambda k: k == "rec.score" or need(k)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        full = trainer.evaluate(first)
+        full_s = time.perf_counter() - t0
+    finally:
+        config["metrics"] = saved[0]
+        trainer.collector, trainer.evaluator = saved[1], saved[2]
+    close, worst = results_close(sub_streamed, full, STREAMED_TOL)
+    last = streamed[f"pred_{max(config['metrics_pred_len_list'])}"]
+    values = [v for sec in streamed.values() for v in sec.values()]
+    layers = len(trainer.model.stu_layers)
+    n_batches = math.ceil(len(test_loader) / config["eval_batch_size"])
+    ok = (close and all(math.isfinite(v) for v in values)
+          and {"gauc", "auc", "mae", "rmse", "logloss"} <= set(last)
+          and launches == dict({k: 0 for k in launches}, hstu_stu_gated_fwd=layers * n_batches))
+    emit({"phase": "eval_streamed_metrics", "users": len(test_loader), "seconds": seconds,
+          "users_per_s": len(test_loader) / seconds, "plain_serve_users_per_s": plain_users_per_s,
+          "full_score_users": n, "heads": heads, "full_score_seconds": full_s,
+          "streamed_vs_full_max_diff": worst, "tolerance": STREAMED_TOL,
+          "metrics": {k: last[k] for k in ("gauc", "auc", "mae", "rmse", "logloss")},
+          "launches": launches, "ok": bool(ok)})
+    return launches, ok
+
+
+def hllm_host_table_phase(trainer, test_loader, device_result, data):
+    """The hllm_serve phase's trainer evaluated with ``host_item_table:
+    true`` (the corpus pass into host memory, then the chunks streamed to
+    the card), launch counts set to 0 just before and read just after; its
+    metrics must agree with the device-table evaluation of the same weights
+    at the CPU test's tolerances. Then ``_host_table_topk_results`` alone
+    over a HOST_TABLE_ITEMS × 2048 float32 host table — the real corpus
+    embeddings and random rows from seed 0 — which ``auto`` must choose by
+    itself: users/s, the copies' GB/s, the table passes and the device's
+    busy share, in one run under ``torch.profiler``."""
+    import copy
+
+    import torch
+
+    config = trainer.config
+    width = trainer.model.item_config.hidden_size
+    captured = {}
+    compute = trainer.compute_item_feature
+
+    def capture(*a, **kw):
+        captured["table"] = compute(*a, **kw)
+        return captured["table"]
+
+    trainer.compute_item_feature = capture
+    config["host_item_table"] = True
+    try:
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        host_result = trainer.evaluate(test_loader)
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t0
+        launches = read_launches()
+        eval_stats = {k: v for k, v in trainer.host_table_stats.items() if k != "copy_events"}
+    finally:
+        config["host_item_table"] = "auto"
+        del trainer.compute_item_feature
+    close, worst = results_close(host_result, device_result, HOST_TABLE_TOL)
+    close_back, _ = results_close(device_result, host_result, HOST_TABLE_TOL)
+    real = captured["table"]
+    auto_small = trainer._use_host_item_table(True)
+    big = copy.copy(data)
+    big.item_num = HOST_TABLE_ITEMS
+    trainer.dataload = big
+    try:
+        auto_big = trainer._use_host_item_table(True)
+    finally:
+        trainer.dataload = data
+    # the catalog grown with random rows at the real rows' scale, made on
+    # the card from seed 0 and copied to host memory
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=trainer.device).manual_seed(0)
+    raw = torch.empty((HOST_TABLE_ITEMS, width), dtype=torch.float32)
+    raw[: real.shape[0]] = real
+    scale = float(real.std())
+    for off in range(real.shape[0], HOST_TABLE_ITEMS, 65536):
+        n = min(65536, HOST_TABLE_ITEMS - off)
+        raw[off:off + n].copy_(scale * torch.randn((n, width), generator=gen,
+                                                   device=trainer.device))
+    cats = torch.randint(0, data.item_tag_matrix.shape[1], (HOST_TABLE_ITEMS,),
+                         generator=gen, device=trainer.device)
+    tags = torch.nn.functional.one_hot(cats, data.item_tag_matrix.shape[1]).bool()
+    tags[: real.shape[0]] = torch.as_tensor(data.item_tag_matrix, device=trainer.device)
+    del real, captured
+    norm = trainer.normalize_host_table(raw)
+    setup_s = time.perf_counter() - t0
+    top_k = max(config["topk"])
+
+    def run():
+        for _ in trainer._host_table_topk_results(test_loader, raw, norm, tags, top_k):
+            pass
+
+    torch.cuda.reset_peak_memory_stats()
+    seconds, _, busy_us = profiled(run)
+    stats = trainer.host_table_stats
+    copy_s = sum(a.elapsed_time(b) for a, b in stats["copy_events"]) / 1e3
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    n_users = len(test_loader)
+    layers = trainer.model.item_config.num_hidden_layers
+    n_corpus = math.ceil(data.item_num / trainer._corpus_batcher.batch_size)
+    ok = (close and close_back and auto_big and not auto_small and eval_stats["groups"] >= 1
+          and launches == dict({k: 0 for k in launches}, packed_attn_fwd=layers * n_corpus)
+          and stats["groups"] >= 1 and stats["h2d_bytes"] == stats["groups"] * norm.nbytes)
+    emit({"phase": "hllm_host_table", "users": n_users, "items": int(data.item_num),
+          "eval_seconds": eval_s, "eval_users_per_s": n_users / eval_s,
+          "eval_host_table": eval_stats, "vs_device_table_max_diff": worst,
+          "tolerance": HOST_TABLE_TOL, "launches": launches,
+          f"auto_picks_host_at_{data.item_num}_items": auto_small,
+          f"auto_picks_host_at_{HOST_TABLE_ITEMS}_items": auto_big,
+          "table_items": HOST_TABLE_ITEMS, "table_gib": norm.nbytes / 2**30,
+          "setup_seconds": setup_s, "seconds": seconds, "users_per_s": n_users / seconds,
+          "table_passes": stats["groups"], "chunks": stats["chunks"],
+          "h2d_bytes": stats["h2d_bytes"], "h2d_copy_seconds": copy_s,
+          "h2d_gb_per_s": stats["h2d_bytes"] / copy_s / 1e9 if copy_s else None,
+          "h2d_gb_per_s_over_call": stats["h2d_bytes"] / seconds / 1e9,
+          "device_busy_share": busy_us / 1e6 / seconds, "peak_mem_gb": peak_gb,
+          "ok": bool(ok)})
+    return launches, ok
+
+
+def train_accum_phase(data, k1_steady):
+    """HSTU size4 as the train phase sets it up, with ``accumulate_grad``
+    ACCUM_K (the scripts' global batch of 512 at batch 64) for ACCUM_STEPS
+    optimizer steps, launch counts set to 0 just before and read just
+    after. The first ACCUM_K micro-steps are taken one by one: the item
+    table, its moments and the dense parameters must stay bit-unchanged
+    after the first ACCUM_K − 1 and change at the boundary, where the
+    deduped union holds no duplicate real id and the kernel's row update
+    equals the plain version's on the same inputs, bit for bit; ``fit``
+    takes the rest. ``row_adamw`` must launch once per optimizer step and
+    #4 16 times per micro-step. ``peak_mem_gb`` is that of ``fit``'s
+    three optimizer steps."""
+    import torch
+
+    from mhrec_tpu_torch.data import build_dataloader
+    from mhrec_tpu_torch.trainer import Trainer
+    from mhrec_tpu_torch.trainer.sparse_adam import (
+        SparseAdamConfig,
+        dedup_touched_rows,
+        sparse_adamw_row_update,
+    )
+
+    config = train_config(tempfile.gettempdir())
+    config["accumulate_grad"] = ACCUM_K
+    config["total_iters"] = config["eval_interval"] = ACCUM_STEPS
+    config["update_interval"] = ACCUM_K
+    trainer = Trainer(config, data)
+    trainer.setup_model()
+    train_loader = build_dataloader(config, data)[0]
+    model = trainer.model
+    table = model.item_embedding.weight
+
+    def state():
+        return [t.detach().clone() for t in [table, trainer.table_m, trainer.table_v]
+                + trainer.dense_params]
+
+    def same(a, b):
+        return [bool(torch.equal(x, y)) for x, y in zip(a, b)]
+
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stream = train_loader.epoch_batches(0)
+    before = state()
+    unchanged, losses = True, []
+    for _ in range(ACCUM_K - 1):
+        losses.append(float(trainer.train_step(next(stream))["loss"].detach()))
+        unchanged &= all(same(state(), before))
+    pre = [t.clone() for t in before[:3]]
+    losses.append(float(trainer.train_step(next(stream))["loss"].detach()))
+    after = state()
+    moved = same(after, before)
+    changed = not moved[0] and not moved[1] and not moved[2] and not all(moved[3:])
+    # the boundary's union, from the buffers as the step left them (the
+    # rows already divided by k), through the plain version
+    ids, g = dedup_touched_rows(trainer.acc_ids, trainer.acc_g)
+    real = ids[ids >= 0]
+    unique = real.unique().numel() == real.numel()
+    sparse_adamw_row_update(*pre, ids, g, trainer.schedule(0), 0,
+                            SparseAdamConfig(weight_decay=trainer.weight_decay))
+    kernel_equals_plain = all(same(after[:3], pre))
+    union = {"slots": int(ids.numel()), "real_ids": int(real.numel()),
+             "ids_per_micro_step": int((trainer.acc_ids >= 0).sum()) / ACCUM_K}
+    del before, after, pre, ids, g, real
+    # the trainer's own peak, without the checks' copies
+    torch.cuda.reset_peak_memory_stats()
+    stats = trainer.fit(train_loader, None)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    losses += [loss for _, loss in trainer.fetched_losses]
+    micro = ACCUM_K * ACCUM_STEPS
+    layers = len(model.stu_layers)
+    ok = (unchanged and changed and unique and kernel_equals_plain and trainer.step == micro
+          and stats["iters"] == micro - ACCUM_K and all(math.isfinite(x) for x in losses)
+          and int(trainer.nan_step) < 0
+          and launches == dict({k: 0 for k in launches}, row_adamw=ACCUM_STEPS,
+                               hstu_stu_gated_fwd=layers * micro,
+                               hstu_stu_gated_bwd=layers * micro))
+    emit({"phase": "train_accum", "accumulate_grad": ACCUM_K, "optimizer_steps": ACCUM_STEPS,
+          "micro_steps": micro, "batch": config["train_batch_size"],
+          "global_batch": ACCUM_K * config["train_batch_size"],
+          "num_negatives": config["num_negatives"], "seconds": seconds,
+          "steady_examples_per_s": stats["steady_examples_per_s"],
+          "k1_steady_examples_per_s": k1_steady,
+          "unchanged_before_boundary": bool(unchanged), "changed_at_boundary": bool(changed),
+          "union": union, "union_unique": bool(unique),
+          "row_adamw_equals_plain_on_union": bool(kernel_equals_plain),
+          "losses": losses, "peak_mem_gb": peak_gb,
+          "row_buffers_gb": (trainer.acc_g.nbytes + trainer.acc_ids.nbytes) / 1e9,
+          "launches": launches, "ok": bool(ok)})
+    del trainer
+    return launches, ok
+
+
 # the profile phases' groups of device kernels, by name (first match wins)
 PROFILE_GROUPS = (
     ("packed_attn_bwd", "packed_attn_bwd"),
@@ -1398,12 +1816,10 @@ PROFILE_GROUPS = (
 )
 
 
-def profile_phase(name, fn, top: int = 40):
-    """``fn()`` under ``torch.profiler``: device time by group and of the
-    ``top`` kernels, and the device's busy share of the wall time (the union
-    of kernel intervals over the host time of ``fn``)."""
-    import re
-
+def profiled(fn):
+    """``fn()`` under ``torch.profiler``: (wall seconds, the device's
+    (start, end, name) spans in µs, sorted, and its busy µs: the union of
+    the spans)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1416,12 +1832,24 @@ def profile_phase(name, fn, top: int = 40):
         wall = time.perf_counter() - t0
     spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
                    if e.device_type == DeviceType.CUDA)
-    by_name, busy_us, end = {}, 0.0, float("-inf")
+    busy_us, end = 0.0, float("-inf")
+    for start, stop, _ in spans:
+        busy_us += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+    return wall, spans, busy_us
+
+
+def profile_phase(name, fn, top: int = 40):
+    """``fn()`` under ``torch.profiler``: device time by group and of the
+    ``top`` kernels, and the device's busy share of the wall time (the union
+    of kernel intervals over the host time of ``fn``)."""
+    import re
+
+    wall, spans, busy_us = profiled(fn)
+    by_name = {}
     for start, stop, kname in spans:
         n, us = by_name.get(kname, (0, 0.0))
         by_name[kname] = (n + 1, us + stop - start)
-        busy_us += max(0.0, stop - max(start, end))
-        end = max(end, stop)
     rows = sorted(({"name": k[:120], "count": n, "device_ms": us / 1e3}
                    for k, (n, us) in by_name.items()), key=lambda r: -r["device_ms"])
     groups = {g: 0.0 for g, _ in PROFILE_GROUPS}
@@ -1557,14 +1985,25 @@ def main(argv=None) -> int:
         failed.append("xla")
     if "--profile" in args:
         profile_phase("serve", lambda: trainer.evaluate(test_loader))
+    seconds["serve"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    outputs_launches, ok, plain_users_per_s = eval_outputs_phase(trainer, test_loader)
+    if not ok:
+        failed.append("eval_outputs")
+    seconds["eval_outputs"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    streamed_launches, ok = eval_streamed_phase(trainer, test_loader, plain_users_per_s)
+    if not ok:
+        failed.append("eval_streamed_metrics")
     del trainer
     torch.cuda.empty_cache()
-    seconds["serve"] = time.perf_counter() - t0
+    seconds["eval_streamed_metrics"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
     ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     try:
-        trainer, train_launches, ok = train_phase(data, ckpt_dir)
+        trainer, train_launches, ok, train_stats = train_phase(data, ckpt_dir)
         if not ok:
             failed.append("train")
         impl_train_launches, ok = train_impl_phase(trainer, data)
@@ -1574,9 +2013,17 @@ def main(argv=None) -> int:
             profile_train_steps(trainer, data)
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
-    del trainer, data
+    del trainer
     torch.cuda.empty_cache()
     seconds["train"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    accum_launches, ok = train_accum_phase(data, train_stats["steady_examples_per_s"])
+    if not ok:
+        failed.append("train_accum")
+    del data
+    torch.cuda.empty_cache()
+    seconds["train_accum"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
     work_dir = tempfile.mkdtemp(prefix="chip_smoke_hllm_")
@@ -1589,7 +2036,7 @@ def main(argv=None) -> int:
             num_users=4096, num_items=16_384, seq_len=2 * 24 + 2 * 8, num_categories=11,
             eval_pred_len=8, max_item_list_length=24, seed=0, item_texts=True,
         )
-        trainer, test_loader, hllm_launches, ok = hllm_serve_phase(
+        trainer, test_loader, hllm_launches, ok, hllm_result = hllm_serve_phase(
             hllm_config(pretrain_dir, work_dir), data)
         if not ok:
             failed.append("hllm_serve")
@@ -1597,9 +2044,15 @@ def main(argv=None) -> int:
             profile_phase("hllm_serve", lambda: trainer.evaluate(test_loader))
         if not hllm_impl_phase(trainer, data):
             failed.append("hllm_impl")
+        seconds["hllm_serve"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        host_launches, ok = hllm_host_table_phase(trainer, test_loader, hllm_result, data)
+        if not ok:
+            failed.append("hllm_host_table")
         del trainer, test_loader
         torch.cuda.empty_cache()
-        seconds["hllm_serve"] = time.perf_counter() - t0
+        seconds["hllm_host_table"] = time.perf_counter() - t0
 
         t0 = time.perf_counter()
         trainer, hllm_train_launches, ok = hllm_train_phase(
@@ -1615,6 +2068,12 @@ def main(argv=None) -> int:
     finally:
         shutil.rmtree(work_dir, ignore_errors=True)
     emit({"phase_seconds": seconds})
+    # each path's launches, counted from 0 just before it
+    emit({"path_launches": {
+        "serve": serve_launches, "eval_outputs": outputs_launches,
+        "eval_streamed_metrics": streamed_launches, "train": train_launches,
+        "train_accum": accum_launches, "hllm_serve": hllm_launches,
+        "hllm_host_table": host_launches, "hllm_train": hllm_train_launches}})
 
     launches = {"stu": serve_launches["hstu_stu_gated_fwd"],
                 "attn": pallas_launches["hstu_attn_fwd"],

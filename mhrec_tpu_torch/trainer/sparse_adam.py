@@ -16,9 +16,13 @@ mask of 0). ``sparse_adamw_row_update`` here is the plain version, the
 kernel ``row_adamw`` (``ops/row_adam_cuda.py``) performs the same
 operations in the same order.
 
+``dedup_touched_rows`` merges the unique-id blocks of several micro-steps
+(``accumulate_grad > 1``) into one block of unique ids, each id's gradient
+rows summed: the row update and its kernel take each real id once.
+
 Not ported yet: bfloat16 tables with stochastic rounding
-(``item_table_dtype: bfloat16``) and ``dedup_touched_rows`` (multi-host,
-``accumulate_grad > 1``).
+(``item_table_dtype: bfloat16``) and the cross-process dedup of
+``sparse_adam_global_dedup`` (multi-GPU).
 """
 
 from __future__ import annotations
@@ -76,3 +80,38 @@ def sparse_adamw_row_update(table, m, v, ids, grad_rows, lr, step_count: int,
     table.index_add_(0, rows, torch.where(keep, direction * s["neg_lr"], zero))
     m.index_add_(0, rows, torch.where(keep, m_new - m_old, zero))
     v.index_add_(0, rows, torch.where(keep, v_new - v_old, zero))
+
+
+def dedup_touched_rows(ids, grad_rows):
+    """Merge duplicate row ids into one slot each, gradients summed (JAX
+    ``dedup_touched_rows``, sparse_adam.py:120).
+
+    ids: int64 [k, U] — k blocks of row ids, −1 for pad slots; grad_rows:
+    [k, U, D]. Returns (ids_u [k·U], g_u [k·U, D] float32): every real id once, ascending, at the front, with the
+    sum of its gradient rows; −1 and zero rows after. The JAX version pads
+    with id 0 and mask 0 instead; the row update here takes −1 as its pad
+    slot and needs the real ids unique, which this output is.
+
+    The blocks are summed one after another, in block order, by
+    ``index_add_``: when real ids are unique within each block (one train
+    step's unique-id block each), no two rows of one ``index_add_`` land on
+    one slot, so the sums are the same on every run on the card too."""
+    k, U = ids.shape
+    flat = ids.reshape(-1)
+    pad = flat < 0
+    # pads sort last, so the real ids' groups come first
+    key = flat.masked_fill(pad, torch.iinfo(torch.int64).max)
+    sorted_key, order = torch.sort(key, stable=True)
+    first = torch.ones_like(sorted_key, dtype=torch.bool)
+    first[1:] = sorted_key[1:] != sorted_key[:-1]
+    seg_sorted = torch.cumsum(first, 0) - 1
+    seg = torch.empty_like(seg_sorted).scatter_(0, order, seg_sorted)
+    ids_u = torch.full_like(flat, -1).scatter_(0, seg, flat.masked_fill(pad, -1))
+    g_u = torch.zeros((k * U, grad_rows.shape[-1]), dtype=torch.float32,
+                      device=grad_rows.device)
+    seg = seg.view(k, U)
+    for j in range(k):
+        g_u.index_add_(0, seg[j], grad_rows[j].float())
+    # the pad slots' group (and the slots no group took) reads zero rows
+    g_u.masked_fill_((ids_u < 0)[:, None], 0.0)
+    return ids_u, g_u

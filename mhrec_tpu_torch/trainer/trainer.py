@@ -1,9 +1,10 @@
 """Training and evaluation engine (port of ``mhrec_tpu/trainer/trainer.py``,
 one device).
 
-* iteration-based ``fit``: ``total_iters`` steps over an endless batch
-  stream, NaN guard, periodic eval → ``early_stopping`` on the valid metric
-  → best-checkpoint save (reference trainer.py:371-373, 494-687);
+* iteration-based ``fit``: ``total_iters × accumulate_grad`` micro-steps over
+  an endless batch stream, NaN guard, periodic eval → ``early_stopping`` on
+  the valid metric → best-checkpoint save (reference trainer.py:371-373,
+  494-687);
 * the train step (JAX trainer.py:549-724): under ``sparse_item_adam`` the
   loss is differentiated with respect to the gathered per-batch sub-table,
   the dense parameters take AdamW and the touched item-table rows the
@@ -12,6 +13,10 @@ one device).
   NaN has its gradients zeroed and its index recorded in ``nan_step``, and
   the host raises when it next reads the loss (every ``update_interval``
   steps and at the last step);
+* gradient accumulation (``accumulate_grad`` k > 1, JAX trainer.py:619-659
+  and ``optax.MultiSteps``): the dense gradients' running mean is applied
+  once every k micro-steps; under ``sparse_item_adam`` the row update runs
+  once per optimizer step on the deduped union of the k micro-steps' rows;
 * dropout and the positive-mix draws come from a generator on the device
   seeded from (seed, step), so a resumed run draws what the first run drew;
 * checkpoints (``torch.save``, synchronous): parameters, optimizer state,
@@ -26,11 +31,19 @@ one device).
   with pad-item masking and history suppression, per-head top-k merged over
   item chunks on the card → host collector → metrics → sample-count
   normalization. The item table stays on the card; each chunk's
-  ``[B, H, chunk]`` score block is the largest object.
+  ``[B, H, chunk]`` score block is the largest object. Beside the top-k
+  merge the chunk loop advances the streamed mean-rank counters (GAUC /
+  AUC) and the target scores (the VALUE metrics MAE / RMSE / LogLoss);
+  the full ``[B, H, I]`` score tensor (``rec.score``) is the single-process
+  oracle of both. A text model's corpus table larger than
+  ``item_table_hbm_budget_gb`` stays in host memory (``host_item_table``)
+  and streams through the card once per group of eval batches. The eval
+  outputs ``log_detailed_results`` (per-user recommendation dumps) and
+  ``save_for_eval`` (each batch's top-k and embeddings) are written under
+  the checkpoint directory.
 
-Not ported yet: ``accumulate_grad > 1`` (with ``dedup_touched_rows``),
-``item_table_dtype: bfloat16``, asynchronous checkpoints and the
-host-memory item table of ``host_item_table``.
+Not ported yet: ``item_table_dtype: bfloat16``, ``sparse_adam_global_dedup``
+and asynchronous checkpoints.
 """
 
 from __future__ import annotations
@@ -46,15 +59,20 @@ import torch
 import torch.nn.functional as F
 
 from mhrec_tpu_torch.data.textset import BatchTextBatcher
-from mhrec_tpu_torch.data.trainset import _prefetch_iterator
+from mhrec_tpu_torch.data.trainset import _prefetch_iterator, unique_id_cap
 from mhrec_tpu_torch.evaluator import Collector, Evaluator
 from mhrec_tpu_torch.models.factory import build_model
 from mhrec_tpu_torch.models.layers import cosine_normalize
 from mhrec_tpu_torch.ops import row_adam_cuda
 from mhrec_tpu_torch.trainer.lr_schedule import build_schedule
 from mhrec_tpu_torch.trainer.optim import build_optimizer, clip_grad_norm
-from mhrec_tpu_torch.trainer.sparse_adam import SparseAdamConfig, sparse_adamw_row_update
+from mhrec_tpu_torch.trainer.sparse_adam import (
+    SparseAdamConfig,
+    dedup_touched_rows,
+    sparse_adamw_row_update,
+)
 from mhrec_tpu_torch.utils.misc import calculate_valid_score, early_stopping, resolve_device
+from mhrec_tpu_torch.utils.observability import save_eval_chunk, save_log_dict
 
 logger = logging.getLogger(__name__)
 
@@ -106,6 +124,8 @@ class Trainer:
         self.item_chunk_size = int(config.get("eval_item_chunk_size", 131072))
         self.results_rows: list = []
         self._corpus_batcher = None  # HLLM: the corpus text batcher, kept across evals
+        self.host_table_stats: Dict[str, Any] = {}  # the last host-table evaluation's
+        self._warned_no_pandas = False
 
         optim_args = dict(config["optim_args"] or {})
         self.learning_rate = float(optim_args.get("learning_rate", 1e-3))
@@ -150,7 +170,10 @@ class Trainer:
         self.group_schedules: list = []
         self.dense_params: list = []
         self.table_m = self.table_v = None
-        self.step = 0
+        # accumulate_grad > 1 under sparse_item_adam: each micro-step's
+        # unique ids [k, U] and gradient rows [k, U, D]
+        self.acc_ids = self.acc_g = None
+        self.step = 0  # micro-steps
         self.fetched_losses: list = []
         self.nan_step = torch.tensor(-1, dtype=torch.long, device=self.device)
         self.best_valid_score: Optional[float] = None
@@ -188,6 +211,11 @@ class Trainer:
             table = self.model.item_embedding.weight
             self.table_m = torch.zeros_like(table)
             self.table_v = torch.zeros_like(table)
+            if self.accumulate_grad > 1:
+                k, U = self.accumulate_grad, unique_id_cap(self.config)
+                self.acc_ids = torch.full((k, U), -1, dtype=torch.long, device=self.device)
+                self.acc_g = torch.zeros((k, U, table.shape[1]), dtype=torch.float32,
+                                         device=self.device)
         self.step = 0
         self.nan_step.fill_(-1)
         if self.config["load_checkpoint_name"]:
@@ -232,11 +260,27 @@ class Trainer:
             (self.seed * 1_000_003 + step) % (2 ** 63))
 
     def train_step(self, batch) -> Dict[str, torch.Tensor]:
-        """One optimizer step on one batch (numpy dict from the batcher).
-        Returns the model's output dict (tensors on the device)."""
+        """One micro-step on one batch (numpy dict from the batcher); with
+        ``accumulate_grad`` k = 1 each micro-step is an optimizer step.
+        Returns the model's output dict (tensors on the device).
+
+        k > 1 keeps the JAX semantics (``optax.MultiSteps`` and trainer.py
+        619-659): ``self.step`` counts micro-steps. Between boundaries each
+        dense parameter's ``grad`` holds the running mean of the micro-steps'
+        gradients in optax's form, acc + (g − acc) / (n + 1); under
+        ``sparse_item_adam`` each micro-step's unique ids and gradient rows go
+        to slot ``step % k`` of the [k, U] / [k, U, D] buffers. The k-th
+        micro-step applies the mean once (clipped, at the schedule of the
+        optimizer step ``step // k``), and the item table takes one row update
+        on the deduped union of the k blocks, its gradients divided by k, at
+        that optimizer step's learning rate and step count. The NaN guard
+        zeroes a micro-step's gradients before they are accumulated."""
+        k = self.accumulate_grad
+        slot = self.step % k
         dev = self._train_device_batch(batch)
         gen = self.step_generator(self.step)
         self.model.train()
+        acc = [p.grad for p in self.dense_params] if slot else None
         for p in self.dense_params:
             p.grad = None
         if self.sparse_item_adam:
@@ -257,31 +301,54 @@ class Trainer:
                 p.grad = torch.zeros_like(p)
             else:
                 p.grad.masked_fill_(bad, 0.0)
+        if slot:
+            grads = [p.grad for p in self.dense_params]
+            torch._foreach_sub_(grads, acc)
+            # a tensor divisor: a Python scalar one is applied as a
+            # multiplication by its reciprocal on the card
+            torch._foreach_div_(grads, torch.tensor(float(slot + 1), device=self.device))
+            torch._foreach_add_(acc, grads)
+            for p, a in zip(self.dense_params, acc):
+                p.grad = a
+        if self.sparse_item_adam:
+            g_sub = sub0.grad.masked_fill_(bad, 0.0)
+            if k > 1:
+                self.acc_ids[slot].copy_(ids)
+                self.acc_g[slot].copy_(g_sub)
+        if slot < k - 1:
+            self.step += 1
+            return out
+        outer = self.step // k
         clip = self.config.get("clip_grad_norm")
         if clip:
             clip_grad_norm(self.dense_params, float(clip))
         for group, sched in zip(self.optimizer.param_groups, self.group_schedules):
-            group["lr"] = sched(self.step)
+            group["lr"] = sched(outer)
         self.optimizer.step()
         if self.sparse_item_adam:
-            g_sub = sub0.grad.masked_fill_(bad, 0.0)
+            if k > 1:
+                # the rows divide by k before they are summed, as in JAX (the
+                # buffers are rewritten from the next micro-step on)
+                k_dev = torch.tensor(float(k), device=self.device)
+                ids, g_sub = dedup_touched_rows(self.acc_ids, self.acc_g.div_(k_dev))
             update = (sparse_adamw_row_update if self.sparse_adam_impl == "xla"
                       else row_adam_cuda.row_adamw)
             with torch.no_grad():
                 update(self.model.item_embedding.weight, self.table_m, self.table_v, ids,
-                       g_sub, self.schedule(self.step), self.step,
+                       g_sub, self.schedule(outer), outer,
                        SparseAdamConfig(weight_decay=self.weight_decay))
         self.step += 1
         return out
 
     def fit(self, train_batcher, valid_batcher=None):
-        """``total_iters`` steps with periodic evaluation, early stopping and
-        best-checkpoint saves. Returns run statistics and the last logged
-        scalars."""
+        """``total_iters`` optimizer steps of ``accumulate_grad`` micro-steps
+        each, with periodic evaluation, early stopping and best-checkpoint
+        saves. Returns run statistics (``iters``: micro-steps; the example
+        rates count every micro-step's batch) and the last logged scalars."""
         if self.optimizer is None:
             self.setup_model()
-        if self.accumulate_grad > 1:
-            raise NotImplementedError("accumulate_grad > 1 is not ported yet")
+        k = self.accumulate_grad
+        micro_steps = self.total_iters * k
         if self.config.get("sparse_adam_global_dedup") not in (None, "auto", False):
             raise NotImplementedError("sparse_adam_global_dedup is not ported yet")
         stream = train_batcher.infinite_batches(prefetch=2)
@@ -295,9 +362,9 @@ class Trainer:
         logs: Dict[str, float] = {}
         start_it = self.step  # nonzero after resume
         if start_it:
-            logger.info("resuming fit at step %d/%d", start_it, self.total_iters)
+            logger.info("resuming fit at micro-step %d/%d", start_it, micro_steps)
         it = start_it - 1
-        for it in range(start_it, self.total_iters):
+        for it in range(start_it, micro_steps):
             td = time.time()
             batch = next(stream)
             t_data += time.time() - td
@@ -306,7 +373,7 @@ class Trainer:
             # the first step is fetched too, so the steady clock starts
             # after it; the NaN check fires on the last step as well
             if (it + 1) % self.update_interval == 0 or self.debug or it == start_it \
-                    or it == self.total_iters - 1:
+                    or it == micro_steps - 1:
                 loss = float(out["loss"].detach())
                 ns = int(self.nan_step)
                 if ns >= 0:
@@ -320,26 +387,29 @@ class Trainer:
                     t_steady, it_steady = time.time(), it + 1
                 if self.show_progress:
                     logger.info("iter %d/%d loss=%.*f lr=%.3e data=%.2fs step=%.2fs",
-                                it + 1, self.total_iters, self.loss_decimal_place, loss,
-                                self.schedule(it), t_data, t_step)
+                                it + 1, micro_steps, self.loss_decimal_place, loss,
+                                self.schedule(it // k), t_data, t_step)
             else:
                 t_step += time.time() - ts
-            if valid_batcher is not None and (it + 1) % self.eval_interval == 0:
+            # evaluation and checkpoints only at accumulation boundaries: the
+            # optimizer step has just been applied, so the gradient mean and
+            # the row buffers hold nothing that a checkpoint would need
+            if valid_batcher is not None and (it + 1) % (self.eval_interval * k) == 0:
                 te = time.time()
                 result = self.evaluate(valid_batcher, load_best_model=False)
                 score = calculate_valid_score(result, self.valid_metric, self.eval_pred_len)
                 self.best_valid_score, cur_step, stop_flag, update_flag = early_stopping(
                     score, self.best_valid_score, cur_step, self.stopping_step,
                     bigger=self.valid_metric_bigger)
-                logger.info("valid @ step %d: %s=%.6f (best %.6f)", it + 1, self.valid_metric,
-                            score, self.best_valid_score)
+                logger.info("valid @ step %d: %s=%.6f (best %.6f)", (it + 1) // k,
+                            self.valid_metric, score, self.best_valid_score)
                 if update_flag:
                     self.best_valid_result = result
                     self.save_checkpoint()
                 if t_steady is not None:
                     t_eval += time.time() - te
                 if stop_flag:
-                    logger.info("early stopping at step %d", it + 1)
+                    logger.info("early stopping at step %d", (it + 1) // k)
                     break
             if self.debug and it >= 9:
                 break
@@ -366,7 +436,12 @@ class Trainer:
 
     def save_checkpoint(self):
         """Write the run's one checkpoint (the newest replaces the last),
-        through a temporary file so a crash never leaves a torn one."""
+        through a temporary file so a crash never leaves a torn one. Only at
+        an accumulation boundary: the gradient mean and row buffers of an
+        unfinished optimizer step are not saved."""
+        if self.step % self.accumulate_grad:
+            raise ValueError(f"micro-step {self.step} is not at an accumulation boundary "
+                             f"(accumulate_grad {self.accumulate_grad})")
         os.makedirs(self.saved_model_dir, exist_ok=True)
         payload = {
             "params": self.model.state_dict(),
@@ -416,14 +491,16 @@ class Trainer:
 
     # ------------------------------------------------------------------
     @torch.no_grad()
-    def compute_item_feature(self):
+    def compute_item_feature(self, return_host: bool = False):
         """Corpus item embeddings (reference compute_item_feature,
         trainer.py:731-824). ID models: the normalized item table. Text
         models: the item tower over the whole corpus in batches of
         ``MAX_ITEM_LIST_LENGTH · train_batch_size`` items, dense or packed
         (``packed_corpus_pass``), the last batch padded to that size → the
         RAW embedding table [item_num, D] float32 (``evaluate`` normalizes a
-        copy for scoring, as the reference's predict does)."""
+        copy for scoring, as the reference's predict does). ``return_host``:
+        a text model's table is gathered in host memory, batch by batch, and
+        never held whole on the card."""
         if not getattr(self.model, "needs_item_corpus_pass", False):
             return self.model.compute_item_all()
         if self.model.freeze_item_llm:
@@ -445,32 +522,35 @@ class Trainer:
                     put(cb["packed_positions"]), put(cb["emb_slots"]))
             else:
                 emb = self.model.compute_item_chunk(put(cb["tokens"]), put(cb["lens"]))
-            chunks.append(emb[: cb["n_real"]])
+            emb = emb[: cb["n_real"]]
+            chunks.append(emb.cpu() if return_host else emb)
         return torch.cat(chunks)
 
     @torch.no_grad()
     def evaluate(self, eval_batcher, load_best_model: bool = False):
+        """Metrics of one split (JAX trainer.py:1058-1242). The config's
+        ``log_detailed_results`` writes each batch's per-user recommendation
+        dump (``detailed/batch_{n:07d}``, ids mapped through
+        ``id2token``) and ``save_for_eval`` each batch's top-k and user /
+        head embeddings (``saved_eval/eval_chunk_{n:05d}.npz``), under the
+        checkpoint directory, n the batch's first row; with either on, the
+        metric rows also go to ``results.pkl`` when pandas is installed."""
         if load_best_model and not self.load_checkpoint():
             logger.warning("no checkpoint found; evaluating current params")
         self.model.eval()
-        for key in ("rec.meanrank", "rec.score", "rec.tgt_score"):
-            if self.collector.register.need(key):
-                raise NotImplementedError(
-                    f"metrics needing {key} (GAUC / VALUE / raw scores) are not ported yet")
-        needs_corpus = getattr(self.model, "needs_item_corpus_pass", False)
-        if self._use_host_item_table(needs_corpus):
-            raise NotImplementedError(
-                "host_item_table (the corpus table kept in host memory) is not ported yet")
-        if self.config.get("save_for_eval") or self.config.get("log_detailed_results"):
-            raise NotImplementedError("save_for_eval / log_detailed_results are not ported yet")
+        # GAUC / AUC (rec.meanrank) and the VALUE metrics (rec.tgt_score)
+        # stream beside the top-k merge for any head count, as head-0
+        # counts and target scores; only raw-score dumps (rec.score) take the
+        # full [B, H, I] tensor (JAX trainer.py:1062-1089)
+        need = self.collector.register.need
+        need_full = need("rec.score")
+        stream_meanrank = need("rec.meanrank") and not need_full
+        stream_tgt = need("rec.tgt_score") and not need_full
+        self.collector.external_meanrank = stream_meanrank
+        self.collector.external_tgt_score = stream_tgt
         self.collector.set_logit_scale(self._eval_logit_scale())
-        item_feats = self.compute_item_feature()
-        raw_item_table = None
-        if needs_corpus:
-            # text models: the raw table feeds the user tower, a normalized
-            # copy the cosine scoring (trainer.py:1102-1108)
-            raw_item_table = item_feats
-            item_feats = cosine_normalize(item_feats)
+        needs_corpus = getattr(self.model, "needs_item_corpus_pass", False)
+        host_mode = self._use_host_item_table(needs_corpus, need_full)
         item_tags = None
         if self.dataload.item_tag_matrix is not None:
             item_tags = torch.as_tensor(self.dataload.item_tag_matrix, device=self.device)
@@ -478,21 +558,58 @@ class Trainer:
             # Entropy is computed over the ORIGINAL tags (reference
             # trainer.py:823 passes all_original_item_tags to set_all_tags)
             self.collector.set_all_tags(np.asarray(self.dataload.item_orig_tag_matrix))
-
         top_k = max(self.config["topk"])
+        streamed = dict(stream_meanrank=stream_meanrank, stream_tgt=stream_tgt)
+        if host_mode:
+            # corpus scale: the table stays in host memory and each item
+            # chunk crosses to the card once per group of eval batches
+            raw_host = self.compute_item_feature(return_host=True)
+            results = self._host_table_topk_results(
+                eval_batcher, raw_host, self.normalize_host_table(raw_host), item_tags,
+                top_k, **streamed)
+        else:
+            item_feats = self.compute_item_feature()
+            raw_item_table = None
+            if needs_corpus:
+                # text models: the raw table feeds the user tower, a normalized
+                # copy the cosine scoring (trainer.py:1102-1108)
+                raw_item_table = item_feats
+                item_feats = cosine_normalize(item_feats)
+            results = self._device_topk_results(eval_batcher, item_feats, item_tags, top_k,
+                                                raw_item_table, need_full=need_full, **streamed)
+
+        save_for_eval = bool(self.config.get("save_for_eval", False))
+        log_detailed = bool(self.config.get("log_detailed_results", False))
         switch_correct_sum = None
         n_eval_samples = 0
-        for batch, n_real, topk_vals, topk_idx, pe in self._device_topk_results(
-                eval_batcher, item_feats, item_tags, top_k, raw_item_table):
-            self.collector.eval_batch_collect(
+        for batch, n_real, topk_vals, topk_idx, pe in results:
+            if need_full:
+                # topk_vals carries the full [n_real, H, I] scores here
+                self.collector.eval_batch_collect(
+                    scores=topk_vals,
+                    positive_i=batch["item_target"][:n_real],
+                    tag_category=batch["target_tags"][:n_real],
+                    outlier_users=batch["outlier_users"][:n_real],
+                )
+                n_eval_samples += n_real
+                continue
+            if save_for_eval:
+                save_eval_chunk(
+                    os.path.join(self.saved_model_dir, "saved_eval"), n_eval_samples,
+                    user_ids=batch["user_ids"][:n_real], topk_values=topk_vals,
+                    topk_indices=topk_idx, user_embs=pe["user_emb"], head_embs=pe["head_embs"])
+            detailed = self.collector.eval_batch_collect(
                 positive_i=batch["item_target"][:n_real],
                 tag_category=batch["target_tags"][:n_real],
                 outlier_users=batch["outlier_users"][:n_real],
                 topk_values=topk_vals,
                 topk_indices=topk_idx,
+                log_detailed_results=log_detailed,
             )
+            if log_detailed and detailed is not None:
+                self._save_detailed(batch, n_real, detailed, n_eval_samples)
             if "switch_correct" in pe:
-                sc = pe["switch_correct"][:n_real].sum(axis=0)
+                sc = pe["switch_correct"].sum(axis=0)
                 switch_correct_sum = sc if switch_correct_sum is None else switch_correct_sum + sc
             n_eval_samples += n_real
 
@@ -515,9 +632,40 @@ class Trainer:
         )
         for section, metrics in result_summary.items():
             self.results_rows.append({"section": section, **metrics})
+        if save_for_eval or log_detailed:
+            self._save_results_table()
         if switch_accs:
             result_summary.setdefault("shared", {}).update(switch_accs)
         return result_summary
+
+    def _save_detailed(self, batch, n_real: int, detailed, first_row: int):
+        """One batch's per-user recommendation dump with head provenance
+        (JAX trainer.py:1168-1196, reference trainer.py:999-1015): user,
+        target and recommended item ids mapped to their tokens."""
+        id2item = self.dataload.id2token["item_id"]
+        id2user = self.dataload.id2token["user_id"]
+        detailed["user"] = [id2user[u] for u in batch["user_ids"][:n_real].tolist()]
+        detailed["item_tgt"] = [[id2item[i] for i in row]
+                                for row in batch["item_target"][:n_real].tolist()]
+        detailed["recommend_items"] = [[id2item[i] for i in row] for row in detailed.pop("idx")]
+        detailed.pop("idx_by_head", None)
+        save_log_dict(os.path.join(self.saved_model_dir, "detailed", f"batch_{first_row:07d}"),
+                      detailed)
+
+    def _save_results_table(self):
+        """Every evaluation's metric rows so far as a pandas DataFrame in
+        ``results.pkl`` (JAX trainer.py:1226-1235); skipped, with one
+        warning, where pandas is not installed."""
+        try:
+            import pandas as pd
+        except ImportError:
+            if not self._warned_no_pandas:
+                logger.warning("pandas is not installed: results.pkl is not written")
+                self._warned_no_pandas = True
+            return
+        os.makedirs(self.saved_model_dir, exist_ok=True)
+        pd.DataFrame(self.results_rows).to_pickle(
+            os.path.join(self.saved_model_dir, "results.pkl"))
 
     def _normalize_all(self, sections, num_total: float,
                        switch_correct_sum=None, n_eval_samples: int = 0):
@@ -545,16 +693,23 @@ class Trainer:
         return out, switch_accs
 
     # ------------------------------------------------------------------
-    def _use_host_item_table(self, needs_corpus: bool) -> bool:
-        """Whether the corpus table would stay in host memory (JAX
+    def _use_host_item_table(self, needs_corpus: bool, need_full: bool = False) -> bool:
+        """Whether the corpus table stays in host memory (JAX
         trainer.py:1310-1334; config ``host_item_table``: auto | true |
-        false, budget ``item_table_hbm_budget_gb``): never for ID models or a
-        frozen table; under auto, when the raw float32 table exceeds the
-        budget."""
+        false, budget ``item_table_hbm_budget_gb``): never for ID models, a
+        frozen table or the full-score path (which raises under ``true``);
+        under auto, when the raw float32 table exceeds the budget."""
         mode = self.config.get("host_item_table", "auto")
         if mode in (False, "false", "False") or not needs_corpus:
             return False
         if self.config.get("freeze_item_llm", False):
+            return False
+        if need_full:
+            if mode in (True, "true", "True"):
+                raise ValueError(
+                    "host_item_table is incompatible with full-score metrics "
+                    "(rec.score needs [B, H, I] score tensors; GAUC and the VALUE "
+                    "metrics stream)")
             return False
         if mode in (True, "true", "True"):
             return True
@@ -562,6 +717,15 @@ class Trainer:
         est_bytes = float(self.dataload.item_num) * max(D, 1) * 4
         budget = float(self.config.get("item_table_hbm_budget_gb", 4.0) or 4.0)
         return est_bytes > budget * (1 << 30)
+
+    def normalize_host_table(self, raw_host: torch.Tensor) -> torch.Tensor:
+        """The unit-norm copy of a host-memory table, as ``cosine_normalize``
+        computes it, in pinned memory when there is a card (so its chunks
+        cross to the card without a staging copy)."""
+        norm = torch.linalg.vector_norm(raw_host, dim=-1, keepdim=True).clamp_(min=1e-12)
+        out = torch.empty(raw_host.shape, dtype=torch.float32,
+                          pin_memory=self.device.type == "cuda")
+        return torch.div(raw_host, norm, out=out)
 
     def _eval_device_batch(self, batch):
         """Card-side view of an eval batch: item_seq / target_tags and the
@@ -596,22 +760,50 @@ class Trainer:
         done.record()
         return host, done
 
+    def _batch_outputs(self, pe, n_real: int, topk_vals, topk_idx, mr=None):
+        """What of one eval batch crosses to the host, by name: the top-k,
+        the switch accuracies, under ``save_for_eval`` the user and head
+        embeddings, and the streamed mean-rank state."""
+        out = {"topk_vals": topk_vals[:n_real], "topk_idx": topk_idx[:n_real]}
+        if "switch_correct" in pe:
+            out["switch_correct"] = pe["switch_correct"][:n_real]
+        if self.config.get("save_for_eval", False):
+            out["user_emb"] = pe["user_emb"][:n_real]
+            out["head_embs"] = pe["head_embs"][:n_real]
+        if mr is not None:
+            keys = ("tgt_items", "tgt_score") + (("g", "e", "fin") if mr["counts"] else ())
+            out.update({f"mr_{k}": mr[k][:n_real] for k in keys})
+        return out
+
+    def _finish_batch(self, batch, n_real: int, host):
+        """The consumer's tuple of one batch from its host arrays; hands the
+        streamed mean-rank rows and target scores to the collector."""
+        mr = {k[3:]: v for k, v in host.items() if k.startswith("mr_")}
+        if mr:
+            self._finalize_meanrank(mr)
+        pe = {k: host[k] for k in ("switch_correct", "user_emb", "head_embs") if k in host}
+        return batch, n_real, host["topk_vals"], host["topk_idx"], pe
+
+    @torch.no_grad()
     def _device_topk_results(self, eval_batcher, item_feats, item_tags, top_k,
-                             raw_item_table=None):
-        """Per-batch predict + streamed top-k; a text model's user tower
-        reads the raw table ``raw_item_table`` (trainer.py:1426-1427).
+                             raw_item_table=None, need_full: bool = False,
+                             stream_meanrank: bool = False, stream_tgt: bool = False):
+        """Per-batch predict + streamed top-k with the table on the card; a
+        text model's user tower reads the raw table ``raw_item_table``
+        (trainer.py:1426-1427). With ``need_full`` the full masked score
+        tensor [n_real, H, I] rides in the top-k values' slot. The streamed
+        mean-rank state advances in the same chunk loop.
         One-deep pipelining: batch i's results are copied to the host as
         soon as its work is enqueued, then batch i+1's work is enqueued, and
         only then does the host wait for batch i's copies — so the card
         computes batch i+1 while the collector runs on batch i."""
 
         def materialize(p):
-            batch, n_real, (host, done) = p
+            batch, n_real, names, (host, done) = p
             if done is not None:
                 done.synchronize()
-            host = [np.asarray(h) for h in host]
-            pe = {"switch_correct": host[2]} if len(host) > 2 else {}
-            return batch, n_real, host[0], host[1], pe
+            return self._finish_batch(batch, n_real,
+                                      {k: np.asarray(h) for k, h in zip(names, host)})
 
         pending = None
         for batch in eval_batcher.batches():
@@ -624,51 +816,207 @@ class Trainer:
             else:
                 pe = self.model.predict_embeddings(dev["item_seq"], dev["target_tags"],
                                                    raw_item_table)
-            topk_vals, topk_idx = self._stream_score_topk(pe, item_feats, item_tags, dev, top_k)
-            # only the consumer's arrays cross to the host
-            out = [topk_vals[:n_real], topk_idx[:n_real]]
-            if "switch_correct" in pe:
-                out.append(pe["switch_correct"][:n_real])
-            copies = self._to_host(out)
+            if need_full:
+                full = self._full_scores(pe, item_feats, item_tags, dev)[:n_real]
+                yield batch, n_real, full.cpu().numpy(), None, {}
+                continue
+            mr = None
+            if stream_meanrank or stream_tgt:
+                tgt = torch.as_tensor(batch["item_target"], dtype=torch.long).to(
+                    self.device, non_blocking=True)
+                tgt_tags = None
+                if pe["head_embs"].shape[1] > 1 and item_tags is not None:
+                    tgt_tags = item_tags[tgt]
+                mr = self._init_meanrank_state(pe, dev, tgt, item_feats[tgt],
+                                               counts=stream_meanrank, tgt_item_tags=tgt_tags)
+            topk_vals, topk_idx = self._stream_score_topk(pe, item_feats, item_tags, dev, top_k,
+                                                          mr=mr)
+            out = self._batch_outputs(pe, n_real, topk_vals, topk_idx, mr)
+            copies = self._to_host(list(out.values()))
             if pending is not None:
                 yield materialize(pending)
-            pending = (batch, n_real, copies)
+            pending = (batch, n_real, list(out), copies)
         if pending is not None:
             yield materialize(pending)
 
-    def _stream_score_topk(self, pe, item_feats, item_tags, dev, top_k: int):
-        """Chunked full-corpus scoring with pad/history masking and per-head
-        top-k merged over chunks on the card."""
-        I = item_feats.shape[0]
+    @torch.no_grad()
+    def _host_table_topk_results(self, eval_batcher, raw_host, norm_host, item_tags, top_k,
+                                 stream_meanrank: bool = False, stream_tgt: bool = False,
+                                 overlap: bool = True):
+        """Corpus-scale evaluation with the table in host memory (JAX
+        trainer.py:1458-1599). Phase A runs the user tower of every eval
+        batch on sequence embeddings gathered from ``raw_host`` on the host;
+        phase B streams each chunk of the normalized table ``norm_host``
+        (pinned) to the card once and advances every batch's running top-k
+        (and mean-rank state), which stay on the card.
+
+        Batches are taken in groups, one table pass each, so the state held
+        on the card stays bounded: ``host_eval_group_size`` batches, or as
+        many as fit ``host_eval_state_budget_gb`` (default 2.0). On the card
+        chunk ci+1's copy is issued on a side stream before chunk ci is
+        scored, and the scoring stream waits on its event only when it
+        reaches that chunk (``overlap`` False: each chunk is copied on the
+        scoring stream, for comparison). ``host_table_stats`` records the
+        groups, chunks and bytes copied, and on the card each copy's
+        events."""
+        group = int(self.config.get("host_eval_group_size", 0) or 0)
+        budget = float(self.config.get("host_eval_state_budget_gb", 2.0) or 2.0) * (1 << 30)
+        on_card = self.device.type == "cuda"
+        copy_stream = torch.cuda.Stream(self.device) if on_card and overlap else None
+        save_embs = bool(self.config.get("save_for_eval", False))
+        I, D = norm_host.shape
         chunk = min(self.item_chunk_size, I)
         n_chunks = -(-I // chunk)
+        stats = self.host_table_stats = {"groups": 0, "chunks": 0, "h2d_bytes": 0,
+                                         "copy_events": []}
+
+        def stage(ci):
+            """Chunk ``ci`` of the table on the card (padded to the chunk
+            size), and the event its copy completes."""
+            off = ci * chunk
+            src = norm_host[off:off + chunk]
+            stats["chunks"] += 1
+            stats["h2d_bytes"] += src.numel() * src.element_size()
+            if not on_card:
+                return F.pad(src, (0, 0, 0, chunk - src.shape[0])), None
+            with torch.cuda.stream(copy_stream or torch.cuda.current_stream(self.device)):
+                start, done = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+                    enable_timing=True)
+                start.record()
+                feats = torch.empty((chunk, D), dtype=torch.float32, device=self.device)
+                feats[:src.shape[0]].copy_(src, non_blocking=True)
+                feats[src.shape[0]:].zero_()
+                done.record()
+            stats["copy_events"].append((start, done))
+            return feats, done
+
+        def flush(states):
+            if not states:
+                return
+            stats["groups"] += 1
+            nxt = stage(0)
+            for ci in range(n_chunks):
+                feats_c, ready = nxt
+                if copy_stream is not None:
+                    torch.cuda.current_stream(self.device).wait_event(ready)
+                    # made on the side stream, read on this one: the
+                    # allocator must not hand it back out before this
+                    # stream is done with it
+                    feats_c.record_stream(torch.cuda.current_stream(self.device))
+                if ci + 1 < n_chunks:
+                    nxt = stage(ci + 1)
+                off = ci * chunk
+                tags_c = None
+                if item_tags is not None:
+                    tags_c = F.pad(item_tags[off:off + chunk],
+                                   (0, 0, 0, chunk - min(chunk, I - off)))
+                for st in states:
+                    st["run_vals"], st["run_idx"] = self._score_chunk(
+                        st["pe"], feats_c, tags_c, st["dev"], off, I, st["run_vals"],
+                        st["run_idx"], top_k, st["mr"])
+            for st in states:
+                out = self._batch_outputs(st["pe"], st["n_real"], st["run_vals"],
+                                          st["run_idx"], st["mr"])
+                host = {k: v.cpu().numpy() for k, v in out.items()}
+                yield self._finish_batch(st["batch"], st["n_real"], host)
+
+        states = []
+        for batch in eval_batcher.batches():
+            n_real = int(batch["sample_weight"].sum())
+            if n_real == 0:
+                continue
+            # the sequences' rows gathered on the host, into pinned memory
+            seq = torch.as_tensor(batch["item_seq"], dtype=torch.long)
+            seq_embeds = torch.empty((seq.numel(), raw_host.shape[1]), dtype=raw_host.dtype,
+                                     pin_memory=on_card)
+            torch.index_select(raw_host, 0, seq.reshape(-1), out=seq_embeds)
+            dev = self._eval_device_batch(batch)
+            pe = self.model.predict_embeddings(
+                dev["item_seq"], dev["target_tags"],
+                seq_embeds=seq_embeds.view(*seq.shape, -1).to(self.device, non_blocking=True))
+            if not save_embs:
+                pe.pop("user_emb")
+            mr = None
+            if stream_meanrank or stream_tgt:
+                tgt_np = np.asarray(batch["item_target"], dtype=np.int64)
+                tgt = torch.as_tensor(tgt_np).to(self.device, non_blocking=True)
+                tgt_tags = None
+                if pe["head_embs"].shape[1] > 1 and item_tags is not None:
+                    tgt_tags = item_tags[tgt]
+                tgt_feats = norm_host[torch.as_tensor(tgt_np)].to(self.device)
+                mr = self._init_meanrank_state(pe, dev, tgt, tgt_feats,
+                                               counts=stream_meanrank, tgt_item_tags=tgt_tags)
+            B, H, _ = pe["head_embs"].shape
+            if self.config["split_mode"] == "average" and H > 1:
+                H = 1  # heads fused by finite-mean inside the chunk scorer
+            st = {"batch": batch, "n_real": n_real, "pe": pe, "dev": dev, "mr": mr,
+                  "run_vals": torch.full((B, H, top_k), -math.inf, device=self.device),
+                  "run_idx": torch.zeros((B, H, top_k), dtype=torch.long, device=self.device)}
+            states.append(st)
+            if not group:
+                held = [pe["head_embs"], pe.get("switch_pred"), dev["target_tags"],
+                        st["run_vals"], st["run_idx"]]
+                per_state = sum(t.numel() * t.element_size() for t in held if t is not None)
+                group = max(1, int(budget // max(per_state, 1)))
+            if len(states) >= group:
+                yield from flush(states)
+                states = []
+        yield from flush(states)
+
+    def _item_chunks(self, item_feats, item_tags):
+        """(offset, features, tags) of each item chunk of a table on the
+        card, the tail padded to the chunk size."""
+        I = item_feats.shape[0]
+        chunk = min(self.item_chunk_size, I)
+        for off in range(0, I, chunk):
+            feats_c = item_feats[off:off + chunk]
+            tags_c = item_tags[off:off + chunk] if item_tags is not None else None
+            if feats_c.shape[0] < chunk:
+                pad = chunk - feats_c.shape[0]
+                feats_c = F.pad(feats_c, (0, 0, 0, pad))
+                if tags_c is not None:
+                    tags_c = F.pad(tags_c, (0, 0, 0, pad))
+            yield off, feats_c, tags_c
+
+    def _stream_score_topk(self, pe, item_feats, item_tags, dev, top_k: int, mr=None):
+        """Chunked full-corpus scoring with pad/history masking and per-head
+        top-k merged over chunks on the card; ``mr``, a streamed mean-rank
+        state (``_init_meanrank_state``), advances in the same loop."""
         B, H, _ = pe["head_embs"].shape
         if self.config["split_mode"] == "average" and H > 1:
             H = 1  # heads fused by finite-mean inside the chunk scorer
         run_vals = torch.full((B, H, top_k), -math.inf, device=self.device)
         run_idx = torch.zeros((B, H, top_k), dtype=torch.long, device=self.device)
-        for ci in range(n_chunks):
-            off = ci * chunk
-            feats_c = item_feats[off:off + chunk]
-            tags_c = item_tags[off:off + chunk] if item_tags is not None else None
-            if feats_c.shape[0] < chunk:  # pad the tail chunk to the chunk size
-                pad = chunk - feats_c.shape[0]
-                feats_c = F.pad(feats_c, (0, 0, 0, pad))
-                if tags_c is not None:
-                    tags_c = F.pad(tags_c, (0, 0, 0, pad))
-            run_vals, run_idx = self._chunk_topk(
-                pe["head_embs"], pe.get("switch_pred"), feats_c, tags_c,
-                dev["target_tags"], off, I, dev["hist_r"], dev["hist_c"],
-                run_vals, run_idx, top_k,
-            )
+        for off, feats_c, tags_c in self._item_chunks(item_feats, item_tags):
+            run_vals, run_idx = self._score_chunk(pe, feats_c, tags_c, dev, off,
+                                                  item_feats.shape[0], run_vals, run_idx,
+                                                  top_k, mr)
+        return run_vals, run_idx
+
+    def _score_chunk(self, pe, feats_c, tags_c, dev, off: int, item_num: int, run_vals,
+                     run_idx, top_k: int, mr=None):
+        """One item chunk: its masked scores merged into the running top-k
+        (JAX ``_make_chunk_scorer``) and, with a mean-rank state that counts,
+        head 0's raw scores counted against the targets' (``count_fn``)."""
+        args = (pe["head_embs"], pe.get("switch_pred"), feats_c, tags_c, dev["target_tags"],
+                off, item_num, dev["hist_r"], dev["hist_c"])
+        scores = self._masked_chunk_scores(*args)
+        run_vals, run_idx = self._merge_chunk_topk(scores, off, run_vals, run_idx, top_k)
+        if mr is not None and mr["counts"]:
+            if scores.shape[1] != pe["head_embs"].shape[1]:
+                # the heads were fused ('average'): the counts take head 0's
+                # raw scores, as the full-tensor path does
+                scores = self._masked_chunk_scores(*args, fuse_average=False)
+            self._count_chunk(scores[:, 0], off, item_num, mr)
         return run_vals, run_idx
 
     def _masked_chunk_scores(self, head_embs, switch_pred, feats_c, tags_c, tgt_tags,
-                             off: int, item_num: int, hist_r, hist_c):
+                             off: int, item_num: int, hist_r, hist_c, fuse_average: bool = True):
         """score_items + pad-item masking + history suppression for one
-        chunk (JAX ``_masked_chunk_scores_closure``)."""
+        chunk (JAX ``_masked_chunk_scores_closure``); ``fuse_average`` False
+        skips the 'average' split mode's head fusion."""
         scores = self.model.score_items(head_embs, feats_c, tags_c, tgt_tags, switch_pred)
-        if self.config["split_mode"] == "average" and scores.shape[1] > 1:
+        if fuse_average and self.config["split_mode"] == "average" and scores.shape[1] > 1:
             # finite-mean over heads (reference collector.py:227-230)
             finite = torch.isfinite(scores)
             scores = (torch.where(finite, scores, 0.0).sum(dim=1)
@@ -686,12 +1034,8 @@ class Trainer:
         )
         return scores
 
-    def _chunk_topk(self, head_embs, switch_pred, feats_c, tags_c, tgt_tags, off, item_num,
-                    hist_r, hist_c, run_vals, run_idx, top_k: int):
-        """One chunk's per-head top-k merged into the running top-k (JAX
-        ``_make_chunk_scorer``)."""
-        scores = self._masked_chunk_scores(head_embs, switch_pred, feats_c, tags_c, tgt_tags,
-                                           off, item_num, hist_r, hist_c)
+    def _merge_chunk_topk(self, scores, off: int, run_vals, run_idx, top_k: int):
+        """One chunk's per-head top-k merged into the running top-k."""
         Ck = scores.shape[-1]
         k_eff = min(top_k, Ck)
         vals, idx = topk_first(scores, k_eff)
@@ -703,6 +1047,122 @@ class Trainer:
         # as the JAX scorer does
         mvals, mpos = topk_first(torch.cat([vals, run_vals], dim=-1), top_k)
         return mvals, torch.gather(torch.cat([gidx, run_idx], dim=-1), -1, mpos)
+
+    def _full_scores(self, pe, item_feats, item_tags, dev):
+        """The full [B, H, I] masked score tensor (JAX ``_full_scores``,
+        trainer.py:1657-1678): the oracle of the streamed paths, and what
+        raw-score dumps (rec.score) read. Small corpora only. Scored chunk by
+        chunk, as the streamed path scores them, so both see the same
+        products."""
+        I = item_feats.shape[0]
+        scores = torch.cat([
+            self.model.score_items(pe["head_embs"], feats_c, tags_c, dev["target_tags"],
+                                   pe.get("switch_pred"))[..., :I - off]
+            for off, feats_c, tags_c in self._item_chunks(item_feats, item_tags)], dim=-1)
+        scores[..., 0] = -math.inf
+        # the history buffers (col -1 pads; all -1 without suppress_history)
+        ok = dev["hist_c"] >= 0
+        add = torch.zeros(ok.shape, device=scores.device).masked_fill_(ok, -math.inf)
+        scores.permute(0, 2, 1).index_put_(
+            (dev["hist_r"], dev["hist_c"].clamp(0, I - 1)),
+            add[:, None].expand(-1, scores.shape[1]), accumulate=True)
+        return scores
+
+    # -- streamed mean-rank (GAUC without the [B, H, I] tensor) ------------
+    # The tie-averaged descending rank of a target t is count(score > s_t) +
+    # (count(score == s_t) + 1) / 2 and user_len = count(score > −inf), so
+    # GAUC's inputs are sums of per-chunk counts (JAX trainer.py:1755-1925).
+    # Head 0 throughout, as the full-tensor path reads it (collector
+    # _collect_meanrank takes scores[:, 0]).
+    def _init_meanrank_state(self, pe, dev, tgt_items, tgt_feats, counts: bool = True,
+                             tgt_item_tags=None):
+        """The batch's target scores and zeroed counters on the card.
+        ``counts`` False (VALUE metrics only): the target scores alone. A
+        multi-head model's targets are scored through ``score_items`` (with
+        their item tags), so head 0 carries its prior masks."""
+        if pe["head_embs"].shape[1] == 1:
+            tgt_score = self._target_scores(pe["head_embs"], tgt_feats, tgt_items,
+                                            dev["hist_r"], dev["hist_c"])
+        else:
+            tgt_score = self._target_scores_mh(pe, tgt_feats, tgt_item_tags, dev, tgt_items)
+        B, P = tgt_items.shape
+        zeros = torch.zeros((B, P), dtype=torch.long, device=self.device)
+        return {"counts": counts, "tgt_items": tgt_items, "tgt_score": tgt_score,
+                "g": zeros, "e": zeros.clone(),
+                "fin": torch.zeros(B, dtype=torch.long, device=self.device)}
+
+    @staticmethod
+    def _mask_targets(s, tgt_items, hist_r, hist_c):
+        """−inf for pad targets and for targets in the user's suppressed
+        history, as the chunk scores mask them."""
+        s = s.masked_fill(tgt_items == 0, -math.inf)
+        eq = (tgt_items[hist_r] == hist_c[:, None]) & (hist_c >= 0)[:, None]  # [Hn, P]
+        hit = torch.zeros(s.shape, dtype=torch.int32, device=s.device).index_add_(
+            0, hist_r, eq.int())
+        return s.masked_fill(hit > 0, -math.inf)
+
+    def _target_scores(self, head_embs, tgt_feats, tgt_items, hist_r, hist_c):
+        """Single head (JAX ``target_score_fn``): head_embs [B, 1, D] and
+        the targets' normalized rows [B, P, D] → [B, P]."""
+        s = torch.einsum("bhd,bpd->bhp", head_embs, tgt_feats)[:, 0]
+        return self._mask_targets(s, tgt_items, hist_r, hist_c)
+
+    def _target_scores_mh(self, pe, tgt_feats, tgt_item_tags, dev, tgt_items):
+        """Multi-head (JAX ``target_score_mh_fn``): the batch's B·P targets
+        scored as one pseudo-chunk through ``score_items``, each row's own
+        targets taken from head 0."""
+        B, P, D = tgt_feats.shape
+        tags_c = tgt_item_tags.reshape(B * P, -1) if tgt_item_tags is not None else None
+        scores = self.model.score_items(pe["head_embs"], tgt_feats.reshape(B * P, D), tags_c,
+                                        dev["target_tags"], pe.get("switch_pred"))[:, 0]
+        cols = (torch.arange(B, device=scores.device)[:, None] * P
+                + torch.arange(P, device=scores.device)[None, :])
+        s = torch.gather(scores, 1, cols)
+        return self._mask_targets(s, tgt_items, dev["hist_r"], dev["hist_c"])
+
+    @staticmethod
+    def _count_chunk(scores0, off: int, item_num: int, mr):
+        """Advance the counters with one chunk's head-0 scores [B, Ck] (JAX
+        ``count_fn``): items above each target, items equal to it (the
+        chunk's tail padding left out) and finite items."""
+        valid = (off + torch.arange(scores0.shape[-1], device=scores0.device)) < item_num
+        mr["fin"] += (scores0 > -math.inf).sum(-1)
+        tgt_score = mr["tgt_score"]
+        for p in range(tgt_score.shape[1]):
+            sp = tgt_score[:, p, None]
+            mr["g"][:, p] += (scores0 > sp).sum(-1)
+            mr["e"][:, p] += ((scores0 == sp) & valid).sum(-1)
+
+    def _finalize_meanrank(self, mr):
+        """The host arrays of a batch's mean-rank state (real rows) →
+        per-horizon [pos_rank_sum, user_len, pos_len] rows and the per-target
+        sigmoid scores, handed to the collector (JAX ``_finalize_meanrank``).
+        Duplicate target ids within a horizon collapse, as the reference's
+        pos_matrix scatter does."""
+        ids = mr["tgt_items"]
+        tgt_s = mr["tgt_score"].astype(np.float64)
+        P = ids.shape[1]
+        first = np.ones(ids.shape, bool)
+        for j in range(1, P):
+            first[:, j] = ~(ids[:, :j] == ids[:, j:j + 1]).any(axis=1)
+        if self.collector.external_tgt_score:
+            scale = self.collector.logit_scale_value
+            keep = first & np.isfinite(tgt_s)
+            preds = {}
+            for p in self.metrics_pred_len_list:
+                m = keep[:, :p + 1]
+                preds[p] = 1.0 / (1.0 + np.exp(-scale * tgt_s[:, :p + 1][m]))
+            self.collector.tgt_score_collect(preds)
+        if "g" not in mr:
+            return
+        rank = mr["g"].astype(np.float64) + (mr["e"].astype(np.float64) + 1.0) / 2.0
+        fin = mr["fin"].astype(np.float64)
+        rows = {}
+        for p in self.metrics_pred_len_list:
+            m = first[:, :p + 1]
+            rows[p] = np.stack([(rank[:, :p + 1] * m).sum(1), fin,
+                                m.sum(1).astype(np.float64)], axis=1)
+        self.collector.meanrank_rows_collect(rows)
 
     def _eval_logit_scale(self) -> float:
         """The model's NCE temperature exp(clamped logit_scale)."""

@@ -865,3 +865,94 @@ def test_attn_fwd_cuda_core_route_on_request(card):
         _close_to_scale(out, K.hstu_attn_fwd_plain(q, k, v, nonpad), torch.bfloat16)
         with pytest.raises(ValueError, match="tensor-core route"):
             K.hstu_attn_fwd(q.float(), k.float(), v.float(), nonpad, route="tensor_cores")
+
+
+@pytest.mark.parametrize("k", [2, 8])
+def test_accumulated_row_update_equals_plain_bit_for_bit(card, k):
+    """``accumulate_grad`` k: k blocks of unique ids (shared across blocks,
+    −1 pads) merged by ``dedup_touched_rows`` on the card — the same ids and
+    sums, bit for bit, as on the CPU, every real id once — then one row
+    update through ``row_adamw`` against the plain version on that union."""
+    from mhrec_tpu_torch.ops.row_adam_cuda import row_adamw
+    from mhrec_tpu_torch.trainer.sparse_adam import (
+        SparseAdamConfig,
+        dedup_touched_rows,
+        sparse_adamw_row_update,
+    )
+
+    gen = torch.Generator().manual_seed(k)
+    N, U, D, n_real = 4000, 1024, 256, 900
+    ids = torch.full((k, U), -1, dtype=torch.long)
+    for j in range(k):
+        ids[j, :n_real] = torch.randperm(N // 2, generator=gen)[:n_real]
+    g = torch.randn(k, U, D, generator=gen) / k
+    ids_u, g_u = dedup_touched_rows(ids.to(card), g.to(card))
+    ref_ids, ref_g = dedup_touched_rows(ids, g)
+    assert torch.equal(ids_u.cpu(), ref_ids) and torch.equal(g_u.cpu(), ref_g)
+    real = ref_ids[ref_ids >= 0]
+    assert real.unique().numel() == real.numel() == ids[ids >= 0].unique().numel()
+    table = torch.randn(N, D, generator=gen)
+    m = 0.01 * torch.randn(N, D, generator=gen)
+    v = 0.01 * torch.randn(N, D, generator=gen).abs()
+    cfg = SparseAdamConfig(weight_decay=0.01)
+    out = [t.to(card) for t in (table, m, v)]
+    ref = [t.to(card) for t in (table, m, v)]
+    before = row_adamw.launches
+    row_adamw(*out, ids_u, g_u, 1e-3, 3, cfg)
+    sparse_adamw_row_update(*ref, ids_u, g_u, 1e-3, 3, cfg)
+    torch.cuda.synchronize()
+    assert row_adamw.launches == before + 1
+    for o, r in zip(out, ref):
+        assert torch.equal(o, r)
+    untouched = torch.ones(N, dtype=torch.bool)
+    untouched[real] = False
+    assert torch.equal(out[0].cpu()[untouched], table[untouched])
+
+
+def test_host_table_side_stream_copies_match_synchronous(card, tmp_path):
+    """The host-memory corpus table: chunks copied on a side stream (the
+    scoring stream waiting on each copy's event) give the same top-k,
+    bit for bit, as chunks copied on the scoring stream, and as the table
+    held on the card; 6 item chunks, one table pass per eval batch."""
+    import json
+
+    import numpy as np
+
+    from mhrec_tpu_torch.config import Config
+    from mhrec_tpu_torch.data import build_eval_dataloaders
+    from mhrec_tpu_torch.data.synthetic import InMemoryInteractionData
+    from mhrec_tpu_torch.trainer import Trainer
+
+    with open(tmp_path / "config.json", "w") as fh:
+        json.dump({"model_type": "llama", "vocab_size": 1024, "hidden_size": 64,
+                   "intermediate_size": 128, "num_hidden_layers": 2,
+                   "num_attention_heads": 4, "num_key_value_heads": 2}, fh)
+    C = 4
+    cfg = Config(config_file_list=["overall/LLM.yaml", "HLLM/HLLM.yaml"], config_dict=dict(
+        dataset="synthetic", seed=0, data_path=str(tmp_path),
+        checkpoint_dir=str(tmp_path / "ckpt"), item_pretrain_dir=str(tmp_path),
+        user_pretrain_dir=str(tmp_path), MAX_TEXT_LENGTH=24, MAX_ITEM_LIST_LENGTH=6,
+        loss="prior", train_batch_size=8, eval_batch_size=32, num_prior_head=C,
+        num_segment_head=2, head_interaction="hierarchical", medusa_num_layers=1,
+        eval_num_cats=C, pred_len=4, eval_pred_len=4, topk=[5, 10], segment_embed=True,
+        eval_item_chunk_size=512, host_eval_group_size=1, val_only=True,
+        int_to_category={i: f"cat_{i}" for i in range(C)})).finalize()
+    data = InMemoryInteractionData(num_users=100, num_items=3000, seq_len=2 * 6 + 8,
+                                   num_categories=C, eval_pred_len=4, max_item_list_length=6)
+    trainer = Trainer(cfg, data)
+    trainer.setup_model()
+    test = build_eval_dataloaders(cfg, data)[1]
+    raw = torch.randn(3000, 64, generator=torch.Generator().manual_seed(0))
+    norm = trainer.normalize_host_table(raw)
+    assert norm.is_pinned()
+    tags = torch.as_tensor(data.item_tag_matrix, device=card)
+    runs = [list(trainer._host_table_topk_results(test, raw, norm, tags, 10, overlap=o))
+            for o in (True, False)]
+    assert trainer.host_table_stats["groups"] == 4 and trainer.host_table_stats["chunks"] == 24
+    runs.append(list(trainer._device_topk_results(test, norm.to(card), tags, 10,
+                                                  raw_item_table=raw.to(card))))
+    for a, b in zip(runs[0], runs[1]):
+        np.testing.assert_array_equal(a[3], b[3])
+        np.testing.assert_array_equal(a[2], b[2])
+    for a, b in zip(runs[0], runs[2]):
+        np.testing.assert_array_equal(a[3], b[3])

@@ -258,7 +258,8 @@ def _cfg(over):
 @pytest.mark.parametrize("case", ["weights", "tokenizer", "host_table", "sparse_item_adam",
                                   "training"])
 def test_hllm_raises_on_what_is_not_ported(hllm, tmp_path, case):
-    """What the port leaves out raises instead of running something else."""
+    """What the port leaves out raises instead of running something else
+    (and, for the host table, what the JAX package refuses raises too)."""
     from mhrec_tpu_torch.data import build_dataloader
 
     over = dict(hllm["over"], token_cache_dir=False)
@@ -275,12 +276,17 @@ def test_hllm_raises_on_what_is_not_ported(hllm, tmp_path, case):
         with pytest.raises(NotImplementedError, match="tokenizers"):
             BatchTextBatcher(_cfg(over), hllm["data"])
     elif case == "host_table":
-        # a budget below the raw table's bytes: auto would keep it in host memory
+        # ported: a budget below the raw table's bytes keeps it in host
+        # memory under auto; what still raises is the JAX package's refusal
+        # of a host table forced on beside full-score metrics (rec.score)
         t = Trainer(_cfg(dict(over, item_table_hbm_budget_gb=1e-6)),
                     hllm["data"], device="cpu")
+        assert t._use_host_item_table(True) and not t._use_host_item_table(True, True)
+        t = Trainer(_cfg(dict(over, host_item_table=True)), hllm["data"], device="cpu")
         t.setup_model()
+        t.collector.register.need = lambda key: key == "rec.score"
         test = build_eval_dataloaders(hllm["tcfg"], hllm["data"])[1]
-        with pytest.raises(NotImplementedError, match="host_item_table"):
+        with pytest.raises(ValueError, match="host_item_table"):
             t.evaluate(test)
     elif case == "sparse_item_adam":
         with pytest.raises(ValueError, match="sparse_item_adam"):

@@ -1,9 +1,9 @@
 """The port stands alone: ``mhrec_tpu_torch`` and ``chip_smoke.py`` import
 nothing of JAX and nothing of the JAX package, and the serving and training
 paths that ``chip_smoke.py`` drives (HSTU serving and training, HLLM
-serving and training) import neither PyYAML nor pandas nor pyarrow (the
-machine with the card has none of them), nor, on the HLLM paths,
-``transformers``."""
+serving and training, the eval outputs and modes, gradient accumulation)
+import neither PyYAML nor pandas nor pyarrow (the machine with the card has
+none of them), nor, on the HLLM paths, ``transformers``."""
 
 import ast
 import os
@@ -220,6 +220,80 @@ def test_hllm_training_path_imports_nothing_it_must_not():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "BAD []" in proc.stdout, proc.stdout
+
+
+_EVAL_MODES = """
+import glob, json, os, sys, tempfile
+
+# what the machine with the card lacks: importing it fails, as there
+LACKING = ("pandas", "yaml", "pyarrow", "transformers")
+sys.modules.update({name: None for name in LACKING})
+import torch
+import chip_smoke
+from mhrec_tpu_torch.data.synthetic import InMemoryInteractionData
+from mhrec_tpu_torch.run import serve, train
+
+torch.set_num_threads(2)
+work = tempfile.mkdtemp()
+small = dict(n_layers=1, n_heads=2, item_embedding_size=128, hstu_embedding_size=128,
+             eval_batch_size=32, eval_item_chunk_size=700, MAX_ITEM_LIST_LENGTH=6)
+data = InMemoryInteractionData(num_users=40, num_items=1000, seq_len=2 * 6 + 16,
+                               num_categories=8, eval_pred_len=8, max_item_list_length=6)
+# the eval outputs and the streamed GAUC / VALUE metrics
+cfg = chip_smoke.serve_config()
+for k, v in dict(small, log_detailed_results=True, save_for_eval=True, checkpoint_dir=work,
+                 metrics=chip_smoke.STREAMED_METRICS).items():
+    cfg[k] = v
+trainer, _, result = serve(cfg, data, device="cpu")
+assert {"gauc", "auc", "mae", "rmse", "logloss"} <= set(result["pred_7"])
+out = trainer.saved_model_dir
+assert glob.glob(os.path.join(out, "detailed", "*.npz"))
+assert glob.glob(os.path.join(out, "saved_eval", "eval_chunk_*.npz"))
+assert not os.path.exists(os.path.join(out, "results.pkl"))
+# gradient accumulation under sparse_item_adam
+cfg = chip_smoke.train_config(work)
+for k, v in dict(small, train_batch_size=8, num_negatives=64, total_iters=2, eval_interval=2,
+                 accumulate_grad=2).items():
+    cfg[k] = v
+trainer, stats, result = train(cfg, data, device="cpu")
+assert stats["iters"] == 4 and trainer.step == 4 and "pred_7" in result
+# the HLLM corpus table in host memory
+tower = os.path.join(work, "tower")
+os.makedirs(tower)
+with open(os.path.join(tower, "config.json"), "w") as fh:
+    json.dump(dict(chip_smoke.TINYLLAMA_1B, vocab_size=1024, hidden_size=64,
+                   intermediate_size=128, num_hidden_layers=2, num_attention_heads=4,
+                   num_key_value_heads=2), fh)
+cfg = chip_smoke.hllm_config(tower, work)
+for k, v in dict(MAX_TEXT_LENGTH=24, MAX_ITEM_LIST_LENGTH=6, train_batch_size=8,
+                 eval_batch_size=32, pack_chunk=128, eval_item_chunk_size=128,
+                 host_item_table=True).items():
+    cfg[k] = v
+hdata = InMemoryInteractionData(num_users=40, num_items=300, seq_len=2 * 6 + 16,
+                                num_categories=11, eval_pred_len=8, max_item_list_length=6,
+                                item_texts=True, max_filler_words=12)
+trainer, _, result = serve(cfg, hdata, device="cpu")
+assert "pred_7" in result and trainer.host_table_stats["chunks"] == 3
+bad = sorted(m for m, mod in sys.modules.items() if mod is not None
+             and m.split(".")[0] in {"jax", "jaxlib", "flax", "optax", "mhrec_tpu", *LACKING})
+print("BAD", bad)
+"""
+
+
+def test_eval_modes_and_accumulation_run_without_what_the_card_lacks():
+    """Drive the eval outputs (``log_detailed_results``, ``save_for_eval``),
+    the streamed GAUC / VALUE metrics, gradient accumulation and the HLLM
+    host-memory corpus table on the CPU in a fresh interpreter where pandas,
+    PyYAML, pyarrow and transformers cannot be imported, as on the machine
+    with the card (chip_smoke.py's configurations, cut to a few widths):
+    each runs, ``results.pkl`` is skipped with one warning, and nothing
+    forbidden is loaded."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", _EVAL_MODES], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "BAD []" in proc.stdout, proc.stdout
+    assert proc.stderr.count("pandas is not installed: results.pkl is not written") == 1
 
 
 def test_chip_smoke_fails_without_the_package(tmp_path):
