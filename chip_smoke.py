@@ -99,11 +99,34 @@ against the device table, then times the host-table scoring alone over a
 600,000 × 2048 table, which ``auto`` must choose by itself. Each path's
 launches are counted from 0 just before it (``path_launches``).
 
+Three phases drive HLLM towers loaded from local checkpoints and the HLLM
+training levers, in a work directory of their own. ``hllm_pretrained``
+writes a TinyLlama-1.1B-shaped checkpoint (seed 0, bfloat16, two
+``.safetensors`` shards and an index, about 2.2 GB, by ``write_safetensors``,
+this script's own header writer), points both pretrain directories at it and
+serves (``hllm_config``, over a catalog of PRETRAINED_ITEMS items and
+PRETRAINED_USERS users, through hllm_serve_phase's checks) and trains
+(``hllm_train_config``, PRETRAINED_TRAIN_STEPS steps and the test split);
+every loaded tensor must equal the written one bit for bit, and a 2-layer
+cut of the weights as ``.safetensors`` and as ``pytorch_model.bin`` must give
+equal item embeddings. ``hllm_train_levers`` takes that trained model: a
+synchronous against an asynchronous best-checkpoint save (the loop's blocked
+seconds, the writer's, the host copy's bytes; a train step runs during the
+write; both files equal tensor for tensor), ``remat_policy`` ``full``
+against ``dots`` (steady examples/s and peak memory at LEVERS_BATCH
+sequences, 44 + 22 packed launches a step under both, one batch's gradients
+equal), and ``adam_mu_dtype`` / ``adam_nu_dtype: bfloat16`` against the
+fused AdamW (state bytes, peak memory). ``hllm_towers`` writes a
+bert-base-uncased-shaped BERT and a Baichuan-13B-shaped ALiBi tower (2 of
+its 40 layers) and has each serve a small catalog and train 2 steps on the
+dense item tower (no kernel).
+
 Prints one JSON object per line: the card's name and power limit, build
 seconds, each kernel phase (error against tolerance; kernel, plain and bound
 times), the serve, impl, eval_outputs, eval_streamed_metrics, train,
-train-impl, train_accum, hllm_serve, hllm_impl, hllm_host_table, hllm_train
-and hllm_train_impl phases, the seconds of each phase, each path's
+train-impl, train_accum, hllm_serve, hllm_impl, hllm_host_table, hllm_train,
+hllm_train_impl, hllm_pretrained (with its hllm_pretrained_serve record),
+hllm_train_levers and hllm_towers phases, the seconds of each phase, each path's
 launches, a ``kernels`` summary, and last ``{"ok": true, "device": {...}}``. Any
 failure exits non-zero without the last line. ``--profile`` adds phases that
 run one evaluation of the test split, five train steps, one HLLM evaluation
@@ -1132,7 +1155,7 @@ def hllm_train_config(pretrain_dir, work_dir, **over):
         **over))
 
 
-def hllm_serve_phase(config, data):
+def hllm_serve_phase(config, data, phase="hllm_serve"):
     """The HLLM serving path: ``run.serve`` with the launch counts set to 0
     just before and read just after; ``packed_attn_fwd`` must run once per
     layer per corpus batch. ``serve_seconds`` is that call, set-up included
@@ -1177,7 +1200,7 @@ def hllm_serve_phase(config, data):
           and launches["packed_attn_fwd"] == layers * n_batches and others == 0
           and "pred_7" in result and "shared" in result)
     n_users = len(test_loader)
-    emit({"phase": "hllm_serve", "users": n_users, "items": int(data.item_num),
+    emit({"phase": phase, "users": n_users, "items": int(data.item_num),
           "corpus_batches": n_batches, "corpus_batch_items": batcher.batch_size,
           "chunk_rows": batcher._chunk_rows_hw, "corpus_tokens": tokens,
           "serve_seconds": serve_seconds, "corpus_seconds": corpus_seconds,
@@ -1816,6 +1839,551 @@ PROFILE_GROUPS = (
 )
 
 
+# -- HLLM towers from local checkpoints, and the HLLM training levers ----------
+# bert-base-uncased's config.json (12 layers, 768 wide, 12 heads, 3072,
+# vocab 30522, 512 positions)
+BERT_BASE = {
+    "model_type": "bert", "vocab_size": 30522, "hidden_size": 768, "intermediate_size": 3072,
+    "num_hidden_layers": 12, "num_attention_heads": 12, "max_position_embeddings": 512,
+    "type_vocab_size": 2, "layer_norm_eps": 1e-12,
+}
+# Baichuan-13B's config.json (5120 wide, 40 heads, 13696, vocab 64000, the
+# fused W_pack projection, ALiBi) cut to 2 of its 40 layers; "alibi" names
+# what the 40-layer count would have told LLMConfig
+BAICHUAN_13B_2L = {
+    "model_type": "baichuan", "vocab_size": 64000, "hidden_size": 5120,
+    "intermediate_size": 13696, "num_hidden_layers": 2, "num_attention_heads": 40,
+    "rms_norm_eps": 1e-6, "alibi": True,
+}
+# the pretrained-tower phases' catalog and users (hllm_serve's are 16,384
+# and 4096), to keep time
+PRETRAINED_ITEMS = 4096
+PRETRAINED_USERS = 1024
+PRETRAINED_TRAIN_STEPS = 3
+# the towers phase: catalog, users, and the ALiBi tower's corpus batch
+# (MAX_ITEM_LIST_LENGTH 24 × train_batch_size 8 = 192 items: its
+# [192, 40, 257, 257] float32 scores take 2.0 GB)
+TOWERS_ITEMS = 1024
+TOWERS_USERS = 256
+ALIBI_CORPUS_TRAIN_BATCH = 8
+# the levers phase: sequences a step (dots keeps every product's output:
+# about 1.25 GB a layer at 2 sequences, 248 items) and timed steps
+LEVERS_BATCH = 2
+LEVERS_STEPS = 3
+
+# where the written checkpoints are drawn
+DEVICE = "cuda"
+
+_ST_DTYPE_NAMES = {"float32": "F32", "bfloat16": "BF16", "float16": "F16", "int64": "I64"}
+
+
+def write_safetensors(path, tensors):
+    """A ``.safetensors`` file written by hand: the 8-byte little-endian
+    header length, the JSON header (dtype, shape, byte range of each
+    tensor), padded to 8 bytes, then each tensor's raw bytes."""
+    import torch
+
+    header, offset = {"__metadata__": {"format": "pt"}}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": _ST_DTYPE_NAMES[str(t.dtype).split(".")[-1]],
+                        "shape": list(t.shape), "data_offsets": [offset, offset + n]}
+        offset += n
+    body = json.dumps(header, separators=(",", ":")).encode()
+    body += b" " * (-len(body) % 8)
+    with open(path, "wb") as fh:
+        fh.write(len(body).to_bytes(8, "little"))
+        fh.write(body)
+        for t in tensors.values():
+            fh.write(memoryview(t.detach().reshape(-1).contiguous().cpu()
+                                .view(torch.uint8).numpy()))
+
+
+def hf_state_dict(cfg, seed, device, dtype, lm_head=True):
+    """An HF-named state dict of ``cfg``'s topology (Llama family, with
+    Baichuan's W_pack when ``cfg`` is baichuan, or BERT) drawn on
+    ``device`` from ``seed``: normal 0.02 matrices and embeddings, norm
+    scales 1 + 0.1·normal, normal 0.02 biases, in ``dtype``; with the keys
+    the towers do not read (``lm_head``, the BERT pooler)."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    D, I, V = cfg["hidden_size"], cfg["intermediate_size"], cfg["vocab_size"]
+    h = cfg["num_attention_heads"]
+    hk = cfg.get("num_key_value_heads", h)
+    dh = D // h
+    sd = {}
+
+    def put(name, *shape, scale=0.02, one=False):
+        t = torch.randn(shape, generator=gen, device=device) * (0.1 if one else scale)
+        sd[name] = (t + 1.0 if one else t).to(dtype)
+
+    if cfg["model_type"] == "bert":
+        put("bert.embeddings.word_embeddings.weight", V, D)
+        put("bert.embeddings.position_embeddings.weight", cfg["max_position_embeddings"], D)
+        put("bert.embeddings.token_type_embeddings.weight", cfg["type_vocab_size"], D)
+        put("bert.embeddings.LayerNorm.weight", D, one=True)
+        put("bert.embeddings.LayerNorm.bias", D)
+        for i in range(cfg["num_hidden_layers"]):
+            p = f"bert.encoder.layer.{i}"
+            for n in ("attention.self.query", "attention.self.key", "attention.self.value",
+                      "attention.output.dense"):
+                put(f"{p}.{n}.weight", D, D)
+                put(f"{p}.{n}.bias", D)
+            put(f"{p}.intermediate.dense.weight", I, D)
+            put(f"{p}.intermediate.dense.bias", I)
+            put(f"{p}.output.dense.weight", D, I)
+            put(f"{p}.output.dense.bias", D)
+            for n in ("attention.output.LayerNorm", "output.LayerNorm"):
+                put(f"{p}.{n}.weight", D, one=True)
+                put(f"{p}.{n}.bias", D)
+        put("bert.pooler.dense.weight", D, D)
+        put("bert.pooler.dense.bias", D)
+        return sd
+    put("model.embed_tokens.weight", V, D)
+    for i in range(cfg["num_hidden_layers"]):
+        p = f"model.layers.{i}"
+        if cfg["model_type"] == "baichuan":
+            put(f"{p}.self_attn.W_pack.weight", 3 * D, D)
+        else:
+            put(f"{p}.self_attn.q_proj.weight", h * dh, D)
+            put(f"{p}.self_attn.k_proj.weight", hk * dh, D)
+            put(f"{p}.self_attn.v_proj.weight", hk * dh, D)
+        put(f"{p}.self_attn.o_proj.weight", D, h * dh)
+        put(f"{p}.mlp.gate_proj.weight", I, D)
+        put(f"{p}.mlp.up_proj.weight", I, D)
+        put(f"{p}.mlp.down_proj.weight", D, I)
+        put(f"{p}.input_layernorm.weight", D, one=True)
+        put(f"{p}.post_attention_layernorm.weight", D, one=True)
+    put("model.norm.weight", D, one=True)
+    if lm_head:
+        put("lm_head.weight", V, D)
+    return sd
+
+
+def write_hf_checkpoint(dirpath, cfg, sd, fmt="safetensors", shards=1):
+    """``config.json`` and ``sd`` as ``fmt`` ("safetensors", by
+    ``write_safetensors``, or "bin", by ``torch.save``), in ``shards``
+    files with an index when more than one. Returns the seconds taken."""
+    import torch
+
+    t0 = time.perf_counter()
+    os.makedirs(dirpath, exist_ok=True)
+    with open(os.path.join(dirpath, "config.json"), "w") as fh:
+        json.dump(cfg, fh)
+    names = list(sd)
+    parts = [names[i::shards] for i in range(shards)]
+    if fmt == "safetensors":
+        file_of = (lambda n: "model.safetensors") if shards == 1 else (
+            lambda n: f"model-{n + 1:05d}-of-{shards:05d}.safetensors")
+        index = "model.safetensors.index.json"
+    else:
+        file_of = (lambda n: "pytorch_model.bin") if shards == 1 else (
+            lambda n: f"pytorch_model-{n + 1:05d}-of-{shards:05d}.bin")
+        index = "pytorch_model.bin.index.json"
+    weight_map = {}
+    for n, part in enumerate(parts):
+        tensors = {k: sd[k] for k in part}
+        path = os.path.join(dirpath, file_of(n))
+        if fmt == "safetensors":
+            write_safetensors(path, tensors)
+        else:
+            torch.save({k: v.cpu() for k, v in tensors.items()}, path)
+        weight_map.update({k: file_of(n) for k in part})
+    if shards > 1:
+        with open(os.path.join(dirpath, index), "w") as fh:
+            json.dump({"metadata": {}, "weight_map": weight_map}, fh)
+    return time.perf_counter() - t0
+
+
+def link_layer_cut(src_dir, dst_dir, cfg, layers):
+    """A checkpoint directory of the first ``layers`` layers of the one in
+    ``src_dir``: its own ``config.json`` beside links to the source's weight
+    files, so nothing is written twice (the loader maps only the layers the
+    config names)."""
+    os.makedirs(dst_dir)
+    with open(os.path.join(dst_dir, "config.json"), "w") as fh:
+        json.dump(dict(cfg, num_hidden_layers=layers), fh)
+    for name in os.listdir(src_dir):
+        if name != "config.json":
+            os.symlink(os.path.join(src_dir, name), os.path.join(dst_dir, name))
+    return dst_dir
+
+
+def loaded_equal_written(model, sd, tower_dir):
+    """Every parameter of both towers equal to its written tensor bit for
+    bit (bf16 → f32 is exact); returns (all equal, tensors compared)."""
+    import torch
+
+    from mhrec_tpu_torch.models.llm import loader
+    from mhrec_tpu_torch.models.llm.config import LLMConfig
+
+    cfg = LLMConfig.from_pretrained_dir(tower_dir)
+    to_tower = (loader.bert_state_dict_from_hf if cfg.model_type == "bert"
+                else loader.llama_state_dict_from_hf)
+    equal, n = True, 0
+    for tower in ("item_llm", "user_llm"):
+        module = getattr(model, tower)
+        want = to_tower(sd, cfg, token_embeddings=hasattr(module, "embed_tokens")
+                        or hasattr(module, "word_embeddings"))
+        for name, p in module.named_parameters():
+            equal &= bool(torch.equal(p.detach(), want[name].to(p.device, p.dtype)))
+            n += 1
+    return equal, n
+
+
+def tower_load_record(model):
+    return {t: dict(s, gb_per_s=s["bytes"] / 1e9 / s["seconds"])
+            for t, s in model.tower_load_stats.items()}
+
+
+def hllm_pretrained_phase(work_dir):
+    """HLLM with both towers from a TinyLlama-1.1B-shaped checkpoint the
+    script writes (seed 0, bfloat16, two ``.safetensors`` shards and an
+    index, about 2.2 GB): serving (``run.serve``: the towers' load seconds
+    and GB/s, every loaded tensor equal to the written one, the corpus pass
+    and users/s, through hllm_serve_phase's checks) and training
+    (``run.train``: PRETRAINED_TRAIN_STEPS steps, then the test split; no
+    evaluation inside the fit, so no checkpoint is written), with
+    ``packed_attn_fwd`` 44 and ``packed_attn_bwd`` 22 launches a step. Then
+    a 2-layer cut of the same weights as ``.safetensors`` and as
+    ``pytorch_model.bin`` must give equal item embeddings (the packed item
+    tower over the first corpus batch). Returns (the training trainer, its
+    config, the data, launches, ok)."""
+    import numpy as np
+    import torch
+
+    from mhrec_tpu_torch.data.synthetic import InMemoryInteractionData
+    from mhrec_tpu_torch.run import train
+    from mhrec_tpu_torch.trainer import Trainer
+
+    tower_dir = os.path.join(work_dir, "tinyllama_safetensors")
+    sd = hf_state_dict(TINYLLAMA_1B, seed=0, device=DEVICE, dtype=torch.bfloat16)
+    ckpt_bytes = sum(t.numel() * t.element_size() for t in sd.values())
+    write_s = write_hf_checkpoint(tower_dir, TINYLLAMA_1B, sd, shards=2)
+    data = InMemoryInteractionData(
+        num_users=PRETRAINED_USERS, num_items=PRETRAINED_ITEMS, seq_len=2 * 24 + 2 * 8,
+        num_categories=11, eval_pred_len=8, max_item_list_length=24, seed=0, item_texts=True)
+    serve_cfg = hllm_config(tower_dir, work_dir)
+    trainer, _, serve_launches, ok_serve, _ = hllm_serve_phase(serve_cfg, data,
+                                                               phase="hllm_pretrained_serve")
+    equal, n_tensors = loaded_equal_written(trainer.model, sd, tower_dir)
+    serve_load = tower_load_record(trainer.model)
+    del trainer
+    torch.cuda.empty_cache()
+
+    cfg = hllm_train_config(tower_dir, work_dir, total_iters=PRETRAINED_TRAIN_STEPS,
+                            eval_interval=100 * PRETRAINED_TRAIN_STEPS)
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer, stats, result = train(cfg, data)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    train_launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    layers = trainer.model.item_config.num_hidden_layers
+    corpus_batches = math.ceil(data.item_num / trainer._corpus_batcher.batch_size)
+    per_step = {"packed_attn_fwd": (train_launches["packed_attn_fwd"] - layers * corpus_batches)
+                / stats["iters"],
+                "packed_attn_bwd": train_launches["packed_attn_bwd"] / stats["iters"]}
+    losses = [loss for _, loss in trainer.fetched_losses]
+    train_load = tower_load_record(trainer.model)
+    ok_train = (stats["iters"] == PRETRAINED_TRAIN_STEPS and len(losses) == stats["iters"]
+                and all(math.isfinite(x) for x in losses)
+                and per_step == {"packed_attn_fwd": 2 * layers, "packed_attn_bwd": layers}
+                and "pred_7" in result and set(train_load) == {"item_llm", "user_llm"})
+
+    # a 2-layer cut as .safetensors (the written shards, linked) and as
+    # pytorch_model.bin
+    cut = {k: v for k, v in sd.items() if k != "lm_head.weight" and (
+        not k.startswith("model.layers.") or int(k.split(".")[2]) < 2)}
+    del sd
+    cut_dirs = {"safetensors": link_layer_cut(tower_dir, os.path.join(work_dir, "tinyllama_2l"),
+                                              TINYLLAMA_1B, 2)}
+    cut_dirs["bin"] = os.path.join(work_dir, "tinyllama_2l_bin")
+    write_hf_checkpoint(cut_dirs["bin"], dict(TINYLLAMA_1B, num_hidden_layers=2), cut, fmt="bin")
+    embs = {}
+    for fmt, cut_dir in cut_dirs.items():
+        t = Trainer(hllm_config(cut_dir, work_dir), data)
+        t.setup_model()
+        tokens, lens = trainer._corpus_batcher.text_cache.batch(
+            np.arange(1, min(769, data.item_num)))
+        embs[fmt] = hllm_routes(t.model, tokens, lens)[0]
+        del t
+    same_bin = bool(torch.equal(embs["safetensors"], embs["bin"]))
+    del cut, embs
+    torch.cuda.empty_cache()
+    ok = bool(ok_serve and ok_train and equal and same_bin)
+    emit({"phase": "hllm_pretrained", "checkpoint_bytes": ckpt_bytes, "shards": 2,
+          "write_s": write_s, "serve_load": serve_load, "train_load": train_load,
+          "loaded_tensors_equal_written": bool(equal), "tensors_compared": n_tensors,
+          "train_steps": stats["iters"], "train_seconds": seconds,
+          "steady_examples_per_s": stats["steady_examples_per_s"],
+          "steady_step_s": cfg["train_batch_size"] / stats["steady_examples_per_s"],
+          "losses": losses, "peak_mem_gb": peak_gb, "serve_launches": serve_launches,
+          "train_launches": train_launches, "launches_per_step": per_step,
+          "bin_2layer_item_embeddings_equal": same_bin, "metrics": result, "ok": ok})
+    return trainer, cfg, data, {"serve": serve_launches, "train": train_launches}, ok
+
+
+def _step_stats(trainer, stream, steps):
+    """``steps`` train steps after one untimed: steady examples/s, peak
+    memory, the losses, the launches a step."""
+    import torch
+
+    trainer.train_step(next(stream))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    losses = [float(trainer.train_step(next(stream))["loss"].detach()) for _ in range(steps)]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    return {"steady_examples_per_s": steps * LEVERS_BATCH / seconds, "step_s": seconds / steps,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30, "losses": losses,
+            "launches_per_step": {k: v / steps for k, v in launches.items() if v}}
+
+
+def _one_batch_grads(trainer, batch, to_host):
+    import torch
+
+    model = trainer.model
+    model.train()
+    for p in model.parameters():
+        p.grad = None
+    out = model(trainer._train_device_batch(batch), generator=trainer.step_generator(0))
+    out["loss"].backward()
+    grads = {n: (p.grad.detach().to("cpu") if to_host else p.grad.detach())
+             for n, p in model.named_parameters() if p.grad is not None}
+    for p in model.parameters():
+        p.grad = None
+    torch.cuda.synchronize()
+    return float(out["loss"].detach()), grads
+
+
+def _state_bytes(opt):
+    return sum(v.numel() * v.element_size() for s in opt.state.values() for v in s.values()
+               if hasattr(v, "numel") and v.is_cuda)
+
+
+def _checkpoints_equal(a, b):
+    """Two checkpoint files hold equal tensors and values."""
+    import torch
+
+    pa = torch.load(a, map_location="cpu", weights_only=True, mmap=True)
+    pb = torch.load(b, map_location="cpu", weights_only=True, mmap=True)
+
+    def same(x, y):
+        if isinstance(x, torch.Tensor):
+            return isinstance(y, torch.Tensor) and x.dtype == y.dtype and torch.equal(x, y)
+        if isinstance(x, dict):
+            return (isinstance(y, dict) and set(x) == set(y)
+                    and all(same(x[k], y[k]) for k in x))
+        if isinstance(x, (list, tuple)):
+            return len(x) == len(y) and all(same(u, v) for u, v in zip(x, y))
+        return x == y
+    return same(pa, pb)
+
+
+def _host_copy_rate(trainer):
+    """The 22-layer model's checkpoint state (parameters and AdamW moments,
+    25.7 GB) copied to host memory by ``host_copy``, the copy an
+    asynchronous save makes (pageable). Nothing is written."""
+    import torch
+
+    from mhrec_tpu_torch.trainer import checkpoint as ckpt_io
+
+    state = {"params": trainer.model.state_dict(), "optimizer": trainer.optimizer.state_dict()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    copy, nbytes = ckpt_io.host_copy(state)
+    seconds = time.perf_counter() - t0
+    del copy
+    return {"bytes": nbytes, "seconds": seconds, "gb_per_s": nbytes / 1e9 / seconds}
+
+
+def hllm_train_levers_phase(trainer, cfg, data, work_dir):
+    """The HLLM training levers on the pretrained-tower phase's trained
+    model (hllm_train_config's: 22 layers):
+
+    * one best-checkpoint save synchronous, then one asynchronous of the
+      same state, during whose write the loop takes a train step: the
+      seconds the loop was blocked, the writer's seconds, the host copy's
+      bytes, and both files equal tensor for tensor. On a 1-layer
+      hllm_train_config model from a 1-layer cut of the weights (about 3.5
+      GB a file, mostly the heads and the token table): the machine's disk
+      takes 45 GiB of writes a run, and hllm_train's asynchronous 25.7 GB
+      save of the 22-layer model is already one of them. The 22-layer
+      model's state is copied to host memory as ``host_copy`` does it
+      (pageable), without a write;
+    * LEVERS_STEPS steps at LEVERS_BATCH sequences under ``remat_policy``
+      ``full`` and ``dots``: steady examples/s, peak memory, launches a step
+      (44 ``packed_attn_fwd``, 22 ``packed_attn_bwd`` under both); one
+      batch's gradients under ``dots`` against ``full``'s (relative L2 of
+      each tensor within F32_GRAD_TOL);
+    * ``adam_mu_dtype`` / ``adam_nu_dtype: bfloat16`` against the default
+      fused AdamW: the optimizer state's bytes and peak memory over the same
+      steps; losses finite."""
+    import torch
+
+    from mhrec_tpu_torch.data import build_dataloader
+    from mhrec_tpu_torch.trainer import Trainer
+    from mhrec_tpu_torch.trainer.lr_schedule import build_schedule
+    from mhrec_tpu_torch.trainer.optim import build_optimizer
+
+    rec, ok = {}, True
+    stream = build_dataloader(hllm_train_config(
+        cfg["item_pretrain_dir"], work_dir, train_batch_size=LEVERS_BATCH, num_negatives=16),
+        data)[0].infinite_batches(prefetch=2)
+    # saves, on a 1-layer cut of the same weights (the machine's disk takes
+    # 45 GiB of writes a run, and hllm_train's 25.7 GB checkpoint is one
+    # of them): synchronous, then asynchronous of the same state with a
+    # train step during the write
+    one_layer = link_layer_cut(cfg["item_pretrain_dir"], os.path.join(work_dir, "tinyllama_1l"),
+                               TINYLLAMA_1B, 1)
+    small = Trainer(hllm_train_config(one_layer, work_dir,
+                                      checkpoint_dir=os.path.join(work_dir, "levers")), data)
+    small.setup_model()
+    small.train_step(next(stream))  # the optimizer's moments exist
+    path = small.checkpoint_path()
+    sync_path = path + ".sync"
+    small.async_checkpoint = False
+    small.save_checkpoint()
+    rec["sync_save"] = dict(small.checkpoint_stats)
+    os.replace(path, sync_path)
+    small.async_checkpoint = True
+    t0 = time.perf_counter()
+    small.save_checkpoint()
+    blocked = time.perf_counter() - t0
+    loss = float(small.train_step(next(stream))["loss"].detach())  # the loop goes on
+    step_done = time.perf_counter() - t0
+    small.wait_for_checkpoint()
+    rec["async_save"] = dict(small.checkpoint_stats, step_done_after_s=step_done,
+                             step_loss=loss, blocked_measured_s=blocked)
+    t0 = time.perf_counter()
+    equal = _checkpoints_equal(sync_path, path)
+    rec["checkpoints_equal"] = equal
+    rec["compare_s"] = time.perf_counter() - t0
+    rec["save_layers"] = small.model.item_config.num_hidden_layers
+    os.remove(sync_path)
+    os.remove(path)
+    del small
+    torch.cuda.empty_cache()
+    ok &= bool(equal and math.isfinite(loss))
+    rec["host_copy_22_layers"] = _host_copy_rate(trainer)
+
+    # remat_policy full against dots
+    towers = [trainer.model.item_llm, trainer.model.user_llm]
+    batch = next(stream)
+    for pol in ("full", "dots"):
+        for t in towers:
+            t.remat_policy = pol
+        rec[pol] = _step_stats(trainer, stream, LEVERS_STEPS)
+        want = {"packed_attn_fwd": 44.0, "packed_attn_bwd": 22.0}
+        ok &= (rec[pol]["launches_per_step"] == want
+               and all(math.isfinite(x) for x in rec[pol]["losses"]))
+    for t in towers:
+        t.remat_policy = "full"
+    loss_full, g_full = _one_batch_grads(trainer, batch, to_host=True)
+    for t in towers:
+        t.remat_policy = "dots"
+    loss_dots, g_dots = _one_batch_grads(trainer, batch, to_host=False)
+    for t in towers:
+        t.remat_policy = "full"
+    rel = max(float(torch.linalg.vector_norm(g_dots[n].float() - g.to(g_dots[n].device))
+                    / max(float(torch.linalg.vector_norm(g.float())), 1e-30))
+              for n, g in g_full.items())
+    del g_full, g_dots
+    rec["dots_vs_full"] = {"loss_full": loss_full, "loss_dots": loss_dots,
+                           "grad_max_rel_l2": rel, "tolerance": F32_GRAD_TOL}
+    ok &= rel <= F32_GRAD_TOL and math.isfinite(loss_dots)
+
+    # adam moment dtypes: the default fused AdamW's state, then bfloat16's
+    rec["adam_f32_state_bytes"] = _state_bytes(trainer.optimizer)
+    trainer.optimizer.state.clear()
+    torch.cuda.empty_cache()
+    bf16_cfg = hllm_train_config(cfg["item_pretrain_dir"], work_dir,
+                                 adam_mu_dtype="bfloat16", adam_nu_dtype="bfloat16")
+    trainer.optimizer, trainer.group_schedules, _ = build_optimizer(
+        bf16_cfg, trainer.model,
+        lambda lr: build_schedule(bf16_cfg["scheduler_args"], lr, trainer.total_iters))
+    rec["adam_bf16"] = _step_stats(trainer, stream, LEVERS_STEPS)
+    rec["adam_bf16_state_bytes"] = _state_bytes(trainer.optimizer)
+    ok &= (all(math.isfinite(x) for x in rec["adam_bf16"]["losses"])
+           and rec["adam_bf16_state_bytes"] * 2 <= rec["adam_f32_state_bytes"] + 2**20)
+    emit({"phase": "hllm_train_levers", "batch": LEVERS_BATCH, "steps": LEVERS_STEPS, **rec,
+          "ok": bool(ok)})
+    return rec["full"]["launches_per_step"], bool(ok)
+
+
+def hllm_towers_phase(work_dir):
+    """Two towers from checkpoints the script writes, each serving a small
+    catalog (``run.serve``, the dense item tower and corpus pass: no kernel)
+    and training 2 steps (``run.train``, finite losses): a
+    bert-base-uncased-shaped BERT (full depth, float32 ``.safetensors``)
+    and a Baichuan-13B-shaped ALiBi tower (2 of its 40 layers, bfloat16
+    ``W_pack`` ``.safetensors``; its corpus batch cut to
+    ALIBI_CORPUS_TRAIN_BATCH × 24 items so the [items, 40, T, T] float32
+    scores fit). Every loaded tensor must equal the written one."""
+    import torch
+
+    from mhrec_tpu_torch.data.synthetic import InMemoryInteractionData
+    from mhrec_tpu_torch.run import serve, train
+
+    data = InMemoryInteractionData(
+        num_users=TOWERS_USERS, num_items=TOWERS_ITEMS, seq_len=2 * 24 + 2 * 8,
+        num_categories=11, eval_pred_len=8, max_item_list_length=24, seed=0, item_texts=True)
+    recs, ok_all, launches_all = {}, True, {}
+    for name, hf_cfg, dtype, corpus_batch in (
+            ("bert_base", BERT_BASE, torch.float32, 32),
+            ("baichuan_13b_2l", BAICHUAN_13B_2L, torch.bfloat16, ALIBI_CORPUS_TRAIN_BATCH)):
+        tower_dir = os.path.join(work_dir, name)
+        # no lm_head: the towers never read it, and the disk counts writes
+        sd = hf_state_dict(hf_cfg, seed=1, device=DEVICE, dtype=dtype, lm_head=False)
+        write_s = write_hf_checkpoint(tower_dir, hf_cfg, sd)
+        dense = dict(packed_item_tower=False, packed_corpus_pass=False)
+        reset_launches()
+        t0 = time.perf_counter()
+        trainer, _, result = serve(hllm_config(tower_dir, work_dir, train_batch_size=corpus_batch,
+                                               **dense), data)
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        serve_launches = read_launches()
+        equal, n = loaded_equal_written(trainer.model, sd, tower_dir)
+        load = tower_load_record(trainer.model)
+        del trainer, sd
+        torch.cuda.empty_cache()
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer, stats, tresult = train(hllm_train_config(
+            tower_dir, work_dir, train_batch_size=2, num_negatives=16, total_iters=2,
+            eval_interval=200, **dense), data)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        train_launches = read_launches()
+        losses = [loss for _, loss in trainer.fetched_losses]
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        del trainer
+        torch.cuda.empty_cache()
+        ok = (equal and stats["iters"] == 2 and len(losses) == 2
+              and all(math.isfinite(x) for x in losses) and "pred_7" in result
+              and "pred_7" in tresult and not any(serve_launches.values())
+              and not any(train_launches.values()))
+        ok_all &= ok
+        launches_all[name] = {"serve": serve_launches, "train": train_launches}
+        recs[name] = {"write_s": write_s, "load": load, "loaded_tensors_equal_written": equal,
+                      "tensors_compared": n, "serve_s": serve_s,
+                      "users_per_s": TOWERS_USERS / serve_s, "train_s": train_s,
+                      "losses": losses, "train_peak_mem_gb": peak, "ok": bool(ok)}
+    emit({"phase": "hllm_towers", "items": TOWERS_ITEMS, "users": TOWERS_USERS, **recs,
+          "ok": bool(ok_all)})
+    return launches_all, ok_all
+
+
 def profiled(fn):
     """``fn()`` under ``torch.profiler``: (wall seconds, the device's
     (start, end, name) spans in µs, sorted, and its busy µs: the union of
@@ -1878,6 +2446,42 @@ def profile_train_steps(trainer, data, n=5, name="train"):
             trainer.train_step(b)
 
     profile_phase(name, run)
+
+
+def pretrained_phases(seconds):
+    """The phases of the HLLM towers from local checkpoints and of the
+    training levers, in a work directory of their own (the levers phase
+    writes two 25.7 GB checkpoints). Returns (each path's launches, the
+    names of the phases that failed)."""
+    import torch
+
+    failed, launches = [], {}
+    work_dir = tempfile.mkdtemp(prefix="chip_smoke_pretrained_")
+    try:
+        t0 = time.perf_counter()
+        trainer, cfg, data, launches_pre, ok = hllm_pretrained_phase(work_dir)
+        launches["hllm_pretrained_serve"] = launches_pre["serve"]
+        launches["hllm_pretrained_train"] = launches_pre["train"]
+        if not ok:
+            failed.append("hllm_pretrained")
+        seconds["hllm_pretrained"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        launches["hllm_train_levers_per_step"], ok = hllm_train_levers_phase(
+            trainer, cfg, data, work_dir)
+        if not ok:
+            failed.append("hllm_train_levers")
+        del trainer, data
+        torch.cuda.empty_cache()
+        seconds["hllm_train_levers"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        towers_launches, ok = hllm_towers_phase(work_dir)
+        launches.update({f"hllm_towers_{k}": v for k, v in towers_launches.items()})
+        if not ok:
+            failed.append("hllm_towers")
+        seconds["hllm_towers"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(work_dir, ignore_errors=True)
+    return launches, failed
 
 
 def main(argv=None) -> int:
@@ -2067,13 +2671,18 @@ def main(argv=None) -> int:
         seconds["hllm_train"] = time.perf_counter() - t0
     finally:
         shutil.rmtree(work_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    pretrained_launches, pretrained_failed = pretrained_phases(seconds)
+    failed.extend(pretrained_failed)
     emit({"phase_seconds": seconds})
     # each path's launches, counted from 0 just before it
     emit({"path_launches": {
         "serve": serve_launches, "eval_outputs": outputs_launches,
         "eval_streamed_metrics": streamed_launches, "train": train_launches,
         "train_accum": accum_launches, "hllm_serve": hllm_launches,
-        "hllm_host_table": host_launches, "hllm_train": hllm_train_launches}})
+        "hllm_host_table": host_launches, "hllm_train": hllm_train_launches,
+        **pretrained_launches}})
 
     launches = {"stu": serve_launches["hstu_stu_gated_fwd"],
                 "attn": pallas_launches["hstu_attn_fwd"],

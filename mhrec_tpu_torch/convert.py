@@ -5,7 +5,8 @@ Flax ``Dense`` kernels are [in, out] and become ``nn.Linear`` weights
 [out, in]; the fused ``uvqk`` projection keeps its [D, 4 splits] layout
 (split order u, v, q, k, silu before the split — hstu.py:62-69). The Llama
 towers' ``DenseGeneral`` attention kernels [D, heads, dh] become [heads·dh,
-D] weights. The key walk follows ``tools/convert_reference_ckpt.py:208-248``.
+D] weights, and a BERT tower's fused ``qkv`` kernel [D, 3, heads, dh] one
+[3·heads·dh, D] weight. The key walk follows ``tools/convert_reference_ckpt.py:208-248``.
 A flax parameter the walk does not use, or one it needs and does not find,
 raises.
 """
@@ -66,9 +67,39 @@ class _Walk:
                 self.put_norm(f"{prefix}.res.{r}.norm", f"{path}/res_{r}/LayerNorm_0")
             r += 1
 
+    def put_flat_dense(self, prefix: str, path: str):
+        """A ``DenseGeneral`` over several output axes: kernel [D, ...] →
+        weight [prod(...), D], bias [...] → [prod(...)]."""
+        kernel = self.take(f"{path}/kernel")
+        self.sd[f"{prefix}.weight"] = torch.from_numpy(
+            np.array(kernel.reshape(kernel.shape[0], -1).T))
+        if self.has(f"{path}/bias"):
+            self.sd[f"{prefix}.bias"] = torch.from_numpy(
+                np.array(self.take(f"{path}/bias").reshape(-1)))
+
+    def put_bert(self, tower: str):
+        """A BERT backbone under ``tower``."""
+        if self.has(f"{tower}/word_embeddings/embedding"):
+            self.put(f"{tower}.word_embeddings.weight", f"{tower}/word_embeddings/embedding")
+        self.put(f"{tower}.position_embeddings.weight",
+                 f"{tower}/position_embeddings/embedding")
+        self.put_norm(f"{tower}.embeddings_ln", f"{tower}/embeddings_ln")
+        i = 0
+        while self.has(f"{tower}/encoder/layer_{i}/qkv/kernel"):
+            p, t = f"{tower}/encoder/layer_{i}", f"{tower}.encoder.layers.{i}"
+            self.put_flat_dense(f"{t}.qkv", f"{p}/qkv")
+            for dense in ("attn_out", "ff_in", "ff_out"):
+                self.put_dense(f"{t}.{dense}", f"{p}/{dense}")
+            for norm in ("attn_ln", "ff_ln"):
+                self.put_norm(f"{t}.{norm}", f"{p}/{norm}")
+            i += 1
+
     def put_tower(self, tower: str):
-        """A Llama backbone (or the dummy backend) under ``tower``: its
-        ``DenseGeneral`` attention kernels [D, heads, dh] become [heads·dh, D]."""
+        """A Llama or BERT backbone (or the dummy backend) under ``tower``:
+        Llama's ``DenseGeneral`` attention kernels [D, heads, dh] become
+        [heads·dh, D]."""
+        if self.has(f"{tower}/position_embeddings/embedding"):
+            return self.put_bert(tower)
         if self.has(f"{tower}/embed_layer/kernel"):  # DummyLLM
             if self.has(f"{tower}/input_layer/embedding"):
                 self.put(f"{tower}.input_layer.weight", f"{tower}/input_layer/embedding")
@@ -84,12 +115,7 @@ class _Walk:
             for norm in ("input_layernorm", "post_attention_layernorm"):
                 self.put(f"{t}.{norm}.weight", f"{p}/{norm}/weight")
             for proj in ("q_proj", "k_proj", "v_proj"):
-                kernel = self.take(f"{p}/self_attn/{proj}/kernel")
-                self.sd[f"{t}.self_attn.{proj}.weight"] = torch.from_numpy(
-                    np.array(kernel.reshape(kernel.shape[0], -1).T))
-                if self.has(f"{p}/self_attn/{proj}/bias"):
-                    self.sd[f"{t}.self_attn.{proj}.bias"] = torch.from_numpy(
-                        np.array(self.take(f"{p}/self_attn/{proj}/bias").reshape(-1)))
+                self.put_flat_dense(f"{t}.self_attn.{proj}", f"{p}/self_attn/{proj}")
             self.put(f"{t}.self_attn.o_proj.weight", f"{p}/self_attn/o_proj/kernel",
                      transpose=True)
             for proj in ("gate_proj", "up_proj", "down_proj"):
@@ -108,6 +134,14 @@ def llama_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
     ``state_dict`` of this package's counterpart."""
     walk = _Walk({"tower": params})
     walk.put_tower("tower")
+    return {k[len("tower."):]: v for k, v in walk.finish().items()}
+
+
+def bert_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The flax params of one ``BertBackbone`` → the ``state_dict`` of this
+    package's counterpart."""
+    walk = _Walk({"tower": params})
+    walk.put_bert("tower")
     return {k[len("tower."):]: v for k, v in walk.finish().items()}
 
 

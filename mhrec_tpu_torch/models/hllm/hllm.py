@@ -14,18 +14,20 @@
 * ``forward`` is the training forward: the items of a batch (positives and
   negatives) through the item tower — packed, deduplicated or dense, as the
   text train batcher lays them out — or the frozen table, the positives
-  through the user tower, then ``compute_multihead_losses`` as for HSTU.
+  through the user tower, then ``compute_multihead_losses`` as for HSTU;
+* the towers are Llama-family decoders (RoPE or ALiBi) or BERT encoders,
+  as each pretrain directory's ``config.json`` says, and
+  ``load_pretrained_towers`` reads their weights from that directory.
 
-Not ported yet (they raise): the image and video towers, BERT towers, and
-loading pretrained tower weights.
+Not ported yet (they raise): the image and video towers.
 """
 
 from __future__ import annotations
 
-import glob
 import logging
 import math
 import os
+import time
 from typing import Optional, Tuple
 
 import numpy as np
@@ -34,6 +36,8 @@ import torch.nn as nn
 
 from mhrec_tpu_torch.models.idnet.hstu import MedusaHeads
 from mhrec_tpu_torch.models.layers import LayerNorm, cosine_normalize
+from mhrec_tpu_torch.models.llm import loader
+from mhrec_tpu_torch.models.llm.bert import BertBackbone
 from mhrec_tpu_torch.models.llm.config import LLMConfig
 from mhrec_tpu_torch.models.llm.dummy import DummyLLM
 from mhrec_tpu_torch.models.llm.llama import LlamaBackbone
@@ -41,9 +45,6 @@ from mhrec_tpu_torch.models.multihead import compute_multihead_losses, predict_s
 from mhrec_tpu_torch.utils.enums import InputType
 
 logger = logging.getLogger(__name__)
-
-# the weight files of a local HF checkpoint (mhrec_tpu/models/llm/loader.py)
-_WEIGHT_GLOBS = ("*.safetensors", "pytorch_model*.bin")
 
 
 class HLLM(MedusaHeads, nn.Module):
@@ -138,7 +139,7 @@ class HLLM(MedusaHeads, nn.Module):
                 return DummyLLM(cfg.vocab_size, cfg.hidden_size,
                                 token_embeddings=token_embeddings)
             if cfg.model_type == "bert":
-                raise NotImplementedError("BERT towers are not ported yet")
+                return BertBackbone(cfg, dtype=dtype, token_embeddings=token_embeddings)
             # llama / mistral / qwen2 / tinyllama / baichuan share the
             # decoder topology (RMSNorm + RoPE + GQA + SwiGLU)
             return LlamaBackbone(cfg, dtype=dtype, gradient_checkpointing=gradient_checkpointing,
@@ -288,13 +289,36 @@ class HLLM(MedusaHeads, nn.Module):
         return predict_switch_and_heads(self, hidden[:, -1], target_tags)
 
 
+def load_tower_weights(tower: nn.Module, path: str) -> Optional[dict]:
+    """The weights of a local HF checkpoint directory into one tower (its
+    ``config.json`` says Llama-family or BERT), cast to the tower's
+    parameter dtype on its device. Returns the bytes read and the seconds
+    taken, or None when the directory holds no weight files and no index;
+    a missing shard, a file that does not parse, or a checkpoint that does
+    not cover the tower, raises."""
+    t0 = time.perf_counter()
+    try:
+        sd = loader.load_state_dict(path)
+    except loader.NoWeightFiles:
+        return None
+    cfg = LLMConfig.from_pretrained_dir(path)
+    to_tower = (loader.bert_state_dict_from_hf if cfg.model_type == "bert"
+                else loader.llama_state_dict_from_hf)
+    has_table = hasattr(tower, "embed_tokens") or hasattr(tower, "word_embeddings")
+    state = to_tower(sd, cfg, token_embeddings=has_table)
+    loader.load_into(tower, state)
+    return {"bytes": sum(t.numel() * t.element_size() for t in state.values()),
+            "seconds": time.perf_counter() - t0}
+
+
 def load_pretrained_towers(model: HLLM, config) -> HLLM:
     """Local HF checkpoint weights for the towers (reference create_llm
-    from_pretrained, hllm.py:294-376). Loading them is not ported yet: a
-    pretrain directory that holds weight files raises; one that holds only
-    a ``config.json`` keeps the random initialisation, as the JAX package
-    does. ``item_emb_pretrain`` warm-starts the emb-token slots from a
-    ``.npy`` file or a saved tensor."""
+    from_pretrained, hllm.py:294-376; JAX hllm.py:520-587). A tower keeps
+    its random initialisation when ``*_llm_init`` is false or its pretrain
+    directory holds only a ``config.json``. What each tower read is kept in
+    ``model.tower_load_stats``. ``item_emb_pretrain`` warm-starts the
+    emb-token slots from a ``.npy`` file or a saved tensor."""
+    model.tower_load_stats = {}
     for tower, dir_key, init_key in (("item_llm", "item_pretrain_dir", "item_llm_init"),
                                      ("user_llm", "user_pretrain_dir", "user_llm_init")):
         path = config.get(dir_key)
@@ -302,9 +326,11 @@ def load_pretrained_towers(model: HLLM, config) -> HLLM:
             continue
         if config.get(init_key, True) is False:
             continue
-        if any(glob.glob(os.path.join(str(path), g)) for g in _WEIGHT_GLOBS):
-            raise NotImplementedError(
-                f"loading pretrained tower weights ({path}) is not ported yet")
+        stats = load_tower_weights(getattr(model, tower), str(path))
+        if stats is not None:
+            model.tower_load_stats[tower] = stats
+            logger.info("loaded %s from %s: %d bytes in %.2fs", tower, path, stats["bytes"],
+                        stats["seconds"])
     pre = config.get("item_emb_pretrain")
     if pre and hasattr(model, "item_emb_tokens"):
         if str(pre).endswith(".npy"):

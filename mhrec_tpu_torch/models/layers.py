@@ -92,6 +92,71 @@ class ResBlock(nn.Module):
         return x + F.silu(self.linear(x))
 
 
+class TransformerLayer(nn.Module):
+    """Post-LN transformer block (the JAX package's ``TransformerLayer``,
+    reference layers.py:421-637 RecBole style): softmax attention over a
+    fused q/k/v projection, residual, LayerNorm; then the exact-erf GELU
+    feed-forward, residual, LayerNorm. No dropout: its one caller, the BERT
+    tower, runs at rate 0. ``attn_bias`` is additive (0 or -1e9). As flax's
+    ``Dense`` with float32 parameters, every product runs in float32 whatever
+    the input type; the attention is the plain product-softmax-product (the
+    JAX package computes it outside any Pallas kernel)."""
+
+    def __init__(self, n_heads: int, hidden_size: int, inner_size: int,
+                 layer_norm_eps: float = 1e-12):
+        super().__init__()
+        D = hidden_size
+        self.n_heads = n_heads
+        self.qkv = nn.Linear(D, 3 * D)  # rows ordered (q|k|v, head, dh)
+        self.attn_out = nn.Linear(D, D)
+        self.attn_ln = LayerNorm(D, eps=layer_norm_eps, dtype=torch.float32)
+        self.ff_in = nn.Linear(D, inner_size)
+        self.ff_out = nn.Linear(inner_size, D)
+        self.ff_ln = LayerNorm(D, eps=layer_norm_eps, dtype=torch.float32)
+
+    def forward(self, x, attn_bias):
+        B, L, D = x.shape
+        h = self.n_heads
+        dh = D // h
+        # the divisor in the input's type, as ``jnp.sqrt(dh).astype(x.dtype)``
+        scale = torch.tensor(math.sqrt(dh), dtype=torch.float32).to(x.dtype)
+        qkv = self.qkv(x.float()).view(B, L, 3, h, dh)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        scores = torch.einsum("blhd,bmhd->bhlm", q, k) / scale + attn_bias
+        probs = torch.softmax(scores, dim=-1)
+        ctx = torch.einsum("bhlm,bmhd->blhd", probs, v).reshape(B, L, D)
+        x = self.attn_ln(x + self.attn_out(ctx))
+        return self.ff_ln(x + self.ff_out(F.gelu(self.ff_in(x))))
+
+
+class TransformerEncoder(nn.Module):
+    """A stack of ``TransformerLayer``s (the JAX package's
+    ``TransformerEncoder``)."""
+
+    def __init__(self, n_layers: int, n_heads: int, hidden_size: int, inner_size: int,
+                 layer_norm_eps: float = 1e-12):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            TransformerLayer(n_heads, hidden_size, inner_size, layer_norm_eps)
+            for _ in range(n_layers))
+
+    def forward(self, x, attn_bias):
+        for layer in self.layers:
+            x = layer(x, attn_bias)
+        return x
+
+
+def additive_causal_mask(items: torch.Tensor, bidirectional: bool = False) -> torch.Tensor:
+    """0 / -1e9 additive attention mask [B, 1, L, L] (or [B, 1, 1, L]
+    bidirectional) from non-pad item ids (reference sasrec.py
+    get_attention_mask)."""
+    L = items.shape[1]
+    mask = (items != 0)[:, None, None, :]
+    if not bidirectional:
+        mask = mask & torch.ones((L, L), dtype=torch.bool, device=items.device).tril()
+    return torch.where(mask, 0.0, -1e9)
+
+
 def asymmetric_loss(logits, targets, gamma_pos: float = 0.0, gamma_neg: float = 4.0,
                     clip: float = 0.05, eps: float = 1e-8):
     """Asymmetric focal BCE (reference layers.py:16-84), mean-reduced.

@@ -1,6 +1,7 @@
 """Decoder backbone for the Llama family (llama / TinyLlama / mistral / qwen2
-/ baichuan-7B topology), port of ``mhrec_tpu/models/llm/llama.py``: RMSNorm
-→ GQA attention with RoPE → SwiGLU MLP, pre-norm residuals, final RMSNorm.
+/ baichuan topology), port of ``mhrec_tpu/models/llm/llama.py``: RMSNorm
+→ GQA attention with RoPE (or ALiBi for the Baichuan-13B variant) → SwiGLU
+MLP, pre-norm residuals, final RMSNorm.
 
 Parameters are float32; the layers compute in ``dtype`` (bfloat16 by
 default), as flax's ``Dense(dtype=...)`` does. Item texts run either as a
@@ -9,13 +10,18 @@ dense padded ``[N, T]`` batch whose mask removes pad keys, or packed
 causal within each segment through ``packed_attention`` — the hand-written
 CUDA kernel on the card. The learnable item-embedding token is scattered
 into each item's trailing slot (reference ``modeling_llama.py:1220-1228``).
+ALiBi towers add a per-head distance penalty ``[H, T, T]`` to the dense
+scores instead of rotating q and k; the packed route has no score-bias
+input, so it raises for them, as in the JAX package.
 
 Products stay ``F.linear`` / ``torch.matmul`` (the JAX package leaves them
 to XLA), and the dense padded attention of the user tower is plain PyTorch
 for the same reason. Gradient checkpointing recomputes each layer in the
-backward (``nn.remat`` with the default "full" policy in the JAX package).
-Not ported yet (they raise): the image splice, M-RoPE, ALiBi and the
-``remat_policy: dots`` checkpointing policy.
+backward: ``remat_policy: full`` keeps only the layer's input (``nn.remat``
+with no policy in the JAX package); ``dots`` also keeps every matrix
+product's output and recomputes the elementwise work and the packed
+attention kernel (``dots_saveable``, whose recompute takes in the splash
+custom call too). Not ported yet (they raise): the image splice and M-RoPE.
 """
 
 from __future__ import annotations
@@ -27,7 +33,8 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts, noop_context_fn)
 
 from mhrec_tpu_torch.models.llm.config import LLMConfig
 from mhrec_tpu_torch.models.llm.packed import packed_attention
@@ -46,6 +53,42 @@ class RMSNorm(nn.Module):
         var = (xf * xf).mean(-1, keepdim=True)
         xf = xf * torch.rsqrt(var + self.eps)
         return (xf * self.weight.float()).to(x.dtype)
+
+
+def alibi_slopes(n_heads: int) -> np.ndarray:
+    """Per-head ALiBi slopes (Press et al. 2022), the closest-power-of-two
+    interpolation of transformers' ``build_alibi_tensor``, copied from the
+    JAX package."""
+    closest = 2 ** math.floor(math.log2(n_heads))
+    base = 2.0 ** (-(2.0 ** -(math.log2(closest) - 3)))
+    slopes = base ** np.arange(1, closest + 1, dtype=np.float32)
+    if closest != n_heads:
+        extra_base = 2.0 ** (-(2.0 ** -(math.log2(2 * closest) - 3)))
+        n_extra = min(closest, n_heads - closest)
+        extra = extra_base ** np.arange(1, 1 + 2 * n_extra, 2, dtype=np.float32)
+        slopes = np.concatenate([slopes, extra])
+    return slopes.astype(np.float32)
+
+
+# the matrix products whose outputs ``remat_policy: dots`` keeps
+# (jax.checkpoint_policies.dots_saveable keeps every dot_general's)
+_DOT_OPS = frozenset(
+    getattr(torch.ops.aten, name).default
+    for name in ("mm", "addmm", "bmm", "baddbmm", "_scaled_mm")
+    if hasattr(torch.ops.aten, name))
+
+
+def _dots_saveable(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOT_OPS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    return create_selective_checkpoint_contexts(_dots_saveable)
+
+
+_PACKED_ALIBI = ("packed varlen attention has no score-bias input (the packed kernel takes "
+                 "segment ids only): ALiBi towers must run the dense padded path "
+                 "(packed_item_tower / packed_corpus_pass false)")
 
 
 def rope_parameters(c, head_dim: int, seq_len: int | None = None):
@@ -136,15 +179,19 @@ class LlamaAttention(nn.Module):
         self.v_proj = nn.Linear(D, hk * dh, bias=c.attention_bias)
         self.o_proj = nn.Linear(D, D, bias=False)
 
-    def forward(self, x, mask_bias, cos, sin, segment_ids=None):
+    def forward(self, x, mask_bias, cos, sin, segment_ids=None, alibi_bias=None):
         c = self.config
         B, T, D = x.shape
         h, hk = c.num_attention_heads, c.num_key_value_heads
         dh = D // h
-        q = apply_rope(_linear(self.q_proj, x, self.dtype).view(B, T, h, dh), cos, sin)
-        k = apply_rope(_linear(self.k_proj, x, self.dtype).view(B, T, hk, dh), cos, sin)
+        q = _linear(self.q_proj, x, self.dtype).view(B, T, h, dh)
+        k = _linear(self.k_proj, x, self.dtype).view(B, T, hk, dh)
         v = _linear(self.v_proj, x, self.dtype).view(B, T, hk, dh)
+        if cos is not None:  # RoPE; None: ALiBi (a distance bias on the scores)
+            q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
         if segment_ids is not None:
+            if alibi_bias is not None:
+                raise NotImplementedError(_PACKED_ALIBI)
             # packed varlen batch: causal-within-segment attention (reference
             # flash_attn_varlen path). A sliding window tighter than the
             # packed band wins: the band allows i - j <= w, so mistral's
@@ -164,7 +211,10 @@ class LlamaAttention(nn.Module):
             # scores rounded to the compute type, then divided in float32
             # (the JAX package divides by an np.float64, which promotes)
             scores = torch.einsum("bthd,bshd->bhts", q, k).float() / math.sqrt(dh)
-            probs = torch.softmax(scores + mask_bias, dim=-1).to(self.dtype)
+            scores = scores + mask_bias
+            if alibi_bias is not None:  # [H, T, T], broadcast over the batch
+                scores = scores + alibi_bias
+            probs = torch.softmax(scores, dim=-1).to(self.dtype)
             ctx = torch.einsum("bhts,bshd->bthd", probs, v).reshape(B, T, D)
         return _linear(self.o_proj, ctx, self.dtype)
 
@@ -192,8 +242,9 @@ class LlamaLayer(nn.Module):
         self.post_attention_layernorm = RMSNorm(config.hidden_size, config.rms_norm_eps)
         self.mlp = LlamaMLP(config, dtype)
 
-    def forward(self, x, mask_bias, cos, sin, segment_ids=None):
-        x = x + self.self_attn(self.input_layernorm(x), mask_bias, cos, sin, segment_ids)
+    def forward(self, x, mask_bias, cos, sin, segment_ids=None, alibi_bias=None):
+        x = x + self.self_attn(self.input_layernorm(x), mask_bias, cos, sin, segment_ids,
+                               alibi_bias)
         return x + self.mlp(self.post_attention_layernorm(x))
 
 
@@ -207,10 +258,13 @@ class LlamaBackbone(nn.Module):
         that only ever takes ``inputs_embeds`` (the user tower), as flax
         creates it only when token ids arrive. ``gradient_checkpointing``
         keeps only each layer's input for the backward, which runs the layer
-        again (policy ``remat_policy``: only "full" is ported)."""
+        again; ``remat_policy`` "dots" also keeps the layer's matrix-product
+        outputs."""
         super().__init__()
         self.config = config
         self.dtype = dtype
+        if remat_policy not in ("full", "dots"):
+            raise ValueError(f"remat_policy must be full|dots, got {remat_policy!r}")
         self.gradient_checkpointing = gradient_checkpointing
         self.remat_policy = remat_policy
         if token_embeddings:
@@ -246,12 +300,9 @@ class LlamaBackbone(nn.Module):
         c = self.config
         if image_embeds is not None:
             raise NotImplementedError("the image splice of the item tower is not ported yet")
-        if c.alibi:
-            raise NotImplementedError("ALiBi towers are not ported yet")
+        if c.alibi and segment_ids is not None:
+            raise NotImplementedError(_PACKED_ALIBI)
         remat = self.gradient_checkpointing and torch.is_grad_enabled()
-        if remat and self.remat_policy != "full":
-            raise NotImplementedError(
-                f"remat_policy: {self.remat_policy} is not ported yet (only 'full')")
         if inputs_embeds is None:
             inputs_embeds = self.embed_tokens(input_ids)
         if emb_tokens is not None and emb_pos is not None:
@@ -282,19 +333,35 @@ class LlamaBackbone(nn.Module):
             mask_bias = torch.where(mask, 0.0, torch.finfo(torch.float32).min)
         if position_ids is None:
             position_ids = torch.arange(T, device=x.device)[None].expand(B, T)
-        if position_ids.dim() == 3:
-            if c.mrope_section:
-                raise NotImplementedError("multimodal RoPE (M-RoPE) is not ported yet")
-            position_ids = position_ids[0]
-        cos, sin = rotary_embedding(position_ids, c.hidden_size // c.num_attention_heads, c,
-                                    seq_len=T)
+        alibi_bias = None
+        if c.alibi:
+            # no RoPE: a per-head penalty m·(j − i) on the scores (−m·|i − j|
+            # without the causal mask). Every dense call site right-pads with
+            # arange positions, so one [H, T, T] table serves every row
+            cos = sin = None
+            pos = position_ids[0] if position_ids.dim() >= 2 else position_ids
+            rel = (pos[None, :] - pos[:, None]).float()
+            if not causal:
+                rel = -rel.abs()
+            slopes = torch.from_numpy(alibi_slopes(c.num_attention_heads)).to(x.device)
+            alibi_bias = slopes[:, None, None] * rel[None]
+        else:
+            if position_ids.dim() == 3:
+                if c.mrope_section:
+                    raise NotImplementedError("multimodal RoPE (M-RoPE) is not ported yet")
+                position_ids = position_ids[0]
+            cos, sin = rotary_embedding(position_ids, c.hidden_size // c.num_attention_heads,
+                                        c, seq_len=T)
         for layer in self.layers:
             if remat:
                 # non-reentrant: the backward reruns the layer's forward (the
-                # packed attention kernel included) with grad on; the layers
-                # draw no random numbers, so no RNG state is kept
-                x = checkpoint(layer, x, mask_bias, cos, sin, segment_ids,
-                               use_reentrant=False, preserve_rng_state=False)
+                # packed attention kernel included) with grad on, taking the
+                # kept products from the cache under "dots"; the layers draw
+                # no random numbers, so no RNG state is kept
+                x = checkpoint(layer, x, mask_bias, cos, sin, segment_ids, alibi_bias,
+                               use_reentrant=False, preserve_rng_state=False,
+                               context_fn=(_dots_context if self.remat_policy == "dots"
+                                           else noop_context_fn))
             else:
-                x = layer(x, mask_bias, cos, sin, segment_ids)
+                x = layer(x, mask_bias, cos, sin, segment_ids, alibi_bias)
         return self.norm(x)

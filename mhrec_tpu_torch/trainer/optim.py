@@ -3,6 +3,11 @@ without optax).
 
 * ``freeze_prefix`` — parameters whose dotted name starts with a prefix get
   no update (reference trainer.py:185-203);
+* the modal / rec split, when ``optim_args`` holds ``modal_lr``,
+  ``modal_decay``, ``rec_lr`` and ``rec_decay``: parameters whose dotted
+  name holds ``decay_check_name`` (default ``visual_encoder``) take the
+  modal learning rate and weight decay, the rest the rec ones
+  (trainer.py:226-267);
 * ``lr_mult_prefix`` × ``lr_mult_rate`` — a high-learning-rate group
   (trainer.py:270-291);
 * under ``sparse_item_adam`` the item-embedding table is left out: the
@@ -16,20 +21,147 @@ without optax).
   step allocates some, which at the HLLM towers' 2B parameters is 8 GB a
   set).
 
+With ``adam_mu_dtype`` / ``adam_nu_dtype`` set (``bfloat16`` halves that
+moment's memory) the optimizer is ``AdamWCast``: the JAX package's AdamW
+with moment storage types (optax's ``mu_dtype``, and its own
+``_scale_by_adam_cast`` once ``nu`` has a type, optim.py:41-83), the math in
+float32 and each moment rounded to its type when stored. The JAX package
+computes it in XLA with no kernel; here it is ``torch._foreach`` arithmetic
+over buckets of parameters, which bounds the float32 temporaries.
+
 Global-norm gradient clipping (``clip_grad_norm``) is ``clip_grad_norm``
 below, applied to the dense gradients only (the row-sparse table gradients
-bypass it, as in the JAX package). Not ported yet: the modal / rec split
-(``modal_lr`` …) and the moment storage types ``adam_mu_dtype`` /
-``adam_nu_dtype``.
+bypass it, as in the JAX package).
 """
 
 from __future__ import annotations
 
-from typing import Callable, List, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import torch
 
 Schedule = Callable[[int], float]
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16, "float32": torch.float32}
+
+
+def _moment_dtype(name) -> Optional[torch.dtype]:
+    if not name:
+        return None
+    name = str(name)
+    if name not in _DTYPES:
+        raise ValueError(f"adam moment dtype must be one of {sorted(_DTYPES)}, got {name!r}")
+    return _DTYPES[name]
+
+
+# the most elements of one bucket of AdamWCast._update
+BUCKET_NUMEL = 1 << 26
+
+
+class AdamWCast(torch.optim.Optimizer):
+    """AdamW (b1 0.9, b2 0.999, eps 1e-8) whose first and second moments are
+    stored in ``mu_dtype`` / ``nu_dtype`` (None: float32), with the JAX
+    package's arithmetic and rounding order:
+
+    * ``nu_dtype`` None (optax ``adamw(mu_dtype=...)``): m = (1 − b1)·g +
+      b1·m_stored, the product b1·m_stored in m's stored type;
+    * otherwise (``_scale_by_adam_cast``): m = b1·float(m_stored) + (1 − b1)·g,
+      v = b2·float(v_stored) + (1 − b2)·g², bias corrections in float32;
+
+    then u = m̂ / (√v̂ + eps) + wd·p and p ← p + (−lr)·u. Parameters in
+    buckets of at most ``BUCKET_NUMEL`` elements go through ``_foreach``
+    calls together, so the float32 temporaries stay that small."""
+
+    def __init__(self, params, lr: float = 1e-3, weight_decay: float = 0.0,
+                 mu_dtype: Optional[torch.dtype] = None, nu_dtype: Optional[torch.dtype] = None,
+                 betas=(0.9, 0.999), eps: float = 1e-8):
+        super().__init__(params, dict(lr=lr, weight_decay=weight_decay, betas=betas, eps=eps))
+        self.mu_dtype, self.nu_dtype = mu_dtype, nu_dtype
+
+    def load_state_dict(self, state_dict):
+        """As ``Optimizer.load_state_dict``, but each moment arrives in its
+        storage type: the base class would cast it to the parameter's
+        float32 first, holding a float32 set of moments at once."""
+        moments = ("exp_avg", "exp_avg_sq")
+        rest = {k: {n: v for n, v in s.items() if n not in moments}
+                for k, s in state_dict["state"].items()}
+        super().load_state_dict({"state": rest, "param_groups": state_dict["param_groups"]})
+        ids = [i for g in state_dict["param_groups"] for i in g["params"]]
+        params = [p for g in self.param_groups for p in g["params"]]
+        for i, p in zip(ids, params):
+            saved = state_dict["state"].get(i)
+            if saved:
+                for name, dtype in zip(moments, (self.mu_dtype, self.nu_dtype)):
+                    self.state[p][name] = saved[name].to(p.device, dtype or torch.float32)
+
+    def _buckets(self, params):
+        bucket, n = [], 0
+        for p in params:
+            if bucket and n + p.numel() > BUCKET_NUMEL:
+                yield bucket
+                bucket, n = [], 0
+            bucket.append(p)
+            n += p.numel()
+        if bucket:
+            yield bucket
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            b1, b2 = group["betas"]
+            for p in params:
+                st = self.state[p]
+                if not st:
+                    st["step"] = torch.zeros((), dtype=torch.float32)
+                    st["exp_avg"] = torch.zeros_like(
+                        p, dtype=self.mu_dtype or torch.float32,
+                        memory_format=torch.preserve_format)
+                    st["exp_avg_sq"] = torch.zeros_like(
+                        p, dtype=self.nu_dtype or torch.float32,
+                        memory_format=torch.preserve_format)
+                st["step"] += 1
+            for bucket in self._buckets(params):
+                self._update(bucket, group, b1, b2)
+
+    def _update(self, params, group, b1, b2):
+        state = [self.state[p] for p in params]
+        # every parameter of a group steps together
+        count = state[0]["step"]
+        one = torch.ones((), dtype=torch.float32)
+        bc1 = float(one - torch.tensor(b1, dtype=torch.float32) ** count)
+        bc2 = float(one - torch.tensor(b2, dtype=torch.float32) ** count)
+        g = [p.grad.float() for p in params]
+        ms = [s["exp_avg"] for s in state]
+        vs = [s["exp_avg_sq"] for s in state]
+        if self.nu_dtype is None:
+            # optax: (1 - b1)·g + b1·m in m's stored type, b1 rounded to
+            # that type first (a Python scalar takes the array's type in JAX);
+            # v in float32
+            b1_m = float(torch.tensor(b1).to(ms[0].dtype))
+            m = torch._foreach_mul(g, 1.0 - b1)
+            torch._foreach_add_(m, [x.float() for x in torch._foreach_mul(ms, b1_m)])
+            v = torch._foreach_mul(torch._foreach_mul(g, g), 1.0 - b2)
+            torch._foreach_add_(v, torch._foreach_mul(vs, b2))
+        else:
+            m = torch._foreach_mul([x.float() for x in ms], b1)
+            torch._foreach_add_(m, torch._foreach_mul(g, 1.0 - b1))
+            v = torch._foreach_mul([x.float() for x in vs], b2)
+            torch._foreach_add_(v, torch._foreach_mul(torch._foreach_mul(g, g), 1.0 - b2))
+        del g
+        denom = torch._foreach_sqrt(torch._foreach_div(v, bc2))
+        torch._foreach_add_(denom, group["eps"])
+        u = torch._foreach_div(m, bc1)
+        torch._foreach_div_(u, denom)
+        del denom
+        for dst, src in ((ms, m), (vs, v)):
+            for d, s in zip(dst, src):
+                d.copy_(s)
+        del m, v
+        if group["weight_decay"]:
+            torch._foreach_add_(u, torch._foreach_mul(params, group["weight_decay"]))
+        torch._foreach_mul_(u, -group["lr"])
+        torch._foreach_add_(params, u)
 
 
 def _is_frozen(name: str, freeze_prefix: List[str], sparse_table: bool) -> bool:
@@ -40,15 +172,14 @@ def _is_frozen(name: str, freeze_prefix: List[str], sparse_table: bool) -> bool:
 
 def build_optimizer(config, model: torch.nn.Module,
                     schedule_factory: Callable[[float], Schedule]
-                    ) -> Tuple[torch.optim.AdamW, List[Schedule], List[torch.nn.Parameter]]:
+                    ) -> Tuple[torch.optim.Optimizer, List[Schedule], List[torch.nn.Parameter]]:
     """Returns (optimizer, one schedule per parameter group, the frozen
     parameters). ``schedule_factory(lr)`` builds the configured schedule at
     base learning rate ``lr``."""
     optim_args = dict(config["optim_args"] or {})
-    if {"modal_lr", "modal_decay", "rec_lr", "rec_decay"} <= set(optim_args):
-        raise NotImplementedError("the modal / rec learning-rate split is not ported yet")
-    if config.get("adam_mu_dtype") or config.get("adam_nu_dtype"):
-        raise NotImplementedError("adam_mu_dtype / adam_nu_dtype are not ported yet")
+    split_modal = {"modal_lr", "modal_decay", "rec_lr", "rec_decay"} <= set(optim_args)
+    mu_dtype = _moment_dtype(config.get("adam_mu_dtype"))
+    nu_dtype = _moment_dtype(config.get("adam_nu_dtype"))
     base_lr = float(optim_args.get("learning_rate", 1e-3))
     wd = float(optim_args.get("weight_decay", 0.0))
     freeze_prefix = list(config.get("freeze_prefix", []) or [])
@@ -57,22 +188,39 @@ def build_optimizer(config, model: torch.nn.Module,
     lr_mult_rate = config.get("lr_mult_rate", None)
     split = bool(lr_mult_prefix and lr_mult_rate)
 
-    normal, high, frozen = [], [], []
+    check = config.get("decay_check_name") or "visual_encoder"
+
+    # (learning rate, weight decay) of each group; the modal split wins over
+    # the high-learning-rate prefixes, as in the JAX package
+    if split_modal:
+        specs = {"modal": (float(optim_args["modal_lr"]), float(optim_args["modal_decay"])),
+                 "rec": (float(optim_args["rec_lr"]), float(optim_args["rec_decay"]))}
+    else:
+        specs = {"normal": (base_lr, wd),
+                 "high": (base_lr * float(lr_mult_rate or 1.0), wd)}
+    members = {k: [] for k in specs}
+    frozen = []
     for name, p in model.named_parameters():
         if _is_frozen(name, freeze_prefix, sparse_table):
             frozen.append(p)
+        elif split_modal:
+            members["modal" if check in name else "rec"].append(p)
         elif split and any(name.startswith(pre) for pre in lr_mult_prefix):
-            high.append(p)
+            members["high"].append(p)
         else:
-            normal.append(p)
+            members["normal"].append(p)
     groups, schedules = [], []
-    for params, lr in ((normal, base_lr), (high, base_lr * float(lr_mult_rate or 1.0))):
-        if params:
-            groups.append({"params": params, "lr": lr})
+    for key, (lr, decay) in specs.items():
+        if members[key]:
+            groups.append({"params": members[key], "lr": lr, "weight_decay": decay})
             schedules.append(schedule_factory(lr))
-    on_card = all(p.is_cuda for g in groups for p in g["params"])
-    opt = torch.optim.AdamW(groups, lr=base_lr, betas=(0.9, 0.999), eps=1e-8,
-                            weight_decay=wd, fused=True if on_card else None)
+    if mu_dtype is not None or nu_dtype is not None:
+        opt = AdamWCast(groups, lr=base_lr, weight_decay=wd, mu_dtype=mu_dtype,
+                        nu_dtype=nu_dtype)
+    else:
+        on_card = all(p.is_cuda for g in groups for p in g["params"])
+        opt = torch.optim.AdamW(groups, lr=base_lr, betas=(0.9, 0.999), eps=1e-8,
+                                weight_decay=wd, fused=True if on_card else None)
     return opt, schedules, frozen
 
 

@@ -19,11 +19,15 @@ one device).
   once per optimizer step on the deduped union of the k micro-steps' rows;
 * dropout and the positive-mix draws come from a generator on the device
   seeded from (seed, step), so a resumed run draws what the first run drew;
-* checkpoints (``torch.save``, synchronous): parameters, optimizer state,
-  the item table's row moments, step and best score; loaded through a
-  memory map to host memory, the optimizer's old state dropped first, so a
-  2B-parameter HLLM (24 GB with its moments) reloads without a second copy
-  on the card;
+* checkpoints (``torch.save``): parameters, optimizer state, the item
+  table's row moments, step and best score. With ``async_checkpoint`` (the
+  default, as in the JAX package) the state is copied to host memory on the
+  calling thread and a writer thread saves it (``trainer/checkpoint.py``);
+  the next save, ``load_checkpoint`` (of any trainer in the process), the
+  end of ``fit`` and interpreter exit wait for it and raise its error.
+  Loaded through a memory map to host memory, the optimizer's old state
+  dropped first, so a 2B-parameter HLLM (24 GB with its moments) reloads
+  without a second copy on the card;
 * the evaluation pipeline (trainer.py:698-1152): corpus item embeddings
   (the item table of an ID model; for HLLM the item tower over every
   item's text, dense or packed, trainer.py:953-1054) → per-user-batch head
@@ -42,8 +46,8 @@ one device).
   ``save_for_eval`` (each batch's top-k and embeddings) are written under
   the checkpoint directory.
 
-Not ported yet: ``item_table_dtype: bfloat16``, ``sparse_adam_global_dedup``
-and asynchronous checkpoints.
+Not ported yet: ``item_table_dtype: bfloat16`` and
+``sparse_adam_global_dedup``.
 """
 
 from __future__ import annotations
@@ -64,6 +68,7 @@ from mhrec_tpu_torch.evaluator import Collector, Evaluator
 from mhrec_tpu_torch.models.factory import build_model
 from mhrec_tpu_torch.models.layers import cosine_normalize
 from mhrec_tpu_torch.ops import row_adam_cuda
+from mhrec_tpu_torch.trainer import checkpoint as ckpt_io
 from mhrec_tpu_torch.trainer.lr_schedule import build_schedule
 from mhrec_tpu_torch.trainer.optim import build_optimizer, clip_grad_norm
 from mhrec_tpu_torch.trainer.sparse_adam import (
@@ -178,8 +183,11 @@ class Trainer:
         self.nan_step = torch.tensor(-1, dtype=torch.long, device=self.device)
         self.best_valid_score: Optional[float] = None
         self.best_valid_result = None
-        # bytes and seconds of the last checkpoint save and load
+        # the last checkpoint save and load: bytes, the writer's seconds
+        # (save_s), the seconds the caller was blocked (blocked_s), the host
+        # copy's bytes (asynchronous saves), the load's seconds
         self.checkpoint_stats: Dict[str, float] = {}
+        self.async_checkpoint = bool(config.get("async_checkpoint", True))
 
     # ------------------------------------------------------------------
     def setup_model(self, seed: Optional[int] = None):
@@ -413,6 +421,10 @@ class Trainer:
                     break
             if self.debug and it >= 9:
                 break
+        tw = time.time()
+        self.wait_for_checkpoint()
+        if t_steady is not None:  # the save's tail counts with the evaluations
+            t_eval += time.time() - tw
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         wall = time.time() - t0
@@ -438,11 +450,16 @@ class Trainer:
         """Write the run's one checkpoint (the newest replaces the last),
         through a temporary file so a crash never leaves a torn one. Only at
         an accumulation boundary: the gradient mean and row buffers of an
-        unfinished optimizer step are not saved."""
+        unfinished optimizer step are not saved. Asynchronous unless
+        ``async_checkpoint`` is false: the state is copied to host memory
+        here, so training may go on while the writer thread saves it."""
         if self.step % self.accumulate_grad:
             raise ValueError(f"micro-step {self.step} is not at an accumulation boundary "
                              f"(accumulate_grad {self.accumulate_grad})")
         os.makedirs(self.saved_model_dir, exist_ok=True)
+        path = self.checkpoint_path()
+        t0 = time.perf_counter()
+        ckpt_io.wait_to_replace(path)  # one host copy at a time
         payload = {
             "params": self.model.state_dict(),
             "optimizer": self.optimizer.state_dict(),
@@ -452,19 +469,32 @@ class Trainer:
         if self.table_m is not None:
             payload["table_m"] = self.table_m
             payload["table_v"] = self.table_v
-        path = self.checkpoint_path()
-        tmp = f"{path}.{os.getpid()}.tmp"
-        t0 = time.perf_counter()
-        torch.save(payload, tmp)
-        os.replace(tmp, path)
-        self.checkpoint_stats.update(bytes=os.path.getsize(path),
-                                     save_s=time.perf_counter() - t0)
-        logger.info("checkpoint saved: %d bytes in %.1fs", self.checkpoint_stats["bytes"],
-                    self.checkpoint_stats["save_s"])
+        stats = self.checkpoint_stats
+        stats.clear()
+        if self.async_checkpoint:
+            payload, stats["host_copy_bytes"] = ckpt_io.host_copy(payload)
+        # the synchronous save goes through the registry too, so it replaces
+        # a failed write there and a load waits for it like any other
+        ckpt_io.start_write(path, payload, stats)
+        if self.async_checkpoint:
+            stats.update(blocked_s=time.perf_counter() - t0, asynchronous=True)
+            logger.info("checkpoint copied to host memory in %.1fs: %d bytes, being written",
+                        stats["blocked_s"], stats["host_copy_bytes"])
+            return
+        ckpt_io.wait_for_write(path)
+        stats.update(blocked_s=time.perf_counter() - t0, asynchronous=False)
+        logger.info("checkpoint saved: %d bytes in %.1fs", stats["bytes"], stats["blocked_s"])
+
+    def wait_for_checkpoint(self):
+        """Wait for this run's checkpoint write in flight, if any (its error
+        is raised here)."""
+        ckpt_io.wait_for_write(self.checkpoint_path())
 
     def load_checkpoint(self) -> bool:
-        """Restore the run's checkpoint; False when there is none."""
+        """Restore the run's checkpoint, after its write in flight (by any
+        trainer) has finished; False when there is none."""
         path = self.checkpoint_path()
+        ckpt_io.wait_for_write(path)
         if not os.path.isfile(path):
             return False
         t0 = time.perf_counter()

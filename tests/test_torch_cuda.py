@@ -11,6 +11,8 @@ sums (1e-4); bfloat16 may round an attention entry or an output one ulp
 apart (2^-8 relative), so it gets about three ulps (2e-2).
 """
 
+import os
+
 import pytest
 import torch
 
@@ -956,3 +958,167 @@ def test_host_table_side_stream_copies_match_synchronous(card, tmp_path):
         np.testing.assert_array_equal(a[2], b[2])
     for a, b in zip(runs[0], runs[2]):
         np.testing.assert_array_equal(a[3], b[3])
+
+
+# -- HLLM towers from local checkpoints and the HLLM training levers ---------
+def _tiny_tower_config(**over):
+    import dataclasses
+
+    from mhrec_tpu_torch.models.llm.config import LLMConfig
+
+    return dataclasses.replace(LLMConfig.tiny(vocab_size=512, hidden_size=128),
+                               num_attention_heads=2, num_key_value_heads=1, **over)
+
+
+@pytest.mark.parametrize("fmt", ["safetensors", "bin"])
+def test_tower_loads_onto_the_card_bit_for_bit(card, tmp_path, fmt):
+    """A bfloat16 checkpoint written by chip_smoke.py's writer, loaded into
+    a tower on the card: every parameter equals the written tensor."""
+    import json
+
+    import chip_smoke
+    from mhrec_tpu_torch.models.hllm.hllm import load_tower_weights
+    from mhrec_tpu_torch.models.llm.config import LLMConfig
+    from mhrec_tpu_torch.models.llm.llama import LlamaBackbone
+
+    hf = dict(chip_smoke.TINYLLAMA_1B, vocab_size=512, hidden_size=128, intermediate_size=256,
+              num_hidden_layers=2, num_attention_heads=2, num_key_value_heads=1)
+    sd = chip_smoke.hf_state_dict(hf, seed=3, device=card, dtype=torch.bfloat16)
+    chip_smoke.write_hf_checkpoint(str(tmp_path), hf, sd, fmt=fmt, shards=2)
+    with open(tmp_path / "config.json") as fh:
+        assert json.load(fh)["hidden_size"] == 128
+    tower = LlamaBackbone(LLMConfig.from_pretrained_dir(str(tmp_path))).to(card)
+    stats = load_tower_weights(tower, str(tmp_path))
+    assert stats["bytes"] > 0
+    equal, n = True, 0
+    for name, p in tower.named_parameters():
+        hf_name = "model." + name
+        equal &= torch.equal(p, sd[hf_name].float())
+        n += 1
+    assert equal and n == 2 + 9 * 2
+
+
+@pytest.mark.parametrize("alibi", [False, True], ids=["rope", "alibi"])
+def test_tower_on_the_card_matches_the_cpu(card, alibi):
+    """The dense tower (RoPE or ALiBi) in float32 on the card against the
+    same weights on the CPU."""
+    from mhrec_tpu_torch.models.llm.llama import LlamaBackbone
+
+    cfg = _tiny_tower_config(alibi=alibi)
+    cpu = LlamaBackbone(cfg, dtype=torch.float32)
+    cpu.init_parameters(torch.Generator().manual_seed(1))
+    gpu = LlamaBackbone(cfg, dtype=torch.float32).to(card)
+    gpu.load_state_dict(cpu.state_dict())
+    ids = torch.randint(1, 512, (4, 33), generator=torch.Generator().manual_seed(2))
+    mask = (torch.arange(33)[None] < torch.tensor([[33], [20], [5], [1]])).int()
+    with torch.no_grad():
+        ref = cpu(input_ids=ids, attention_mask=mask)
+        out = gpu(input_ids=ids.to(card), attention_mask=mask.to(card)).cpu()
+    keep = mask.bool()
+    torch.testing.assert_close(out[keep], ref[keep], atol=1e-4, rtol=1e-4)
+
+
+def test_bert_tower_on_the_card_matches_the_cpu(card):
+    from mhrec_tpu_torch.models.llm.bert import BertBackbone
+    from mhrec_tpu_torch.models.llm.config import LLMConfig
+
+    cfg = LLMConfig(model_type="bert", vocab_size=512, hidden_size=128, intermediate_size=256,
+                    num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=4,
+                    max_position_embeddings=64, rms_norm_eps=1e-12)
+    cpu = BertBackbone(cfg, dtype=torch.float32)
+    cpu.init_parameters(torch.Generator().manual_seed(1))
+    gpu = BertBackbone(cfg, dtype=torch.float32).to(card)
+    gpu.load_state_dict(cpu.state_dict())
+    ids = torch.randint(1, 512, (3, 40), generator=torch.Generator().manual_seed(2))
+    with torch.no_grad():
+        ref = cpu(input_ids=ids)
+        out = gpu(input_ids=ids.to(card)).cpu()
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_remat_dots_on_the_packed_kernels(card, dtype):
+    """``remat_policy: dots`` through the packed kernels: the gradients of
+    ``full`` (bit for bit: the kept products are the ones the recompute
+    would make), and the forward kernel launched twice a layer under both
+    (its recompute is not kept)."""
+    from mhrec_tpu_torch.models.llm.llama import LlamaBackbone
+    from mhrec_tpu_torch.models.llm.packed import pack_items
+    from mhrec_tpu_torch.ops.packed_attention_cuda import packed_attn_bwd, packed_attn_fwd
+
+    cfg = _tiny_tower_config(packed_window=33)
+    model = LlamaBackbone(cfg, dtype=dtype, gradient_checkpointing=True).to(card)
+    model.init_parameters(torch.Generator(device=card).manual_seed(4))
+    gen = torch.Generator().manual_seed(5)
+    lens = torch.randint(1, 32, (40,), generator=gen).numpy()
+    tokens = torch.randint(1, 512, (40, 33), generator=gen).numpy()
+    p = pack_items(tokens, lens, n_emb=1, chunk=256, chunk_round=1)
+    ids = torch.as_tensor(p["packed_tokens"], dtype=torch.long, device=card)
+    seg = torch.as_tensor(p["packed_segment_ids"], device=card)
+    pos = torch.as_tensor(p["packed_positions"], dtype=torch.long, device=card)
+    grads, launches = {}, {}
+    for pol in ("full", "dots"):
+        model.remat_policy = pol
+        model.zero_grad(set_to_none=True)
+        packed_attn_fwd.launches = packed_attn_bwd.launches = 0
+        out = model(input_ids=ids, position_ids=pos, segment_ids=seg)
+        out.float().square().mean().backward()
+        torch.cuda.synchronize()
+        launches[pol] = (packed_attn_fwd.launches, packed_attn_bwd.launches)
+        grads[pol] = {n: q.grad.clone() for n, q in model.named_parameters()}
+    assert launches["full"] == launches["dots"] == (4, 2)
+    for n, g in grads["full"].items():
+        assert torch.equal(grads["dots"][n], g), n
+
+
+def test_adamw_cast_on_the_card_matches_the_cpu(card, monkeypatch):
+    """bfloat16 moments: the optimizer on the card against the CPU, 3 steps
+    of the same float32 arithmetic. The card's and the host's elementwise
+    kernels may round the update a few float32 ulps apart (2.5 ulps of a
+    1e-3 update on 1 of 21,000 elements on an H100 80GB HBM3 at 700 W), so
+    the parameters get
+    atol 1e-9 (1e-6 of the learning rate) beside rtol 1e-6, and the stored
+    moments one bfloat16 ulp."""
+    from mhrec_tpu_torch.trainer import optim
+
+    monkeypatch.setattr(optim, "BUCKET_NUMEL", 1000)  # several buckets per step
+    gen = torch.Generator().manual_seed(6)
+    values = [torch.randn(300, 70, generator=gen), torch.randn(513, generator=gen)]
+    grads = [[torch.randn(v.shape, generator=gen) * 1e-3 for v in values] for _ in range(3)]
+    out = {}
+    for dev in ("cpu", card):
+        params = [torch.nn.Parameter(v.clone().to(dev)) for v in values]
+        opt = optim.AdamWCast(params, lr=1e-3, weight_decay=0.01, mu_dtype=torch.bfloat16,
+                              nu_dtype=torch.bfloat16)
+        for g in grads:
+            for p, x in zip(params, g):
+                p.grad = x.to(dev)
+            opt.step()
+        out[str(dev)] = ([p.detach().cpu() for p in params],
+                         [opt.state[p]["exp_avg"].cpu() for p in params])
+    (pc, mc), (pg, mg) = out["cpu"], out[str(card)]
+    for a, b in zip(pc, pg):
+        torch.testing.assert_close(b, a, atol=1e-9, rtol=1e-6)
+    for a, b in zip(mc, mg):
+        ulp = 2.0 ** (torch.floor(torch.log2(a.float().abs().clamp(min=2.0 ** -126))) - 7)
+        assert b.dtype == torch.bfloat16 and bool(((b.float() - a.float()).abs() <= ulp).all())
+
+
+def test_async_checkpoint_of_card_tensors(card, tmp_path):
+    """A payload on the card copied to host memory, written by the writer
+    thread while the card tensors change, read back equal to the copy."""
+    from mhrec_tpu_torch.trainer import checkpoint as ckpt_io
+
+    state = {"w": torch.randn(1000, 512, device=card), "step": 3,
+             "opt": {"m": torch.randn(77, device=card).bfloat16()}}
+    want = {"w": state["w"].cpu(), "m": state["opt"]["m"].cpu()}
+    payload, nbytes = ckpt_io.host_copy(state)
+    assert nbytes == 1000 * 512 * 4 + 77 * 2 and payload["w"].device.type == "cpu"
+    path = str(tmp_path / "checkpoint.pt")
+    stats = {}
+    ckpt_io.start_write(path, payload, stats)
+    state["w"].add_(1.0)
+    ckpt_io.wait_for_write(path)
+    back = torch.load(path, weights_only=True)
+    assert torch.equal(back["w"], want["w"]) and torch.equal(back["opt"]["m"], want["m"])
+    assert stats["bytes"] == os.path.getsize(path) and back["step"] == 3

@@ -1,9 +1,10 @@
 """The port stands alone: ``mhrec_tpu_torch`` and ``chip_smoke.py`` import
 nothing of JAX and nothing of the JAX package, and the serving and training
 paths that ``chip_smoke.py`` drives (HSTU serving and training, HLLM
-serving and training, the eval outputs and modes, gradient accumulation)
-import neither PyYAML nor pandas nor pyarrow (the machine with the card has
-none of them), nor, on the HLLM paths, ``transformers``."""
+serving and training, the eval outputs and modes, gradient accumulation,
+HLLM towers loaded from local checkpoints) import neither PyYAML nor pandas
+nor pyarrow (the machine with the card has none of them), nor, on the HLLM
+paths, ``transformers`` or ``safetensors``."""
 
 import ast
 import os
@@ -18,7 +19,9 @@ torch.set_num_threads(2)
 
 ROOT = Path(__file__).resolve().parents[1]
 SOURCES = sorted((ROOT / "mhrec_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-NEVER = ("jax", "jaxlib", "flax", "optax", "mhrec_tpu")
+# the machine with the card has neither safetensors nor transformers: the
+# port parses .safetensors itself and tokenizes with its hashing tokenizer
+NEVER = ("jax", "jaxlib", "flax", "optax", "mhrec_tpu", "safetensors", "transformers")
 NOT_AT_TOP = ("yaml", "pandas", "pyarrow")
 
 
@@ -294,6 +297,60 @@ def test_eval_modes_and_accumulation_run_without_what_the_card_lacks():
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "BAD []" in proc.stdout, proc.stdout
     assert proc.stderr.count("pandas is not installed: results.pkl is not written") == 1
+
+
+_PRETRAINED = """
+import os, sys, tempfile
+
+# what the machine with the card lacks: importing it fails, as there
+LACKING = ("safetensors", "transformers", "pandas", "yaml", "pyarrow")
+sys.modules.update({name: None for name in LACKING})
+import torch
+import chip_smoke
+from mhrec_tpu_torch.data.synthetic import InMemoryInteractionData
+from mhrec_tpu_torch.run import serve, train
+
+torch.set_num_threads(2)
+work = tempfile.mkdtemp()
+tiny = dict(chip_smoke.TINYLLAMA_1B, vocab_size=1024, hidden_size=64, intermediate_size=128,
+            num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2)
+data = InMemoryInteractionData(num_users=40, num_items=300, seq_len=2 * 6 + 16,
+                               num_categories=11, eval_pred_len=8, max_item_list_length=6,
+                               item_texts=True, max_filler_words=12)
+small = dict(MAX_TEXT_LENGTH=24, MAX_ITEM_LIST_LENGTH=6, eval_batch_size=32, pack_chunk=128)
+for fmt, shards in (("safetensors", 2), ("bin", 1)):
+    tower = os.path.join(work, fmt)
+    sd = chip_smoke.hf_state_dict(tiny, seed=0, device="cpu", dtype=torch.bfloat16)
+    chip_smoke.write_hf_checkpoint(tower, tiny, sd, fmt=fmt, shards=shards)
+    cfg = chip_smoke.hllm_config(tower, work, **small)
+    trainer, _, result = serve(cfg, data, device="cpu")
+    equal, n = chip_smoke.loaded_equal_written(trainer.model, sd, tower)
+    assert equal and n > 20 and "pred_7" in result, (fmt, equal, n)
+    assert set(trainer.model.tower_load_stats) == {"item_llm", "user_llm"}
+cfg = chip_smoke.hllm_train_config(tower, work, num_negatives=16, total_iters=2,
+                                   eval_interval=2, **small)
+trainer, stats, result = train(cfg, data, device="cpu")
+assert stats["iters"] == 2 and trainer.checkpoint_stats["asynchronous"]
+assert trainer.checkpoint_stats["bytes"] > 0 and "pred_7" in result
+bad = sorted(m for m, mod in sys.modules.items() if mod is not None
+             and m.split(".")[0] in {"jax", "jaxlib", "flax", "optax", "mhrec_tpu", *LACKING})
+print("BAD", bad)
+"""
+
+
+def test_pretrained_towers_load_without_what_the_card_lacks():
+    """HLLM towers from checkpoints written by ``chip_smoke.py``'s own
+    writer (bfloat16, two ``.safetensors`` shards with an index, and a
+    ``pytorch_model.bin``), served and trained (an asynchronous
+    best-checkpoint save) on the CPU in a fresh interpreter where
+    safetensors, transformers, pandas, PyYAML and pyarrow cannot be
+    imported: every loaded tensor equals the written one, and nothing
+    forbidden, JAX included, is loaded."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", _PRETRAINED], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "BAD []" in proc.stdout, proc.stdout
 
 
 def test_chip_smoke_fails_without_the_package(tmp_path):
