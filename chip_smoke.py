@@ -99,8 +99,8 @@ against the device table, then times the host-table scoring alone over a
 600,000 × 2048 table, which ``auto`` must choose by itself. Each path's
 launches are counted from 0 just before it (``path_launches``).
 
-Three phases drive HLLM towers loaded from local checkpoints and the HLLM
-training levers, in a work directory of their own. ``hllm_pretrained``
+Four phases drive HLLM towers loaded from local checkpoints, their
+tokenizer and the HLLM training levers, in a work directory of their own. ``hllm_pretrained``
 writes a TinyLlama-1.1B-shaped checkpoint (seed 0, bfloat16, two
 ``.safetensors`` shards and an index, about 2.2 GB, by ``write_safetensors``,
 this script's own header writer), points both pretrain directories at it and
@@ -116,7 +116,20 @@ write; both files equal tensor for tensor), ``remat_policy`` ``full``
 against ``dots`` (steady examples/s and peak memory at LEVERS_BATCH
 sequences, 44 + 22 packed launches a step under both, one batch's gradients
 equal), and ``adam_mu_dtype`` / ``adam_nu_dtype: bfloat16`` against the
-fused AdamW (state bytes, peak memory). ``hllm_towers`` writes a
+fused AdamW (state bytes, peak memory). ``hllm_tokenizer`` links
+hllm_pretrained's shards into a directory of their own and writes a
+``tokenizer.json`` of TinyLlama's layout beside them
+(``write_llama_tokenizer``: BPE with byte fallback and ``fuse_unk``, the
+Prepend/Replace ▁ normalizer, a BOS template, 32,000 entries; a
+``tokenizer_config.json`` naming ``LlamaTokenizer``), draws item texts with
+accented Latin, CJK, emoji, digit runs and runs of spaces
+(``tokenizer_item_table``), and tokenizes the corpus on the host with the
+port's own reader (``data/hf_tokenizer.py``): load seconds, items/s and
+tokens/s cold, warm and from the disk cache, every id below 32,000, the
+repeats equal, the id lists' digest equal to TOKENIZER_DIGEST (what
+``transformers`` gives on the CPU); then it serves and trains 3 steps
+through that tokenizer (``packed_attn_fwd`` 44 a serve run, 44 and
+``packed_attn_bwd`` 22 a train step). ``hllm_towers`` writes a
 bert-base-uncased-shaped BERT and a Baichuan-13B-shaped ALiBi tower (2 of
 its 40 layers) and has each serve a small catalog and train 2 steps on the
 dense item tower (no kernel).
@@ -126,8 +139,9 @@ seconds, each kernel phase (error against tolerance; kernel, plain and bound
 times), the serve, impl, eval_outputs, eval_streamed_metrics, train,
 train-impl, train_accum, hllm_serve, hllm_impl, hllm_host_table, hllm_train,
 hllm_train_impl, hllm_pretrained (with its hllm_pretrained_serve record),
-hllm_train_levers and hllm_towers phases, the seconds of each phase, each path's
-launches, a ``kernels`` summary, and last ``{"ok": true, "device": {...}}``. Any
+hllm_train_levers, hllm_tokenizer (with its hllm_tokenizer_serve record) and
+hllm_towers phases, the seconds of each phase, each path's launches, a
+``kernels`` summary, and last ``{"ok": true, "device": {...}}``. Any
 failure exits non-zero without the last line. ``--profile`` adds phases that
 run one evaluation of the test split, five train steps, one HLLM evaluation
 and three HLLM train steps under ``torch.profiler`` and print device time
@@ -2128,6 +2142,297 @@ def hllm_pretrained_phase(work_dir):
     return trainer, cfg, data, {"serve": serve_launches, "train": train_launches}, ok
 
 
+# -- a tower's HF tokenizer (tokenizer.json) -----------------------------------
+# the hllm_tokenizer phase's texts are cut to hllm_config's MAX_TEXT_LENGTH;
+# TOKENIZER_DIGEST is the sha256 (ids_digest) of the PRETRAINED_ITEMS items'
+# id lists that transformers gives under the tokenizer write_llama_tokenizer
+# writes (tests/test_torch_tokenizer.py computes it with transformers)
+TOKENIZER_MAX_LENGTH = 256
+TOKENIZER_DIGEST = "1bc8278eecc4c727048f583595339cb0cbe651ac14f1531cf02c4ec3873275e4"
+# the base characters of that tokenizer: everything else (CJK, emoji, most
+# accented letters) takes the byte fallback
+TOKENIZER_ALPHABET = ("▁" + "".join(chr(c) for c in range(33, 127)) + "éèàüöñ")
+_SYLLABLES = ("ka", "lo", "mi", "re", "su", "ta", "ne", "vo", "pi", "gu", "sha", "dri",
+              "on", "el", "ar", "ix", "um", "qu", "zy", "bel")
+_ACCENTED = ("café", "naïve", "Ångström", "résumé", "crème", "brûlée", "façade", "Zürich",
+             "São", "Paulo", "Øresund", "jalapeño", "Málaga", "Kraków", "Dvořák")
+_CJK_WORDS = ("日本語", "東京", "中文", "新闻", "한국어", "뉴스", "ひらがな", "カタカナ")
+_EMOJI = ("😀", "👍🏽", "🇯🇵", "❤️", "🎉", "🚀", "👩‍👩‍👧", "☕")
+
+
+def tokenizer_item_table(num_items, seed=0):
+    """Item texts drawn from ``seed`` (title, tag, description) that mix
+    pseudo-words of ASCII syllables (Zipf-distributed) with accented Latin,
+    CJK, emoji, digit runs and runs of spaces; item 0 has none, as in the
+    catalogs."""
+    import numpy as np
+
+    from mhrec_tpu_torch.data.synthetic import ItemTextTable
+
+    rng = np.random.default_rng((seed, 7))
+    words = ["".join(_SYLLABLES[int(j)] for j in rng.integers(0, len(_SYLLABLES), size=k))
+             for k in rng.integers(1, 5, size=6000)]
+    zipf = np.cumsum(1.0 / np.arange(1, len(words) + 1))
+    zipf /= zipf[-1]
+
+    def word():
+        r = rng.random()
+        if r < 0.06:
+            return _ACCENTED[int(rng.integers(len(_ACCENTED)))]
+        if r < 0.09:
+            return _CJK_WORDS[int(rng.integers(len(_CJK_WORDS)))]
+        if r < 0.11:
+            return _EMOJI[int(rng.integers(len(_EMOJI)))]
+        if r < 0.16:
+            return str(int(rng.integers(0, 10 ** int(rng.integers(1, 7)))))
+        w = words[int(np.searchsorted(zipf, rng.random()))]
+        return w.capitalize() if rng.random() < 0.15 else w
+
+    def phrase(n):
+        out = []
+        for _ in range(n):
+            out.append(word())
+            out.append(" " * int(rng.choice([1, 1, 1, 1, 1, 1, 2, 3])))
+        return "".join(out).rstrip(" ")
+
+    ids = np.arange(1, num_items)
+    columns = {"title": [phrase(int(rng.integers(2, 7))) for _ in ids],
+               "tag": [f"tag_{int(rng.integers(0, 50))}" for _ in ids],
+               "description": [phrase(int(rng.integers(10, 160))) for _ in ids]}
+    return ItemTextTable(ids, columns)
+
+
+def rendered_texts(config, table, num_items):
+    """Each item's text as the corpus pass renders it (``ItemTextCache``)."""
+    from types import SimpleNamespace
+
+    from mhrec_tpu_torch.data.textset import ItemTextCache
+
+    cache = ItemTextCache(SimpleNamespace(item_text=table), None, config["text_keys"],
+                          config["item_prompt"], TOKENIZER_MAX_LENGTH)
+    return [cache.render(i) for i in range(num_items)]
+
+
+def write_llama_tokenizer(dirpath, texts, vocab_size, seed=0):
+    """A TinyLlama-shaped ``tokenizer.json`` and ``tokenizer_config.json``
+    in plain Python: BPE with byte fallback and ``fuse_unk``; <unk> <s> </s>,
+    the 256 ``<0xNN>`` tokens, TOKENIZER_ALPHABET, then merges that build the
+    most frequent words of ``texts`` left to right (a word: a ▁-run and what
+    follows it, after the normalizer), then words of syllables drawn from
+    ``seed``, until the vocabulary holds exactly ``vocab_size`` entries; the
+    Prepend/Replace ▁ normalizer, no pre-tokenizer, a BOS template; the
+    config names LlamaTokenizer with ``add_bos_token: true`` and
+    ``legacy: false``. Returns the seconds taken."""
+    import collections
+    import random
+    import re as _re
+
+    t0 = time.perf_counter()
+    specials = ["<unk>", "<s>", "</s>"]
+    vocab = {t: i for i, t in enumerate(
+        specials + [f"<0x{b:02X}>" for b in range(256)] + list(TOKENIZER_ALPHABET))}
+    merges = []
+    alphabet = set(TOKENIZER_ALPHABET)
+    counts = collections.Counter(
+        w for t in texts for w in _re.split("(?<=[^▁])(?=▁)", "▁" + t.replace(" ", "▁")))
+
+    def build(word):
+        cur = word[0]
+        for ch in word[1:]:
+            if len(vocab) >= vocab_size:
+                return
+            new = cur + ch
+            if new not in vocab:
+                merges.append([cur, ch])
+                vocab[new] = len(vocab)
+            cur = new
+
+    for w, _ in sorted(counts.items(), key=lambda kv: (-kv[1], kv[0])):
+        if len(vocab) >= vocab_size:
+            break
+        if set(w) <= alphabet:
+            build(w)
+    rnd = random.Random(seed)
+    while len(vocab) < vocab_size:
+        build("▁" + "".join(rnd.choice(_SYLLABLES) for _ in range(rnd.randint(2, 6))))
+    added = [{"id": i, "content": t, "single_word": False, "lstrip": False, "rstrip": False,
+              "normalized": False, "special": True} for i, t in enumerate(specials)]
+    spec = {
+        "version": "1.0", "truncation": None, "padding": None, "added_tokens": added,
+        "normalizer": {"type": "Sequence", "normalizers": [
+            {"type": "Prepend", "prepend": "▁"},
+            {"type": "Replace", "pattern": {"String": " "}, "content": "▁"}]},
+        "pre_tokenizer": None,
+        "post_processor": {"type": "TemplateProcessing",
+                           "single": [{"SpecialToken": {"id": "<s>", "type_id": 0}},
+                                      {"Sequence": {"id": "A", "type_id": 0}}],
+                           "pair": [{"SpecialToken": {"id": "<s>", "type_id": 0}},
+                                    {"Sequence": {"id": "A", "type_id": 0}},
+                                    {"SpecialToken": {"id": "<s>", "type_id": 1}},
+                                    {"Sequence": {"id": "B", "type_id": 1}}],
+                           "special_tokens": {"<s>": {"id": "<s>", "ids": [1],
+                                                      "tokens": ["<s>"]}}},
+        "decoder": {"type": "Sequence", "decoders": [
+            {"type": "Replace", "pattern": {"String": "▁"}, "content": " "},
+            {"type": "ByteFallback"}, {"type": "Fuse"},
+            {"type": "Strip", "content": " ", "start": 1, "stop": 0}]},
+        "model": {"type": "BPE", "dropout": None, "unk_token": "<unk>",
+                  "continuing_subword_prefix": None, "end_of_word_suffix": None,
+                  "fuse_unk": True, "byte_fallback": True, "ignore_merges": False,
+                  "vocab": vocab, "merges": merges},
+    }
+    with open(os.path.join(dirpath, "tokenizer.json"), "w", encoding="utf-8") as fh:
+        json.dump(spec, fh, ensure_ascii=False)
+    with open(os.path.join(dirpath, "tokenizer_config.json"), "w") as fh:
+        json.dump({"tokenizer_class": "LlamaTokenizer", "add_bos_token": True,
+                   "add_eos_token": False, "legacy": False, "bos_token": "<s>",
+                   "eos_token": "</s>", "unk_token": "<unk>", "pad_token": None,
+                   "model_max_length": 2048}, fh)
+    return time.perf_counter() - t0
+
+
+def ids_digest(id_lists):
+    """sha256 over id lists: each list's length and ids as little-endian
+    int32."""
+    import hashlib
+
+    import numpy as np
+
+    h = hashlib.sha256()
+    for ids in id_lists:
+        a = np.asarray(ids, dtype="<i4")
+        h.update(len(a).to_bytes(4, "little"))
+        h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def _corpus_pass(tokenizer, config, data, cache_dir=None):
+    """The corpus's id lists through ``ItemTextCache`` (a fresh one, whose
+    per-item cache is cold), and the seconds taken; from the disk cache under
+    ``cache_dir`` when it holds one for this tokenizer and these texts."""
+    import numpy as np
+
+    from mhrec_tpu_torch.data.textset import ItemTextCache
+
+    cache = ItemTextCache(data, tokenizer, config["text_keys"], config["item_prompt"],
+                          config["MAX_TEXT_LENGTH"])
+    t0 = time.perf_counter()
+    if cache_dir is not None:
+        hit = cache.load_disk_cache(cache_dir, "synthetic", data.item_num)
+    tokens, lens = cache.batch(np.arange(data.item_num))
+    seconds = time.perf_counter() - t0
+    ids = [tokens[i, :n].tolist() for i, n in enumerate(lens)]
+    return ids, seconds, (hit if cache_dir is not None else None), cache
+
+
+def hllm_tokenizer_phase(work_dir, tower_dir):
+    """HLLM with both towers from hllm_pretrained's TinyLlama-1.1B checkpoint
+    (its shards linked, not written again) and a tokenizer.json of
+    TinyLlama's layout (``write_llama_tokenizer``, vocabulary 32,000) beside
+    them, over PRETRAINED_ITEMS items whose texts ``tokenizer_item_table``
+    draws: the tokenizer's load seconds; the corpus tokenized on the host
+    with a cold cache (a fresh tokenizer), again (the BPE word cache warm)
+    and from the disk cache (items/s, tokens/s, tokens an item); every id
+    below 32,000; both repeats equal to the first; the id lists' digest equal
+    to TOKENIZER_DIGEST (what transformers gives on the CPU); then serving
+    (``run.serve``, the packed corpus pass: ``packed_attn_fwd`` once per layer
+    per corpus batch) and training (``run.train``, PRETRAINED_TRAIN_STEPS
+    steps: 44 ``packed_attn_fwd`` and 22 ``packed_attn_bwd`` launches a step)
+    through that tokenizer. Returns (launches, ok)."""
+    import numpy as np
+    import torch
+
+    from mhrec_tpu_torch.data.synthetic import InMemoryInteractionData
+    from mhrec_tpu_torch.data.textset import TextSEQTrainBatcher, build_tokenizer
+    from mhrec_tpu_torch.run import train
+
+    vocab = TINYLLAMA_1B["vocab_size"]
+    tok_dir = link_layer_cut(tower_dir, os.path.join(work_dir, "tinyllama_tokenizer"),
+                             TINYLLAMA_1B, TINYLLAMA_1B["num_hidden_layers"])
+    data = InMemoryInteractionData(
+        num_users=PRETRAINED_USERS, num_items=PRETRAINED_ITEMS, seq_len=2 * 24 + 2 * 8,
+        num_categories=11, eval_pred_len=8, max_item_list_length=24, seed=0)
+    t0 = time.perf_counter()
+    data.item_text = tokenizer_item_table(PRETRAINED_ITEMS, seed=0)
+    texts_s = time.perf_counter() - t0
+    serve_cfg = hllm_config(tok_dir, work_dir)
+    texts = rendered_texts(serve_cfg, data.item_text, PRETRAINED_ITEMS)
+    write_s = write_llama_tokenizer(tok_dir, texts, vocab, seed=0)
+
+    t0 = time.perf_counter()
+    tokenizer = build_tokenizer(tok_dir, vocab)
+    load_s = time.perf_counter() - t0
+    cold, cold_s, _, cache = _corpus_pass(tokenizer, serve_cfg, data)
+    same_render = [cache.render(i) for i in range(PRETRAINED_ITEMS)] == texts
+    warm, warm_s, _, _ = _corpus_pass(tokenizer, serve_cfg, data)
+    cache_dir = os.path.join(work_dir, "token_cache_probe")
+    cache.build_disk_cache(cache_dir, "synthetic", data.item_num)
+    disk, disk_s, hit, _ = _corpus_pass(build_tokenizer(tok_dir, vocab), serve_cfg, data,
+                                        cache_dir)
+    n_tokens = sum(len(ids) for ids in cold)
+    digest = ids_digest(cold)
+    ids_ok = all(0 <= i < vocab for ids in cold for i in ids)
+    tok_ok = (getattr(tokenizer, "kind", None) == "hf:LlamaTokenizerFast" and same_render
+              and ids_ok and warm == cold and disk == cold and hit
+              and digest == TOKENIZER_DIGEST)
+
+    trainer, _, serve_launches, ok_serve, _ = hllm_serve_phase(
+        serve_cfg, data, phase="hllm_tokenizer_serve")
+    text_cache = trainer._corpus_batcher.text_cache
+    served = text_cache.tokenizer.kind == "hf:LlamaTokenizerFast" and np.array_equal(
+        text_cache.batch(np.arange(PRETRAINED_ITEMS))[1], np.asarray([len(x) for x in cold]))
+    layers = trainer.model.item_config.num_hidden_layers
+    n_batches = math.ceil(data.item_num / trainer._corpus_batcher.batch_size)
+    del trainer
+    torch.cuda.empty_cache()
+
+    cfg = hllm_train_config(tok_dir, work_dir, total_iters=PRETRAINED_TRAIN_STEPS,
+                            eval_interval=100 * PRETRAINED_TRAIN_STEPS)
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer, stats, result = train(cfg, data)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    train_launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    # the test split's corpus pass runs in the training config's batches
+    test_batches = math.ceil(data.item_num / trainer._corpus_batcher.batch_size)
+    per_step = {"packed_attn_fwd": (train_launches["packed_attn_fwd"] - layers * test_batches)
+                / stats["iters"],
+                "packed_attn_bwd": train_launches["packed_attn_bwd"] / stats["iters"]}
+    losses = [loss for _, loss in trainer.fetched_losses]
+    # the train batcher run.train builds, and the evaluation's corpus batcher
+    trained = {TextSEQTrainBatcher(cfg, data).text_cache.tokenizer.kind,
+               trainer._corpus_batcher.text_cache.tokenizer.kind} == {"hf:LlamaTokenizerFast"}
+    ok_train = (stats["iters"] == PRETRAINED_TRAIN_STEPS and len(losses) == stats["iters"]
+                and all(math.isfinite(x) for x in losses) and trained
+                and per_step == {"packed_attn_fwd": 2 * layers, "packed_attn_bwd": layers}
+                and "pred_7" in result)
+    del trainer
+    torch.cuda.empty_cache()
+    ok = bool(tok_ok and ok_serve and served and ok_train
+              and serve_launches["packed_attn_fwd"] == layers * n_batches == 44)
+    emit({"phase": "hllm_tokenizer", "vocab": len(tokenizer.model.vocab),
+          "texts_s": texts_s, "tokenizer_write_s": write_s, "tokenizer_load_s": load_s,
+          "items": PRETRAINED_ITEMS, "tokens": n_tokens,
+          "tokens_per_item": n_tokens / PRETRAINED_ITEMS,
+          "chars_per_item": sum(map(len, texts)) / PRETRAINED_ITEMS,
+          "cold_items_per_s": PRETRAINED_ITEMS / cold_s, "cold_tokens_per_s": n_tokens / cold_s,
+          "warm_items_per_s": PRETRAINED_ITEMS / warm_s, "warm_tokens_per_s": n_tokens / warm_s,
+          "disk_cache_items_per_s": PRETRAINED_ITEMS / disk_s,
+          "disk_cache_tokens_per_s": n_tokens / disk_s,
+          "ids_below_vocab": ids_ok, "repeat_equal": warm == cold, "disk_cache_hit": bool(hit),
+          "disk_cache_equal": disk == cold, "digest": digest, "digest_expected": TOKENIZER_DIGEST,
+          "serve_used_tokenizer": bool(served), "serve_launches": serve_launches,
+          "train_steps": stats["iters"], "train_seconds": seconds,
+          "steady_examples_per_s": stats["steady_examples_per_s"], "losses": losses,
+          "peak_mem_gb": peak_gb, "train_launches": train_launches,
+          "launches_per_step": per_step, "metrics": result, "ok": ok})
+    return {"serve": serve_launches, "train": train_launches}, ok
+
+
 def _step_stats(trainer, stream, steps):
     """``steps`` train steps after one untimed: steady examples/s, peak
     memory, the losses, the launches a step."""
@@ -2449,8 +2754,8 @@ def profile_train_steps(trainer, data, n=5, name="train"):
 
 
 def pretrained_phases(seconds):
-    """The phases of the HLLM towers from local checkpoints and of the
-    training levers, in a work directory of their own (the levers phase
+    """The phases of the HLLM towers from local checkpoints, their tokenizer
+    and the training levers, in a work directory of their own (the levers phase
     writes two 25.7 GB checkpoints). Returns (each path's launches, the
     names of the phases that failed)."""
     import torch
@@ -2473,6 +2778,14 @@ def pretrained_phases(seconds):
         del trainer, data
         torch.cuda.empty_cache()
         seconds["hllm_train_levers"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tok_launches, ok = hllm_tokenizer_phase(
+            work_dir, os.path.join(work_dir, "tinyllama_safetensors"))
+        launches["hllm_tokenizer_serve"] = tok_launches["serve"]
+        launches["hllm_tokenizer_train"] = tok_launches["train"]
+        if not ok:
+            failed.append("hllm_tokenizer")
+        seconds["hllm_tokenizer"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         towers_launches, ok = hllm_towers_phase(work_dir)
         launches.update({f"hllm_towers_{k}": v for k, v in towers_launches.items()})

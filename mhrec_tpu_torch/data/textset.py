@@ -12,37 +12,43 @@ chunk rows with segment ids (``models/llm/packed.py::pack_items``).
 matrices, packed chunk rows (``packed_item_tower``) or, under
 ``dedup_items``, each distinct item once with the gather back.
 
-The tokenizer is the JAX package's deterministic hashing tokenizer, which
-that package falls back to when ``transformers`` cannot load a tokenizer: the
-machine with the card has no ``transformers``, so a pretrain directory that
-holds tokenizer files raises instead of tokenizing differently. The image
-and video keys are not ported yet (they raise), nor the multi-host batch
-layouts of the JAX package.
+The tokenizer resolves a pretrain directory as the JAX package's
+``build_tokenizer`` does, without ``transformers`` or ``tokenizers``: a
+``tokenizer.json``, or a BERT ``vocab.txt``, gives the HF tokenizer of
+``data/hf_tokenizer.py`` (the same ids as ``AutoTokenizer``), unless its
+vocabulary is larger than the model's, where the JAX package's guard takes
+the hashing tokenizer over the model's vocabulary; a directory without a
+tokenizer file, or no directory, gives the hashing tokenizer. Where the JAX
+package loads the tokenizer through a library the port does not depend on
+(SentencePiece's ``tokenizer.model``, tiktoken, a slow ``vocab.json`` /
+``merges.txt`` BPE) or cannot load it at all and falls back to hashing, the
+port raises instead of tokenizing differently. The image and video keys are
+not ported yet (they raise), nor the multi-host batch layouts of the JAX
+package.
 """
 
 from __future__ import annotations
 
-import glob
 import hashlib
 import json
 import logging
 import os
-from typing import Dict, Iterator, Optional
+from typing import Dict, Iterator, Optional, Union
 
 import numpy as np
 
+from mhrec_tpu_torch.data.hf_tokenizer import HFTokenizer, load_tokenizer
 from mhrec_tpu_torch.data.trainset import SEQTrainBatcher
 from mhrec_tpu_torch.models.llm.packed import pack_items
 
 logger = logging.getLogger(__name__)
 
-# files of a local HF tokenizer
-_TOKENIZER_GLOBS = ("tokenizer.json", "tokenizer.model", "tokenizer_config.json",
-                    "vocab.txt", "vocab.json", "*.tiktoken")
-
 
 class HashTokenizer:
     """Deterministic whitespace+hash tokenizer (no vocab files needed)."""
+
+    kind = "hash"
+    files_digest = None
 
     def __init__(self, vocab_size: int = 1024):
         self.vocab_size = vocab_size
@@ -58,15 +64,16 @@ class HashTokenizer:
         return ids
 
 
-def build_tokenizer(pretrain_dir: Optional[str], vocab_size: int = 1024) -> HashTokenizer:
-    """The hashing tokenizer over the pretrain directory's vocabulary
-    (``config.json``'s ``vocab_size``, or ``text_config``'s), else over
-    ``vocab_size``."""
+def build_tokenizer(pretrain_dir: Optional[str],
+                    vocab_size: int = 1024) -> Union[HashTokenizer, HFTokenizer]:
+    """The pretrain directory's HF tokenizer (``hf_tokenizer.load_tokenizer``:
+    ``tokenizer.json`` or a BERT ``vocab.txt``), or the hashing tokenizer over
+    its model's vocabulary (``config.json``'s ``vocab_size``, or
+    ``text_config``'s) where it holds no tokenizer file or where the
+    tokenizer's vocabulary is larger than the model's (the JAX package's
+    guard, ``mhrec_tpu/data/textset.py:80-87``), else over ``vocab_size``."""
     if not pretrain_dir:
         return HashTokenizer(vocab_size)
-    if any(glob.glob(os.path.join(pretrain_dir, g)) for g in _TOKENIZER_GLOBS):
-        raise NotImplementedError(
-            f"HF tokenizers ({pretrain_dir}) are not ported yet: the port hashes")
     model_vocab = None
     cfg_path = os.path.join(pretrain_dir, "config.json")
     if os.path.exists(cfg_path):
@@ -76,7 +83,15 @@ def build_tokenizer(pretrain_dir: Optional[str], vocab_size: int = 1024) -> Hash
             model_vocab = raw.get("vocab_size") or raw.get("text_config", {}).get("vocab_size")
         except (OSError, ValueError, AttributeError):
             pass
-    return HashTokenizer(model_vocab or vocab_size)
+    tok = load_tokenizer(pretrain_dir)
+    if tok is None:
+        return HashTokenizer(model_vocab or vocab_size)
+    if model_vocab and tok.vocab_size > model_vocab:
+        # its ids would index past the embedding table
+        logger.warning("%s: tokenizer vocabulary %d > model vocabulary %d: hashing tokenizer",
+                       pretrain_dir, tok.vocab_size, model_vocab)
+        return HashTokenizer(model_vocab)
+    return tok
 
 
 class ItemTextCache:
@@ -146,8 +161,11 @@ class ItemTextCache:
 
     def _fingerprint(self, dataset_name: str, item_num: int) -> str:
         """Content guard for the persisted token matrix: the rendered text of
-        an evenly strided sample of items and the text settings (the JAX
-        package's key without its image fields)."""
+        an evenly strided sample of items, the text settings (the JAX
+        package's key without its image fields) and the tokenizer: its kind
+        and a sha256 of its files' bytes, so that a matrix written under
+        one tokenizer is not served under another of the same vocabulary
+        size."""
         h = hashlib.sha256()
         for iid in self._fp_sample_ids(item_num):
             h.update(self.render(iid).encode("utf-8", "replace"))
@@ -157,6 +175,8 @@ class ItemTextCache:
             text_keys=self.text_keys, prompt=self.item_prompt,
             T=self.max_text_length, n_emb=self.n_emb,
             vocab=getattr(self.tokenizer, "vocab_size", None),
+            tokenizer=getattr(self.tokenizer, "kind", None),
+            tokenizer_files=getattr(self.tokenizer, "files_digest", None),
             static_prefix=None, images=None, content=h.hexdigest(),
         )
         return hashlib.sha256(json.dumps(spec, sort_keys=True).encode()).hexdigest()[:16]

@@ -4,7 +4,8 @@ paths that ``chip_smoke.py`` drives (HSTU serving and training, HLLM
 serving and training, the eval outputs and modes, gradient accumulation,
 HLLM towers loaded from local checkpoints) import neither PyYAML nor pandas
 nor pyarrow (the machine with the card has none of them), nor, on the HLLM
-paths, ``transformers`` or ``safetensors``."""
+paths, ``transformers``, ``safetensors``, ``tokenizers``, ``regex`` or
+``sentencepiece`` (the HLLM runs read a tower's ``tokenizer.json``)."""
 
 import ast
 import os
@@ -19,9 +20,10 @@ torch.set_num_threads(2)
 
 ROOT = Path(__file__).resolve().parents[1]
 SOURCES = sorted((ROOT / "mhrec_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-# the machine with the card has neither safetensors nor transformers: the
-# port parses .safetensors itself and tokenizes with its hashing tokenizer
-NEVER = ("jax", "jaxlib", "flax", "optax", "mhrec_tpu", "safetensors", "transformers")
+# the port depends on none of these: it parses .safetensors and reads
+# tokenizer.json itself
+NEVER = ("jax", "jaxlib", "flax", "optax", "mhrec_tpu", "safetensors", "transformers",
+         "tokenizers", "regex", "sentencepiece")
 NOT_AT_TOP = ("yaml", "pandas", "pyarrow")
 
 
@@ -228,8 +230,8 @@ def test_hllm_training_path_imports_nothing_it_must_not():
 _EVAL_MODES = """
 import glob, json, os, sys, tempfile
 
-# what the machine with the card lacks: importing it fails, as there
-LACKING = ("pandas", "yaml", "pyarrow", "transformers")
+# what the port runs without: importing it fails
+LACKING = ("pandas", "yaml", "pyarrow", "transformers", "tokenizers", "regex", "sentencepiece")
 sys.modules.update({name: None for name in LACKING})
 import torch
 import chip_smoke
@@ -275,8 +277,12 @@ for k, v in dict(MAX_TEXT_LENGTH=24, MAX_ITEM_LIST_LENGTH=6, train_batch_size=8,
 hdata = InMemoryInteractionData(num_users=40, num_items=300, seq_len=2 * 6 + 16,
                                 num_categories=11, eval_pred_len=8, max_item_list_length=6,
                                 item_texts=True, max_filler_words=12)
+# the tower's tokenizer.json (chip_smoke.py's TinyLlama layout, vocabulary 1024)
+chip_smoke.write_llama_tokenizer(tower, chip_smoke.rendered_texts(cfg, hdata.item_text, 300),
+                                 1024)
 trainer, _, result = serve(cfg, hdata, device="cpu")
 assert "pred_7" in result and trainer.host_table_stats["chunks"] == 3
+assert trainer._corpus_batcher.text_cache.tokenizer.kind == "hf:LlamaTokenizerFast"
 bad = sorted(m for m, mod in sys.modules.items() if mod is not None
              and m.split(".")[0] in {"jax", "jaxlib", "flax", "optax", "mhrec_tpu", *LACKING})
 print("BAD", bad)
@@ -286,11 +292,12 @@ print("BAD", bad)
 def test_eval_modes_and_accumulation_run_without_what_the_card_lacks():
     """Drive the eval outputs (``log_detailed_results``, ``save_for_eval``),
     the streamed GAUC / VALUE metrics, gradient accumulation and the HLLM
-    host-memory corpus table on the CPU in a fresh interpreter where pandas,
-    PyYAML, pyarrow and transformers cannot be imported, as on the machine
-    with the card (chip_smoke.py's configurations, cut to a few widths):
-    each runs, ``results.pkl`` is skipped with one warning, and nothing
-    forbidden is loaded."""
+    host-memory corpus table (its tower directory holding a tokenizer.json)
+    on the CPU in a fresh interpreter where pandas, PyYAML, pyarrow,
+    transformers, tokenizers, regex and sentencepiece cannot be imported
+    (chip_smoke.py's configurations, cut to a few widths): each runs,
+    ``results.pkl`` is skipped with one warning, the corpus pass tokenizes
+    with the port's HF tokenizer, and nothing forbidden is loaded."""
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     proc = subprocess.run([sys.executable, "-c", _EVAL_MODES], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
@@ -302,8 +309,9 @@ def test_eval_modes_and_accumulation_run_without_what_the_card_lacks():
 _PRETRAINED = """
 import os, sys, tempfile
 
-# what the machine with the card lacks: importing it fails, as there
-LACKING = ("safetensors", "transformers", "pandas", "yaml", "pyarrow")
+# what the port runs without: importing it fails
+LACKING = ("safetensors", "transformers", "pandas", "yaml", "pyarrow", "tokenizers", "regex",
+           "sentencepiece")
 sys.modules.update({name: None for name in LACKING})
 import torch
 import chip_smoke
@@ -323,15 +331,20 @@ for fmt, shards in (("safetensors", 2), ("bin", 1)):
     sd = chip_smoke.hf_state_dict(tiny, seed=0, device="cpu", dtype=torch.bfloat16)
     chip_smoke.write_hf_checkpoint(tower, tiny, sd, fmt=fmt, shards=shards)
     cfg = chip_smoke.hllm_config(tower, work, **small)
+    # the tower's tokenizer.json (chip_smoke.py's TinyLlama layout)
+    chip_smoke.write_llama_tokenizer(tower, chip_smoke.rendered_texts(cfg, data.item_text, 300),
+                                     tiny["vocab_size"])
     trainer, _, result = serve(cfg, data, device="cpu")
     equal, n = chip_smoke.loaded_equal_written(trainer.model, sd, tower)
     assert equal and n > 20 and "pred_7" in result, (fmt, equal, n)
     assert set(trainer.model.tower_load_stats) == {"item_llm", "user_llm"}
+    assert trainer._corpus_batcher.text_cache.tokenizer.kind == "hf:LlamaTokenizerFast"
 cfg = chip_smoke.hllm_train_config(tower, work, num_negatives=16, total_iters=2,
                                    eval_interval=2, **small)
 trainer, stats, result = train(cfg, data, device="cpu")
 assert stats["iters"] == 2 and trainer.checkpoint_stats["asynchronous"]
 assert trainer.checkpoint_stats["bytes"] > 0 and "pred_7" in result
+assert trainer._corpus_batcher.text_cache.tokenizer.kind == "hf:LlamaTokenizerFast"
 bad = sorted(m for m, mod in sys.modules.items() if mod is not None
              and m.split(".")[0] in {"jax", "jaxlib", "flax", "optax", "mhrec_tpu", *LACKING})
 print("BAD", bad)
@@ -341,11 +354,12 @@ print("BAD", bad)
 def test_pretrained_towers_load_without_what_the_card_lacks():
     """HLLM towers from checkpoints written by ``chip_smoke.py``'s own
     writer (bfloat16, two ``.safetensors`` shards with an index, and a
-    ``pytorch_model.bin``), served and trained (an asynchronous
-    best-checkpoint save) on the CPU in a fresh interpreter where
-    safetensors, transformers, pandas, PyYAML and pyarrow cannot be
-    imported: every loaded tensor equals the written one, and nothing
-    forbidden, JAX included, is loaded."""
+    ``pytorch_model.bin``) and a tokenizer.json beside them, served and
+    trained (an asynchronous best-checkpoint save) on the CPU in a fresh
+    interpreter where safetensors, transformers, tokenizers, regex,
+    sentencepiece, pandas, PyYAML and pyarrow cannot be imported: every
+    loaded tensor equals the written one, both paths tokenize with the
+    port's HF tokenizer, and nothing forbidden, JAX included, is loaded."""
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     proc = subprocess.run([sys.executable, "-c", _PRETRAINED], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
