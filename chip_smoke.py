@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``mhrec_tpu_torch``) on one CUDA card.
 
-    python3 chip_smoke.py [--profile | --train-only]
+    python3 chip_smoke.py [--profile | --train-only | --stu-bwd-ab]
 
 Builds the port's CUDA kernels from ``mhrec_tpu_torch/csrc`` (one ``nvcc``
 per source, in parallel) and holds each against its plain PyTorch version on
@@ -134,10 +134,22 @@ bert-base-uncased-shaped BERT and a Baichuan-13B-shaped ALiBi tower (2 of
 its 40 layers) and has each serve a small catalog and train 2 steps on the
 dense item tower (no kernel).
 
+Then ``hstu_1b`` (after the HSTU train phases, before the HLLM ones) runs
+the largest HSTU of the reference's ladder, hstu-1b (``IDNet/hstu-1b.yaml``:
+22 layers, 2048 wide, 32 heads of 64) with ``scan_layers``, in the train
+phase's prior protocol over the same users and catalog: it serves (#1 22
+times an eval batch on its tensor-core route), serves again under
+``matmul_precision: tensorfloat32``, and trains at batch 32 with a float32
+table (fit, evaluation, best-checkpoint save, the test split from it; #4
+22 times and #7 once a step), with a bfloat16 table (no #7 launch) and with
+the stacked prior loss (timed in turns against the loop, and held to it on
+one batch); see ``hstu_1b_phase``.
+
 Prints one JSON object per line: the card's name and power limit, build
 seconds, each kernel phase (error against tolerance; kernel, plain and bound
 times), the serve, impl, eval_outputs, eval_streamed_metrics, train,
-train-impl, train_accum, hllm_serve, hllm_impl, hllm_host_table, hllm_train,
+train-impl, train_accum, hstu_1b_serve, hstu_1b_serve_tf32, hstu_1b_train,
+hstu_1b_train_bf16_table, hstu_1b_train_stacked, hllm_serve, hllm_impl, hllm_host_table, hllm_train,
 hllm_train_impl, hllm_pretrained (with its hllm_pretrained_serve record),
 hllm_train_levers, hllm_tokenizer (with its hllm_tokenizer_serve record) and
 hllm_towers phases, the seconds of each phase, each path's launches, a
@@ -150,12 +162,15 @@ TF32 is switched off for matmuls and cuDNN. ``--train-only`` builds the
 kernels and runs the HSTU train phase alone, without the last line: a copy
 of this script beside another tree's ``mhrec_tpu_torch`` (a parent commit
 unpacked with ``git archive``) runs that tree's training, so two trees can
-be timed in turns within one call.
+be timed in turns within one call. ``--stu-bwd-ab`` likewise builds the
+kernels and times #4 (``hstu_stu_gated_bwd``) alone at the train step's
+shape and at hstu-1b's width.
 """
 
 from __future__ import annotations
 
 import glob
+import itertools
 import json
 import math
 import os
@@ -794,12 +809,13 @@ def packed_bwd_train_rows(corpus_ms_per_pair, dtype, seed=0):
             "ms_per_pair_over_corpus": ms / pairs / corpus_ms_per_pair}
 
 
-def base_config(**over):
+def base_config(files=("IDNet/hstu-size4.yaml", "overall/ID.yaml", "IDNet/hstu.yaml"),
+                **over):
     from mhrec_tpu_torch.config import Config
 
     C = 8
     return Config(
-        config_file_list=["IDNet/hstu-size4.yaml", "overall/ID.yaml", "IDNet/hstu.yaml"],
+        config_file_list=list(files),
         config_dict=dict(
             dict(dataset="synthetic", seed=0,
                  MAX_ITEM_LIST_LENGTH=50, loss="prior", eval_num_cats=C,
@@ -1838,6 +1854,400 @@ def train_accum_phase(data, k1_steady):
     return launches, ok
 
 
+# -- hstu-1b: the largest HSTU of the reference's ladder ----------------------
+HSTU_1B_FILES = ("IDNet/hstu-1b.yaml", "overall/ID.yaml", "IDNet/hstu.yaml")
+# batch 32, as the JAX package's 1b ladder row trains it (BASELINE.md:48).
+# Steps of each training variant: if the script runs long, these are cut
+# first, never the width or the depth
+HSTU_1B_BATCH = 32
+HSTU_1B_STEPS = 20
+# steps of each turn of the loop / stacked timing (loop, stacked, stacked, loop)
+HSTU_1B_TURN_STEPS = 5
+# the stacked prior loss against the loop on one batch, on a float32 copy
+# of the model: the loss to this relative difference and each gradient
+# tensor to STACKED_GRAD_TOL (relative L2). The two paths differ only in the
+# order of the categories' f32 sums, which on the H100 read 9.5e-8 and
+# 6.5e-8 (PERF.md §6); one of the 8 categories' slices taken wrong (a mask,
+# a weight, a false-negative table) changes that category's loss term
+# outright
+STACKED_LOSS_TOL = 1e-5
+STACKED_GRAD_TOL = 1e-4
+
+
+def hstu_1b_config(checkpoint_dir, **over):
+    """hstu-1b (IDNet/hstu-1b.yaml: 22 layers, 2048 wide, 32 heads of 64,
+    dropout 0.2) with ``scan_layers`` in the train phase's prior protocol
+    (train_config: 8 categories, 4 segment heads, additive heads, one medusa
+    layer, the switch, the weighted prior loss, 8192 negatives a category,
+    ``pred_len`` 8, window 50, ``sparse_item_adam``) at batch HSTU_1B_BATCH
+    for HSTU_1B_STEPS steps; per-layer relative bias off, which
+    ``scan_layers`` refuses. ``over``: further settings."""
+    cfg = base_config(
+        files=HSTU_1B_FILES, scan_layers=True, enable_relative_attention_bias=False,
+        train_batch_size=HSTU_1B_BATCH, num_negatives=8192, neg_sample_by_cat=True,
+        weighted_prior_loss=True, prior_switch_loss_weight=0.1, sparse_item_adam=True,
+        optim_args={"learning_rate": 1e-4, "weight_decay": 0.0},
+        total_iters=HSTU_1B_STEPS, eval_interval=HSTU_1B_STEPS, update_interval=5,
+        checkpoint_dir=checkpoint_dir)
+    for key, value in over.items():
+        cfg[key] = value
+    return cfg
+
+
+def hstu_train_flops(config) -> int:
+    """Model FLOPs of one HSTU train step: three times the forward's
+    products (forward and backward) for the trunk's projections (uvqk,
+    o_proj) and causal attention, the medusa heads and the loss's
+    differentiable products (negative logits, banded partition sums,
+    positive logits; the shared NCE over the segment heads and one per prior
+    category), once the false-negative tables, which take no gradient.
+    Elementwise work is left out."""
+    B, L, P = config["train_batch_size"], config["MAX_ITEM_LIST_LENGTH"], config["pred_len"]
+    D, layers, H = config["hstu_embedding_size"], config["n_layers"], config["n_heads"]
+    S, C = config["num_segment_head"], config["num_prior_head"]
+    M = B * math.ceil(config["num_negatives"] / B)  # negatives a pool
+    J = L + P - 1
+    tokens = B * L
+    trunk = layers * (2 * tokens * 5 * D * D + 2 * (B * H * L * (L + 1) // 2) * 2 * (D // H))
+    heads = (S + C) * config["medusa_num_layers"] * 2 * tokens * D * D
+    nce_heads = S + C  # the shared NCE's distinct heads, then one per category
+    grad_products = nce_heads * (2 * B * L * M * D + 2 * B * L * M * J + 2 * B * L * J * D)
+    fixed_products = (1 + C) * 2 * B * J * M * D
+    return 3 * (trunk + heads + grad_products) + fixed_products
+
+
+def _metric_values(result):
+    return [v for sec in result.values() for v in sec.values()]
+
+
+def _overall(result):
+    """The metric sections without their per-category entries."""
+    return {sec: {m: v for m, v in vals.items() if "-" not in m} for sec, vals in result.items()}
+
+
+def _timed_steps(trainer, stream, steps):
+    """Examples/s of ``steps`` train steps, the card synchronised at both ends."""
+    _sync(trainer)
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        trainer.train_step(next(stream))
+    _sync(trainer)
+    return steps * trainer.config["train_batch_size"] / (time.perf_counter() - t0)
+
+
+def _sync(trainer):
+    import torch
+
+    if trainer.device.type == "cuda":
+        torch.cuda.synchronize(trainer.device)
+
+
+def _reset_peak(device):
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+
+
+def _peak_gb(device):
+    import torch
+
+    return torch.cuda.max_memory_allocated(device) / 2**30 if device.type == "cuda" else None
+
+
+def row_update_equals_plain(trainer, batch, at_step):
+    """One train step of ``trainer`` (f32 table, ``sparse_item_adam``) with
+    its row update held against the plain version at the shape and on the
+    data the path gives it: (table, m, v) are copied just before
+    ``row_adamw`` runs, ``sparse_adamw_row_update`` runs on the copies with
+    the same ids, rows, learning rate and step, and the two must be equal
+    bit for bit, and the rows must move. The step is taken as step
+    ``at_step`` of the schedule (one with a learning rate above 0; the
+    trainer's count is put back after). On the card both are then timed in
+    place on the copies (plain, kernel, kernel, plain) beside the bound.
+    Returns the record."""
+    import torch
+
+    from mhrec_tpu_torch.ops import row_adam_cuda
+    from mhrec_tpu_torch.trainer.sparse_adam import sparse_adamw_row_update
+
+    kernel, rec = row_adam_cuda.row_adamw, {}
+
+    def checked(p, m, v, ids, g, lr, step, cfg):
+        pre = [t.detach().clone() for t in (p, m, v)]
+        real = ids[ids >= 0]
+        rows_before = p.detach()[real].clone()
+        kernel(p, m, v, ids, g, lr, step, cfg)
+        after = [t.detach().clone() for t in (p, m, v)]
+        sparse_adamw_row_update(*pre, ids, g, lr, step, cfg)
+        rec.update(N=p.shape[0], D=p.shape[1], U=int(ids.numel()), real_ids=int(real.numel()),
+                   bit_equal=all(bool(torch.equal(a, b)) for a, b in zip(after, pre)),
+                   max_abs_err=max(float((a - b).abs().max()) for a, b in zip(after, pre)),
+                   rows_moved=bool((after[0][real] != rows_before).any()))
+        if p.is_cuda:
+            args = (ids, g, lr, step, cfg)
+            p1, k1, k2, p2 = (cuda_ms(lambda f=f: f(*pre, *args), iters=10)
+                              for f in (sparse_adamw_row_update, kernel, kernel,
+                                        sparse_adamw_row_update))
+            nbytes = 7 * 4 * rec["real_ids"] * rec["D"] + ids.numel() * ids.element_size()
+            bound, bound_by = _bound(nbytes, 16 * rec["real_ids"] * rec["D"],
+                                     PEAK_FLOPS["float32"])
+            rec.update(ms=min(k1, k2), plain_ms=min(p1, p2), bound_ms=bound, bound_by=bound_by)
+        del pre, after
+
+    # the wrapper counts its launches on the module's row_adamw, which is
+    # ``checked`` meanwhile: this step's launches land there, uncounted
+    checked.launches = 0
+    row_adam_cuda.row_adamw = checked
+    step, trainer.step = trainer.step, at_step
+    try:
+        trainer.train_step(batch)
+    finally:
+        row_adam_cuda.row_adamw, trainer.step = kernel, step
+    rec["lr"] = trainer.schedule(at_step)
+    rec["ok"] = bool(rec.get("bit_equal") and rec.get("rows_moved"))
+    return rec
+
+
+def hstu_1b_phase(data, work_dir, device=None, **over):
+    """hstu-1b at full width (hstu_1b_config; ``over`` cuts it for the CPU
+    tests), each path with the launch counts set to 0 just before it and
+    read just after:
+
+    * ``hstu_1b_serve``: ``run.serve`` over the HSTU phases' users and
+      catalog at eval batch 1024; #1 22 times an eval batch on its
+      tensor-core route and no other kernel; users/s of a warm repeat,
+      which must give the same metrics; peak memory. Then
+      ``hstu_1b_serve_tf32``: the same trainer's evaluation under
+      ``matmul_precision: tensorfloat32`` (users/s, the largest metric
+      difference from full float32; informational, only finite metrics
+      are required), the precision restored after;
+    * ``hstu_1b_train``: ``run.train`` with an f32 table, HSTU_1B_STEPS
+      steps, an evaluation with a best-checkpoint save, the test split from
+      it; #4 22 times a step, #7 once a step, #1 22 times a step and an
+      eval batch; steady examples/s, the device's busy share over three
+      more steps under the profiler, peak memory, model FLOP/s against
+      989 TFLOP/s dense bf16; then one more step whose #7 launch is held
+      bit for bit against the plain update (row_update_equals_plain);
+    * ``hstu_1b_train_bf16_table``: the same steps with ``item_table_dtype:
+      bfloat16`` (``fit`` without evaluations): no #7 launch, a bf16 table
+      with f32 moments; the loss gap to the f32 run after the same steps,
+      steady examples/s, the table's bytes;
+    * ``hstu_1b_train_stacked``: the same steps with ``prior_loss_impl:
+      stacked``, then the loop and the stacked loss timed in turns on that
+      trainer (loop, stacked, stacked, loop; HSTU_1B_TURN_STEPS steps each),
+      and one batch's loss and gradients of both on a float32 copy of the
+      model (STACKED_LOSS_TOL, STACKED_GRAD_TOL) and, reported only, in bf16.
+
+    Returns (each path's launches, the names of the checks that failed)."""
+    import torch
+
+    from mhrec_tpu_torch.data import build_dataloader, build_eval_dataloaders
+    from mhrec_tpu_torch.ops import hstu_attention_cuda as K
+    from mhrec_tpu_torch.run import serve, set_matmul_precision, train
+    from mhrec_tpu_torch.trainer import Trainer
+
+    failed, paths = [], {}
+
+    # serving
+    config = hstu_1b_config(work_dir, val_only=True, **over)
+    layers, H = config["n_layers"], config["n_heads"]
+    d = config["hstu_embedding_size"] // H
+    route = K.stu_gated_fwd_route(torch.bfloat16, config["MAX_ITEM_LIST_LENGTH"], H, d, d)
+    reset_launches()
+    t0 = time.perf_counter()
+    trainer, test_loader, result = serve(config, data, device)
+    _sync(trainer)
+    serve_seconds = time.perf_counter() - t0
+    paths["hstu_1b_serve"] = launches = read_launches()
+    dev = trainer.device
+    _reset_peak(dev)
+    t0 = time.perf_counter()
+    again = trainer.evaluate(test_loader)
+    _sync(trainer)
+    eval_seconds = time.perf_counter() - t0
+    peak = _peak_gb(dev)
+    n_users = len(test_loader)
+    batches = math.ceil(n_users / config["eval_batch_size"])
+    values = _metric_values(result)
+    ok = (route == "tensor_cores" and again == result
+          and launches == dict({k: 0 for k in launches}, hstu_stu_gated_fwd=layers * batches)
+          and all(math.isfinite(v) for v in values) and "pred_7" in result)
+    emit({"phase": "hstu_1b_serve", "layers": layers, "width": config["hstu_embedding_size"],
+          "heads": H, "users": n_users, "items": int(data.item_num), "eval_batches": batches,
+          "serve_seconds": serve_seconds, "eval_seconds": eval_seconds,
+          "users_per_s": n_users / eval_seconds, "peak_mem_gb": peak,
+          "stu_fwd_route": route, "launches": launches,
+          "launches_per_eval_batch": launches["hstu_stu_gated_fwd"] / batches,
+          "repeat_matches": again == result, "metrics": _overall(result), "ok": bool(ok)})
+    if not ok:
+        failed.append("hstu_1b_serve")
+    set_matmul_precision("tensorfloat32")
+    try:
+        trainer.evaluate(test_loader)  # the TF32 products' first call
+        t0 = time.perf_counter()
+        tf32 = trainer.evaluate(test_loader)
+        _sync(trainer)
+        tf32_seconds = time.perf_counter() - t0
+    finally:
+        set_matmul_precision(None)
+    diffs = {f"{sec}/{m}": abs(tf32[sec][m] - result[sec][m]) for sec in result
+             for m in result[sec]}
+    worst = max(diffs, key=diffs.get)
+    ok = all(math.isfinite(v) for v in _metric_values(tf32))
+    emit({"phase": "hstu_1b_serve_tf32", "matmul_precision": "tensorfloat32",
+          "users_per_s": n_users / tf32_seconds, "highest_users_per_s": n_users / eval_seconds,
+          "max_metric_abs_diff": diffs[worst], "max_diff_metric": worst,
+          "metrics": _overall(tf32), "ok": bool(ok)})
+    if not ok:
+        failed.append("hstu_1b_serve_tf32")
+    del trainer, test_loader
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # training, f32 table
+    config = hstu_1b_config(work_dir, **over)
+    steps, B = config["total_iters"], config["train_batch_size"]
+    eval_batches = sum(math.ceil(len(loader) / config["eval_batch_size"])
+                       for loader in build_eval_dataloaders(config, data))
+    reset_launches()
+    _reset_peak(dev)
+    t0 = time.perf_counter()
+    trainer, stats, result = train(config, data, device)
+    _sync(trainer)
+    seconds = time.perf_counter() - t0
+    paths["hstu_1b_train"] = launches = read_launches()
+    peak = _peak_gb(dev)
+    f32_losses = [loss for _, loss in trainer.fetched_losses]
+    flops = hstu_train_flops(config)
+    steady = stats["steady_examples_per_s"]
+    busy = None
+    if dev.type == "cuda":
+        stream = build_dataloader(config, data)[0].epoch_batches(3)
+        batches3 = [next(stream) for _ in range(3)]
+        wall, _, busy_us = profiled(lambda: [trainer.train_step(b) for b in batches3])
+        busy = busy_us / 1e6 / wall
+    # #7 against its plain version on one more step's ids and rows
+    row_check = row_update_equals_plain(
+        trainer, next(build_dataloader(config, data)[0].epoch_batches(4)), steps // 2)
+    want = dict({k: 0 for k in launches}, hstu_stu_gated_fwd=layers * (steps + eval_batches),
+                hstu_stu_gated_bwd=layers * steps, row_adamw=steps)
+    ok = (stats["iters"] == steps and launches == want and int(trainer.nan_step) < 0
+          and all(math.isfinite(x) for x in f32_losses) and "load_s" in trainer.checkpoint_stats
+          and os.path.isfile(trainer.checkpoint_path()) and row_check["ok"]
+          and all(math.isfinite(v) for v in _metric_values(result)) and "pred_7" in result)
+    f32_table_bytes = trainer.model.item_embedding.weight.nbytes
+    emit({"phase": "hstu_1b_train", "steps": stats["iters"], "batch": B,
+          "num_negatives": config["num_negatives"], "items": int(data.item_num),
+          "parameters": sum(p.numel() for p in trainer.model.parameters()),
+          "seconds": seconds, "fit_wall_s": stats["wall_s"], "fit_eval_s": stats["eval_s"],
+          "steady_examples_per_s": steady, "examples_per_s": stats["examples_per_s"],
+          "device_busy_share": busy, "peak_mem_gb": peak,
+          "model_flops_per_step": flops, "model_tflop_per_s": flops * steady / B / 1e12,
+          "share_of_bf16_peak": flops * steady / B / PEAK_FLOPS["bfloat16"],
+          "losses": trainer.fetched_losses, "table_bytes": f32_table_bytes,
+          "launches": launches, "launches_per_step": {
+              "hstu_stu_gated_bwd": launches["hstu_stu_gated_bwd"] / steps,
+              "row_adamw": launches["row_adamw"] / steps},
+          "checkpoint": trainer.checkpoint_stats, "test_metrics": _overall(result)["pred_7"],
+          "row_adamw_vs_plain": row_check, "ok": bool(ok)})
+    if not ok:
+        failed.append("hstu_1b_train")
+    del trainer
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # training, bf16 table
+    config = hstu_1b_config(work_dir, item_table_dtype="bfloat16", **over)
+    trainer = Trainer(config, data, device=device)
+    trainer.setup_model()
+    train_loader = build_dataloader(config, data)[0]
+    reset_launches()
+    _reset_peak(dev)
+    stats = trainer.fit(train_loader, None)
+    _sync(trainer)
+    paths["hstu_1b_train_bf16_table"] = launches = read_launches()
+    table = trainer.model.item_embedding.weight
+    losses = [loss for _, loss in trainer.fetched_losses]
+    want = dict({k: 0 for k in launches}, hstu_stu_gated_fwd=layers * steps,
+                hstu_stu_gated_bwd=layers * steps)
+    ok = (stats["iters"] == steps and launches == want and table.dtype == torch.bfloat16
+          and trainer.table_m.dtype == trainer.table_v.dtype == torch.float32
+          and int(trainer.nan_step) < 0 and all(math.isfinite(x) for x in losses))
+    emit({"phase": "hstu_1b_train_bf16_table", "steps": stats["iters"], "batch": B,
+          "stochastic_round": trainer.table_sr,
+          "steady_examples_per_s": stats["steady_examples_per_s"],
+          "f32_steady_examples_per_s": steady, "losses": trainer.fetched_losses,
+          "last_loss_gap_to_f32": losses[-1] - f32_losses[-1],
+          "last_loss_rel_gap_to_f32": (losses[-1] - f32_losses[-1]) / abs(f32_losses[-1]),
+          "table_dtype": str(table.dtype), "table_bytes": table.nbytes,
+          "f32_table_bytes": f32_table_bytes, "moments_bytes": 2 * trainer.table_m.nbytes,
+          "peak_mem_gb": _peak_gb(dev), "launches": launches, "ok": bool(ok)})
+    if not ok:
+        failed.append("hstu_1b_train_bf16_table")
+    del trainer, table
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # training, stacked prior loss
+    config = hstu_1b_config(work_dir, prior_loss_impl="stacked", **over)
+    trainer = Trainer(config, data, device=device)
+    trainer.setup_model()
+    train_loader = build_dataloader(config, data)[0]
+    reset_launches()
+    _reset_peak(dev)
+    stats = trainer.fit(train_loader, None)
+    _sync(trainer)
+    paths["hstu_1b_train_stacked"] = launches = read_launches()
+    losses = [loss for _, loss in trainer.fetched_losses]
+    want = dict({k: 0 for k in launches}, hstu_stu_gated_fwd=layers * steps,
+                hstu_stu_gated_bwd=layers * steps, row_adamw=steps)
+    ok = (stats["iters"] == steps and launches == want and int(trainer.nan_step) < 0
+          and all(math.isfinite(x) for x in losses))
+    peak = _peak_gb(dev)
+    stream = itertools.chain.from_iterable(
+        train_loader.epoch_batches(epoch) for epoch in itertools.count(11))
+    turns = {"loop": [], "stacked": []}
+    for impl in ("loop", "stacked", "stacked", "loop"):
+        trainer.model.prior_loss_impl = impl
+        turns[impl].append(_timed_steps(trainer, stream, HSTU_1B_TURN_STEPS))
+    trainer.model.prior_loss_impl = "stacked"
+    batch = next(stream)
+    agree = {}
+    f32 = Trainer(config, data, device=device, dtype=torch.float32)
+    f32.model.load_state_dict(trainer.model.state_dict())
+    for name, tr in (("float32", f32), ("bfloat16", trainer)):
+        out = {}
+        for impl in ("stacked", "loop"):
+            tr.model.prior_loss_impl = impl
+            out[impl] = loss_and_grads(tr, batch, trainer.step)
+        (l_s, g_s, _), (l_l, g_l, _) = out["stacked"], out["loop"]
+        grad_rel, cos, worst = _grad_agreement(g_s, g_l)
+        agree[name] = {"loss_stacked": l_s, "loss_loop": l_l,
+                       "loss_rel_diff": abs(l_s - l_l) / abs(l_l), "grad_max_rel_l2": grad_rel,
+                       "grad_worst_tensor": worst, "grad_cosine": cos}
+        del out, g_s, g_l
+    del f32
+    ok = (ok and agree["float32"]["loss_rel_diff"] <= STACKED_LOSS_TOL
+          and agree["float32"]["grad_max_rel_l2"] <= STACKED_GRAD_TOL)
+    emit({"phase": "hstu_1b_train_stacked", "steps": stats["iters"], "batch": B,
+          "steady_examples_per_s": stats["steady_examples_per_s"],
+          "f32_loop_steady_examples_per_s": steady, "losses": trainer.fetched_losses,
+          "last_loss_rel_gap_to_loop": (losses[-1] - f32_losses[-1]) / abs(f32_losses[-1]),
+          "turn_steps": HSTU_1B_TURN_STEPS, "turns_examples_per_s": turns,
+          "loop_examples_per_s": max(turns["loop"]),
+          "stacked_examples_per_s": max(turns["stacked"]),
+          "one_batch": agree, "loss_tolerance": STACKED_LOSS_TOL,
+          "grad_tolerance": STACKED_GRAD_TOL, "peak_mem_gb": peak, "launches": launches,
+          "ok": bool(ok)})
+    if not ok:
+        failed.append("hstu_1b_train_stacked")
+    del trainer
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return paths, failed
+
+
 # the profile phases' groups of device kernels, by name (first match wins)
 PROFILE_GROUPS = (
     ("packed_attn_bwd", "packed_attn_bwd"),
@@ -2828,6 +3238,16 @@ def main(argv=None) -> int:
     # the HSTU phases' users and catalog
     hstu_data = dict(num_users=4096, num_items=200_000, seq_len=2 * 50 + 2 * 8,
                      num_categories=8, eval_pred_len=8, max_item_list_length=50, seed=0)
+    if "--stu-bwd-ab" in args:
+        # #4 alone at the train step's shape and at hstu-1b's width, split by
+        # the kernels a call runs: a copy of this script beside another
+        # tree's mhrec_tpu_torch times that tree's kernel
+        ok = True
+        with torch.no_grad():
+            for shape_name, H in (("size4", 16), ("1b", 32)):
+                ok &= kernel_phase("stu_bwd", shape_name, 64, 50, H, 64, torch.bfloat16)["ok"]
+                kernel_breakdown("stu_bwd", shape_name, 64, 50, H, 64, torch.bfloat16)
+        return 0 if ok else 1
     if "--train-only" in args:
         data = InMemoryInteractionData(**hstu_data)
         ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
@@ -2860,16 +3280,24 @@ def main(argv=None) -> int:
                 kernel_recs[kind] = rec
                 if not (rec["ok"] and rec["route"] == "tensor_cores"):
                     failed.append(f"{kind}/serve")
+            if kind == "stu":
+                # hstu-1b's serving shape and its train batch (F = 2048)
+                for shape_name, B in (("1b_serve", 1024), ("1b_train", HSTU_1B_BATCH)):
+                    rec = kernel_phase(kind, shape_name, B, 50, 32, 64, torch.bfloat16)
+                    if not (rec["ok"] and rec["route"] == "tensor_cores"):
+                        failed.append(f"{kind}/{shape_name}")
             if kind == "attn":
                 # the serving shape, split by the kernels a call runs, on
                 # both routes
                 for route in ("tensor_cores", "cuda_cores"):
                     kernel_breakdown(kind, "serve", 1024, 50, 16, 64, torch.bfloat16, route=route)
             if kind == "stu_bwd":
-                # hstu-1b's width (F = 2048), where one block holds an SM
-                rec = kernel_phase(kind, "1b", 64, 50, 32, 64, torch.bfloat16)
-                if not (rec["ok"] and rec["route"] == "tensor_cores"):
-                    failed.append(f"{kind}/1b")
+                # hstu-1b's width (F = 2048), where one block holds an SM,
+                # at the size4 train batch and at hstu-1b's
+                for shape_name, B in (("1b", 64), ("1b_train", HSTU_1B_BATCH)):
+                    rec = kernel_phase(kind, shape_name, B, 50, 32, 64, torch.bfloat16)
+                    if not (rec["ok"] and rec["route"] == "tensor_cores"):
+                        failed.append(f"{kind}/{shape_name}")
             if kind in ("stu_bwd", "attn_bwd"):
                 # the train step's shape, split by the kernels a call runs,
                 # on both routes
@@ -2938,9 +3366,19 @@ def main(argv=None) -> int:
     accum_launches, ok = train_accum_phase(data, train_stats["steady_examples_per_s"])
     if not ok:
         failed.append("train_accum")
-    del data
     torch.cuda.empty_cache()
     seconds["train_accum"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_1b_")
+    try:
+        hstu_1b_launches, hstu_1b_failed = hstu_1b_phase(data, ckpt_dir)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    failed.extend(hstu_1b_failed)
+    del data
+    torch.cuda.empty_cache()
+    seconds["hstu_1b"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
     work_dir = tempfile.mkdtemp(prefix="chip_smoke_hllm_")
@@ -2993,7 +3431,7 @@ def main(argv=None) -> int:
     emit({"path_launches": {
         "serve": serve_launches, "eval_outputs": outputs_launches,
         "eval_streamed_metrics": streamed_launches, "train": train_launches,
-        "train_accum": accum_launches, "hllm_serve": hllm_launches,
+        "train_accum": accum_launches, **hstu_1b_launches, "hllm_serve": hllm_launches,
         "hllm_host_table": host_launches, "hllm_train": hllm_train_launches,
         **pretrained_launches}})
 

@@ -6,9 +6,11 @@ Flax ``Dense`` kernels are [in, out] and become ``nn.Linear`` weights
 (split order u, v, q, k, silu before the split — hstu.py:62-69). The Llama
 towers' ``DenseGeneral`` attention kernels [D, heads, dh] become [heads·dh,
 D] weights, and a BERT tower's fused ``qkv`` kernel [D, 3, heads, dh] one
-[3·heads·dh, D] weight. The key walk follows ``tools/convert_reference_ckpt.py:208-248``.
-A flax parameter the walk does not use, or one it needs and does not find,
-raises.
+[3·heads·dh, D] weight. A scanned HSTU stack (``scan_layers``: each leaf
+of ``stu_stack/layers/stu`` stacked on a leading [n_layers] axis) maps
+onto the same unrolled ``stu_layers`` as the unrolled tree. The key walk
+follows ``tools/convert_reference_ckpt.py:208-248``. A flax parameter the
+walk does not use, or one it needs and does not find, raises.
 """
 
 from __future__ import annotations
@@ -47,17 +49,21 @@ class _Walk:
         self.used.add(path)
         return self.flat[path]
 
-    def put(self, key: str, path: str, transpose: bool = False):
+    def put(self, key: str, path: str, transpose: bool = False, layer=None):
+        """``layer``: the slice of a leaf stacked on a leading [n_layers]
+        axis (a scanned stack's) that ``key`` takes."""
         arr = self.take(path)
+        if layer is not None:
+            arr = arr[layer]
         self.sd[key] = torch.from_numpy(np.array(arr.T if transpose else arr))  # owned copy
 
-    def put_dense(self, prefix: str, path: str):
-        self.put(f"{prefix}.weight", f"{path}/kernel", transpose=True)
-        self.put(f"{prefix}.bias", f"{path}/bias")
+    def put_dense(self, prefix: str, path: str, layer=None):
+        self.put(f"{prefix}.weight", f"{path}/kernel", transpose=True, layer=layer)
+        self.put(f"{prefix}.bias", f"{path}/bias", layer=layer)
 
-    def put_norm(self, prefix: str, path: str):
-        self.put(f"{prefix}.weight", f"{path}/scale")
-        self.put(f"{prefix}.bias", f"{path}/bias")
+    def put_norm(self, prefix: str, path: str, layer=None):
+        self.put(f"{prefix}.weight", f"{path}/scale", layer=layer)
+        self.put(f"{prefix}.bias", f"{path}/bias", layer=layer)
 
     def put_resblocks(self, prefix: str, path: str):
         r = 0
@@ -165,12 +171,22 @@ def state_dict_from_flax(params: Mapping, config) -> Dict[str, torch.Tensor]:
         if "item_proj/kernel" in flat:
             put("item_proj.weight", "item_proj/kernel", transpose=True)
         put("position_embedding.weight", "position_embedding/embedding")
-        for i in range(int(config["n_layers"])):
-            p, t = f"stu_{i}", f"stu_layers.{i}"
-            put_norm(f"{t}.input_norm", f"{p}/input_norm")
-            put(f"{t}.uvqk", f"{p}/uvqk")
-            put_norm(f"{t}.attn_norm", f"{p}/attn_norm")
-            put_dense(f"{t}.o_proj", f"{p}/o_proj")
+        # a scanned stack (ScannedSTUStack) stacks each leaf on a leading
+        # [n_layers] axis; its slice i goes to the unrolled layer i
+        n_layers = int(config["n_layers"])
+        scanned = "stu_stack" in params
+        if scanned:
+            depths = {v.shape[0] for k, v in flat.items() if k.startswith("stu_stack/")}
+            if depths != {n_layers}:
+                raise ValueError(f"scanned stack of depth {sorted(depths)}, config n_layers "
+                                 f"{n_layers}")
+        for i in range(n_layers):
+            p, layer = ("stu_stack/layers/stu", i) if scanned else (f"stu_{i}", None)
+            t = f"stu_layers.{i}"
+            put_norm(f"{t}.input_norm", f"{p}/input_norm", layer=layer)
+            put(f"{t}.uvqk", f"{p}/uvqk", layer=layer)
+            put_norm(f"{t}.attn_norm", f"{p}/attn_norm", layer=layer)
+            put_dense(f"{t}.o_proj", f"{p}/o_proj", layer=layer)
             if config["enable_relative_attention_bias"]:
                 put(f"rel_bias.{i}.ts_w", f"rel_bias_{i}/ts_w")
                 put(f"rel_bias.{i}.pos_w", f"rel_bias_{i}/pos_w")

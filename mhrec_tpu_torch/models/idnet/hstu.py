@@ -329,9 +329,16 @@ class HSTU(MedusaHeads, nn.Module):
         share_seg_weights: bool = False,
         use_seg_embed: bool = False,
         attn_impl: str = "auto",
+        scan_layers: bool = False,
         dtype=torch.bfloat16,
     ):
         super().__init__()
+        # JAX's ScannedSTUStack (hstu.py:126-178) runs the layers under
+        # lax.scan to shorten XLA's compile; eager PyTorch has no such
+        # compile, so the scanned model is the unrolled one, with one
+        # checkpoint layout for both (convert.py maps the scanned flax tree)
+        if scan_layers and enable_relative_attention_bias:
+            raise ValueError("scan_layers is incompatible with per-layer relative bias")
         self.item_num = item_num
         self.max_seq_length = max_seq_length
         self.enable_relative_attention_bias = enable_relative_attention_bias
@@ -418,7 +425,9 @@ class HSTU(MedusaHeads, nn.Module):
     def _embed_items(self, items, sub=None):
         """Under ``sparse_item_adam`` the trainer passes the gathered
         per-batch sub-table ``sub`` and the ids are local indices into it."""
-        emb = self.item_embedding(items, sub)
+        # a bf16 table's rows are read in float32, as JAX promotes them
+        # against the float32 position table and item_proj kernel
+        emb = self.item_embedding(items, sub).float()
         if self.item_proj is not None:
             emb = self.item_proj(emb)
         return emb
@@ -471,18 +480,16 @@ class HSTU(MedusaHeads, nn.Module):
 
     def compute_item_all(self):
         """Normalized full item-embedding matrix (reference hstu.py:1018-1021)."""
-        w = self.item_embedding.weight[: self.item_num]
+        w = self.item_embedding.weight[: self.item_num].float()
         if self.item_proj is not None:
             w = self.item_proj(w)
-        return cosine_normalize(w.float())
+        return cosine_normalize(w)
 
 
 # ----------------------------------------------------------------------
 def hstu_from_config(config, dataload, dtype=torch.bfloat16) -> HSTU:
     """Build an HSTU from a Config + InteractionData (the JAX package's
     ``hstu_from_config``, hstu.py:604-670, one device)."""
-    if config.get("scan_layers", False):
-        raise NotImplementedError("scan_layers (ScannedSTUStack) is not ported yet")
     if config.get("shard_item_embedding", False):
         raise NotImplementedError("shard_item_embedding (multi-GPU) is not ported yet")
     loss = config["loss"]
@@ -542,5 +549,6 @@ def hstu_from_config(config, dataload, dtype=torch.bfloat16) -> HSTU:
         share_seg_weights=config.get("share_seg_weights", False),
         use_seg_embed=config.get("segment_embed", False),
         attn_impl=config.get("attn_impl", "auto"),
+        scan_layers=bool(config.get("scan_layers", False)),
         dtype=dtype,
     )

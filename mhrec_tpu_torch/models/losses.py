@@ -15,8 +15,9 @@ the false-negative indicator; ``per_offset`` runs one masked logsumexp per
 offset. The large ``[B, L, M]`` logit tables are bfloat16 products with
 float32 sums rounded to bfloat16, as in the JAX package; the banded
 partition-sum product keeps float32 sums (here: float32 products of the
-bfloat16 values, which are exact). The category-stacked variant
-(``prior_loss_impl: stacked``) is not ported yet.
+bfloat16 values, which are exact). ``multi_horizon_nce_stacked`` is the
+category-stacked banded form of the prior loss (``prior_loss_impl:
+stacked``), each category's slice computed as ``_banded_nce`` computes it.
 """
 
 from __future__ import annotations
@@ -187,6 +188,94 @@ def _banded_nce(heads_norm, tgt_norm, neg_embs_norm, base_mask, head_for_pred,
                     break
                 log_dict[f"nce_top{kk}_acc"] = ((beaten < kk).float() * m0).sum() / cnt0
     return per_pred.sum(), per_pred, log_dict
+
+
+def multi_horizon_nce_stacked(
+    heads_norm: torch.Tensor,       # [B, H, L, D] L2-normalized head outputs
+    tgt_norm: torch.Tensor,         # [B, L+P, D] L2-normalized targets
+    neg_stack: torch.Tensor,        # [C, M, D] per-category negatives, or [1, M, D] shared
+    base_mask: torch.Tensor,        # [B, P, L] bool
+    extra_masks: torch.Tensor,      # [C, B, P, L] bool per-category windows
+    head_for_cat,                   # [C] int: the one head serving category c
+    horizon_discount: torch.Tensor,  # [P]
+    logit_scale: torch.Tensor,
+    nce_thres: float,
+    loss_weights,                   # [C]
+    compute_topk_log: bool = False,
+):
+    """Category-stacked banded NCE (the JAX package's
+    ``multi_horizon_nce_stacked``, losses.py:301-432). When every category
+    is served by one head (additive interaction), the prior loss's
+    per-category raw, false-negative and kept products become three
+    category-batched ones with each slice's math that of ``_banded_nce``;
+    with shared negatives ([1, M, D]) the false-negative indicator is
+    computed once. Returns (total, per_pred [P], per_cat [C], log_dict),
+    per_cat[c] the discounted, weighted loss of category c (the loop's
+    ``loss_c``)."""
+    B, _, L, _ = heads_norm.shape
+    P = base_mask.shape[1]
+    shared_negs = neg_stack.shape[0] == 1
+    scale = clamp_logit_scale(logit_scale).float()
+    dev = heads_norm.device
+    tgtJ = tgt_norm[:, 1:]                                    # [B, J, D]
+    outs = heads_norm[:, [int(h) for h in head_for_cat]].transpose(0, 1)  # [C, B, L, D]
+    # einsums, not broadcast matmuls: a broadcast batch operand would be
+    # copied once per category (or per batch row)
+    negs = neg_stack.to(_BF16)                                # [C|1, M, D]
+    if shared_negs:
+        raw = torch.einsum("cbld,md->cblm", outs.to(_BF16), negs[0])
+    else:
+        raw = torch.einsum("cbld,cmd->cblm", outs.to(_BF16), negs)  # [C, B, L, M]
+    with torch.no_grad():  # no gradient flows through a mask
+        if shared_negs:
+            tgt_neg = torch.einsum("bjd,md->bjm", tgtJ.to(_BF16), negs[0])
+        else:
+            tgt_neg = torch.einsum("bjd,cmd->cbjm", tgtJ.to(_BF16), negs)
+        keep_ind = (tgt_neg <= nce_thres).float()             # [B|C,B, J, M]
+    M = neg_stack.shape[1]
+    headroom = min(70.0, 86.7 - float(np.log(max(M, 1))))
+    scaled = raw.float() * scale
+    shift = scaled.max(dim=-1).values.detach() - headroom     # [C, B, L]
+    s = torch.exp(scaled - shift[..., None]).to(_BF16)
+    kept = torch.einsum("cblm,bjm->cblj" if shared_negs else "cblm,cbjm->cblj",
+                        s.float(), keep_ind)                  # [C, B, L, J]
+    band = (torch.arange(L, device=dev)[:, None] + torch.arange(P, device=dev)[None, :])
+    C = outs.shape[0]
+    kept_b = torch.gather(kept, 3, band.expand(C, B, L, P))   # [C, B, L, P]
+    lse_neg = shift[..., None] + torch.log(torch.clamp(kept_b, min=1e-30))
+    if L <= 7 * P:
+        pos_full = torch.einsum("cbld,bjd->cblj", outs, tgtJ)
+        pos_band = torch.gather(pos_full, 3, band.expand(C, B, L, P))
+    else:
+        pos_band = torch.stack(
+            [(outs * tgtJ[None, :, p: p + L]).sum(-1) for p in range(P)], dim=-1)
+    lse = torch.logaddexp(pos_band * scale, lse_neg)
+    tok_ce = lse - pos_band * scale                           # [C, B, L, P]
+    m = (base_mask[None] & extra_masks).float().transpose(2, 3)  # [C, B, L, P]
+    cnt = m.sum(dim=(1, 2))                                   # [C, P]
+    per_cp = (tok_ce * m).sum(dim=(1, 2)) / torch.clamp(cnt, min=1.0)
+    lw = torch.as_tensor(np.asarray(loss_weights, np.float32), device=dev)
+    per_cp = horizon_discount[None, :] * lw[:, None] * per_cp  # [C, P]
+    per_cat = per_cp.sum(dim=1)
+    per_pred = per_cp.sum(dim=0)
+
+    log_dict: Dict[str, torch.Tensor] = {}
+    if compute_topk_log:
+        with torch.no_grad():
+            raw0 = raw[0].float()
+            k0 = (keep_ind if shared_negs else keep_ind[0])[:, :L].bool()
+            m0 = m[0, :, :, 0]                                # [B, L]
+            cnt0 = torch.clamp(m0.sum(), min=1.0)
+            n_unmasked = k0.sum(-1).float() + 1.0
+            log_dict["nce_samples"] = (n_unmasked * m0).sum() / cnt0
+            under = ((kept_b[0, :, :, 0] <= 0.0) & (n_unmasked > 1.0)).float()
+            log_dict["nce_underflow_rate"] = (under * m0).sum() / cnt0
+            beaten = ((raw0 > pos_band[0, :, :, 0, None]) & k0).sum(-1)
+            for kk in (1, 5, 10, 50, 100):
+                if kk > raw0.shape[-1] + 1:
+                    break
+                log_dict[f"nce_top{kk}_acc"] = ((beaten < kk).float() * m0).sum() / cnt0
+    return per_cp.sum(), per_pred, per_cat, log_dict
 
 
 def horizon_discount(medusa_lambda: float, pred_len: int, device=None) -> torch.Tensor:

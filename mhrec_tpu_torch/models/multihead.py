@@ -24,7 +24,7 @@ from mhrec_tpu_torch.models.layers import (
     cosine_normalize,
     weighted_bce_with_logits,
 )
-from mhrec_tpu_torch.models.losses import multi_horizon_nce
+from mhrec_tpu_torch.models.losses import multi_horizon_nce, multi_horizon_nce_stacked
 
 
 def compute_multihead_losses(
@@ -66,8 +66,6 @@ def compute_multihead_losses(
                 out[f"seg_{s}_loss"] = seg[s].detach()
 
     if model.loss_type == "prior":
-        if model.prior_loss_impl == "stacked":
-            raise NotImplementedError("prior_loss_impl: stacked is not ported yet")
         tags = tag_categories.bool()
         additive = model.head_interaction == "additive"
         seg_len = P if additive else model.seg_len
@@ -95,22 +93,41 @@ def compute_multihead_losses(
                 total = _switch_loss(model, total, out, output_embs, head_embs, tags, c,
                                      cat_name(c))
 
-        for c in range(model.num_prior_head):
-            neg_norm = neg_norm_fn(c) if model.neg_sample_by_cat else global_neg
-            if additive:
-                head_for_pred = np.full(P, model.num_segment_head + c)
-            else:
-                head_for_pred = segment_for_pred * model.num_prior_head + c
-            loss_c, per_pred, logs = multi_horizon_nce(
-                heads_n, tgts_n, neg_norm, base_mask, head_for_pred, lam, logit_scale,
-                model.nce_thres, loss_weight=float(model.prior_loss_weight[c]),
-                extra_mask=prior_window(c), compute_topk_log=(c == 0), impl=impl,
-                inputs_normalized=True)
-            total = total + loss_c
+        # the category-stacked path (JAX multihead.py:126-170): under additive
+        # heads one head serves each category, so the per-category products
+        # batch over the categories
+        use_stacked = additive and impl == "banded" and model.prior_loss_impl == "stacked"
+        C = model.num_prior_head
+        if use_stacked:
+            extra_masks = torch.stack([prior_window(c) for c in range(C)], 0)
+            neg_stack = (torch.stack([neg_norm_fn(c) for c in range(C)], 0)
+                         if model.neg_sample_by_cat else global_neg[None])
+            loss_p, per_pred, per_cat, logs = multi_horizon_nce_stacked(
+                heads_n, tgts_n, neg_stack, base_mask, extra_masks,
+                model.num_segment_head + np.arange(C), lam, logit_scale, model.nce_thres,
+                np.asarray(model.prior_loss_weight, np.float32), compute_topk_log=True)
+            total = total + loss_p
             per_pred_accum = per_pred_accum + per_pred
-            out[f"head_nce_{cat_name(c)}_loss"] = loss_c.detach()
-            if c == 0:
-                out.update(logs)
+            for c in range(C):
+                out[f"head_nce_{cat_name(c)}_loss"] = per_cat[c].detach()
+            out.update(logs)
+        else:
+            for c in range(C):
+                neg_norm = neg_norm_fn(c) if model.neg_sample_by_cat else global_neg
+                if additive:
+                    head_for_pred = np.full(P, model.num_segment_head + c)
+                else:
+                    head_for_pred = segment_for_pred * model.num_prior_head + c
+                loss_c, per_pred, logs = multi_horizon_nce(
+                    heads_n, tgts_n, neg_norm, base_mask, head_for_pred, lam, logit_scale,
+                    model.nce_thres, loss_weight=float(model.prior_loss_weight[c]),
+                    extra_mask=prior_window(c), compute_topk_log=(c == 0), impl=impl,
+                    inputs_normalized=True)
+                total = total + loss_c
+                per_pred_accum = per_pred_accum + per_pred
+                out[f"head_nce_{cat_name(c)}_loss"] = loss_c.detach()
+                if c == 0:
+                    out.update(logs)
 
         if not additive:
             seg = per_pred_accum.reshape(model.num_segment_head, model.seg_len).sum(dim=1)

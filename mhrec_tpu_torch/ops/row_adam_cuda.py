@@ -32,9 +32,13 @@ def row_adamw(table, m, v, ids, grad_rows, lr, step_count: int, cfg: SparseAdamC
     [U, D]. Real ids must be unique and below N — the batcher's contract,
     which the kernel does not check: two slots of one row would race.
     ``row_adamw.launches`` counts the kernel's launches."""
+    name = "row_adamw"
+    # a bf16 table takes sparse_adamw_row_update's own formulation, never
+    # this kernel (nor its plain version on the CPU)
+    if table.dtype != torch.float32:
+        raise ValueError(f"{name}: table must be float32, got {table.dtype}")
     if table.device.type == "cpu":
         return sparse_adamw_row_update(table, m, v, ids, grad_rows, lr, step_count, cfg)
-    name = "row_adamw"
     dev = table.device
     N, D = table.shape
     for t, what in ((table, "table"), (m, "m"), (v, "v")):

@@ -52,13 +52,30 @@ def train(config, data, device=None):
     return trainer, fit_stats, result
 
 
+# ``matmul_precision`` (JAX run.py:51-58, ``jax_default_matmul_precision``)
+# → torch's float32 matmul precision: full float32, TF32 or bf16 passes
+MATMUL_PRECISION = {"highest": "highest", "float32": "highest",
+                    "tensorfloat32": "high", "bfloat16": "medium"}
+
+
+def set_matmul_precision(value) -> None:
+    """Apply the config's ``matmul_precision`` to float32 products. Unset:
+    full float32, TF32 off, as the reference's scores need (TF32 keeps
+    about three decimal digits). An unknown value raises."""
+    name = str(value).lower() if value else "highest"
+    if name not in MATMUL_PRECISION:
+        raise ValueError(f"matmul_precision must be one of {sorted(MATMUL_PRECISION)}, "
+                         f"got {value!r}")
+    # one API only: torch refuses to report a precision set through both it
+    # and the older allow_tf32 flag
+    torch.set_float32_matmul_precision(MATMUL_PRECISION[name])
+    torch.backends.cudnn.allow_tf32 = MATMUL_PRECISION[name] != "highest"
+
+
 def run_loop(config_files, extra_args, device=None):
     config = Config(config_file_list=config_files, cli_args=extra_args).finalize()
     device = resolve_device(device)
-    # full-precision float32 products, as the reference's scores need
-    # (TF32 keeps about three decimal digits)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    set_matmul_precision(config.get("matmul_precision"))
     init_seed(config["seed"] or 2020, config["reproducibility"])
     init_logger(config)
     logger.info("configuration:\n%s", config.format_categorized())

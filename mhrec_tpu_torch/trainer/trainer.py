@@ -46,8 +46,13 @@ one device).
   ``save_for_eval`` (each batch's top-k and embeddings) are written under
   the checkpoint directory.
 
-Not ported yet: ``item_table_dtype: bfloat16`` and
-``sparse_adam_global_dedup``.
+* ``item_table_dtype: bfloat16`` (under ``sparse_item_adam``): the item
+  table is stored in bfloat16, its moments and the step's gathered rows in
+  float32, and the row update takes the plain bf16 formulation with
+  stochastic rounding (``item_table_stochastic_round``, default on) from a
+  noise stream of its own.
+
+Not ported yet: ``sparse_adam_global_dedup``.
 """
 
 from __future__ import annotations
@@ -150,8 +155,13 @@ class Trainer:
         table_dtype = str(config.get("item_table_dtype") or "float32").lower()
         if table_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"item_table_dtype must be float32|bfloat16, got {table_dtype}")
-        if table_dtype == "bfloat16":
-            raise NotImplementedError("item_table_dtype: bfloat16 is not ported yet")
+        self.item_table_dtype = torch.bfloat16 if table_dtype == "bfloat16" else torch.float32
+        if self.item_table_dtype == torch.bfloat16 and not self.sparse_item_adam:
+            raise ValueError(
+                "item_table_dtype=bfloat16 requires sparse_item_adam (the dense AdamW "
+                "would accumulate updates in bf16 and stall below ulp/2)")
+        # stochastic rounding of the bf16 table's row write-back (default on)
+        self.table_sr = bool(config.get("item_table_stochastic_round", True))
         # the row update runs the kernel (on the card) unless 'xla' asks for
         # the plain version; the JAX package's default is 'xla', chosen from
         # TPU timings that do not carry over
@@ -198,7 +208,11 @@ class Trainer:
         ``resume: true``, from this run's checkpoint."""
         seed = int(seed if seed is not None else (self.config["seed"] or 0))
         gen = torch.Generator(device=self.device).manual_seed(seed)
+        # the table is initialised in float32 and then stored in
+        # item_table_dtype, as in JAX (trainer.py:353-361)
+        self._set_table_dtype(torch.float32)
         self.model.init_parameters(gen)
+        self._set_table_dtype(self.item_table_dtype)
         if str(self.config["model"]) == "HLLM":
             from mhrec_tpu_torch.models.hllm.hllm import load_pretrained_towers
 
@@ -217,8 +231,8 @@ class Trainer:
         self.dense_params = [p for g in self.optimizer.param_groups for p in g["params"]]
         if self.sparse_item_adam:
             table = self.model.item_embedding.weight
-            self.table_m = torch.zeros_like(table)
-            self.table_v = torch.zeros_like(table)
+            self.table_m = torch.zeros_like(table, dtype=torch.float32)
+            self.table_v = torch.zeros_like(table, dtype=torch.float32)
             if self.accumulate_grad > 1:
                 k, U = self.accumulate_grad, unique_id_cap(self.config)
                 self.acc_ids = torch.full((k, U), -1, dtype=torch.long, device=self.device)
@@ -233,6 +247,13 @@ class Trainer:
         elif self.config.get("resume", False):
             if self.load_checkpoint():
                 logger.info("resumed at step %d", self.step)
+
+    def _set_table_dtype(self, dtype):
+        """Store an ID model's item table in ``dtype`` (a new parameter)."""
+        emb = getattr(self.model, "item_embedding", None)
+        if emb is not None and emb.weight.dtype != dtype:
+            emb.weight = torch.nn.Parameter(emb.weight.detach().to(dtype),
+                                            requires_grad=emb.weight.requires_grad)
 
     # ------------------------------------------------------------------
     # training
@@ -261,11 +282,20 @@ class Trainer:
             out["tag_categories"] = torch.as_tensor(tags).to(self.device, non_blocking=True)
         return out
 
-    def step_generator(self, step: int) -> torch.Generator:
+    # the seed of a step's bf16-table rounding noise is the step's seed
+    # XOR this 63-bit constant: far from every other step's seed
+    _SR_SEED_MASK = 0x2545F4914F6CDD1D
+
+    def step_generator(self, step: int, rounding: bool = False) -> torch.Generator:
         """The generator of a step's dropout masks and mix draws, seeded
-        from (seed, step) so a resumed run repeats the stream."""
-        return torch.Generator(device=self.device).manual_seed(
-            (self.seed * 1_000_003 + step) % (2 ** 63))
+        from (seed, step) so a resumed run repeats the stream. ``rounding``:
+        the generator of the bf16 table's rounding noise instead, a stream
+        of its own, so turning it on shifts no other draw (JAX's
+        ``fold_in(rng, 17)``)."""
+        seed = (self.seed * 1_000_003 + step) % (2 ** 63)
+        if rounding:
+            seed ^= self._SR_SEED_MASK
+        return torch.Generator(device=self.device).manual_seed(seed)
 
     def train_step(self, batch) -> Dict[str, torch.Tensor]:
         """One micro-step on one batch (numpy dict from the batcher); with
@@ -294,7 +324,9 @@ class Trainer:
         if self.sparse_item_adam:
             ids = dev.pop("unique_ids")
             table = self.model.item_embedding.weight
-            sub0 = table.detach()[ids.clamp(min=0)].requires_grad_(True)
+            # float32 rows whatever the table stores: the step's math is that
+            # of a float32 table
+            sub0 = table.detach()[ids.clamp(min=0)].float().requires_grad_(True)
             out = self.model(dev, sub=sub0, generator=gen)
         else:
             out = self.model(dev, generator=gen)
@@ -339,12 +371,20 @@ class Trainer:
                 # buffers are rewritten from the next micro-step on)
                 k_dev = torch.tensor(float(k), device=self.device)
                 ids, g_sub = dedup_touched_rows(self.acc_ids, self.acc_g.div_(k_dev))
-            update = (sparse_adamw_row_update if self.sparse_adam_impl == "xla"
-                      else row_adam_cuda.row_adamw)
+            table = self.model.item_embedding.weight
+            cfg = SparseAdamConfig(weight_decay=self.weight_decay)
             with torch.no_grad():
-                update(self.model.item_embedding.weight, self.table_m, self.table_v, ids,
-                       g_sub, self.schedule(outer), outer,
-                       SparseAdamConfig(weight_decay=self.weight_decay))
+                if table.dtype == torch.bfloat16:
+                    # the plain update, because the table is bf16, as JAX
+                    # sends bf16 tables to its XLA formulation
+                    gen = self.step_generator(self.step, rounding=True) if self.table_sr else None
+                    sparse_adamw_row_update(table, self.table_m, self.table_v, ids, g_sub,
+                                            self.schedule(outer), outer, cfg, generator=gen)
+                else:
+                    update = (sparse_adamw_row_update if self.sparse_adam_impl == "xla"
+                              else row_adam_cuda.row_adamw)
+                    update(table, self.table_m, self.table_v, ids, g_sub,
+                           self.schedule(outer), outer, cfg)
         self.step += 1
         return out
 

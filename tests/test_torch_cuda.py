@@ -1122,3 +1122,140 @@ def test_async_checkpoint_of_card_tensors(card, tmp_path):
     back = torch.load(path, weights_only=True)
     assert torch.equal(back["w"], want["w"]) and torch.equal(back["opt"]["m"], want["m"])
     assert stats["bytes"] == os.path.getsize(path) and back["step"] == 3
+
+
+def test_stu_gated_fwd_at_the_1b_serving_width(card):
+    """#1 at hstu-1b's serving shape (F = 2048, 32 heads of 64, window 50;
+    256 of an eval batch's 1024 rows), on its tensor-core route, against
+    the plain version within TOL."""
+    B, L, H, d = 256, 50, 32, 64
+    dtype = torch.bfloat16
+    assert K.stu_gated_fwd_route(dtype, L, H, d, d) == "tensor_cores"
+    q, k, v, u, gamma, beta, nonpad, _ = _gated_inputs(B, L, H, d, dtype, card, seed=12)
+    before = K.hstu_stu_gated_fwd.launches
+    out = K.hstu_stu_gated_fwd(q, k, v, u, gamma, beta, nonpad, H)
+    torch.cuda.synchronize()
+    assert K.hstu_stu_gated_fwd.launches == before + 1
+    _close(out, K.hstu_stu_gated_fwd_plain(q, k, v, u, gamma, beta, nonpad, H), dtype)
+
+
+def _bf16_row_inputs(device, N=3000, D=256, U=2048, n_real=1500, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    table = (0.05 * torch.randn(N, D, generator=gen)).to(torch.bfloat16)
+    m = 0.01 * torch.randn(N, D, generator=gen)
+    v = 0.01 * torch.rand(N, D, generator=gen)
+    ids = torch.full((U,), -1, dtype=torch.long)
+    ids[:n_real] = torch.randperm(N - 1, generator=gen)[:n_real] + 1
+    g = torch.randn(U, D, generator=gen)
+    rnd = torch.randint(0, 1 << 16, (U, D), generator=gen)
+    return [t.to(device) for t in (table, m, v, ids, g, rnd)]
+
+
+@pytest.mark.parametrize("stochastic", [False, True])
+@pytest.mark.parametrize("wd,step", [(0.0, 0), (0.01, 7)])
+def test_bf16_row_update_on_the_card_equals_the_cpu(card, wd, step, stochastic):
+    """The bf16 table's row update (the plain formulation; no kernel: #7
+    refuses a bf16 table) on the card against the same update on the CPU,
+    bit for bit, with the same noise words; row 0 and untouched rows kept."""
+    from mhrec_tpu_torch.ops.row_adam_cuda import row_adamw
+    from mhrec_tpu_torch.trainer.sparse_adam import SparseAdamConfig, sparse_adamw_row_update
+
+    cfg = SparseAdamConfig(weight_decay=wd)
+    states = {}
+    for dev in ("cpu", card):
+        table, m, v, ids, g, rnd = _bf16_row_inputs(dev)
+        before = table.clone()
+        sparse_adamw_row_update(table, m, v, ids, g, 1e-3, step, cfg,
+                                rnd=rnd if stochastic else None)
+        states[str(dev)] = [t.cpu() for t in (table, m, v, before, ids)]
+    (tc, mc, vc, before, ids), (tg, mg, vg, _, _) = states["cpu"], states[str(card)]
+    assert tg.dtype == torch.bfloat16 and mg.dtype == vg.dtype == torch.float32
+    assert torch.equal(tg.view(torch.int16), tc.view(torch.int16))
+    assert torch.equal(mg, mc) and torch.equal(vg, vc)
+    touched = torch.zeros(len(tg), dtype=torch.bool)
+    touched[ids[ids >= 0]] = True
+    assert torch.equal(tg[~touched], before[~touched]) and not torch.equal(tg[touched],
+                                                                           before[touched])
+    table, m, v, ids, g, _ = _bf16_row_inputs(card)
+    with pytest.raises(ValueError, match="float32"):
+        row_adamw(table, m, v, ids, g, 1e-3, step, cfg)
+
+
+def _small_prior_setup(**over):
+    """A 1-layer, 128-wide HSTU in chip_smoke.py's prior protocol (8
+    categories, additive heads, the switch, negatives by category) on the
+    in-memory data, and one train batch."""
+    from mhrec_tpu_torch.config import Config
+    from mhrec_tpu_torch.data import build_dataloader
+    from mhrec_tpu_torch.data.synthetic import InMemoryInteractionData
+
+    L = 8
+    cfg = Config(
+        config_file_list=["IDNet/hstu-size1.yaml", "overall/ID.yaml", "IDNet/hstu.yaml"],
+        config_dict=dict(
+            dataset="synthetic", seed=0, MAX_ITEM_LIST_LENGTH=L, loss="prior",
+            eval_num_cats=8, num_prior_head=8, num_segment_head=4,
+            head_interaction="additive", medusa_num_layers=1, prior_switch="in",
+            prior_switch_loss_weight=0.1, neg_sample_by_cat=True, weighted_prior_loss=True,
+            pred_len=8, eval_pred_len=8, n_layers=1, n_heads=2, item_embedding_size=128,
+            hstu_embedding_size=128, train_batch_size=16, num_negatives=512,
+            sparse_item_adam=True, enable_relative_attention_bias=False,
+            scan_layers=True, hidden_dropout_prob=0.0, total_iters=2, **over),
+    ).finalize()
+    data = InMemoryInteractionData(num_users=256, num_items=5000, seq_len=2 * L + 16,
+                                   num_categories=8, eval_pred_len=8, max_item_list_length=L)
+    batch = next(build_dataloader(cfg, data)[0].epoch_batches(0))
+    return cfg, data, batch
+
+
+def test_stacked_prior_loss_on_the_card_matches_the_loop(card):
+    """The stacked prior loss against the loop on the card, a float32
+    model, one batch: the outputs to rtol 2e-4 / atol 2e-5 and the
+    gradients to rtol 5e-3 / atol 6e-3 (the JAX package's own bounds for
+    the two paths, tests/test_losses.py)."""
+    from mhrec_tpu_torch.trainer import Trainer
+
+    cfg, data, batch = _small_prior_setup(prior_loss_impl="stacked")
+    t = Trainer(cfg, data, device=card, dtype=torch.float32)
+    t.setup_model()
+    dev = t._train_device_batch(batch)
+    ids = dev.pop("unique_ids")
+    runs = {}
+    for impl in ("stacked", "loop"):
+        t.model.prior_loss_impl = impl
+        sub = t.model.item_embedding.weight.detach()[ids.clamp(min=0)].requires_grad_(True)
+        for p in t.model.parameters():
+            p.grad = None
+        out = t.model(dict(dev), sub=sub)
+        out["loss"].backward()
+        grads = {n: p.grad.clone() for n, p in t.model.named_parameters() if p.grad is not None}
+        grads["item_rows"] = sub.grad
+        runs[impl] = ({k: float(v.detach()) for k, v in out.items()}, grads)
+    (o_s, g_s), (o_l, g_l) = runs["stacked"], runs["loop"]
+    assert set(o_s) == set(o_l) and "head_nce_0_loss" in o_s
+    for k in o_l:
+        torch.testing.assert_close(o_s[k], o_l[k], rtol=2e-4, atol=2e-5, msg=k)
+    assert set(g_s) == set(g_l)
+    for k in g_l:
+        torch.testing.assert_close(g_s[k], g_l[k], rtol=5e-3, atol=6e-3, msg=k)
+
+
+def test_bf16_table_trains_on_the_card_without_row_adamw(card):
+    """Two train steps with ``item_table_dtype: bfloat16``: the table stays
+    bf16 with f32 moments, rows move, #7 is never launched, #4 is."""
+    from mhrec_tpu_torch.ops.row_adam_cuda import row_adamw
+    from mhrec_tpu_torch.trainer import Trainer
+
+    cfg, data, batch = _small_prior_setup(item_table_dtype="bfloat16")
+    t = Trainer(cfg, data, device=card)
+    t.setup_model()
+    table = t.model.item_embedding.weight
+    before = table.detach().clone()
+    adam0, bwd0 = row_adamw.launches, K.hstu_stu_gated_bwd.launches
+    for _ in range(2):
+        loss = t.train_step(batch)["loss"]
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(loss))
+    assert row_adamw.launches == adam0 and K.hstu_stu_gated_bwd.launches == bwd0 + 2
+    assert table.dtype == torch.bfloat16 and t.table_m.dtype == torch.float32
+    assert not torch.equal(table, before)

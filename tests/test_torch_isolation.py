@@ -1,13 +1,15 @@
 """The port stands alone: ``mhrec_tpu_torch`` and ``chip_smoke.py`` import
 nothing of JAX and nothing of the JAX package, and the serving and training
-paths that ``chip_smoke.py`` drives (HSTU serving and training, HLLM
-serving and training, the eval outputs and modes, gradient accumulation,
-HLLM towers loaded from local checkpoints) import neither PyYAML nor pandas
-nor pyarrow (the machine with the card has none of them), nor, on the HLLM
+paths that ``chip_smoke.py`` drives (HSTU serving and training, hstu-1b
+with its options, HLLM serving and training, the eval outputs and modes,
+gradient accumulation, HLLM towers loaded from local checkpoints) import
+neither PyYAML nor pandas nor pyarrow (the machine with the card has none
+of them), nor, on the HLLM
 paths, ``transformers``, ``safetensors``, ``tokenizers``, ``regex`` or
 ``sentencepiece`` (the HLLM runs read a tower's ``tokenizer.json``)."""
 
 import ast
+import json
 import os
 import subprocess
 import sys
@@ -304,6 +306,56 @@ def test_eval_modes_and_accumulation_run_without_what_the_card_lacks():
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "BAD []" in proc.stdout, proc.stdout
     assert proc.stderr.count("pandas is not installed: results.pkl is not written") == 1
+
+
+_HSTU_1B = """
+import json, sys, tempfile
+
+# what the port runs without: importing it fails
+LACKING = ("pandas", "yaml", "pyarrow", "transformers", "tokenizers", "regex", "sentencepiece")
+sys.modules.update({name: None for name in LACKING})
+import torch
+import chip_smoke
+from mhrec_tpu_torch.data.synthetic import InMemoryInteractionData
+
+torch.set_num_threads(2)
+data = InMemoryInteractionData(num_users=40, num_items=1000, seq_len=2 * 6 + 16,
+                               num_categories=8, eval_pred_len=8, max_item_list_length=6)
+# chip_smoke.py's hstu_1b phase (scan_layers, the f32 and the bf16 table,
+# the stacked loss, TF32 serving), cut to a few widths
+paths, failed = chip_smoke.hstu_1b_phase(
+    data, tempfile.mkdtemp(), device="cpu", n_layers=2, n_heads=2, item_embedding_size=128,
+    hstu_embedding_size=128, eval_batch_size=32, eval_item_chunk_size=700,
+    MAX_ITEM_LIST_LENGTH=6, train_batch_size=8, num_negatives=64, total_iters=2,
+    eval_interval=2)
+assert set(paths) == {"hstu_1b_serve", "hstu_1b_train", "hstu_1b_train_bf16_table",
+                      "hstu_1b_train_stacked"}
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in {"jax", "jaxlib", "flax", "optax", "mhrec_tpu",
+                                    "safetensors"})
+print("BAD", bad)
+"""
+
+
+def test_hstu_1b_phase_runs_without_what_the_card_lacks():
+    """chip_smoke.py's hstu_1b phase, cut to a few widths, on the CPU in a
+    fresh interpreter where PyYAML, pandas, pyarrow, ``transformers``,
+    ``tokenizers``, ``regex`` and ``sentencepiece`` cannot be imported: it
+    runs every record (the launch counts are the card's, so its checks fail
+    here) and loads nothing of JAX."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", _HSTU_1B], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "BAD []" in proc.stdout, proc.stdout[-3000:]
+    recs = [json.loads(line) for line in proc.stdout.splitlines()
+            if line.startswith('{"phase"')]
+    assert [r["phase"] for r in recs] == ["hstu_1b_serve", "hstu_1b_serve_tf32",
+                                          "hstu_1b_train", "hstu_1b_train_bf16_table",
+                                          "hstu_1b_train_stacked"]
+    # the row update of one more f32 step, held against the plain version
+    row = recs[2]["row_adamw_vs_plain"]
+    assert row["ok"] and row["bit_equal"] and row["D"] == 128 and row["real_ids"] > 0, row
 
 
 _PRETRAINED = """
