@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``mhrec_tpu_torch``) on one CUDA card.
 
-    python3 chip_smoke.py [--profile | --train-only | --stu-bwd-ab]
+    python3 chip_smoke.py [--profile | --train-only | --stu-bwd-ab | --image-only |
+                           --image-fit]
 
 Builds the port's CUDA kernels from ``mhrec_tpu_torch/csrc`` (one ``nvcc``
 per source, in parallel) and holds each against its plain PyTorch version on
@@ -134,6 +135,33 @@ bert-base-uncased-shaped BERT and a Baichuan-13B-shaped ALiBi tower (2 of
 its 40 layers) and has each serve a small catalog and train 2 steps on the
 dense item tower (no kernel).
 
+Two phases drive the vision and video item towers, last, each in a work
+directory of its own; no kernel of the port runs on these paths (the image
+span rides the dense item tower), which their launch counts record.
+``hllm_image`` is ``reproduce/HLLM-Pixel8M-prior.sh``'s model at full
+width: a Qwen2-VL-2B-Instruct item tower (its ``config.json``: the text
+decoder and the 32-block vision tower) and a Qwen2.5-1.5B user tower,
+random weights from seed 0, a Qwen2-VL-layout byte-level BPE
+``tokenizer.json`` (``write_qwen2_tokenizer``: the vision tokens at their
+ids) and 224 × 224 images (JPEGs of mixed native sizes the script writes
+for most of 4,096 items; the rest missing or broken, which take the black
+image), over 4,096 users: it serves (the warm corpus pass's items/s and
+tokens/s, users/s, the vision tower's and the item LLM's seconds on a
+corpus batch, the host's decode and patchify rate cold and from the LRU,
+peak memory) and trains IMAGE_TRAIN_STEPS steps at IMAGE_TRAIN_BATCH
+sequences with IMAGE_ADAM_MOMENTS Adam moments (the script: 8 a card with
+f32 moments, which do not fit: ``--image-fit``), then an evaluation with
+a best-checkpoint save and the test split from it (steady examples/s, the
+busy share under the profiler, peak memory). ``hllm_image_variants`` runs
+the other vision paths at full widths and 2 + 2 layers (2 vision blocks):
+video from frame directories, dynamic resolution over images of mixed
+sizes, and a CLIP-L/14 LLaVA tower with the fixed ``anyres_grid`` [2, 2]
+and with dynamic AnyRes, each serving 256 items and training 2 steps, the
+vision weights of two of them loaded from checkpoints it writes (equal to
+the written tensors), each one's bf16 item embeddings held to a float32
+copy's. ``--image-only`` runs these two phases alone, without the last
+line.
+
 Then ``hstu_1b`` (after the HSTU train phases, before the HLLM ones) runs
 the largest HSTU of the reference's ladder, hstu-1b (``IDNet/hstu-1b.yaml``:
 22 layers, 2048 wide, 32 heads of 64) with ``scan_layers``, in the train
@@ -151,8 +179,9 @@ times), the serve, impl, eval_outputs, eval_streamed_metrics, train,
 train-impl, train_accum, hstu_1b_serve, hstu_1b_serve_tf32, hstu_1b_train,
 hstu_1b_train_bf16_table, hstu_1b_train_stacked, hllm_serve, hllm_impl, hllm_host_table, hllm_train,
 hllm_train_impl, hllm_pretrained (with its hllm_pretrained_serve record),
-hllm_train_levers, hllm_tokenizer (with its hllm_tokenizer_serve record) and
-hllm_towers phases, the seconds of each phase, each path's launches, a
+hllm_train_levers, hllm_tokenizer (with its hllm_tokenizer_serve record),
+hllm_towers, hllm_image (setup, serve, train) and hllm_image_variants
+(with a serve record for each variant) phases, the seconds of each phase, each path's launches, a
 ``kernels`` summary, and last ``{"ok": true, "device": {...}}``. Any
 failure exits non-zero without the last line. ``--profile`` adds phases that
 run one evaluation of the test split, five train steps, one HLLM evaluation
@@ -2325,7 +2354,8 @@ def write_safetensors(path, tensors):
 
 def hf_state_dict(cfg, seed, device, dtype, lm_head=True):
     """An HF-named state dict of ``cfg``'s topology (Llama family, with
-    Baichuan's W_pack when ``cfg`` is baichuan, or BERT) drawn on
+    Baichuan's W_pack when ``cfg`` is baichuan and q/k/v biases when it is
+    qwen2 / qwen2_vl, or BERT) drawn on
     ``device`` from ``seed``: normal 0.02 matrices and embeddings, norm
     scales 1 + 0.1·normal, normal 0.02 biases, in ``dtype``; with the keys
     the towers do not read (``lm_head``, the BERT pooler)."""
@@ -2373,6 +2403,10 @@ def hf_state_dict(cfg, seed, device, dtype, lm_head=True):
             put(f"{p}.self_attn.q_proj.weight", h * dh, D)
             put(f"{p}.self_attn.k_proj.weight", hk * dh, D)
             put(f"{p}.self_attn.v_proj.weight", hk * dh, D)
+            if cfg["model_type"] in ("qwen2", "qwen2_vl"):  # q/k/v biases
+                put(f"{p}.self_attn.q_proj.bias", h * dh)
+                put(f"{p}.self_attn.k_proj.bias", hk * dh)
+                put(f"{p}.self_attn.v_proj.bias", hk * dh)
         put(f"{p}.self_attn.o_proj.weight", D, h * dh)
         put(f"{p}.mlp.gate_proj.weight", I, D)
         put(f"{p}.mlp.up_proj.weight", I, D)
@@ -3099,6 +3133,795 @@ def hllm_towers_phase(work_dir):
     return launches_all, ok_all
 
 
+# -- the vision and video item towers (Qwen2-VL, CLIP / LLaVA) -------------------
+# Qwen2-VL-2B-Instruct's config.json: its text decoder (1536 wide, 28 layers,
+# 12 heads over 2 KV heads, SwiGLU 8960, vocab 151,936, q/k/v biases,
+# rope_theta 1e6, M-RoPE sections 16/24/24) and its vision tower (1280 wide,
+# 32 blocks, 16 heads, MLP ratio 4, patch 14, temporal patch 2, merge 2,
+# quick-GELU): the item tower of reproduce/HLLM-Pixel8M-*.sh
+QWEN2_VL_2B = {
+    "model_type": "qwen2_vl", "vocab_size": 151936, "hidden_size": 1536,
+    "intermediate_size": 8960, "num_hidden_layers": 28, "num_attention_heads": 12,
+    "num_key_value_heads": 2, "rms_norm_eps": 1e-6, "rope_theta": 1000000.0,
+    "max_position_embeddings": 32768, "tie_word_embeddings": True,
+    "use_sliding_window": False, "sliding_window": 32768,
+    "rope_scaling": {"type": "mrope", "mrope_section": [16, 24, 24]},
+    "vision_start_token_id": 151652, "vision_end_token_id": 151653,
+    "image_token_id": 151655, "video_token_id": 151656,
+    "vision_config": {"depth": 32, "embed_dim": 1280, "mlp_ratio": 4, "num_heads": 16,
+                      "in_chans": 3, "hidden_size": 1536, "patch_size": 14,
+                      "spatial_merge_size": 2, "temporal_patch_size": 2,
+                      "hidden_act": "quick_gelu"},
+}
+# Qwen2.5-1.5B's config.json: the user tower of those scripts
+QWEN25_1_5B = {
+    "model_type": "qwen2", "vocab_size": 151936, "hidden_size": 1536,
+    "intermediate_size": 8960, "num_hidden_layers": 28, "num_attention_heads": 12,
+    "num_key_value_heads": 2, "rms_norm_eps": 1e-6, "rope_theta": 1000000.0,
+    "max_position_embeddings": 131072, "tie_word_embeddings": True,
+    "use_sliding_window": False, "sliding_window": 131072,
+}
+# a llava_next config.json: openai/clip-vit-large-patch14's vision tower
+# (1024 wide, 24 layers, 16 heads, MLP 4096, patch 14, 224 px, quick-GELU)
+# under a text decoder of Qwen2.5-1.5B's widths
+CLIP_L14_LLAVA = {
+    "model_type": "llava_next",
+    "text_config": {k: v for k, v in QWEN25_1_5B.items()},
+    "vision_config": {"model_type": "clip_vision_model", "hidden_size": 1024,
+                      "num_hidden_layers": 24, "num_attention_heads": 16,
+                      "intermediate_size": 4096, "patch_size": 14, "image_size": 224,
+                      "hidden_act": "quick_gelu", "layer_norm_eps": 1e-5},
+}
+# Qwen2-VL's added tokens (tokenizer.json of Qwen2-VL-2B-Instruct)
+QWEN2_VL_ADDED = ("<|endoftext|>", "<|im_start|>", "<|im_end|>", "<|object_ref_start|>",
+                  "<|object_ref_end|>", "<|box_start|>", "<|box_end|>", "<|quad_start|>",
+                  "<|quad_end|>", "<|vision_start|>", "<|vision_end|>", "<|vision_pad|>",
+                  "<|image_pad|>", "<|video_pad|>")
+QWEN2_VL_FIRST_ADDED = 151643
+QWEN2_SPLIT = (r"(?i:'s|'t|'re|'ve|'m|'ll|'d)|[^\r\n\p{L}\p{N}]?\p{L}+|\p{N}|"
+               r" ?[^\s\p{L}\p{N}]+[\r\n]*|\s*[\r\n]+|\s+(?!\S)|\s+")
+# the byte-level BPE the image phases write: entries (bytes, then merges)
+IMAGE_TOKENIZER_VOCAB = 8192
+# hllm_image: users and catalog; the share of items with no image (the
+# black fallback) and with a file that does not decode (the same); the
+# images' native sizes (h, w), resized to 224 × 224 on the host
+IMAGE_USERS = 4096
+IMAGE_ITEMS = 4096
+IMAGE_MISSING_EVERY = 16
+IMAGE_BROKEN_EVERY = 257
+IMAGE_NATIVE_SIZES = ((256, 256), (240, 320), (320, 240), (224, 224))
+# the host's decode rate is taken over this many items (cold, then the LRU)
+IMAGE_HOST_RATE_ITEMS = 512
+# the towers' seconds are taken on this many items of a corpus batch
+IMAGE_TOWER_ITEMS = 256
+# the serving corpus batch: MAX_ITEM_LIST_LENGTH 10 × this (640 items)
+IMAGE_SERVE_BATCH = 64
+# the training cut: sequences a card and the Adam moments' type. The script
+# runs 8 a card (128 over 16 cards); see PERF.md §4 for why 4 and bf16
+IMAGE_TRAIN_BATCH = 4
+IMAGE_ADAM_MOMENTS = "bfloat16"
+IMAGE_TRAIN_STEPS = 5
+# the busy share: train steps under the profiler
+IMAGE_PROFILED_STEPS = 1
+# hllm_image_variants: the towers' depth, users, catalog, steps; the share
+# of items with frames / images
+VARIANT_VIT_BLOCKS = 2
+VARIANT_LLM_LAYERS = 2
+VARIANT_USERS = 128
+VARIANT_ITEMS = 256
+VARIANT_STEPS = 2
+# the variants' bf16 item embeddings against a float32 copy's (unit
+# vectors, max abs difference) on the first corpus batch
+VARIANT_F32_TOL = 5e-2
+# the variants' images: native sizes of mixed aspect (h, w)
+VARIANT_SIZES = ((224, 224), (448, 224), (160, 320), (112, 112), (300, 500))
+
+
+def _bytes_to_unicode():
+    """GPT-2's byte → printable character map (byte-level BPE)."""
+    bs = list(range(ord("!"), ord("~") + 1)) + list(range(ord("¡"), ord("¬") + 1)) + list(
+        range(ord("®"), ord("ÿ") + 1))
+    cs = bs[:]
+    n = 0
+    for b in range(256):
+        if b not in bs:
+            bs.append(b)
+            cs.append(256 + n)
+            n += 1
+    return dict(zip(bs, map(chr, cs)))
+
+
+def write_qwen2_tokenizer(dirpath, texts, vocab_size=IMAGE_TOKENIZER_VOCAB, seed=0):
+    """A Qwen2-VL-layout ``tokenizer.json`` and ``tokenizer_config.json`` in
+    plain Python: byte-level BPE (NFC, the Qwen2 split regex, GPT-2's byte
+    map; the 256 byte characters, then merges that build the most frequent
+    words of ``texts`` left to right, then words of syllables drawn from
+    ``seed``, until ``vocab_size`` entries), and Qwen2-VL's added tokens at
+    their ids (<|endoftext|> 151643 … <|vision_start|> 151652,
+    <|vision_end|> 151653, <|image_pad|> 151655, <|video_pad|> 151656);
+    the config names Qwen2Tokenizer. Returns the seconds taken."""
+    import collections
+    import random
+    import re as _re
+
+    t0 = time.perf_counter()
+    bmap = _bytes_to_unicode()
+    vocab = {bmap[b]: i for i, b in enumerate(range(256))}
+    merges = []
+    counts = collections.Counter(
+        "".join(bmap[b] for b in w.encode("utf-8"))
+        for t in texts for w in _re.findall(r" ?[A-Za-z]+| ?[0-9]| ?[^\sA-Za-z0-9]+|\s+", t))
+
+    def build(word):
+        cur = word[0]
+        for ch in word[1:]:
+            if len(vocab) >= vocab_size:
+                return
+            new = cur + ch
+            if new not in vocab:
+                merges.append([cur, ch])
+                vocab[new] = len(vocab)
+            cur = new
+
+    for w, _ in sorted(counts.items(), key=lambda kv: (-kv[1], kv[0])):
+        if len(vocab) >= vocab_size:
+            break
+        build(w)
+    rnd = random.Random(seed)
+    while len(vocab) < vocab_size:
+        build(bmap[32] + "".join(rnd.choice(_SYLLABLES) for _ in range(rnd.randint(2, 6))))
+    added = [{"id": QWEN2_VL_FIRST_ADDED + i, "content": t, "single_word": False,
+              "lstrip": False, "rstrip": False, "normalized": False, "special": True}
+             for i, t in enumerate(QWEN2_VL_ADDED)]
+    byte_level = {"type": "ByteLevel", "add_prefix_space": False, "trim_offsets": False,
+                  "use_regex": False}
+    spec = {
+        "version": "1.0", "truncation": None, "padding": None, "added_tokens": added,
+        "normalizer": {"type": "NFC"},
+        "pre_tokenizer": {"type": "Sequence", "pretokenizers": [
+            {"type": "Split", "pattern": {"Regex": QWEN2_SPLIT}, "behavior": "Isolated",
+             "invert": False}, byte_level]},
+        "post_processor": byte_level, "decoder": byte_level,
+        "model": {"type": "BPE", "dropout": None, "unk_token": None,
+                  "continuing_subword_prefix": "", "end_of_word_suffix": "",
+                  "fuse_unk": False, "byte_fallback": False, "ignore_merges": False,
+                  "vocab": vocab, "merges": merges},
+    }
+    with open(os.path.join(dirpath, "tokenizer.json"), "w", encoding="utf-8") as fh:
+        json.dump(spec, fh, ensure_ascii=False)
+    with open(os.path.join(dirpath, "tokenizer_config.json"), "w") as fh:
+        json.dump({"tokenizer_class": "Qwen2Tokenizer", "add_prefix_space": False,
+                   "added_tokens_decoder": {str(a["id"]): {k: v for k, v in a.items()
+                                                           if k != "id"} for a in added},
+                   "bos_token": None, "eos_token": "<|im_end|>", "pad_token": "<|endoftext|>",
+                   "unk_token": None, "errors": "replace", "split_special_tokens": False,
+                   "clean_up_tokenization_spaces": False, "model_max_length": 32768}, fh)
+    return time.perf_counter() - t0
+
+
+def _synthetic_image(rng, h, w):
+    """A JPEG-like picture: a smooth random field with mild noise."""
+    import numpy as np
+    from PIL import Image
+
+    low = rng.integers(0, 256, size=(h // 16 + 2, w // 16 + 2, 3), dtype=np.uint8)
+    img = np.asarray(Image.fromarray(low).resize((w, h), Image.Resampling.BILINEAR), np.int16)
+    img = img + rng.integers(-12, 13, size=img.shape, dtype=np.int16)
+    return Image.fromarray(img.clip(0, 255).astype(np.uint8))
+
+
+def write_item_images(root, id2token, n_items, seed=0, sizes=IMAGE_NATIVE_SIZES,
+                      missing_every=IMAGE_MISSING_EVERY, broken_every=IMAGE_BROKEN_EVERY):
+    """``{root}/{token}.jpg`` (reference dataload.py:213-218) for items
+    1..n_items-1, drawn from ``seed`` at the native sizes ``sizes`` (cycled),
+    on 8 threads: none for every ``missing_every``-th item and a file that
+    does not decode for every ``broken_every``-th (both take the black
+    image). Returns (seconds, images written)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    t0 = time.perf_counter()
+    os.makedirs(root, exist_ok=True)
+
+    def one(x):
+        if x % missing_every == 0:
+            return 0
+        path = os.path.join(root, f"{id2token[x]}.jpg")
+        if x % broken_every == 0:
+            with open(path, "wb") as fh:
+                fh.write(b"\xff\xd8 not a picture")
+            return 0
+        h, w = sizes[x % len(sizes)]
+        _synthetic_image(np.random.default_rng((seed, x)), h, w).save(path, quality=90)
+        return 1
+
+    with ThreadPoolExecutor(8) as pool:
+        written = sum(pool.map(one, range(1, n_items)))
+    return time.perf_counter() - t0, written
+
+
+def write_item_frames(root, id2token, n_items, frames=4, seed=0, size=(240, 320), every=2):
+    """Directories ``{root}/{token}/f{t}.jpg`` of ``frames`` frames for every
+    ``every``-th item (the rest take black frames): a picture drifting
+    frame to frame. Returns the seconds taken."""
+    import numpy as np
+
+    from PIL import Image
+
+    t0 = time.perf_counter()
+    for x in range(1, n_items, every):
+        d = os.path.join(root, str(id2token[x]))
+        os.makedirs(d, exist_ok=True)
+        base = np.asarray(_synthetic_image(np.random.default_rng((seed, x)), *size))
+        for t in range(frames):
+            Image.fromarray(np.roll(base, 8 * t, axis=1)).save(os.path.join(d, f"f{t}.jpg"),
+                                                                quality=90)
+    return time.perf_counter() - t0
+
+
+def vision_hf_state_dict(cfg, seed, device, dtype):
+    """HF-named weights of ``cfg``'s vision tower, drawn as ``hf_state_dict``
+    draws (normal 0.02, norm scales 1 + 0.1·normal): ``visual.*`` for
+    Qwen2-VL (the Conv3d patch embedding [E, C, tps, ps, ps]),
+    ``vision_tower.vision_model.*`` and ``multi_modal_projector.*`` for a
+    LLaVA / CLIP tower (no weights for the unused last layer)."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    v, sd = cfg["vision_config"], {}
+
+    def put(name, *shape, one=False):
+        t = torch.randn(shape, generator=gen, device=device) * (0.1 if one else 0.02)
+        sd[name] = (t + 1.0 if one else t).to(dtype)
+
+    def block(p, D, F, names):
+        for ln in names[:2]:
+            put(f"{p}.{ln}.weight", D, one=True)
+            put(f"{p}.{ln}.bias", D)
+        for name, o, i in names[2]:
+            put(f"{p}.{name}.weight", o, i)
+            put(f"{p}.{name}.bias", o)
+
+    text = cfg.get("text_config", cfg)["hidden_size"]
+    if cfg["model_type"].startswith("llava"):
+        D, F, ps = v["hidden_size"], v["intermediate_size"], v["patch_size"]
+        V = "vision_tower.vision_model"
+        put(f"{V}.embeddings.class_embedding", D)
+        put(f"{V}.embeddings.patch_embedding.weight", D, 3, ps, ps)
+        put(f"{V}.embeddings.position_embedding.weight", (v["image_size"] // ps) ** 2 + 1, D)
+        put(f"{V}.pre_layrnorm.weight", D, one=True)
+        put(f"{V}.pre_layrnorm.bias", D)
+        for i in range(v["num_hidden_layers"] - 1):
+            block(f"{V}.encoder.layers.{i}", D, F, ("layer_norm1", "layer_norm2", [
+                (f"self_attn.{n}", D, D) for n in ("q_proj", "k_proj", "v_proj", "out_proj")] + [
+                ("mlp.fc1", F, D), ("mlp.fc2", D, F)]))
+        put("multi_modal_projector.linear_1.weight", text, D)
+        put("multi_modal_projector.linear_1.bias", text)
+        put("multi_modal_projector.linear_2.weight", text, text)
+        put("multi_modal_projector.linear_2.bias", text)
+        return sd
+    D, ps, tps, m = v["embed_dim"], v["patch_size"], v["temporal_patch_size"], \
+        v["spatial_merge_size"]
+    F = D * v["mlp_ratio"]
+    put("visual.patch_embed.proj.weight", D, 3, tps, ps, ps)
+    for i in range(v["depth"]):
+        block(f"visual.blocks.{i}", D, F, ("norm1", "norm2", [
+            ("attn.qkv", 3 * D, D), ("attn.proj", D, D), ("mlp.fc1", F, D), ("mlp.fc2", D, F)]))
+    put("visual.merger.ln_q.weight", D, one=True)
+    put("visual.merger.ln_q.bias", D)
+    put("visual.merger.mlp.0.weight", m * m * D, m * m * D)
+    put("visual.merger.mlp.0.bias", m * m * D)
+    put("visual.merger.mlp.2.weight", text, m * m * D)
+    put("visual.merger.mlp.2.bias", text)
+    return sd
+
+
+def image_config(item_dir, user_dir, work_dir, **over):
+    """reproduce/HLLM-Pixel8M-prior.sh's flags: the item tower from
+    ``item_dir`` (a Qwen2-VL ``config.json``; random weights from ``seed``
+    where it holds none) and the user tower from ``user_dir``, ``use_image``
+    over ``{work_dir}/images/synthetic/{token}.jpg`` at 224 × 224,
+    MAX_TEXT_LENGTH 256, windows of 10, 8 prior heads × 2 segment heads,
+    hierarchical, one medusa layer, segment embeddings, negatives drawn per
+    category (10 a pool), the weighted prior loss, learning rate 1e-4,
+    gradient checkpointing, the dense item tower; ``train_batch_size``
+    IMAGE_SERVE_BATCH sets the corpus batch (640 items). Cut against the
+    script: ``log_detailed_results`` off, and the parquet reader's knobs
+    (``tag_version``, ``min_seq_len``), which the in-memory data does not
+    read. ``over`` overrides any key."""
+    from mhrec_tpu_torch.config import Config
+
+    C = 8
+    return Config(
+        config_file_list=["overall/LLM.yaml", "HLLM/HLLM.yaml"],
+        config_dict=dict(
+            dict(dataset="synthetic", seed=0, data_path=work_dir,
+                 checkpoint_dir=os.path.join(work_dir, "ckpt"),
+                 item_pretrain_dir=item_dir, user_pretrain_dir=user_dir,
+                 image_dir=os.path.join(work_dir, "images"), use_image=True,
+                 use_image_online=False, img_height=224, img_width=224,
+                 MAX_TEXT_LENGTH=256, gradient_checkpointing=True, MAX_ITEM_LIST_LENGTH=10,
+                 loss="prior", train_batch_size=IMAGE_SERVE_BATCH, medusa_num_layers=1,
+                 num_segment_head=2, num_prior_head=C, head_interaction="hierarchical",
+                 split_mode="combine", pred_len=4, eval_pred_len=8, medusa_lambda=0.99,
+                 eval_num_cats=C, neg_sample_by_cat=True, neg_sample_mix_ratio=0,
+                 pos_sample_mix_ratio=0, weighted_prior_loss=True,
+                 outlier_user_metrics="category", segment_embed=True, save_for_eval=False,
+                 eval_by_cat=False, packed_item_tower=False, packed_corpus_pass=False,
+                 suppress_history=False, val_only=True, update_interval=1,
+                 optim_args={"learning_rate": 1e-4, "weight_decay": 0.01},
+                 image_cache_items=IMAGE_ITEMS,
+                 int_to_category={i: f"cat_{i}" for i in range(C)}),
+            **over),
+    ).finalize()
+
+
+def image_train_config(item_dir, user_dir, work_dir, **over):
+    """``image_config``'s model with the training cut: IMAGE_TRAIN_BATCH
+    sequences a step (each 14 positives and 9 pools of 10 negatives: 416
+    items at 4), ``adam_mu_dtype`` / ``adam_nu_dtype`` IMAGE_ADAM_MOMENTS,
+    IMAGE_TRAIN_STEPS steps and one evaluation at the end."""
+    return image_config(item_dir, user_dir, work_dir, **dict(
+        dict(val_only=False, train_batch_size=IMAGE_TRAIN_BATCH,
+             adam_mu_dtype=IMAGE_ADAM_MOMENTS, adam_nu_dtype=IMAGE_ADAM_MOMENTS,
+             total_iters=IMAGE_TRAIN_STEPS, eval_interval=IMAGE_TRAIN_STEPS),
+        **over))
+
+
+def _host_image_rates(config, data, n=IMAGE_HOST_RATE_ITEMS):
+    """The host's decode and patchify rate over ``n`` items of the catalog
+    with a fresh store: cold (every item decoded, resized, normalized and
+    patchified on ImagePreprocessor's threads) and from its LRU of
+    patches."""
+    import numpy as np
+
+    from mhrec_tpu_torch.data.vision import ItemImageStore
+
+    store = ItemImageStore(config, data)
+    ids = np.arange(1, min(n + 1, data.item_num))
+    out = {}
+    for kind in ("cold", "lru"):
+        t0 = time.perf_counter()
+        for s in range(0, len(ids), 256):
+            store.batch(ids[s:s + 256])
+        out[f"{kind}_items_per_s"] = len(ids) / (time.perf_counter() - t0)
+    out["lru_items"] = len(store._patch_cache)
+    out["lru_gb"] = sum(v.nbytes for v in store._patch_cache.values()) / 1e9
+    return out
+
+
+def _tower_times(trainer, n=IMAGE_TOWER_ITEMS):
+    """Seconds of the vision tower (with the splice's positions:
+    ``_image_kwargs``) and of the item LLM on the first ``n`` items of the
+    first corpus batch, warm, each once after one untimed call, the card
+    synchronised at both ends."""
+    import torch
+
+    from mhrec_tpu_torch.models.hllm.hllm import batch_image_extra
+
+    model, cb = trainer.model, next(trainer._corpus_batcher.batches())
+    dev = trainer.device
+    cb = {k: v[:n] for k, v in cb.items() if hasattr(v, "shape") and v.ndim}
+    tokens = torch.as_tensor(cb["tokens"], dtype=torch.long, device=dev)
+    lens = torch.as_tensor(cb["lens"], dtype=torch.long, device=dev)
+    img = trainer._image_device_arrays(cb, "")
+    px, image_extra = img["pixel_patches"], batch_image_extra(img, "")
+    col = torch.arange(tokens.shape[1], device=dev)[None]
+    mask = (col < lens[:, None] + 1).int()
+
+    def timed(fn):
+        fn()
+        _sync(trainer)
+        t0 = time.perf_counter()
+        out = fn()
+        _sync(trainer)
+        return time.perf_counter() - t0, out
+
+    with torch.no_grad():
+        vis_s, extra = timed(lambda: model._image_kwargs(tokens, px, image_extra))
+        llm_s, hidden = timed(lambda: model.item_llm(
+            input_ids=tokens, attention_mask=mask, emb_tokens=model.item_emb_tokens,
+            emb_pos=lens, **extra))
+    n = len(lens)
+    return {"items": n, "vision_ms": 1e3 * vis_s, "item_llm_ms": 1e3 * llm_s,
+            "vision_items_per_s": n / vis_s, "item_llm_items_per_s": n / llm_s,
+            "image_tokens": int(extra["image_embeds"].shape[1]),
+            "finite": bool(torch.isfinite(hidden).all())}
+
+
+def image_serve_phase(config, data, phase, device=None):
+    """The serving path of an image item tower: ``run.serve`` with the
+    launch counts set to 0 just before and read just after (no kernel of
+    #1–#8c runs: the image span rides the dense item tower); then a warm
+    repeated evaluation (users/s; the same metrics), its corpus pass timed
+    apart, the card synchronised at its end (items/s; tokens/s over the
+    text, image and emb slots), the vision tower's and the item LLM's
+    seconds on part of a corpus batch (``_tower_times``) and the host's
+    decode rate (``_host_image_rates``). Returns (trainer, test loader,
+    launches, ok)."""
+    import numpy as np
+    import torch
+
+    from mhrec_tpu_torch.run import serve
+
+    reset_launches()
+    dev = torch.device(device or DEVICE)
+    _reset_peak(dev)
+    t0 = time.perf_counter()
+    trainer, test_loader, result = serve(config, data, device)
+    _sync(trainer)
+    serve_s = time.perf_counter() - t0
+    launches = read_launches()
+    corpus_pass, tables = trainer.compute_item_feature, []
+
+    def timed_corpus_pass(*args, **kw):
+        t0 = time.perf_counter()
+        tables.append(corpus_pass(*args, **kw))
+        _sync(trainer)
+        tables.append(time.perf_counter() - t0)
+        return tables[0]
+
+    trainer.compute_item_feature = timed_corpus_pass
+    t0 = time.perf_counter()
+    again = trainer.evaluate(test_loader)
+    _sync(trainer)
+    eval_s = time.perf_counter() - t0
+    del trainer.compute_item_feature
+    table, corpus_s = tables
+    peak = _peak_gb(dev)
+    towers = _tower_times(trainer)
+    host = _host_image_rates(config, data)
+    batcher = trainer._corpus_batcher
+    _, lens = batcher.text_cache.batch(np.arange(data.item_num))
+    tokens = int(lens.sum()) + data.item_num * batcher.n_emb
+    n_users = len(test_loader)
+    ok = (all(math.isfinite(v) for v in _metric_values(result)) and again == result
+          and "pred_7" in result and not any(launches.values())
+          and tuple(table.shape) == (data.item_num, trainer.model.item_config.hidden_size)
+          and bool(torch.isfinite(table).all()) and towers["finite"])
+    emit({"phase": phase, "users": n_users, "items": int(data.item_num),
+          "corpus_batch_items": batcher.batch_size, "corpus_tokens": tokens,
+          "serve_seconds": serve_s, "corpus_seconds": corpus_s,
+          "items_per_s": data.item_num / corpus_s, "tokens_per_s": tokens / corpus_s,
+          "eval_seconds": eval_s, "users_per_s": n_users / eval_s,
+          "towers": towers, "host_images": host, "peak_mem_gb": peak, "launches": launches,
+          "repeat_matches": again == result, "metrics": result, "ok": bool(ok)})
+    return trainer, test_loader, launches, ok
+
+
+def image_train_phase(config, data, phase, device=None, profiled_steps=0):
+    """The training path of an image item tower: ``run.train`` (fit, one
+    evaluation of the valid split with a best-checkpoint save, the test
+    split from the reloaded checkpoint) with the launch counts set to 0 just
+    before and read just after: no kernel of #1–#8c runs; every loss finite.
+    Steady examples/s and items/s, peak memory; on the card, the device's
+    busy share over ``profiled_steps`` more steps under the profiler.
+    Returns (trainer, launches, ok)."""
+    import torch
+
+    from mhrec_tpu_torch.data import build_dataloader
+    from mhrec_tpu_torch.run import train
+
+    dev = torch.device(device or DEVICE)
+    reset_launches()
+    _reset_peak(dev)
+    t0 = time.perf_counter()
+    trainer, stats, result = train(config, data, device)
+    _sync(trainer)
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    peak = _peak_gb(dev)
+    steps = stats["iters"]
+    stream = build_dataloader(config, data)[0].epoch_batches(5)
+    batch = next(stream)
+    items = batch["pos_tokens"].shape[0] + batch["neg_tokens"].shape[0]
+    busy = None
+    if dev.type == "cuda" and profiled_steps:
+        batches = [batch] + [next(stream) for _ in range(profiled_steps - 1)]
+        wall, _, busy_us = profiled(lambda: [trainer.train_step(b) for b in batches])
+        busy = busy_us / 1e6 / wall
+    losses = [loss for _, loss in trainer.fetched_losses]
+    ckpt = trainer.checkpoint_stats
+    step_s = config["train_batch_size"] / stats["steady_examples_per_s"]
+    ok = (steps == config["total_iters"] and len(losses) == steps
+          and all(math.isfinite(x) for x in losses) and int(trainer.nan_step) < 0
+          and not any(launches.values()) and os.path.isfile(trainer.checkpoint_path())
+          and "load_s" in ckpt and all(math.isfinite(v) for v in _metric_values(result))
+          and "pred_7" in result)
+    emit({"phase": phase, "steps": steps, "batch": config["train_batch_size"],
+          "adam_moments": str(config.get("adam_mu_dtype") or "float32"),
+          "items_per_step": int(items), "seconds": seconds, "fit_wall_s": stats["wall_s"],
+          "fit_eval_s": stats["eval_s"], "steady_examples_per_s": stats["steady_examples_per_s"],
+          "steady_step_s": step_s, "item_tower_items_per_s": items / step_s,
+          "device_busy_share": busy, "losses": losses, "nan_step": int(trainer.nan_step),
+          "peak_mem_gb": peak, "launches": launches, "checkpoint": ckpt, "metrics": result,
+          "ok": bool(ok)})
+    return trainer, launches, ok
+
+
+def _image_catalog(n_users, n_items, max_item_list_length=10, num_categories=8):
+    from mhrec_tpu_torch.data.synthetic import InMemoryInteractionData
+
+    return InMemoryInteractionData(
+        num_users=n_users, num_items=n_items, seq_len=2 * max_item_list_length + 2 * 8,
+        num_categories=num_categories, eval_pred_len=8,
+        max_item_list_length=max_item_list_length, seed=0, item_texts=True)
+
+
+def _write_tower_dirs(work_dir, item_cfg, user_cfg, data, config_for_texts):
+    """The item and user tower directories: each ``config.json`` (no
+    weights: random from the seed) and, beside the item tower's, the
+    Qwen2-VL-layout tokenizer over the catalog's rendered texts."""
+    dirs = {}
+    for name, cfg in (("item", item_cfg), ("user", user_cfg)):
+        d = dirs[name] = os.path.join(work_dir, name)
+        os.makedirs(d, exist_ok=True)
+        with open(os.path.join(d, "config.json"), "w") as fh:
+            json.dump(cfg, fh)
+    tok_s = write_qwen2_tokenizer(
+        dirs["item"], rendered_texts(config_for_texts, data.item_text, data.item_num))
+    return dirs["item"], dirs["user"], tok_s
+
+
+def hllm_image_phase(work_dir, device=None, item_cfg=QWEN2_VL_2B, user_cfg=QWEN25_1_5B,
+                     n_users=IMAGE_USERS, n_items=IMAGE_ITEMS, profiled_steps=None, **over):
+    """reproduce/HLLM-Pixel8M-prior.sh at full width: a Qwen2-VL-2B item
+    tower (its vision tower and its text decoder) and a Qwen2.5-1.5B user
+    tower from ``config.json`` files (random weights from seed 0), the
+    Qwen2-VL-layout tokenizer, 224 × 224 JPEGs for most of the catalog.
+    Serves (``hllm_image_serve``) and trains (``hllm_image_train``).
+    ``item_cfg``, ``user_cfg``, the catalog and ``over`` cut it for the CPU
+    tests. Returns (each path's launches, the names of the checks that
+    failed)."""
+    import torch
+
+    data = _image_catalog(n_users, n_items)
+    base = image_config(None, None, work_dir, **over)
+    item_dir, user_dir, tok_s = _write_tower_dirs(work_dir, item_cfg, user_cfg, data, base)
+    img_s, n_img = write_item_images(os.path.join(work_dir, "images", "synthetic"),
+                                     data.id2token["item_id"], data.item_num)
+    emit({"phase": "hllm_image_setup", "tokenizer_write_s": tok_s, "images_write_s": img_s,
+          "images": n_img, "items": int(data.item_num)})
+    failed, launches = [], {}
+    trainer, _, launches["hllm_image_serve"], ok = image_serve_phase(
+        image_config(item_dir, user_dir, work_dir, **over), data, "hllm_image_serve", device)
+    if not ok:
+        failed.append("hllm_image_serve")
+    tokenizer = trainer._corpus_batcher.text_cache.tokenizer
+    if getattr(tokenizer, "kind", None) != "hf:Qwen2TokenizerFast":
+        failed.append("hllm_image_tokenizer")
+    del trainer
+    if torch.device(device or DEVICE).type == "cuda":
+        torch.cuda.empty_cache()
+    cfg = image_train_config(item_dir, user_dir, work_dir, **over)
+    trainer, launches["hllm_image_train"], ok = image_train_phase(
+        cfg, data, "hllm_image_train", device,
+        IMAGE_PROFILED_STEPS if profiled_steps is None else profiled_steps)
+    if not ok:
+        failed.append("hllm_image_train")
+    del trainer
+    return launches, failed
+
+
+def image_fit_phase(work_dir):
+    """How hllm_image's training fits on the card: two train steps of its
+    model (image_train_config) at the script's 8 sequences a card with
+    float32 and with bfloat16 Adam moments, and at 4 with bfloat16 ones;
+    each setting's peak memory, or "out of memory". A sizing probe
+    (``--image-fit``), not a path of the smoke run."""
+    import gc
+
+    import torch
+
+    from mhrec_tpu_torch.data import build_dataloader
+    from mhrec_tpu_torch.trainer import Trainer
+
+    data = _image_catalog(IMAGE_USERS, IMAGE_ITEMS)
+    base = image_config(None, None, work_dir)
+    item_dir, user_dir, _ = _write_tower_dirs(work_dir, QWEN2_VL_2B, QWEN25_1_5B, data, base)
+    write_item_images(os.path.join(work_dir, "images", "synthetic"), data.id2token["item_id"],
+                      data.item_num)
+    out = {}
+    for batch, moments in ((8, "float32"), (8, "bfloat16"), (4, "bfloat16")):
+        cfg = image_train_config(item_dir, user_dir, work_dir, train_batch_size=batch,
+                                 adam_mu_dtype=moments, adam_nu_dtype=moments)
+        stream = build_dataloader(cfg, data)[0].epoch_batches(0)
+        batches = [next(stream) for _ in range(2)]
+        trainer = None
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            trainer = Trainer(cfg, data)
+            trainer.setup_model()
+            t0 = time.perf_counter()
+            for b in batches:
+                loss = float(trainer.train_step(b)["loss"])
+            torch.cuda.synchronize()
+            out[f"batch{batch}_{moments}"] = {
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+                "two_steps_s": time.perf_counter() - t0, "loss": loss}
+        except torch.cuda.OutOfMemoryError:
+            out[f"batch{batch}_{moments}"] = "out of memory"
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit({"phase": "hllm_image_fit", "limit_gb": torch.cuda.get_device_properties(0).total_memory
+          / 2**30, **out})
+    return out
+
+
+def image_phases(seconds):
+    """hllm_image and hllm_image_variants, each in a work directory of its
+    own. Returns (each path's launches, the names of the checks that
+    failed)."""
+    import torch
+
+    launches, failed = {}, []
+    for name, fn in (("hllm_image", hllm_image_phase),
+                     ("hllm_image_variants", hllm_image_variants_phase)):
+        t0 = time.perf_counter()
+        work_dir = tempfile.mkdtemp(prefix=f"chip_smoke_{name}_")
+        try:
+            paths, bad = fn(work_dir)
+        finally:
+            shutil.rmtree(work_dir, ignore_errors=True)
+        torch.cuda.empty_cache()
+        launches.update(paths)
+        failed.extend(bad)
+        seconds[name] = time.perf_counter() - t0
+    return launches, failed
+
+
+def _f32_agreement(trainer):
+    """The first corpus batch's item embeddings, the bfloat16 model's
+    against a float32 copy's (unit vectors, max abs difference)."""
+    import torch
+
+    from mhrec_tpu_torch.models.hllm.hllm import batch_image_extra
+    from mhrec_tpu_torch.models.layers import cosine_normalize
+    from mhrec_tpu_torch.trainer import Trainer
+
+    f32 = Trainer(trainer.config, trainer.dataload, device=trainer.device, dtype=torch.float32)
+    f32.model.load_state_dict(trainer.model.state_dict())
+    cb = next(trainer._corpus_batcher.batches())
+    put = trainer._image_device_arrays
+    tok = torch.as_tensor(cb["tokens"], dtype=torch.long, device=trainer.device)
+    lens = torch.as_tensor(cb["lens"], dtype=torch.long, device=trainer.device)
+    img = put(cb, "")
+    with torch.no_grad():
+        a, b = (cosine_normalize(m.compute_item_chunk(tok, lens, img["pixel_patches"],
+                                                      batch_image_extra(img, "")))
+                for m in (trainer.model, f32.model))
+    del f32
+    return float((a - b).abs().max())
+
+
+def hllm_image_variants_phase(work_dir, device=None, vit_blocks=VARIANT_VIT_BLOCKS,
+                              llm_layers=VARIANT_LLM_LAYERS, n_users=VARIANT_USERS,
+                              n_items=VARIANT_ITEMS, steps=VARIANT_STEPS, widths=None,
+                              img=224, **over):
+    """The other vision paths at the full widths and a small depth
+    (``vit_blocks`` vision blocks, ``llm_layers`` + ``llm_layers`` text
+    layers), each serving ``n_items`` items and training ``steps`` steps
+    with the Qwen2-VL-layout tokenizer; no kernel of #1–#8c runs in any:
+
+    * ``video``: ``use_video``, 4 frames from frame-image directories
+      (grid_t 2, 512 patches, 128 video tokens), black frames for half the
+      items, the towers' weights from a ``.safetensors`` checkpoint the
+      phase writes (``visual.*`` and ``model.*``): every loaded tensor
+      equal to the written one;
+    * ``dynamic``: ``dynamic_image_res`` over images of mixed native sizes
+      (smart-resize grids up to 248 tokens, per-item spans and M-RoPE
+      positions);
+    * ``llava_anyres``: a CLIP-L/14 LLaVA tower with the fixed
+      ``anyres_grid`` [2, 2] (5 crops, 1,312 image tokens), its weights
+      (``vision_tower.*``, ``multi_modal_projector.*``,
+      ``language_model.model.*``) from a checkpoint the phase writes;
+    * ``llava_dynamic``: that tower with dynamic AnyRes (the default
+      pinpoints over 224: up to 5 crops, 256–1,312 tokens).
+
+    Each also holds its bf16 item embeddings on the first corpus batch to a
+    float32 copy's (VARIANT_F32_TOL). ``widths`` (Qwen2-VL item, user and
+    LLaVA item config dicts) and ``img`` (the Qwen2-VL image side) replace
+    the full widths for the CPU tests, and ``over`` overrides any key of
+    every variant. Returns (each path's launches, the names of the checks
+    that failed)."""
+    import torch
+
+    from mhrec_tpu_torch.run import train
+
+    dev = torch.device(device or DEVICE)
+    qwen_item, qwen_user, llava_item = widths or (QWEN2_VL_2B, QWEN25_1_5B, CLIP_L14_LLAVA)
+    qwen_item = dict(qwen_item, num_hidden_layers=llm_layers,
+                     vision_config=dict(qwen_item["vision_config"], depth=vit_blocks))
+    user = dict(qwen_user, num_hidden_layers=llm_layers)
+    llava = dict(llava_item, text_config=dict(llava_item["text_config"],
+                                              num_hidden_layers=llm_layers),
+                 vision_config=dict(llava_item["vision_config"],
+                                    num_hidden_layers=vit_blocks + 1))
+    # batch 2 with 2 negatives a pool: 46 items a step, 20 a corpus batch
+    small = dict(train_batch_size=2, eval_batch_size=64, num_negatives=4,
+                 image_cache_items=n_items, img_height=img, img_width=img)
+    S = llava["vision_config"]["image_size"]
+    g = S // llava["vision_config"]["patch_size"]
+    # LLaVA's image tokens: a base crop and a 2 × 2 grid with a newline a
+    # row (the fixed grid, and the dynamic pinpoints' largest), then text
+    llava_text = g * g + 2 * g * (2 * g + 1) + 64
+    variants = {
+        "video": (qwen_item, dict(use_image=False, use_video=True, video_nframes=4)),
+        "dynamic": (qwen_item, dict(dynamic_image_res=True)),
+        "llava_anyres": (llava, dict(anyres_grid=[2, 2], img_height=S, img_width=S,
+                                     MAX_TEXT_LENGTH=llava_text)),
+        "llava_dynamic": (llava, dict(dynamic_image_res=True, img_height=S, img_width=S,
+                                      MAX_TEXT_LENGTH=llava_text)),
+    }
+    failed, launches, recs = [], {}, {}
+    for name, (item_cfg, extra) in variants.items():
+        t0 = time.perf_counter()
+        opts = {**small, **extra, **over}
+        data, root = _image_catalog(n_users, n_items), os.path.join(work_dir, name)
+        item_dir, user_dir, _ = _write_tower_dirs(root, item_cfg, user, data,
+                                                  image_config(None, None, root, **opts))
+        ids = data.id2token["item_id"]
+        if name == "video":
+            write_item_frames(os.path.join(root, "videos", "synthetic"), ids, n_items)
+            opts["video_dir"] = os.path.join(root, "videos")
+        else:
+            write_item_images(os.path.join(root, "images", "synthetic"), ids, n_items,
+                              sizes=VARIANT_SIZES)
+        loaded = None
+        if name in ("video", "llava_anyres"):
+            # the towers' weights from a checkpoint: text decoder and vision tower
+            sd = hf_state_dict(item_cfg.get("text_config", item_cfg), seed=2, device=dev.type,
+                               dtype=torch.bfloat16, lm_head=False)
+            if name == "llava_anyres":
+                sd = {k.replace("model.", "language_model.model.", 1): v for k, v in sd.items()}
+            vis = vision_hf_state_dict(item_cfg, seed=3, device=dev.type, dtype=torch.bfloat16)
+            write_hf_checkpoint(item_dir, item_cfg, {**sd, **vis})
+            loaded = vis
+        cfg = image_config(item_dir, user_dir, root, **opts)
+        trainer, _, serve_launches, ok_serve = image_serve_phase(
+            cfg, data, f"hllm_image_{name}_serve", device)
+        rec = {"serve_ok": bool(ok_serve)}
+        if loaded is not None:
+            from mhrec_tpu_torch.models.llm.vision import load_any_vision_params
+            want = load_any_vision_params(loaded, trainer.model.visual.config)
+            rec["loaded_visual_equal_written"] = all(
+                torch.equal(p.detach(), want[n].to(p.device, p.dtype))
+                for n, p in trainer.model.visual.named_parameters())
+            rec["visual_load"] = trainer.model.tower_load_stats.get("visual")
+        rec["bf16_vs_f32_unit_emb_err"] = _f32_agreement(trainer)
+        del trainer
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        reset_launches()
+        tcfg = image_config(item_dir, user_dir, root, **dict(
+            opts, val_only=False, total_iters=steps, eval_interval=100 * steps))
+        trainer, stats, result = train(tcfg, data, device)
+        train_launches = read_launches()
+        losses = [loss for _, loss in trainer.fetched_losses]
+        rec.update(train_steps=stats["iters"], losses=losses,
+                   steady_examples_per_s=stats["steady_examples_per_s"],
+                   seconds=time.perf_counter() - t0)
+        ok = (ok_serve and rec.get("loaded_visual_equal_written", True)
+              and rec["bf16_vs_f32_unit_emb_err"] <= VARIANT_F32_TOL
+              and stats["iters"] == steps and len(losses) == steps
+              and all(math.isfinite(x) for x in losses) and "pred_7" in result
+              and not any(train_launches.values()))
+        rec["ok"] = bool(ok)
+        recs[name] = rec
+        launches[f"hllm_image_{name}_serve"] = serve_launches
+        launches[f"hllm_image_{name}_train"] = train_launches
+        if not ok:
+            failed.append(f"hllm_image_variants/{name}")
+        del trainer
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    emit({"phase": "hllm_image_variants", "vit_blocks": vit_blocks, "llm_layers": llm_layers,
+          "users": n_users, "items": n_items, **recs, "ok": not failed})
+    return launches, failed
+
+
 def profiled(fn):
     """``fn()`` under ``torch.profiler``: (wall seconds, the device's
     (start, end, name) spans in µs, sorted, and its busy µs: the union of
@@ -3227,6 +4050,19 @@ def main(argv=None) -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     emit({"nvidia_smi": smi})
+    # the image paths run no kernel of this port: these modes skip the build
+    if "--image-fit" in args:
+        work_dir = tempfile.mkdtemp(prefix="chip_smoke_image_fit_")
+        try:
+            image_fit_phase(work_dir)
+        finally:
+            shutil.rmtree(work_dir, ignore_errors=True)
+        return 0
+    if "--image-only" in args:
+        seconds = {}
+        launches, failed = image_phases(seconds)
+        emit({"phase_seconds": seconds, "path_launches": launches})
+        return 1 if failed else 0
 
     from mhrec_tpu_torch.data.synthetic import InMemoryInteractionData
     from mhrec_tpu_torch.ops import cuda_build
@@ -3426,6 +4262,8 @@ def main(argv=None) -> int:
 
     pretrained_launches, pretrained_failed = pretrained_phases(seconds)
     failed.extend(pretrained_failed)
+    image_launches, image_failed = image_phases(seconds)
+    failed.extend(image_failed)
     emit({"phase_seconds": seconds})
     # each path's launches, counted from 0 just before it
     emit({"path_launches": {
@@ -3433,7 +4271,7 @@ def main(argv=None) -> int:
         "eval_streamed_metrics": streamed_launches, "train": train_launches,
         "train_accum": accum_launches, **hstu_1b_launches, "hllm_serve": hllm_launches,
         "hllm_host_table": host_launches, "hllm_train": hllm_train_launches,
-        **pretrained_launches}})
+        **pretrained_launches, **image_launches}})
 
     launches = {"stu": serve_launches["hstu_stu_gated_fwd"],
                 "attn": pallas_launches["hstu_attn_fwd"],

@@ -8,8 +8,12 @@ towers' ``DenseGeneral`` attention kernels [D, heads, dh] become [heads·dh,
 D] weights, and a BERT tower's fused ``qkv`` kernel [D, 3, heads, dh] one
 [3·heads·dh, D] weight. A scanned HSTU stack (``scan_layers``: each leaf
 of ``stu_stack/layers/stu`` stacked on a leading [n_layers] axis) maps
-onto the same unrolled ``stu_layers`` as the unrolled tree. The key walk
-follows ``tools/convert_reference_ckpt.py:208-248``. A flax parameter the
+onto the same unrolled ``stu_layers`` as the unrolled tree. An HLLM's
+``visual`` tower (Qwen2-VL: ``patch_embed``, ``blocks_{i}``, ``ln_q``,
+``merger_fc1/2``; CLIP / LLaVA: also ``position_embedding``,
+``class_embedding``, ``pre_layernorm``, ``proj_fc1/2``, ``image_newline``)
+maps onto the port's ``visual`` with ``blocks_{i}`` as ``blocks.{i}``. The
+key walk follows ``tools/convert_reference_ckpt.py:208-248``. A flax parameter the
 walk does not use, or one it needs and does not find, raises.
 """
 
@@ -128,6 +132,38 @@ class _Walk:
                 self.put(f"{t}.mlp.{proj}.weight", f"{p}/mlp/{proj}/kernel", transpose=True)
             i += 1
 
+    def put_visual(self, tower: str):
+        """A Qwen2-VL ``VisionTower`` or a ``ClipVisionTower`` under
+        ``tower``."""
+        if self.has(f"{tower}/patch_embed/bias"):
+            self.put_dense(f"{tower}.patch_embed", f"{tower}/patch_embed")
+        else:
+            self.put(f"{tower}.patch_embed.weight", f"{tower}/patch_embed/kernel", transpose=True)
+        clip = self.has(f"{tower}/proj_fc1/kernel")
+        norms = ("layer_norm1", "layer_norm2") if clip else ("norm1", "norm2")
+        denses = (("q_proj", "k_proj", "v_proj", "out_proj", "fc1", "fc2") if clip
+                  else ("qkv", "proj", "fc1", "fc2"))
+        i = 0
+        while self.has(f"{tower}/blocks_{i}/{norms[0]}/scale"):
+            p, t = f"{tower}/blocks_{i}", f"{tower}.blocks.{i}"
+            for norm in norms:
+                self.put_norm(f"{t}.{norm}", f"{p}/{norm}")
+            for dense in denses:
+                self.put_dense(f"{t}.{dense}", f"{p}/{dense}")
+            i += 1
+        if clip:
+            for name in ("position_embedding", "class_embedding", "image_newline"):
+                if self.has(f"{tower}/{name}"):
+                    self.put(f"{tower}.{name}", f"{tower}/{name}")
+            if self.has(f"{tower}/pre_layernorm/scale"):
+                self.put_norm(f"{tower}.pre_layernorm", f"{tower}/pre_layernorm")
+            for dense in ("proj_fc1", "proj_fc2"):
+                self.put_dense(f"{tower}.{dense}", f"{tower}/{dense}")
+        else:
+            self.put_norm(f"{tower}.ln_q", f"{tower}/ln_q")
+            for dense in ("merger_fc1", "merger_fc2"):
+                self.put_dense(f"{tower}.{dense}", f"{tower}/{dense}")
+
     def finish(self) -> Dict[str, torch.Tensor]:
         unused = sorted(set(self.flat) - self.used)
         if unused:
@@ -151,6 +187,14 @@ def bert_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
     return {k[len("tower."):]: v for k, v in walk.finish().items()}
 
 
+def vision_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The flax params of one ``VisionTower`` or ``ClipVisionTower`` → the
+    ``state_dict`` of this package's counterpart."""
+    walk = _Walk({"tower": params})
+    walk.put_visual("tower")
+    return {k[len("tower."):]: v for k, v in walk.finish().items()}
+
+
 def state_dict_from_flax(params: Mapping, config) -> Dict[str, torch.Tensor]:
     """``params``: nested dict of numpy arrays (the flax ``params``
     collection of ``mhrec_tpu.models.idnet.hstu.HSTU`` or
@@ -163,6 +207,8 @@ def state_dict_from_flax(params: Mapping, config) -> Dict[str, torch.Tensor]:
     if str(config["model"] or "HSTU") == "HLLM":
         if "item_llm" in params:
             walk.put_tower("item_llm")
+        if "visual" in params:
+            walk.put_visual("visual")
         walk.put_tower("user_llm")
         if "item_emb_tokens" in flat:
             put("item_emb_tokens", "item_emb_tokens")

@@ -956,6 +956,7 @@ class HFTokenizer:
 
     kind = "hf"
     files_digest: Optional[str] = None
+    unk_token: Optional[str] = None  # the config's unk_token (convert_tokens_to_ids' fallback)
 
     def __init__(self, spec: dict, template: Optional[Tuple[List[int], List[int]]] = None):
         if spec.get("model") is None:
@@ -1313,5 +1314,6 @@ def load_tokenizer(pretrain_dir: str) -> Optional[HFTokenizer]:
             ids.append([tid] if want else [])
         tok.before, tok.after = ids
     tok.kind = f"hf:{cls}"
+    tok.unk_token = _token_spec(specials.get("unk_token"))[0]
     tok.files_digest = files_digest(pretrain_dir)
     return tok

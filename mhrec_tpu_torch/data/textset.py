@@ -12,6 +12,14 @@ chunk rows with segment ids (``models/llm/packed.py::pack_items``).
 matrices, packed chunk rows (``packed_item_tower``) or, under
 ``dedup_items``, each distinct item once with the gather back.
 
+Under ``use_image`` (or ``use_video``) every item's tokens start with a
+``[vision_start][image_pad × n][vision_end]`` span the vision tower splices
+over (reference chat-template layout, trainset.py:252-254), and the batches
+carry the items' patches from ``data/vision.py``'s stores
+(``{pos,neg,uniq}_pixel_patches``; under ``dynamic_image_res`` also the
+per-image maps ``patch_valid``, ``patch_hw``, ``img_src``, ``img_pos`` or, for
+a LLaVA tower, ``tok_src``). The image path takes the dense item tower.
+
 The tokenizer resolves a pretrain directory as the JAX package's
 ``build_tokenizer`` does, without ``transformers`` or ``tokenizers``: a
 ``tokenizer.json``, or a BERT ``vocab.txt``, gives the HF tokenizer of
@@ -22,9 +30,8 @@ tokenizer file, or no directory, gives the hashing tokenizer. Where the JAX
 package loads the tokenizer through a library the port does not depend on
 (SentencePiece's ``tokenizer.model``, tiktoken, a slow ``vocab.json`` /
 ``merges.txt`` BPE) or cannot load it at all and falls back to hashing, the
-port raises instead of tokenizing differently. The image and video keys are
-not ported yet (they raise), nor the multi-host batch layouts of the JAX
-package.
+port raises instead of tokenizing differently. The multi-host batch
+layouts of the JAX package are not ported.
 """
 
 from __future__ import annotations
@@ -96,20 +103,34 @@ def build_tokenizer(pretrain_dir: Optional[str],
 
 class ItemTextCache:
     """Per-item token arrays, computed once; optionally the whole corpus's
-    token matrix persisted on disk."""
+    token matrix persisted on disk.
+
+    With ``image_prefix`` set (static image or video grid), every item's
+    tokens start with that fixed span and the text budget shrinks by its
+    length; with a dynamic ``image_store``, each item's span holds its own
+    image-token count."""
 
     # how many items the content digest samples; the first/last ids and an
     # even stride in between are always included
     _FP_SAMPLE = 4096
 
     def __init__(self, dataload, tokenizer, text_keys, item_prompt: str,
-                 max_text_length: int, n_emb: int = 1):
+                 max_text_length: int, n_emb: int = 1,
+                 image_prefix: Optional[np.ndarray] = None, image_store=None):
         self.dataload = dataload
         self.tokenizer = tokenizer
         self.text_keys = list(text_keys or ["title", "tag", "description"])
         self.item_prompt = item_prompt or ""
         self.max_text_length = max_text_length
         self.n_emb = max(int(n_emb), 1)  # columns reserved for emb slots
+        self.image_prefix = image_prefix
+        # dynamic-resolution mode: per-item prefixes [vs][ip × n_i][ve]
+        self.image_store = image_store if getattr(image_store, "dynamic", False) else None
+        if self.image_store is not None:
+            self._img_ids = image_special_ids(tokenizer)
+        if image_prefix is not None and len(image_prefix) >= max_text_length:
+            raise ValueError("MAX_TEXT_LENGTH too small for the image-pad span; raise it "
+                             "or shrink img_height/img_width")
         self._cache: Dict[int, np.ndarray] = {}
         # full-corpus token matrix (disk cache): [item_num, T] + lens
         self._matrix = None
@@ -132,9 +153,17 @@ class ItemTextCache:
             return self._matrix[item_id, : self._lens[item_id]]
         arr = self._cache.get(item_id)
         if arr is None:
-            budget = self.max_text_length
+            prefix = self.image_prefix
+            if self.image_store is not None:
+                vs, ip, ve = self._img_ids
+                n_i = self.image_store.n_tokens(item_id)
+                prefix = np.asarray([vs] + [ip] * n_i + [ve], np.int32)
+            budget = self.max_text_length - (0 if prefix is None else len(prefix))
             ids = self.tokenizer.encode(self.render(item_id), budget)
-            arr = self._cache[item_id] = np.asarray(ids[:budget], dtype=np.int32)
+            arr = np.asarray(ids[:budget], dtype=np.int32)
+            if prefix is not None:
+                arr = np.concatenate([prefix, arr])
+            self._cache[item_id] = arr
         return arr
 
     def batch(self, item_ids: np.ndarray):
@@ -161,15 +190,47 @@ class ItemTextCache:
 
     def _fingerprint(self, dataset_name: str, item_num: int) -> str:
         """Content guard for the persisted token matrix: the rendered text of
-        an evenly strided sample of items, the text settings (the JAX
-        package's key without its image fields) and the tokenizer: its kind
-        and a sha256 of its files' bytes, so that a matrix written under
-        one tokenizer is not served under another of the same vocabulary
-        size."""
+        an evenly strided sample of items, the text settings, the tokenizer
+        (its kind and a sha256 of its files' bytes, so that a matrix written
+        under one tokenizer is not served under another of the same
+        vocabulary size) and, under images, the JAX package's image fields:
+        each sampled item's resolved image path and stat (size, mtime), and
+        the grid geometry (dyn_kind, min/max pixels, patch size, merge,
+        temporal patch, static token count) that sets each item's span.
+        A change confined to unsampled items can slip through: delete the
+        cache directory after bulk edits."""
         h = hashlib.sha256()
-        for iid in self._fp_sample_ids(item_num):
+        sample = self._fp_sample_ids(item_num)
+        for iid in sample:
             h.update(self.render(iid).encode("utf-8", "replace"))
             h.update(b"\x00")
+        img_spec = None
+        store = self.image_store
+        if store is not None or self.image_prefix is not None:
+            stats = []
+            if store is not None:
+                for iid in sample:
+                    p = store.path(iid)
+                    if p:
+                        try:
+                            st = os.stat(p)
+                            stats.append((iid, p, st.st_size, int(st.st_mtime)))
+                        except OSError:
+                            stats.append((iid, p, -1, -1))
+                h.update(json.dumps(stats).encode())
+                dyn = getattr(store, "dyn", None)
+                prep = getattr(store, "prep", None)
+                img_spec = dict(
+                    dyn_kind=getattr(store, "dyn_kind", None),
+                    min_pixels=getattr(dyn, "min_pixels", None),
+                    max_pixels=getattr(dyn, "max_pixels", None),
+                    anyres_P=getattr(dyn, "P", None),
+                    token_cap=getattr(dyn, "token_cap", None),
+                    patch_size=getattr(prep, "patch_size", None),
+                    merge=getattr(prep, "merge_size", None),
+                    tps=getattr(prep, "temporal_patch_size", None),
+                    static_n_tokens=getattr(prep, "n_tokens", None),
+                )
         spec = dict(
             dataset=dataset_name, item_num=item_num,
             text_keys=self.text_keys, prompt=self.item_prompt,
@@ -177,7 +238,9 @@ class ItemTextCache:
             vocab=getattr(self.tokenizer, "vocab_size", None),
             tokenizer=getattr(self.tokenizer, "kind", None),
             tokenizer_files=getattr(self.tokenizer, "files_digest", None),
-            static_prefix=None, images=None, content=h.hexdigest(),
+            static_prefix=(None if self.image_prefix is None
+                           else self.image_prefix.tolist()),
+            images=img_spec, content=h.hexdigest(),
         )
         return hashlib.sha256(json.dumps(spec, sort_keys=True).encode()).hexdigest()[:16]
 
@@ -218,6 +281,116 @@ class ItemTextCache:
         return path
 
 
+def _token_id(tokenizer, content: str) -> Optional[int]:
+    """transformers' ``convert_tokens_to_ids`` for one token: its id, else
+    the unknown token's id, else None."""
+    tid = tokenizer.token_to_id(content)
+    if tid is None and getattr(tokenizer, "unk_token", None) is not None:
+        tid = tokenizer.token_to_id(tokenizer.unk_token)
+    return tid
+
+
+def image_special_ids(tokenizer):
+    """(vision_start, image_pad, vision_end) token ids: the HF tokenizer's,
+    else (hashing tokenizer, or one without all three) the top three ids of
+    the vocabulary."""
+    if isinstance(tokenizer, HFTokenizer):
+        trip = [_token_id(tokenizer, t)
+                for t in ("<|vision_start|>", "<|image_pad|>", "<|vision_end|>")]
+        if all(isinstance(x, int) and x >= 0 for x in trip):
+            return tuple(trip)
+    V = tokenizer.vocab_size
+    return (V - 3, V - 2, V - 1)
+
+
+def build_image_prefix(tokenizer, n_tokens: int) -> np.ndarray:
+    """``[vision_start][image_pad × n][vision_end]`` token ids: the fixed
+    span the vision tower splices over (reference chat-template layout)."""
+    vs, ip, ve = image_special_ids(tokenizer)
+    return np.asarray([vs] + [ip] * n_tokens + [ve], np.int32)
+
+
+def _setup_image_store(config, dataload, tokenizer):
+    """→ (ItemImageStore | ItemVideoStore | None, image_prefix | None).
+    Dynamic-resolution images give prefix None: ``ItemTextCache`` builds
+    each item's span from the store's per-item token counts. Video is
+    always a static grid: a fixed ``[vision_start][pad × grid_t·gh·gw/m²]
+    [vision_end]`` span (``<|video_pad|>`` when the tokenizer has it)."""
+    from mhrec_tpu_torch.data.vision import ItemImageStore, ItemVideoStore
+
+    if config.get("use_video", False):
+        store = ItemVideoStore(config, dataload)
+        vs, ip, ve = image_special_ids(tokenizer)
+        if isinstance(tokenizer, HFTokenizer):
+            vp = _token_id(tokenizer, "<|video_pad|>")
+            if isinstance(vp, int) and vp >= 0:
+                ip = vp
+        return store, np.asarray([vs] + [ip] * store.prep.n_tokens + [ve], np.int32)
+    if not config.get("use_image", False):
+        return None, None
+    store = ItemImageStore(config, dataload)
+    if store.dynamic:
+        return store, None
+    return store, build_image_prefix(tokenizer, store.prep.n_tokens)
+
+
+def dynamic_image_arrays(ids, image_store, token_width: int) -> Dict[str, np.ndarray]:
+    """The host-side dynamic-image maps of a batch of item ids, so the
+    device work keeps static shapes (reference: the varlen vision path and
+    the per-image ``get_rope_index`` of modeling_qwen2_vl.py):
+
+      img_src [N, T]     j where the position holds the item's j-th image
+                         token, else -1: the splice's gather map
+      img_pos [N, 3, T]  the (t, h, w) M-RoPE positions of each row (not for
+                         a LLaVA tower, whose positions stay sequential)
+
+    with the store's fixed-capacity arrays (patches and valid / hw, or
+    tok_src)."""
+    out = image_store.dynamic_batch(ids)
+    N, T = len(ids), token_width
+    s = 1  # span start: position 0 is vision_start
+    img_src = np.full((N, T), -1, np.int32)
+    if image_store.dyn_kind == "anyres":
+        for row in range(N):
+            n = int(out["n_tokens"][row])
+            img_src[row, s:s + n] = np.arange(n, dtype=np.int32)
+        out["img_src"] = img_src
+        del out["n_tokens"]
+        return out
+    m = image_store.dyn.merge_size
+    img_pos = np.broadcast_to(np.arange(T, dtype=np.int32), (N, 3, T)).copy()
+    for row in range(N):
+        n = int(out["n_tokens"][row])
+        # the post-merger token grid of this item (hw rows are patch-level)
+        gw_m = (int(out["hw"][row, :, 1].max()) + 1) // m if n else 1
+        hm = n // max(gw_m, 1)
+        j = np.arange(n, dtype=np.int32)
+        img_src[row, s:s + n] = j
+        img_pos[row, 0, s:s + n] = s
+        img_pos[row, 1, s:s + n] = s + j // max(gw_m, 1)
+        img_pos[row, 2, s:s + n] = s + j % max(gw_m, 1)
+        # text after the span continues at s + max(grid), as the JAX package
+        img_pos[row, :, s + n:] = s + max(hm, gw_m) + np.arange(T - (s + n), dtype=np.int32)
+    out["img_src"] = img_src
+    out["img_pos"] = img_pos
+    del out["n_tokens"]
+    return out
+
+
+def _emit_image_keys(batch, prefix: str, ids, tokens, image_store):
+    """The image arrays of one item group; dynamic mode adds the validity,
+    position and gather-map keys beside the patches."""
+    p = f"{prefix}_" if prefix else ""
+    if image_store.dynamic:
+        arrs = dynamic_image_arrays(ids, image_store, tokens.shape[1])
+        batch[f"{p}pixel_patches"] = arrs.pop("patches")
+        rename = {"valid": "patch_valid", "hw": "patch_hw"}
+        for k, v in arrs.items():  # valid / hw / tok_src / img_src / img_pos
+            batch[f"{p}{rename.get(k, k)}"] = v
+    else:
+        batch[f"{p}pixel_patches"] = image_store.batch(ids)
+
+
 def token_cache_dir(config) -> Optional[str]:
     """The corpus token-cache directory: the ``token_cache_dir`` key,
     default ``{data_path}/.token_cache``; ``false`` disables it."""
@@ -245,14 +418,15 @@ class TextSEQTrainBatcher(SEQTrainBatcher):
     * ``dedup_items`` (not packed): each distinct item once, uniq_tokens
       [U, T+n] with U padded to a multiple of ``dedup_bucket_quantum``,
       uniq_token_lens and uniq_inverse, when that is fewer rows than the
-      occurrences; else the dense keys.
+      occurrences; else the dense keys;
+    * ``use_image`` / ``use_video``: the patches of each group
+      ({pos,neg,uniq}_pixel_patches) and, under ``dynamic_image_res``, its
+      maps (see ``_emit_image_keys``); refused with ``packed_item_tower``.
 
     None under ``freeze_item_llm``. The token cache is load-only here: the
     corpus pass writes it."""
 
     def __init__(self, config, dataload):
-        if config.get("use_image", False) or config.get("use_video", False):
-            raise NotImplementedError("the image and video item keys are not ported yet")
         super().__init__(config, dataload)
         self.freeze_item_llm = bool(config.get("freeze_item_llm", False))
         self.packed_item_tower = bool(config.get("packed_item_tower", False))
@@ -264,10 +438,14 @@ class TextSEQTrainBatcher(SEQTrainBatcher):
         self.max_text_length = int(config.get("MAX_TEXT_LENGTH", 64))
         tokenizer = build_tokenizer(config.get("item_pretrain_dir"),
                                     config.get("dummy_vocab_size", 1024))
+        self.image_store, image_prefix = _setup_image_store(config, dataload, tokenizer)
+        if self.image_store is not None and self.packed_item_tower:
+            raise ValueError("use_image is incompatible with packed_item_tower")
         self.n_emb = max(int(config.get("item_emb_token_n", 1) or 0), 1)
         self.text_cache = ItemTextCache(
             dataload, tokenizer, config["text_keys"], config.get("item_prompt", ""),
-            self.max_text_length, n_emb=self.n_emb,
+            self.max_text_length, n_emb=self.n_emb, image_prefix=image_prefix,
+            image_store=self.image_store,
         )
         cache_dir = token_cache_dir(config)
         if cache_dir is not None:
@@ -288,8 +466,11 @@ class TextSEQTrainBatcher(SEQTrainBatcher):
             if bucket < len(ids_all):
                 uniq_p = np.zeros(bucket, dtype=uniq.dtype)
                 uniq_p[: len(uniq)] = uniq
-                batch["uniq_tokens"], batch["uniq_token_lens"] = self.text_cache.batch(uniq_p)
+                tokens, lens = self.text_cache.batch(uniq_p)
+                batch["uniq_tokens"], batch["uniq_token_lens"] = tokens, lens
                 batch["uniq_inverse"] = inv.astype(np.int32)
+                if self.image_store is not None:
+                    _emit_image_keys(batch, "uniq", uniq_p, tokens, self.image_store)
                 return batch
         pos_tokens, pos_lens = self.text_cache.batch(batch["items"].ravel())
         neg_tokens, neg_lens = self.text_cache.batch(batch["neg_items"].ravel())
@@ -306,6 +487,11 @@ class TextSEQTrainBatcher(SEQTrainBatcher):
         else:
             batch["pos_tokens"], batch["pos_token_lens"] = pos_tokens, pos_lens
             batch["neg_tokens"], batch["neg_token_lens"] = neg_tokens, neg_lens
+            if self.image_store is not None:
+                _emit_image_keys(batch, "pos", batch["items"].ravel(), pos_tokens,
+                                 self.image_store)
+                _emit_image_keys(batch, "neg", batch["neg_items"].ravel(), neg_tokens,
+                                 self.image_store)
         return batch
 
 
@@ -314,20 +500,21 @@ class BatchTextBatcher:
     BatchTextDataset)."""
 
     def __init__(self, config, dataload, batch_size: Optional[int] = None):
-        if config.get("use_image", False) or config.get("use_video", False):
-            raise NotImplementedError("the image and video item keys are not ported yet")
         self.dataload = dataload
         self.max_text_length = int(config.get("MAX_TEXT_LENGTH", 64))
         tokenizer = build_tokenizer(config.get("item_pretrain_dir"),
                                     config.get("dummy_vocab_size", 1024))
+        self.image_store, image_prefix = _setup_image_store(config, dataload, tokenizer)
         self.n_emb = max(int(config.get("item_emb_token_n", 1) or 0), 1)
         self.text_cache = ItemTextCache(
             dataload, tokenizer, config["text_keys"], config.get("item_prompt", ""),
-            self.max_text_length, n_emb=self.n_emb,
+            self.max_text_length, n_emb=self.n_emb, image_prefix=image_prefix,
+            image_store=self.image_store,
         )
         self.batch_size = batch_size or (
             config["MAX_ITEM_LIST_LENGTH"] * config["train_batch_size"])
-        self.packed = bool(config.get("packed_corpus_pass", False))
+        # the image spans ride the dense item tower
+        self.packed = bool(config.get("packed_corpus_pass", False)) and self.image_store is None
         self.pack_bucket = int(config.get("pack_bucket", 2048))
         self.pack_chunk = int(config.get("pack_chunk", 2048) or 0)
         self._chunk_rows_hw = 0
@@ -360,4 +547,6 @@ class BatchTextBatcher:
             else:
                 out["tokens"] = tokens
                 out["lens"] = lens
+                if self.image_store is not None:
+                    _emit_image_keys(out, "", ids, tokens, self.image_store)
             yield out

@@ -17,13 +17,16 @@
   through the user tower, then ``compute_multihead_losses`` as for HSTU;
 * the towers are Llama-family decoders (RoPE or ALiBi) or BERT encoders,
   as each pretrain directory's ``config.json`` says, and
-  ``load_pretrained_towers`` reads their weights from that directory.
-
-Not ported yet (they raise): the image and video towers.
+  ``load_pretrained_towers`` reads their weights from that directory;
+* ``use_image`` / ``use_video`` add a ``visual`` tower (Qwen2-VL's, or a
+  CLIP / LLaVA one, as the item directory's ``vision_config`` says) whose
+  tokens the item tower splices over each item's image-pad span, with
+  M-RoPE positions for a Qwen2-VL item tower; the dense item tower only.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import math
 import os
@@ -41,10 +44,24 @@ from mhrec_tpu_torch.models.llm.bert import BertBackbone
 from mhrec_tpu_torch.models.llm.config import LLMConfig
 from mhrec_tpu_torch.models.llm.dummy import DummyLLM
 from mhrec_tpu_torch.models.llm.llama import LlamaBackbone
+from mhrec_tpu_torch.models.llm.vision import (ClipVisionTower, VisionConfig, VisionTower,
+                                               has_vision_weights, load_any_vision_params)
 from mhrec_tpu_torch.models.multihead import compute_multihead_losses, predict_switch_and_heads
 from mhrec_tpu_torch.utils.enums import InputType
 
 logger = logging.getLogger(__name__)
+
+# the dynamic-resolution keys of one item group (data/textset.py
+# _emit_image_keys), beside its pixel_patches
+IMAGE_EXTRA_KEYS = ("patch_valid", "patch_hw", "img_src", "img_pos", "tok_src")
+
+
+def batch_image_extra(batch, prefix: str):
+    """The dynamic-resolution image arrays of one item group, or None."""
+    p = f"{prefix}_" if prefix else ""
+    if batch.get(f"{p}img_src") is None:
+        return None
+    return {k: batch[f"{p}{k}"] for k in IMAGE_EXTRA_KEYS if f"{p}{k}" in batch}
 
 
 class HLLM(MedusaHeads, nn.Module):
@@ -63,6 +80,11 @@ class HLLM(MedusaHeads, nn.Module):
         item_num: int = 0,
         item_emb_token_n: int = 1,
         gradient_checkpointing: bool = False,
+        use_image: bool = False,
+        vision_config: Optional[VisionConfig] = None,
+        img_grid: Tuple[int, int] = (16, 16),
+        image_span_start: int = 1,
+        vid_grid_t: int = 1,
         remat_policy: str = "full",
         nce_impl: str = "banded",
         prior_loss_impl: str = "loop",
@@ -133,6 +155,14 @@ class HLLM(MedusaHeads, nn.Module):
         self.use_prior_switch_test = use_prior_switch_test
         self.int_to_category = int_to_category
         self.dtype = dtype
+        # image branch: a vision tower whose tokens are spliced over the
+        # image-pad span of each item's text (reference hllm.py:399-464);
+        # vid_grid_t > 1: that span holds vid_grid_t temporal groups of
+        # gh·gw patches, attended block-diagonally, M-RoPE's t advancing
+        self.vision_config = vision_config
+        self.img_grid = tuple(img_grid)
+        self.image_span_start = image_span_start
+        self.vid_grid_t = vid_grid_t
 
         def make_llm(cfg: LLMConfig, token_embeddings: bool):
             if dummy_llm:
@@ -152,6 +182,19 @@ class HLLM(MedusaHeads, nn.Module):
                                  torch.zeros(item_num, item_config.hidden_size))
         else:
             self.item_llm = make_llm(item_config, token_embeddings=True)
+            if use_image and not dummy_llm:
+                vcfg = vision_config or VisionConfig.tiny(item_config.hidden_size)
+                if vcfg.arch == "clip":
+                    if vid_grid_t > 1:
+                        raise NotImplementedError(
+                            "video inputs need the Qwen2-VL tower (temporal patch pairs); "
+                            "CLIP towers are image-only")
+                    self.visual = ClipVisionTower(vcfg, *self.img_grid, dtype=dtype,
+                                                  gradient_checkpointing=gradient_checkpointing)
+                else:
+                    self.visual = VisionTower(vcfg, *self.img_grid, dtype=dtype,
+                                              gradient_checkpointing=gradient_checkpointing,
+                                              grid_t=vid_grid_t)
         # the user tower reads item embeddings, never token ids
         self.user_llm = make_llm(user_config, token_embeddings=False)
         D = user_config.hidden_size
@@ -183,22 +226,70 @@ class HLLM(MedusaHeads, nn.Module):
         self._init_head_parameters(gen)
 
     # ------------------------------------------------------------------
-    def encode_items(self, tokens: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
-        """Item tower over a padded token batch [N, T + n_emb] → [N, D_item]
-        float32."""
+    def _image_mrope_positions(self, T: int) -> np.ndarray:
+        """[3, T] (t, h, w) M-RoPE positions of the fixed item layout
+        [prefix][image / video pads][text...]: the pads at (t, h, w) of their
+        post-merger grid, offset by the span start; the text after the span
+        continues at start + max(grid_t, gh/m, gw/m) (the JAX package's
+        layout, hllm.py:284-299, one image or grid_t temporal groups an item)."""
+        m = (self.vision_config or VisionConfig.tiny()).spatial_merge_size
+        gt = max(self.vid_grid_t, 1)
+        hm, wm = self.img_grid[0] // m, self.img_grid[1] // m
+        s, n = self.image_span_start, gt * hm * wm
+        pos = np.broadcast_to(np.arange(T, dtype=np.int32), (3, T)).copy()
+        j = np.arange(n)
+        pos[0, s:s + n] = s + j // (hm * wm)
+        pos[1, s:s + n] = s + (j % (hm * wm)) // wm
+        pos[2, s:s + n] = s + j % wm
+        pos[:, s + n:] = s + max(gt, hm, wm) + np.arange(T - s - n, dtype=np.int32)
+        return pos
+
+    def _image_kwargs(self, tokens, pixel_patches, image_extra=None):
+        """The vision tower's call and the item backbone's splice and
+        position arguments. ``image_extra`` (dynamic resolution,
+        data/textset.py ``dynamic_image_arrays``): patch_valid, patch_hw,
+        img_src and img_pos, or tok_src (LLaVA AnyRes) and img_src."""
+        if pixel_patches is None or self.dummy_llm or self.freeze_item_llm:
+            return {}
+        N, T = tokens.shape
+        if image_extra and image_extra.get("img_src") is not None:
+            if image_extra.get("tok_src") is not None:
+                img_tokens = self.visual(pixel_patches, tok_src=image_extra["tok_src"])
+            else:
+                img_tokens = self.visual(pixel_patches, patch_valid=image_extra["patch_valid"],
+                                         patch_hw=image_extra["patch_hw"])
+            extra = {"image_embeds": img_tokens, "image_src": image_extra["img_src"]}
+            if self.item_config.mrope_section:
+                # the host's per-item (t, h, w) positions [N, 3, T]
+                extra["position_ids"] = image_extra["img_pos"].permute(1, 0, 2)
+            return extra
+        img_tokens = self.visual(pixel_patches)  # [N, n_img, D]
+        extra = {"image_embeds": img_tokens,
+                 "image_span": (self.image_span_start, img_tokens.shape[1])}
+        if self.item_config.mrope_section:
+            pos = torch.from_numpy(self._image_mrope_positions(T)).to(tokens.device)
+            extra["position_ids"] = pos[:, None, :].expand(3, N, T)
+        return extra
+
+    def encode_items(self, tokens: torch.Tensor, lens: torch.Tensor,
+                     pixel_patches: Optional[torch.Tensor] = None,
+                     image_extra=None) -> torch.Tensor:
+        """Item tower over a padded token batch [N, T + n_emb] (and the
+        items' patches under use_image) → [N, D_item] float32."""
         N, T = tokens.shape
         col = torch.arange(T, device=tokens.device)[None, :]
+        extra = self._image_kwargs(tokens, pixel_patches, image_extra)
         if self.item_emb_token_n > 0 and not self.dummy_llm:
             n_emb = self.item_emb_token_n
             # the n trailing emb slots attend; the embedding is read from
             # the last one (it attends to the text and the earlier slots)
             attn_mask = (col < lens[:, None] + n_emb).int()
             hidden = self.item_llm(input_ids=tokens, attention_mask=attn_mask,
-                                   emb_tokens=self.item_emb_tokens, emb_pos=lens)
+                                   emb_tokens=self.item_emb_tokens, emb_pos=lens, **extra)
             emb = hidden[torch.arange(N, device=tokens.device), lens + (n_emb - 1)]
         else:  # mean pooling over the real tokens
             attn_mask = (col < lens[:, None]).int()
-            hidden = self.item_llm(input_ids=tokens, attention_mask=attn_mask)
+            hidden = self.item_llm(input_ids=tokens, attention_mask=attn_mask, **extra)
             m = attn_mask[..., None].to(hidden.dtype)
             emb = (hidden * m).sum(dim=1) / torch.clamp(lens[:, None].to(hidden.dtype), min=1)
         return emb.float()
@@ -220,9 +311,9 @@ class HLLM(MedusaHeads, nn.Module):
         flat = hidden.reshape(-1, hidden.shape[-1])
         return flat[emb_slots + (self.item_emb_token_n - 1)].float()
 
-    def compute_item_chunk(self, tokens, lens):
+    def compute_item_chunk(self, tokens, lens, pixel_patches=None, image_extra=None):
         """Corpus-embedding pass chunk (reference compute_item)."""
-        return self.encode_items(tokens, lens)
+        return self.encode_items(tokens, lens, pixel_patches, image_extra)
 
     def forward(self, batch, generator: Optional[torch.Generator] = None):
         """Training forward → dict with 'loss' and detached logging scalars
@@ -235,7 +326,9 @@ class HLLM(MedusaHeads, nn.Module):
         the B·(L+P) positives, then the B·NC·K negatives), deduplicated
         (uniq_tokens, uniq_token_lens, uniq_inverse) or dense (pos_tokens,
         pos_token_lens, neg_tokens, neg_token_lens) — or none of them under
-        ``freeze_item_llm``. ``generator`` draws the positive-mix draws."""
+        ``freeze_item_llm``; under use_image each dense or deduplicated group
+        also carries its patches and dynamic maps ({pos,neg,uniq}_
+        pixel_patches, ...). ``generator`` draws the positive-mix draws."""
         user_mask = batch["masked_index"].bool()
         L = self.max_seq_length
         B, W = batch["items"].shape
@@ -252,12 +345,16 @@ class HLLM(MedusaHeads, nn.Module):
                     batch["packed_positions"], batch["emb_slots"])
             elif "uniq_tokens" in batch:
                 # each distinct item encoded once, gathered per occurrence
-                all_embs = self.encode_items(batch["uniq_tokens"],
-                                             batch["uniq_token_lens"])[batch["uniq_inverse"]]
+                all_embs = self.encode_items(
+                    batch["uniq_tokens"], batch["uniq_token_lens"],
+                    batch.get("uniq_pixel_patches"),
+                    batch_image_extra(batch, "uniq"))[batch["uniq_inverse"]]
             else:
                 all_embs = torch.cat([
-                    self.encode_items(batch["pos_tokens"], batch["pos_token_lens"]),
-                    self.encode_items(batch["neg_tokens"], batch["neg_token_lens"])])
+                    self.encode_items(batch[f"{g}_tokens"], batch[f"{g}_token_lens"],
+                                      batch.get(f"{g}_pixel_patches"),
+                                      batch_image_extra(batch, g))
+                    for g in ("pos", "neg")])
             pos_items_embs = all_embs[:B * W].reshape(B, W, -1)
             neg_embs = all_embs[B * W:].reshape(B, batch["neg_items"].shape[1], -1,
                                                  all_embs.shape[-1])
@@ -311,13 +408,46 @@ def load_tower_weights(tower: nn.Module, path: str) -> Optional[dict]:
             "seconds": time.perf_counter() - t0}
 
 
+def vision_config_for(config, path: str) -> VisionConfig:
+    """The item directory's ``vision_config`` with the run's AnyRes
+    settings: ``anyres_grid`` (fixed grid) and ``dynamic_image_res`` on a
+    CLIP tower (dynamic AnyRes)."""
+    vcfg = VisionConfig.from_pretrained_dir(path)
+    anyres = config.get("anyres_grid") or None
+    if anyres:
+        vcfg = dataclasses.replace(vcfg, anyres_grid=tuple(int(x) for x in anyres))
+    if config.get("dynamic_image_res") and vcfg.arch == "clip":
+        vcfg = dataclasses.replace(vcfg, dynamic_anyres=True)
+    return vcfg
+
+
+def load_vision_weights(visual: nn.Module, path: str, config) -> Optional[dict]:
+    """The ``visual.*`` (Qwen2-VL) or ``vision_tower.*`` and
+    ``multi_modal_projector.*`` (LLaVA) weights of the item checkpoint into
+    the vision tower (JAX hllm.py:549-570). Returns the bytes read and the
+    seconds taken, or None when the checkpoint holds no vision weights."""
+    t0 = time.perf_counter()
+    try:
+        sd = loader.load_state_dict(path)
+    except loader.NoWeightFiles:
+        return None
+    if not has_vision_weights(sd):
+        return None
+    state = load_any_vision_params(sd, vision_config_for(config, path))
+    loader.load_into(visual, state)
+    return {"bytes": sum(t.numel() * t.element_size() for t in state.values()),
+            "seconds": time.perf_counter() - t0}
+
+
 def load_pretrained_towers(model: HLLM, config) -> HLLM:
     """Local HF checkpoint weights for the towers (reference create_llm
-    from_pretrained, hllm.py:294-376; JAX hllm.py:520-587). A tower keeps
-    its random initialisation when ``*_llm_init`` is false or its pretrain
-    directory holds only a ``config.json``. What each tower read is kept in
-    ``model.tower_load_stats``. ``item_emb_pretrain`` warm-starts the
-    emb-token slots from a ``.npy`` file or a saved tensor."""
+    from_pretrained, hllm.py:294-376; JAX hllm.py:520-587), and the vision
+    tower's from the item checkpoint. A tower keeps its random
+    initialisation when ``*_llm_init`` is false or its pretrain directory
+    holds only a ``config.json`` (or, for the vision tower, no vision
+    weights). What each tower read is kept in ``model.tower_load_stats``.
+    ``item_emb_pretrain`` warm-starts the emb-token slots from a ``.npy``
+    file or a saved tensor."""
     model.tower_load_stats = {}
     for tower, dir_key, init_key in (("item_llm", "item_pretrain_dir", "item_llm_init"),
                                      ("user_llm", "user_pretrain_dir", "user_llm_init")):
@@ -331,6 +461,12 @@ def load_pretrained_towers(model: HLLM, config) -> HLLM:
             model.tower_load_stats[tower] = stats
             logger.info("loaded %s from %s: %d bytes in %.2fs", tower, path, stats["bytes"],
                         stats["seconds"])
+            if tower == "item_llm" and hasattr(model, "visual"):
+                vstats = load_vision_weights(model.visual, str(path), config)
+                if vstats is not None:
+                    model.tower_load_stats["visual"] = vstats
+                    logger.info("loaded visual from %s: %d bytes in %.2fs", path,
+                                vstats["bytes"], vstats["seconds"])
     pre = config.get("item_emb_pretrain")
     if pre and hasattr(model, "item_emb_tokens"):
         if str(pre).endswith(".npy"):
@@ -380,18 +516,40 @@ def hllm_from_config(config, dataload, dtype=None) -> HLLM:
         item_cfg = LLMConfig.from_pretrained_dir(item_dir)
         user_cfg = LLMConfig.from_pretrained_dir(user_dir or item_dir)
 
-    import dataclasses
-
     if int(config.get("tp_size", 1) or 1) > 1:
         raise NotImplementedError("tensor-parallel towers (tp_size > 1) are not ported yet")
-    if config.get("use_image", False) or config.get("use_video", False):
-        raise NotImplementedError("the image and video item towers are not ported yet")
     if config.get("packed_item_tower", False):
         # bound the packed attention to a causal band of the max segment
         # length: the text and its emb slots
         window = int(config.get("MAX_TEXT_LENGTH", 64)) + int(
             config.get("item_emb_token_n", 1) or 0)
         item_cfg = dataclasses.replace(item_cfg, packed_window=window)
+
+    use_image = bool(config.get("use_image", False))
+    use_video = bool(config.get("use_video", False))
+    if use_image and use_video:
+        raise ValueError("use_image and use_video are mutually exclusive")
+    use_image = use_image or use_video  # the video span rides the image plumbing
+    vision_cfg, img_grid, vid_grid_t = None, (16, 16), 1
+    if use_image:
+        if config.get("packed_item_tower"):
+            raise ValueError("use_image/use_video is incompatible with packed_item_tower "
+                             "(dense padded batches carry the vision span)")
+        if item_dir and os.path.isdir(str(item_dir)):
+            try:
+                vision_cfg = vision_config_for(config, str(item_dir))
+            except (ValueError, FileNotFoundError):
+                vision_cfg = None
+        if vision_cfg is None:
+            vision_cfg = VisionConfig.tiny(item_cfg.hidden_size)
+        if config.get("anyres_grid") and vision_cfg.arch != "clip":
+            raise ValueError("anyres_grid is a LLaVA-family (CLIP tower) feature; the "
+                             "Qwen2-VL tower uses its own native grid")
+        img_grid = (int(config.get("img_height", 224)) // vision_cfg.patch_size,
+                    int(config.get("img_width", 224)) // vision_cfg.patch_size)
+        if use_video:
+            vid_grid_t = max(int(config.get("video_nframes", 4) or 4)
+                             // vision_cfg.temporal_patch_size, 1)
 
     i2c = config["int_to_category"] or {}
     eval_pred_len = config["eval_pred_len"]
@@ -411,6 +569,10 @@ def hllm_from_config(config, dataload, dtype=None) -> HLLM:
         remat_policy=str(config.get("remat_policy") or "full"),
         nce_impl=str(config.get("nce_impl") or "banded"),
         prior_loss_impl=str(config.get("prior_loss_impl") or "loop"),
+        use_image=use_image,
+        vision_config=vision_cfg,
+        img_grid=img_grid,
+        vid_grid_t=vid_grid_t,
         loss_type=loss,
         nce_thres=config["nce_thres"] or 0.99,
         fix_temp=bool(config["fix_temp"]),

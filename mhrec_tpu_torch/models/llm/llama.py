@@ -21,7 +21,14 @@ backward: ``remat_policy: full`` keeps only the layer's input (``nn.remat``
 with no policy in the JAX package); ``dots`` also keeps every matrix
 product's output and recomputes the elementwise work and the packed
 attention kernel (``dots_saveable``, whose recompute takes in the splash
-custom call too). Not ported yet (they raise): the image splice and M-RoPE.
+custom call too).
+
+The image item tower splices the vision tower's tokens into the token
+embeddings before the emb-token scatter: over a static span
+(``image_span``: every item's image pads at the same columns) or through a
+per-position gather map (``image_src``: dynamic per-image token counts).
+Qwen2-VL towers (``mrope_section``) take 3-D positions [3, B, T] (t, h, w)
+through the multimodal RoPE.
 """
 
 from __future__ import annotations
@@ -149,6 +156,38 @@ def rotary_embedding(positions: torch.Tensor, head_dim: int, config,
     inv = torch.from_numpy(np.asarray(inv_freq, dtype=np.float32)).to(positions.device)
     freqs = positions[..., None].float() * inv
     return torch.cos(freqs) * scale, torch.sin(freqs) * scale
+
+
+def mrope_rotary_embedding(positions: torch.Tensor, head_dim: int, theta: float, section):
+    """Multimodal RoPE (qwen2_vl): positions [3, B, T] with (t, h, w)
+    components; ``section`` lists how many of the head_dim//2 rotary
+    frequencies each component drives, in order (reference
+    modeling_qwen2_vl.py apply_multimodal_rotary_pos_emb) → cos/sin
+    [B, T, head_dim//2] float32."""
+    if sum(section) != head_dim // 2:
+        raise ValueError(f"mrope_section {section} does not cover head_dim {head_dim} // 2")
+    inv = torch.from_numpy(
+        1.0 / (theta ** (np.arange(0, head_dim, 2, dtype=np.float32) / head_dim))).to(
+            positions.device)
+    freqs = positions[..., None].float() * inv
+    cos, sin = torch.cos(freqs), torch.sin(freqs)  # [3, B, T, dh/2]
+    bounds = np.cumsum([0, *section])
+    return (torch.cat([cos[i, ..., a:b] for i, (a, b) in enumerate(zip(bounds, bounds[1:]))], -1),
+            torch.cat([sin[i, ..., a:b] for i, (a, b) in enumerate(zip(bounds, bounds[1:]))], -1))
+
+
+def splice_image(inputs_embeds, image_embeds, image_span=None, image_src=None):
+    """The vision tower's tokens into the token embeddings (reference
+    modeling_qwen2_vl.py:1858 masked_scatter): ``image_src`` [B, T] the
+    index of the image token at each position or -1 (one gather, no
+    data-dependent shapes), else the static ``image_span`` (start, n)."""
+    img = image_embeds.to(inputs_embeds.dtype)
+    if image_src is not None:
+        idx = torch.clamp(image_src.long(), min=0)[..., None].expand(-1, -1, img.shape[-1])
+        take = torch.gather(img, 1, idx)
+        return torch.where((image_src >= 0)[..., None], take, inputs_embeds)
+    s, n = image_span
+    return torch.cat([inputs_embeds[:, :s], img, inputs_embeds[:, s + n:]], dim=1)
 
 
 def apply_rope(x, cos, sin):
@@ -295,16 +334,18 @@ class LlamaBackbone(nn.Module):
         emb_tokens: Optional[torch.Tensor] = None,  # [1, n, D] learnable slots
         emb_pos: Optional[torch.Tensor] = None,     # [B] or flat [N] first slot
         segment_ids: Optional[torch.Tensor] = None,  # [S] or [C, chunk]: packed
-        image_embeds: Optional[torch.Tensor] = None,
+        image_embeds: Optional[torch.Tensor] = None,  # [B, n_img, D]
+        image_span: Optional[tuple] = None,            # static (start, n_img)
+        image_src: Optional[torch.Tensor] = None,      # [B, T] dynamic gather map
     ) -> torch.Tensor:
         c = self.config
-        if image_embeds is not None:
-            raise NotImplementedError("the image splice of the item tower is not ported yet")
         if c.alibi and segment_ids is not None:
             raise NotImplementedError(_PACKED_ALIBI)
         remat = self.gradient_checkpointing and torch.is_grad_enabled()
         if inputs_embeds is None:
             inputs_embeds = self.embed_tokens(input_ids)
+        if image_embeds is not None:
+            inputs_embeds = splice_image(inputs_embeds, image_embeds, image_span, image_src)
         if emb_tokens is not None and emb_pos is not None:
             # the learnable item-embedding token(s) into each item's trailing
             # slot(s): slot emb_pos + i takes token i (llama.py:345-373); in
@@ -345,10 +386,11 @@ class LlamaBackbone(nn.Module):
                 rel = -rel.abs()
             slopes = torch.from_numpy(alibi_slopes(c.num_attention_heads)).to(x.device)
             alibi_bias = slopes[:, None, None] * rel[None]
+        elif position_ids.dim() == 3 and c.mrope_section:
+            cos, sin = mrope_rotary_embedding(position_ids, c.hidden_size // c.num_attention_heads,
+                                              c.rope_theta, c.mrope_section)
         else:
             if position_ids.dim() == 3:
-                if c.mrope_section:
-                    raise NotImplementedError("multimodal RoPE (M-RoPE) is not ported yet")
                 position_ids = position_ids[0]
             cos, sin = rotary_embedding(position_ids, c.hidden_size // c.num_attention_heads,
                                         c, seq_len=T)

@@ -71,6 +71,7 @@ from mhrec_tpu_torch.data.textset import BatchTextBatcher
 from mhrec_tpu_torch.data.trainset import _prefetch_iterator, unique_id_cap
 from mhrec_tpu_torch.evaluator import Collector, Evaluator
 from mhrec_tpu_torch.models.factory import build_model
+from mhrec_tpu_torch.models.hllm.hllm import batch_image_extra
 from mhrec_tpu_torch.models.layers import cosine_normalize
 from mhrec_tpu_torch.ops import row_adam_cuda
 from mhrec_tpu_torch.trainer import checkpoint as ckpt_io
@@ -265,6 +266,19 @@ class Trainer:
                   "pos_tokens", "pos_token_lens", "neg_tokens", "neg_token_lens",
                   "uniq_tokens", "uniq_token_lens", "uniq_inverse",
                   "packed_tokens", "packed_positions", "emb_slots")
+    # the image keys of the item groups (use_image): patches float32, the
+    # dynamic maps' validity bool and their positions and gathers int64
+    _IMAGE_DTYPES = {"pixel_patches": torch.float32, "patch_valid": torch.bool,
+                     "patch_hw": torch.long, "img_src": torch.long, "img_pos": torch.long,
+                     "tok_src": torch.long}
+
+    def _image_device_arrays(self, batch, prefix: str) -> Dict[str, torch.Tensor]:
+        """The image arrays of one item group (``prefix``: pos, neg, uniq,
+        or "" for a corpus batch) on the device."""
+        p = f"{prefix}_" if prefix else ""
+        return {f"{p}{k}": torch.as_tensor(np.asarray(batch[f"{p}{k}"]), dtype=dt).to(
+                    self.device, non_blocking=True)
+                for k, dt in self._IMAGE_DTYPES.items() if f"{p}{k}" in batch}
 
     def _train_device_batch(self, batch) -> Dict[str, torch.Tensor]:
         out = {}
@@ -272,6 +286,8 @@ class Trainer:
             if key in batch:
                 out[key] = torch.as_tensor(np.asarray(batch[key]), dtype=torch.long).to(
                     self.device, non_blocking=True)
+        for group in ("pos", "neg", "uniq"):
+            out.update(self._image_device_arrays(batch, group))
         if "packed_segment_ids" in batch:
             # the packed attention kernels take contiguous int32 segment ids
             out["packed_segment_ids"] = torch.as_tensor(
@@ -591,7 +607,10 @@ class Trainer:
                     put(cb["packed_tokens"]), put(cb["packed_segment_ids"], torch.int32),
                     put(cb["packed_positions"]), put(cb["emb_slots"]))
             else:
-                emb = self.model.compute_item_chunk(put(cb["tokens"]), put(cb["lens"]))
+                img = self._image_device_arrays(cb, "")
+                emb = self.model.compute_item_chunk(
+                    put(cb["tokens"]), put(cb["lens"]), img.get("pixel_patches"),
+                    batch_image_extra(img, ""))
             emb = emb[: cb["n_real"]]
             chunks.append(emb.cpu() if return_host else emb)
         return torch.cat(chunks)

@@ -1259,3 +1259,104 @@ def test_bf16_table_trains_on_the_card_without_row_adamw(card):
     assert row_adamw.launches == adam0 and K.hstu_stu_gated_bwd.launches == bwd0 + 2
     assert table.dtype == torch.bfloat16 and t.table_m.dtype == torch.float32
     assert not torch.equal(table, before)
+
+
+# -- the vision item towers ----------------------------------------------------
+def _vision_inputs(case, cfg, gen):
+    """Patches (and the dynamic maps) of 6 items on a 4 × 4 grid."""
+    gt = 2 if case == "video" else 1
+    x = torch.randn(6, gt * 16, cfg.patch_dim, generator=gen)
+    if case != "dynamic":
+        return (x,)
+    valid = torch.ones(6, 16, dtype=torch.bool)
+    valid[1, 8:] = False
+    valid[4, 4:] = False
+    hw = torch.stack(torch.meshgrid(torch.arange(4), torch.arange(4), indexing="ij"), -1)
+    hw = hw.reshape(16, 2)[None].expand(6, 16, 2) * valid[..., None]
+    return x, valid, hw.contiguous()
+
+
+@pytest.mark.parametrize("case", ["static", "video", "dynamic"])
+def test_vision_tower_on_the_card(card, case):
+    """The Qwen2-VL tower (128 wide, 2 blocks, 4 heads, patch 14) on the
+    card: in float32 against the CPU's float32 run (1e-4 of the largest
+    output), and in bfloat16 against the card's float32 run (5e-2 of the
+    largest output: bf16 products and residual stream over 2 blocks)."""
+    from mhrec_tpu_torch.models.llm.vision import VisionConfig, VisionTower
+
+    cfg = VisionConfig(embed_dim=128, depth=2, num_heads=4, mlp_ratio=4, patch_size=14,
+                       hidden_size=256)
+    gt = 2 if case == "video" else 1
+    cpu = VisionTower(cfg, 4, 4, dtype=torch.float32, grid_t=gt)
+    cpu.init_parameters(torch.Generator().manual_seed(0))
+    args = _vision_inputs(case, cfg, torch.Generator().manual_seed(1))
+    outs = {}
+    with torch.no_grad():
+        ref = cpu(*args)
+        for dtype in (torch.float32, torch.bfloat16):
+            tower = VisionTower(cfg, 4, 4, dtype=dtype, grid_t=gt).to(card)
+            tower.load_state_dict(cpu.state_dict())
+            outs[dtype] = tower(*(a.to(card) for a in args)).float().cpu()
+    scale = float(ref.abs().max())
+    assert float((outs[torch.float32] - ref).abs().max()) <= 1e-4 * scale
+    assert float((outs[torch.bfloat16] - outs[torch.float32]).abs().max()) <= 5e-2 * scale
+
+
+def test_image_hllm_step_on_the_card(card, tmp_path):
+    """A tiny ``use_image`` HLLM (a Qwen2-VL config.json 64 wide, its vision
+    tower 32 wide; 16 × 16 JPEGs for most items) in float32: one batch's
+    loss on the card equals the CPU's with the same weights (1e-4), one
+    train step on the card moves the vision tower's weights, and no kernel
+    of the port is launched."""
+    import json
+
+    import chip_smoke
+    from mhrec_tpu_torch.config import Config
+    from mhrec_tpu_torch.data import build_dataloader
+    from mhrec_tpu_torch.data.synthetic import InMemoryInteractionData
+    from mhrec_tpu_torch.trainer import Trainer
+
+    hf = dict(chip_smoke.QWEN2_VL_2B, vocab_size=512, hidden_size=64, intermediate_size=128,
+              num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+              rope_scaling={"type": "mrope", "mrope_section": [4, 2, 2]},
+              vision_config=dict(chip_smoke.QWEN2_VL_2B["vision_config"], depth=2,
+                                 embed_dim=32, num_heads=4, mlp_ratio=2, patch_size=4,
+                                 hidden_size=64))
+    with open(tmp_path / "config.json", "w") as fh:
+        json.dump(hf, fh)
+    data = InMemoryInteractionData(num_users=40, num_items=300, seq_len=2 * 6 + 8,
+                                   num_categories=4, eval_pred_len=4, max_item_list_length=6,
+                                   item_texts=True, max_filler_words=12)
+    chip_smoke.write_item_images(str(tmp_path / "images" / "synthetic"),
+                                 data.id2token["item_id"], 300, sizes=((16, 16), (24, 32)))
+    C = 4
+    cfg = Config(config_file_list=["overall/LLM.yaml", "HLLM/HLLM.yaml"], config_dict=dict(
+        dataset="synthetic", seed=0, data_path=str(tmp_path), precision="32",
+        checkpoint_dir=str(tmp_path / "ckpt"), item_pretrain_dir=str(tmp_path),
+        user_pretrain_dir=str(tmp_path), image_dir=str(tmp_path / "images"), use_image=True,
+        img_height=16, img_width=16, MAX_TEXT_LENGTH=24, MAX_ITEM_LIST_LENGTH=6,
+        loss="prior", train_batch_size=2, num_negatives=8, num_prior_head=C,
+        num_segment_head=2, head_interaction="hierarchical", medusa_num_layers=1,
+        eval_num_cats=C, pred_len=4, eval_pred_len=4, packed_item_tower=False,
+        token_cache_dir=False, scheduler_args={"type": "constant"},
+        int_to_category={i: f"cat_{i}" for i in range(C)})).finalize()
+    batch = next(build_dataloader(cfg, data)[0].epoch_batches(0))
+    losses = []
+    for dev in ("cpu", card):
+        t = Trainer(cfg, data, device=dev)
+        t.setup_model()
+        if dev == "cpu":
+            state = t.model.state_dict()
+        else:
+            t.model.load_state_dict(state)
+        with torch.no_grad():
+            out = t.model(t._train_device_batch(batch), generator=t.step_generator(0))
+        losses.append(float(out["loss"]))
+    assert abs(losses[1] - losses[0]) <= 1e-4 * max(1.0, abs(losses[0]))
+    before = t.model.visual.blocks[0].qkv.weight.detach().clone()
+    launches = {fn.__name__: fn.launches for fn in chip_smoke.kernel_wrappers()}
+    loss = t.train_step(batch)["loss"]
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(loss))
+    assert not torch.equal(t.model.visual.blocks[0].qkv.weight, before)
+    assert {fn.__name__: fn.launches for fn in chip_smoke.kernel_wrappers()} == launches

@@ -297,7 +297,8 @@ def test_hllm_raises_on_what_is_not_ported(hllm, tmp_path, case):
             Trainer(_cfg(dict(over, sparse_item_adam=True)), hllm["data"],
                     device="cpu")
     else:  # training: the remat policy that saves products runs, an unknown
-        # one raises, and so do image items
+        # one raises, and so do image items on the packed item tower (the
+        # image span rides the dense one, as in the JAX package)
         t = Trainer(_cfg(dict(over, gradient_checkpointing=True, remat_policy="dots")),
                     hllm["data"], device="cpu")
         t.setup_model()
@@ -306,6 +307,6 @@ def test_hllm_raises_on_what_is_not_ported(hllm, tmp_path, case):
         with pytest.raises(ValueError, match="remat_policy"):
             Trainer(_cfg(dict(over, gradient_checkpointing=True, remat_policy="offload")),
                     hllm["data"], device="cpu")
-        with pytest.raises(NotImplementedError, match="image and video item keys"):
-            build_dataloader(_cfg(dict(over, use_image=True, packed_item_tower=False)),
+        with pytest.raises(ValueError, match="packed_item_tower"):
+            build_dataloader(_cfg(dict(over, use_image=True, packed_item_tower=True)),
                              hllm["data"])

@@ -2,11 +2,13 @@
 nothing of JAX and nothing of the JAX package, and the serving and training
 paths that ``chip_smoke.py`` drives (HSTU serving and training, hstu-1b
 with its options, HLLM serving and training, the eval outputs and modes,
-gradient accumulation, HLLM towers loaded from local checkpoints) import
-neither PyYAML nor pandas nor pyarrow (the machine with the card has none
-of them), nor, on the HLLM
+gradient accumulation, HLLM towers loaded from local checkpoints, the
+image and video item towers) import neither PyYAML nor pandas nor pyarrow
+(the machine with the card has none of them), nor, on the HLLM
 paths, ``transformers``, ``safetensors``, ``tokenizers``, ``regex`` or
-``sentencepiece`` (the HLLM runs read a tower's ``tokenizer.json``)."""
+``sentencepiece`` (the HLLM runs read a tower's ``tokenizer.json``). PIL,
+``torchvision`` and ``decord`` are imported only inside the functions that
+decode images and videos."""
 
 import ast
 import json
@@ -26,7 +28,7 @@ SOURCES = sorted((ROOT / "mhrec_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke
 # tokenizer.json itself
 NEVER = ("jax", "jaxlib", "flax", "optax", "mhrec_tpu", "safetensors", "transformers",
          "tokenizers", "regex", "sentencepiece")
-NOT_AT_TOP = ("yaml", "pandas", "pyarrow")
+NOT_AT_TOP = ("yaml", "pandas", "pyarrow", "PIL", "torchvision", "decord")
 
 
 def _imports(source):
@@ -433,3 +435,64 @@ def test_chip_smoke_fails_without_a_card():
     proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0 and proc.stdout == ""
+
+
+_IMAGE = """
+import sys, tempfile
+
+# what the port runs without: importing it fails
+LACKING = ("pandas", "yaml", "pyarrow", "transformers", "tokenizers", "regex", "sentencepiece",
+           "safetensors", "torchvision", "decord")
+sys.modules.update({name: None for name in LACKING})
+import torch
+import chip_smoke as c
+
+torch.set_num_threads(2)
+# chip_smoke.py's Qwen2-VL-2B / Qwen2.5-1.5B / CLIP-L LLaVA configs cut to a
+# few widths (the vocabulary stays: the vision tokens' ids are 151,652+)
+small = dict(hidden_size=32, intermediate_size=64, num_hidden_layers=2,
+             num_attention_heads=4, num_key_value_heads=2)
+item = dict(c.QWEN2_VL_2B, **small, rope_scaling={"type": "mrope", "mrope_section": [2, 1, 1]},
+            vision_config=dict(c.QWEN2_VL_2B["vision_config"], depth=2, embed_dim=16,
+                               num_heads=4, mlp_ratio=2, patch_size=4, hidden_size=32))
+user = dict(c.QWEN25_1_5B, **small)
+llava = dict(c.CLIP_L14_LLAVA, text_config=user, vision_config=dict(
+    c.CLIP_L14_LLAVA["vision_config"], hidden_size=16, num_hidden_layers=3,
+    num_attention_heads=4, intermediate_size=32, patch_size=4, image_size=16))
+paths, failed = c.hllm_image_phase(tempfile.mkdtemp(), device="cpu", item_cfg=item,
+                                   user_cfg=user, n_users=40, n_items=256, img_height=16,
+                                   img_width=16, MAX_TEXT_LENGTH=32, eval_batch_size=32)
+assert not failed and set(paths) == {"hllm_image_serve", "hllm_image_train"}, failed
+paths, failed = c.hllm_image_variants_phase(tempfile.mkdtemp(), device="cpu", n_users=40,
+                                            n_items=256, widths=(item, user, llava), img=16,
+                                            image_min_pixels=4 * 64, image_max_pixels=16 * 64)
+assert not failed and set(paths) == {f"hllm_image_{v}_{p}" for p in ("serve", "train")
+                                     for v in ("video", "dynamic", "llava_anyres",
+                                               "llava_dynamic")}
+bad = sorted(m for m, mod in sys.modules.items() if mod is not None
+             and m.split(".")[0] in {"jax", "jaxlib", "flax", "optax", "mhrec_tpu", *LACKING})
+print("BAD", bad)
+"""
+
+
+def test_image_phases_run_without_what_the_card_lacks():
+    """chip_smoke.py's hllm_image and hllm_image_variants phases (the
+    Qwen2-VL image tower serving and training, video, dynamic resolution,
+    the LLaVA towers with fixed and dynamic AnyRes, the vision weights from
+    a checkpoint), cut to a few widths, on the CPU in a fresh interpreter
+    where pandas, PyYAML, pyarrow, ``transformers``, ``tokenizers``,
+    ``regex``, ``sentencepiece``, ``safetensors``, ``torchvision`` and
+    ``decord`` cannot be imported: every check of both phases passes (no
+    kernel of the port runs on these paths) and nothing forbidden is
+    loaded."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", _IMAGE], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "BAD []" in proc.stdout, proc.stdout[-3000:]
+    recs = [json.loads(line) for line in proc.stdout.splitlines()
+            if line.startswith('{"phase"')]
+    phases = [r["phase"] for r in recs]
+    assert phases[:3] == ["hllm_image_setup", "hllm_image_serve", "hllm_image_train"]
+    assert phases[-1] == "hllm_image_variants" and recs[-1]["ok"]
+    assert recs[1]["towers"]["image_tokens"] == 4
