@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port (``mhrec_tpu_torch``) on one CUDA card.
 
     python3 chip_smoke.py [--profile | --train-only | --stu-bwd-ab | --image-only |
-                           --image-fit]
+                           --image-fit | --baselines-only]
 
 Builds the port's CUDA kernels from ``mhrec_tpu_torch/csrc`` (one ``nvcc``
 per source, in parallel) and holds each against its plain PyTorch version on
@@ -162,7 +162,27 @@ the written tensors), each one's bf16 item embeddings held to a float32
 copy's. ``--image-only`` runs these two phases alone, without the last
 line.
 
-Then ``hstu_1b`` (after the HSTU train phases, before the HLLM ones) runs
+Then ``baselines`` (after train_accum) drives the paper's five comparison
+models through ``run.train`` and ``run.serve`` over the same users and
+catalog, with ``sparse_item_adam``: ComiRec and REMI (hstu-size4's trunk,
+1024 wide, 16 layers of 16 heads, in float32 as in the JAX package, 4
+interests; REMI with ``lambda_rr`` 100 and ``beta_ihn`` 1) and DualVAE (a
+1024-wide item table, 5 aspects of 32) with 8,192 shared negatives, SASRec
+(512 wide, 2 layers of 4 heads) and LLMIDRec (a 512-wide item table
+projected into a TinyLlama-1.1B user tower, 22 layers, 2048 wide, random
+from its ``config.json``) with per-position negatives, cut to the largest
+of 1,024, 512 and 256 a position whose rows fit POSITION_NEG_BUDGET. Each
+trains BASELINE_STEPS steps at batch 64 (an evaluation with a save, the
+test split from it), serves from that checkpoint and once more warm
+(equal metrics), and a second run from the seed repeats the first loss.
+The phase holds #1 and #4 in float32 (ComiRec's route) at the serve and
+train batches, and #7 at SASRec's step (D = 512) bit for bit against the
+plain update; #1 launches 16 times a forward and #4 16 times a step on
+ComiRec and REMI, #7 once a step on every family; see ``baselines_phase``.
+``--baselines-only`` builds the kernels and runs this phase alone, without
+the last line.
+
+Then ``hstu_1b`` (after the baselines, before the HLLM ones) runs
 the largest HSTU of the reference's ladder, hstu-1b (``IDNet/hstu-1b.yaml``:
 22 layers, 2048 wide, 32 heads of 64) with ``scan_layers``, in the train
 phase's prior protocol over the same users and catalog: it serves (#1 22
@@ -176,7 +196,8 @@ one batch); see ``hstu_1b_phase``.
 Prints one JSON object per line: the card's name and power limit, build
 seconds, each kernel phase (error against tolerance; kernel, plain and bound
 times), the serve, impl, eval_outputs, eval_streamed_metrics, train,
-train-impl, train_accum, hstu_1b_serve, hstu_1b_serve_tf32, hstu_1b_train,
+train-impl, train_accum, baselines_<family> (five), hstu_1b_serve, hstu_1b_serve_tf32,
+hstu_1b_train,
 hstu_1b_train_bf16_table, hstu_1b_train_stacked, hllm_serve, hllm_impl, hllm_host_table, hllm_train,
 hllm_train_impl, hllm_pretrained (with its hllm_pretrained_serve record),
 hllm_train_levers, hllm_tokenizer (with its hllm_tokenizer_serve record),
@@ -2277,6 +2298,254 @@ def hstu_1b_phase(data, work_dir, device=None, **over):
     return paths, failed
 
 
+# ---------------------------------------------------------------------------
+# the five baselines of the paper's comparison (README, SURVEY.md rows 94-98)
+
+# each family's config files, the last one naming the model: ComiRec, REMI
+# and DualVAE take hstu-size4's widths (1024 wide; the trunk 16 layers of 16
+# heads), SASRec and LLMIDRec their own YAML's (512 wide)
+BASELINE_FILES = {
+    "ComiRec": ("IDNet/hstu-size4.yaml", "overall/ID.yaml", "IDNet/comirec.yaml"),
+    "REMI": ("IDNet/hstu-size4.yaml", "overall/ID.yaml", "IDNet/remi.yaml"),
+    "DualVAE": ("IDNet/hstu-size4.yaml", "overall/ID.yaml", "IDNet/dualvae.yaml"),
+    "SASRec": ("overall/ID.yaml", "IDNet/sasrec.yaml"),
+    "LLMIDRec": ("overall/ID.yaml", "IDNet/llama_id.yaml"),
+}
+BASELINE_BATCH = 64
+BASELINE_STEPS = 10
+# the shared negative pool a step (reproduce/HSTU-Pixel8M-base.sh, per chip)
+BASELINE_POOL = 8192
+# SASRec and LLMIDRec draw num_negatives for EVERY position: at the
+# protocol's 8192 a batch of 64 × 50 positions gathers 26.2M rows (53.7 GB
+# at 512 wide in float32). The phase takes the largest of these counts
+# whose per-position rows (gathered, projected to the tower's width,
+# normalized, and the gradients of both) and sub-table (with its gradient)
+# stay under POSITION_NEG_BUDGET
+POSITION_NEG_CHOICES = (1024, 512, 256)
+POSITION_NEG_BUDGET = 40 * 2**30
+
+
+def baseline_widths(config, tower_width):
+    """(item table width, the width the model computes at)."""
+    family = config["model"]
+    if family in ("ComiRec", "REMI"):
+        return config["item_embedding_size"], config["hstu_embedding_size"]
+    if family == "DualVAE":
+        return config["item_embedding_size"], config["item_embedding_size"]
+    if family == "SASRec":
+        return config["embedding_size"], config["embedding_size"]
+    return config["item_embed_dim"], tower_width
+
+
+def position_negatives_bytes(config, K, tower_width):
+    """Bytes that K per-position negatives cost a SASRec or LLMIDRec step
+    (see POSITION_NEG_BUDGET): 4-byte rows at the item width twice, at the
+    model's width four times, and the sub-table of ``unique_id_cap`` rows
+    twice."""
+    from mhrec_tpu_torch.data.trainset import unique_id_cap
+
+    width, proj = baseline_widths(config, tower_width)
+    cfg = dict(config.as_dict(), num_negatives=K)
+    rows = config["train_batch_size"] * config["MAX_ITEM_LIST_LENGTH"] * K
+    return 4 * rows * (2 * width + 4 * proj) + 2 * 4 * unique_id_cap(cfg) * width
+
+
+def pick_position_negatives(config, tower_width):
+    """(K, its bytes): the largest of POSITION_NEG_CHOICES under the budget,
+    else the smallest."""
+    for K in POSITION_NEG_CHOICES:
+        nbytes = position_negatives_bytes(config, K, tower_width)
+        if nbytes <= POSITION_NEG_BUDGET:
+            return K, nbytes
+    return K, nbytes
+
+
+def baseline_config(family, checkpoint_dir, user_dir=None, **over):
+    """``family`` from its config files at batch BASELINE_BATCH for
+    BASELINE_STEPS steps, window 50, BASELINE_POOL shared negatives,
+    ``sparse_item_adam``, one evaluation with a best-checkpoint save at the
+    end; LLMIDRec's user tower from ``user_dir``'s config.json (random
+    weights: ``user_llm_init`` is false, and the JAX model loads none).
+    ``over``: further settings."""
+    from mhrec_tpu_torch.config import Config
+
+    d = dict(dataset="synthetic", seed=0, MAX_ITEM_LIST_LENGTH=50,
+             train_batch_size=BASELINE_BATCH, num_negatives=BASELINE_POOL,
+             sparse_item_adam=True, total_iters=BASELINE_STEPS, eval_interval=BASELINE_STEPS,
+             update_interval=5, checkpoint_dir=checkpoint_dir)
+    if family == "LLMIDRec":
+        d["user_pretrain_dir"] = user_dir
+    d.update(over)
+    return Config(config_file_list=list(BASELINE_FILES[family]), config_dict=d).finalize()
+
+
+def baselines_phase(data, work_dir, device=None, families=tuple(BASELINE_FILES),
+                    position_negatives=None, user_llm=TINYLLAMA_1B, **over):
+    """The five baselines through the entry points a user calls, at full
+    width over ``data`` (the HSTU phases' users and catalog), each path with
+    the launch counts set to 0 just before it and read just after:
+
+    * kernel holds (on the card): #1 ``hstu_stu_gated_fwd`` and #4
+      ``hstu_stu_gated_bwd`` in float32, the route ComiRec's and REMI's
+      trunk takes (CUDA cores), at their serve (1024) and train (64)
+      batches, window 50, 16 heads of 64, against the plain versions;
+    * ``baselines_<family>``: ``run.train`` (BASELINE_STEPS steps, an
+      evaluation of the valid split with a best-checkpoint save, the test
+      split from it); #7 once a step, and for ComiRec / REMI #1 16 times a
+      step and an eval batch and #4 16 times a step; no other kernel;
+      steady examples/s, peak memory, every fetched loss finite. SASRec's
+      trainer then takes one more step whose #7 launch is held bit for bit
+      against the plain update at D = 512 (``row_update_equals_plain``);
+    * ``baselines_<family>_serve``: ``run.serve`` (``--val_only True``) from
+      that checkpoint: its metrics equal the training run's test metrics,
+      a warm repeat equals them too (users/s), and the streamed top-k of a
+      few users equals a dense sort (``check_streamed_topk``); #1 16 times
+      an eval batch for ComiRec / REMI, no kernel for the others;
+    * a second run from the same seed: a fresh trainer's first step gives
+      the first run's first loss, bit for bit.
+
+    SASRec and LLMIDRec take ``position_negatives`` per position (None:
+    ``pick_position_negatives``). ``user_llm``: LLMIDRec's tower config;
+    ``over`` cuts the configurations (the CPU tests). Returns (each path's
+    launches, the names of the checks that failed, the kernel records)."""
+    import torch
+
+    from mhrec_tpu_torch.data import build_dataloader, build_eval_dataloaders
+    from mhrec_tpu_torch.run import serve, train
+    from mhrec_tpu_torch.trainer import Trainer
+    from mhrec_tpu_torch.utils.misc import resolve_device
+
+    dev = resolve_device(device)
+    paths, failed, kernel_recs = {}, [], {}
+    if dev.type == "cuda":
+        with torch.no_grad():
+            for kind, shape_name, B in (("stu", "comirec_serve", 1024),
+                                        ("stu", "comirec_train", BASELINE_BATCH),
+                                        ("stu_bwd", "comirec_train", BASELINE_BATCH),
+                                        ("stu_bwd", "comirec_serve", 1024)):
+                rec = kernel_recs[f"{kind}/{shape_name}"] = kernel_phase(
+                    kind, shape_name, B, 50, 16, 64, torch.float32)
+                if not (rec["ok"] and rec["route"] == "cuda_cores"):
+                    failed.append(f"baselines/{kind}/{shape_name}")
+        torch.cuda.empty_cache()
+    user_dir = os.path.join(work_dir, "user_llm")
+    os.makedirs(user_dir, exist_ok=True)
+    with open(os.path.join(user_dir, "config.json"), "w") as fh:
+        json.dump(user_llm, fh)
+
+    for family in families:
+        ckpt_dir = os.path.join(work_dir, family)
+        config = baseline_config(family, ckpt_dir, user_dir, **over)
+        cuts = {}
+        tower = user_llm["hidden_size"]
+        if family in ("SASRec", "LLMIDRec"):
+            K, nbytes = ((position_negatives,
+                          position_negatives_bytes(config, position_negatives, tower))
+                         if position_negatives else pick_position_negatives(config, tower))
+            config["num_negatives"] = K
+            cuts = {"position_negatives": K, "protocol_negatives": BASELINE_POOL,
+                    "position_negatives_bytes": nbytes}
+        layers = config["n_layers"] if family in ("ComiRec", "REMI") else 0
+        loaders = build_eval_dataloaders(config, data)
+        valid_b, test_b = (math.ceil(len(loader) / config["eval_batch_size"])
+                           for loader in loaders)
+
+        # training: fit, an evaluation with a best-checkpoint save, the test
+        # split from that checkpoint
+        reset_launches()
+        _reset_peak(dev)
+        t0 = time.perf_counter()
+        trainer, stats, trained = train(config, data, device)
+        _sync(trainer)
+        train_seconds = time.perf_counter() - t0
+        paths[f"baselines_{family}"] = launches = read_launches()
+        train_peak = _peak_gb(dev)
+        steps = stats["iters"]
+        losses = [loss for _, loss in trainer.fetched_losses]
+        want = dict({k: 0 for k in launches}, row_adamw=steps,
+                    hstu_stu_gated_fwd=layers * (steps + valid_b + test_b),
+                    hstu_stu_gated_bwd=layers * steps)
+        train_ok = (steps == config["total_iters"] and launches == want
+                    and int(trainer.nan_step) < 0 and all(math.isfinite(x) for x in losses)
+                    and os.path.isfile(trainer.checkpoint_path())
+                    and "load_s" in trainer.checkpoint_stats
+                    and all(math.isfinite(v) for v in _metric_values(trained)))
+        rec = {"phase": f"baselines_{family}", "files": list(BASELINE_FILES[family]),
+               "widths": baseline_widths(config, tower), "stu_layers": layers,
+               "steps": steps, "batch": config["train_batch_size"],
+               "num_negatives": config["num_negatives"], "items": int(data.item_num),
+               "users": len(loaders[1]),
+               "parameters": sum(p.numel() for p in trainer.model.parameters()),
+               "train_seconds": train_seconds,
+               "steady_examples_per_s": stats["steady_examples_per_s"],
+               "fit_eval_s": stats["eval_s"], "train_peak_mem_gb": train_peak,
+               "losses": trainer.fetched_losses, "train_launches": launches,
+               "train_launches_per_step": {k: launches[k] / steps for k in
+                                           ("hstu_stu_gated_fwd", "hstu_stu_gated_bwd",
+                                            "row_adamw")},
+               "checkpoint": trainer.checkpoint_stats, "cuts": cuts}
+        if family == "SASRec":
+            # #7 against its plain version on one more step's block (D = 512)
+            row = rec["row_adamw_vs_plain"] = row_update_equals_plain(
+                trainer, next(build_dataloader(config, data)[0].epoch_batches(4)), steps // 2)
+            kernel_recs["row_adamw/sasrec"] = row
+            train_ok = train_ok and row["ok"]
+        first_loss = trainer.fetched_losses[0]
+        del trainer
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+        # serving: run.serve (--val_only True) from the checkpoint, then warm
+        serve_cfg = baseline_config(family, ckpt_dir, user_dir,
+                                    **dict(over, val_only=True,
+                                           num_negatives=config["num_negatives"]))
+        reset_launches()
+        _reset_peak(dev)
+        t0 = time.perf_counter()
+        trainer, test_loader, served = serve(serve_cfg, data, device)
+        _sync(trainer)
+        serve_seconds = time.perf_counter() - t0
+        paths[f"baselines_{family}_serve"] = serve_launches = read_launches()
+        t0 = time.perf_counter()
+        again = trainer.evaluate(test_loader)
+        _sync(trainer)
+        eval_seconds = time.perf_counter() - t0
+        serve_peak = _peak_gb(dev)
+        with torch.no_grad():
+            topk_ok = check_streamed_topk(trainer, next(iter(test_loader.batches())))
+        heads = trainer.model.medusa_num_heads
+        del trainer
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        serve_ok = (served == trained and again == served and topk_ok
+                    and serve_launches == dict({k: 0 for k in serve_launches},
+                                               hstu_stu_gated_fwd=layers * test_b))
+
+        # a second run from the same seed: the same first loss
+        rep = Trainer(config, data, device=device)
+        rep.setup_model()
+        rep_loss = float(rep.train_step(
+            next(build_dataloader(config, data)[0].epoch_batches(0)))["loss"].detach())
+        del rep
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        seed_ok = rep_loss == first_loss[1]
+
+        rec.update({"serve_seconds": serve_seconds, "eval_seconds": eval_seconds,
+                    "users_per_s": len(test_loader) / eval_seconds, "heads": heads,
+                    "serve_peak_mem_gb": serve_peak, "serve_launches": serve_launches,
+                    "serve_launches_per_eval_batch": serve_launches["hstu_stu_gated_fwd"] / test_b,
+                    "serve_equals_train_test": served == trained, "repeat_matches": again == served,
+                    "streamed_topk_matches_dense": topk_ok, "first_loss": first_loss,
+                    "same_seed_first_loss": rep_loss, "same_seed_matches": seed_ok,
+                    "test_metrics": _overall(served), "train_ok": bool(train_ok),
+                    "serve_ok": bool(serve_ok), "ok": bool(train_ok and serve_ok and seed_ok)})
+        emit(rec)
+        if not rec["ok"]:
+            failed.append(f"baselines_{family}")
+    return paths, failed, kernel_recs
+
+
 # the profile phases' groups of device kernels, by name (first match wins)
 PROFILE_GROUPS = (
     ("packed_attn_bwd", "packed_attn_bwd"),
@@ -3200,7 +3469,9 @@ IMAGE_SERVE_BATCH = 64
 # runs 8 a card (128 over 16 cards); see PERF.md §4 for why 4 and bf16
 IMAGE_TRAIN_BATCH = 4
 IMAGE_ADAM_MOMENTS = "bfloat16"
-IMAGE_TRAIN_STEPS = 5
+# 3 steps (5 until the baselines phase joined the script, to keep it well
+# inside its time limit): the steady rate is taken over the last 2
+IMAGE_TRAIN_STEPS = 3
 # the busy share: train steps under the profiler
 IMAGE_PROFILED_STEPS = 1
 # hllm_image_variants: the towers' depth, users, catalog, steps; the share
@@ -4084,6 +4355,15 @@ def main(argv=None) -> int:
                 ok &= kernel_phase("stu_bwd", shape_name, 64, 50, H, 64, torch.bfloat16)["ok"]
                 kernel_breakdown("stu_bwd", shape_name, 64, 50, H, 64, torch.bfloat16)
         return 0 if ok else 1
+    if "--baselines-only" in args:
+        # the baselines phase alone (its kernel holds included)
+        work_dir = tempfile.mkdtemp(prefix="chip_smoke_baselines_")
+        try:
+            launches, bad, _ = baselines_phase(InMemoryInteractionData(**hstu_data), work_dir)
+        finally:
+            shutil.rmtree(work_dir, ignore_errors=True)
+        emit({"path_launches": launches})
+        return 1 if bad else 0
     if "--train-only" in args:
         data = InMemoryInteractionData(**hstu_data)
         ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
@@ -4206,6 +4486,16 @@ def main(argv=None) -> int:
     seconds["train_accum"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
+    work_dir = tempfile.mkdtemp(prefix="chip_smoke_baselines_")
+    try:
+        baseline_launches, baseline_failed, _ = baselines_phase(data, work_dir)
+    finally:
+        shutil.rmtree(work_dir, ignore_errors=True)
+    failed.extend(baseline_failed)
+    torch.cuda.empty_cache()
+    seconds["baselines"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
     ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_1b_")
     try:
         hstu_1b_launches, hstu_1b_failed = hstu_1b_phase(data, ckpt_dir)
@@ -4269,7 +4559,8 @@ def main(argv=None) -> int:
     emit({"path_launches": {
         "serve": serve_launches, "eval_outputs": outputs_launches,
         "eval_streamed_metrics": streamed_launches, "train": train_launches,
-        "train_accum": accum_launches, **hstu_1b_launches, "hllm_serve": hllm_launches,
+        "train_accum": accum_launches, **baseline_launches, **hstu_1b_launches,
+        "hllm_serve": hllm_launches,
         "hllm_host_table": host_launches, "hllm_train": hllm_train_launches,
         **pretrained_launches, **image_launches}})
 

@@ -1,5 +1,6 @@
-"""Weight bridge: the JAX package's flax ``HSTU`` or ``HLLM`` parameter
-tree → this package's ``state_dict`` of the same model.
+"""Weight bridge: the JAX package's flax ``HSTU``, ``HLLM`` or baseline
+(SASRec, ComiRec, REMI, DualVAE, LLMIDRec) parameter tree → this package's
+``state_dict`` of the same model.
 
 Flax ``Dense`` kernels are [in, out] and become ``nn.Linear`` weights
 [out, in]; the fused ``uvqk`` projection keeps its [D, 4 splits] layout
@@ -12,8 +13,11 @@ onto the same unrolled ``stu_layers`` as the unrolled tree. An HLLM's
 ``visual`` tower (Qwen2-VL: ``patch_embed``, ``blocks_{i}``, ``ln_q``,
 ``merger_fc1/2``; CLIP / LLaVA: also ``position_embedding``,
 ``class_embedding``, ``pre_layernorm``, ``proj_fc1/2``, ``image_newline``)
-maps onto the port's ``visual`` with ``blocks_{i}`` as ``blocks.{i}``. The
-key walk follows ``tools/convert_reference_ckpt.py:208-248``. A flax parameter the
+maps onto the port's ``visual`` with ``blocks_{i}`` as ``blocks.{i}``.
+SASRec's encoder takes the BERT layer map (``trm_encoder/layer_{i}``),
+ComiRec's and REMI's ``trunk/stu_{i}`` the HSTU layer map, LLMIDRec's
+``user_llm`` the Llama tower map, DualVAE's ``inf_fc{i}`` / ``inf_ln{i}``
+become ``inf_fc.{i}`` / ``inf_ln.{i}``. The key walk follows ``tools/convert_reference_ckpt.py:208-248``. A flax parameter the
 walk does not use, or one it needs and does not find, raises.
 """
 
@@ -94,15 +98,27 @@ class _Walk:
         self.put(f"{tower}.position_embeddings.weight",
                  f"{tower}/position_embeddings/embedding")
         self.put_norm(f"{tower}.embeddings_ln", f"{tower}/embeddings_ln")
+        self.put_encoder(f"{tower}.encoder", f"{tower}/encoder")
+
+    def put_encoder(self, prefix: str, path: str):
+        """A ``TransformerEncoder``: ``layer_{i}`` with its fused ``qkv``
+        kernel [D, 3, heads, dh] → ``layers.{i}`` with a [3·D, D] weight."""
         i = 0
-        while self.has(f"{tower}/encoder/layer_{i}/qkv/kernel"):
-            p, t = f"{tower}/encoder/layer_{i}", f"{tower}.encoder.layers.{i}"
+        while self.has(f"{path}/layer_{i}/qkv/kernel"):
+            p, t = f"{path}/layer_{i}", f"{prefix}.layers.{i}"
             self.put_flat_dense(f"{t}.qkv", f"{p}/qkv")
             for dense in ("attn_out", "ff_in", "ff_out"):
                 self.put_dense(f"{t}.{dense}", f"{p}/{dense}")
             for norm in ("attn_ln", "ff_ln"):
                 self.put_norm(f"{t}.{norm}", f"{p}/{norm}")
             i += 1
+
+    def put_stu(self, t: str, p: str, layer=None):
+        """One STU layer (``input_norm``, ``uvqk``, ``attn_norm``, ``o_proj``)."""
+        self.put_norm(f"{t}.input_norm", f"{p}/input_norm", layer=layer)
+        self.put(f"{t}.uvqk", f"{p}/uvqk", layer=layer)
+        self.put_norm(f"{t}.attn_norm", f"{p}/attn_norm", layer=layer)
+        self.put_dense(f"{t}.o_proj", f"{p}/o_proj", layer=layer)
 
     def put_tower(self, tower: str):
         """A Llama or BERT backbone (or the dummy backend) under ``tower``:
@@ -195,16 +211,69 @@ def vision_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
     return {k[len("tower."):]: v for k, v in walk.finish().items()}
 
 
+def _put_baseline(walk: _Walk, name: str):
+    """The five baselines' trees (the JAX package's ``models/idnet``)."""
+    put, put_dense, put_norm = walk.put, walk.put_dense, walk.put_norm
+    if name in ("ComiRec", "REMI"):
+        put("trunk.item_embedding.weight", "trunk/item_embedding/embedding")
+        if walk.has("trunk/item_id_proj_tower/kernel"):
+            put("trunk.item_id_proj_tower.weight", "trunk/item_id_proj_tower/kernel",
+                transpose=True)
+        put("trunk.position_embedding.weight", "trunk/position_embedding/embedding")
+        i = 0
+        while walk.has(f"trunk/stu_{i}/uvqk"):
+            walk.put_stu(f"trunk.stu_layers.{i}", f"trunk/stu_{i}")
+            i += 1
+        put("trunk.attn_hidden.weight", "trunk/attn_hidden/kernel", transpose=True)
+        if walk.has("trunk/attn_hidden/bias"):
+            put("trunk.attn_hidden.bias", "trunk/attn_hidden/bias")
+        put("trunk.attn_out.weight", "trunk/attn_out/kernel", transpose=True)
+        return
+    put("item_embedding.weight", "item_embedding/embedding")
+    if name == "SASRec":
+        put("position_embedding.weight", "position_embedding/embedding")
+        put_norm("input_norm", "input_norm")
+        walk.put_encoder("trm_encoder", "trm_encoder")
+    elif name == "DualVAE":
+        put("position_embedding.weight", "position_embedding/embedding")
+        put_norm("input_layernorm", "input_layernorm")
+        put_dense("item_proj", "item_proj")
+        put("item_topics", "item_topics")
+        put_dense("pool_hidden", "pool_hidden")
+        put("pool_out.weight", "pool_out/kernel", transpose=True)
+        i = 0
+        while walk.has(f"inf_fc{i}/kernel"):
+            put_dense(f"inf_fc.{i}", f"inf_fc{i}")
+            put_norm(f"inf_ln.{i}", f"inf_ln{i}")
+            i += 1
+        put_dense("user_mu", "user_mu")
+        put_dense("user_std", "user_std")
+    else:  # LLMIDRec
+        if walk.has("item_id_proj_tower/kernel"):
+            put("item_id_proj_tower.weight", "item_id_proj_tower/kernel", transpose=True)
+        walk.put_tower("user_llm")
+
+
+BASELINES = ("SASRec", "ComiRec", "REMI", "DualVAE", "LLMIDRec")
+
+
 def state_dict_from_flax(params: Mapping, config) -> Dict[str, torch.Tensor]:
     """``params``: nested dict of numpy arrays (the flax ``params``
-    collection of ``mhrec_tpu.models.idnet.hstu.HSTU`` or
+    collection of ``mhrec_tpu.models.idnet.hstu.HSTU``, of one of the five
+    baselines of ``mhrec_tpu.models.idnet`` or of
     ``mhrec_tpu.models.hllm.hllm.HLLM``); ``config``: the Config the model
     was built from."""
     walk = _Walk(params)
     flat, put, put_dense, put_norm = walk.flat, walk.put, walk.put_dense, walk.put_norm
     put_resblocks = walk.put_resblocks
 
-    if str(config["model"] or "HSTU") == "HLLM":
+    name = str(config["model"] or "HSTU")
+    if name in BASELINES:
+        _put_baseline(walk, name)
+        if not config["fix_temp"]:
+            put("logit_scale", "logit_scale")
+        return walk.finish()
+    if name == "HLLM":
         if "item_llm" in params:
             walk.put_tower("item_llm")
         if "visual" in params:
@@ -228,11 +297,7 @@ def state_dict_from_flax(params: Mapping, config) -> Dict[str, torch.Tensor]:
                                  f"{n_layers}")
         for i in range(n_layers):
             p, layer = ("stu_stack/layers/stu", i) if scanned else (f"stu_{i}", None)
-            t = f"stu_layers.{i}"
-            put_norm(f"{t}.input_norm", f"{p}/input_norm", layer=layer)
-            put(f"{t}.uvqk", f"{p}/uvqk", layer=layer)
-            put_norm(f"{t}.attn_norm", f"{p}/attn_norm", layer=layer)
-            put_dense(f"{t}.o_proj", f"{p}/o_proj", layer=layer)
+            walk.put_stu(f"stu_layers.{i}", p, layer=layer)
             if config["enable_relative_attention_bias"]:
                 put(f"rel_bias.{i}.ts_w", f"rel_bias_{i}/ts_w")
                 put(f"rel_bias.{i}.pos_w", f"rel_bias_{i}/pos_w")

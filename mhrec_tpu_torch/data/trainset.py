@@ -15,6 +15,8 @@ Batch dict (all numpy, static shapes):
   neg_items        [B, num_cats+1 or 1, K] int32
   masked_index     [B, L+P] int32   (1 = real token)
   tag_categories   [B, L+P, C] int8 (only when loss == 'prior')
+  pos_neg_items    [B, L+P-1, num_negatives] int32 (SASRec / LLMIDRec under
+                   sparse_item_adam or batch_position_negatives)
   unique_ids       [U] int64        (only under sparse_item_adam; −1 = pad)
 
 Under ``sparse_item_adam`` item ids in the batch are local indices into the
@@ -34,9 +36,25 @@ import numpy as np
 from mhrec_tpu_torch.data.samplers import make_negative_sampler
 
 
+def _wants_position_negatives(config) -> bool:
+    """SASRec and LLMIDRec draw [B, L, num_negatives] per-position negatives
+    in the model (reference sasrec.py:79-86 ``torch.randint``). Under
+    sparse_item_adam those draws cannot index the per-batch sub-table, so
+    the batcher draws them (the same uniform [1, item_num) law) and remaps
+    them like every other id; ``batch_position_negatives`` takes the batch
+    path outside sparse mode too (for sparse / dense parity)."""
+    return (
+        str(config["model"]) in ("SASRec", "LLMIDRec")
+        and bool(config["num_negatives"])
+        and (bool(config.get("sparse_item_adam", False))
+             or bool(config.get("batch_position_negatives", False)))
+    )
+
+
 def unique_id_cap(config) -> int:
     """Static size of the unique-id block under sparse_item_adam: every id
-    in the batch + 1 forced pad id, rounded up to a multiple of 512."""
+    in the batch (the per-position negatives too) + 1 forced pad id,
+    rounded up to a multiple of 512."""
     rows = config["train_batch_size"]
     window = config["MAX_ITEM_LIST_LENGTH"] + config["pred_len"]
     num_neg = config["num_negatives"]
@@ -48,6 +66,8 @@ def unique_id_cap(config) -> int:
     )
     n_ids = rows * window
     n_ids += rows * per_sample_negs * ((config["eval_num_cats"] + 1) if by_cat else 1)
+    if _wants_position_negatives(config):
+        n_ids += rows * (window - 1) * num_neg
     return ((n_ids + 1 + 511) // 512) * 512
 
 
@@ -84,6 +104,8 @@ class SEQTrainBatcher:
         # indices into a per-batch unique-id sub-table
         self.sparse_item_table = bool(config.get("sparse_item_adam", False))
         self._remap_lut = None  # lazy [item_num] int32
+        self.position_negatives = _wants_position_negatives(config)
+        self.num_position_negatives = int(config["num_negatives"] or 0)
         if self.sparse_item_table:
             self.unique_cap = unique_id_cap(config)
 
@@ -163,11 +185,20 @@ class SEQTrainBatcher:
         else:
             batch["tag_categories"] = np.zeros((B, 0, 0), dtype=np.int8)
 
+        if self.position_negatives:
+            # per-position uniform draws, the reference's in-model
+            # torch.randint [1, item_num) (sasrec.py:79-86), drawn here so
+            # that sparse mode can remap them to sub-table indices
+            batch["pos_neg_items"] = rng.integers(
+                1, self.item_num, size=(B, W - 1, self.num_position_negatives)
+            ).astype(np.int32)
+
         if self.sparse_item_table:
             # AFTER all global-id lookups (tags above): remap items/neg_items
             # to local indices into the per-batch unique block. Index 0 is
             # always the pad item (id 0), so pad checks (== 0) keep working.
-            remap_keys = ("items", "neg_items")
+            remap_keys = ("items", "neg_items") + (
+                ("pos_neg_items",) if self.position_negatives else ())
             uniq = np.unique(np.concatenate([[0]] + [batch[k].ravel() for k in remap_keys]))
             n = len(uniq)
             if n > self.unique_cap:

@@ -26,6 +26,7 @@ from mhrec_tpu_torch.models.layers import (
     LayerNorm,
     ResBlock,
     cosine_normalize,
+    dropout,
     trunc_normal_init,
     xavier_uniform_init,
 )
@@ -95,13 +96,7 @@ class STULayer(nn.Module):
                 v.reshape(B, L, h, dv), nonpad, impl=impl, bias=attn_bias,
             ).reshape(B, L, h * dv)
             gated = u * self.attn_norm(attn)
-        if generator is not None and self.dropout_ratio > 0.0:
-            # flax Dropout: keep with probability 1 − p, scale the kept by
-            # 1 / (1 − p); the mask comes from the caller's generator
-            keep = 1.0 - self.dropout_ratio
-            mask = torch.empty(gated.shape, device=gated.device).bernoulli_(keep, generator=generator)
-            gated = torch.where(mask.bool(), gated / keep, torch.zeros((), dtype=gated.dtype,
-                                                                         device=gated.device))
+        gated = dropout(gated, self.dropout_ratio, generator)
         out = F.linear(gated, self.o_proj.weight.to(self.dtype), self.o_proj.bias.to(self.dtype))
         return x + out
 

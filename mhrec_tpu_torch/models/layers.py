@@ -92,21 +92,45 @@ class ResBlock(nn.Module):
         return x + F.silu(self.linear(x))
 
 
+def dropout(x: torch.Tensor, rate: float, generator=None) -> torch.Tensor:
+    """flax ``nn.Dropout``: with a generator and ``rate`` > 0, keep each
+    element with probability 1 − rate and scale the kept by 1 / (1 − rate),
+    the mask drawn from ``generator``; without one (evaluation) the
+    identity."""
+    if generator is None or rate <= 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.empty(x.shape, device=x.device).bernoulli_(keep, generator=generator)
+    return torch.where(mask.bool(), x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+# the feed-forward activations of the JAX package's TransformerLayer; "gelu"
+# is the exact erf form (HF / RecBole ``torch.nn.functional.gelu``)
+TRANSFORMER_ACTS = {"gelu": F.gelu, "relu": F.relu, "silu": F.silu, "swish": F.silu,
+                    "tanh": torch.tanh}
+
+
 class TransformerLayer(nn.Module):
     """Post-LN transformer block (the JAX package's ``TransformerLayer``,
     reference layers.py:421-637 RecBole style): softmax attention over a
-    fused q/k/v projection, residual, LayerNorm; then the exact-erf GELU
-    feed-forward, residual, LayerNorm. No dropout: its one caller, the BERT
-    tower, runs at rate 0. ``attn_bias`` is additive (0 or -1e9). As flax's
-    ``Dense`` with float32 parameters, every product runs in float32 whatever
-    the input type; the attention is the plain product-softmax-product (the
-    JAX package computes it outside any Pallas kernel)."""
+    fused q/k/v projection, attention dropout, output projection, hidden
+    dropout, residual, LayerNorm; then the feed-forward with ``hidden_act``,
+    hidden dropout, residual, LayerNorm. ``attn_bias`` is additive (0 or
+    -1e9). Dropout runs only when the caller passes a generator (training);
+    the BERT tower keeps rate 0. As flax's ``Dense`` with float32
+    parameters, every product runs in float32 whatever the input type; the
+    attention is the plain product-softmax-product (the JAX package computes
+    it outside any Pallas kernel)."""
 
     def __init__(self, n_heads: int, hidden_size: int, inner_size: int,
-                 layer_norm_eps: float = 1e-12):
+                 layer_norm_eps: float = 1e-12, hidden_dropout_prob: float = 0.0,
+                 attn_dropout_prob: float = 0.0, hidden_act: str = "gelu"):
         super().__init__()
         D = hidden_size
         self.n_heads = n_heads
+        self.hidden_dropout_prob = hidden_dropout_prob
+        self.attn_dropout_prob = attn_dropout_prob
+        self.act = TRANSFORMER_ACTS[hidden_act]
         self.qkv = nn.Linear(D, 3 * D)  # rows ordered (q|k|v, head, dh)
         self.attn_out = nn.Linear(D, D)
         self.attn_ln = LayerNorm(D, eps=layer_norm_eps, dtype=torch.float32)
@@ -114,7 +138,7 @@ class TransformerLayer(nn.Module):
         self.ff_out = nn.Linear(inner_size, D)
         self.ff_ln = LayerNorm(D, eps=layer_norm_eps, dtype=torch.float32)
 
-    def forward(self, x, attn_bias):
+    def forward(self, x, attn_bias, generator=None):
         B, L, D = x.shape
         h = self.n_heads
         dh = D // h
@@ -123,10 +147,12 @@ class TransformerLayer(nn.Module):
         qkv = self.qkv(x.float()).view(B, L, 3, h, dh)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
         scores = torch.einsum("blhd,bmhd->bhlm", q, k) / scale + attn_bias
-        probs = torch.softmax(scores, dim=-1)
+        probs = dropout(torch.softmax(scores, dim=-1), self.attn_dropout_prob, generator)
         ctx = torch.einsum("bhlm,bmhd->blhd", probs, v).reshape(B, L, D)
-        x = self.attn_ln(x + self.attn_out(ctx))
-        return self.ff_ln(x + self.ff_out(F.gelu(self.ff_in(x))))
+        ctx = dropout(self.attn_out(ctx), self.hidden_dropout_prob, generator)
+        x = self.attn_ln(x + ctx)
+        ff = dropout(self.ff_out(self.act(self.ff_in(x))), self.hidden_dropout_prob, generator)
+        return self.ff_ln(x + ff)
 
 
 class TransformerEncoder(nn.Module):
@@ -134,15 +160,17 @@ class TransformerEncoder(nn.Module):
     ``TransformerEncoder``)."""
 
     def __init__(self, n_layers: int, n_heads: int, hidden_size: int, inner_size: int,
-                 layer_norm_eps: float = 1e-12):
+                 layer_norm_eps: float = 1e-12, hidden_dropout_prob: float = 0.0,
+                 attn_dropout_prob: float = 0.0, hidden_act: str = "gelu"):
         super().__init__()
         self.layers = nn.ModuleList(
-            TransformerLayer(n_heads, hidden_size, inner_size, layer_norm_eps)
+            TransformerLayer(n_heads, hidden_size, inner_size, layer_norm_eps,
+                             hidden_dropout_prob, attn_dropout_prob, hidden_act)
             for _ in range(n_layers))
 
-    def forward(self, x, attn_bias):
+    def forward(self, x, attn_bias, generator=None):
         for layer in self.layers:
-            x = layer(x, attn_bias)
+            x = layer(x, attn_bias, generator)
         return x
 
 

@@ -34,6 +34,16 @@ _BF16 = torch.bfloat16
 _F32_MIN = torch.finfo(torch.float32).min
 
 
+def logit_scale_param(module: torch.nn.Module, fix_temp: bool, init: float):
+    """Give ``module`` its NCE temperature's log ``logit_scale``: a buffer at
+    ln(1/0.05) under ``fix_temp`` (the clamp of it is its ``exp``), else a
+    parameter at ``init``."""
+    if fix_temp:
+        module.register_buffer("logit_scale", torch.tensor(np.log(1 / 0.05), dtype=torch.float32))
+    else:
+        module.logit_scale = torch.nn.Parameter(torch.tensor(init))
+
+
 def clamp_logit_scale(logit_scale: torch.Tensor) -> torch.Tensor:
     """Straight-through clamp to [0, ln 100] then exp (hstu.py:600-603): the
     forward uses the clamped value, the gradient passes as if unclamped."""

@@ -72,7 +72,7 @@ from mhrec_tpu_torch.data.trainset import _prefetch_iterator, unique_id_cap
 from mhrec_tpu_torch.evaluator import Collector, Evaluator
 from mhrec_tpu_torch.models.factory import build_model
 from mhrec_tpu_torch.models.hllm.hllm import batch_image_extra
-from mhrec_tpu_torch.models.layers import cosine_normalize
+from mhrec_tpu_torch.models.layers import ItemEmbed, cosine_normalize
 from mhrec_tpu_torch.ops import row_adam_cuda
 from mhrec_tpu_torch.trainer import checkpoint as ckpt_io
 from mhrec_tpu_torch.trainer.lr_schedule import build_schedule
@@ -231,7 +231,7 @@ class Trainer:
             p.requires_grad_(False)
         self.dense_params = [p for g in self.optimizer.param_groups for p in g["params"]]
         if self.sparse_item_adam:
-            table = self.model.item_embedding.weight
+            table = self.item_table().weight
             self.table_m = torch.zeros_like(table, dtype=torch.float32)
             self.table_v = torch.zeros_like(table, dtype=torch.float32)
             if self.accumulate_grad > 1:
@@ -249,9 +249,22 @@ class Trainer:
             if self.load_checkpoint():
                 logger.info("resumed at step %d", self.step)
 
+    def item_table(self):
+        """The model's item-embedding table (an ``ItemEmbed``) wherever it
+        lives, as the JAX package's ``_find_item_table_path`` finds it: at
+        the top for HSTU, SASRec, DualVAE and LLMIDRec, under ``trunk`` for
+        ComiRec and REMI; None for a model without one (HLLM). Two tables
+        raise."""
+        hits = [m for name, m in self.model.named_modules()
+                if name.rsplit(".", 1)[-1] == "item_embedding" and isinstance(m, ItemEmbed)]
+        if len(hits) > 1:
+            raise ValueError(f"the model holds {len(hits)} item_embedding tables; "
+                             "sparse_item_adam needs exactly one")
+        return hits[0] if hits else None
+
     def _set_table_dtype(self, dtype):
         """Store an ID model's item table in ``dtype`` (a new parameter)."""
-        emb = getattr(self.model, "item_embedding", None)
+        emb = self.item_table()
         if emb is not None and emb.weight.dtype != dtype:
             emb.weight = torch.nn.Parameter(emb.weight.detach().to(dtype),
                                             requires_grad=emb.weight.requires_grad)
@@ -262,7 +275,7 @@ class Trainer:
     # the keys of a train batch that index or count (int64 on the device):
     # item ids and masks, and the text train batcher's tokens, lengths,
     # positions and gathers
-    _LONG_KEYS = ("items", "neg_items", "masked_index", "unique_ids",
+    _LONG_KEYS = ("items", "neg_items", "pos_neg_items", "masked_index", "unique_ids",
                   "pos_tokens", "pos_token_lens", "neg_tokens", "neg_token_lens",
                   "uniq_tokens", "uniq_token_lens", "uniq_inverse",
                   "packed_tokens", "packed_positions", "emb_slots")
@@ -332,6 +345,7 @@ class Trainer:
         k = self.accumulate_grad
         slot = self.step % k
         dev = self._train_device_batch(batch)
+        dev["step"] = self.step  # e.g. DualVAE's KL annealing (JAX trainer.py:690)
         gen = self.step_generator(self.step)
         self.model.train()
         acc = [p.grad for p in self.dense_params] if slot else None
@@ -339,7 +353,7 @@ class Trainer:
             p.grad = None
         if self.sparse_item_adam:
             ids = dev.pop("unique_ids")
-            table = self.model.item_embedding.weight
+            table = self.item_table().weight
             # float32 rows whatever the table stores: the step's math is that
             # of a float32 table
             sub0 = table.detach()[ids.clamp(min=0)].float().requires_grad_(True)
@@ -387,7 +401,7 @@ class Trainer:
                 # buffers are rewritten from the next micro-step on)
                 k_dev = torch.tensor(float(k), device=self.device)
                 ids, g_sub = dedup_touched_rows(self.acc_ids, self.acc_g.div_(k_dev))
-            table = self.model.item_embedding.weight
+            table = self.item_table().weight
             cfg = SparseAdamConfig(weight_decay=self.weight_decay)
             with torch.no_grad():
                 if table.dtype == torch.bfloat16:

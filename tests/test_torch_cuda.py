@@ -1360,3 +1360,93 @@ def test_image_hllm_step_on_the_card(card, tmp_path):
     assert bool(torch.isfinite(loss))
     assert not torch.equal(t.model.visual.blocks[0].qkv.weight, before)
     assert {fn.__name__: fn.launches for fn in chip_smoke.kernel_wrappers()} == launches
+
+
+# -- the baselines (ComiRec / REMI's float32 trunk, #7 at SASRec's width) ------
+@pytest.mark.parametrize("B", [64, 1024])
+def test_stu_gated_f32_at_comirec_shapes(card, B):
+    """#1 and #4 in float32 (their CUDA-core route), at ComiRec's train (64)
+    and serve (1024) batches: window 50, 16 heads of 64."""
+    L, H, d = 50, 16, 64
+    args = _gated_inputs(B, L, H, d, torch.float32, card, seed=B)
+    q, k, v, u, gamma, beta, nonpad, g = args
+    assert K.stu_gated_fwd_route(torch.float32, L, H, d, d) == "cuda_cores"
+    assert K.stu_gated_bwd_route(torch.float32, L, H, d, d) == "cuda_cores"
+    f0, b0 = K.hstu_stu_gated_fwd.launches, K.hstu_stu_gated_bwd.launches
+    out = K.hstu_stu_gated_fwd(q, k, v, u, gamma, beta, nonpad, H)
+    grads = K.hstu_stu_gated_bwd(q, k, v, u, gamma, beta, nonpad, g, H)
+    torch.cuda.synchronize()
+    assert (K.hstu_stu_gated_fwd.launches, K.hstu_stu_gated_bwd.launches) == (f0 + 1, b0 + 1)
+    _close(out, K.hstu_stu_gated_fwd_plain(q, k, v, u, gamma, beta, nonpad, H), torch.float32)
+    ref = K.hstu_stu_gated_bwd_plain(q, k, v, u, gamma, beta, nonpad, g, H)
+    for o, r in zip(grads, ref):
+        _close(o, r, torch.float32)
+
+
+def test_row_adamw_at_sasrec_width_equals_plain(card):
+    """#7 on a [200000, 512] table (SASRec's and LLMIDRec's width), unique
+    ids with −1 pads, bit for bit against the plain update."""
+    from mhrec_tpu_torch.ops.row_adam_cuda import row_adamw
+    from mhrec_tpu_torch.trainer.sparse_adam import SparseAdamConfig, sparse_adamw_row_update
+
+    gen = torch.Generator().manual_seed(512)
+    N, D, U, n_real = 200_000, 512, 8192, 6000
+    ids = torch.full((U,), -1, dtype=torch.long)
+    ids[:n_real] = torch.randperm(N, generator=gen)[:n_real]
+    g = torch.randn(U, D, generator=gen)
+    state = [torch.randn(N, D, generator=gen), 0.01 * torch.randn(N, D, generator=gen),
+             0.01 * torch.randn(N, D, generator=gen).abs()]
+    out = [t.to(card) for t in state]
+    ref = [t.to(card) for t in state]
+    cfg = SparseAdamConfig(weight_decay=0.01)
+    before = row_adamw.launches
+    row_adamw(*out, ids.to(card), g.to(card), 1e-3, 5, cfg)
+    sparse_adamw_row_update(*ref, ids.to(card), g.to(card), 1e-3, 5, cfg)
+    torch.cuda.synchronize()
+    assert row_adamw.launches == before + 1
+    for o, r in zip(out, ref):
+        assert torch.equal(o, r)
+
+
+BASELINE_FILES = {"SASRec": ["IDNet/sasrec.yaml"], "ComiRec": ["IDNet/comirec.yaml"],
+                  "REMI": ["IDNet/remi.yaml"], "DualVAE": ["IDNet/dualvae.yaml"],
+                  "LLMIDRec": ["IDNet/llama_id.yaml"]}
+
+
+@pytest.mark.parametrize("family", list(BASELINE_FILES))
+def test_baseline_step_on_the_card_matches_the_cpu(card, family):
+    """One sparse train step of each baseline (2 layers, 128 wide; LLMIDRec
+    the dummy tower) on the card and on the CPU from the same weights, no
+    dropout: equal losses within 1e-4, and the card launches #7 once and,
+    for ComiRec / REMI, #1 and #4 once a layer."""
+    from mhrec_tpu_torch.config import Config
+    from mhrec_tpu_torch.data import build_dataloader
+    from mhrec_tpu_torch.data.synthetic import InMemoryInteractionData
+    from mhrec_tpu_torch.ops.row_adam_cuda import row_adamw
+    from mhrec_tpu_torch.trainer import Trainer
+
+    L = 8
+    cfg = Config(config_file_list=["overall/ID.yaml"] + BASELINE_FILES[family], config_dict=dict(
+        dataset="synthetic", seed=0, MAX_ITEM_LIST_LENGTH=L, n_layers=2, n_heads=2,
+        item_embedding_size=128, hstu_embedding_size=128, embedding_size=128,
+        item_embed_dim=64, train_batch_size=16, num_negatives=64, sparse_item_adam=True,
+        total_iters=2)).finalize()
+    data = InMemoryInteractionData(num_users=256, num_items=5000, seq_len=2 * L + 16,
+                                   num_categories=8, eval_pred_len=8, max_item_list_length=L)
+    batch = next(build_dataloader(cfg, data)[0].epoch_batches(0))
+    trainers = {}
+    for dev in ("cpu", card):
+        t = trainers[str(dev)] = Trainer(cfg, data, device=dev)
+        t.setup_model(seed=3)
+        t.step_generator = lambda step, rounding=False: None  # no dropout, z = μ
+    trainers["cuda"].model.load_state_dict(trainers["cpu"].model.state_dict())
+    losses = {"cpu": trainers["cpu"].train_step(batch)["loss"].item()}
+    launches = (K.hstu_stu_gated_fwd.launches, K.hstu_stu_gated_bwd.launches,
+                row_adamw.launches)
+    losses["cuda"] = trainers["cuda"].train_step(batch)["loss"].item()
+    torch.cuda.synchronize()
+    after = (K.hstu_stu_gated_fwd.launches, K.hstu_stu_gated_bwd.launches,
+             row_adamw.launches)
+    layers = 2 if family in ("ComiRec", "REMI") else 0
+    assert tuple(a - b for a, b in zip(after, launches)) == (layers, layers, 1)
+    assert losses["cuda"] == pytest.approx(losses["cpu"], rel=1e-4)

@@ -1,9 +1,9 @@
 """The port stands alone: ``mhrec_tpu_torch`` and ``chip_smoke.py`` import
 nothing of JAX and nothing of the JAX package, and the serving and training
 paths that ``chip_smoke.py`` drives (HSTU serving and training, hstu-1b
-with its options, HLLM serving and training, the eval outputs and modes,
-gradient accumulation, HLLM towers loaded from local checkpoints, the
-image and video item towers) import neither PyYAML nor pandas nor pyarrow
+with its options, the five baselines, HLLM serving and training, the eval
+outputs and modes, gradient accumulation, HLLM towers loaded from local
+checkpoints, the image and video item towers) import neither PyYAML nor pandas nor pyarrow
 (the machine with the card has none of them), nor, on the HLLM
 paths, ``transformers``, ``safetensors``, ``tokenizers``, ``regex`` or
 ``sentencepiece`` (the HLLM runs read a tower's ``tokenizer.json``). PIL,
@@ -12,6 +12,7 @@ decode images and videos."""
 
 import ast
 import json
+import math
 import os
 import subprocess
 import sys
@@ -404,6 +405,65 @@ bad = sorted(m for m, mod in sys.modules.items() if mod is not None
 print("BAD", bad)
 """
 
+
+_BASELINES = """
+import sys, tempfile
+
+# what the port runs without: importing it fails
+LACKING = ("pandas", "yaml", "pyarrow", "transformers", "tokenizers", "regex", "sentencepiece",
+           "safetensors")
+sys.modules.update({name: None for name in LACKING})
+import torch
+import chip_smoke
+from mhrec_tpu_torch.data.synthetic import InMemoryInteractionData
+
+torch.set_num_threads(2)
+data = InMemoryInteractionData(num_users=40, num_items=1000, seq_len=2 * 6 + 16,
+                               num_categories=8, eval_pred_len=8, max_item_list_length=6)
+# chip_smoke.py's baselines phase (the five families trained, saved, reloaded
+# and served through run.train / run.serve), cut to a few widths
+tower = dict(chip_smoke.TINYLLAMA_1B, vocab_size=1024, hidden_size=64, intermediate_size=128,
+             num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2)
+paths, failed, kernels = chip_smoke.baselines_phase(
+    data, tempfile.mkdtemp(), device="cpu", position_negatives=8, user_llm=tower,
+    n_layers=2, n_heads=2, item_embedding_size=128, hstu_embedding_size=128, embedding_size=32,
+    item_embed_dim=32, eval_batch_size=32, eval_item_chunk_size=700, MAX_ITEM_LIST_LENGTH=6,
+    train_batch_size=8, num_negatives=64, total_iters=2, eval_interval=2)
+assert sorted(paths) == sorted(f"baselines_{f}{s}" for f in chip_smoke.BASELINE_FILES
+                               for s in ("", "_serve"))
+bad = sorted(m for m, mod in sys.modules.items() if mod is not None
+             and m.split(".")[0] in {"jax", "jaxlib", "flax", "optax", "mhrec_tpu", *LACKING})
+print("BAD", bad)
+"""
+
+
+def test_baselines_phase_runs_without_what_the_card_lacks():
+    """chip_smoke.py's baselines phase, cut to a few widths, on the CPU in a
+    fresh interpreter where PyYAML, pandas, pyarrow, ``transformers``,
+    ``tokenizers``, ``regex``, ``sentencepiece`` and ``safetensors`` cannot
+    be imported: every family trains, saves, reloads and serves with its
+    checks but the card's launch counts passing (the serve run's metrics
+    equal the training run's test metrics and a warm repeat's, the streamed
+    top-k a dense sort's, a second run from the seed the first loss, #7 at
+    SASRec's step bit-equal to the plain update), and nothing of JAX is
+    loaded."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", _BASELINES], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "BAD []" in proc.stdout, proc.stdout[-3000:]
+    recs = {r["phase"]: r for r in (json.loads(line) for line in proc.stdout.splitlines()
+                                    if line.startswith('{"phase"'))}
+    assert sorted(recs) == sorted(f"baselines_{f}" for f in
+                                  ("ComiRec", "REMI", "DualVAE", "SASRec", "LLMIDRec"))
+    for name, r in recs.items():
+        assert r["serve_equals_train_test"] and r["repeat_matches"], name
+        assert r["streamed_topk_matches_dense"] and r["same_seed_matches"], name
+        assert all(math.isfinite(loss) for _, loss in r["losses"]), name
+    assert recs["baselines_ComiRec"]["heads"] == 4 and recs["baselines_REMI"]["heads"] == 4
+    row = recs["baselines_SASRec"]["row_adamw_vs_plain"]
+    assert row["ok"] and row["bit_equal"] and row["D"] == 32, row
+    assert recs["baselines_LLMIDRec"]["cuts"]["position_negatives"] == 8
 
 def test_pretrained_towers_load_without_what_the_card_lacks():
     """HLLM towers from checkpoints written by ``chip_smoke.py``'s own
