@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port (``mhrec_tpu_torch``) on one CUDA card.
 
     python3 chip_smoke.py [--profile | --train-only | --stu-bwd-ab | --image-only |
-                           --image-fit | --baselines-only]
+                           --image-fit | --baselines-only | --distributed-only]
 
 Builds the port's CUDA kernels from ``mhrec_tpu_torch/csrc`` (one ``nvcc``
 per source, in parallel) and holds each against its plain PyTorch version on
@@ -51,9 +51,10 @@ towers (22 layers, 2048 wide, 32 heads over 4 KV heads, SwiGLU 5632, vocab
 temporary directory, random weights from seed 0), hierarchical prior heads
 (11 categories × 2 segment heads, one medusa layer, segment embeddings),
 ``pred_len`` 4, ``eval_pred_len`` 8, windows of 24 items, texts of up to 256
-tokens, the packed item tower and the packed corpus pass, over 4096 users
-and a 16,384-item catalog of in-memory texts (``train_batch_size`` 128, so a
-corpus batch holds 3,072 items and the pass runs 6 of them, each launching
+tokens, the packed item tower and the packed corpus pass, over HLLM_USERS
+(2048) users and a catalog of HLLM_ITEMS (8,192) in-memory texts
+(``train_batch_size`` 128, so a corpus batch holds 3,072 items and the pass
+runs 3 of them, each launching
 ``packed_attn_fwd`` once per layer). Its evaluation is repeated and must give
 the same metrics. A last pass takes the first corpus batch through the dense
 padded item tower (no kernel) and holds its item embeddings to the packed
@@ -73,7 +74,7 @@ negatives (8 a sample for each of the 12 pools, as the script's 4096 over
 its global batch of 512), so a step encodes 992 items (about 138k tokens in
 about 72 chunk rows of 2048) and launches ``packed_attn_fwd`` twice per
 item-tower layer (the forward and its recompute) and ``packed_attn_bwd``
-once; 10 steps, an evaluation of the valid split with a best-checkpoint save
+once; HLLM_TRAIN_STEPS steps, an evaluation of the valid split with a best-checkpoint save
 (parameters and AdamW moments, about 24 GB, under a temporary directory),
 and the test split evaluated from that checkpoint. Cuts against the script:
 the batch (it runs 32 a card on 16 cards), the steps (3000), and as above
@@ -144,8 +145,8 @@ decoder and the 32-block vision tower) and a Qwen2.5-1.5B user tower,
 random weights from seed 0, a Qwen2-VL-layout byte-level BPE
 ``tokenizer.json`` (``write_qwen2_tokenizer``: the vision tokens at their
 ids) and 224 × 224 images (JPEGs of mixed native sizes the script writes
-for most of 4,096 items; the rest missing or broken, which take the black
-image), over 4,096 users: it serves (the warm corpus pass's items/s and
+for most of IMAGE_ITEMS items; the rest missing or broken, which take the
+black image), over IMAGE_USERS users: it serves (the warm corpus pass's items/s and
 tokens/s, users/s, the vision tower's and the item LLM's seconds on a
 corpus batch, the host's decode and patchify rate cold and from the LRU,
 peak memory) and trains IMAGE_TRAIN_STEPS steps at IMAGE_TRAIN_BATCH
@@ -182,6 +183,18 @@ ComiRec and REMI, #7 once a step on every family; see ``baselines_phase``.
 ``--baselines-only`` builds the kernels and runs this phase alone, without
 the last line.
 
+Then ``distributed`` (after train_accum) drives data parallelism over
+``torch.distributed`` on HSTU size4 in the train phase's protocol (batch 64
+a rank, 8,192 negatives a category in the global pool, an evaluation with
+a save, the test split from it): (a) ``python -m mhrec_tpu_torch.run
+--multihost`` as rank 0 of a one-rank NCCL group against the same CLI run
+without a group, 10 steps (bit-equal losses, checksum and metrics
+expected); (b) two ranks over gloo with both on the one card (NCCL refuses
+two ranks on one device), the item table replicated and then row-sharded,
+5 steps of a float32 trunk, each held to a single-process run over the
+composed batches of both ranks; see ``distributed_phase``. ``--distributed-only`` builds the
+kernels and runs this phase alone, without the last line.
+
 Then ``hstu_1b`` (after the baselines, before the HLLM ones) runs
 the largest HSTU of the reference's ladder, hstu-1b (``IDNet/hstu-1b.yaml``:
 22 layers, 2048 wide, 32 heads of 64) with ``scan_layers``, in the train
@@ -194,9 +207,11 @@ the stacked prior loss (timed in turns against the loop, and held to it on
 one batch); see ``hstu_1b_phase``.
 
 Prints one JSON object per line: the card's name and power limit, build
-seconds, each kernel phase (error against tolerance; kernel, plain and bound
-times), the serve, impl, eval_outputs, eval_streamed_metrics, train,
-train-impl, train_accum, baselines_<family> (five), hstu_1b_serve, hstu_1b_serve_tf32,
+seconds, each kernel phase (error against tolerance; the kernel's and the
+plain version's device times from ``torch.profiler``, each beside its wall
+time ``host_ms``, and the bound), the serve, impl, eval_outputs,
+eval_streamed_metrics, train, train-impl, train_accum, distributed,
+baselines_<family> (five), hstu_1b_serve, hstu_1b_serve_tf32,
 hstu_1b_train,
 hstu_1b_train_bf16_table, hstu_1b_train_stacked, hllm_serve, hllm_impl, hllm_host_table, hllm_train,
 hllm_train_impl, hllm_pretrained (with its hllm_pretrained_serve record),
@@ -263,7 +278,10 @@ TRAIN_STEPS = 30
 
 # the HLLM training phase: sequences a step and steps
 HLLM_TRAIN_BATCH = 8
-HLLM_TRAIN_STEPS = 10
+# the HLLM serving and training phases' users and in-memory catalog
+HLLM_USERS = 2048
+HLLM_ITEMS = 8192
+HLLM_TRAIN_STEPS = 4  # 10 until the distributed phase joined the script (depth cut)
 # chunk rows of 2048 tokens that a train step's 992 items pack into
 HLLM_TRAIN_CHUNK_ROWS = 72
 
@@ -292,6 +310,9 @@ def emit(obj):
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Wall time of one call of ``fn`` between CUDA events around ``iters``
+    calls: the device's time, or the host's where launching the calls takes
+    longer than running them."""
     import torch
 
     for _ in range(warmup):
@@ -304,6 +325,43 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 10, warmup: int = 3) -> float:
+    """Device time of one call of ``fn``: the durations of the kernels,
+    copies and sets that ``iters`` calls run on the card, from
+    ``torch.profiler`` (the gaps between launches left out), per call. A
+    trace without device events (now and then one comes back so) is taken
+    again, twice at most; then it raises."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.time_range.end - e.time_range.start for e in prof.events()
+                 if e.device_type == DeviceType.CUDA)
+        if us > 0:
+            return us / 1e3 / iters
+    raise RuntimeError("device_ms: the profiler's traces held no device time")
+
+
+def timings(fns, iters: int = 20, warmup: int = 3):
+    """{name: (device ms, host ms)} of each named call in ``fns``: the
+    host's wall times taken in turns (each name twice, the order reversed
+    the second time), the device's from ``device_ms``."""
+    names = list(fns)
+    host = {n: [] for n in names}
+    for n in names + names[::-1]:
+        host[n].append(cuda_ms(fns[n], iters=iters, warmup=warmup))
+    return {n: (device_ms(fns[n], iters=min(iters, 10), warmup=warmup), min(host[n]))
+            for n in names}
 
 
 def excess_error(outs, refs, dtype_name, scaled=False):
@@ -492,8 +550,9 @@ def kernel_phase(kind, shape_name, B, L, H, d, dtype, seed=0):
     kernel, plain) and compute the bound. A pointwise
     attention kernel or STU backward kernel whose bfloat16 route runs on
     the tensor cores is also timed on its CUDA-core route
-    (``cuda_core_ms``, between the kernel's two timings), so that the two
-    designs are compared in one call on one card. The
+    (``cuda_core_ms``), so that the two designs are compared in one call on
+    one card. Times are the device's (``device_ms``), each beside its wall
+    time (``host_ms``: plain, kernel, kernel, plain). The
     comparison and timing launches are counted outside the main paths'
     runs."""
     import torch
@@ -514,12 +573,14 @@ def kernel_phase(kind, shape_name, B, L, H, d, dtype, seed=0):
     route = kernel_route(kind, dtype, L, H, d)
     if route is not None:
         rec["route"] = route
-    p1, k1 = (cuda_ms(lambda f=f: f(*args)) for f in (plain, fn))
+    fns = {"plain": lambda: plain(*args), "kernel": lambda: fn(*args)}
     if kind in ("attn", "stu_bwd", "attn_bwd") and route == "tensor_cores":
-        rec["cuda_core_ms"] = min(cuda_ms(lambda: fn(*args, route="cuda_cores"))
-                                  for _ in range(2))
-    k2, p2 = (cuda_ms(lambda f=f: f(*args)) for f in (fn, plain))
-    rec["ms"], rec["plain_ms"] = min(k1, k2), min(p1, p2)
+        fns["cuda_core"] = lambda: fn(*args, route="cuda_cores")
+    t = timings(fns)
+    # device times; the host's wall times beside them (host_ms)
+    (rec["ms"], rec["host_ms"]), (rec["plain_ms"], rec["plain_host_ms"]) = t["kernel"], t["plain"]
+    if "cuda_core" in t:
+        rec["cuda_core_ms"], rec["cuda_core_host_ms"] = t["cuda_core"]
     rec["bound_ms"], rec["bound_by"] = bound_ms(kind, args)
     emit(rec)
     return rec
@@ -589,15 +650,14 @@ def row_adamw_phase(N=200_000, D=1024, U=77_824, n_real=65_000, seed=0):
     untouched[ids[:n_real]] = False
     kept = bool(torch.equal(ker[0][untouched], table[untouched]))
     del ref
-    p1, k1, k2, p2 = (cuda_ms(lambda f=f: f(*ker, ids, g, 1e-4, 7, cfg), iters=10)
-                      for f in (sparse_adamw_row_update, row_adamw, row_adamw,
-                                sparse_adamw_row_update))
+    t = timings({"kernel": lambda: row_adamw(*ker, ids, g, 1e-4, 7, cfg),
+                 "plain": lambda: sparse_adamw_row_update(*ker, ids, g, 1e-4, 7, cfg)}, iters=10)
     nbytes = 7 * 4 * n_real * D + ids.numel() * ids.element_size()
     bound, bound_by = _bound(nbytes, 16 * n_real * D, PEAK_FLOPS["float32"])
     rec = {"phase": "kernel", "kernel": "row_adamw", "N": N, "D": D, "U": U, "real_ids": n_real,
            "bit_equal": equal, "max_abs_err": err, "rows_moved": moved,
-           "untouched_rows_kept": kept, "ms": min(k1, k2), "plain_ms": min(p1, p2),
-           "bound_ms": bound, "bound_by": bound_by, "ok": equal and moved and kept}
+           "untouched_rows_kept": kept, "ms": t["kernel"][0], "host_ms": t["kernel"][1],
+           "plain_ms": t["plain"][0], "plain_host_ms": t["plain"][1], "bound_ms": bound, "bound_by": bound_by, "ok": equal and moved and kept}
     emit(rec)
     return rec
 
@@ -688,19 +748,18 @@ def packed_kernel_phase(dtype, seed=0):
     def library():
         return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)
 
-    p1, k1, k2, p2 = (cuda_ms(lambda f=f: f(q, k, v, seg, w), iters=10)
-                      for f in (packed_attention_plain, packed_attn_fwd, packed_attn_fwd,
-                                packed_attention_plain))
+    t = timings({"kernel": lambda: packed_attn_fwd(q, k, v, seg, w),
+                 "plain": lambda: packed_attention_plain(q, k, v, seg, w)}, iters=10)
     try:  # a yardstick only: the port never calls it
         lib_err = float((library().transpose(1, 2)[real].float() - ref[real].float()).abs().max())
-        lib_ms, lib_note = cuda_ms(library, iters=10), None
+        (lib_ms, lib_host_ms), lib_note = timings({"lib": library}, iters=10)["lib"], None
     except RuntimeError as exc:
-        lib_err = lib_ms = None
+        lib_err = lib_ms = lib_host_ms = None
         lib_note = str(exc)[:300]
     pairs = packed_pairs(seg, w)
     bound, bound_by = _bound(_nbytes(q, k, v, seg, q), 4 * dh * H * pairs,
                              PEAK_FLOPS[dname])
-    ms = min(k1, k2)
+    ms = t["kernel"][0]
     train_rows = packed_fwd_train_rows(ms / pairs, seed) if dtype == torch.bfloat16 else None
     rec = {"phase": "kernel", "kernel": "packed_attn_fwd", "shape": "corpus", "C": C, "S": S,
            "H": H, "Hkv": Hkv, "dh": dh, "window": w, "dtype": dname,
@@ -709,8 +768,10 @@ def packed_kernel_phase(dtype, seed=0):
            "band_tflops": 4 * dh * H * pairs / ms / 1e9, "train_rows": train_rows,
            "real_tokens": int(real.sum()), "pairs": pairs, "max_abs_err": err,
            "atol": TOL[dname][0], "rtol": TOL[dname][1], "pad_rows_zero": pads_zero,
-           "ms": ms, "plain_ms": min(p1, p2), "bound_ms": bound, "bound_by": bound_by,
-           "library_ms": lib_ms, "library_max_abs_err": lib_err, "library_error": lib_note,
+           "ms": ms, "host_ms": t["kernel"][1], "plain_ms": t["plain"][0],
+           "plain_host_ms": t["plain"][1], "bound_ms": bound, "bound_by": bound_by,
+           "library_ms": lib_ms, "library_host_ms": lib_host_ms,
+           "library_max_abs_err": lib_err, "library_error": lib_note,
            "lse_max_abs_err": lse_err, "lse_pad_rows_neg_inf": lse_pads,
            "ok": finite and excess <= 0 and pads_zero and lse_excess <= 0 and lse_pads}
     emit(rec)
@@ -797,23 +858,24 @@ def packed_bwd_kernel_phase(dtype, seed=0):
     def plain():
         return packed_attn_bwd_plain(q, k, v, dout, seg, w)
 
-    p1, k1, k2, p2 = (cuda_ms(f, iters=5, warmup=1) for f in (plain, kernel, kernel, plain))
-    lib_ms = lib_note = None
+    t = timings({"kernel": kernel, "plain": plain}, iters=5, warmup=1)
+    lib_ms = lib_host_ms = lib_note = None
     try:  # a yardstick only: the port never calls it
         with torch.enable_grad():
             leaves = [x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v)]
             lib_out = F.scaled_dot_product_attention(*leaves, attn_mask=packed_mask(seg, w),
                                                      enable_gqa=True)
             g = dout.transpose(1, 2)
-            lib_ms = cuda_ms(lambda: torch.autograd.grad(lib_out, leaves, g, retain_graph=True),
-                             iters=5, warmup=1)
+            lib_ms, lib_host_ms = timings(
+                {"lib": lambda: torch.autograd.grad(lib_out, leaves, g, retain_graph=True)},
+                iters=5, warmup=1)["lib"]
             del lib_out, leaves
     except RuntimeError as exc:
         lib_note = str(exc)[:300]
     pairs = packed_pairs(seg, w)
     nbytes = _nbytes(q, k, v, out, dout, lse, seg, *grads)
     bound, bound_by = _bound(nbytes, 10 * dh * H * pairs, PEAK_FLOPS[dname])
-    ms = min(k1, k2)
+    ms = t["kernel"][0]
     train_rows = None
     if dtype == torch.bfloat16:
         del q, k, v, seg, out, dout, lse, grads
@@ -828,9 +890,10 @@ def packed_bwd_kernel_phase(dtype, seed=0):
            # per gradient: (max abs error, excess over TOL) against the
            # float32 reference, then against the plain version in bfloat16
            "per_grad_err": per_grad, "pad_rows_and_keys_zero": zeros,
-           "repeat_bit_equal": repeat_equal, "ms": ms, "plain_ms": min(p1, p2),
+           "repeat_bit_equal": repeat_equal, "ms": ms, "host_ms": t["kernel"][1],
+           "plain_ms": t["plain"][0], "plain_host_ms": t["plain"][1],
            "bound_ms": bound, "bound_by": bound_by, "library_ms": lib_ms,
-           "library_error": lib_note,
+           "library_host_ms": lib_host_ms, "library_error": lib_note,
            "ok": finite and excess <= 0 and zeros and repeat_equal}
     emit(rec)
     return rec
@@ -863,20 +926,7 @@ def base_config(files=("IDNet/hstu-size4.yaml", "overall/ID.yaml", "IDNet/hstu.y
                 **over):
     from mhrec_tpu_torch.config import Config
 
-    C = 8
-    return Config(
-        config_file_list=list(files),
-        config_dict=dict(
-            dict(dataset="synthetic", seed=0,
-                 MAX_ITEM_LIST_LENGTH=50, loss="prior", eval_num_cats=C,
-                 num_prior_head=C, num_segment_head=4, head_interaction="additive",
-                 medusa_num_layers=1, prior_switch="in", use_prior_switch_test=True,
-                 segment_embed=True, split_mode="combine",
-                 eval_pred_len=8, pred_len=8, topk=[5, 10, 50, 200],
-                 eval_batch_size=1024, eval_item_chunk_size=131072,
-                 int_to_category={i: f"cat_{i}" for i in range(C)}),
-            **over),
-    ).finalize()
+    return Config(config_file_list=list(files), config_dict=hstu_overrides(**over)).finalize()
 
 
 def serve_config():
@@ -927,12 +977,9 @@ def check_streamed_topk(trainer, batch, n_users=16):
 
 
 def kernel_wrappers():
-    from mhrec_tpu_torch.ops import hstu_attention_cuda as K
-    from mhrec_tpu_torch.ops.packed_attention_cuda import packed_attn_bwd, packed_attn_fwd
-    from mhrec_tpu_torch.ops.row_adam_cuda import row_adamw
+    from mhrec_tpu_torch.ops import kernel_wrappers as wrappers
 
-    return (K.hstu_stu_gated_fwd, K.hstu_attn_fwd, K.hstu_stu_gated_bwd, K.hstu_attn_bwd,
-            row_adamw, packed_attn_fwd, packed_attn_bwd)
+    return wrappers()
 
 
 def reset_launches():
@@ -941,7 +988,9 @@ def reset_launches():
 
 
 def read_launches():
-    return {fn.__name__: fn.launches for fn in kernel_wrappers()}
+    from mhrec_tpu_torch.ops import launch_counts
+
+    return launch_counts()
 
 
 def serve_phase(data):
@@ -1569,14 +1618,16 @@ def eval_outputs_phase(trainer, test_loader):
     the plain evaluation's exactly; one detailed dump per eval batch, every
     ``recommend_items`` row holding K entries; the ``save_for_eval`` chunks'
     top-k indices equal to the plain run's streamed top-k, and user
-    embeddings of the trunk's width. users/s with the dumps off and on;
-    returns (launches, ok, users/s with the dumps off)."""
+    embeddings of the trunk's width. users/s with the dumps off and on,
+    over the first EVAL_OUTPUTS_BATCHES eval batches (the dumps take about
+    1/200 s a user); returns (launches, ok, users/s with the dumps off)."""
     import numpy as np
     import torch
 
     from mhrec_tpu_torch.utils.observability import load_log_dict
 
     config = trainer.config
+    test_loader = FirstBatches(test_loader, EVAL_OUTPUTS_BATCHES)
     seen, undo = record_topk(trainer)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1628,6 +1679,25 @@ def eval_outputs_phase(trainer, test_loader):
           "user_emb_width": width, "metrics_equal_plain": dumped == plain,
           "launches": launches, "ok": bool(ok)})
     return launches, ok, n_users / plain_s
+
+
+# eval_outputs' eval batches (all 4 of the serve phase's until the
+# distributed phase joined the script: a depth cut)
+EVAL_OUTPUTS_BATCHES = 2
+
+
+class FirstBatches:
+    """The first ``n`` batches of an eval batcher, as an eval batcher of
+    their users."""
+
+    def __init__(self, loader, n):
+        self.loader, self.n = loader, n
+
+    def __len__(self):
+        return min(len(self.loader), self.n * self.loader.batch_size)
+
+    def batches(self):
+        return itertools.islice(self.loader.batches(), self.n)
 
 
 class FirstUsers:
@@ -1904,15 +1974,427 @@ def train_accum_phase(data, k1_steady):
     return launches, ok
 
 
+# -- distributed: data parallelism over torch.distributed ---------------------
+# the HSTU phases' users and catalog (InMemoryInteractionData's arguments)
+HSTU_DATA = dict(num_users=4096, num_items=200_000, seq_len=2 * 50 + 2 * 8,
+                 num_categories=8, eval_pred_len=8, max_item_list_length=50, seed=0)
+HSTU_FILES = ("IDNet/hstu-size4.yaml", "overall/ID.yaml", "IDNet/hstu.yaml")
+DIST_STEPS = 10
+DIST_GLOO_STEPS = 5    # the gloo runs' steps (about 2 s each: gloo stages through the host)
+DIST_RANK_BATCH = 64   # a rank's rows a step: the gloo runs' global batch is 128
+DIST_WORLD = 2
+DIST_TIMEOUT = 400     # seconds a process of the phase may take
+# the gloo world-2 runs against the composed single-process run, at the
+# JAX multi-process test's tolerances (tests/test_multiprocess.py:170-207).
+# The ranking metrics are held to them on the ranks' own parameters (their
+# checkpoint evaluated by one process); against the oracle, whose
+# parameters Adam moves up to about lr apart where a gradient is f32 noise
+# (the ranks sum partial gradients, the oracle one batch's), a user's
+# near-tie at rank k may fall the other way: 5e-3, a few users of a
+# category's subgroup
+DIST_TOL = {"loss": 2e-4, "checksum": 1e-5, "rank_metric": 3e-5, "entropy": 2e-3,
+            "between_ranks": 1e-6, "oracle_rank_metric": 5e-3}
+# the NCCL world-1 CLI run against the ungrouped one (bit-equal is expected)
+DIST_WORLD1_TOL = 1e-6
+# the collectives of a train step, by their comm.traffic tags
+DIST_STEP_TAGS = ("grad_all_reduce", "pool_gather", "pool_gather_grad", "dedup_gather",
+                  "zero_broadcast", "loss_counts", "step_scalars")
+
+
+def hstu_overrides(**over):
+    """base_config's overrides of the HSTU size4 prior model, ``over`` on top."""
+    C = 8
+    return dict(dict(dataset="synthetic", seed=0,
+                     MAX_ITEM_LIST_LENGTH=50, loss="prior", eval_num_cats=C,
+                     num_prior_head=C, num_segment_head=4, head_interaction="additive",
+                     medusa_num_layers=1, prior_switch="in", use_prior_switch_test=True,
+                     segment_embed=True, split_mode="combine",
+                     eval_pred_len=8, pred_len=8, topk=[5, 10, 50, 200],
+                     eval_batch_size=1024, eval_item_chunk_size=131072,
+                     int_to_category={i: f"cat_{i}" for i in range(C)}), **over)
+
+
+def dist_overrides(global_batch, checkpoint_dir, **over):
+    """The train phase's protocol (``train_config``) at a global batch of
+    ``global_batch`` for DIST_STEPS steps: 8,192 negatives a category in the
+    global pool, an evaluation with a best-checkpoint save at the last step,
+    every step's loss read."""
+    return hstu_overrides(**dict(dict(
+        train_batch_size=global_batch, num_negatives=8192, neg_sample_by_cat=True,
+        weighted_prior_loss=True, prior_switch_loss_weight=0.1, sparse_item_adam=True,
+        optim_args={"learning_rate": 1e-4, "weight_decay": 0.0}, total_iters=DIST_STEPS,
+        eval_interval=DIST_STEPS, update_interval=1, checkpoint_dir=checkpoint_dir), **over))
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_processes(cmds, logs, env=None):
+    """Start every command at once (stdout and stderr to its log file) and
+    wait for all, each within DIST_TIMEOUT; on a failure or a timeout the
+    others are killed. Returns the exit codes (None: killed at the limit)
+    and the logs' tails."""
+    env = dict(os.environ, PYTHONPATH=ROOT, **(env or {}))
+    procs = []
+    try:
+        for cmd, log in zip(cmds, logs):
+            procs.append(subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=open(log, "w"),
+                                          stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + DIST_TIMEOUT
+        codes = [None] * len(procs)
+        while any(c is None for c in codes) and time.monotonic() < deadline:
+            codes = [p.poll() for p in procs]
+            if any(c not in (None, 0) for c in codes):
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    tails = []
+    for log in logs:
+        with open(log) as fh:
+            tails.append(fh.read()[-3000:])
+    return codes, tails
+
+
+def cli_args(over):
+    """``run.py``'s overrides after ``--`` for the config ``over``."""
+    args = []
+    for k, v in over.items():
+        args += [f"--{k}", json.dumps(v) if isinstance(v, (list, bool, dict)) else str(v)]
+    return args
+
+
+def world1_cli_runs(work_dir, device, data_kw, over):
+    """(a): ``python -m mhrec_tpu_torch.run`` trains the distributed
+    protocol at batch 64, once as rank 0 of a one-rank group
+    (``--multihost``: NCCL on the card, every collective runs through it)
+    and once without a group, side by side, over the HSTU phases' catalog
+    made in memory (``synthetic_data``); the two must agree on every step's
+    loss, the parameter checksum and the test metrics."""
+    runs = {}
+    cmds, logs = [], []
+    for name, group in (("grouped", True), ("ungrouped", False)):
+        cfg = dist_overrides(DIST_RANK_BATCH, os.path.join(work_dir, name),
+                             synthetic_data=data_kw,
+                             result_json_path=os.path.join(work_dir, f"{name}_result"), **over)
+        cfg.pop("int_to_category")  # the in-memory catalog's
+        head = [sys.executable, "-m", "mhrec_tpu_torch.run", "--device", device]
+        if group:
+            head += ["--multihost", "--num_processes", "1", "--process_id", "0",
+                     "--coordinator_address", f"127.0.0.1:{free_port()}"]
+        cmds.append(head + ["--config_file", *HSTU_FILES, "--"] + cli_args(cfg))
+        logs.append(os.path.join(work_dir, f"{name}.log"))
+        runs[name] = os.path.join(work_dir, f"{name}_result.0.json")
+    codes, tails = run_processes(cmds, logs)
+    if codes != [0, 0]:
+        return {"exit_codes": codes, "log_tails": tails, "ok": False}
+    res = {}
+    for name, path in runs.items():
+        with open(path) as fh:
+            res[name] = json.load(fh)
+    a, b = res["grouped"], res["ungrouped"]
+    la, lb = [x for _, x in a["losses"]], [x for _, x in b["losses"]]
+    metrics_a, metrics_b = ({f"{sec}/{k}": v for sec, d in r["result"].items()
+                             for k, v in d.items()} for r in (a, b))
+
+    def rel(x, y):
+        return abs(x - y) / max(abs(y), 1e-30)
+
+    loss_rel = max(rel(x, y) for x, y in zip(la, lb)) if len(la) == len(lb) else math.inf
+    ok = (len(la) == over.get("total_iters", DIST_STEPS) and loss_rel <= DIST_WORLD1_TOL
+          and rel(a["param_checksum"], b["param_checksum"]) <= DIST_WORLD1_TOL
+          and metrics_a.keys() == metrics_b.keys()
+          and all(rel(metrics_a[k], metrics_b[k]) <= DIST_WORLD1_TOL or metrics_a[k] == metrics_b[k]
+                  for k in metrics_a))
+    return {"losses_bit_equal": la == lb, "max_loss_rel_diff": loss_rel,
+            "checksum_bit_equal": a["param_checksum"] == b["param_checksum"],
+            "metrics_bit_equal": a["result"] == b["result"],
+            "steady_examples_per_s": {k: r["steady_examples_per_s"] for k, r in res.items()},
+            "peak_mem_gb": {k: r.get("peak_mem_gb") for k, r in res.items()},
+            "launches": {k: r["launches"] for k, r in res.items()},
+            "collective_bytes_grouped": a["collective_bytes"],
+            "final_loss": a["final_loss"], "ok": bool(ok)}
+
+
+def dist_rank(rank, port, out):
+    """One rank of (b): joins a gloo group of DIST_WORLD ranks on the device
+    of ``{out}/spec.json`` (card 0: both ranks share the one card) and runs
+    ``run.train`` on its rows of the global batch (DIST_RANK_BATCH ·
+    DIST_WORLD), then writes what it saw to ``{out}/rank{rank}.json``."""
+    import torch
+
+    from mhrec_tpu_torch.data.synthetic import InMemoryInteractionData
+    from mhrec_tpu_torch.parallel import comm, init_distributed
+    from mhrec_tpu_torch.run import train
+    from mhrec_tpu_torch.utils import init_logger
+
+    with open(os.path.join(out, "spec.json")) as fh:
+        spec = json.load(fh)
+    dev = init_distributed(f"127.0.0.1:{port}", DIST_WORLD, rank, backend="gloo",
+                           device=spec["device"])
+    on_card = dev.type == "cuda"
+    config = base_config(**dist_overrides(DIST_RANK_BATCH * DIST_WORLD,
+                                          os.path.join(out, "ckpt"),
+                                          shard_item_embedding=spec["shard"], **spec["over"]))
+    init_logger(config, process_index=rank)
+    data = InMemoryInteractionData(**spec["data"])
+    reset_launches()
+    comm.traffic.clear()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    trainer, stats, result = train(config, data, dev)
+    if on_card:
+        torch.cuda.synchronize(dev)
+    seconds = time.perf_counter() - t0
+    emb = trainer.item_table()
+    table_bytes = sum(t.numel() * t.element_size()
+                      for t in (emb.weight, trainer.table_m, trainer.table_v))
+    rec = {"rank": rank, "seconds": seconds, "iters": stats["iters"],
+           "losses": trainer.fetched_losses, "final_loss": float(stats["loss"]),
+           "param_checksum": trainer.param_checksum(), "result": result,
+           "steady_examples_per_s": stats["steady_examples_per_s"],
+           "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 2**30 if on_card else None,
+           "launches": read_launches(), "collective_bytes": dict(comm.traffic),
+           "table_rows": int(emb.weight.shape[0]), "table_bytes": table_bytes,
+           "optimizer_sharded": type(trainer.optimizer).__name__}
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as fh:
+        json.dump(rec, fh)
+    return 0
+
+
+class ComposedBatcher:
+    """The single-process oracle's batches: each step the DIST_WORLD hosts'
+    batch halves concatenated in host order, the global batch the ranks
+    build together (tests/test_multiprocess.py:121-143)."""
+
+    num_hosts = 1
+
+    def __init__(self, config, data):
+        from mhrec_tpu_torch.data.trainset import SEQTrainBatcher
+
+        self.parts = [SEQTrainBatcher(config, data, host_id=h, num_hosts=DIST_WORLD)
+                      for h in range(DIST_WORLD)]
+
+    def infinite_batches(self, prefetch: int = 2):
+        import numpy as np
+
+        from mhrec_tpu_torch.data.trainset import _prefetch_iterator
+
+        def gen():
+            streams = [p.infinite_batches(prefetch=0) for p in self.parts]
+            while True:
+                parts = [next(s) for s in streams]
+                yield {k: np.concatenate([b[k] for b in parts]) for k in parts[0]}
+
+        return _prefetch_iterator(gen(), prefetch)
+
+
+def one_process_trainer(data, checkpoint_dir, device, over, **extra):
+    """A single-process Trainer with (b)'s model over ``checkpoint_dir``
+    that evaluates in batches of a rank's eval rows, so that every user's
+    embedding comes from a product of the ranks' shapes (the metrics do not
+    depend on the batch; the products' rounding may). Returns (trainer,
+    valid batcher, test batcher)."""
+    from mhrec_tpu_torch.data import build_eval_dataloaders
+    from mhrec_tpu_torch.trainer import Trainer
+
+    config = base_config(**dist_overrides(DIST_RANK_BATCH * DIST_WORLD, checkpoint_dir,
+                                          **over, **extra))
+    config["eval_batch_size"] //= DIST_WORLD
+    trainer = Trainer(config, data, device=device)
+    trainer.setup_model()
+    return (trainer, *build_eval_dataloaders(config, data))
+
+
+def composed_oracle(data, work_dir, device, over):
+    """The single-process run on the composed global batches of (b) with
+    ``sparse_adam_global_dedup``: fit with the valid evaluation and save,
+    the test split from the checkpoint, as ``run.train`` does. Returns its
+    record and the trainer."""
+    trainer, valid, test = one_process_trainer(data, os.path.join(work_dir, "oracle"), device,
+                                               over, sparse_adam_global_dedup=True)
+    stats = trainer.fit(ComposedBatcher(trainer.config, data), valid)
+    result = trainer.evaluate(test, load_best_model=True)
+    rec = {"final_loss": float(stats["loss"]), "losses": trainer.fetched_losses,
+           "param_checksum": trainer.param_checksum(), "result": result,
+           "steady_examples_per_s": stats["steady_examples_per_s"]}
+    return rec, trainer
+
+
+def params_apart(a, b):
+    """The largest |difference| over every parameter (the item tables, the
+    row moments included) of two single-process trainers, and how many
+    elements differ at all."""
+    import torch
+
+    worst, n_diff = 0.0, 0
+    pairs = list(zip(a.model.state_dict().values(), b.model.state_dict().values()))
+    pairs += [(a.table_m, b.table_m), (a.table_v, b.table_v)]
+    for x, y in pairs:
+        d = (x.float() - y.float()).abs()
+        worst = max(worst, float(d.max()))
+        n_diff += int(torch.count_nonzero(d))
+    return worst, n_diff
+
+
+def metrics_close(got, want, rank_tol=DIST_TOL["rank_metric"]):
+    """Ranking metrics within ``rank_tol``, Entropy within DIST_TOL's:
+    (all within, the largest difference of each kind, the first 20 metrics
+    off by more than DIST_TOL's tight tolerances, as (section/metric, got,
+    want))."""
+    worst = {"rank_metric": 0.0, "entropy": 0.0}
+    off = []
+    ok = True
+    for section, metrics in want.items():
+        for k, v in metrics.items():
+            kind = "entropy" if k.startswith("Entropy") else "rank_metric"
+            d = abs(got.get(section, {}).get(k, math.inf) - v)
+            worst[kind] = max(worst[kind], d)
+            ok &= d <= (DIST_TOL[kind] if kind == "entropy" else rank_tol)
+            if d > DIST_TOL[kind]:
+                off.append((f"{section}/{k}", got.get(section, {}).get(k), v))
+    return ok, worst, off[:20]
+
+
+def distributed_phase(work_dir, smi, device="cuda", data_kw=HSTU_DATA, **over):
+    """The data-parallel path on the card (HSTU size4, the train phase's
+    prior protocol): (a) ``world1_cli_runs``; (b) two ranks over gloo on the
+    one card (``dist_rank`` in processes of their own; NCCL refuses two
+    ranks on one device), the item table replicated and then row-sharded,
+    each held to the composed single-process oracle (``composed_oracle``)
+    at DIST_TOL, the two ranks to each other, the sharded run's per-rank
+    table bytes to half the replicated run's; (c) the record: examples/s,
+    peak memory per rank, the launches of #1, #4 and #7, the bytes a step of
+    each collective and the seconds, beside the card's name and power limit.
+    The gloo rates are correctness runs (both ranks on one card, gloo
+    staging through host memory), not scaling numbers. ``device`` "cpu"
+    and config overrides ``over`` (a few widths) rehearse it without the
+    card. Returns (launches of each run, ok)."""
+    from mhrec_tpu_torch.data.synthetic import InMemoryInteractionData
+
+    t0 = time.perf_counter()
+    rec = {"phase": "distributed", "card": smi, "steps": over.get("total_iters", DIST_STEPS),
+           "gloo_steps": over.get("total_iters", DIST_GLOO_STEPS),
+           "rank_batch": DIST_RANK_BATCH}
+    rec["world1_nccl_cli"] = world1_cli_runs(work_dir, device, data_kw, over)
+    ok = rec["world1_nccl_cli"]["ok"]
+    launches = {}
+    if "launches" in rec["world1_nccl_cli"]:
+        launches["distributed_world1_nccl"] = rec["world1_nccl_cli"]["launches"]["grouped"]
+    # (b) computes the trunk in float32, so that the oracle comparison sees
+    # the data-parallel arithmetic and not bf16 rounding grown over 16
+    # layers (#1 and #4 take their float32 routes), for DIST_GLOO_STEPS
+    gloo_over = dict(dict(total_iters=DIST_GLOO_STEPS, eval_interval=DIST_GLOO_STEPS),
+                     **over, compute_dtype="float32")
+    # the replicated run, then the sharded one (side by side, four ranks'
+    # evaluations overfill the card)
+    runs = {}
+    for shard, name in ((False, "replicated"), (True, "sharded")):
+        out = os.path.join(work_dir, name)
+        os.makedirs(out)
+        with open(os.path.join(out, "spec.json"), "w") as fh:
+            json.dump({"device": "cuda:0" if device == "cuda" else device, "shard": shard,
+                       "data": data_kw, "over": gloo_over}, fh)
+        port = free_port()
+        cmds = [[sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--distributed-rank",
+                 str(r), str(port), out] for r in range(DIST_WORLD)]
+        codes, tails = run_processes(cmds, [os.path.join(out, f"rank{r}.log")
+                                            for r in range(DIST_WORLD)])
+        if codes != [0] * DIST_WORLD:
+            runs[name] = {"exit_codes": codes, "log_tails": tails, "ok": False}
+            ok = False
+            continue
+        ranks = []
+        for r in range(DIST_WORLD):
+            with open(os.path.join(out, f"rank{r}.json")) as fh:
+                ranks.append(json.load(fh))
+        runs[name] = ranks
+        launches[f"distributed_gloo_{name}"] = ranks[0]["launches"]
+    data = InMemoryInteractionData(**data_kw)
+    oracle, oracle_trainer = composed_oracle(data, work_dir, device, gloo_over)
+    rec["oracle"] = {k: oracle[k] for k in ("final_loss", "param_checksum",
+                                            "steady_examples_per_s")}
+    for name, ranks in runs.items():
+        if isinstance(ranks, dict):
+            rec[f"gloo_{name}"] = ranks
+            continue
+        r0, r1 = ranks
+        between = max(abs(r0[k] - r1[k]) / abs(r1[k]) for k in ("final_loss", "param_checksum"))
+        loss_rel = abs(r0["final_loss"] - oracle["final_loss"]) / abs(oracle["final_loss"])
+        ck_rel = abs(r0["param_checksum"] - oracle["param_checksum"]) / oracle["param_checksum"]
+        m_ok, worst, off = metrics_close(r0["result"], oracle["result"],
+                                         DIST_TOL["oracle_rank_metric"])
+        # the checkpoint the ranks wrote, evaluated by one process: the
+        # distributed evaluation's half of the oracle comparison, on the
+        # same parameters; and those parameters against the oracle's
+        served, _, test = one_process_trainer(data, os.path.join(work_dir, name, "ckpt"),
+                                              device, gloo_over)
+        s_ok, s_worst, s_off = metrics_close(r0["result"],
+                                             served.evaluate(test, load_best_model=True))
+        p_worst, p_diff = params_apart(served, oracle_trainer)
+        del served
+        steps = r0["iters"]
+        per_step = {t: r0["collective_bytes"].get(t, 0) / steps for t in DIST_STEP_TAGS}
+        layers = int(base_config(**over)["n_layers"])
+        want = {"hstu_stu_gated_bwd": layers * steps, "row_adamw": steps}
+        checks = {
+            "metrics": m_ok, "checkpoint_served_by_one_process": s_ok,
+            "loss": loss_rel <= DIST_TOL["loss"],
+            "checksum": ck_rel <= DIST_TOL["checksum"],
+            "between_ranks": between <= DIST_TOL["between_ranks"],
+            "ranks_metrics_equal": r0["result"] == r1["result"],
+            "launches": all(r["launches"][k] == n for r in ranks for k, n in want.items())
+            and all(r["launches"]["hstu_stu_gated_fwd"] > layers * steps for r in ranks),
+            "zero_optimizer": all(r["optimizer_sharded"] == "ZeroShardedOptimizer"
+                                  for r in ranks)}
+        run_ok = all(checks.values())
+        rec[f"gloo_{name}"] = {
+            "label": "gloo, 2 ranks on one card", "final_loss_rel_diff": loss_rel,
+            "checksum_rel_diff": ck_rel, "between_ranks_rel_diff": between,
+            "max_metric_diff": worst, "metrics_beyond_tolerance": off,
+            "served_max_metric_diff": s_worst, "served_metrics_beyond_tolerance": s_off,
+            "params_max_abs_diff_vs_oracle": p_worst, "param_elements_differing": p_diff,
+            "steady_examples_per_s": [r["steady_examples_per_s"] for r in ranks],
+            "peak_mem_gb": [r["peak_mem_gb"] for r in ranks],
+            "launches": [r["launches"] for r in ranks],
+            "collective_bytes_per_step": per_step,
+            "collective_bytes_run": r0["collective_bytes"],
+            "table_rows": [r["table_rows"] for r in ranks],
+            "table_bytes": [r["table_bytes"] for r in ranks],
+            "seconds": [r["seconds"] for r in ranks], "checks": checks, "ok": bool(run_ok)}
+        ok &= run_ok
+    del oracle_trainer
+    if all(isinstance(runs.get(n), list) for n in ("replicated", "sharded")):
+        halved = all(2 * s["table_bytes"] == r["table_bytes"]
+                     for s, r in zip(runs["sharded"], runs["replicated"]))
+        rec["sharded_table_bytes_halved"] = halved
+        ok &= halved
+    rec["seconds"] = time.perf_counter() - t0
+    rec["ok"] = bool(ok)
+    emit(rec)
+    return launches, ok
+
+
 # -- hstu-1b: the largest HSTU of the reference's ladder ----------------------
 HSTU_1B_FILES = ("IDNet/hstu-1b.yaml", "overall/ID.yaml", "IDNet/hstu.yaml")
 # batch 32, as the JAX package's 1b ladder row trains it (BASELINE.md:48).
 # Steps of each training variant: if the script runs long, these are cut
 # first, never the width or the depth
 HSTU_1B_BATCH = 32
-HSTU_1B_STEPS = 20
-# steps of each turn of the loop / stacked timing (loop, stacked, stacked, loop)
-HSTU_1B_TURN_STEPS = 5
+HSTU_1B_STEPS = 10  # 20 until the distributed phase joined the script
+# steps of each turn of the loop / stacked timing (loop, stacked, stacked,
+# loop); 5 until the distributed phase joined the script
+HSTU_1B_TURN_STEPS = 3
 # the stacked prior loss against the loop on one batch, on a float32 copy
 # of the model: the loss to this relative difference and each gradient
 # tensor to STACKED_GRAD_TOL (relative L2). The two paths differ only in the
@@ -2036,13 +2518,13 @@ def row_update_equals_plain(trainer, batch, at_step):
                    rows_moved=bool((after[0][real] != rows_before).any()))
         if p.is_cuda:
             args = (ids, g, lr, step, cfg)
-            p1, k1, k2, p2 = (cuda_ms(lambda f=f: f(*pre, *args), iters=10)
-                              for f in (sparse_adamw_row_update, kernel, kernel,
-                                        sparse_adamw_row_update))
+            t = timings({"kernel": lambda: kernel(*pre, *args),
+                         "plain": lambda: sparse_adamw_row_update(*pre, *args)}, iters=10)
             nbytes = 7 * 4 * rec["real_ids"] * rec["D"] + ids.numel() * ids.element_size()
             bound, bound_by = _bound(nbytes, 16 * rec["real_ids"] * rec["D"],
                                      PEAK_FLOPS["float32"])
-            rec.update(ms=min(k1, k2), plain_ms=min(p1, p2), bound_ms=bound, bound_by=bound_by)
+            rec.update(ms=t["kernel"][0], host_ms=t["kernel"][1], plain_ms=t["plain"][0],
+                       plain_host_ms=t["plain"][1], bound_ms=bound, bound_by=bound_by)
         del pre, after
 
     # the wrapper counts its launches on the module's row_adamw, which is
@@ -2312,7 +2794,7 @@ BASELINE_FILES = {
     "LLMIDRec": ("overall/ID.yaml", "IDNet/llama_id.yaml"),
 }
 BASELINE_BATCH = 64
-BASELINE_STEPS = 10
+BASELINE_STEPS = 4  # 10 until the distributed phase joined the script
 # the shared negative pool a step (reproduce/HSTU-Pixel8M-base.sh, per chip)
 BASELINE_POOL = 8192
 # SASRec and LLMIDRec draw num_negatives for EVERY position: at the
@@ -2577,8 +3059,8 @@ BAICHUAN_13B_2L = {
     "intermediate_size": 13696, "num_hidden_layers": 2, "num_attention_heads": 40,
     "rms_norm_eps": 1e-6, "alibi": True,
 }
-# the pretrained-tower phases' catalog and users (hllm_serve's are 16,384
-# and 4096), to keep time
+# the pretrained-tower phases' catalog and users (hllm_serve's are
+# HLLM_ITEMS and HLLM_USERS), to keep time
 PRETRAINED_ITEMS = 4096
 PRETRAINED_USERS = 1024
 PRETRAINED_TRAIN_STEPS = 3
@@ -2591,7 +3073,7 @@ ALIBI_CORPUS_TRAIN_BATCH = 8
 # the levers phase: sequences a step (dots keeps every product's output:
 # about 1.25 GB a layer at 2 sequences, 248 items) and timed steps
 LEVERS_BATCH = 2
-LEVERS_STEPS = 3
+LEVERS_STEPS = 2  # 3 until the distributed phase joined the script
 
 # where the written checkpoints are drawn
 DEVICE = "cuda"
@@ -3453,9 +3935,10 @@ QWEN2_SPLIT = (r"(?i:'s|'t|'re|'ve|'m|'ll|'d)|[^\r\n\p{L}\p{N}]?\p{L}+|\p{N}|"
 IMAGE_TOKENIZER_VOCAB = 8192
 # hllm_image: users and catalog; the share of items with no image (the
 # black fallback) and with a file that does not decode (the same); the
-# images' native sizes (h, w), resized to 224 × 224 on the host
-IMAGE_USERS = 4096
-IMAGE_ITEMS = 4096
+# images' native sizes (h, w), resized to 224 × 224 on the host. 4,096 and
+# 4,096 until the distributed phase joined the script (a depth cut)
+IMAGE_USERS = 512
+IMAGE_ITEMS = 512
 IMAGE_MISSING_EVERY = 16
 IMAGE_BROKEN_EVERY = 257
 IMAGE_NATIVE_SIZES = ((256, 256), (240, 320), (320, 240), (224, 224))
@@ -3478,9 +3961,9 @@ IMAGE_PROFILED_STEPS = 1
 # of items with frames / images
 VARIANT_VIT_BLOCKS = 2
 VARIANT_LLM_LAYERS = 2
-VARIANT_USERS = 128
+VARIANT_USERS = 64  # 128 until the distributed phase joined the script
 VARIANT_ITEMS = 256
-VARIANT_STEPS = 2
+VARIANT_STEPS = 1  # 2 until the distributed phase joined the script
 # the variants' bf16 item embeddings against a float32 copy's (unit
 # vectors, max abs difference) on the first corpus batch
 VARIANT_F32_TOL = 5e-2
@@ -4309,10 +4792,15 @@ def main(argv=None) -> int:
         return 2
     import torch
 
+    sys.path.insert(0, ROOT)
+    if "--distributed-rank" in args:
+        # one rank of the distributed phase's gloo runs (distributed_phase),
+        # on the device its spec names
+        i = args.index("--distributed-rank")
+        return dist_rank(int(args[i + 1]), int(args[i + 2]), args[i + 3])
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device", file=sys.stderr)
         return 3
-    sys.path.insert(0, ROOT)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -4342,9 +4830,16 @@ def main(argv=None) -> int:
     per_source = cuda_build.build(verbose=True)
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "per_source": per_source})
 
-    # the HSTU phases' users and catalog
-    hstu_data = dict(num_users=4096, num_items=200_000, seq_len=2 * 50 + 2 * 8,
-                     num_categories=8, eval_pred_len=8, max_item_list_length=50, seed=0)
+    hstu_data = HSTU_DATA  # the HSTU phases' users and catalog
+    if "--distributed-only" in args:
+        # the distributed phase alone
+        work_dir = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+        try:
+            launches, ok = distributed_phase(work_dir, smi)
+        finally:
+            shutil.rmtree(work_dir, ignore_errors=True)
+        emit({"path_launches": launches})
+        return 0 if ok else 1
     if "--stu-bwd-ab" in args:
         # #4 alone at the train step's shape and at hstu-1b's width, split by
         # the kernels a call runs: a copy of this script beside another
@@ -4486,6 +4981,17 @@ def main(argv=None) -> int:
     seconds["train_accum"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
+    work_dir = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    try:
+        dist_launches, ok = distributed_phase(work_dir, smi)
+    finally:
+        shutil.rmtree(work_dir, ignore_errors=True)
+    if not ok:
+        failed.append("distributed")
+    torch.cuda.empty_cache()
+    seconds["distributed"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
     work_dir = tempfile.mkdtemp(prefix="chip_smoke_baselines_")
     try:
         baseline_launches, baseline_failed, _ = baselines_phase(data, work_dir)
@@ -4513,8 +5019,10 @@ def main(argv=None) -> int:
         os.makedirs(pretrain_dir)
         with open(os.path.join(pretrain_dir, "config.json"), "w") as fh:
             json.dump(TINYLLAMA_1B, fh)
+        # 4,096 users and 16,384 items until the distributed phase joined
+        # the script (a depth cut)
         data = InMemoryInteractionData(
-            num_users=4096, num_items=16_384, seq_len=2 * 24 + 2 * 8, num_categories=11,
+            num_users=HLLM_USERS, num_items=HLLM_ITEMS, seq_len=2 * 24 + 2 * 8, num_categories=11,
             eval_pred_len=8, max_item_list_length=24, seed=0, item_texts=True,
         )
         trainer, test_loader, hllm_launches, ok, hllm_result = hllm_serve_phase(
@@ -4559,7 +5067,8 @@ def main(argv=None) -> int:
     emit({"path_launches": {
         "serve": serve_launches, "eval_outputs": outputs_launches,
         "eval_streamed_metrics": streamed_launches, "train": train_launches,
-        "train_accum": accum_launches, **baseline_launches, **hstu_1b_launches,
+        "train_accum": accum_launches, **dist_launches, **baseline_launches,
+        **hstu_1b_launches,
         "hllm_serve": hllm_launches,
         "hllm_host_table": host_launches, "hllm_train": hllm_train_launches,
         **pretrained_launches, **image_launches}})
@@ -4574,6 +5083,7 @@ def main(argv=None) -> int:
     emit({"kernels": [
         dict(KERNELS[kind], route="cuda", launches=launches[kind],
              max_abs_err=kernel_recs[kind]["max_abs_err"], ms=kernel_recs[kind]["ms"],
+             host_ms=kernel_recs[kind]["host_ms"],
              plain_ms=kernel_recs[kind]["plain_ms"], bound_ms=kernel_recs[kind]["bound_ms"],
              bound_by=kernel_recs[kind]["bound_by"],
              library_ms=kernel_recs[kind].get("library_ms"))

@@ -1,7 +1,10 @@
 """Dataloader factory (reference ``REC/data/utils.py:13-77``; port of
-``mhrec_tpu/data/loaders.py``, one process). Every model evaluates through
+``mhrec_tpu/data/loaders.py``). Every model evaluates through
 ``SeqEvalBatcher``; HLLM trains on ``TextSEQTrainBatcher``'s batches, the
-ID models on ``SEQTrainBatcher``'s."""
+ID models on ``SEQTrainBatcher``'s. ``host_id`` / ``num_hosts``: this
+rank's share of every global batch (users and train samples strided over
+the ranks); the text batcher is one process's (multi-process HLLM is not
+ported yet)."""
 
 from __future__ import annotations
 
@@ -10,14 +13,21 @@ from mhrec_tpu_torch.data.textset import TextSEQTrainBatcher
 from mhrec_tpu_torch.data.trainset import SEQTrainBatcher
 
 
-def build_eval_dataloaders(config, dataload):
-    """Returns the (valid, test) evaluation batchers of one process."""
-    return (SeqEvalBatcher(config, dataload, phase="valid"),
-            SeqEvalBatcher(config, dataload, phase="test"))
+def build_eval_dataloaders(config, dataload, host_id: int = 0, num_hosts: int = 1):
+    """Returns the (valid, test) evaluation batchers of rank ``host_id``."""
+    return (SeqEvalBatcher(config, dataload, phase="valid", host_id=host_id,
+                           num_hosts=num_hosts),
+            SeqEvalBatcher(config, dataload, phase="test", host_id=host_id,
+                           num_hosts=num_hosts))
 
 
-def build_dataloader(config, dataload):
-    """Returns the (train, valid, test) batchers of one process."""
+def build_dataloader(config, dataload, host_id: int = 0, num_hosts: int = 1):
+    """Returns the (train, valid, test) batchers of rank ``host_id``."""
     is_text = str(config["model"] or "HSTU") == "HLLM"
-    train = (TextSEQTrainBatcher if is_text else SEQTrainBatcher)(config, dataload)
-    return (train, *build_eval_dataloaders(config, dataload))
+    if is_text and num_hosts > 1:
+        raise NotImplementedError(
+            "multi-process HLLM (the corpus split, shard_identical, dedup_items and "
+            "pack_chunk across hosts) is not ported yet")
+    train = (TextSEQTrainBatcher(config, dataload) if is_text
+             else SEQTrainBatcher(config, dataload, host_id=host_id, num_hosts=num_hosts))
+    return (train, *build_eval_dataloaders(config, dataload, host_id, num_hosts))

@@ -1,12 +1,14 @@
 """Training batcher for ID sequence models (port of
-``mhrec_tpu/data/trainset.py``, one process).
+``mhrec_tpu/data/trainset.py``).
 
 One sample is a window of ``MAX_ITEM_LIST_LENGTH + pred_len`` item ids ending
 at a precomputed ``(uid, context_end)`` location: left-padded context,
 right-padded prediction slots, with padding drawn as random negatives when
 ``pad_random_sample`` (reference ``trainset.py:111-177``). Negatives are
-``num_negatives / batch_size`` per sample (trainset.py:60), optionally drawn
-per category. A whole batch is one vectorized gather against the flat
+``num_negatives / train_batch_size`` per sample (trainset.py:60), optionally
+drawn per category. ``train_batch_size`` is GLOBAL: with ``num_hosts``
+ranks each builds ``train_batch_size / num_hosts`` rows of its host-strided
+share of every epoch, so the global pool keeps ``num_negatives``. A whole batch is one vectorized gather against the flat
 interaction array plus one vectorized negative-sampling call; a background
 thread keeps batches ready.
 
@@ -21,7 +23,10 @@ Batch dict (all numpy, static shapes):
 
 Under ``sparse_item_adam`` item ids in the batch are local indices into the
 block of unique ids, whose pad slots hold −1 (the JAX package aliases them
-to id 0 and adds a ``unique_mask``).
+to id 0 and adds a ``unique_mask``). With ``num_hosts > 1`` the indices
+address the concatenation of every host's block, as in the JAX package:
+host h's nonzero indices are shifted by ``h · unique_cap`` and index 0 (the
+pad item) stays 0.
 """
 
 from __future__ import annotations
@@ -51,14 +56,15 @@ def _wants_position_negatives(config) -> bool:
     )
 
 
-def unique_id_cap(config) -> int:
-    """Static size of the unique-id block under sparse_item_adam: every id
-    in the batch (the per-position negatives too) + 1 forced pad id,
-    rounded up to a multiple of 512."""
-    rows = config["train_batch_size"]
+def unique_id_cap(config, num_hosts: int = 1) -> int:
+    """Static size of one host's unique-id block under sparse_item_adam:
+    every id in its rows of the batch (the per-position negatives too) + 1
+    forced pad id, rounded up to a multiple of 512 (JAX trainset.py:52-62)."""
+    rows = config["train_batch_size"] // num_hosts
     window = config["MAX_ITEM_LIST_LENGTH"] + config["pred_len"]
     num_neg = config["num_negatives"]
-    per_sample_negs = math.ceil(num_neg / rows) if num_neg else config["MAX_ITEM_LIST_LENGTH"]
+    per_sample_negs = (math.ceil(num_neg / config["train_batch_size"]) if num_neg
+                       else config["MAX_ITEM_LIST_LENGTH"])
     by_cat = (
         config["loss"] == "prior"
         and bool(config["neg_sample_by_cat"])
@@ -72,14 +78,19 @@ def unique_id_cap(config) -> int:
 
 
 class SEQTrainBatcher:
-    def __init__(self, config, dataload):
+    def __init__(self, config, dataload, host_id: int = 0, num_hosts: int = 1):
         self.dataload = dataload
         self.config = config
         self.item_num = dataload.item_num
         self.max_seq_length = config["MAX_ITEM_LIST_LENGTH"]
         self.pred_len = config["pred_len"]
         self.window_len = self.max_seq_length + self.pred_len
-        self.batch_size = config["train_batch_size"]
+        self.global_batch_size = config["train_batch_size"]
+        if self.global_batch_size % num_hosts:
+            raise ValueError(f"train_batch_size {self.global_batch_size} must divide by "
+                             f"num_hosts {num_hosts}")
+        self.host_id, self.num_hosts = host_id, num_hosts
+        self.batch_size = self.global_batch_size // num_hosts  # this host's rows
 
         self.return_tag_mask = config["loss"] == "prior"
         self.category_by = config["category_by"]
@@ -92,7 +103,8 @@ class SEQTrainBatcher:
         self.random_sample = bool(config["pad_random_sample"])
 
         num_neg = config["num_negatives"]
-        self.num_negatives = (math.ceil(num_neg / self.batch_size) if num_neg
+        # per sample, so that the GLOBAL pool holds about num_negatives
+        self.num_negatives = (math.ceil(num_neg / self.global_batch_size) if num_neg
                               else self.max_seq_length)
 
         self.sampler = make_negative_sampler(config, dataload)
@@ -107,7 +119,7 @@ class SEQTrainBatcher:
         self.position_negatives = _wants_position_negatives(config)
         self.num_position_negatives = int(config["num_negatives"] or 0)
         if self.sparse_item_table:
-            self.unique_cap = unique_id_cap(config)
+            self.unique_cap = unique_id_cap(config, num_hosts)
 
         if self.category_by == "user" and self.return_tag_mask:
             n_clusters = max(dataload.category_to_int.values()) + 1
@@ -120,7 +132,7 @@ class SEQTrainBatcher:
 
     @property
     def steps_per_epoch(self) -> int:
-        return max(self.length // self.batch_size, 1)
+        return max((self.length // self.num_hosts) // self.batch_size, 1)
 
     # ------------------------------------------------------------------
     def make_batch(self, rng: np.random.Generator, loc_idx: np.ndarray) -> Dict[str, np.ndarray]:
@@ -212,24 +224,37 @@ class SEQTrainBatcher:
             if self._remap_lut is None:
                 self._remap_lut = np.zeros(self.item_num, np.int32)
             self._remap_lut[uniq] = np.arange(n, dtype=np.int32)
+            off = self.host_id * self.unique_cap
             for k in remap_keys:
-                batch[k] = self._remap_lut[batch[k]]
+                v = self._remap_lut[batch[k]]
+                # this host's block in the concatenation of every host's;
+                # index 0, the pad item, stays 0 (the `items != 0` checks)
+                batch[k] = np.where(v > 0, v + off, 0).astype(np.int32) if off else v
         return batch
 
     # ------------------------------------------------------------------
     def epoch_batches(self, epoch: int) -> Iterator[Dict[str, np.ndarray]]:
-        """Shuffled batches of one epoch, the last partial batch dropped."""
+        """Shuffled batches of this host's share of one epoch, the last
+        partial batch dropped (DistributedSampler semantics: the same
+        permutation on every host, rank-strided; JAX trainset.py:269-283)."""
         rng = np.random.default_rng(self.seed + epoch)
         perm = rng.permutation(self.length)
-        n_batches = self.length // self.batch_size
-        # the JAX package's per-host stream, host 0 of 1
-        sample_rng = np.random.default_rng((self.seed + epoch) * 1_000_003)
+        shard = perm[self.host_id::self.num_hosts]
+        # the same batch count on every host (lockstep): from the global
+        # length, not this host's (possibly one longer) share
+        n_batches = (self.length // self.num_hosts) // self.batch_size
+        # the JAX package's per-host stream
+        sample_rng = np.random.default_rng((self.seed + epoch) * 1_000_003 + self.host_id)
         for b in range(n_batches):
-            idx = perm[b * self.batch_size : (b + 1) * self.batch_size]
+            idx = shard[b * self.batch_size : (b + 1) * self.batch_size]
             yield self.make_batch(sample_rng, idx)
 
     def infinite_batches(self, prefetch: int = 2) -> Iterator[Dict[str, np.ndarray]]:
         """Endless batch stream with background-thread prefetch."""
+        if (self.length // self.num_hosts) // self.batch_size == 0:
+            raise ValueError(f"{self.length} train windows over {self.num_hosts} hosts make no "
+                             f"batch of {self.batch_size} rows")
+
         def gen():
             epoch = 0
             while True:

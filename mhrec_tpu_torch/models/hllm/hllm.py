@@ -517,7 +517,9 @@ def hllm_from_config(config, dataload, dtype=None) -> HLLM:
         user_cfg = LLMConfig.from_pretrained_dir(user_dir or item_dir)
 
     if int(config.get("tp_size", 1) or 1) > 1:
-        raise NotImplementedError("tensor-parallel towers (tp_size > 1) are not ported yet")
+        raise NotImplementedError(
+            "tensor-parallel towers (tp_size > 1) are not ported yet: they come with the "
+            "multi-process HLLM slice (the corpus split, shard_identical, FSDP)")
     if config.get("packed_item_tower", False):
         # bound the packed attention to a causal band of the max segment
         # length: the text and its emb slots

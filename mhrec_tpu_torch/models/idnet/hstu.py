@@ -37,6 +37,7 @@ from mhrec_tpu_torch.models.multihead import (
 )
 from mhrec_tpu_torch.ops.hstu_attention import hstu_attention
 from mhrec_tpu_torch.ops.hstu_attention_cuda import hstu_stu_gated_fwd
+from mhrec_tpu_torch.parallel import comm
 from mhrec_tpu_torch.utils.enums import InputType
 
 _NEG_INF = float("-inf")  # predict-time masks use -inf (reference hstu.py:987-1015)
@@ -72,9 +73,10 @@ class STULayer(nn.Module):
         xavier_uniform_init(self.o_proj.weight, gen)
         self.o_proj.bias.zero_()
 
-    def forward(self, x, nonpad, attn_bias=None, generator=None):
+    def forward(self, x, nonpad, attn_bias=None, generator=None, shard=None):
         """``generator`` turns on dropout after the gate (training) and
-        draws its mask; without one the layer is deterministic."""
+        draws its mask (over the global batch with ``shard``, a DataMesh);
+        without one the layer is deterministic."""
         B, L, D = x.shape
         h, dqk, dv = self.num_heads, self.attention_dim, self.linear_dim
         mixed = torch.matmul(self.input_norm(x), self.uvqk.to(self.dtype))
@@ -96,7 +98,7 @@ class STULayer(nn.Module):
                 v.reshape(B, L, h, dv), nonpad, impl=impl, bias=attn_bias,
             ).reshape(B, L, h * dv)
             gated = u * self.attn_norm(attn)
-        gated = dropout(gated, self.dropout_ratio, generator)
+        gated = dropout(gated, self.dropout_ratio, generator, shard)
         out = F.linear(gated, self.o_proj.weight.to(self.dtype), self.o_proj.bias.to(self.dtype))
         return x + out
 
@@ -366,6 +368,11 @@ class HSTU(MedusaHeads, nn.Module):
         self.use_prior_switch_test = use_prior_switch_test
         self.int_to_category = int_to_category
         self.dtype = dtype
+        # the data-parallel group (a DataMesh) when the trainer runs in a
+        # process group: the negative pool is gathered over the ranks, the
+        # loss means divide by global counts and random draws cover the
+        # global batch
+        self.mesh = None
         D = hstu_embedding_size
 
         self.item_embedding = ItemEmbed(item_num, item_embedding_size)
@@ -441,7 +448,7 @@ class HSTU(MedusaHeads, nn.Module):
             bias = None
             if self.enable_relative_attention_bias and self.apply_relative_attention_bias:
                 bias = self.rel_bias[i](None)[:, :L, :L]
-            x = layer(x, nonpad, attn_bias=bias, generator=generator)
+            x = layer(x, nonpad, attn_bias=bias, generator=generator, shard=self.mesh)
         return x
 
     def forward(self, batch, sub=None, generator=None):
@@ -462,7 +469,10 @@ class HSTU(MedusaHeads, nn.Module):
 
         def neg_norm(col):
             neg = cosine_normalize(self._embed_items(neg_items[:, col], sub).float())
-            return neg.reshape(-1, neg.shape[-1])
+            neg = neg.reshape(-1, neg.shape[-1])
+            # the global batch's pool (JAX _neg_norm flattens neg_items of
+            # the global batch): every rank's rows, in rank order
+            return neg if self.mesh is None else comm.all_gather_rows(neg, "pool_gather")
 
         return compute_multihead_losses(self, output_embs, pos_items_embs, user_mask,
                                         batch.get("tag_categories"), neg_norm, generator)
@@ -474,8 +484,9 @@ class HSTU(MedusaHeads, nn.Module):
         return predict_switch_and_heads(self, output_embs[:, -1], target_tags)
 
     def compute_item_all(self):
-        """Normalized full item-embedding matrix (reference hstu.py:1018-1021)."""
-        w = self.item_embedding.weight[: self.item_num].float()
+        """Normalized full item-embedding matrix (reference hstu.py:1018-1021);
+        a sharded table is gathered from every rank first."""
+        w = self.item_embedding.full_weight()[: self.item_num].float()
         if self.item_proj is not None:
             w = self.item_proj(w)
         return cosine_normalize(w)
@@ -485,8 +496,6 @@ class HSTU(MedusaHeads, nn.Module):
 def hstu_from_config(config, dataload, dtype=torch.bfloat16) -> HSTU:
     """Build an HSTU from a Config + InteractionData (the JAX package's
     ``hstu_from_config``, hstu.py:604-670, one device)."""
-    if config.get("shard_item_embedding", False):
-        raise NotImplementedError("shard_item_embedding (multi-GPU) is not ported yet")
     loss = config["loss"]
     num_prior = config["num_prior_head"] or 1
     if loss == "prior" and config["weighted_prior_loss"]:

@@ -64,14 +64,37 @@ class ItemEmbed(nn.Module):
     collection). Under ``sparse_item_adam`` the trainer passes ``sub``
     [U, D] and the ids are LOCAL indices into it; the full table is then
     not read, and the trainer row-updates only the touched rows
-    (``trainer/sparse_adam.py``)."""
+    (``trainer/sparse_adam.py``).
+
+    ``shard_rows`` splits the rows over the ranks (``shard_item_embedding``,
+    ``parallel/mesh.py::RowShard``): ``weight`` then holds this rank's
+    block, a lookup without ``sub`` is a collective that fetches each row
+    from its owner (no gradient flows through it: the sharded table is
+    trained by the row update), and ``full_weight`` gathers the table."""
 
     def __init__(self, num_embeddings: int, features: int):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(num_embeddings, features))
+        self.shard = None
 
     def forward(self, ids, sub=None):
-        return F.embedding(ids, self.weight if sub is None else sub)
+        if sub is not None:
+            return F.embedding(ids, sub)
+        if self.shard is not None:
+            with torch.no_grad():
+                return self.shard.lookup(self.weight, ids)
+        return F.embedding(ids, self.weight)
+
+    @torch.no_grad()
+    def shard_rows(self, shard):
+        """Keep only this rank's block of rows of ``shard`` (a RowShard)."""
+        self.weight = nn.Parameter(shard.block(self.weight.detach()),
+                                   requires_grad=self.weight.requires_grad)
+        self.shard = shard
+
+    def full_weight(self) -> torch.Tensor:
+        """The whole table (gathered from every rank when sharded)."""
+        return self.weight if self.shard is None else self.shard.gather(self.weight)
 
 
 class ResBlock(nn.Module):
@@ -92,15 +115,30 @@ class ResBlock(nn.Module):
         return x + F.silu(self.linear(x))
 
 
-def dropout(x: torch.Tensor, rate: float, generator=None) -> torch.Tensor:
+def batch_rows(shape, shard, draw) -> torch.Tensor:
+    """``draw(shape)`` for a tensor whose dim 0 is this rank's rows of a
+    global batch: with ``shard`` (a DataMesh of ``world`` ranks) the draw
+    covers the global batch of ``world · shape[0]`` rows and this rank's
+    rows are kept, so the ranks together draw what one process draws over
+    the composed batch (the JAX package's one random stream over the global
+    array)."""
+    if shard is None:
+        return draw(shape)
+    B = shape[0]
+    return draw((shard.world * B,) + tuple(shape[1:]))[shard.rank * B:(shard.rank + 1) * B]
+
+
+def dropout(x: torch.Tensor, rate: float, generator=None, shard=None) -> torch.Tensor:
     """flax ``nn.Dropout``: with a generator and ``rate`` > 0, keep each
     element with probability 1 − rate and scale the kept by 1 / (1 − rate),
-    the mask drawn from ``generator``; without one (evaluation) the
+    the mask drawn from ``generator`` (over the global batch with
+    ``shard``, see ``batch_rows``); without one (evaluation) the
     identity."""
     if generator is None or rate <= 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.empty(x.shape, device=x.device).bernoulli_(keep, generator=generator)
+    mask = batch_rows(x.shape, shard, lambda shape: torch.empty(shape, device=x.device)
+                      .bernoulli_(keep, generator=generator))
     return torch.where(mask.bool(), x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from mhrec_tpu_torch.models.layers import cosine_normalize
+from mhrec_tpu_torch.parallel import comm
 
 _LN100 = 4.605170185988092  # np.log(100)
 _BF16 = torch.bfloat16
@@ -51,6 +52,12 @@ def clamp_logit_scale(logit_scale: torch.Tensor) -> torch.Tensor:
     return torch.exp(ste)
 
 
+def global_count(cnt: torch.Tensor, mesh=None) -> torch.Tensor:
+    """``cnt`` summed over the ranks of ``mesh`` (a detached copy, one
+    collective); ``cnt`` itself without one."""
+    return cnt if mesh is None else comm.all_reduce(cnt.detach().clone(), "loss_counts")
+
+
 def _bf16_product(a, b):
     """``a @ b`` of the bfloat16-rounded operands with float32 sums, rounded
     to bfloat16 (JAX: bf16 einsum with ``preferred_element_type=f32``, then
@@ -72,6 +79,7 @@ def multi_horizon_nce(
     compute_topk_log: bool = False,
     impl: str = "banded",
     inputs_normalized: bool = False,
+    mesh=None,                      # the data-parallel group, or None
 ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
     """Returns (total_loss, per_pred_loss [P], log_dict)."""
     if inputs_normalized:
@@ -81,7 +89,7 @@ def multi_horizon_nce(
         tgt_norm = cosine_normalize(target_embs.float())
     args = (heads_norm, tgt_norm, neg_embs_norm, base_mask,
             [int(h) for h in head_for_pred], horizon_discount, logit_scale, nce_thres,
-            loss_weight, extra_mask, compute_topk_log)
+            loss_weight, extra_mask, compute_topk_log, mesh)
     if impl == "banded":
         return _banded_nce(*args)
     if impl == "per_offset":
@@ -91,7 +99,7 @@ def multi_horizon_nce(
 
 def _per_offset_nce(heads_norm, tgt_norm, neg_embs_norm, base_mask, head_for_pred,
                     horizon_discount, logit_scale, nce_thres, loss_weight, extra_mask,
-                    compute_topk_log):
+                    compute_topk_log, mesh=None):
     L = heads_norm.shape[2]
     P = base_mask.shape[1]
     scale = clamp_logit_scale(logit_scale).float()
@@ -110,11 +118,11 @@ def _per_offset_nce(heads_norm, tgt_norm, neg_embs_norm, base_mask, head_for_pre
         neg_logits = torch.where(fix > nce_thres, _F32_MIN, raw_neg[h].float())
         lse = torch.logaddexp(pos_logit * scale, torch.logsumexp(neg_logits * scale, dim=-1))
         tok_ce = lse - pos_logit * scale
-        mean_p = (tok_ce * m).sum() / torch.clamp(m.sum(), min=1.0)
+        cnt = torch.clamp(global_count(m.sum(), mesh), min=1.0)
+        mean_p = (tok_ce * m).sum() / cnt
         per_pred_loss.append(horizon_discount[p] * loss_weight * mean_p)
         if compute_topk_log and p == 0:
             with torch.no_grad():
-                cnt = torch.clamp(m.sum(), min=1.0)
                 masked = torch.where(fix > nce_thres, _F32_MIN, raw_neg[h].float())
                 n_unmasked = (masked > _F32_MIN / 100).sum(-1).float() + 1.0
                 log_dict["nce_samples"] = (n_unmasked * m).sum() / cnt
@@ -129,7 +137,7 @@ def _per_offset_nce(heads_norm, tgt_norm, neg_embs_norm, base_mask, head_for_pre
 
 def _banded_nce(heads_norm, tgt_norm, neg_embs_norm, base_mask, head_for_pred,
                 horizon_discount, logit_scale, nce_thres, loss_weight, extra_mask,
-                compute_topk_log):
+                compute_topk_log, mesh=None):
     """One-product multi-horizon NCE (the JAX package's ``_banded_nce``,
     losses.py:148-298, whose docstring derives it): masking only removes
     terms from the partition sum, and every offset's false-negative mask is
@@ -176,7 +184,7 @@ def _banded_nce(heads_norm, tgt_norm, neg_embs_norm, base_mask, head_for_pred,
     pos_all = torch.stack([pos_band_h[:, slot[h], :, p] for p, h in enumerate(head_for_pred)], 1)
     lse = torch.logaddexp(pos_all * scale, lse_neg_all)
     tok_ce = lse - pos_all * scale
-    cnt = m.sum(dim=(0, 2))
+    cnt = global_count(m.sum(dim=(0, 2)), mesh)
     per_pred_mean = (tok_ce * m).sum(dim=(0, 2)) / torch.clamp(cnt, min=1.0)
     per_pred = horizon_discount * loss_weight * per_pred_mean
 
@@ -187,7 +195,7 @@ def _banded_nce(heads_norm, tgt_norm, neg_embs_norm, base_mask, head_for_pred,
             raw0 = raw_all[:, h0].float()
             k0 = keep_ind[:, :L].bool()                       # offset p=0 slice
             m0 = m[:, 0]
-            cnt0 = torch.clamp(m0.sum(), min=1.0)
+            cnt0 = torch.clamp(global_count(m0.sum(), mesh), min=1.0)
             n_unmasked = k0.sum(-1).float() + 1.0
             log_dict["nce_samples"] = (n_unmasked * m0).sum() / cnt0
             under = ((kept_b_all[:, h0, :, 0] <= 0.0) & (n_unmasked > 1.0)).float()
@@ -212,6 +220,7 @@ def multi_horizon_nce_stacked(
     nce_thres: float,
     loss_weights,                   # [C]
     compute_topk_log: bool = False,
+    mesh=None,                      # the data-parallel group, or None
 ):
     """Category-stacked banded NCE (the JAX package's
     ``multi_horizon_nce_stacked``, losses.py:301-432). When every category
@@ -262,7 +271,7 @@ def multi_horizon_nce_stacked(
     lse = torch.logaddexp(pos_band * scale, lse_neg)
     tok_ce = lse - pos_band * scale                           # [C, B, L, P]
     m = (base_mask[None] & extra_masks).float().transpose(2, 3)  # [C, B, L, P]
-    cnt = m.sum(dim=(1, 2))                                   # [C, P]
+    cnt = global_count(m.sum(dim=(1, 2)), mesh)               # [C, P]
     per_cp = (tok_ce * m).sum(dim=(1, 2)) / torch.clamp(cnt, min=1.0)
     lw = torch.as_tensor(np.asarray(loss_weights, np.float32), device=dev)
     per_cp = horizon_discount[None, :] * lw[:, None] * per_cp  # [C, P]
@@ -275,7 +284,7 @@ def multi_horizon_nce_stacked(
             raw0 = raw[0].float()
             k0 = (keep_ind if shared_negs else keep_ind[0])[:, :L].bool()
             m0 = m[0, :, :, 0]                                # [B, L]
-            cnt0 = torch.clamp(m0.sum(), min=1.0)
+            cnt0 = torch.clamp(global_count(m0.sum(), mesh), min=1.0)
             n_unmasked = k0.sum(-1).float() + 1.0
             log_dict["nce_samples"] = (n_unmasked * m0).sum() / cnt0
             under = ((kept_b[0, :, :, 0] <= 0.0) & (n_unmasked > 1.0)).float()

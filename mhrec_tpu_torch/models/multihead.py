@@ -9,7 +9,11 @@ pos_sample_mix_ratio, prior_loss_weight, prior_switch,
 prior_switch_loss_weight, use_asym_switch_loss, gamma_pos, gamma_neg,
 switch_last_only, master_switch, detach_aux_in, int_to_category; methods
 compute_heads, horizon_discount; logit_scale (parameter or buffer);
-aux_cat_head[c] when a prior switch is configured.
+aux_cat_head[c] when a prior switch is configured; ``mesh``, the
+data-parallel group or None: with one, every mean of the loss becomes this
+rank's share of the global batch's mean (masked means divide by counts
+summed over the ranks, fixed-size means by the world size), so the ranks'
+losses and gradients sum to the composed batch's.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ import torch
 
 from mhrec_tpu_torch.models.layers import (
     asymmetric_loss,
+    batch_rows,
     cosine_normalize,
     weighted_bce_with_logits,
 )
@@ -50,6 +55,7 @@ def compute_multihead_losses(
     out: Dict[str, torch.Tensor] = {}
     total = torch.zeros((), dtype=torch.float32, device=output_embs.device)
     logit_scale, impl = model.logit_scale, model.nce_impl
+    mesh = getattr(model, "mesh", None)
 
     run_nce = model.loss_type == "nce" or (
         model.loss_type == "prior" and model.head_interaction == "additive")
@@ -57,7 +63,7 @@ def compute_multihead_losses(
         loss_nce, per_pred, logs = multi_horizon_nce(
             heads_n, tgts_n, neg_norm_fn(-1), base_mask, np.arange(P) // model.seg_len, lam,
             logit_scale, model.nce_thres, compute_topk_log=True, impl=impl,
-            inputs_normalized=True)
+            inputs_normalized=True, mesh=mesh)
         total = total + loss_nce
         out.update(logs)
         if model.loss_type == "nce":
@@ -84,14 +90,15 @@ def compute_multihead_losses(
             full = tags[:, :, c]
             win = torch.stack([full[:, p + 1: p + 1 + L] for p in range(P)], dim=1)
             if model.pos_sample_mix_ratio > 0.0:
-                draw = torch.rand(win.shape, generator=generator, device=win.device)
+                draw = batch_rows(win.shape, mesh, lambda shape: torch.rand(
+                    shape, generator=generator, device=win.device))
                 win = win | (draw < model.pos_sample_mix_ratio)
             return win
 
         if model.prior_switch is not None:
             for c in range(1 if model.master_switch else model.num_prior_head):
                 total = _switch_loss(model, total, out, output_embs, head_embs, tags, c,
-                                     cat_name(c))
+                                     cat_name(c), mesh)
 
         # the category-stacked path (JAX multihead.py:126-170): under additive
         # heads one head serves each category, so the per-category products
@@ -105,7 +112,8 @@ def compute_multihead_losses(
             loss_p, per_pred, per_cat, logs = multi_horizon_nce_stacked(
                 heads_n, tgts_n, neg_stack, base_mask, extra_masks,
                 model.num_segment_head + np.arange(C), lam, logit_scale, model.nce_thres,
-                np.asarray(model.prior_loss_weight, np.float32), compute_topk_log=True)
+                np.asarray(model.prior_loss_weight, np.float32), compute_topk_log=True,
+                mesh=mesh)
             total = total + loss_p
             per_pred_accum = per_pred_accum + per_pred
             for c in range(C):
@@ -122,7 +130,7 @@ def compute_multihead_losses(
                     heads_n, tgts_n, neg_norm, base_mask, head_for_pred, lam, logit_scale,
                     model.nce_thres, loss_weight=float(model.prior_loss_weight[c]),
                     extra_mask=prior_window(c), compute_topk_log=(c == 0), impl=impl,
-                    inputs_normalized=True)
+                    inputs_normalized=True, mesh=mesh)
                 total = total + loss_c
                 per_pred_accum = per_pred_accum + per_pred
                 out[f"head_nce_{cat_name(c)}_loss"] = loss_c.detach()
@@ -140,10 +148,12 @@ def compute_multihead_losses(
     return out
 
 
-def _switch_loss(model, total, out, output_embs, head_embs, tags, c: int, cat_name: str):
+def _switch_loss(model, total, out, output_embs, head_embs, tags, c: int, cat_name: str,
+                 mesh=None):
     """Prior-switch classifier loss of category c (reference
     hstu.py:757-805); adds its logging scalars to ``out`` and returns the
-    new total."""
+    new total. With ``mesh`` its means over this rank's equal share of the
+    global batch are divided by the world size."""
     L, P = model.max_seq_length, model.pred_len
     full = tags[:, :, c]
     tgt = torch.stack([full[:, p + 1: p + 1 + L] for p in range(P)], dim=-1).any(dim=-1).float()
@@ -169,7 +179,10 @@ def _switch_loss(model, total, out, output_embs, head_embs, tags, c: int, cat_na
         pos_w = torch.tensor((1.0 - p) / p, dtype=torch.float32, device=logits.device)
         loss = weighted_bce_with_logits(logits, tgt, pos_w)
     with torch.no_grad():
-        out[f"head_cat_{cat_name}_acc"] = ((logits >= 0) == (tgt > 0.5)).float().mean()
+        acc = ((logits >= 0) == (tgt > 0.5)).float().mean()
+    if mesh is not None:
+        loss, acc = loss / mesh.world, acc / mesh.world
+    out[f"head_cat_{cat_name}_acc"] = acc
     weighted = model.prior_switch_loss_weight * loss
     out[f"head_cat_{cat_name}_loss"] = weighted.detach()
     return total + weighted

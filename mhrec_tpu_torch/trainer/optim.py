@@ -32,6 +32,11 @@ over buckets of parameters, which bounds the float32 temporaries.
 Global-norm gradient clipping (``clip_grad_norm``) is ``clip_grad_norm``
 below, applied to the dense gradients only (the row-sparse table gradients
 bypass it, as in the JAX package).
+
+In a process group of more than one rank (``shard_optimizer_state``, on by
+default there, as in the JAX package) the optimizer is a
+``ZeroShardedOptimizer``: ZeRO-2's sharded optimizer state, each
+parameter's moments on one rank.
 """
 
 from __future__ import annotations
@@ -39,6 +44,10 @@ from __future__ import annotations
 from typing import Callable, List, Optional, Tuple
 
 import torch
+from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
+
+from mhrec_tpu_torch.parallel import comm
+from mhrec_tpu_torch.parallel.mesh import zero_owners
 
 Schedule = Callable[[int], float]
 
@@ -164,6 +173,107 @@ class AdamWCast(torch.optim.Optimizer):
         torch._foreach_add_(params, u)
 
 
+def _buckets(tensors, numel: int = BUCKET_NUMEL):
+    """``tensors`` in runs of one dtype and at most ``numel`` elements (a
+    larger tensor alone)."""
+    bucket, n = [], 0
+    for t in tensors:
+        if bucket and (n + t.numel() > numel or t.dtype != bucket[0].dtype):
+            yield bucket
+            bucket, n = [], 0
+        bucket.append(t)
+        n += t.numel()
+    if bucket:
+        yield bucket
+
+
+@torch.no_grad()
+def all_reduce_grads(params) -> None:
+    """SUM the gradients of ``params`` over the ranks, in flat buckets (one
+    ``all_reduce`` each)."""
+    grads = [p.grad for p in params]
+    for bucket in _buckets(grads):
+        flat = comm.all_reduce(_flatten_dense_tensors(bucket), "grad_all_reduce")
+        for g, r in zip(bucket, _unflatten_dense_tensors(flat, bucket)):
+            g.copy_(r)
+
+
+class ZeroShardedOptimizer:
+    """ZeRO-2 optimizer-state sharding over the ranks of ``mesh`` (DeepSpeed
+    stage 2's sharded optimizer state; the JAX package's
+    ``zero_sharded_opt_state``, trainer.py:341-350): each dense parameter's
+    state lives on the one rank ``zero_owners`` gives it, whose optimizer
+    (``make_optimizer`` over the groups' owned parameters) steps it on the
+    SUM-all-reduced gradient and then broadcasts it to the others. The
+    update is the replicated optimizer's, element for element: the same
+    kernel on the same gradients. Gradients are held whole on every rank,
+    since the global-norm clip reads all of them.
+
+    ``param_groups`` are this rank's groups (the trainer sets each group's
+    learning rate); ``params`` every dense parameter. ``state_dict`` (a
+    collective) returns a host copy of the whole state in the replicated
+    optimizer's layout on every rank, so a checkpoint written at one world
+    size loads at another; ``load_state_dict`` takes this rank's part of
+    such a state."""
+
+    def __init__(self, groups, make_optimizer, mesh):
+        self.mesh = mesh
+        self.params = [p for g in groups for p in g["params"]]
+        self.group_sizes = [len(g["params"]) for g in groups]
+        self.owner = zero_owners([p.numel() for p in self.params], mesh.world)
+        mine = {id(p) for p, r in zip(self.params, self.owner) if r == mesh.rank}
+        self.optim = make_optimizer(
+            [dict(g, params=[p for p in g["params"] if id(p) in mine]) for g in groups])
+
+    @property
+    def param_groups(self):
+        return self.optim.param_groups
+
+    @property
+    def state(self):
+        return self.optim.state
+
+    @torch.no_grad()
+    def step(self):
+        self.optim.step()
+        for r in range(self.mesh.world):
+            owned = [p for p, o in zip(self.params, self.owner) if o == r]
+            for bucket in _buckets(owned):
+                flat = comm.broadcast(_flatten_dense_tensors(bucket), r, "zero_broadcast")
+                if r != self.mesh.rank:
+                    for p, v in zip(bucket, _unflatten_dense_tensors(flat, bucket)):
+                        p.copy_(v)
+
+    def _local_params(self):
+        return [p for g in self.optim.param_groups for p in g["params"]]
+
+    def state_dict(self):
+        local = self.optim.state_dict()
+        index = {id(p): i for i, p in enumerate(self.params)}
+        mine = {index[id(p)]: {k: v.detach().to("cpu", copy=True) if torch.is_tensor(v) else v
+                               for k, v in local["state"][li].items()}
+                for li, p in enumerate(self._local_params()) if li in local["state"]}
+        state = {}
+        for part in comm.all_gather_objects(mine):
+            state.update(part)
+        groups, start = [], 0
+        for g, n in zip(local["param_groups"], self.group_sizes):
+            groups.append(dict(g, params=list(range(start, start + n))))
+            start += n
+        return {"state": dict(sorted(state.items())), "param_groups": groups}
+
+    def load_state_dict(self, state_dict):
+        index = {id(p): i for i, p in enumerate(self.params)}
+        local = self._local_params()
+        state = {li: state_dict["state"][index[id(p)]] for li, p in enumerate(local)
+                 if index[id(p)] in state_dict["state"]}
+        groups, li = [], 0
+        for g, mine in zip(state_dict["param_groups"], self.optim.param_groups):
+            groups.append(dict(g, params=list(range(li, li + len(mine["params"])))))
+            li += len(mine["params"])
+        self.optim.load_state_dict({"state": state, "param_groups": groups})
+
+
 def _is_frozen(name: str, freeze_prefix: List[str], sparse_table: bool) -> bool:
     if any(name.startswith(p) for p in freeze_prefix):
         return True
@@ -171,11 +281,12 @@ def _is_frozen(name: str, freeze_prefix: List[str], sparse_table: bool) -> bool:
 
 
 def build_optimizer(config, model: torch.nn.Module,
-                    schedule_factory: Callable[[float], Schedule]
+                    schedule_factory: Callable[[float], Schedule], mesh=None
                     ) -> Tuple[torch.optim.Optimizer, List[Schedule], List[torch.nn.Parameter]]:
     """Returns (optimizer, one schedule per parameter group, the frozen
     parameters). ``schedule_factory(lr)`` builds the configured schedule at
-    base learning rate ``lr``."""
+    base learning rate ``lr``. With ``mesh`` (a DataMesh) the optimizer
+    state is sharded over its ranks (``ZeroShardedOptimizer``)."""
     optim_args = dict(config["optim_args"] or {})
     split_modal = {"modal_lr", "modal_decay", "rec_lr", "rec_decay"} <= set(optim_args)
     mu_dtype = _moment_dtype(config.get("adam_mu_dtype"))
@@ -214,13 +325,16 @@ def build_optimizer(config, model: torch.nn.Module,
         if members[key]:
             groups.append({"params": members[key], "lr": lr, "weight_decay": decay})
             schedules.append(schedule_factory(lr))
-    if mu_dtype is not None or nu_dtype is not None:
-        opt = AdamWCast(groups, lr=base_lr, weight_decay=wd, mu_dtype=mu_dtype,
-                        nu_dtype=nu_dtype)
-    else:
-        on_card = all(p.is_cuda for g in groups for p in g["params"])
-        opt = torch.optim.AdamW(groups, lr=base_lr, betas=(0.9, 0.999), eps=1e-8,
-                                weight_decay=wd, fused=True if on_card else None)
+    on_card = all(p.is_cuda for g in groups for p in g["params"])
+
+    def make(groups):
+        if mu_dtype is not None or nu_dtype is not None:
+            return AdamWCast(groups, lr=base_lr, weight_decay=wd, mu_dtype=mu_dtype,
+                             nu_dtype=nu_dtype)
+        return torch.optim.AdamW(groups, lr=base_lr, betas=(0.9, 0.999), eps=1e-8,
+                                 weight_decay=wd, fused=True if on_card else None)
+
+    opt = make(groups) if mesh is None else ZeroShardedOptimizer(groups, make, mesh)
     return opt, schedules, frozen
 
 

@@ -1,5 +1,4 @@
-"""Training and evaluation engine (port of ``mhrec_tpu/trainer/trainer.py``,
-one device).
+"""Training and evaluation engine (port of ``mhrec_tpu/trainer/trainer.py``).
 
 * iteration-based ``fit``: ``total_iters × accumulate_grad`` micro-steps over
   an endless batch stream, NaN guard, periodic eval → ``early_stopping`` on
@@ -52,7 +51,21 @@ one device).
   stochastic rounding (``item_table_stochastic_round``, default on) from a
   noise stream of its own.
 
-Not ported yet: ``sparse_adam_global_dedup``.
+* data parallelism (HSTU) in a ``torch.distributed`` process group of W
+  ranks (``parallel/``), computing what the JAX package computes as one
+  SPMD program over the composed global batch: each rank steps on its rows
+  of the global batch (``train_batch_size`` is global), the negative pool
+  is all-gathered in rank order, every loss mean divides by global counts,
+  the dense gradients are SUM-all-reduced before the clip, the NaN guard
+  reads the all-reduced loss, and the optimizer state is sharded ZeRO-2
+  style (``shard_optimizer_state``, default on). Under ``sparse_item_adam``
+  the ranks all-gather their unique-id blocks and row gradients and every
+  id of the union is updated once (``sparse_adam_global_dedup``, on iff W
+  > 1); ``shard_item_embedding`` keeps only a block of the table's rows on
+  each rank (``parallel/mesh.py::RowShard``). Evaluation strides the users
+  over the ranks and SUM-reduces every metric sum in one collective; only
+  rank 0 writes checkpoints, dumps and eval chunks. Inside a group every
+  collective runs at W = 1 too.
 """
 
 from __future__ import annotations
@@ -74,9 +87,15 @@ from mhrec_tpu_torch.models.factory import build_model
 from mhrec_tpu_torch.models.hllm.hllm import batch_image_extra
 from mhrec_tpu_torch.models.layers import ItemEmbed, cosine_normalize
 from mhrec_tpu_torch.ops import row_adam_cuda
+from mhrec_tpu_torch.parallel import RowShard, comm, make_mesh
 from mhrec_tpu_torch.trainer import checkpoint as ckpt_io
 from mhrec_tpu_torch.trainer.lr_schedule import build_schedule
-from mhrec_tpu_torch.trainer.optim import build_optimizer, clip_grad_norm
+from mhrec_tpu_torch.trainer.optim import (
+    ZeroShardedOptimizer,
+    all_reduce_grads,
+    build_optimizer,
+    clip_grad_norm,
+)
 from mhrec_tpu_torch.trainer.sparse_adam import (
     SparseAdamConfig,
     dedup_touched_rows,
@@ -117,16 +136,33 @@ class Trainer:
     def __init__(self, config, dataload, device=None, dtype=None):
         """``device``: None for the card (raises if there is none), or an
         explicit device such as "cpu". ``dtype``: the trunk's compute type
-        (None: the model's default, bfloat16 for HSTU and ``precision`` for
-        HLLM)."""
+        (None: the config's ``compute_dtype`` if set, else the model's
+        default, bfloat16 for HSTU and ``precision`` for HLLM)."""
         self.config = config
         self.dataload = dataload
         self.device = resolve_device(device)
+        if dtype is None and config.get("compute_dtype"):
+            names = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+            if config["compute_dtype"] not in names:
+                raise ValueError(f"compute_dtype must be one of {sorted(names)}, "
+                                 f"got {config['compute_dtype']!r}")
+            dtype = names[config["compute_dtype"]]
         # parameters are made on the device: a 1B-parameter tower never
         # passes through host memory
         with self.device:
             self.model = build_model(config, dataload, dtype=dtype).to(self.device)
         self.model.eval()
+        # the data-parallel group: every collective runs inside one, at one
+        # rank too
+        self.mesh = make_mesh() if comm.initialized() else None
+        self.rank, self.world = (self.mesh.rank, self.mesh.world) if self.mesh else (0, 1)
+        if self.mesh is not None:
+            if self.world > 1 and str(config["model"]) != "HSTU":
+                raise NotImplementedError(
+                    f"multi-process training of {config['model']} is not ported yet "
+                    "(HSTU is; the HLLM slice comes next)")
+            if hasattr(self.model, "mesh"):
+                self.model.mesh = self.mesh
         self.collector = Collector(config)
         self.evaluator = Evaluator(config)
         self.eval_pred_len = config["eval_pred_len"]
@@ -163,6 +199,21 @@ class Trainer:
                 "would accumulate updates in bf16 and stall below ulp/2)")
         # stochastic rounding of the bf16 table's row write-back (default on)
         self.table_sr = bool(config.get("item_table_stochastic_round", True))
+        # the unique-id blocks of several ranks (or of a composed batch) may
+        # share rows: each id of their union is updated once, its gradients
+        # summed ('auto': on iff W > 1, JAX trainer.py:166-169)
+        sd = config.get("sparse_adam_global_dedup")
+        self.sparse_dedup = self.world > 1 if sd in (None, "auto") else bool(sd)
+        if self.world > 1 and self.sparse_item_adam and not self.sparse_dedup:
+            raise ValueError("sparse_adam_global_dedup must stay on with more than one rank: "
+                             "a row in two ranks' blocks would be stepped twice")
+        self.shard_table = bool(config.get("shard_item_embedding", False))
+        if self.shard_table and not self.sparse_item_adam:
+            raise NotImplementedError(
+                "shard_item_embedding needs sparse_item_adam: the sharded table is trained "
+                "by the row update on the deduped union")
+        # ZeRO-2 optimizer state over the ranks (JAX trainer.py:341-350)
+        self.shard_opt = self.world > 1 and bool(config.get("shard_optimizer_state", True))
         # the row update runs the kernel (on the card) unless 'xla' asks for
         # the plain version; the JAX package's default is 'xla', chosen from
         # TPU timings that do not carry over
@@ -214,6 +265,11 @@ class Trainer:
         self._set_table_dtype(torch.float32)
         self.model.init_parameters(gen)
         self._set_table_dtype(self.item_table_dtype)
+        if self.shard_table:
+            # the whole table is drawn from the seed, as on one process, and
+            # each rank keeps its block: equal values to the replicated run
+            emb = self.item_table()
+            emb.shard_rows(RowShard(emb.weight.shape[0], self.mesh or make_mesh()))
         if str(self.config["model"]) == "HLLM":
             from mhrec_tpu_torch.models.hllm.hllm import load_pretrained_towers
 
@@ -226,16 +282,21 @@ class Trainer:
         logger.info("Trainable parameters: %d", n_params)
         self.optimizer, self.group_schedules, frozen = build_optimizer(
             self.config, self.model,
-            lambda lr: build_schedule(self.config["scheduler_args"], lr, self.total_iters))
+            lambda lr: build_schedule(self.config["scheduler_args"], lr, self.total_iters),
+            mesh=self.mesh if self.shard_opt else None)
         for p in frozen:
             p.requires_grad_(False)
-        self.dense_params = [p for g in self.optimizer.param_groups for p in g["params"]]
+        self.dense_params = (self.optimizer.params
+                             if isinstance(self.optimizer, ZeroShardedOptimizer)
+                             else [p for g in self.optimizer.param_groups for p in g["params"]])
         if self.sparse_item_adam:
             table = self.item_table().weight
             self.table_m = torch.zeros_like(table, dtype=torch.float32)
             self.table_v = torch.zeros_like(table, dtype=torch.float32)
             if self.accumulate_grad > 1:
-                k, U = self.accumulate_grad, unique_id_cap(self.config)
+                # a micro-step's block is every rank's (JAX trainer.py:365-379)
+                k = self.accumulate_grad
+                U = unique_id_cap(self.config, self.world) * self.world
                 self.acc_ids = torch.full((k, U), -1, dtype=torch.long, device=self.device)
                 self.acc_g = torch.zeros((k, U, table.shape[1]), dtype=torch.float32,
                                          device=self.device)
@@ -341,7 +402,13 @@ class Trainer:
         optimizer step ``step // k``), and the item table takes one row update
         on the deduped union of the k blocks, its gradients divided by k, at
         that optimizer step's learning rate and step count. The NaN guard
-        zeroes a micro-step's gradients before they are accumulated."""
+        zeroes a micro-step's gradients before they are accumulated.
+
+        In a process group the batch is this rank's rows of the global one:
+        the returned scalars are the global batch's (one all-reduce), the
+        dense gradients are SUM-all-reduced, and under ``sparse_item_adam``
+        the ranks' id blocks and row gradients are all-gathered into the
+        global block of W·U rows (what the JAX step sees)."""
         k = self.accumulate_grad
         slot = self.step % k
         dev = self._train_device_batch(batch)
@@ -353,24 +420,33 @@ class Trainer:
             p.grad = None
         if self.sparse_item_adam:
             ids = dev.pop("unique_ids")
-            table = self.item_table().weight
+            if self.rank:
+                self._local_block_indices(dev, ids.shape[0])
+            emb = self.item_table()
             # float32 rows whatever the table stores: the step's math is that
-            # of a float32 table
-            sub0 = table.detach()[ids.clamp(min=0)].float().requires_grad_(True)
+            # of a float32 table; a sharded table's rows come from their owners
+            rows = emb(ids.clamp(min=0)) if emb.shard is not None else \
+                emb.weight.detach()[ids.clamp(min=0)]
+            sub0 = rows.float().requires_grad_(True)
             out = self.model(dev, sub=sub0, generator=gen)
         else:
             out = self.model(dev, generator=gen)
+        out["loss"].backward()
+        if self.mesh is not None:
+            out = self._global_outputs(out)
         loss = out["loss"]
-        loss.backward()
         # NaN guard on the card: zero this step's gradients and record it
+        # (from the global loss, so every rank zeroes the same steps)
         bad = torch.isnan(loss.detach())
         self.nan_step = torch.where((self.nan_step < 0) & bad,
                                     torch.full_like(self.nan_step, self.step), self.nan_step)
         for p in self.dense_params:
             if p.grad is None:  # unused this step: optax still sees a zero gradient
                 p.grad = torch.zeros_like(p)
-            else:
-                p.grad.masked_fill_(bad, 0.0)
+        if self.mesh is not None:
+            all_reduce_grads(self.dense_params)
+        for p in self.dense_params:
+            p.grad.masked_fill_(bad, 0.0)
         if slot:
             grads = [p.grad for p in self.dense_params]
             torch._foreach_sub_(grads, acc)
@@ -382,6 +458,10 @@ class Trainer:
                 p.grad = a
         if self.sparse_item_adam:
             g_sub = sub0.grad.masked_fill_(bad, 0.0)
+            if self.world > 1:
+                # the global block: every rank's ids and rows, in rank order
+                ids = torch.cat(comm.all_gather(ids, "dedup_gather"))
+                g_sub = torch.cat(comm.all_gather(g_sub, "dedup_gather"))
             if k > 1:
                 self.acc_ids[slot].copy_(ids)
                 self.acc_g[slot].copy_(g_sub)
@@ -396,12 +476,24 @@ class Trainer:
             group["lr"] = sched(outer)
         self.optimizer.step()
         if self.sparse_item_adam:
+            D = g_sub.shape[-1]
             if k > 1:
                 # the rows divide by k before they are summed, as in JAX (the
-                # buffers are rewritten from the next micro-step on)
+                # buffers are rewritten from the next micro-step on); one
+                # block per micro-step and rank, each of unique ids
                 k_dev = torch.tensor(float(k), device=self.device)
-                ids, g_sub = dedup_touched_rows(self.acc_ids, self.acc_g.div_(k_dev))
-            table = self.item_table().weight
+                ids, g_sub = dedup_touched_rows(self.acc_ids.view(k * self.world, -1),
+                                                self.acc_g.div_(k_dev).view(k * self.world, -1, D))
+            elif self.sparse_dedup:
+                # one block per rank; on one process a composed batch's block
+                # is taken whole (its ids may repeat across the hosts' parts)
+                ids, g_sub = dedup_touched_rows(ids.view(self.world, -1),
+                                                g_sub.view(self.world, -1, D))
+            emb = self.item_table()
+            table = emb.weight
+            if emb.shard is not None:
+                # each rank updates the rows of the union that it owns
+                ids = emb.shard.local_ids(ids)
             cfg = SparseAdamConfig(weight_decay=self.weight_decay)
             with torch.no_grad():
                 if table.dtype == torch.bfloat16:
@@ -418,6 +510,28 @@ class Trainer:
         self.step += 1
         return out
 
+    # the batch keys that index the unique-id block under sparse_item_adam
+    _BLOCK_KEYS = ("items", "neg_items", "pos_neg_items")
+
+    def _local_block_indices(self, dev, cap: int):
+        """Indices into the global block (this rank's shifted by rank ·
+        ``cap``, the batcher's multi-host layout) → indices into this
+        rank's own block; 0, the pad item, stays 0."""
+        off = self.rank * cap
+        for key in self._BLOCK_KEYS:
+            if key in dev:
+                v = dev[key]
+                dev[key] = torch.where(v > 0, v - off, v)
+
+    def _global_outputs(self, out):
+        """The step's scalars summed over the ranks in one all-reduce: each
+        rank's are its share of the global batch's (loss means divide by
+        global counts), so the sums are the global batch's values."""
+        names = list(out)
+        vals = comm.all_reduce(torch.stack([out[n].detach().float().reshape(()) for n in names]),
+                               "step_scalars")
+        return dict(zip(names, vals.unbind()))
+
     def fit(self, train_batcher, valid_batcher=None):
         """``total_iters`` optimizer steps of ``accumulate_grad`` micro-steps
         each, with periodic evaluation, early stopping and best-checkpoint
@@ -427,8 +541,9 @@ class Trainer:
             self.setup_model()
         k = self.accumulate_grad
         micro_steps = self.total_iters * k
-        if self.config.get("sparse_adam_global_dedup") not in (None, "auto", False):
-            raise NotImplementedError("sparse_adam_global_dedup is not ported yet")
+        if getattr(train_batcher, "num_hosts", self.world) != self.world:
+            raise ValueError(f"the train batcher serves {train_batcher.num_hosts} hosts, the "
+                             f"process group has {self.world} ranks")
         stream = train_batcher.infinite_batches(prefetch=2)
         stop_flag = False
         cur_step = 0
@@ -522,23 +637,30 @@ class Trainer:
         an accumulation boundary: the gradient mean and row buffers of an
         unfinished optimizer step are not saved. Asynchronous unless
         ``async_checkpoint`` is false: the state is copied to host memory
-        here, so training may go on while the writer thread saves it."""
+        here, so training may go on while the writer thread saves it.
+
+        In a process group every rank calls it: the sharded table rows and
+        the ZeRO optimizer state are collected first (collectives), and rank
+        0 writes them in the one-process layout, which loads at any world
+        size."""
         if self.step % self.accumulate_grad:
             raise ValueError(f"micro-step {self.step} is not at an accumulation boundary "
                              f"(accumulate_grad {self.accumulate_grad})")
-        os.makedirs(self.saved_model_dir, exist_ok=True)
         path = self.checkpoint_path()
         t0 = time.perf_counter()
         ckpt_io.wait_to_replace(path)  # one host copy at a time
         payload = {
-            "params": self.model.state_dict(),
+            "params": self._whole_state_dict(),
             "optimizer": self.optimizer.state_dict(),
             "step": self.step,
             "best_valid_score": self.best_valid_score,
         }
         if self.table_m is not None:
-            payload["table_m"] = self.table_m
-            payload["table_v"] = self.table_v
+            payload["table_m"], payload["table_v"] = (
+                self._whole_table(t) for t in (self.table_m, self.table_v))
+        if self.rank:
+            return
+        os.makedirs(self.saved_model_dir, exist_ok=True)
         stats = self.checkpoint_stats
         stats.clear()
         if self.async_checkpoint:
@@ -555,6 +677,40 @@ class Trainer:
         stats.update(blocked_s=time.perf_counter() - t0, asynchronous=False)
         logger.info("checkpoint saved: %d bytes in %.1fs", stats["bytes"], stats["blocked_s"])
 
+    def _table_key(self) -> Optional[str]:
+        """The state-dict key of the item table, if the model has one."""
+        emb = self.item_table()
+        for name, m in self.model.named_modules():
+            if emb is not None and m is emb:
+                return f"{name}.weight"
+        return None
+
+    def _whole_table(self, t: torch.Tensor) -> torch.Tensor:
+        """A table-shaped tensor whole: gathered from every rank's rows when
+        the table is sharded."""
+        shard = getattr(self.item_table(), "shard", None)
+        return t if shard is None else shard.gather(t)
+
+    def _whole_state_dict(self):
+        """The model's state dict with the whole item table (collective
+        when it is sharded)."""
+        sd = self.model.state_dict()
+        key = self._table_key()
+        if key is not None:
+            sd[key] = self._whole_table(sd[key])
+        return sd
+
+    def param_checksum(self) -> float:
+        """The sum of |p| over every parameter, the whole item table
+        included; the same on every rank (collective when the table is
+        sharded: its blocks' sums are all-reduced)."""
+        emb = self.item_table()
+        if getattr(emb, "shard", None) is None:
+            return float(sum(p.detach().abs().float().sum() for p in self.model.parameters()))
+        rest = sum(p.detach().abs().float().sum() for p in self.model.parameters()
+                   if p is not emb.weight)
+        return float(rest + comm.all_reduce(emb.weight.detach().abs().float().sum(), "checksum"))
+
     def wait_for_checkpoint(self):
         """Wait for this run's checkpoint write in flight, if any (its error
         is raised here)."""
@@ -562,9 +718,12 @@ class Trainer:
 
     def load_checkpoint(self) -> bool:
         """Restore the run's checkpoint, after its write in flight (by any
-        trainer) has finished; False when there is none."""
+        trainer) has finished; False when there is none. In a process group
+        every rank calls it and waits for rank 0's write; a sharded table
+        and the ZeRO state take this rank's part of the whole."""
         path = self.checkpoint_path()
         ckpt_io.wait_for_write(path)
+        comm.sync_hosts("checkpoint written")
         if not os.path.isfile(path):
             return False
         t0 = time.perf_counter()
@@ -573,6 +732,12 @@ class Trainer:
         # step counts stay where its policy keeps them (on the host unless
         # fused: on the card they would cost a synchronisation each per step)
         payload = torch.load(path, map_location="cpu", weights_only=True, mmap=True)
+        shard = getattr(self.item_table(), "shard", None)
+        if shard is not None:
+            key = self._table_key()
+            payload["params"][key] = shard.block(payload["params"][key])
+            for name in ("table_m", "table_v"):
+                payload[name] = shard.block(payload[name])
         self.model.load_state_dict(payload["params"])
         # the gradients and moments in memory are dropped before the loaded
         # ones arrive, so the card never holds two sets (the next step makes
@@ -681,8 +846,9 @@ class Trainer:
             results = self._device_topk_results(eval_batcher, item_feats, item_tags, top_k,
                                                 raw_item_table, need_full=need_full, **streamed)
 
+        # only rank 0 writes dumps and eval chunks (JAX trainer.py:1150,1162)
         save_for_eval = bool(self.config.get("save_for_eval", False))
-        log_detailed = bool(self.config.get("log_detailed_results", False))
+        log_detailed = bool(self.config.get("log_detailed_results", False)) and self.rank == 0
         switch_correct_sum = None
         n_eval_samples = 0
         for batch, n_real, topk_vals, topk_idx, pe in results:
@@ -696,7 +862,7 @@ class Trainer:
                 )
                 n_eval_samples += n_real
                 continue
-            if save_for_eval:
+            if save_for_eval and self.rank == 0:
                 save_eval_chunk(
                     os.path.join(self.saved_model_dir, "saved_eval"), n_eval_samples,
                     user_ids=batch["user_ids"][:n_real], topk_values=topk_vals,
@@ -735,7 +901,7 @@ class Trainer:
         )
         for section, metrics in result_summary.items():
             self.results_rows.append({"section": section, **metrics})
-        if save_for_eval or log_detailed:
+        if (save_for_eval or log_detailed) and self.rank == 0:
             self._save_results_table()
         if switch_accs:
             result_summary.setdefault("shared", {}).update(switch_accs)
@@ -772,28 +938,56 @@ class Trainer:
 
     def _normalize_all(self, sections, num_total: float,
                        switch_correct_sum=None, n_eval_samples: int = 0):
-        """Divide every metric sum by its sample count (reference
-        trainer.py:1046-1123; one process, so no cross-host reduction)."""
+        """SUM-reduce every metric scalar over the ranks in ONE collective,
+        then divide by the (reduced) sample counts (JAX ``_normalize_all``,
+        trainer.py:1249-1298; reference trainer.py:1046-1123 all-reduces
+        each scalar apart). Tuple metrics are (sum, count[, 'sqrt']), e.g.
+        RMSE; the others divide by ``num_total``, the global eval-set
+        size."""
         dp = self.config["metric_decimal_place"] or 5
-        out: Dict[str, Dict[str, float]] = {sec: {} for sec in sections}
+        flat: list = []
+        layout: list = []  # (section, key, tuple form: False | True | "sqrt")
         for sec, result in sections.items():
             for k in sorted(result.keys()):
                 v = result[k]
                 if isinstance(v, tuple):
-                    # (sum, count[, post-reduce transform]) — e.g. RMSE
-                    mean = float(v[0]) / max(1.0, float(v[1]))
-                    if len(v) > 2 and v[2] == "sqrt":
-                        mean = float(np.sqrt(mean))
-                    out[sec][k] = round(mean, dp)
+                    layout.append((sec, k, v[2] if len(v) > 2 else True))
+                    flat += [float(v[0]), float(v[1])]
                 else:
-                    out[sec][k] = round(float(v) / max(1.0, num_total), dp)
-        switch_accs: Dict[str, float] = {}
+                    layout.append((sec, k, False))
+                    flat.append(float(v))
+        n_switch = 0
         if switch_correct_sum is not None and n_eval_samples > 0:
-            for c, correct in enumerate(switch_correct_sum):
+            n_switch = len(switch_correct_sum)
+            flat += [float(x) for x in switch_correct_sum] + [float(n_eval_samples)]
+        reduced = self._reduce_sums(flat)
+        out: Dict[str, Dict[str, float]] = {sec: {} for sec in sections}
+        i = 0
+        for sec, k, form in layout:
+            if form is False:
+                out[sec][k] = round(reduced[i] / max(1.0, num_total), dp)
+                i += 1
+                continue
+            mean = reduced[i] / max(1.0, reduced[i + 1])
+            if form == "sqrt":
+                mean = float(np.sqrt(mean))
+            out[sec][k] = round(mean, dp)
+            i += 2
+        switch_accs: Dict[str, float] = {}
+        if n_switch:
+            total_n = reduced[i + n_switch]
+            for c in range(n_switch):
                 name = self.config["int_to_category"].get(c, str(c))
-                switch_accs[f"head_cat_{name}_acc"] = float(correct) / max(
-                    float(n_eval_samples), 1.0)
+                switch_accs[f"head_cat_{name}_acc"] = reduced[i + c] / max(total_n, 1.0)
         return out, switch_accs
+
+    def _reduce_sums(self, values) -> list:
+        """A list of float scalars summed over the ranks (one float64
+        all-reduce on the trainer's device); unchanged outside a group."""
+        if self.mesh is None or not values:
+            return list(values)
+        t = torch.tensor(values, dtype=torch.float64, device=self.device)
+        return comm.all_reduce(t, "metric_reduce").tolist()
 
     # ------------------------------------------------------------------
     def _use_host_item_table(self, needs_corpus: bool, need_full: bool = False) -> bool:
@@ -909,9 +1103,14 @@ class Trainer:
                                       {k: np.asarray(h) for k, h in zip(names, host)})
 
         pending = None
+        sharded = getattr(self.item_table(), "shard", None) is not None
         for batch in eval_batcher.batches():
             n_real = int(batch["sample_weight"].sum())
             if n_real == 0:
+                if sharded:
+                    # the other ranks' table lookups of this step need ours
+                    dev = self._eval_device_batch(batch)
+                    self.model.predict_embeddings(dev["item_seq"], dev["target_tags"])
                 continue
             dev = self._eval_device_batch(batch)
             if raw_item_table is None:

@@ -1450,3 +1450,78 @@ def test_baseline_step_on_the_card_matches_the_cpu(card, family):
     layers = 2 if family in ("ComiRec", "REMI") else 0
     assert tuple(a - b for a, b in zip(after, launches)) == (layers, layers, 1)
     assert losses["cuda"] == pytest.approx(losses["cpu"], rel=1e-4)
+
+
+# -- data parallelism: a one-rank NCCL group on the card -----------------------
+def _nccl_group(card):
+    """Rank 0 of a one-rank NCCL group on the card (a free port)."""
+    import socket
+
+    from mhrec_tpu_torch.parallel import init_distributed
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    return init_distributed(f"127.0.0.1:{port}", 1, 0, device=card)
+
+
+def test_nccl_world1_collectives_on_the_card(card):
+    """The comm helpers through NCCL on card tensors: at one rank each
+    returns its input, the differentiable all-gather its gradient."""
+    import torch.distributed as dist
+
+    from mhrec_tpu_torch.parallel import comm
+
+    _nccl_group(card)
+    try:
+        assert dist.get_backend() == "nccl" and comm.process_count() == 1
+        x = torch.arange(6.0, device=card).reshape(3, 2)
+        assert torch.equal(comm.all_reduce(x.clone()), x)
+        assert torch.equal(comm.broadcast(x.clone(), 0), x)
+        assert torch.equal(comm.all_gather(x)[0], x)
+        leaf = x.clone().requires_grad_(True)
+        (comm.all_gather_rows(leaf) * 3).sum().backward()
+        assert torch.equal(leaf.grad, torch.full_like(x, 3.0))
+        assert comm.broadcast_object({"a": 1}) == {"a": 1}
+        assert comm.all_gather_objects(5) == [5]
+        comm.sync_hosts("test")
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("shard_table", [False, True])
+def test_nccl_world1_group_equals_the_ungrouped_run(card, shard_table):
+    """Three train steps and an evaluation of a small HSTU (bf16 trunk,
+    dropout, sparse_item_adam) as rank 0 of a one-rank NCCL group, every
+    collective run through NCCL, against the same run without a group: the
+    losses, every parameter, the row moments and the metrics bit for bit
+    (at one rank the sharded table holds every row)."""
+    import sys
+
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch_parallel_worker as W
+
+    def run():
+        t = W.step_trainer(shard_table, device=card, compute_dtype="bfloat16")
+        batches = t.batcher(0, 1).epoch_batches(0)
+        losses = [float(t.train_step(next(batches))["loss"]) for _ in range(3)]
+        from mhrec_tpu_torch.data.evalset import SeqEvalBatcher
+
+        result = t.evaluate(SeqEvalBatcher(t.config, t.dataload, phase="test"))
+        state = {k: v.detach().clone() for k, v in t.model.state_dict().items()}
+        return t, losses, state, result
+
+    ref, ref_losses, ref_state, ref_result = run()
+    _nccl_group(card)
+    try:
+        t, losses, state, result = run()
+        assert t.mesh is not None and t.world == 1
+    finally:
+        dist.destroy_process_group()
+    assert losses == ref_losses
+    for k, v in ref_state.items():
+        assert torch.equal(state[k], v), k
+    assert torch.equal(t.table_m, ref.table_m) and torch.equal(t.table_v, ref.table_v)
+    assert result == ref_result

@@ -1,0 +1,217 @@
+"""One rank of the 2-rank checks of ``tests/test_torch_parallel.py``: joins a
+gloo group on the CPU and runs every case below in order, saving what
+each produced to ``{out}/{case}.{rank}.pt`` for the test to hold against
+single-process references. Imports nothing of JAX.
+
+    python tests/torch_parallel_worker.py RANK WORLD PORT OUT
+"""
+
+import copy
+import os
+import sys
+from types import SimpleNamespace
+
+import numpy as np
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from mhrec_tpu_torch.models.layers import ItemEmbed, cosine_normalize  # noqa: E402
+from mhrec_tpu_torch.parallel import RowShard, comm, init_distributed, make_mesh  # noqa: E402
+from mhrec_tpu_torch.trainer.optim import ZeroShardedOptimizer  # noqa: E402
+from mhrec_tpu_torch.trainer.sparse_adam import (  # noqa: E402
+    SparseAdamConfig,
+    dedup_touched_rows,
+    sparse_adamw_row_update,
+)
+
+torch.set_num_threads(1)
+
+# shared shapes of the cases
+N_ROWS, D, U = 37, 8, 12   # table rows (odd: the last block is padded), width, block slots
+ADAM = SparseAdamConfig(weight_decay=0.01)
+ZERO_STEPS = 3
+
+
+def gen(seed):
+    return torch.Generator().manual_seed(seed)
+
+
+def id_block(rank):
+    """Rank ``rank``'s unique-id block: distinct ids ascending, −1 pads;
+    the two ranks' blocks share some ids."""
+    rng = np.random.default_rng(100 + rank)
+    n = 9 - rank
+    ids = np.full(U, -1, np.int64)
+    ids[:n] = np.sort(rng.choice(N_ROWS, n, replace=False))
+    return torch.as_tensor(ids)
+
+
+def row_grads(rank):
+    return torch.randn(U, D, generator=gen(200 + rank))
+
+
+def full_table():
+    return torch.randn(N_ROWS, D, generator=gen(7))
+
+
+def zero_model():
+    torch.manual_seed(3)
+    return torch.nn.Sequential(torch.nn.Linear(8, 16), torch.nn.Linear(16, 4),
+                               torch.nn.Linear(4, 3))
+
+
+def zero_groups(model):
+    ps = list(model.parameters())
+    return [{"params": ps[:4], "lr": 1e-2, "weight_decay": 0.01},
+            {"params": ps[4:], "lr": 3e-2, "weight_decay": 0.0}]
+
+
+def make_adamw(groups):
+    return torch.optim.AdamW(groups, lr=1e-3, betas=(0.9, 0.999), eps=1e-8)
+
+
+def zero_grads(model, step):
+    for i, p in enumerate(model.parameters()):
+        p.grad = torch.randn(p.shape, generator=gen(1000 * step + i))
+
+
+def metric_sections(rank):
+    """One rank's raw metric sums (floats and (sum, count[, 'sqrt']))."""
+    r = float(rank)
+    sections = {"pred_1": {"recall@10": 3.0 + r, "ndcg@10": 1.25 * (r + 1),
+                           "mae": (4.0 + r, 10.0 + r), "rmse": (9.0 + 2 * r, 10.0 + r, "sqrt")},
+                "shared": {"Entropy@10": 50.0 + 7 * r}}
+    return sections, np.asarray([5.0 + r, 2.0 * r]), 12 + rank
+
+
+def run(rank, world, port, out):
+    init_distributed(f"127.0.0.1:{port}", world, rank, device="cpu")
+    mesh = make_mesh()
+
+    def save(case, obj):
+        torch.save(obj, os.path.join(out, f"{case}.{rank}.pt"))
+
+    # the comm helpers
+    t = comm.all_reduce(torch.tensor([rank + 1.0]))
+    b = comm.broadcast(torch.tensor([10.0 * rank + 1]), root=1)
+    comm.sync_hosts("cases")
+    save("comm", {"count": comm.process_count(), "index": comm.process_index(),
+                  "broadcast_object": comm.broadcast_object({"from": rank}, root=1),
+                  "all_gather_objects": comm.all_gather_objects(("r", rank)),
+                  "all_reduce": t, "broadcast": b,
+                  "all_gather": comm.all_gather(torch.arange(3.0) + rank)})
+
+    # the differentiable all-gather
+    x = torch.randn(5, D, generator=gen(300 + rank)).requires_grad_(True)
+    y = comm.all_gather_rows(x)
+    w = torch.randn(y.shape, generator=gen(400 + rank))
+    (w * y).sum().backward()
+    save("gather_rows", {"y": y.detach(), "grad": x.grad})
+
+    # the cross-rank dedup of the unique-id blocks
+    ids = torch.stack(comm.all_gather(id_block(rank)))
+    grads = torch.stack(comm.all_gather(row_grads(rank)))
+    ids_u, g_u = dedup_touched_rows(ids, grads)
+    save("dedup", {"ids": ids_u, "grads": g_u})
+
+    # the row-sharded table: lookup, gather, row update, scores
+    shard = RowShard(N_ROWS, mesh)
+    emb = ItemEmbed(N_ROWS, D)
+    with torch.no_grad():
+        emb.weight.copy_(full_table())
+    emb.shard_rows(shard)
+    looked = emb(id_block(rank).clamp(min=0).view(3, 4))
+    m = torch.zeros_like(emb.weight)
+    v = torch.zeros_like(emb.weight)
+    for step in range(2):
+        with torch.no_grad():
+            sparse_adamw_row_update(emb.weight, m, v, shard.local_ids(ids_u), g_u * (step + 1),
+                                    1e-2, step, ADAM)
+    heads = cosine_normalize(torch.randn(4, 3, D, generator=gen(9)))
+    scores = heads @ cosine_normalize(emb.full_weight()).t()
+    save("shard", {"lookup": looked, "block_rows": emb.weight.shape[0],
+                   "table": emb.full_weight(), "m": shard.gather(m), "v": shard.gather(v),
+                   "scores": scores})
+
+    # the one-collective metric reduce
+    from mhrec_tpu_torch.trainer.trainer import Trainer
+
+    ns = SimpleNamespace(config={"metric_decimal_place": 7, "int_to_category": {0: "a"}},
+                         mesh=mesh, device=torch.device("cpu"))
+    ns._reduce_sums = lambda values: Trainer._reduce_sums(ns, values)
+    sections, switch, n = metric_sections(rank)
+    save("metrics", Trainer._normalize_all(ns, sections, 240.0, switch, n))
+
+    # ZeRO-2 optimizer state: steps, the gathered state, a reload
+    model = zero_model()
+    opt = ZeroShardedOptimizer(zero_groups(model), make_adamw, mesh)
+    for step in range(ZERO_STEPS):
+        zero_grads(model, step)
+        opt.step()
+    state = opt.state_dict()
+    model2 = zero_model()
+    opt2 = ZeroShardedOptimizer(zero_groups(model2), make_adamw, mesh)
+    opt2.load_state_dict(copy.deepcopy(state))  # a loaded optimizer shares the 0-d steps
+    with torch.no_grad():
+        for p, q in zip(model2.parameters(), model.parameters()):
+            p.copy_(q)
+    zero_grads(model2, ZERO_STEPS)
+    opt2.step()
+    save("zero", {"params": [p.detach() for p in model.parameters()], "state": state,
+                  "owned": sum(p.numel() for g in opt.param_groups for p in g["params"]),
+                  "after_reload": [p.detach() for p in model2.parameters()]})
+
+    # one HSTU train step on this rank's rows, the table replicated and sharded
+    for shard_table in (False, True):
+        t = step_trainer(shard_table)
+        batch = next(t.batcher(rank, world).epoch_batches(0))
+        out_ = t.train_step(batch)
+        save(f"step_shard{int(shard_table)}", {
+            "loss": float(out_["loss"]),
+            "grads": {n: p.grad.clone() for n, p in t.model.named_parameters()
+                      if p.grad is not None},
+            "table_m": t._whole_table(t.table_m), "checksum": t.param_checksum()})
+    comm.sync_hosts("done")
+
+
+# the tiny HSTU of the train-step case (tests/test_multiprocess.py's shape)
+STEP_OVERRIDES = dict(
+    seed=0, MAX_ITEM_LIST_LENGTH=12, train_batch_size=16, eval_batch_size=16,
+    num_negatives=64, n_layers=2, n_heads=2, item_embedding_size=32, hstu_embedding_size=32,
+    eval_pred_len=2, pred_len=2, topk=[5, 10], loss="prior", eval_num_cats=4,
+    num_prior_head=4, num_segment_head=1, medusa_num_layers=1, prior_switch="in",
+    prior_switch_loss_weight=0.1, use_prior_switch_test=True, sparse_item_adam=True,
+    hidden_dropout_prob=0.1, compute_dtype="float32", show_progress=False,
+    use_native_sampler=False, int_to_category={c: f"cat_{c}" for c in range(4)},
+    optim_args={"learning_rate": 1e-4, "weight_decay": 0.01})
+
+
+def step_data():
+    from mhrec_tpu_torch.data.synthetic import InMemoryInteractionData
+
+    return InMemoryInteractionData(num_users=60, num_items=300, seq_len=30, num_categories=4,
+                                   eval_pred_len=2, max_item_list_length=12, seed=1)
+
+
+def step_trainer(shard_table=False, device="cpu", **over):
+    """A Trainer on ``device`` over ``step_data()`` (``batcher(h, n)``: host
+    h of n's train batcher)."""
+    from mhrec_tpu_torch.config import Config
+    from mhrec_tpu_torch.data.trainset import SEQTrainBatcher
+    from mhrec_tpu_torch.trainer import Trainer
+
+    cfg = Config(config_file_list=["IDNet/hstu-size1.yaml", "overall/ID.yaml", "IDNet/hstu.yaml"],
+                 config_dict=dict(STEP_OVERRIDES, shard_item_embedding=shard_table,
+                                  checkpoint_dir=os.environ.get("TMPDIR", "/tmp"), **over)
+                 ).finalize()
+    data = step_data()
+    t = Trainer(cfg, data, device=device)
+    t.setup_model()
+    t.batcher = lambda h, n: SEQTrainBatcher(cfg, data, host_id=h, num_hosts=n)
+    return t
+
+
+if __name__ == "__main__":
+    rank_, world_, port_, out_ = sys.argv[1:5]
+    run(int(rank_), int(world_), int(port_), out_)
