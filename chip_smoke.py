@@ -52,9 +52,9 @@ temporary directory, random weights from seed 0), hierarchical prior heads
 (11 categories × 2 segment heads, one medusa layer, segment embeddings),
 ``pred_len`` 4, ``eval_pred_len`` 8, windows of 24 items, texts of up to 256
 tokens, the packed item tower and the packed corpus pass, over HLLM_USERS
-(2048) users and a catalog of HLLM_ITEMS (8,192) in-memory texts
+(1024) users and a catalog of HLLM_ITEMS (4,096) in-memory texts
 (``train_batch_size`` 128, so a corpus batch holds 3,072 items and the pass
-runs 3 of them, each launching
+runs 2 of them, each launching
 ``packed_attn_fwd`` once per layer). Its evaluation is repeated and must give
 the same metrics. A last pass takes the first corpus batch through the dense
 padded item tower (no kernel) and holds its item embeddings to the packed
@@ -279,8 +279,10 @@ TRAIN_STEPS = 30
 # the HLLM training phase: sequences a step and steps
 HLLM_TRAIN_BATCH = 8
 # the HLLM serving and training phases' users and in-memory catalog
-HLLM_USERS = 2048
-HLLM_ITEMS = 8192
+# (4,096 and 16,384 until the distributed phase joined the script, 2,048 and
+# 8,192 until its HLLM run joined it: depth cuts)
+HLLM_USERS = 1024
+HLLM_ITEMS = 4096
 HLLM_TRAIN_STEPS = 4  # 10 until the distributed phase joined the script (depth cut)
 # chunk rows of 2048 tokens that a train step's 992 items pack into
 HLLM_TRAIN_CHUNK_ROWS = 72
@@ -1980,25 +1982,35 @@ HSTU_DATA = dict(num_users=4096, num_items=200_000, seq_len=2 * 50 + 2 * 8,
                  num_categories=8, eval_pred_len=8, max_item_list_length=50, seed=0)
 HSTU_FILES = ("IDNet/hstu-size4.yaml", "overall/ID.yaml", "IDNet/hstu.yaml")
 DIST_STEPS = 10
-DIST_GLOO_STEPS = 5    # the gloo runs' steps (about 2 s each: gloo stages through the host)
+# the gloo runs' steps (about 2 s each: gloo stages through the host); 5 until
+# the HLLM run joined the phase (a depth cut)
+DIST_GLOO_STEPS = 3
 DIST_RANK_BATCH = 64   # a rank's rows a step: the gloo runs' global batch is 128
 DIST_WORLD = 2
 DIST_TIMEOUT = 400     # seconds a process of the phase may take
-# the gloo world-2 runs against the composed single-process run, at the
-# JAX multi-process test's tolerances (tests/test_multiprocess.py:170-207).
-# The ranking metrics are held to them on the ranks' own parameters (their
-# checkpoint evaluated by one process); against the oracle, whose
-# parameters Adam moves up to about lr apart where a gradient is f32 noise
-# (the ranks sum partial gradients, the oracle one batch's), a user's
-# near-tie at rank k may fall the other way: 5e-3, a few users of a
-# category's subgroup
+# the gloo world-2 runs against the rank-order oracle (RankOrderTrainer: one
+# process that takes each rank's partial gradients at the ranks' shapes and
+# sums them in rank order), at the JAX multi-process test's tolerances
+# (tests/test_multiprocess.py:170-207), whose oracle is given the workers'
+# partitioning so that the reduction orders line up (:173-175)
 DIST_TOL = {"loss": 2e-4, "checksum": 1e-5, "rank_metric": 3e-5, "entropy": 2e-3,
-            "between_ranks": 1e-6, "oracle_rank_metric": 5e-3}
+            "between_ranks": 1e-6}
 # the NCCL world-1 CLI run against the ungrouped one (bit-equal is expected)
 DIST_WORLD1_TOL = 1e-6
 # the collectives of a train step, by their comm.traffic tags
 DIST_STEP_TAGS = ("grad_all_reduce", "pool_gather", "pool_gather_grad", "dedup_gather",
                   "zero_broadcast", "loss_counts", "step_scalars")
+# (c): HLLM over two gloo ranks, reproduce/HLLM-EBNerd-prior.sh's model at
+# TinyLlama-1.1B width cut to DIST_HLLM_LAYERS + DIST_HLLM_LAYERS layers,
+# its towers in float32; the global batch is HLLM_TRAIN_BATCH (4 rows a rank)
+DIST_HLLM_LAYERS = 2
+DIST_HLLM_STEPS = 3
+DIST_HLLM_DATA = dict(num_users=512, num_items=2048, seq_len=2 * 24 + 2 * 8,
+                      num_categories=11, eval_pred_len=8, max_item_list_length=24, seed=0,
+                      item_texts=True)
+# the collectives of an HLLM step and of its evaluations' corpus passes
+DIST_HLLM_TAGS = ("grad_all_reduce", "pool_gather", "pool_gather_grad", "zero_broadcast",
+                  "loss_counts", "step_scalars", "corpus_gather", "metric_reduce")
 
 
 def hstu_overrides(**over):
@@ -2024,6 +2036,28 @@ def dist_overrides(global_batch, checkpoint_dir, **over):
         weighted_prior_loss=True, prior_switch_loss_weight=0.1, sparse_item_adam=True,
         optim_args={"learning_rate": 1e-4, "weight_decay": 0.0}, total_iters=DIST_STEPS,
         eval_interval=DIST_STEPS, update_interval=1, checkpoint_dir=checkpoint_dir), **over))
+
+
+def hllm_dist_config(pretrain_dir, work_dir, **over):
+    """(c)'s HLLM: ``hllm_train_config``'s model and protocol (the packed
+    item tower under gradient checkpointing, 64 negatives drawn per
+    category) with float32 towers, DIST_HLLM_STEPS steps and an evaluation
+    with a save at the last; the corpus pass is the dense one, since the
+    packed one is single-process only."""
+    return hllm_train_config(pretrain_dir, work_dir, **dict(dict(
+        precision="32", packed_corpus_pass=False, total_iters=DIST_HLLM_STEPS,
+        eval_interval=DIST_HLLM_STEPS), **over))
+
+
+def write_dist_hllm_tower(work_dir, over):
+    """The directory of (c)'s towers: TinyLlama-1.1B's ``config.json`` cut
+    to DIST_HLLM_LAYERS layers (``over``: other keys, a few widths on the
+    CPU). Returns its path."""
+    path = os.path.join(work_dir, "tinyllama_cut")
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "config.json"), "w") as fh:
+        json.dump(dict(TINYLLAMA_1B, num_hidden_layers=DIST_HLLM_LAYERS, **over), fh)
+    return path
 
 
 def free_port() -> int:
@@ -2124,11 +2158,20 @@ def world1_cli_runs(work_dir, device, data_kw, over):
             "final_loss": a["final_loss"], "ok": bool(ok)}
 
 
+def dist_rank_config(spec, out):
+    """The config of a gloo run's rank, from its ``spec``: (b)'s HSTU at
+    DIST_RANK_BATCH rows a rank, or (c)'s HLLM (``spec["model"]`` "hllm")."""
+    if spec.get("model") == "hllm":
+        return hllm_dist_config(spec["pretrain_dir"], out, **spec["over"])
+    return base_config(**dist_overrides(DIST_RANK_BATCH * DIST_WORLD, os.path.join(out, "ckpt"),
+                                        shard_item_embedding=spec["shard"], **spec["over"]))
+
+
 def dist_rank(rank, port, out):
-    """One rank of (b): joins a gloo group of DIST_WORLD ranks on the device
-    of ``{out}/spec.json`` (card 0: both ranks share the one card) and runs
-    ``run.train`` on its rows of the global batch (DIST_RANK_BATCH ·
-    DIST_WORLD), then writes what it saw to ``{out}/rank{rank}.json``."""
+    """One rank of a gloo run of (b) or (c): joins a gloo group of
+    DIST_WORLD ranks on the device of ``{out}/spec.json`` (card 0: both
+    ranks share the one card) and runs ``run.train`` on its rows of the
+    global batch, then writes what it saw to ``{out}/rank{rank}.json``."""
     import torch
 
     from mhrec_tpu_torch.data.synthetic import InMemoryInteractionData
@@ -2141,9 +2184,7 @@ def dist_rank(rank, port, out):
     dev = init_distributed(f"127.0.0.1:{port}", DIST_WORLD, rank, backend="gloo",
                            device=spec["device"])
     on_card = dev.type == "cuda"
-    config = base_config(**dist_overrides(DIST_RANK_BATCH * DIST_WORLD,
-                                          os.path.join(out, "ckpt"),
-                                          shard_item_embedding=spec["shard"], **spec["over"]))
+    config = dist_rank_config(spec, out)
     init_logger(config, process_index=rank)
     data = InMemoryInteractionData(**spec["data"])
     reset_launches()
@@ -2156,17 +2197,21 @@ def dist_rank(rank, port, out):
     if on_card:
         torch.cuda.synchronize(dev)
     seconds = time.perf_counter() - t0
-    emb = trainer.item_table()
-    table_bytes = sum(t.numel() * t.element_size()
-                      for t in (emb.weight, trainer.table_m, trainer.table_v))
     rec = {"rank": rank, "seconds": seconds, "iters": stats["iters"],
            "losses": trainer.fetched_losses, "final_loss": float(stats["loss"]),
            "param_checksum": trainer.param_checksum(), "result": result,
            "steady_examples_per_s": stats["steady_examples_per_s"],
            "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 2**30 if on_card else None,
            "launches": read_launches(), "collective_bytes": dict(comm.traffic),
-           "table_rows": int(emb.weight.shape[0]), "table_bytes": table_bytes,
-           "optimizer_sharded": type(trainer.optimizer).__name__}
+           "optimizer_sharded": type(trainer.optimizer).__name__,
+           "dense_params": sum(p.numel() for p in trainer.dense_params)}
+    emb = trainer.item_table()
+    if emb is not None:
+        rec["table_rows"] = int(emb.weight.shape[0])
+        rec["table_bytes"] = sum(t.numel() * t.element_size()
+                                 for t in (emb.weight, trainer.table_m, trainer.table_v))
+    if getattr(trainer, "_corpus_batcher", None) is not None:
+        rec["corpus_batch"] = trainer._corpus_batcher.batch_size
     with open(os.path.join(out, f"rank{rank}.json"), "w") as fh:
         json.dump(rec, fh)
     return 0
@@ -2175,32 +2220,213 @@ def dist_rank(rank, port, out):
 class ComposedBatcher:
     """The single-process oracle's batches: each step the DIST_WORLD hosts'
     batch halves concatenated in host order, the global batch the ranks
-    build together (tests/test_multiprocess.py:121-143)."""
+    build together (tests/test_multiprocess.py:121-143). ``part``: the
+    hosts' batcher class (default ``SEQTrainBatcher``)."""
 
     num_hosts = 1
 
-    def __init__(self, config, data):
+    def __init__(self, config, data, part=None):
         from mhrec_tpu_torch.data.trainset import SEQTrainBatcher
 
-        self.parts = [SEQTrainBatcher(config, data, host_id=h, num_hosts=DIST_WORLD)
+        self.parts = [(part or SEQTrainBatcher)(config, data, host_id=h, num_hosts=DIST_WORLD)
                       for h in range(DIST_WORLD)]
 
-    def infinite_batches(self, prefetch: int = 2):
+    def compose(self, parts):
         import numpy as np
 
+        return {k: np.concatenate([b[k] for b in parts]) for k in parts[0]}
+
+    def infinite_batches(self, prefetch: int = 2):
         from mhrec_tpu_torch.data.trainset import _prefetch_iterator
 
         def gen():
             streams = [p.infinite_batches(prefetch=0) for p in self.parts]
             while True:
-                parts = [next(s) for s in streams]
-                yield {k: np.concatenate([b[k] for b in parts]) for k in parts[0]}
+                yield self.compose([next(s) for s in streams])
 
         return _prefetch_iterator(gen(), prefetch)
 
 
-def one_process_trainer(data, checkpoint_dir, device, over, **extra):
-    """A single-process Trainer with (b)'s model over ``checkpoint_dir``
+class RankBatches(ComposedBatcher):
+    """``ComposedBatcher``'s hosts' batches, each step the list of the
+    DIST_WORLD parts in host order (what ``RankOrderTrainer`` steps on)."""
+
+    def compose(self, parts):
+        return parts
+
+
+class _HalfMesh:
+    """Rank ``rank``'s stand-in for its DataMesh inside ``group``."""
+
+    def __init__(self, group, rank):
+        self.group, self.rank, self.world = group, rank, group.world
+
+    def all_gather_rows(self, x, tag):
+        return self.group.gather_rows(x, self.rank)
+
+    def all_reduce(self, t, tag):
+        return self.group.all_reduce(t, tag, self.rank)
+
+
+class RankOrderGroup:
+    """The model-level collectives of ``world`` ranks (the negative pool's
+    gather, the loss counts' sum in the forward, the pool gradient's sum in
+    the loss's backward), played in one process for the oracle; ``mesh(h)``
+    stands in for rank h's ``DataMesh``. Each collective runs twice per
+    half: a recording run (``record``: each half's tensors, keyed by tag
+    and call number, the tensor handed back unchanged; a gather hands back
+    its rows repeated), then a summing run (each all-reduce the halves'
+    tensors summed in rank order, each gather the halves' rows in rank
+    order). A step thus runs each half's forward twice (a probe, then the
+    step) and its backward twice (``torch.autograd.grad`` down to its pools,
+    then ``backward``). The recording runs compute what the summing runs
+    compute, on the same inputs, so the values they record are the other
+    halves' values in the summing run; ``probe_exact`` says whether the
+    gathered rows were, bit for bit."""
+
+    def __init__(self, world):
+        self.world = world
+        self.rows = [[] for _ in range(world)]
+        self.pools = [[] for _ in range(world)]
+        self.recorded = [{} for _ in range(world)]
+        self.calls = [{} for _ in range(world)]
+        self.record = True
+        self.probe_exact = True
+
+    def start(self, record: bool):
+        self.record = record
+        self.calls = [{} for _ in range(self.world)]
+
+    def _key(self, rank, tag):
+        i = self.calls[rank].get(tag, 0)
+        self.calls[rank][tag] = i + 1
+        return tag, i
+
+    def gather_rows(self, x, rank):
+        import torch
+
+        _, i = self._key(rank, "rows")
+        if self.record:
+            self.rows[rank].append(x.detach().clone())
+            return torch.cat([x] * self.world)
+        self.probe_exact &= bool(torch.equal(x.detach(), self.rows[rank][i]))
+        # the other ranks' rows enter as constants, so this rank's backward
+        # takes its own block of the pool's gradient, which the loss's pool
+        # products have summed over the ranks (DataMesh.all_gather_rows)
+        out = torch.cat([x if r == rank else self.rows[r][i] for r in range(self.world)])
+        self.pools[rank].append(out)
+        return out
+
+    def all_reduce(self, t, tag, rank):
+        key = self._key(rank, tag)
+        if self.record:
+            self.recorded[rank][key] = t.detach().clone()
+            return t
+        total = None
+        for r in range(self.world):
+            x = t.detach() if r == rank else self.recorded[r][key]
+            total = x.clone() if total is None else total + x
+        return t.copy_(total)
+
+    def mesh(self, rank):
+        return _HalfMesh(self, rank)
+
+
+def rank_order_trainer_class():
+    """``RankOrderTrainer``, made on first use so that the module imports
+    without torch."""
+    from mhrec_tpu_torch.trainer import Trainer
+
+    class RankOrderTrainer(Trainer):
+        """The distributed phase's oracle: one process that steps on the
+        DIST_WORLD hosts' batch parts (``RankBatches``) as the ranks do,
+        computing each rank's partial gradients and summing them in rank
+        order. Half h runs on its own replica of the parameters (the
+        trainer's model for h = 0, a copy made equal to it each step for
+        the others) with its own unique-id rows under ``sparse_item_adam``,
+        at the ranks' shapes, with ``RankOrderGroup`` in place of the
+        process group; the dense gradients are the halves' summed in rank
+        order, the id blocks and row gradients the halves' concatenated,
+        the step scalars the halves' summed. The rest of the step (NaN
+        guard, clip, AdamW, the row update on the deduped union) is
+        ``Trainer.train_step``'s at one process."""
+
+        def setup_model(self, seed=None):
+            import copy
+
+            super().setup_model(seed)
+            self.replicas = [copy.deepcopy(self.model) for _ in range(DIST_WORLD - 1)]
+            self.probe_exact = True
+
+        def _train_device_batch(self, parts):
+            return {"parts": [Trainer._train_device_batch(self, p) for p in parts]}
+
+        def _forward_backward(self, dev, gen):
+            import torch
+
+            models = [self.model, *self.replicas]
+            state = self.model.state_dict()
+            for m in self.replicas:
+                m.load_state_dict(state)
+                m.train()
+                for p in m.parameters():
+                    p.grad = None
+            halves = []
+            for h, d in enumerate(dev["parts"]):
+                d["step"] = dev["step"]
+                ids = sub = None
+                if self.sparse_item_adam:
+                    ids = d.pop("unique_ids")
+                    self._local_block_indices(d, ids.shape[0], h)
+                    sub = self.item_table().weight.detach()[ids.clamp(min=0)].float()
+                halves.append((d, ids, sub))
+            group = RankOrderGroup(len(models))
+
+            def forward(h, sub):
+                d = halves[h][0]
+                models[h].mesh = group.mesh(h)
+                kw = {} if sub is None else {"sub": sub}
+                return models[h](d, generator=self.step_generator(self.step), **kw)
+
+            # the probe: each half's gathered rows and loss counts
+            group.start(record=True)
+            for h in range(len(models)):
+                forward(h, halves[h][2])
+            group.start(record=False)
+            subs = [None if s is None else s.clone().requires_grad_(True) for _, _, s in halves]
+            outs = [forward(h, subs[h]) for h in range(len(models))]
+            # each half's pool gradients, from its loss's products, then the
+            # backward that takes them summed over the halves
+            group.start(record=True)
+            for h, o in enumerate(outs):
+                if group.pools[h]:
+                    torch.autograd.grad(o["loss"], group.pools[h], retain_graph=True,
+                                        allow_unused=True)
+            group.start(record=False)
+            for o in outs:
+                o["loss"].backward()
+            for m in models:
+                m.mesh = None
+            self.probe_exact &= group.probe_exact
+            # the all-reduce of the dense gradients: rank 0's, then the others'
+            for ps in zip(*(m.parameters() for m in models)):
+                gs = [p.grad if p.grad is not None else torch.zeros_like(p) for p in ps]
+                if any(p.grad is not None for p in ps):
+                    total = gs[0].clone()
+                    for g in gs[1:]:
+                        total += g
+                    ps[0].grad = total
+            out = {k: sum(o[k].detach().float().reshape(()) for o in outs) for k in outs[0]}
+            if not self.sparse_item_adam:
+                return out, None, None
+            return (out, torch.cat([ids for _, ids, _ in halves]),
+                    torch.cat([s.grad for s in subs]))
+
+    return RankOrderTrainer
+
+
+def one_process_trainer(config, data, device, trainer_cls=None):
+    """A single-process trainer of ``config`` (default class ``Trainer``)
     that evaluates in batches of a rank's eval rows, so that every user's
     embedding comes from a product of the ranks' shapes (the metrics do not
     depend on the batch; the products' rounding may). Returns (trainer,
@@ -2208,26 +2434,25 @@ def one_process_trainer(data, checkpoint_dir, device, over, **extra):
     from mhrec_tpu_torch.data import build_eval_dataloaders
     from mhrec_tpu_torch.trainer import Trainer
 
-    config = base_config(**dist_overrides(DIST_RANK_BATCH * DIST_WORLD, checkpoint_dir,
-                                          **over, **extra))
     config["eval_batch_size"] //= DIST_WORLD
-    trainer = Trainer(config, data, device=device)
+    trainer = (trainer_cls or Trainer)(config, data, device=device)
     trainer.setup_model()
     return (trainer, *build_eval_dataloaders(config, data))
 
 
-def composed_oracle(data, work_dir, device, over):
-    """The single-process run on the composed global batches of (b) with
-    ``sparse_adam_global_dedup``: fit with the valid evaluation and save,
-    the test split from the checkpoint, as ``run.train`` does. Returns its
-    record and the trainer."""
-    trainer, valid, test = one_process_trainer(data, os.path.join(work_dir, "oracle"), device,
-                                               over, sparse_adam_global_dedup=True)
-    stats = trainer.fit(ComposedBatcher(trainer.config, data), valid)
+def rank_order_oracle(config, data, device, part=None):
+    """The rank-order oracle's run of ``config`` over the hosts' batch
+    parts (``part``: their batcher class): fit with the valid evaluation
+    and save, the test split from the checkpoint, as ``run.train`` does.
+    Returns its record and the trainer."""
+    trainer, valid, test = one_process_trainer(config, data, device,
+                                               rank_order_trainer_class())
+    stats = trainer.fit(RankBatches(trainer.config, data, part), valid)
     result = trainer.evaluate(test, load_best_model=True)
     rec = {"final_loss": float(stats["loss"]), "losses": trainer.fetched_losses,
            "param_checksum": trainer.param_checksum(), "result": result,
-           "steady_examples_per_s": stats["steady_examples_per_s"]}
+           "steady_examples_per_s": stats["steady_examples_per_s"],
+           "pool_probe_exact": trainer.probe_exact}
     return rec, trainer
 
 
@@ -2239,7 +2464,8 @@ def params_apart(a, b):
 
     worst, n_diff = 0.0, 0
     pairs = list(zip(a.model.state_dict().values(), b.model.state_dict().values()))
-    pairs += [(a.table_m, b.table_m), (a.table_v, b.table_v)]
+    if a.table_m is not None:
+        pairs += [(a.table_m, b.table_m), (a.table_v, b.table_v)]
     for x, y in pairs:
         d = (x.float() - y.float()).abs()
         worst = max(worst, float(d.max()))
@@ -2247,39 +2473,144 @@ def params_apart(a, b):
     return worst, n_diff
 
 
-def metrics_close(got, want, rank_tol=DIST_TOL["rank_metric"]):
-    """Ranking metrics within ``rank_tol``, Entropy within DIST_TOL's:
-    (all within, the largest difference of each kind, the first 20 metrics
-    off by more than DIST_TOL's tight tolerances, as (section/metric, got,
-    want))."""
+def metrics_close(got, want):
+    """Ranking metrics and Entropy within DIST_TOL's: (all within, the
+    largest difference of each kind, the first 20 metrics off, as
+    (section/metric, got, want))."""
     worst = {"rank_metric": 0.0, "entropy": 0.0}
     off = []
-    ok = True
     for section, metrics in want.items():
         for k, v in metrics.items():
             kind = "entropy" if k.startswith("Entropy") else "rank_metric"
             d = abs(got.get(section, {}).get(k, math.inf) - v)
             worst[kind] = max(worst[kind], d)
-            ok &= d <= (DIST_TOL[kind] if kind == "entropy" else rank_tol)
             if d > DIST_TOL[kind]:
                 off.append((f"{section}/{k}", got.get(section, {}).get(k), v))
-    return ok, worst, off[:20]
+    return not off, worst, off[:20]
 
 
-def distributed_phase(work_dir, smi, device="cuda", data_kw=HSTU_DATA, **over):
-    """The data-parallel path on the card (HSTU size4, the train phase's
-    prior protocol): (a) ``world1_cli_runs``; (b) two ranks over gloo on the
-    one card (``dist_rank`` in processes of their own; NCCL refuses two
-    ranks on one device), the item table replicated and then row-sharded,
-    each held to the composed single-process oracle (``composed_oracle``)
-    at DIST_TOL, the two ranks to each other, the sharded run's per-rank
-    table bytes to half the replicated run's; (c) the record: examples/s,
-    peak memory per rank, the launches of #1, #4 and #7, the bytes a step of
-    each collective and the seconds, beside the card's name and power limit.
-    The gloo rates are correctness runs (both ranks on one card, gloo
-    staging through host memory), not scaling numbers. ``device`` "cpu"
-    and config overrides ``over`` (a few widths) rehearse it without the
-    card. Returns (launches of each run, ok)."""
+def gloo_ranks(out, spec):
+    """DIST_WORLD ranks of ``chip_smoke.py --distributed-rank`` in processes
+    of their own, over gloo, with ``spec`` written to ``{out}/spec.json``.
+    Returns the ranks' records, or a failure record."""
+    os.makedirs(out, exist_ok=True)
+    with open(os.path.join(out, "spec.json"), "w") as fh:
+        json.dump(spec, fh)
+    port = free_port()
+    cmds = [[sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--distributed-rank",
+             str(r), str(port), out] for r in range(DIST_WORLD)]
+    codes, tails = run_processes(cmds, [os.path.join(out, f"rank{r}.log")
+                                        for r in range(DIST_WORLD)])
+    if codes != [0] * DIST_WORLD:
+        return {"exit_codes": codes, "log_tails": tails, "ok": False}
+    ranks = []
+    for r in range(DIST_WORLD):
+        with open(os.path.join(out, f"rank{r}.json")) as fh:
+            ranks.append(json.load(fh))
+    return ranks
+
+
+def held_to_oracle(ranks, oracle, oracle_trainer, served, served_result, tags):
+    """(the record, the checks) of a gloo run's ranks against the oracle
+    (loss, checksum, metrics at DIST_TOL), against each other (loss and
+    checksum, metrics equal), and their checkpoint evaluated by one process
+    (``served``, its test metrics ``served_result``) against their metrics;
+    the bytes a step of each collective of ``tags``."""
+    r0, r1 = ranks
+    between = max(abs(r0[k] - r1[k]) / abs(r1[k]) for k in ("final_loss", "param_checksum"))
+    loss_rel = abs(r0["final_loss"] - oracle["final_loss"]) / abs(oracle["final_loss"])
+    ck_rel = abs(r0["param_checksum"] - oracle["param_checksum"]) / oracle["param_checksum"]
+    m_ok, worst, off = metrics_close(r0["result"], oracle["result"])
+    s_ok, s_worst, s_off = metrics_close(r0["result"], served_result)
+    p_worst, p_diff = params_apart(served, oracle_trainer)
+    steps = r0["iters"]
+    checks = {
+        "metrics": m_ok, "checkpoint_served_by_one_process": s_ok,
+        "loss": loss_rel <= DIST_TOL["loss"], "checksum": ck_rel <= DIST_TOL["checksum"],
+        "between_ranks": between <= DIST_TOL["between_ranks"],
+        "ranks_metrics_equal": r0["result"] == r1["result"],
+        "zero_optimizer": all(r["optimizer_sharded"] == "ZeroShardedOptimizer" for r in ranks)}
+    rec = {
+        "label": "gloo, 2 ranks on one card", "final_loss_rel_diff": loss_rel,
+        "checksum_rel_diff": ck_rel, "between_ranks_rel_diff": between,
+        "max_metric_diff": worst, "metrics_beyond_tolerance": off,
+        "served_max_metric_diff": s_worst, "served_metrics_beyond_tolerance": s_off,
+        "params_max_abs_diff_vs_oracle": p_worst, "param_elements_differing": p_diff,
+        "oracle_pool_probe_exact": oracle["pool_probe_exact"],
+        "steady_examples_per_s": [r["steady_examples_per_s"] for r in ranks],
+        "peak_mem_gb": [r["peak_mem_gb"] for r in ranks],
+        "launches": [r["launches"] for r in ranks],
+        "collective_bytes_per_step": {t: r0["collective_bytes"].get(t, 0) / steps
+                                      for t in tags},
+        "collective_bytes_run": r0["collective_bytes"],
+        "seconds": [r["seconds"] for r in ranks]}
+    return rec, checks
+
+
+def distributed_hllm(work_dir, device, over, tower_over, data_kw=DIST_HLLM_DATA):
+    """(c): HLLM over two gloo ranks on the one card (``hllm_dist_config``,
+    towers from ``write_dist_hllm_tower``), over ``data_kw``, held to
+    the rank-order oracle, to each other and to their checkpoint served by
+    one process; the launches of #8a–c a rank must be what the layers and
+    steps give (the forward and its recompute, the backward; the corpus
+    pass is the dense one and launches none). Returns (its record, the
+    ranks' launches)."""
+    import torch
+
+    from mhrec_tpu_torch.data.synthetic import InMemoryInteractionData
+    from mhrec_tpu_torch.data.textset import TextSEQTrainBatcher
+
+    pretrain_dir = write_dist_hllm_tower(work_dir, tower_over)
+    out = os.path.join(work_dir, "hllm")
+    ranks = gloo_ranks(out, {"model": "hllm", "device": "cuda:0" if device == "cuda" else device,
+                             "pretrain_dir": pretrain_dir, "data": data_kw, "over": over})
+    if isinstance(ranks, dict):
+        return ranks, None
+    data = InMemoryInteractionData(**data_kw)
+    oracle, oracle_trainer = rank_order_oracle(
+        hllm_dist_config(pretrain_dir, os.path.join(work_dir, "hllm_oracle"), **over),
+        data, device, TextSEQTrainBatcher)
+    # the ranks' checkpoint, evaluated by one process
+    served, _, test = one_process_trainer(hllm_dist_config(pretrain_dir, out, **over),
+                                          data, device)
+    served_result = served.evaluate(test, load_best_model=True)
+    rec, checks = held_to_oracle(ranks, oracle, oracle_trainer, served, served_result,
+                                 DIST_HLLM_TAGS)
+    del served, oracle_trainer
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    layers = DIST_HLLM_LAYERS
+    steps = ranks[0]["iters"]
+    want = {"packed_attn_fwd": 2 * layers * steps, "packed_attn_bwd": layers * steps}
+    checks["launches"] = all(r["launches"][k] == n for r in ranks for k, n in want.items())
+    checks["steps"] = steps == over.get("total_iters", DIST_HLLM_STEPS)
+    rec.update(model="HLLM, TinyLlama-1.1B width, %d + %d layers, float32" % (layers, layers),
+               steps=steps, global_batch=HLLM_TRAIN_BATCH, launches_expected=want,
+               dense_params=ranks[0]["dense_params"], corpus_batch=ranks[0].get("corpus_batch"),
+               checks=checks, ok=all(checks.values()))
+    return rec, ranks[0]["launches"]
+
+
+def distributed_phase(work_dir, smi, device="cuda", data_kw=HSTU_DATA, hllm_over=None,
+                      hllm_tower=None, hllm_data=DIST_HLLM_DATA, **over):
+    """The data-parallel path on the card: (a) ``world1_cli_runs`` (HSTU
+    size4, the train phase's prior protocol); (b) two ranks of that HSTU
+    over gloo on the one card (``dist_rank`` in processes of their own;
+    NCCL refuses two ranks on one device), the item table replicated and
+    then row-sharded, each held to the rank-order oracle
+    (``rank_order_oracle``) at DIST_TOL, the two ranks to each other, the
+    sharded run's per-rank table bytes to half the replicated run's; (c)
+    ``distributed_hllm``; and the record: examples/s, peak memory per rank,
+    the launches of the kernels, the bytes a step of each collective and
+    the seconds, beside the card's name and power limit. The gloo rates are
+    correctness runs (both ranks on one card, gloo staging through host
+    memory), not scaling numbers. ``device`` "cpu" and config overrides
+    ``over`` (HSTU), ``hllm_over`` (HLLM), ``hllm_tower`` (the towers'
+    ``config.json``) and the catalogs ``data_kw`` / ``hllm_data`` rehearse
+    it at a few widths without the card. Returns (launches of each run,
+    ok)."""
+    import torch
+
     from mhrec_tpu_torch.data.synthetic import InMemoryInteractionData
 
     t0 = time.perf_counter()
@@ -2300,85 +2631,63 @@ def distributed_phase(work_dir, smi, device="cuda", data_kw=HSTU_DATA, **over):
     # evaluations overfill the card)
     runs = {}
     for shard, name in ((False, "replicated"), (True, "sharded")):
-        out = os.path.join(work_dir, name)
-        os.makedirs(out)
-        with open(os.path.join(out, "spec.json"), "w") as fh:
-            json.dump({"device": "cuda:0" if device == "cuda" else device, "shard": shard,
-                       "data": data_kw, "over": gloo_over}, fh)
-        port = free_port()
-        cmds = [[sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--distributed-rank",
-                 str(r), str(port), out] for r in range(DIST_WORLD)]
-        codes, tails = run_processes(cmds, [os.path.join(out, f"rank{r}.log")
-                                            for r in range(DIST_WORLD)])
-        if codes != [0] * DIST_WORLD:
-            runs[name] = {"exit_codes": codes, "log_tails": tails, "ok": False}
-            ok = False
-            continue
-        ranks = []
-        for r in range(DIST_WORLD):
-            with open(os.path.join(out, f"rank{r}.json")) as fh:
-                ranks.append(json.load(fh))
-        runs[name] = ranks
-        launches[f"distributed_gloo_{name}"] = ranks[0]["launches"]
+        runs[name] = gloo_ranks(os.path.join(work_dir, name), {
+            "device": "cuda:0" if device == "cuda" else device, "shard": shard,
+            "data": data_kw, "over": gloo_over})
+        if isinstance(runs[name], list):
+            launches[f"distributed_gloo_{name}"] = runs[name][0]["launches"]
     data = InMemoryInteractionData(**data_kw)
-    oracle, oracle_trainer = composed_oracle(data, work_dir, device, gloo_over)
+    t_oracle = time.perf_counter()
+    oracle, oracle_trainer = rank_order_oracle(
+        base_config(**dist_overrides(DIST_RANK_BATCH * DIST_WORLD,
+                                     os.path.join(work_dir, "oracle"), **gloo_over,
+                                     sparse_adam_global_dedup=True)), data, device)
     rec["oracle"] = {k: oracle[k] for k in ("final_loss", "param_checksum",
-                                            "steady_examples_per_s")}
+                                            "steady_examples_per_s", "pool_probe_exact")}
+    rec["oracle"]["seconds"] = time.perf_counter() - t_oracle
     for name, ranks in runs.items():
         if isinstance(ranks, dict):
             rec[f"gloo_{name}"] = ranks
+            ok = False
             continue
-        r0, r1 = ranks
-        between = max(abs(r0[k] - r1[k]) / abs(r1[k]) for k in ("final_loss", "param_checksum"))
-        loss_rel = abs(r0["final_loss"] - oracle["final_loss"]) / abs(oracle["final_loss"])
-        ck_rel = abs(r0["param_checksum"] - oracle["param_checksum"]) / oracle["param_checksum"]
-        m_ok, worst, off = metrics_close(r0["result"], oracle["result"],
-                                         DIST_TOL["oracle_rank_metric"])
         # the checkpoint the ranks wrote, evaluated by one process: the
         # distributed evaluation's half of the oracle comparison, on the
         # same parameters; and those parameters against the oracle's
-        served, _, test = one_process_trainer(data, os.path.join(work_dir, name, "ckpt"),
-                                              device, gloo_over)
-        s_ok, s_worst, s_off = metrics_close(r0["result"],
-                                             served.evaluate(test, load_best_model=True))
-        p_worst, p_diff = params_apart(served, oracle_trainer)
+        served, _, test = one_process_trainer(
+            base_config(**dist_overrides(DIST_RANK_BATCH * DIST_WORLD,
+                                         os.path.join(work_dir, name, "ckpt"), **gloo_over)),
+            data, device)
+        run_rec, checks = held_to_oracle(ranks, oracle, oracle_trainer, served,
+                                         served.evaluate(test, load_best_model=True),
+                                         DIST_STEP_TAGS)
         del served
-        steps = r0["iters"]
-        per_step = {t: r0["collective_bytes"].get(t, 0) / steps for t in DIST_STEP_TAGS}
+        steps = ranks[0]["iters"]
         layers = int(base_config(**over)["n_layers"])
         want = {"hstu_stu_gated_bwd": layers * steps, "row_adamw": steps}
-        checks = {
-            "metrics": m_ok, "checkpoint_served_by_one_process": s_ok,
-            "loss": loss_rel <= DIST_TOL["loss"],
-            "checksum": ck_rel <= DIST_TOL["checksum"],
-            "between_ranks": between <= DIST_TOL["between_ranks"],
-            "ranks_metrics_equal": r0["result"] == r1["result"],
-            "launches": all(r["launches"][k] == n for r in ranks for k, n in want.items())
-            and all(r["launches"]["hstu_stu_gated_fwd"] > layers * steps for r in ranks),
-            "zero_optimizer": all(r["optimizer_sharded"] == "ZeroShardedOptimizer"
-                                  for r in ranks)}
-        run_ok = all(checks.values())
-        rec[f"gloo_{name}"] = {
-            "label": "gloo, 2 ranks on one card", "final_loss_rel_diff": loss_rel,
-            "checksum_rel_diff": ck_rel, "between_ranks_rel_diff": between,
-            "max_metric_diff": worst, "metrics_beyond_tolerance": off,
-            "served_max_metric_diff": s_worst, "served_metrics_beyond_tolerance": s_off,
-            "params_max_abs_diff_vs_oracle": p_worst, "param_elements_differing": p_diff,
-            "steady_examples_per_s": [r["steady_examples_per_s"] for r in ranks],
-            "peak_mem_gb": [r["peak_mem_gb"] for r in ranks],
-            "launches": [r["launches"] for r in ranks],
-            "collective_bytes_per_step": per_step,
-            "collective_bytes_run": r0["collective_bytes"],
-            "table_rows": [r["table_rows"] for r in ranks],
-            "table_bytes": [r["table_bytes"] for r in ranks],
-            "seconds": [r["seconds"] for r in ranks], "checks": checks, "ok": bool(run_ok)}
-        ok &= run_ok
+        checks["launches"] = (
+            all(r["launches"][k] == n for r in ranks for k, n in want.items())
+            and all(r["launches"]["hstu_stu_gated_fwd"] > layers * steps for r in ranks))
+        run_rec.update(table_rows=[r["table_rows"] for r in ranks],
+                       table_bytes=[r["table_bytes"] for r in ranks], checks=checks,
+                       ok=all(checks.values()))
+        rec[f"gloo_{name}"] = run_rec
+        ok &= run_rec["ok"]
     del oracle_trainer
+    if device == "cuda":
+        # the oracle's replicas and cached blocks leave the card to (c)'s ranks
+        torch.cuda.empty_cache()
     if all(isinstance(runs.get(n), list) for n in ("replicated", "sharded")):
         halved = all(2 * s["table_bytes"] == r["table_bytes"]
                      for s, r in zip(runs["sharded"], runs["replicated"]))
         rec["sharded_table_bytes_halved"] = halved
         ok &= halved
+    t_hllm = time.perf_counter()
+    rec["gloo_hllm"], hllm_launches = distributed_hllm(work_dir, device, hllm_over or {},
+                                                       hllm_tower or {}, hllm_data)
+    rec["gloo_hllm"]["seconds_phase"] = time.perf_counter() - t_hllm
+    if hllm_launches is not None:
+        launches["distributed_gloo_hllm"] = hllm_launches
+    ok &= rec["gloo_hllm"]["ok"]
     rec["seconds"] = time.perf_counter() - t0
     rec["ok"] = bool(ok)
     emit(rec)
@@ -3952,9 +4261,10 @@ IMAGE_SERVE_BATCH = 64
 # runs 8 a card (128 over 16 cards); see PERF.md §4 for why 4 and bf16
 IMAGE_TRAIN_BATCH = 4
 IMAGE_ADAM_MOMENTS = "bfloat16"
-# 3 steps (5 until the baselines phase joined the script, to keep it well
-# inside its time limit): the steady rate is taken over the last 2
-IMAGE_TRAIN_STEPS = 3
+# 2 steps (5 until the baselines phase joined the script, 3 until the
+# distributed phase's HLLM run joined it, to keep it well inside its time
+# limit): the steady rate is taken over the last one
+IMAGE_TRAIN_STEPS = 2
 # the busy share: train steps under the profiler
 IMAGE_PROFILED_STEPS = 1
 # hllm_image_variants: the towers' depth, users, catalog, steps; the share
@@ -5019,8 +5329,7 @@ def main(argv=None) -> int:
         os.makedirs(pretrain_dir)
         with open(os.path.join(pretrain_dir, "config.json"), "w") as fh:
             json.dump(TINYLLAMA_1B, fh)
-        # 4,096 users and 16,384 items until the distributed phase joined
-        # the script (a depth cut)
+        # HLLM_USERS and HLLM_ITEMS: cut twice as phases joined the script
         data = InMemoryInteractionData(
             num_users=HLLM_USERS, num_items=HLLM_ITEMS, seq_len=2 * 24 + 2 * 8, num_categories=11,
             eval_pred_len=8, max_item_list_length=24, seed=0, item_texts=True,

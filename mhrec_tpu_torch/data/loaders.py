@@ -3,8 +3,7 @@
 ``SeqEvalBatcher``; HLLM trains on ``TextSEQTrainBatcher``'s batches, the
 ID models on ``SEQTrainBatcher``'s. ``host_id`` / ``num_hosts``: this
 rank's share of every global batch (users and train samples strided over
-the ranks); the text batcher is one process's (multi-process HLLM is not
-ported yet)."""
+the ranks, and for HLLM the texts of those samples' items)."""
 
 from __future__ import annotations
 
@@ -24,10 +23,6 @@ def build_eval_dataloaders(config, dataload, host_id: int = 0, num_hosts: int = 
 def build_dataloader(config, dataload, host_id: int = 0, num_hosts: int = 1):
     """Returns the (train, valid, test) batchers of rank ``host_id``."""
     is_text = str(config["model"] or "HSTU") == "HLLM"
-    if is_text and num_hosts > 1:
-        raise NotImplementedError(
-            "multi-process HLLM (the corpus split, shard_identical, dedup_items and "
-            "pack_chunk across hosts) is not ported yet")
-    train = (TextSEQTrainBatcher(config, dataload) if is_text
-             else SEQTrainBatcher(config, dataload, host_id=host_id, num_hosts=num_hosts))
+    train = (TextSEQTrainBatcher if is_text else SEQTrainBatcher)(
+        config, dataload, host_id=host_id, num_hosts=num_hosts)
     return (train, *build_eval_dataloaders(config, dataload, host_id, num_hosts))

@@ -1,5 +1,5 @@
 """Text batching for the HLLM item tower (port of
-``mhrec_tpu/data/textset.py``, one process).
+``mhrec_tpu/data/textset.py``).
 
 Each item's text is rendered as ``{item_prompt}Title: .. Tag: ..
 Description: ..`` and tokenized to at most ``MAX_TEXT_LENGTH`` tokens, with
@@ -30,8 +30,7 @@ tokenizer file, or no directory, gives the hashing tokenizer. Where the JAX
 package loads the tokenizer through a library the port does not depend on
 (SentencePiece's ``tokenizer.model``, tiktoken, a slow ``vocab.json`` /
 ``merges.txt`` BPE) or cannot load it at all and falls back to hashing, the
-port raises instead of tokenizing differently. The multi-host batch
-layouts of the JAX package are not ported.
+port raises instead of tokenizing differently.
 """
 
 from __future__ import annotations
@@ -406,8 +405,8 @@ def token_cache_dir(config) -> Optional[str]:
 
 class TextSEQTrainBatcher(SEQTrainBatcher):
     """``SEQTrainBatcher`` + the token matrices of every item occurrence of
-    a batch (JAX ``TextSEQTrainBatcher``, textset.py:425-560, one process).
-    The keys it adds:
+    a batch (JAX ``TextSEQTrainBatcher``, textset.py:425-560). The keys it
+    adds:
 
     * dense: pos_tokens [B·(L+P), T+n], pos_token_lens, neg_tokens
       [B·NC·K, T+n], neg_token_lens;
@@ -424,10 +423,24 @@ class TextSEQTrainBatcher(SEQTrainBatcher):
       maps (see ``_emit_image_keys``); refused with ``packed_item_tower``.
 
     None under ``freeze_item_llm``. The token cache is load-only here: the
-    corpus pass writes it."""
+    corpus pass writes it.
 
-    def __init__(self, config, dataload):
-        super().__init__(config, dataload)
+    ``host_id`` / ``num_hosts``: this rank's share of every global batch,
+    ``SEQTrainBatcher``'s host-strided rows, and the texts and images of
+    exactly those rows' items. Here the port departs from the JAX layout
+    of the packed rows: JAX gives every host one worst-case chunk count C
+    and shifts each host's ``emb_slots`` into one global array split into
+    ``pos_emb_slots`` / ``neg_emb_slots`` (textset.py:517-543), because its
+    item tower runs once over the global batch. Each rank here runs the
+    item tower on its own chunk rows, packed as one process packs them,
+    so it needs neither. The global order that JAX's gather gives still
+    holds: a rank's positives stay with its user rows, and the model's
+    negative pool is gathered in rank order, [h0-neg, h1-neg, ...]
+    (``HLLM.forward``). ``dedup_items`` and the single-stream packing
+    (``pack_chunk: 0``) are refused under several hosts, as in JAX."""
+
+    def __init__(self, config, dataload, host_id: int = 0, num_hosts: int = 1):
+        super().__init__(config, dataload, host_id=host_id, num_hosts=num_hosts)
         self.freeze_item_llm = bool(config.get("freeze_item_llm", False))
         self.packed_item_tower = bool(config.get("packed_item_tower", False))
         self.dedup_items = bool(config.get("dedup_items", False))
@@ -441,6 +454,19 @@ class TextSEQTrainBatcher(SEQTrainBatcher):
         self.image_store, image_prefix = _setup_image_store(config, dataload, tokenizer)
         if self.image_store is not None and self.packed_item_tower:
             raise ValueError("use_image is incompatible with packed_item_tower")
+        if self.num_hosts > 1 and self.dedup_items:
+            # the JAX package's refusals and messages (textset.py:450-463)
+            raise ValueError(
+                "dedup_items is single-process only; use the dense or "
+                "packed item tower under multi-host"
+            )
+        if self.num_hosts > 1 and self.packed_item_tower \
+                and not int(config.get("pack_chunk", 2048) or 0):
+            raise ValueError(
+                "multi-host packed_item_tower requires chunked packing "
+                "(pack_chunk > 0): the legacy flat stream has a per-host "
+                "data-dependent length"
+            )
         self.n_emb = max(int(config.get("item_emb_token_n", 1) or 0), 1)
         self.text_cache = ItemTextCache(
             dataload, tokenizer, config["text_keys"], config.get("item_prompt", ""),
@@ -475,7 +501,7 @@ class TextSEQTrainBatcher(SEQTrainBatcher):
         pos_tokens, pos_lens = self.text_cache.batch(batch["items"].ravel())
         neg_tokens, neg_lens = self.text_cache.batch(batch["neg_items"].ravel())
         if self.packed_item_tower:
-            # one device: chunk_round = 1 (see round_chunk_rows)
+            # one device a rank: chunk_round = 1 (see round_chunk_rows)
             packed = pack_items(np.concatenate([pos_tokens, neg_tokens]),
                                 np.concatenate([pos_lens, neg_lens]),
                                 bucket=self.pack_bucket, n_emb=self.n_emb, chunk=self.pack_chunk,

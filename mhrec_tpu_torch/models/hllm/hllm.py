@@ -14,7 +14,9 @@
 * ``forward`` is the training forward: the items of a batch (positives and
   negatives) through the item tower — packed, deduplicated or dense, as the
   text train batcher lays them out — or the frozen table, the positives
-  through the user tower, then ``compute_multihead_losses`` as for HSTU;
+  through the user tower, then ``compute_multihead_losses`` as for HSTU; in
+  a process group (``mesh``) each rank encodes its own rows' items and the
+  negative pool is gathered over the ranks in rank order;
 * the towers are Llama-family decoders (RoPE or ALiBi) or BERT encoders,
   as each pretrain directory's ``config.json`` says, and
   ``load_pretrained_towers`` reads their weights from that directory;
@@ -155,6 +157,11 @@ class HLLM(MedusaHeads, nn.Module):
         self.use_prior_switch_test = use_prior_switch_test
         self.int_to_category = int_to_category
         self.dtype = dtype
+        # the data-parallel group (a DataMesh) when the trainer runs in a
+        # process group: the negative pool is gathered over the ranks, the
+        # loss means divide by global counts and random draws cover the
+        # global batch
+        self.mesh = None
         # image branch: a vision tower whose tokens are spliced over the
         # image-pad span of each item's text (reference hllm.py:399-464);
         # vid_grid_t > 1: that span holds vid_grid_t temporal groups of
@@ -364,7 +371,11 @@ class HLLM(MedusaHeads, nn.Module):
 
         def neg_norm(col):
             neg = neg_of(col)
-            return cosine_normalize(neg.float()).reshape(-1, neg.shape[-1])
+            neg = cosine_normalize(neg.float()).reshape(-1, neg.shape[-1])
+            # the global batch's pool (JAX _neg_norm over the global
+            # neg_items): every rank's rows, in rank order; the loss's
+            # products sum its gradient over the ranks
+            return neg if self.mesh is None else self.mesh.all_gather_rows(neg, "pool_gather")
 
         user_hidden = self.user_llm(inputs_embeds=pos_items_embs[:, :L].to(self.dtype),
                                     attention_mask=user_mask[:, :L].int()).float()
@@ -518,8 +529,8 @@ def hllm_from_config(config, dataload, dtype=None) -> HLLM:
 
     if int(config.get("tp_size", 1) or 1) > 1:
         raise NotImplementedError(
-            "tensor-parallel towers (tp_size > 1) are not ported yet: they come with the "
-            "multi-process HLLM slice (the corpus split, shard_identical, FSDP)")
+            "tensor-parallel towers (tp_size > 1) are not ported yet: tensor parallelism is "
+            "ROADMAP.md Queue 1 item 6, after FSDP")
     if config.get("packed_item_tower", False):
         # bound the packed attention to a causal band of the max segment
         # length: the text and its emb slots

@@ -37,7 +37,6 @@ from mhrec_tpu_torch.models.multihead import (
 )
 from mhrec_tpu_torch.ops.hstu_attention import hstu_attention
 from mhrec_tpu_torch.ops.hstu_attention_cuda import hstu_stu_gated_fwd
-from mhrec_tpu_torch.parallel import comm
 from mhrec_tpu_torch.utils.enums import InputType
 
 _NEG_INF = float("-inf")  # predict-time masks use -inf (reference hstu.py:987-1015)
@@ -471,8 +470,9 @@ class HSTU(MedusaHeads, nn.Module):
             neg = cosine_normalize(self._embed_items(neg_items[:, col], sub).float())
             neg = neg.reshape(-1, neg.shape[-1])
             # the global batch's pool (JAX _neg_norm flattens neg_items of
-            # the global batch): every rank's rows, in rank order
-            return neg if self.mesh is None else comm.all_gather_rows(neg, "pool_gather")
+            # the global batch): every rank's rows, in rank order; the
+            # loss's products sum its gradient over the ranks
+            return neg if self.mesh is None else self.mesh.all_gather_rows(neg, "pool_gather")
 
         return compute_multihead_losses(self, output_embs, pos_items_embs, user_mask,
                                         batch.get("tag_categories"), neg_norm, generator)

@@ -18,6 +18,16 @@ partition-sum product keeps float32 sums (here: float32 products of the
 bfloat16 values, which are exact). ``multi_horizon_nce_stacked`` is the
 category-stacked banded form of the prior loss (``prior_loss_impl:
 stacked``), each category's slice computed as ``_banded_nce`` computes it.
+
+Over W > 1 ranks (``mesh``) the negatives are the gathered global pool and
+the products against it are ``_PoolProduct``'s: the pool's gradient of each
+product is summed over the ranks in float32 and then rounded to bfloat16,
+as one process rounds the global batch's sum once. Summing the ranks'
+rounded partial gradients instead would put a bfloat16 rounding between
+the data-parallel run and one process over the composed batch (JAX's one
+SPMD program), which Adam turns into steps of its learning rate wherever a
+gradient is near zero. The model's gather (``DataMesh.all_gather_rows``)
+hands each rank its block of the summed gradient.
 """
 
 from __future__ import annotations
@@ -28,7 +38,6 @@ import numpy as np
 import torch
 
 from mhrec_tpu_torch.models.layers import cosine_normalize
-from mhrec_tpu_torch.parallel import comm
 
 _LN100 = 4.605170185988092  # np.log(100)
 _BF16 = torch.bfloat16
@@ -55,7 +64,7 @@ def clamp_logit_scale(logit_scale: torch.Tensor) -> torch.Tensor:
 def global_count(cnt: torch.Tensor, mesh=None) -> torch.Tensor:
     """``cnt`` summed over the ranks of ``mesh`` (a detached copy, one
     collective); ``cnt`` itself without one."""
-    return cnt if mesh is None else comm.all_reduce(cnt.detach().clone(), "loss_counts")
+    return cnt if mesh is None else mesh.all_reduce(cnt.detach().clone(), "loss_counts")
 
 
 def _bf16_product(a, b):
@@ -63,6 +72,43 @@ def _bf16_product(a, b):
     to bfloat16 (JAX: bf16 einsum with ``preferred_element_type=f32``, then
     ``.astype(bf16)``)."""
     return torch.matmul(a.to(_BF16), b.to(_BF16))
+
+
+class _PoolProduct(torch.autograd.Function):
+    """``einsum(eq, a, pool)`` of the bfloat16-rounded operands, rounded to
+    bfloat16 (``_bf16_product``'s forward), against the negative pool
+    gathered over the ranks of ``mesh``. Backward, ``a`` takes the bf16
+    gradient autograd gives it; the pool takes its float32 gradient summed
+    over the ranks (one all-reduce, ``pool_gather_grad``) and then rounded
+    to bfloat16, the sum one process rounds."""
+
+    @staticmethod
+    def forward(ctx, a, pool, eq, mesh):
+        a16, p16 = a.to(_BF16), pool.to(_BF16)
+        ctx.save_for_backward(a16, p16)
+        ins, out = eq.split("->")
+        sa, sp = ins.split(",")
+        ctx.eqs = (f"{out},{sp}->{sa}", f"{out},{sa}->{sp}")
+        ctx.mesh, ctx.a_dtype = mesh, a.dtype
+        return torch.einsum(eq, a16, p16)
+
+    @staticmethod
+    def backward(ctx, grad):
+        a16, p16 = ctx.saved_tensors
+        eq_a, eq_pool = ctx.eqs
+        g_a = torch.einsum(eq_a, grad, p16).to(ctx.a_dtype)
+        g_pool = torch.einsum(eq_pool, grad.float(), a16.float()).contiguous()
+        g_pool = ctx.mesh.all_reduce(g_pool, "pool_gather_grad")
+        return g_a, g_pool.to(_BF16).float(), None, None
+
+
+def _neg_product(a, pool, eq, mesh, plain):
+    """The bf16 logit product of ``a`` against the negative pool: ``plain()``
+    in one process (and in a group of one rank), ``_PoolProduct`` over W > 1
+    ranks."""
+    if mesh is None or mesh.world == 1:
+        return plain()
+    return _PoolProduct.apply(a, pool, eq, mesh)
 
 
 def multi_horizon_nce(
@@ -104,7 +150,9 @@ def _per_offset_nce(heads_norm, tgt_norm, neg_embs_norm, base_mask, head_for_pre
     P = base_mask.shape[1]
     scale = clamp_logit_scale(logit_scale).float()
     neg_T = neg_embs_norm.to(_BF16).t()
-    raw_neg = {h: _bf16_product(heads_norm[:, h], neg_T) for h in sorted(set(head_for_pred))}
+    raw_neg = {h: _neg_product(heads_norm[:, h], neg_embs_norm, "bld,md->blm", mesh,
+                               lambda h=h: _bf16_product(heads_norm[:, h], neg_T))
+               for h in sorted(set(head_for_pred))}
     # false-negative table for all offsets at once: tgt[l+1 .. L+P-1] · negᵀ
     tgt_neg = _bf16_product(tgt_norm[:, 1:], neg_T)          # [B, L+P-1, M]
     mask_full = base_mask if extra_mask is None else (base_mask & extra_mask)
@@ -160,7 +208,8 @@ def _banded_nce(heads_norm, tgt_norm, neg_embs_norm, base_mask, head_for_pred,
     distinct = sorted(set(head_for_pred))
     Hd = len(distinct)
     outs = heads_norm[:, distinct]                            # [B, Hd, L, D]
-    raw_all = _bf16_product(outs, neg_T)                      # [B, Hd, L, M]
+    raw_all = _neg_product(outs, neg_embs_norm, "bhld,md->bhlm", mesh,
+                           lambda: _bf16_product(outs, neg_T))  # [B, Hd, L, M]
     scaled = raw_all.float() * scale
     shift = scaled.max(dim=-1).values.detach() - headroom     # [B, Hd, L]
     s = torch.exp(scaled - shift[..., None]).to(_BF16)
@@ -242,9 +291,12 @@ def multi_horizon_nce_stacked(
     # copied once per category (or per batch row)
     negs = neg_stack.to(_BF16)                                # [C|1, M, D]
     if shared_negs:
-        raw = torch.einsum("cbld,md->cblm", outs.to(_BF16), negs[0])
+        raw = _neg_product(outs, neg_stack[0], "cbld,md->cblm", mesh,
+                           lambda: torch.einsum("cbld,md->cblm", outs.to(_BF16), negs[0]))
     else:
-        raw = torch.einsum("cbld,cmd->cblm", outs.to(_BF16), negs)  # [C, B, L, M]
+        raw = _neg_product(outs, neg_stack, "cbld,cmd->cblm", mesh,
+                           lambda: torch.einsum("cbld,cmd->cblm", outs.to(_BF16),
+                                                negs))        # [C, B, L, M]
     with torch.no_grad():  # no gradient flows through a mask
         if shared_negs:
             tgt_neg = torch.einsum("bjd,md->bjm", tgtJ.to(_BF16), negs[0])

@@ -3,5 +3,6 @@ from mhrec_tpu_torch.parallel.mesh import (  # noqa: F401
     RowShard,
     init_distributed,
     make_mesh,
+    shard_identical,
     zero_owners,
 )

@@ -13,7 +13,8 @@ fast paths); inside a group every call is a collective, also at world size
   form) and ``all_gather_rows``, the differentiable all-gather of the reference's
   ``basemodel.py:11-22``: rank order along dim 0 forward, and backward each
   rank gets the gradient of its own block summed over the ranks (an
-  ``all_reduce`` of the whole gathered gradient, then the rank's slice);
+  ``all_reduce`` of the whole gathered gradient, then the rank's slice), or,
+  where the caller has summed that gradient itself, its own slice;
 * ``SharedArray`` — POSIX shared-memory numpy arrays for sibling processes
   of one machine (reference ``SharedList``, shareables.py:94-173).
 
@@ -26,7 +27,12 @@ here is an all-reduce and the rank's slice.
 
 ``traffic`` counts the bytes of every tensor collective by the ``tag`` its
 caller gives: an all-reduce's and a broadcast's tensor, an all-gather's
-gathered result (what each rank holds after the call).
+gathered result (what each rank holds after the call). The tags in use:
+``grad_all_reduce`` and ``zero_broadcast`` (the dense gradients and ZeRO-2's
+parameters), ``pool_gather`` and ``pool_gather_grad`` (the negative pool and
+its gradient), ``loss_counts`` and ``step_scalars``, ``dedup_gather``,
+``table_lookup``, ``table_gather`` and ``checksum`` (the row-sharded table),
+``corpus_gather`` (HLLM's corpus pass) and ``metric_reduce``.
 """
 
 from __future__ import annotations
@@ -114,22 +120,27 @@ def all_gather(t: torch.Tensor, tag: str = "all_gather") -> List[torch.Tensor]:
 
 class _AllGatherRows(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, tag):
-        ctx.n, ctx.tag = x.shape[0], tag
+    def forward(ctx, x, tag, reduce_grad):
+        ctx.n, ctx.tag, ctx.reduce_grad = x.shape[0], tag, reduce_grad
         return torch.cat(all_gather(x, tag), dim=0)
 
     @staticmethod
     def backward(ctx, grad):
-        grad = all_reduce(grad.contiguous().clone(), f"{ctx.tag}_grad")
+        if ctx.reduce_grad:
+            grad = all_reduce(grad.contiguous().clone(), f"{ctx.tag}_grad")
         r = process_index()
-        return grad[r * ctx.n:(r + 1) * ctx.n], None
+        return grad[r * ctx.n:(r + 1) * ctx.n], None, None
 
 
-def all_gather_rows(x: torch.Tensor, tag: str = "all_gather_rows") -> torch.Tensor:
+def all_gather_rows(x: torch.Tensor, tag: str = "all_gather_rows",
+                    reduce_grad: bool = True) -> torch.Tensor:
     """Every rank's ``x`` concatenated along dim 0 in rank order,
     differentiably: the gradient of a rank's block is summed over the ranks
-    and handed back to that rank (counted as ``{tag}_grad``)."""
-    return _AllGatherRows.apply(x, tag)
+    and handed back to that rank (counted as ``{tag}_grad``). With
+    ``reduce_grad`` false the rank takes its block of its own gradient: the
+    caller's operations have summed it over the ranks already (the loss's
+    products against the negative pool, ``models/losses.py``)."""
+    return _AllGatherRows.apply(x, tag, reduce_grad)
 
 
 class SharedArray:

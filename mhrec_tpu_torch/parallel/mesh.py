@@ -10,17 +10,21 @@ batch and calls the collectives itself (``parallel/comm.py``):
   ``jax.distributed.initialize``): NCCL for a CUDA device, gloo for the
   CPU, device ``cuda:{local_rank % device_count}``;
 * ``make_mesh`` gives this process's rank and the world size
-  (``DataMesh``); tensor parallelism (``tp_size > 1``) is not ported;
+  (``DataMesh``), which also carries the collectives a model calls (the
+  pool gather, the loss counts' sum); tensor parallelism (``tp_size > 1``)
+  is not ported;
+* ``shard_identical`` is this rank's slice of dim 0 of data that every
+  rank holds alike (a corpus chunk each rank built for itself);
 * ``zero_owners`` is the counterpart of ``zero_sharded_opt_state``: it
   assigns each dense parameter's optimizer state to one rank
   (``trainer/optim.py::ZeroShardedOptimizer``);
 * ``RowShard`` is the row-sharded item table (``shard_item_embedding``, JAX
   ``hstu.py:249-252``): rank r owns rows [r·R, (r+1)·R), R = ⌈n / W⌉.
 
-``shard_batch``, ``local_shard``, ``put_replicated`` and
-``shard_identical`` have no counterpart: each rank holds its own rows of a
-batch (the batchers' ``host_id`` / ``num_hosts`` stride), and a tensor the
-ranks hold alike is simply held by each.
+``shard_batch``, ``local_shard`` and ``put_replicated`` have no
+counterpart: each rank holds its own rows of a batch (the batchers'
+``host_id`` / ``num_hosts`` stride), and a tensor the ranks hold alike is
+simply held by each.
 """
 
 from __future__ import annotations
@@ -75,10 +79,23 @@ def init_distributed(coordinator_address: Optional[str] = None,
 @dataclass(frozen=True)
 class DataMesh:
     """This process's place in the data-parallel group: ``rank`` of
-    ``world`` ranks, each holding ``1/world`` of every global batch."""
+    ``world`` ranks, each holding ``1/world`` of every global batch. A
+    model's collectives go through it (``comm``'s), so that a caller may
+    hand the model another group of the same interface."""
 
     rank: int
     world: int
+
+    def all_gather_rows(self, x: torch.Tensor, tag: str) -> torch.Tensor:
+        """Every rank's ``x`` along dim 0 in rank order; backward, this
+        rank's block of its own gradient (``comm.all_gather_rows`` without
+        its all-reduce): the loss's products against the gathered pool sum
+        that gradient over the ranks (``models/losses.py``)."""
+        return comm.all_gather_rows(x, tag, reduce_grad=False)
+
+    def all_reduce(self, t: torch.Tensor, tag: str) -> torch.Tensor:
+        """``t`` summed over the ranks, in place (``comm.all_reduce``)."""
+        return comm.all_reduce(t, tag)
 
 
 def make_mesh(tp_size: int = 1) -> DataMesh:
@@ -86,9 +103,22 @@ def make_mesh(tp_size: int = 1) -> DataMesh:
     process group)."""
     if tp_size > 1:
         raise NotImplementedError(
-            "tp_size > 1 (tensor-parallel towers) is not ported yet: it comes with the "
-            "multi-process HLLM slice (the corpus split, shard_identical, FSDP)")
+            "tp_size > 1 (tensor-parallel towers) is not ported yet: tensor parallelism is "
+            "ROADMAP.md Queue 1 item 6, after FSDP")
     return DataMesh(comm.process_index(), comm.process_count())
+
+
+def shard_identical(x, mesh: Optional[DataMesh]):
+    """This rank's contiguous slice of dim 0 of ``x`` (a numpy array or a
+    tensor) that every rank holds alike: rows [r·B/W, (r+1)·B/W) (JAX
+    ``shard_identical``, mesh.py:91-103); ``x`` itself without a group.
+    B must divide by W."""
+    if mesh is None or mesh.world == 1:
+        return x
+    B = x.shape[0]
+    assert B % mesh.world == 0, (B, mesh.world)
+    n = B // mesh.world
+    return x[mesh.rank * n:(mesh.rank + 1) * n]
 
 
 def zero_owners(sizes: Sequence[int], world: int) -> List[int]:

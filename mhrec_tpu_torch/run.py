@@ -9,17 +9,25 @@ checkpoint; ``--val_only True`` only evaluates (reference run.py:136-143).
 It runs on the CUDA card unless ``--device`` names another device
 (``--device cpu``).
 
-Data parallelism over W processes (HSTU): ``--multihost`` joins a
-``torch.distributed`` group, one process per rank, NCCL on the card (card
+Data parallelism over W processes (HSTU and HLLM): ``--multihost`` joins
+a ``torch.distributed`` group, one process per rank, NCCL on the card (card
 ``local_rank % device_count``) and gloo with ``--device cpu``::
 
     python -m mhrec_tpu_torch.run --multihost --coordinator_address 127.0.0.1:29500 \
-        --num_processes 2 --process_id 0 --config_file ... -- --device cpu ...
+        --num_processes 2 --process_id 0 \
+        --config_file overall/LLM.yaml HLLM/HLLM.yaml -- --device cpu ...
 
 (one command per rank), or under ``torchrun --nproc_per_node W -m
 mhrec_tpu_torch.run --multihost ...``, which sets the address, the world
 size and the ranks. ``train_batch_size`` and ``eval_batch_size`` are
-global and must divide by W; each rank builds its share of every batch.
+global and must divide by W; each rank builds its share of every batch
+(for HLLM the texts of its rows' items, and its share of every corpus
+batch). HLLM refuses ``dedup_items``, a packed item tower without
+``pack_chunk`` and ``packed_corpus_pass`` over several ranks, as the JAX
+package does. With ``result_json_path`` every rank writes
+``{result_json_path}.{rank}.json``: the metrics, each read loss, the
+parameter checksum, the kernels' launches and the bytes of each
+collective.
 """
 
 from __future__ import annotations
@@ -173,7 +181,8 @@ def main(argv=None):
     parser.add_argument("--device", default=None,
                         help="device to run on (default: the CUDA card)")
     parser.add_argument("--multihost", action="store_true",
-                        help="run as one rank of a torch.distributed process group")
+                        help="run as one rank of a torch.distributed process group "
+                             "(data parallelism of HSTU or HLLM)")
     parser.add_argument("--coordinator_address", default=None,
                         help="host:port of the group's store (default: torchrun's "
                              "MASTER_ADDR:MASTER_PORT)")

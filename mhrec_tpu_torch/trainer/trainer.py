@@ -51,11 +51,12 @@
   stochastic rounding (``item_table_stochastic_round``, default on) from a
   noise stream of its own.
 
-* data parallelism (HSTU) in a ``torch.distributed`` process group of W
-  ranks (``parallel/``), computing what the JAX package computes as one
-  SPMD program over the composed global batch: each rank steps on its rows
-  of the global batch (``train_batch_size`` is global), the negative pool
-  is all-gathered in rank order, every loss mean divides by global counts,
+* data parallelism (HSTU and HLLM) in a ``torch.distributed`` process
+  group of W ranks (``parallel/``), computing what the JAX package computes
+  as one SPMD program over the composed global batch: each rank steps on
+  its rows of the global batch (``train_batch_size`` is global), the
+  negative pool is all-gathered in rank order (for HLLM each rank encodes
+  its own rows' items first), every loss mean divides by global counts,
   the dense gradients are SUM-all-reduced before the clip, the NaN guard
   reads the all-reduced loss, and the optimizer state is sharded ZeRO-2
   style (``shard_optimizer_state``, default on). Under ``sparse_item_adam``
@@ -64,8 +65,10 @@
   > 1); ``shard_item_embedding`` keeps only a block of the table's rows on
   each rank (``parallel/mesh.py::RowShard``). Evaluation strides the users
   over the ranks and SUM-reduces every metric sum in one collective; only
-  rank 0 writes checkpoints, dumps and eval chunks. Inside a group every
-  collective runs at W = 1 too.
+  rank 0 writes checkpoints, dumps and eval chunks. HLLM's corpus pass
+  splits each corpus batch over the ranks (``shard_identical``) and
+  all-gathers the embeddings in rank order. Inside a group every collective
+  runs at W = 1 too.
 """
 
 from __future__ import annotations
@@ -87,7 +90,7 @@ from mhrec_tpu_torch.models.factory import build_model
 from mhrec_tpu_torch.models.hllm.hllm import batch_image_extra
 from mhrec_tpu_torch.models.layers import ItemEmbed, cosine_normalize
 from mhrec_tpu_torch.ops import row_adam_cuda
-from mhrec_tpu_torch.parallel import RowShard, comm, make_mesh
+from mhrec_tpu_torch.parallel import RowShard, comm, make_mesh, shard_identical
 from mhrec_tpu_torch.trainer import checkpoint as ckpt_io
 from mhrec_tpu_torch.trainer.lr_schedule import build_schedule
 from mhrec_tpu_torch.trainer.optim import (
@@ -157,10 +160,11 @@ class Trainer:
         self.mesh = make_mesh() if comm.initialized() else None
         self.rank, self.world = (self.mesh.rank, self.mesh.world) if self.mesh else (0, 1)
         if self.mesh is not None:
-            if self.world > 1 and str(config["model"]) != "HSTU":
+            if self.world > 1 and str(config["model"]) not in ("HSTU", "HLLM"):
                 raise NotImplementedError(
-                    f"multi-process training of {config['model']} is not ported yet "
-                    "(HSTU is; the HLLM slice comes next)")
+                    f"multi-process training of {config['model']} is not ported yet: the "
+                    "baselines' collectives are ROADMAP.md Queue 1 item 2 (HSTU and HLLM "
+                    "train over several processes)")
             if hasattr(self.model, "mesh"):
                 self.model.mesh = self.mesh
         self.collector = Collector(config)
@@ -418,20 +422,7 @@ class Trainer:
         acc = [p.grad for p in self.dense_params] if slot else None
         for p in self.dense_params:
             p.grad = None
-        if self.sparse_item_adam:
-            ids = dev.pop("unique_ids")
-            if self.rank:
-                self._local_block_indices(dev, ids.shape[0])
-            emb = self.item_table()
-            # float32 rows whatever the table stores: the step's math is that
-            # of a float32 table; a sharded table's rows come from their owners
-            rows = emb(ids.clamp(min=0)) if emb.shard is not None else \
-                emb.weight.detach()[ids.clamp(min=0)]
-            sub0 = rows.float().requires_grad_(True)
-            out = self.model(dev, sub=sub0, generator=gen)
-        else:
-            out = self.model(dev, generator=gen)
-        out["loss"].backward()
+        out, ids, g_sub = self._forward_backward(dev, gen)
         if self.mesh is not None:
             out = self._global_outputs(out)
         loss = out["loss"]
@@ -457,7 +448,7 @@ class Trainer:
             for p, a in zip(self.dense_params, acc):
                 p.grad = a
         if self.sparse_item_adam:
-            g_sub = sub0.grad.masked_fill_(bad, 0.0)
+            g_sub = g_sub.masked_fill_(bad, 0.0)
             if self.world > 1:
                 # the global block: every rank's ids and rows, in rank order
                 ids = torch.cat(comm.all_gather(ids, "dedup_gather"))
@@ -510,15 +501,39 @@ class Trainer:
         self.step += 1
         return out
 
+    def _forward_backward(self, dev, gen):
+        """The micro-step's forward and backward on this rank's rows (the
+        device batch ``dev``, ``gen`` its draws): leaves the dense
+        parameters' gradients in ``.grad`` and returns the model's outputs
+        and, under ``sparse_item_adam``, the step's unique ids and the
+        gradient of their float32 rows (else None, None)."""
+        if not self.sparse_item_adam:
+            out = self.model(dev, generator=gen)
+            out["loss"].backward()
+            return out, None, None
+        ids = dev.pop("unique_ids")
+        if self.rank:
+            self._local_block_indices(dev, ids.shape[0], self.rank)
+        emb = self.item_table()
+        # float32 rows whatever the table stores: the step's math is that
+        # of a float32 table; a sharded table's rows come from their owners
+        rows = emb(ids.clamp(min=0)) if emb.shard is not None else \
+            emb.weight.detach()[ids.clamp(min=0)]
+        sub0 = rows.float().requires_grad_(True)
+        out = self.model(dev, sub=sub0, generator=gen)
+        out["loss"].backward()
+        return out, ids, sub0.grad
+
     # the batch keys that index the unique-id block under sparse_item_adam
     _BLOCK_KEYS = ("items", "neg_items", "pos_neg_items")
 
-    def _local_block_indices(self, dev, cap: int):
-        """Indices into the global block (this rank's shifted by rank ·
-        ``cap``, the batcher's multi-host layout) → indices into this
+    @classmethod
+    def _local_block_indices(cls, dev, cap: int, rank: int):
+        """Indices into the global block (rank ``rank``'s shifted by rank ·
+        ``cap``, the batcher's multi-host layout) → indices into that
         rank's own block; 0, the pad item, stays 0."""
-        off = self.rank * cap
-        for key in self._BLOCK_KEYS:
+        off = rank * cap
+        for key in cls._BLOCK_KEYS:
             if key in dev:
                 v = dev[key]
                 dev[key] = torch.where(v > 0, v - off, v)
@@ -765,14 +780,31 @@ class Trainer:
         RAW embedding table [item_num, D] float32 (``evaluate`` normalizes a
         copy for scoring, as the reference's predict does). ``return_host``:
         a text model's table is gathered in host memory, batch by batch, and
-        never held whole on the card."""
+        never held whole on the card.
+
+        Over W > 1 ranks (JAX trainer.py:966-1054) the batch size is rounded
+        up to a multiple of W, each rank encodes rows [r·bs/W, (r+1)·bs/W) of
+        every corpus batch (``shard_identical``) and the ranks all-gather
+        the embeddings in rank order (counted as ``corpus_gather``), so
+        every rank holds the whole table; ``packed_corpus_pass`` raises
+        there, as in JAX."""
         if not getattr(self.model, "needs_item_corpus_pass", False):
             return self.model.compute_item_all()
         if self.model.freeze_item_llm:
             return self.model.all_item_embeds
+        mesh = self.mesh if self.world > 1 else None
         if self._corpus_batcher is None:
+            bs = None
+            if mesh is not None:
+                if self.config.get("packed_corpus_pass", False):
+                    raise ValueError(
+                        "packed_corpus_pass is single-process only; the "
+                        "dense corpus pass shards rows across hosts"
+                    )
+                base = self.config["MAX_ITEM_LIST_LENGTH"] * self.config["train_batch_size"]
+                bs = -(-base // self.world) * self.world
             # kept across evaluations: its cache holds every item's tokens
-            self._corpus_batcher = BatchTextBatcher(self.config, self.dataload)
+            self._corpus_batcher = BatchTextBatcher(self.config, self.dataload, batch_size=bs)
 
         def put(x, dtype=torch.long):
             return torch.as_tensor(np.asarray(x), dtype=dtype).to(self.device, non_blocking=True)
@@ -786,10 +818,15 @@ class Trainer:
                     put(cb["packed_tokens"]), put(cb["packed_segment_ids"], torch.int32),
                     put(cb["packed_positions"]), put(cb["emb_slots"]))
             else:
-                img = self._image_device_arrays(cb, "")
+                # every rank built the same batch; each encodes its rows
+                rows = {k: shard_identical(v, mesh) for k, v in cb.items()
+                        if k not in ("item_ids", "n_real")}
+                img = self._image_device_arrays(rows, "")
                 emb = self.model.compute_item_chunk(
-                    put(cb["tokens"]), put(cb["lens"]), img.get("pixel_patches"),
+                    put(rows["tokens"]), put(rows["lens"]), img.get("pixel_patches"),
                     batch_image_extra(img, ""))
+                if mesh is not None:
+                    emb = torch.cat(comm.all_gather(emb, "corpus_gather"))
             emb = emb[: cb["n_real"]]
             chunks.append(emb.cpu() if return_host else emb)
         return torch.cat(chunks)

@@ -1525,3 +1525,92 @@ def test_nccl_world1_group_equals_the_ungrouped_run(card, shard_table):
         assert torch.equal(state[k], v), k
     assert torch.equal(t.table_m, ref.table_m) and torch.equal(t.table_v, ref.table_v)
     assert result == ref_result
+
+
+# -- data parallelism of HLLM: two gloo ranks on the one card ------------------
+HLLM_DP_CONFIG = dict(
+    dataset="synthetic", seed=0, precision="32", random_init_towers=True,
+    dummy_vocab_size=1024, dummy_hidden_size=64, MAX_ITEM_LIST_LENGTH=6, MAX_TEXT_LENGTH=16,
+    train_batch_size=8, eval_batch_size=16, num_negatives=32, loss="prior", eval_num_cats=4,
+    num_prior_head=4, num_segment_head=2, head_interaction="hierarchical",
+    medusa_num_layers=1, segment_embed=True, neg_sample_by_cat=True, pred_len=4,
+    eval_pred_len=4, topk=[5, 10], suppress_history=False, token_cache_dir=False,
+    int_to_category={c: f"cat_{c}" for c in range(4)})
+HLLM_DP_DATA = dict(num_users=64, num_items=200, seq_len=2 * 6 + 8, num_categories=4,
+                    eval_pred_len=4, max_item_list_length=6, seed=0, item_texts=True)
+
+
+def test_hllm_corpus_gather_and_pool_order_on_the_card(card, tmp_path):
+    """Two gloo ranks on the one card (``tests/torch_parallel_worker.py
+    hllm``; NCCL refuses two ranks on one device), a tiny float32 HLLM with
+    the packed item tower (#8a on the card) and negatives per category: the
+    corpus table the ranks gather from their halves of every corpus batch
+    equals one process's table on the card (on the card and gathered in
+    host memory), and each rank's gathered negative pool is the two ranks'
+    negatives in rank order, equal to one process's pool over the composed
+    batch (the dense tower: the same embeddings up to float32 sums)."""
+    import json
+    import socket
+    import subprocess
+    import sys
+
+    import numpy as np
+
+    from mhrec_tpu_torch.config import Config
+    from mhrec_tpu_torch.data.synthetic import InMemoryInteractionData
+    from mhrec_tpu_torch.data.textset import TextSEQTrainBatcher
+    from mhrec_tpu_torch.trainer import Trainer
+
+    over = dict(HLLM_DP_CONFIG, data_path=str(tmp_path), checkpoint_dir=str(tmp_path / "ck"))
+    with open(tmp_path / "hllm_spec.json", "w") as fh:
+        json.dump({"config": dict(over, packed_item_tower=True, pack_chunk=256),
+                   "synthetic_data": HLLM_DP_DATA, "device": str(card), "seed": 3}, fh)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root)
+    procs = [subprocess.Popen([sys.executable, os.path.join(root, "tests",
+                                                            "torch_parallel_worker.py"),
+                               "hllm", str(r), "2", str(port), str(tmp_path)], cwd=root,
+                              env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    assert all(p.returncode == 0 for p in procs), logs[0][-3000:] + logs[1][-3000:]
+    ranks = [torch.load(tmp_path / f"hllm.{r}.pt") for r in range(2)]
+
+    cfg = Config(config_file_list=["overall/LLM.yaml", "HLLM/HLLM.yaml"],
+                 config_dict=over).finalize()
+    data = InMemoryInteractionData(**HLLM_DP_DATA)
+    one = Trainer(cfg, data, device=card)
+    one.setup_model(seed=3)
+    table = one.compute_item_feature().cpu()
+    parts = [next(TextSEQTrainBatcher(cfg, data, host_id=h, num_hosts=2).epoch_batches(0))
+             for h in range(2)]
+    composed = {k: np.concatenate([b[k] for b in parts]) for k in parts[0]}
+    pools = []
+
+    class Recorder:
+        rank, world = 0, 1
+
+        def all_gather_rows(self, x, tag):
+            pools.append(x.detach().cpu())
+            return x
+
+        def all_reduce(self, t, tag):
+            return t
+
+    one.model.mesh = Recorder()
+    with torch.no_grad():
+        one.model(one._train_device_batch(composed), generator=one.step_generator(0))
+    for r in ranks:
+        assert r["corpus_batch"] % 2 == 0 and r["traffic"]["corpus_gather"] > 0
+        torch.testing.assert_close(r["table"], table, atol=1e-5, rtol=0)
+        assert torch.equal(r["host_table"], r["table"])
+        assert len(r["pools"]) == len(pools) == 4
+        for got, want in zip(r["pools"], pools):
+            torch.testing.assert_close(got, want, atol=1e-4, rtol=0)

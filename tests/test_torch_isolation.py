@@ -476,13 +476,17 @@ import chip_smoke
 torch.set_num_threads(2)
 data_kw = dict(num_users=300, num_items=1000, seq_len=2 * 6 + 16, num_categories=8,
                eval_pred_len=8, max_item_list_length=6, seed=0)
-# chip_smoke.py's distributed phase, cut to a few widths and 4 steps, over
-# gloo on the CPU
+# chip_smoke.py's distributed phase, cut to a few widths and 4 steps (HLLM:
+# 64-wide towers, chunk rows of 128 tokens, over 128 users and 384 items, 3
+# steps), over gloo on the CPU
 chip_smoke.distributed_phase(
     tempfile.mkdtemp(), "cpu", device="cpu", data_kw=data_kw, n_layers=2, n_heads=2,
     item_embedding_size=128, hstu_embedding_size=128, eval_batch_size=32,
     eval_item_chunk_size=700, MAX_ITEM_LIST_LENGTH=6, num_negatives=64, total_iters=4,
-    eval_interval=4)
+    eval_interval=4, hllm_over=dict(MAX_TEXT_LENGTH=24, eval_batch_size=64, pack_chunk=128),
+    hllm_tower=dict(vocab_size=1024, hidden_size=64, intermediate_size=128,
+                    num_attention_heads=4, num_key_value_heads=2),
+    hllm_data=dict(chip_smoke.DIST_HLLM_DATA, num_users=128, num_items=384))
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in {"jax", "jaxlib", "flax", "optax", "mhrec_tpu"})
 print("BAD", bad)
@@ -493,12 +497,13 @@ def test_distributed_phase_runs_without_what_the_card_lacks():
     """chip_smoke.py's distributed phase, cut to a few widths and 4 steps,
     on the CPU (gloo for every group) in a fresh interpreter where PyYAML,
     pandas and pyarrow cannot be imported: the one-rank group's CLI run
-    equals the ungrouped one bit for bit, both two-rank runs (the table
-    replicated and sharded) finish with the two ranks in one state and
-    within the oracle's loss and checksum tolerances, the sharded table
-    holds half the rows a rank, and nothing of JAX is loaded (the card's
-    launch counts, and the ranking metrics of a 1,000-item catalog, where
-    rank 200 is a fifth of it, are not held here)."""
+    equals the ungrouped one bit for bit; the three two-rank runs (HSTU
+    with the table replicated and sharded, HLLM with the packed tower)
+    finish with the two ranks in one state and hold every check against
+    the rank-order oracle (loss, checksum, metrics, the checkpoint served
+    by one process, ZeRO-2), whose parameters equal theirs; the sharded
+    table holds half the rows a rank; and nothing of JAX is loaded (the
+    card's launch counts are not held here)."""
     env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="2")
     proc = subprocess.run([sys.executable, "-c", _DISTRIBUTED], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
@@ -509,11 +514,14 @@ def test_distributed_phase_runs_without_what_the_card_lacks():
     w1 = rec["world1_nccl_cli"]
     assert w1["ok"] and w1["losses_bit_equal"] and w1["checksum_bit_equal"], w1
     assert w1["metrics_bit_equal"]
-    for name in ("gloo_replicated", "gloo_sharded"):
+    for name in ("gloo_replicated", "gloo_sharded", "gloo_hllm"):
         g = rec[name]
         assert g["between_ranks_rel_diff"] <= 1e-6, g
         assert g["final_loss_rel_diff"] <= 2e-4 and g["checksum_rel_diff"] <= 1e-5, g
         assert g["collective_bytes_per_step"]["pool_gather"] > 0, g
+        assert all(ok for check, ok in g["checks"].items() if check != "launches"), g
+        assert g["params_max_abs_diff_vs_oracle"] <= 1e-6 and g["oracle_pool_probe_exact"], g
+    assert rec["gloo_hllm"]["collective_bytes_per_step"]["corpus_gather"] > 0
     assert rec["sharded_table_bytes_halved"]
     assert rec["gloo_sharded"]["table_rows"] == [500, 500]
 

@@ -4,6 +4,9 @@ each produced to ``{out}/{case}.{rank}.pt`` for the test to hold against
 single-process references. Imports nothing of JAX.
 
     python tests/torch_parallel_worker.py RANK WORLD PORT OUT
+
+``hllm RANK WORLD PORT OUT`` runs the HLLM cases of
+``tests/test_torch_multiprocess_hllm.py`` instead (``run_hllm``).
 """
 
 import copy
@@ -212,6 +215,61 @@ def step_trainer(shard_table=False, device="cpu", **over):
     return t
 
 
+def run_hllm(rank, world, port, out):
+    """The HLLM cases, on the spec of ``{out}/hllm_spec.json``: ``config``
+    (the overrides), ``device`` (default the CPU; a card with gloo), the
+    in-memory catalog's arguments ``synthetic_data`` (else the config's
+    parquet files) and the initialisation ``seed``, and the parameters of
+    ``{out}/hllm_init.pt`` where it exists. Saves the negative pool of one
+    forward on this rank's first train batch (every gather's output, as
+    the model's mesh hands it back) and the corpus table computed on the
+    device and gathered in host memory."""
+    import json
+
+    from mhrec_tpu_torch.config import Config
+    from mhrec_tpu_torch.data import InteractionData
+    from mhrec_tpu_torch.data.synthetic import InMemoryInteractionData
+    from mhrec_tpu_torch.data.textset import TextSEQTrainBatcher
+    from mhrec_tpu_torch.parallel.mesh import DataMesh
+    from mhrec_tpu_torch.trainer import Trainer
+
+    with open(os.path.join(out, "hllm_spec.json")) as fh:
+        spec = json.load(fh)
+    dev = init_distributed(f"127.0.0.1:{port}", world, rank, backend="gloo",
+                           device=spec.get("device", "cpu"))
+    cfg = Config(config_file_list=["overall/LLM.yaml", "HLLM/HLLM.yaml"],
+                 config_dict=spec["config"]).finalize()
+    data = (InMemoryInteractionData(**spec["synthetic_data"]) if "synthetic_data" in spec
+            else InteractionData(cfg).build())
+    t = Trainer(cfg, data, device=dev)
+    t.setup_model(seed=spec.get("seed"))
+    init = os.path.join(out, "hllm_init.pt")
+    if os.path.exists(init):
+        t.model.load_state_dict(torch.load(init))
+    pools = []
+
+    class Recorded(DataMesh):
+        def all_gather_rows(self, x, tag):
+            pools.append(super().all_gather_rows(x, tag).detach().clone())
+            return pools[-1]
+
+    t.model.mesh = Recorded(rank, world)
+    batch = next(TextSEQTrainBatcher(cfg, data, host_id=rank, num_hosts=world)
+                 .epoch_batches(0))
+    with torch.no_grad():
+        t.model(t._train_device_batch(batch), generator=t.step_generator(0))
+    table = t.compute_item_feature()
+    host = t.compute_item_feature(return_host=True)
+    torch.save({"pools": [p.cpu() for p in pools], "table": table.cpu(), "host_table": host,
+                "corpus_batch": t._corpus_batcher.batch_size,
+                "traffic": dict(comm.traffic)}, os.path.join(out, f"hllm.{rank}.pt"))
+    comm.sync_hosts("done")
+
+
 if __name__ == "__main__":
-    rank_, world_, port_, out_ = sys.argv[1:5]
-    run(int(rank_), int(world_), int(port_), out_)
+    if sys.argv[1] == "hllm":
+        rank_, world_, port_, out_ = sys.argv[2:6]
+        run_hllm(int(rank_), int(world_), int(port_), out_)
+    else:
+        rank_, world_, port_, out_ = sys.argv[1:5]
+        run(int(rank_), int(world_), int(port_), out_)
