@@ -46,13 +46,13 @@ from seed 0:
 
 and the HLLM serving path (``run.serve`` with ``model: HLLM``) as
 ``reproduce/HLLM-EBNerd-prior.sh`` sets it up: TinyLlama-1.1B item and user
-towers (22 layers, 2048 wide, 32 heads over 4 KV heads, SwiGLU 5632, vocab
-32000; the ``config.json`` of ``tools/dryrun_hllm_1b.py`` written to a
-temporary directory, random weights from seed 0), hierarchical prior heads
+towers (2048 wide, 32 heads over 4 KV heads, SwiGLU 5632, vocab 32000; the
+``config.json`` of ``tools/dryrun_hllm_1b.py`` cut from 22 to HLLM_LAYERS
+(11) layers, written to a temporary directory, random weights from seed 0), hierarchical prior heads
 (11 categories × 2 segment heads, one medusa layer, segment embeddings),
 ``pred_len`` 4, ``eval_pred_len`` 8, windows of 24 items, texts of up to 256
 tokens, the packed item tower and the packed corpus pass, over HLLM_USERS
-(1024) users and a catalog of HLLM_ITEMS (4,096) in-memory texts
+(512) users and a catalog of HLLM_ITEMS (4,096) in-memory texts
 (``train_batch_size`` 128, so a corpus batch holds 3,072 items and the pass
 runs 2 of them, each launching
 ``packed_attn_fwd`` once per layer). Its evaluation is repeated and must give
@@ -141,7 +141,8 @@ directory of its own; no kernel of the port runs on these paths (the image
 span rides the dense item tower), which their launch counts record.
 ``hllm_image`` is ``reproduce/HLLM-Pixel8M-prior.sh``'s model at full
 width: a Qwen2-VL-2B-Instruct item tower (its ``config.json``: the text
-decoder and the 32-block vision tower) and a Qwen2.5-1.5B user tower,
+decoder and the 32-block vision tower) and a Qwen2.5-1.5B user tower, both
+decoders cut to IMAGE_LLM_LAYERS (14) of their 28 layers,
 random weights from seed 0, a Qwen2-VL-layout byte-level BPE
 ``tokenizer.json`` (``write_qwen2_tokenizer``: the vision tokens at their
 ids) and 224 × 224 images (JPEGs of mixed native sizes the script writes
@@ -170,7 +171,7 @@ catalog, with ``sparse_item_adam``: ComiRec and REMI (hstu-size4's trunk,
 interests; REMI with ``lambda_rr`` 100 and ``beta_ihn`` 1) and DualVAE (a
 1024-wide item table, 5 aspects of 32) with 8,192 shared negatives, SASRec
 (512 wide, 2 layers of 4 heads) and LLMIDRec (a 512-wide item table
-projected into a TinyLlama-1.1B user tower, 22 layers, 2048 wide, random
+projected into a TinyLlama-1.1B user tower cut to 4 of its 22 layers, 2048 wide, random
 from its ``config.json``) with per-position negatives, cut to the largest
 of 1,024, 512 and 256 a position whose rows fit POSITION_NEG_BUDGET. Each
 trains BASELINE_STEPS steps at batch 64 (an evaluation with a save, the
@@ -191,9 +192,14 @@ a save, the test split from it): (a) ``python -m mhrec_tpu_torch.run
 without a group, 10 steps (bit-equal losses, checksum and metrics
 expected); (b) two ranks over gloo with both on the one card (NCCL refuses
 two ranks on one device), the item table replicated and then row-sharded,
-5 steps of a float32 trunk, each held to a single-process run over the
-composed batches of both ranks; see ``distributed_phase``. ``--distributed-only`` builds the
-kernels and runs this phase alone, without the last line.
+DIST_GLOO_STEPS steps of a float32 trunk, each held to the rank-order
+oracle (one process that sums the ranks' partial gradients in rank order);
+(c) two gloo ranks of HLLM; (d) the five baselines over two gloo ranks at
+their widths, global batch 64, each held to its rank-order oracle; (e) the
+row-sharded table at 1,000,000 items × 1024: no tensor of the whole table
+on the card in either rank, and each phase's memory against a reference
+run at 131,073 items; see ``distributed_phase``. ``--distributed-only``
+builds the kernels and runs this phase alone, without the last line.
 
 Then ``hstu_1b`` (after the baselines, before the HLLM ones) runs
 the largest HSTU of the reference's ladder, hstu-1b (``IDNet/hstu-1b.yaml``:
@@ -280,10 +286,18 @@ TRAIN_STEPS = 30
 HLLM_TRAIN_BATCH = 8
 # the HLLM serving and training phases' users and in-memory catalog
 # (4,096 and 16,384 until the distributed phase joined the script, 2,048 and
-# 8,192 until its HLLM run joined it: depth cuts)
-HLLM_USERS = 1024
+# 8,192 until its HLLM run joined it, 1,024 users until its baselines and
+# sharded-table runs joined it: depth cuts; hllm_impl_phase takes a whole
+# corpus batch of 3,072 items)
+HLLM_USERS = 512
 HLLM_ITEMS = 4096
-HLLM_TRAIN_STEPS = 4  # 10 until the distributed phase joined the script (depth cut)
+# the towers' layers in those phases: TinyLlama-1.1B's 22 until the
+# distributed phase's baselines and sharded-table runs joined the script,
+# whose scratch files moved to /dev/shm (a depth cut)
+HLLM_LAYERS = 11
+# 10 until the distributed phase joined the script, 4 until its baselines
+# and sharded-table runs joined it (depth cuts)
+HLLM_TRAIN_STEPS = 3
 # chunk rows of 2048 tokens that a train step's 992 items pack into
 HLLM_TRAIN_CHUNK_ROWS = 72
 
@@ -1983,8 +1997,9 @@ HSTU_DATA = dict(num_users=4096, num_items=200_000, seq_len=2 * 50 + 2 * 8,
 HSTU_FILES = ("IDNet/hstu-size4.yaml", "overall/ID.yaml", "IDNet/hstu.yaml")
 DIST_STEPS = 10
 # the gloo runs' steps (about 2 s each: gloo stages through the host); 5 until
-# the HLLM run joined the phase (a depth cut)
-DIST_GLOO_STEPS = 3
+# the HLLM run joined the phase, 3 until the baselines and the sharded table
+# joined it (depth cuts)
+DIST_GLOO_STEPS = 2
 DIST_RANK_BATCH = 64   # a rank's rows a step: the gloo runs' global batch is 128
 DIST_WORLD = 2
 DIST_TIMEOUT = 400     # seconds a process of the phase may take
@@ -2004,13 +2019,47 @@ DIST_STEP_TAGS = ("grad_all_reduce", "pool_gather", "pool_gather_grad", "dedup_g
 # TinyLlama-1.1B width cut to DIST_HLLM_LAYERS + DIST_HLLM_LAYERS layers,
 # its towers in float32; the global batch is HLLM_TRAIN_BATCH (4 rows a rank)
 DIST_HLLM_LAYERS = 2
-DIST_HLLM_STEPS = 3
+DIST_HLLM_STEPS = 2  # 3 until the baselines and the sharded table joined (a depth cut)
 DIST_HLLM_DATA = dict(num_users=512, num_items=2048, seq_len=2 * 24 + 2 * 8,
                       num_categories=11, eval_pred_len=8, max_item_list_length=24, seed=0,
                       item_texts=True)
 # the collectives of an HLLM step and of its evaluations' corpus passes
 DIST_HLLM_TAGS = ("grad_all_reduce", "pool_gather", "pool_gather_grad", "zero_broadcast",
                   "loss_counts", "step_scalars", "corpus_gather", "metric_reduce")
+
+
+# (d): the five baselines over two gloo ranks on the one card, each at its
+# widths (BASELINE_FILES, sparse_item_adam) over DIST_BASE_DATA, (c)'s 512
+# users and 2,048 items in the HSTU catalog's shape; global batch
+# DIST_BASE_BATCH (32 rows a rank), DIST_BASE_STEPS steps, an evaluation
+# with a save, the test split from it; SASRec and LLMIDRec with
+# DIST_BASE_POSITION_NEGATIVES a position (cut from the baselines phase's
+# 512 / 256: both ranks and the oracle share the card); LLMIDRec's
+# TinyLlama-width tower cut to DIST_BASE_LLM_LAYERS layers (its one-process
+# run at 22 layers peaks at 59.53 GiB)
+DIST_BASE_DATA = dict(HSTU_DATA, num_users=512, num_items=2048)
+DIST_BASE_BATCH = 64
+DIST_BASE_STEPS = 2
+DIST_BASE_POSITION_NEGATIVES = 128
+DIST_BASE_LLM_LAYERS = 2
+# the collectives of a baseline's step
+DIST_BASE_TAGS = ("grad_all_reduce", "pool_gather", "pool_gather_grad", "dedup_gather",
+                  "zero_broadcast", "loss_counts", "step_scalars")
+# (e): the sharded table's memory: (b)'s protocol over DIST_TABLE_USERS users
+# (two eval batches a split), 1 step, with the table row-sharded over
+# DIST_TABLE_ITEMS items (1024 wide: 4.10 GB, 12.3 GB with its two
+# moments), after the same run over DIST_TABLE_REF_ITEMS items, which
+# measures what a phase takes beside the table (activations): one eval chunk
+# of 131,072 rows and a one-row tail padded to a chunk, as at any catalog
+# that is not a whole number of chunks
+DIST_TABLE_ITEMS = 1_000_000
+DIST_TABLE_REF_ITEMS = 131_073
+DIST_TABLE_USERS = 2048
+# a phase (a step, an evaluation with its load, a save) may take beyond
+# the reference run's at most this share of the difference of the two
+# whole tables: a whole copy in both runs takes all of it, a block (half
+# the table at two ranks) half
+DIST_TABLE_COPY_SHARE = 0.75
 
 
 def hstu_overrides(**over):
@@ -2068,18 +2117,36 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def run_processes(cmds, logs, env=None):
-    """Start every command at once (stdout and stderr to its log file) and
-    wait for all, each within DIST_TIMEOUT; on a failure or a timeout the
-    others are killed. Returns the exit codes (None: killed at the limit)
-    and the logs' tails."""
+def remove_dirs(*paths):
+    """Remove each directory of ``paths`` (the scratch files of a run that
+    has ended: checkpoints take the scratch memory)."""
+    for path in paths:
+        shutil.rmtree(path, ignore_errors=True)
+
+
+def start_processes(cmds, logs, env=None):
+    """Start every command at once, stdout and stderr to its log file;
+    returns what ``wait_processes`` takes."""
     env = dict(os.environ, PYTHONPATH=ROOT, **(env or {}))
     procs = []
     try:
         for cmd, log in zip(cmds, logs):
             procs.append(subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=open(log, "w"),
                                           stderr=subprocess.STDOUT))
-        deadline = time.monotonic() + DIST_TIMEOUT
+    except BaseException:
+        for p in procs:
+            p.kill()
+        raise
+    return procs, logs, time.monotonic() + DIST_TIMEOUT
+
+
+def wait_processes(started):
+    """Wait for every process of ``start_processes``, each within
+    DIST_TIMEOUT of its start; on a failure or a timeout the others are
+    killed. Returns the exit codes (None: killed at the limit) and the
+    logs' tails."""
+    procs, logs, deadline = started
+    try:
         codes = [None] * len(procs)
         while any(c is None for c in codes) and time.monotonic() < deadline:
             codes = [p.poll() for p in procs]
@@ -2096,6 +2163,13 @@ def run_processes(cmds, logs, env=None):
         with open(log) as fh:
             tails.append(fh.read()[-3000:])
     return codes, tails
+
+
+def run_processes(cmds, logs, env=None):
+    """Start every command at once (stdout and stderr to its log file) and
+    wait for all (``wait_processes``). Returns the exit codes and the logs'
+    tails."""
+    return wait_processes(start_processes(cmds, logs, env))
 
 
 def cli_args(over):
@@ -2128,6 +2202,7 @@ def world1_cli_runs(work_dir, device, data_kw, over):
         logs.append(os.path.join(work_dir, f"{name}.log"))
         runs[name] = os.path.join(work_dir, f"{name}_result.0.json")
     codes, tails = run_processes(cmds, logs)
+    remove_dirs(*(os.path.join(work_dir, name) for name in runs))  # their checkpoints
     if codes != [0, 0]:
         return {"exit_codes": codes, "log_tails": tails, "ok": False}
     res = {}
@@ -2167,33 +2242,153 @@ def dist_rank_config(spec, out):
                                         shard_item_embedding=spec["shard"], **spec["over"]))
 
 
-def dist_rank(rank, port, out):
-    """One rank of a gloo run of (b) or (c): joins a gloo group of
-    DIST_WORLD ranks on the device of ``{out}/spec.json`` (card 0: both
-    ranks share the one card) and runs ``run.train`` on its rows of the
-    global batch, then writes what it saw to ``{out}/rank{rank}.json``."""
+def table_watch_class():
+    """``TableWatch``, made on first use so that the module imports without
+    torch."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    class TableWatch(TorchDispatchMode):
+        """Records every tensor that an operation produces with ``rows``
+        rows of one of the ``widths`` (a whole item table, raw or
+        projected), as (phase, operation, shape, device); ``phase`` is set
+        by the trainer (``phase_trainer_class``)."""
+
+        def __init__(self, rows, widths):
+            super().__init__()
+            self.rows, self.widths = rows, set(widths)
+            self.phase = "build"
+            self.hits = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for t in tree_leaves(out):
+                if (isinstance(t, torch.Tensor) and t.dim() == 2 and t.shape[0] == self.rows
+                        and t.shape[1] in self.widths):
+                    self.hits.append((self.phase, str(func), list(t.shape), t.device.type))
+            return out
+
+    return TableWatch
+
+
+def phase_trainer_class(on_card, watch=None):
+    """A ``Trainer`` whose build, initialisation, steps, evaluations, saves
+    and loads (``phase_mem``: build, init, step, eval, save, load) each
+    record the most memory they held on the card beyond what they started
+    and ended with, in bytes, the largest over the calls of a kind (a load
+    inside an evaluation counts with it), and ``peak_bytes`` the largest
+    allocation of the run; each tells ``watch`` (a TableWatch) the phase it
+    runs, the innermost."""
+    import contextlib
+
     import torch
 
-    from mhrec_tpu_torch.data.synthetic import InMemoryInteractionData
-    from mhrec_tpu_torch.parallel import comm, init_distributed
-    from mhrec_tpu_torch.run import train
-    from mhrec_tpu_torch.utils import init_logger
+    from mhrec_tpu_torch.trainer import Trainer
 
-    with open(os.path.join(out, "spec.json")) as fh:
-        spec = json.load(fh)
-    dev = init_distributed(f"127.0.0.1:{port}", DIST_WORLD, rank, backend="gloo",
-                           device=spec["device"])
+    class PhaseTrainer(Trainer):
+        def __init__(self, config, dataload, device=None, dtype=None):
+            self.phase_mem, self.peak_bytes, self._phase_name = {}, 0, None
+            with self._phase("build"):
+                super().__init__(config, dataload, device, dtype)
+
+        @contextlib.contextmanager
+        def _phase(self, name):
+            if self._phase_name is not None:
+                # a phase inside another: the watch sees it, the memory
+                # counts with the outer one
+                outer = watch.phase if watch is not None else None
+                if watch is not None:
+                    watch.phase = name
+                try:
+                    yield
+                finally:
+                    if watch is not None:
+                        watch.phase = outer
+                return
+            self._phase_name = name
+            if watch is not None:
+                watch.phase = name
+            if on_card:
+                torch.cuda.synchronize()
+                begin = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+            try:
+                yield
+            finally:
+                self._phase_name = None
+                if watch is not None:
+                    watch.phase = "between"
+            if on_card:
+                torch.cuda.synchronize()
+                peak = torch.cuda.max_memory_allocated()
+                self.peak_bytes = max(self.peak_bytes, peak)
+                extra = peak - max(begin, torch.cuda.memory_allocated())
+                self.phase_mem[name] = max(self.phase_mem.get(name, 0), extra)
+
+        def setup_model(self, seed=None):
+            with self._phase("init"):
+                return super().setup_model(seed)
+
+        def train_step(self, batch):
+            with self._phase("step"):
+                return super().train_step(batch)
+
+        def evaluate(self, eval_batcher, load_best_model=False):
+            with self._phase("eval"):
+                return super().evaluate(eval_batcher, load_best_model)
+
+        def save_checkpoint(self):
+            with self._phase("save"):
+                return super().save_checkpoint()
+
+        def load_checkpoint(self):
+            with self._phase("load"):
+                return super().load_checkpoint()
+
+    return PhaseTrainer
+
+
+def rank_train(rank, dev, config, data, phases=False, watch_table=False, test_split=True):
+    """``run.train`` of ``config`` on this rank's rows (without
+    ``test_split``: its fit alone), the launch counts and the collectives'
+    bytes counted from 0 just before; with ``phases`` through
+    ``phase_trainer_class`` (the memory of each phase), with
+    ``watch_table`` under a TableWatch of the item table's rows and widths.
+    Returns the rank's record."""
+    import contextlib
+
+    import torch
+
+    from mhrec_tpu_torch import run as run_mod
+    from mhrec_tpu_torch.parallel import comm
+
     on_card = dev.type == "cuda"
-    config = dist_rank_config(spec, out)
-    init_logger(config, process_index=rank)
-    data = InMemoryInteractionData(**spec["data"])
+    watch = None
+    if watch_table:
+        watch = table_watch_class()(int(data.item_num), {config["item_embedding_size"],
+                                                          config["hstu_embedding_size"]})
     reset_launches()
     comm.traffic.clear()
     if on_card:
         torch.cuda.reset_peak_memory_stats(dev)
         torch.cuda.synchronize(dev)
+    plain = run_mod.Trainer
+    if phases:
+        run_mod.Trainer = phase_trainer_class(on_card, watch)
     t0 = time.perf_counter()
-    trainer, stats, result = train(config, data, dev)
+    try:
+        with watch if watch is not None else contextlib.nullcontext():
+            if test_split:
+                trainer, stats, result = run_mod.train(config, data, dev)
+            else:
+                train_b, valid_b, _ = run_mod.build_dataloader(config, data, rank, DIST_WORLD)
+                trainer = run_mod.Trainer(config, data, device=dev)
+                trainer.setup_model()
+                stats = trainer.fit(train_b, valid_b)
+                result = trainer.best_valid_result
+    finally:
+        run_mod.Trainer = plain
     if on_card:
         torch.cuda.synchronize(dev)
     seconds = time.perf_counter() - t0
@@ -2204,14 +2399,72 @@ def dist_rank(rank, port, out):
            "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 2**30 if on_card else None,
            "launches": read_launches(), "collective_bytes": dict(comm.traffic),
            "optimizer_sharded": type(trainer.optimizer).__name__,
-           "dense_params": sum(p.numel() for p in trainer.dense_params)}
+           "dense_params": sum(p.numel() for p in trainer.dense_params),
+           "evaluations": stats["iters"] // trainer.eval_interval + int(test_split)}
+    if phases:
+        rec["phase_mem"], rec["peak_bytes"] = trainer.phase_mem, trainer.peak_bytes
+    if watch is not None:
+        rec["table_hits"] = watch.hits
     emb = trainer.item_table()
     if emb is not None:
         rec["table_rows"] = int(emb.weight.shape[0])
         rec["table_bytes"] = sum(t.numel() * t.element_size()
                                  for t in (emb.weight, trainer.table_m, trainer.table_v))
+        rec["whole_table_bytes"] = int(data.item_num) * emb.weight.shape[1] * 4
     if getattr(trainer, "_corpus_batcher", None) is not None:
         rec["corpus_batch"] = trainer._corpus_batcher.batch_size
+    del trainer
+    if on_card:
+        torch.cuda.empty_cache()
+    return rec
+
+
+def dist_rank(rank, port, out):
+    """One rank of a gloo run of (b), (c), (d) or (e): joins a gloo group of
+    DIST_WORLD ranks on the device of ``{out}/spec.json`` (card 0: both
+    ranks share the one card) and runs ``run.train`` on its rows of the
+    global batch: (b)'s or (c)'s config, each of (d)'s families in turn
+    (``spec["model"]`` "baselines"), or (e)'s HSTU at each of its catalogs
+    in turn ("table"); then writes what it saw to ``{out}/rank{rank}.json``."""
+    from mhrec_tpu_torch.data.synthetic import InMemoryInteractionData
+    from mhrec_tpu_torch.parallel import comm, init_distributed
+    from mhrec_tpu_torch.utils import init_logger
+
+    with open(os.path.join(out, "spec.json")) as fh:
+        spec = json.load(fh)
+    dev = init_distributed(f"127.0.0.1:{port}", DIST_WORLD, rank, backend="gloo",
+                           device=spec["device"])
+    model = spec.get("model")
+    if model == "baselines":
+        data = InMemoryInteractionData(**spec["data"])
+        rec = {"rank": rank, "families": {}}
+        for family in spec["families"]:
+            config = baseline_dist_config(family, os.path.join(out, family), spec["user_dir"],
+                                          **spec["over"])
+            init_logger(config, process_index=rank)
+            rec["families"][family] = rank_train(rank, dev, config, data)
+    elif model == "table":
+        rec = {"rank": rank, "runs": {}}
+        for items in spec["items"]:
+            data = InMemoryInteractionData(**dict(spec["data"], num_items=items))
+            n = spec["steps"][str(items)]
+            config = base_config(**dist_overrides(
+                DIST_RANK_BATCH * DIST_WORLD, os.path.join(out, f"ckpt_{items}"),
+                shard_item_embedding=True, **dict(spec["over"], total_iters=n, eval_interval=n)))
+            init_logger(config, process_index=rank)
+            rec["runs"][str(items)] = rank_train(rank, dev, config, data, phases=True,
+                                                 watch_table=True, test_split=False)
+            # the run's checkpoint (12.3 GB at 1,000,000 items), written by
+            # rank 0 once both ranks have ended the run
+            comm.sync_hosts("table run done")
+            if rank == 0:
+                remove_dirs(config["checkpoint_dir"])
+    else:
+        config = dist_rank_config(spec, out)
+        init_logger(config, process_index=rank)
+        hstu = model is None
+        rec = rank_train(rank, dev, config, InMemoryInteractionData(**spec["data"]),
+                         phases=hstu, watch_table=hstu and spec["shard"])
     with open(os.path.join(out, f"rank{rank}.json"), "w") as fh:
         json.dump(rec, fh)
     return 0
@@ -2358,6 +2611,12 @@ def rank_order_trainer_class():
             self.replicas = [copy.deepcopy(self.model) for _ in range(DIST_WORLD - 1)]
             self.probe_exact = True
 
+        def save_checkpoint(self):
+            """None: the oracle's parameters stay in memory, and its test
+            split evaluates what its last step left (its one evaluation, at
+            the last step, is where the ranks save theirs); the checkpoint
+            held is the ranks', which ``served`` loads."""
+
         def _train_device_batch(self, parts):
             return {"parts": [Trainer._train_device_batch(self, p) for p in parts]}
 
@@ -2442,13 +2701,14 @@ def one_process_trainer(config, data, device, trainer_cls=None):
 
 def rank_order_oracle(config, data, device, part=None):
     """The rank-order oracle's run of ``config`` over the hosts' batch
-    parts (``part``: their batcher class): fit with the valid evaluation
-    and save, the test split from the checkpoint, as ``run.train`` does.
-    Returns its record and the trainer."""
+    parts (``part``: their batcher class): fit with the valid evaluation,
+    then the test split of the parameters the fit left (the ranks' run
+    evaluates them from its checkpoint, saved at the same last step; the
+    oracle writes none). Returns its record and the trainer."""
     trainer, valid, test = one_process_trainer(config, data, device,
                                                rank_order_trainer_class())
     stats = trainer.fit(RankBatches(trainer.config, data, part), valid)
-    result = trainer.evaluate(test, load_best_model=True)
+    result = trainer.evaluate(test)
     rec = {"final_loss": float(stats["loss"]), "losses": trainer.fetched_losses,
            "param_checksum": trainer.param_checksum(), "result": result,
            "steady_examples_per_s": stats["steady_examples_per_s"],
@@ -2456,18 +2716,27 @@ def rank_order_oracle(config, data, device, part=None):
     return rec, trainer
 
 
+def trainer_state(trainer, host=True):
+    """Every parameter of a single-process trainer (the item table's row
+    moments included), in ``params_apart``'s order; copied to host memory
+    unless ``host`` is false."""
+    ts = list(trainer.model.state_dict().values())
+    if trainer.table_m is not None:
+        ts += [trainer.table_m, trainer.table_v]
+    return [t.detach().cpu() if host else t for t in ts]
+
+
 def params_apart(a, b):
     """The largest |difference| over every parameter (the item tables, the
-    row moments included) of two single-process trainers, and how many
-    elements differ at all."""
+    row moments included) of two single-process trainers (or their
+    ``trainer_state``), and how many elements differ at all."""
     import torch
 
     worst, n_diff = 0.0, 0
-    pairs = list(zip(a.model.state_dict().values(), b.model.state_dict().values()))
-    if a.table_m is not None:
-        pairs += [(a.table_m, b.table_m), (a.table_v, b.table_v)]
+    pairs = list(zip(*(t if isinstance(t, list) else trainer_state(t, host=False)
+                       for t in (a, b))))
     for x, y in pairs:
-        d = (x.float() - y.float()).abs()
+        d = (x.float() - y.to(x.device).float()).abs()
         worst = max(worst, float(d.max()))
         n_diff += int(torch.count_nonzero(d))
     return worst, n_diff
@@ -2489,18 +2758,24 @@ def metrics_close(got, want):
     return not off, worst, off[:20]
 
 
-def gloo_ranks(out, spec):
-    """DIST_WORLD ranks of ``chip_smoke.py --distributed-rank`` in processes
-    of their own, over gloo, with ``spec`` written to ``{out}/spec.json``.
-    Returns the ranks' records, or a failure record."""
+def gloo_ranks_start(out, spec):
+    """Start DIST_WORLD ranks of ``chip_smoke.py --distributed-rank`` in
+    processes of their own, over gloo, with ``spec`` written to
+    ``{out}/spec.json``; ``gloo_ranks_finish`` waits for them."""
     os.makedirs(out, exist_ok=True)
     with open(os.path.join(out, "spec.json"), "w") as fh:
         json.dump(spec, fh)
     port = free_port()
     cmds = [[sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--distributed-rank",
              str(r), str(port), out] for r in range(DIST_WORLD)]
-    codes, tails = run_processes(cmds, [os.path.join(out, f"rank{r}.log")
-                                        for r in range(DIST_WORLD)])
+    return out, start_processes(cmds, [os.path.join(out, f"rank{r}.log")
+                                       for r in range(DIST_WORLD)])
+
+
+def gloo_ranks_finish(started):
+    """The ranks' records of ``gloo_ranks_start``, or a failure record."""
+    out, procs = started
+    codes, tails = wait_processes(procs)
     if codes != [0] * DIST_WORLD:
         return {"exit_codes": codes, "log_tails": tails, "ok": False}
     ranks = []
@@ -2508,6 +2783,12 @@ def gloo_ranks(out, spec):
         with open(os.path.join(out, f"rank{r}.json")) as fh:
             ranks.append(json.load(fh))
     return ranks
+
+
+def gloo_ranks(out, spec):
+    """DIST_WORLD ranks of ``chip_smoke.py --distributed-rank`` over gloo,
+    waited for. Returns the ranks' records, or a failure record."""
+    return gloo_ranks_finish(gloo_ranks_start(out, spec))
 
 
 def held_to_oracle(ranks, oracle, oracle_trainer, served, served_result, tags):
@@ -2562,14 +2843,19 @@ def distributed_hllm(work_dir, device, over, tower_over, data_kw=DIST_HLLM_DATA)
 
     pretrain_dir = write_dist_hllm_tower(work_dir, tower_over)
     out = os.path.join(work_dir, "hllm")
-    ranks = gloo_ranks(out, {"model": "hllm", "device": "cuda:0" if device == "cuda" else device,
-                             "pretrain_dir": pretrain_dir, "data": data_kw, "over": over})
+    started = gloo_ranks_start(out, {
+        "model": "hllm", "device": "cuda:0" if device == "cuda" else device,
+        "pretrain_dir": pretrain_dir, "data": data_kw, "over": over})
+    data = InMemoryInteractionData(**data_kw)
+    try:
+        # the oracle meanwhile, in this process
+        oracle, oracle_trainer = rank_order_oracle(
+            hllm_dist_config(pretrain_dir, os.path.join(work_dir, "hllm_oracle"), **over),
+            data, device, TextSEQTrainBatcher)
+    finally:
+        ranks = gloo_ranks_finish(started)
     if isinstance(ranks, dict):
         return ranks, None
-    data = InMemoryInteractionData(**data_kw)
-    oracle, oracle_trainer = rank_order_oracle(
-        hllm_dist_config(pretrain_dir, os.path.join(work_dir, "hllm_oracle"), **over),
-        data, device, TextSEQTrainBatcher)
     # the ranks' checkpoint, evaluated by one process
     served, _, test = one_process_trainer(hllm_dist_config(pretrain_dir, out, **over),
                                           data, device)
@@ -2577,6 +2863,7 @@ def distributed_hllm(work_dir, device, over, tower_over, data_kw=DIST_HLLM_DATA)
     rec, checks = held_to_oracle(ranks, oracle, oracle_trainer, served, served_result,
                                  DIST_HLLM_TAGS)
     del served, oracle_trainer
+    remove_dirs(out, pretrain_dir)
     if device == "cuda":
         torch.cuda.empty_cache()
     layers = DIST_HLLM_LAYERS
@@ -2591,34 +2878,210 @@ def distributed_hllm(work_dir, device, over, tower_over, data_kw=DIST_HLLM_DATA)
     return rec, ranks[0]["launches"]
 
 
+def baseline_dist_config(family, checkpoint_dir, user_dir, **over):
+    """(d)'s config of ``family``: ``baseline_config`` at the global batch
+    DIST_BASE_BATCH for DIST_BASE_STEPS steps with an evaluation and a save
+    at the last, every step's loss read, DIST_BASE_POSITION_NEGATIVES a
+    position for SASRec and LLMIDRec."""
+    d = dict(train_batch_size=DIST_BASE_BATCH, total_iters=DIST_BASE_STEPS,
+             eval_interval=DIST_BASE_STEPS, update_interval=1)
+    if family in ("SASRec", "LLMIDRec"):
+        d["num_negatives"] = DIST_BASE_POSITION_NEGATIVES
+    d.update(over)
+    return baseline_config(family, checkpoint_dir, user_dir, **d)
+
+
+def distributed_baselines(work_dir, device, data_kw, over, tower_over, families=None):
+    """(d): the baselines over two gloo ranks on the one card, the families
+    one after another in one pair of rank processes (``dist_rank``'s
+    "baselines"), while this process runs each family's rank-order oracle;
+    then each family's ranks are held to its oracle, to each other and to
+    their checkpoint served by one process (``held_to_oracle``), and their
+    launches to what the family's layers and steps give: #7 once a step,
+    ComiRec's and REMI's float32 trunk #4 once a layer a step and #1 once a
+    layer a forward, no other kernel. ``over`` cuts the configs and
+    ``tower_over`` LLMIDRec's tower (the CPU tests); ``families``: default
+    every family of BASELINE_FILES. Returns (the record of each family, the
+    launches of each family's rank 0)."""
+    import torch
+
+    from mhrec_tpu_torch.data.synthetic import InMemoryInteractionData
+
+    families = tuple(families or BASELINE_FILES)
+    user_dir = os.path.join(work_dir, "base_user_llm")
+    os.makedirs(user_dir, exist_ok=True)
+    with open(os.path.join(user_dir, "config.json"), "w") as fh:
+        json.dump(dict(TINYLLAMA_1B, num_hidden_layers=DIST_BASE_LLM_LAYERS, **tower_over), fh)
+    out = os.path.join(work_dir, "baselines")
+    started = gloo_ranks_start(out, {
+        "model": "baselines", "device": "cuda:0" if device == "cuda" else device,
+        "data": data_kw, "families": list(families), "user_dir": user_dir, "over": over})
+    data = InMemoryInteractionData(**data_kw)
+    oracles = {}
+    try:
+        for family in families:
+            oracle, trainer = rank_order_oracle(baseline_dist_config(
+                family, os.path.join(work_dir, f"base_oracle_{family}"), user_dir,
+                **dict(over, sparse_adam_global_dedup=True)), data, device)
+            oracles[family] = (oracle, trainer_state(trainer))
+            del trainer
+            if device == "cuda":
+                torch.cuda.empty_cache()
+    finally:
+        ranks = gloo_ranks_finish(started)
+    if isinstance(ranks, dict):
+        return {"all": ranks}, {}
+    recs, launches = {}, {}
+    for family in families:
+        fam = [r["families"][family] for r in ranks]
+        config = baseline_dist_config(family, os.path.join(out, family), user_dir, **over)
+        served, _, test = one_process_trainer(config, data, device)
+        served_result = served.evaluate(test, load_best_model=True)
+        oracle, oracle_state = oracles.pop(family)
+        rec, checks = held_to_oracle(fam, oracle, oracle_state, served, served_result,
+                                     DIST_BASE_TAGS)
+        del served, oracle_state
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        steps = fam[0]["iters"]
+        layers = int(config["n_layers"]) if family in ("ComiRec", "REMI") else 0
+        want = {"row_adamw": steps, "hstu_stu_gated_bwd": layers * steps}
+        checks["launches"] = all(
+            all(r["launches"][k] == want.get(k, 0) for k in r["launches"]
+                if k != "hstu_stu_gated_fwd")
+            and (r["launches"]["hstu_stu_gated_fwd"] > layers * steps if layers
+                 else r["launches"]["hstu_stu_gated_fwd"] == 0) for r in fam)
+        checks["steps"] = steps == config["total_iters"]
+        rec.update(family=family, files=list(BASELINE_FILES[family]), steps=steps,
+                   global_batch=config["train_batch_size"],
+                   num_negatives=config["num_negatives"], stu_layers=layers,
+                   launches_expected=dict(want, hstu_stu_gated_fwd=f"> {layers * steps}"
+                                          if layers else 0),
+                   dense_params=fam[0]["dense_params"], checks=checks,
+                   ok=all(checks.values()))
+        recs[family] = rec
+        launches[family] = fam[0]["launches"]
+    remove_dirs(out, user_dir)
+    return recs, launches
+
+
+def table_memory(run, ref, rank):
+    """(e)'s checks of one rank's run against its reference run (the same
+    protocol at a small catalog): every tensor of the table's rows and
+    width that the run made was the host assembly of the checkpoint on rank
+    0 (``save``) or a checkpoint read into host memory (``load``), never on
+    the card; and no phase took DIST_TABLE_COPY_SHARE of the two whole
+    tables' difference beyond the reference run's same phase (its
+    activations). Returns (the record, ok)."""
+    gb = 1e9
+    T, T_ref = run["whole_table_bytes"], ref["whole_table_bytes"]
+    limit = DIST_TABLE_COPY_SHARE * (T - T_ref)
+    hits = run["table_hits"]
+    hits_ok = all(dev == "cpu" and (phase == "load" or (phase == "save" and rank == 0))
+                  for phase, _, _, dev in hits)
+    rec = {"whole_table_gb": T / gb,
+           "block_and_moments_gb": run["table_bytes"] / gb, "table_hits": len(hits),
+           "table_hits_by_phase_device": sorted({(p, d) for p, _, _, d in hits}),
+           "table_hits_ok": hits_ok}
+    ok = hits_ok
+    if run.get("phase_mem"):
+        beyond = {p: run["phase_mem"][p] - ref["phase_mem"].get(p, 0) for p in run["phase_mem"]}
+        mem_ok = all(v < limit for v in beyond.values())
+        rec.update(peak_gb=run["peak_bytes"] / gb,
+                   phase_gb={p: v / gb for p, v in run["phase_mem"].items()},
+                   ref_phase_gb={p: v / gb for p, v in ref["phase_mem"].items()},
+                   beyond_ref_gb={p: v / gb for p, v in beyond.items()},
+                   limit_gb=limit / gb, no_whole_table_in_peak=mem_ok)
+        ok &= mem_ok
+    return rec, ok
+
+
+def distributed_table(work_dir, device, data_kw, over, items, ref_steps):
+    """(e): HSTU size4 in (b)'s protocol, 1 step, the table row-sharded,
+    over two gloo ranks on the one card, at each catalog of ``items`` (the
+    reference first, then the measured one; ``fit`` with its evaluation and
+    save, no test split) in one pair of rank processes
+    (``dist_rank``'s "table"), through ``phase_trainer_class`` under a
+    TableWatch: each rank's peak and each phase's memory beside the whole
+    table's bytes, and ``table_memory``'s checks; the bytes of the
+    evaluations' chunk fetches; #7 once a step a rank. The reference run
+    takes ``ref_steps`` steps, (b)'s, so that it also measures (b)'s phases
+    (a later step frees the gradients of the one before). Returns (its
+    record, the measured run's rank-0 launches, the reference run's rank
+    records)."""
+    out = os.path.join(work_dir, "table")
+    steps = {str(items[0]): ref_steps, str(items[1]): 1}
+    ranks = gloo_ranks(out, {"model": "table", "device": "cuda:0" if device == "cuda" else device,
+                             "data": data_kw, "items": list(items), "steps": steps,
+                             "over": over})
+    if isinstance(ranks, dict):
+        return ranks, None, None
+    ref_key, run_key = (str(n) for n in items)
+    checks, per_rank = {"memory": True, "launches": True}, []
+    for r in ranks:
+        run, ref = r["runs"][run_key], r["runs"][ref_key]
+        mem, ok = table_memory(run, ref, r["rank"])
+        # the valid and the test split's evaluations
+        mem.update(rank=r["rank"], seconds=run["seconds"], ref_seconds=ref["seconds"],
+                   table_chunk_bytes_per_eval=(run["collective_bytes"].get("table_chunk", 0)
+                                               / run["evaluations"]),
+                   table_save_bytes=run["collective_bytes"].get("table_save", 0),
+                   launches=run["launches"])
+        per_rank.append(mem)
+        checks["memory"] &= ok
+        checks["launches"] &= run["launches"]["row_adamw"] == run["iters"]
+    rec = {"label": "gloo, 2 ranks on one card, the table row-sharded",
+           "items": int(run_key), "reference_items": int(ref_key), "ranks": per_rank,
+           "steps": ranks[0]["runs"][run_key]["iters"], "checks": checks,
+           "ok": all(checks.values())}
+    return rec, ranks[0]["runs"][run_key]["launches"], [r["runs"][ref_key] for r in ranks]
+
+
+def progress(part, t0, ok):
+    """A line that says which part of the distributed phase has ended, at
+    how many seconds into it, and whether every check so far held."""
+    emit({"phase": "distributed_progress", "part": part,
+          "seconds": time.perf_counter() - t0, "ok": bool(ok)})
+
+
 def distributed_phase(work_dir, smi, device="cuda", data_kw=HSTU_DATA, hllm_over=None,
-                      hllm_tower=None, hllm_data=DIST_HLLM_DATA, **over):
+                      hllm_tower=None, hllm_data=DIST_HLLM_DATA, base_over=None,
+                      base_tower=None, base_data=DIST_BASE_DATA, table_data=None,
+                      table_items=(DIST_TABLE_REF_ITEMS, DIST_TABLE_ITEMS), disk_dir=None,
+                      **over):
     """The data-parallel path on the card: (a) ``world1_cli_runs`` (HSTU
     size4, the train phase's prior protocol); (b) two ranks of that HSTU
     over gloo on the one card (``dist_rank`` in processes of their own;
     NCCL refuses two ranks on one device), the item table replicated and
     then row-sharded, each held to the rank-order oracle
     (``rank_order_oracle``) at DIST_TOL, the two ranks to each other, the
-    sharded run's per-rank table bytes to half the replicated run's; (c)
-    ``distributed_hllm``; and the record: examples/s, peak memory per rank,
-    the launches of the kernels, the bytes a step of each collective and
-    the seconds, beside the card's name and power limit. The gloo rates are
-    correctness runs (both ranks on one card, gloo staging through host
+    sharded run's per-rank table bytes to half the replicated run's and its
+    memory to ``table_memory``'s checks against (e)'s reference run; (c)
+    ``distributed_hllm``; (d) ``distributed_baselines``; (e)
+    ``distributed_table``; and the record: examples/s, peak memory per
+    rank, the launches of the kernels, the bytes a step of each collective
+    and the seconds, beside the card's name and power limit. The gloo rates
+    are correctness runs (both ranks on one card, gloo staging through host
     memory), not scaling numbers. ``device`` "cpu" and config overrides
     ``over`` (HSTU), ``hllm_over`` (HLLM), ``hllm_tower`` (the towers'
-    ``config.json``) and the catalogs ``data_kw`` / ``hllm_data`` rehearse
-    it at a few widths without the card. Returns (launches of each run,
-    ok)."""
+    ``config.json``), ``base_over`` / ``base_tower`` (the baselines and
+    LLMIDRec's tower), the catalogs ``data_kw`` / ``hllm_data`` /
+    ``base_data`` / ``table_data`` and (e)'s ``table_items`` rehearse it at a
+    few widths without the card. (b)-(d) keep their files under ``disk_dir``
+    (default ``work_dir``), (a) and (e) under ``work_dir``. Returns
+    (launches of each run, ok)."""
     import torch
 
     from mhrec_tpu_torch.data.synthetic import InMemoryInteractionData
 
     t0 = time.perf_counter()
+    disk_dir = disk_dir or work_dir
     rec = {"phase": "distributed", "card": smi, "steps": over.get("total_iters", DIST_STEPS),
            "gloo_steps": over.get("total_iters", DIST_GLOO_STEPS),
            "rank_batch": DIST_RANK_BATCH}
     rec["world1_nccl_cli"] = world1_cli_runs(work_dir, device, data_kw, over)
     ok = rec["world1_nccl_cli"]["ok"]
+    progress("a", t0, ok)
     launches = {}
     if "launches" in rec["world1_nccl_cli"]:
         launches["distributed_world1_nccl"] = rec["world1_nccl_cli"]["launches"]["grouped"]
@@ -2627,24 +3090,30 @@ def distributed_phase(work_dir, smi, device="cuda", data_kw=HSTU_DATA, hllm_over
     # layers (#1 and #4 take their float32 routes), for DIST_GLOO_STEPS
     gloo_over = dict(dict(total_iters=DIST_GLOO_STEPS, eval_interval=DIST_GLOO_STEPS),
                      **over, compute_dtype="float32")
-    # the replicated run, then the sharded one (side by side, four ranks'
-    # evaluations overfill the card)
+    # the replicated run, with the oracle in this process meanwhile, then
+    # the sharded one (side by side, four ranks' evaluations overfill the
+    # card)
     runs = {}
+    data = InMemoryInteractionData(**data_kw)
     for shard, name in ((False, "replicated"), (True, "sharded")):
-        runs[name] = gloo_ranks(os.path.join(work_dir, name), {
+        started = gloo_ranks_start(os.path.join(disk_dir, name), {
             "device": "cuda:0" if device == "cuda" else device, "shard": shard,
             "data": data_kw, "over": gloo_over})
+        try:
+            if not shard:
+                t_oracle = time.perf_counter()
+                oracle, oracle_trainer = rank_order_oracle(
+                    base_config(**dist_overrides(DIST_RANK_BATCH * DIST_WORLD,
+                                                 os.path.join(disk_dir, "oracle"), **gloo_over,
+                                                 sparse_adam_global_dedup=True)), data, device)
+                oracle_seconds = time.perf_counter() - t_oracle
+        finally:
+            runs[name] = gloo_ranks_finish(started)
         if isinstance(runs[name], list):
             launches[f"distributed_gloo_{name}"] = runs[name][0]["launches"]
-    data = InMemoryInteractionData(**data_kw)
-    t_oracle = time.perf_counter()
-    oracle, oracle_trainer = rank_order_oracle(
-        base_config(**dist_overrides(DIST_RANK_BATCH * DIST_WORLD,
-                                     os.path.join(work_dir, "oracle"), **gloo_over,
-                                     sparse_adam_global_dedup=True)), data, device)
     rec["oracle"] = {k: oracle[k] for k in ("final_loss", "param_checksum",
                                             "steady_examples_per_s", "pool_probe_exact")}
-    rec["oracle"]["seconds"] = time.perf_counter() - t_oracle
+    rec["oracle"]["seconds"] = oracle_seconds
     for name, ranks in runs.items():
         if isinstance(ranks, dict):
             rec[f"gloo_{name}"] = ranks
@@ -2655,7 +3124,7 @@ def distributed_phase(work_dir, smi, device="cuda", data_kw=HSTU_DATA, hllm_over
         # same parameters; and those parameters against the oracle's
         served, _, test = one_process_trainer(
             base_config(**dist_overrides(DIST_RANK_BATCH * DIST_WORLD,
-                                         os.path.join(work_dir, name, "ckpt"), **gloo_over)),
+                                         os.path.join(disk_dir, name, "ckpt"), **gloo_over)),
             data, device)
         run_rec, checks = held_to_oracle(ranks, oracle, oracle_trainer, served,
                                          served.evaluate(test, load_best_model=True),
@@ -2668,11 +3137,17 @@ def distributed_phase(work_dir, smi, device="cuda", data_kw=HSTU_DATA, hllm_over
             all(r["launches"][k] == n for r in ranks for k, n in want.items())
             and all(r["launches"]["hstu_stu_gated_fwd"] > layers * steps for r in ranks))
         run_rec.update(table_rows=[r["table_rows"] for r in ranks],
-                       table_bytes=[r["table_bytes"] for r in ranks], checks=checks,
-                       ok=all(checks.values()))
+                       table_bytes=[r["table_bytes"] for r in ranks],
+                       phase_mem_gb=[{p: v / 1e9 for p, v in r.get("phase_mem", {}).items()}
+                                     for r in ranks],
+                       table_chunk_bytes_per_eval=[
+                           r["collective_bytes"].get("table_chunk", 0) / r["evaluations"]
+                           for r in ranks],
+                       checks=checks, ok=all(checks.values()))
         rec[f"gloo_{name}"] = run_rec
         ok &= run_rec["ok"]
     del oracle_trainer
+    remove_dirs(*(os.path.join(disk_dir, name, "ckpt") for name in runs))
     if device == "cuda":
         # the oracle's replicas and cached blocks leave the card to (c)'s ranks
         torch.cuda.empty_cache()
@@ -2681,13 +3156,43 @@ def distributed_phase(work_dir, smi, device="cuda", data_kw=HSTU_DATA, hllm_over
                      for s, r in zip(runs["sharded"], runs["replicated"]))
         rec["sharded_table_bytes_halved"] = halved
         ok &= halved
+    progress("b", t0, ok)
     t_hllm = time.perf_counter()
-    rec["gloo_hllm"], hllm_launches = distributed_hllm(work_dir, device, hllm_over or {},
+    rec["gloo_hllm"], hllm_launches = distributed_hllm(disk_dir, device, hllm_over or {},
                                                        hllm_tower or {}, hllm_data)
     rec["gloo_hllm"]["seconds_phase"] = time.perf_counter() - t_hllm
     if hllm_launches is not None:
         launches["distributed_gloo_hllm"] = hllm_launches
     ok &= rec["gloo_hllm"]["ok"]
+    progress("c", t0, ok)
+    # (d): the baselines
+    t_base = time.perf_counter()
+    base_over = dict(base_over or {})
+    base_recs, base_launches = distributed_baselines(disk_dir, device, base_data, base_over,
+                                                     base_tower or {})
+    rec["gloo_baselines"] = base_recs
+    rec["gloo_baselines_seconds"] = time.perf_counter() - t_base
+    for family, fam_launches in base_launches.items():
+        launches[f"distributed_gloo_{family}"] = fam_launches
+    ok &= bool(base_launches) and all(r.get("ok", False) for r in base_recs.values())
+    progress("d", t0, ok)
+    # (e): the sharded table's memory, and (b)'s sharded run against the
+    # same reference run
+    t_table = time.perf_counter()
+    table_data = table_data or dict(HSTU_DATA, num_users=DIST_TABLE_USERS)
+    rec["gloo_table"], table_launches, table_ref = distributed_table(
+        work_dir, device, table_data, dict(over, compute_dtype="float32"), table_items,
+        ref_steps=gloo_over["total_iters"])
+    rec["gloo_table"]["seconds_phase"] = time.perf_counter() - t_table
+    if table_launches is not None:
+        launches["distributed_gloo_table"] = table_launches
+    ok &= rec["gloo_table"]["ok"]
+    if table_ref is not None and isinstance(runs.get("sharded"), list):
+        memory = [table_memory(r, ref, r["rank"]) for r, ref in zip(runs["sharded"], table_ref)]
+        rec["gloo_sharded"]["table_memory"] = [m for m, _ in memory]
+        rec["gloo_sharded"]["checks"]["table_memory"] = all(mem_ok for _, mem_ok in memory)
+        rec["gloo_sharded"]["ok"] = all(rec["gloo_sharded"]["checks"].values())
+        ok &= rec["gloo_sharded"]["ok"]
     rec["seconds"] = time.perf_counter() - t0
     rec["ok"] = bool(ok)
     emit(rec)
@@ -2700,7 +3205,9 @@ HSTU_1B_FILES = ("IDNet/hstu-1b.yaml", "overall/ID.yaml", "IDNet/hstu.yaml")
 # Steps of each training variant: if the script runs long, these are cut
 # first, never the width or the depth
 HSTU_1B_BATCH = 32
-HSTU_1B_STEPS = 10  # 20 until the distributed phase joined the script
+# 20 until the distributed phase joined the script, 10 until its baselines
+# and sharded-table runs joined it
+HSTU_1B_STEPS = 6
 # steps of each turn of the loop / stacked timing (loop, stacked, stacked,
 # loop); 5 until the distributed phase joined the script
 HSTU_1B_TURN_STEPS = 3
@@ -3103,7 +3610,9 @@ BASELINE_FILES = {
     "LLMIDRec": ("overall/ID.yaml", "IDNet/llama_id.yaml"),
 }
 BASELINE_BATCH = 64
-BASELINE_STEPS = 4  # 10 until the distributed phase joined the script
+# 10 until the distributed phase joined the script, 4 until its baselines
+# run joined it (depth cuts: (d) trains every family too)
+BASELINE_STEPS = 2
 # the shared negative pool a step (reproduce/HSTU-Pixel8M-base.sh, per chip)
 BASELINE_POOL = 8192
 # SASRec and LLMIDRec draw num_negatives for EVERY position: at the
@@ -3113,6 +3622,9 @@ BASELINE_POOL = 8192
 # normalized, and the gradients of both) and sub-table (with its gradient)
 # stay under POSITION_NEG_BUDGET
 POSITION_NEG_CHOICES = (1024, 512, 256)
+# LLMIDRec's TinyLlama-width user tower, cut from its 22 layers to keep the
+# script's time (a depth cut: its checkpoint was 12.87 GB, its run 59.53 GiB)
+BASELINE_LLM_LAYERS = 4
 POSITION_NEG_BUDGET = 40 * 2**30
 
 
@@ -3171,7 +3683,7 @@ def baseline_config(family, checkpoint_dir, user_dir=None, **over):
 
 
 def baselines_phase(data, work_dir, device=None, families=tuple(BASELINE_FILES),
-                    position_negatives=None, user_llm=TINYLLAMA_1B, **over):
+                    position_negatives=None, user_llm=None, **over):
     """The five baselines through the entry points a user calls, at full
     width over ``data`` (the HSTU phases' users and catalog), each path with
     the launch counts set to 0 just before it and read just after:
@@ -3196,7 +3708,8 @@ def baselines_phase(data, work_dir, device=None, families=tuple(BASELINE_FILES),
       the first run's first loss, bit for bit.
 
     SASRec and LLMIDRec take ``position_negatives`` per position (None:
-    ``pick_position_negatives``). ``user_llm``: LLMIDRec's tower config;
+    ``pick_position_negatives``). ``user_llm``: LLMIDRec's tower config
+    (default TinyLlama-1.1B's at BASELINE_LLM_LAYERS layers);
     ``over`` cuts the configurations (the CPU tests). Returns (each path's
     launches, the names of the checks that failed, the kernel records)."""
     import torch
@@ -3219,6 +3732,7 @@ def baselines_phase(data, work_dir, device=None, families=tuple(BASELINE_FILES),
                 if not (rec["ok"] and rec["route"] == "cuda_cores"):
                     failed.append(f"baselines/{kind}/{shape_name}")
         torch.cuda.empty_cache()
+    user_llm = user_llm or dict(TINYLLAMA_1B, num_hidden_layers=BASELINE_LLM_LAYERS)
     user_dir = os.path.join(work_dir, "user_llm")
     os.makedirs(user_dir, exist_ok=True)
     with open(os.path.join(user_dir, "config.json"), "w") as fh:
@@ -3372,7 +3886,7 @@ BAICHUAN_13B_2L = {
 # HLLM_ITEMS and HLLM_USERS), to keep time
 PRETRAINED_ITEMS = 4096
 PRETRAINED_USERS = 1024
-PRETRAINED_TRAIN_STEPS = 3
+PRETRAINED_TRAIN_STEPS = 2  # 3 until (d) and (e) joined the distributed phase
 # the towers phase: catalog, users, and the ALiBi tower's corpus batch
 # (MAX_ITEM_LIST_LENGTH 24 × train_batch_size 8 = 192 items: its
 # [192, 40, 257, 257] float32 scores take 2.0 GB)
@@ -4246,6 +4760,11 @@ IMAGE_TOKENIZER_VOCAB = 8192
 # black fallback) and with a file that does not decode (the same); the
 # images' native sizes (h, w), resized to 224 × 224 on the host. 4,096 and
 # 4,096 until the distributed phase joined the script (a depth cut)
+# the item and user decoders' layers in hllm_image: 28 each (Qwen2-VL-2B's
+# and Qwen2.5-1.5B's) until the distributed phase's baselines and
+# sharded-table runs joined the script (a depth cut; the vision tower keeps
+# its 32 blocks)
+IMAGE_LLM_LAYERS = 14
 IMAGE_USERS = 512
 IMAGE_ITEMS = 512
 IMAGE_MISSING_EVERY = 16
@@ -4728,11 +5247,12 @@ def _write_tower_dirs(work_dir, item_cfg, user_cfg, data, config_for_texts):
     return dirs["item"], dirs["user"], tok_s
 
 
-def hllm_image_phase(work_dir, device=None, item_cfg=QWEN2_VL_2B, user_cfg=QWEN25_1_5B,
+def hllm_image_phase(work_dir, device=None, item_cfg=None, user_cfg=None,
                      n_users=IMAGE_USERS, n_items=IMAGE_ITEMS, profiled_steps=None, **over):
     """reproduce/HLLM-Pixel8M-prior.sh at full width: a Qwen2-VL-2B item
     tower (its vision tower and its text decoder) and a Qwen2.5-1.5B user
-    tower from ``config.json`` files (random weights from seed 0), the
+    tower from ``config.json`` files (random weights from seed 0; by
+    default both decoders cut to IMAGE_LLM_LAYERS layers), the
     Qwen2-VL-layout tokenizer, 224 × 224 JPEGs for most of the catalog.
     Serves (``hllm_image_serve``) and trains (``hllm_image_train``).
     ``item_cfg``, ``user_cfg``, the catalog and ``over`` cut it for the CPU
@@ -4740,6 +5260,8 @@ def hllm_image_phase(work_dir, device=None, item_cfg=QWEN2_VL_2B, user_cfg=QWEN2
     failed)."""
     import torch
 
+    item_cfg = item_cfg or dict(QWEN2_VL_2B, num_hidden_layers=IMAGE_LLM_LAYERS)
+    user_cfg = user_cfg or dict(QWEN25_1_5B, num_hidden_layers=IMAGE_LLM_LAYERS)
     data = _image_catalog(n_users, n_items)
     base = image_config(None, None, work_dir, **over)
     item_dir, user_dir, tok_s = _write_tower_dirs(work_dir, item_cfg, user_cfg, data, base)
@@ -5094,6 +5616,38 @@ def pretrained_phases(seconds):
     return launches, failed
 
 
+# the machine's own scratch root (its disk), kept by use_memory_scratch for
+# disk_tmpdir
+DISK_TMP = None
+
+
+def disk_tmpdir(prefix):
+    """A scratch directory on the machine's disk, for the phases whose
+    checkpoints fit its cap together (the HSTU train phase, the baselines
+    phase and (b)-(d) of the distributed phase, about 35 GB): checkpoints
+    read back through a memory map load from the disk's page cache several
+    times faster than from /dev/shm."""
+    return tempfile.mkdtemp(prefix=prefix, dir=DISK_TMP)
+
+
+def use_memory_scratch():
+    """Put every scratch file of the run (checkpoints, tower weights,
+    images, tokenizers; each phase's ``tempfile.mkdtemp``) in a directory of
+    its own under /dev/shm where the machine has that tmpfs: the card's
+    machines cap what a run writes to their disk (45 GiB, deletions not
+    refunded), and the phases write over 100 GB of checkpoints in turn;
+    ``disk_tmpdir`` keeps the disk for a few. Each phase removes its files
+    when it ends, and the directory goes at exit."""
+    import atexit
+
+    global DISK_TMP
+    DISK_TMP = tempfile.gettempdir()
+    if os.path.isdir("/dev/shm") and os.access("/dev/shm", os.W_OK):
+        tempfile.tempdir = tempfile.mkdtemp(prefix="chip_smoke_", dir="/dev/shm")
+        os.environ["TMPDIR"] = tempfile.tempdir  # the processes it starts too
+        atexit.register(shutil.rmtree, tempfile.tempdir, True)
+
+
 def main(argv=None) -> int:
     args = sys.argv[1:] if argv is None else argv
     if not os.path.isdir(os.path.join(ROOT, "mhrec_tpu_torch", "csrc")):
@@ -5113,6 +5667,7 @@ def main(argv=None) -> int:
         return 3
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    use_memory_scratch()
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -5144,10 +5699,11 @@ def main(argv=None) -> int:
     if "--distributed-only" in args:
         # the distributed phase alone
         work_dir = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+        disk_dir = disk_tmpdir("chip_smoke_dist_")
         try:
-            launches, ok = distributed_phase(work_dir, smi)
+            launches, ok = distributed_phase(work_dir, smi, disk_dir=disk_dir)
         finally:
-            shutil.rmtree(work_dir, ignore_errors=True)
+            remove_dirs(work_dir, disk_dir)
         emit({"path_launches": launches})
         return 0 if ok else 1
     if "--stu-bwd-ab" in args:
@@ -5162,7 +5718,7 @@ def main(argv=None) -> int:
         return 0 if ok else 1
     if "--baselines-only" in args:
         # the baselines phase alone (its kernel holds included)
-        work_dir = tempfile.mkdtemp(prefix="chip_smoke_baselines_")
+        work_dir = disk_tmpdir("chip_smoke_baselines_")
         try:
             launches, bad, _ = baselines_phase(InMemoryInteractionData(**hstu_data), work_dir)
         finally:
@@ -5267,7 +5823,7 @@ def main(argv=None) -> int:
     seconds["eval_streamed_metrics"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    ckpt_dir = disk_tmpdir("chip_smoke_ckpt_")
     try:
         trainer, train_launches, ok, train_stats = train_phase(data, ckpt_dir)
         if not ok:
@@ -5292,17 +5848,18 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     work_dir = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    disk_dir = disk_tmpdir("chip_smoke_dist_")
     try:
-        dist_launches, ok = distributed_phase(work_dir, smi)
+        dist_launches, ok = distributed_phase(work_dir, smi, disk_dir=disk_dir)
     finally:
-        shutil.rmtree(work_dir, ignore_errors=True)
+        remove_dirs(work_dir, disk_dir)
     if not ok:
         failed.append("distributed")
     torch.cuda.empty_cache()
     seconds["distributed"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    work_dir = tempfile.mkdtemp(prefix="chip_smoke_baselines_")
+    work_dir = disk_tmpdir("chip_smoke_baselines_")
     try:
         baseline_launches, baseline_failed, _ = baselines_phase(data, work_dir)
     finally:
@@ -5328,7 +5885,7 @@ def main(argv=None) -> int:
         pretrain_dir = os.path.join(work_dir, "tinyllama")
         os.makedirs(pretrain_dir)
         with open(os.path.join(pretrain_dir, "config.json"), "w") as fh:
-            json.dump(TINYLLAMA_1B, fh)
+            json.dump(dict(TINYLLAMA_1B, num_hidden_layers=HLLM_LAYERS), fh)
         # HLLM_USERS and HLLM_ITEMS: cut twice as phases joined the script
         data = InMemoryInteractionData(
             num_users=HLLM_USERS, num_items=HLLM_ITEMS, seq_len=2 * 24 + 2 * 8, num_categories=11,
@@ -5389,8 +5946,15 @@ def main(argv=None) -> int:
                 "row_adamw": train_launches["row_adamw"],
                 "packed": hllm_launches["packed_attn_fwd"],
                 "packed_bwd": hllm_train_launches["packed_attn_bwd"]}
+    # the data-parallel runs' launches a rank ((b)-(e): the baselines' #1, #4
+    # and #7, the sharded table's #7), beside the main path's count
+    dist_paths = {path: counts for path, counts in dist_launches.items()
+                  if path.startswith("distributed_gloo_")}
     emit({"kernels": [
         dict(KERNELS[kind], route="cuda", launches=launches[kind],
+             distributed_launches_per_rank={
+                 path[len("distributed_gloo_"):]: counts[KERNELS[kind]["name"]]
+                 for path, counts in dist_paths.items() if counts[KERNELS[kind]["name"]]},
              max_abs_err=kernel_recs[kind]["max_abs_err"], ms=kernel_recs[kind]["ms"],
              host_ms=kernel_recs[kind]["host_ms"],
              plain_ms=kernel_recs[kind]["plain_ms"], bound_ms=kernel_recs[kind]["bound_ms"],

@@ -6,16 +6,18 @@ from __future__ import annotations
 import torch
 
 
-def build_model(config, dataload, dtype=None):
+def build_model(config, dataload, dtype=None, mesh=None):
     """``dtype``: the trunk's compute type; None takes the model's default,
     the JAX package's: bfloat16 for HSTU and LLMIDRec's user tower,
     ``precision`` for HLLM, float32 for the ComiRec / REMI trunk. SASRec and
-    DualVAE compute in float32 whatever it says, as in JAX."""
+    DualVAE compute in float32 whatever it says, as in JAX. ``mesh``: the
+    data-parallel group, which an HSTU under ``shard_item_embedding`` splits
+    its table over from the start."""
     name = str(config["model"] or "HSTU")
     if name == "HSTU":
         from mhrec_tpu_torch.models.idnet.hstu import hstu_from_config
 
-        return hstu_from_config(config, dataload, dtype=dtype or torch.bfloat16)
+        return hstu_from_config(config, dataload, dtype=dtype or torch.bfloat16, mesh=mesh)
     if name == "SASRec":
         from mhrec_tpu_torch.models.idnet.sasrec import sasrec_from_config
 

@@ -29,6 +29,8 @@ from mhrec_tpu_torch.models.idnet.hstu import STULayer
 from mhrec_tpu_torch.models.layers import ItemEmbed, cosine_normalize, dropout, trunc_normal_init
 from mhrec_tpu_torch.models.losses import (
     clamp_logit_scale,
+    gathered_pool,
+    global_count,
     horizon_discount,
     logit_scale_param,
 )
@@ -115,22 +117,24 @@ class InterestTrunk(nn.Module):
             e = self.item_id_proj_tower(e)
         return e
 
-    def encode(self, items_ctx, sub=None, generator=None):
+    def encode(self, items_ctx, sub=None, generator=None, shard=None):
+        """``shard`` (a DataMesh): the dropout masks cover the global
+        batch."""
         L = items_ctx.shape[1]
         x = self.embed(items_ctx, sub) + self.position_embedding.weight[:L][None]
         if self.skip_hstu:
             if self.use_input_dropout:
-                x = dropout(x, self.hidden_dropout_prob, generator)
+                x = dropout(x, self.hidden_dropout_prob, generator, shard)
             return x.to(self.dtype)
         nonpad = items_ctx != 0
         x = x.to(self.dtype)
         for layer in self.stu_layers:
-            x = layer(x, nonpad, generator=generator)
+            x = layer(x, nonpad, generator=generator, shard=shard)
         return x
 
-    def interest_logits(self, output_embs, generator=None):
+    def interest_logits(self, output_embs, generator=None, shard=None):
         h = torch.tanh(self.attn_hidden(output_embs.float()))
-        return self.attn_out(dropout(h, self.hidden_dropout_prob, generator))  # [B, L, K]
+        return self.attn_out(dropout(h, self.hidden_dropout_prob, generator, shard))  # [B, L, K]
 
 
 class ComiRec(nn.Module):
@@ -161,6 +165,10 @@ class ComiRec(nn.Module):
             interest_hidden or hstu_embedding_size // 2, attention_net_bias, skip_hstu,
             use_input_dropout, dtype)
         logit_scale_param(self, fix_temp, math.log(1 / 0.05))
+        # the data-parallel group (a DataMesh) in a process group: the
+        # shared negatives are the global pool, the loss means divide by
+        # global counts and the dropout masks cover the global batch
+        self.mesh = None
 
     @property
     def medusa_num_heads(self) -> int:
@@ -183,21 +191,24 @@ class ComiRec(nn.Module):
         pos_items_embs = self.trunk.embed(items, sub)                    # [B, L+P, D]
         ctx_mask = user_mask[:, :L]
         ctx_items = torch.where(ctx_mask, items[:, :L], torch.zeros_like(items[:, :L]))
-        output_embs = self.trunk.encode(ctx_items, sub, generator)
-        attn_logits = self.trunk.interest_logits(output_embs, generator)
+        mesh = self.mesh
+        output_embs = self.trunk.encode(ctx_items, sub, generator, mesh)
+        attn_logits = self.trunk.interest_logits(output_embs, generator, mesh)
         interests, S1, S2, cnt = causal_interest_state(attn_logits, output_embs, ctx_mask)
 
         model_out = {}
         total = torch.zeros((), device=items.device)
         if self.lambda_rr > 0:
             rr = routing_regularization(S1, S2, cnt, self.hstu_embedding_size)  # [B, L]
-            valid_steps = torch.clamp(ctx_mask.float().sum(), min=1.0)
+            valid_steps = torch.clamp(global_count(ctx_mask.float().sum(), mesh), min=1.0)
             rr_loss = torch.sum(rr * ctx_mask.float()) / valid_steps
             model_out["rr_loss"] = rr_loss.detach()
             total = total + self.lambda_rr * rr_loss
 
         neg_flat = batch["neg_items"][:, -1].reshape(-1)
-        neg_T = cosine_normalize(self.trunk.embed(neg_flat, sub)).t()
+        # the global batch's shared pool (JAX flattens neg_items of the
+        # global batch), its gradient summed over the ranks
+        neg_T = gathered_pool(cosine_normalize(self.trunk.embed(neg_flat, sub)), mesh).t()
         lam = horizon_discount(self.medusa_lambda, P, device=items.device)
         scale = clamp_logit_scale(self.logit_scale)
         per_pred = []
@@ -217,7 +228,7 @@ class ComiRec(nn.Module):
             neg_logits = torch.where(fix > self.nce_thres, _MIN, neg_logits)
 
             m = (ctx_mask & user_mask[:, p + 1: p + 1 + L]).float()
-            cnt_p = torch.clamp(m.sum(), min=1.0)
+            cnt_p = torch.clamp(global_count(m.sum(), mesh), min=1.0)
             if self.beta_ihn > 0:
                 tok = self._ihn_token_loss(pos_logit, neg_logits, scale)
             else:

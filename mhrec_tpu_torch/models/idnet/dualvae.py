@@ -26,12 +26,18 @@ import torch.nn as nn
 from mhrec_tpu_torch.models.layers import (
     ItemEmbed,
     LayerNorm,
+    batch_rows,
     cosine_normalize,
     dropout,
     trunc_normal_init,
     xavier_uniform_init,
 )
-from mhrec_tpu_torch.models.losses import clamp_logit_scale, logit_scale_param
+from mhrec_tpu_torch.models.losses import (
+    clamp_logit_scale,
+    gathered_pool,
+    global_count,
+    logit_scale_param,
+)
 from mhrec_tpu_torch.utils.enums import InputType
 
 EPS = 1e-10
@@ -95,6 +101,11 @@ class DualVAE(nn.Module):
         self.user_mu = nn.Linear(widths[-1], K)
         self.user_std = nn.Linear(widths[-1], K)
         logit_scale_param(self, fix_temp, math.log(1 / 0.05))
+        # the data-parallel group (a DataMesh) in a process group: the
+        # shared negatives are the global pool, the masked means divide by
+        # global counts, the parameter-only terms by W and the random draws
+        # cover the global batch
+        self.mesh = None
 
     @torch.no_grad()
     def init_parameters(self, gen: torch.Generator):
@@ -125,7 +136,7 @@ class DualVAE(nn.Module):
     def _process_sequence(self, seq_items, sub=None, generator=None):
         L = seq_items.shape[1]
         x = self._embed(seq_items, sub) + self.position_embedding.weight[:L][None]
-        return dropout(self.input_layernorm(x), self.dropout_rate, generator)
+        return dropout(self.input_layernorm(x), self.dropout_rate, generator, self.mesh)
 
     def _disentangle(self, embs):
         proj = self.item_proj(embs)
@@ -142,19 +153,21 @@ class DualVAE(nn.Module):
         one, z = μ."""
         dis = self._disentangle(input_seq_embs)                       # [B, L, A, K]
         filtered = dis * self._aspect_probs(dis)[..., None]
-        h = dropout(self.act(self.pool_hidden(filtered)), self.dropout_rate, generator)
+        mesh = self.mesh
+        h = dropout(self.act(self.pool_hidden(filtered)), self.dropout_rate, generator, mesh)
         scores = self.pool_out(h).squeeze(-1)                         # [B, L, A]
         h = causal_masked_pooling(scores, filtered, seq_mask)         # [B, L, A, K]
         for fc, ln in zip(self.inf_fc, self.inf_ln):
-            h = dropout(self.act(ln(fc(h))), self.dropout_rate, generator)
+            h = dropout(self.act(ln(fc(h))), self.dropout_rate, generator, mesh)
         mu = self.user_mu(h)
         # jax.nn.softplus = logaddexp(x, 0)
         std = torch.logaddexp(self.user_std(h), torch.zeros((), device=h.device)) + 1e-4
         kl = (-0.5 * (1 + 2.0 * torch.log(std + EPS) - mu ** 2 - std ** 2)).sum(dim=-1)
         if generator is None:
             return mu, kl
-        eps = torch.randn(mu.shape, generator=generator, device=mu.device)
-        return dropout(mu + eps * std, self.latent_dropout_rate, generator), kl
+        eps = batch_rows(mu.shape, mesh, lambda shape: torch.randn(
+            shape, generator=generator, device=mu.device))
+        return dropout(mu + eps * std, self.latent_dropout_rate, generator, mesh), kl
 
     # ------------------------------------------------------------------
     def forward(self, batch, sub=None, generator=None):
@@ -177,16 +190,24 @@ class DualVAE(nn.Module):
         x = self._process_sequence(seq_items, sub, generator)
         z, kl = self._infer_causal(x, seq_mask, generator)
 
+        mesh = self.mesh
+        world = 1 if mesh is None else mesh.world
         tm = target_mask.float()
+        n_tok = global_count(tm.sum(), mesh)  # the global batch's valid tokens
         A = self.num_aspects
-        kl_loss = (kl * tm[..., None]).sum() / (tm.sum() * A + EPS)
+        kl_loss = (kl * tm[..., None]).sum() / (n_tok * A + EPS)
 
         pos_dis = self._disentangle(self._embed(items[:, 1: L + 1], sub))     # [B, L, A, K]
         pos_probs = self._aspect_probs(pos_dis)
         neg_dis = self._disentangle(self._embed(batch["neg_items"][:, -1].reshape(-1), sub))
-        neg_probs = self._aspect_probs(neg_dis)                               # [N, A]
+        # the global batch's shared pool: each rank's rows disentangled and
+        # weighted by their own, then gathered (gradient summed over ranks)
+        N, K = neg_dis.shape[0], self.latent_dim
+        neg_probs = gathered_pool(self._aspect_probs(neg_dis), mesh)         # [N, A]
+        neg_n = gathered_pool(cosine_normalize(neg_dis).reshape(N, A * K), mesh).reshape(
+            -1, A, K)
 
-        z_n, pos_n, neg_n = (cosine_normalize(t) for t in (z, pos_dis, neg_dis))
+        z_n, pos_n = (cosine_normalize(t) for t in (z, pos_dis))
         pos_logits = (torch.einsum("blak,blak->bla", z_n, pos_n) * pos_probs).sum(-1)[..., None]
         neg_logits = (torch.einsum("blak,nak->blna", z_n, neg_n)
                       * neg_probs[None, None]).sum(-1)                        # [B, L, N]
@@ -194,10 +215,12 @@ class DualVAE(nn.Module):
         scale = clamp_logit_scale(self.logit_scale)
         logits = torch.cat([pos_logits, neg_logits], dim=-1) * scale
         ce = torch.logsumexp(logits, dim=-1) - logits[..., 0]
-        cnt = torch.clamp(tm.sum(), min=1.0)
+        cnt = torch.clamp(n_tok, min=1.0)
         nce_loss = (ce * tm).sum() / cnt
-        cl_loss = self._contrast_loss(z_n, pos_n, tm)
-        ortho = self._ortho_loss()
+        cl_loss = self._contrast_loss(z_n, pos_n, tm, n_tok)
+        # the ranks' gradients are summed: a term of the parameters alone is
+        # each rank's 1/W share, as is every batch-independent scalar
+        ortho = self._ortho_loss() / world
 
         total = (nce_loss + beta_kl * kl_loss + self.gama_cl * cl_loss
                  + self.ortho_lambda * ortho)
@@ -206,8 +229,8 @@ class DualVAE(nn.Module):
             "kl_loss": (beta_kl * kl_loss).detach(),
             "cl_loss": (self.gama_cl * cl_loss).detach(),
             "ortho_loss": (self.ortho_lambda * ortho).detach(),
-            "current_beta_kl": beta_kl,
-            "nce_samples": torch.tensor(float(logits.shape[-1]), device=items.device),
+            "current_beta_kl": beta_kl / world,
+            "nce_samples": torch.tensor(float(logits.shape[-1]) / world, device=items.device),
         }
         beaten = (neg_logits * scale > pos_logits * scale).sum(-1)
         for kk in (1, 5, 10, 50, 100):
@@ -216,9 +239,10 @@ class DualVAE(nn.Module):
             model_out[f"nce_top{kk}_acc"] = (((beaten < kk).float() * tm).sum() / cnt).detach()
         return model_out
 
-    def _contrast_loss(self, z_n, pos_n, tm):
+    def _contrast_loss(self, z_n, pos_n, tm, n_tok):
         """NRC aspect contrastive loss over valid tokens (dualvae.py:209-228),
-        a fixed-shape masked mean."""
+        a fixed-shape masked mean; ``n_tok`` the global batch's count of
+        valid tokens."""
         A = self.num_aspects
         pos_score = torch.exp(torch.einsum("blak,blak->bla", pos_n, z_n) / self.cl_temp)
         acl = torch.einsum("blak,blck->blac", pos_n, z_n)  # target aspect a vs user aspect c
@@ -226,7 +250,7 @@ class DualVAE(nn.Module):
         acl = torch.where(eye, _MIN, acl)
         neg_score = torch.exp(acl / self.cl_temp).sum(-1)  # [B, L, A]
         token_loss = -torch.log(pos_score / (neg_score + EPS))
-        cnt = torch.clamp(tm.sum() * A, min=1.0)
+        cnt = torch.clamp(n_tok * A, min=1.0)
         return (token_loss * tm[..., None]).sum() / cnt
 
     def _ortho_loss(self):

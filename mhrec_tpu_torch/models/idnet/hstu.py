@@ -37,6 +37,7 @@ from mhrec_tpu_torch.models.multihead import (
 )
 from mhrec_tpu_torch.ops.hstu_attention import hstu_attention
 from mhrec_tpu_torch.ops.hstu_attention_cuda import hstu_stu_gated_fwd
+from mhrec_tpu_torch.parallel.mesh import RowShard, make_mesh
 from mhrec_tpu_torch.utils.enums import InputType
 
 _NEG_INF = float("-inf")  # predict-time masks use -inf (reference hstu.py:987-1015)
@@ -327,6 +328,7 @@ class HSTU(MedusaHeads, nn.Module):
         attn_impl: str = "auto",
         scan_layers: bool = False,
         dtype=torch.bfloat16,
+        table_shard=None,
     ):
         super().__init__()
         # JAX's ScannedSTUStack (hstu.py:126-178) runs the layers under
@@ -374,7 +376,9 @@ class HSTU(MedusaHeads, nn.Module):
         self.mesh = None
         D = hstu_embedding_size
 
-        self.item_embedding = ItemEmbed(item_num, item_embedding_size)
+        # ``table_shard`` (a RowShard, ``shard_item_embedding``): the table
+        # is this rank's block of rows from the start
+        self.item_embedding = ItemEmbed(item_num, item_embedding_size, table_shard)
         self.item_proj = (
             nn.Linear(item_embedding_size, D, bias=False)
             if item_embedding_size != D else None
@@ -414,7 +418,7 @@ class HSTU(MedusaHeads, nn.Module):
             elif isinstance(m, LayerNorm):
                 m.weight.fill_(1.0)
                 m.bias.zero_()
-        trunc_normal_init(self.item_embedding.weight, gen)
+        self.item_embedding.trunc_normal_rows(gen)
         trunc_normal_init(self.position_embedding.weight, gen)
         if self.item_proj is not None:
             trunc_normal_init(self.item_proj.weight, gen)
@@ -483,19 +487,35 @@ class HSTU(MedusaHeads, nn.Module):
         output_embs = self.encode(item_seq)
         return predict_switch_and_heads(self, output_embs[:, -1], target_tags)
 
-    def compute_item_all(self):
-        """Normalized full item-embedding matrix (reference hstu.py:1018-1021);
-        a sharded table is gathered from every rank first."""
-        w = self.item_embedding.full_weight()[: self.item_num].float()
+    def item_features(self, w):
+        """Scoring features of raw table rows ``w`` [..., D]: projected
+        (``item_proj``) and normalized, row by row."""
+        w = w.float()
         if self.item_proj is not None:
             w = self.item_proj(w)
         return cosine_normalize(w)
 
+    def compute_item_all(self):
+        """Normalized full item-embedding matrix (reference hstu.py:1018-1021)
+        of an unsharded table; a sharded one is scored chunk by chunk
+        (``compute_item_rows``)."""
+        return self.item_features(self.item_embedding.weight[: self.item_num])
+
+    def compute_item_rows(self, a: int, b: int):
+        """Rows [a, b) of ``compute_item_all``'s matrix; a sharded table's
+        rows come from their owners (a collective)."""
+        return self.item_features(self.item_embedding.rows(a, b))
+
 
 # ----------------------------------------------------------------------
-def hstu_from_config(config, dataload, dtype=torch.bfloat16) -> HSTU:
+def hstu_from_config(config, dataload, dtype=torch.bfloat16, mesh=None) -> HSTU:
     """Build an HSTU from a Config + InteractionData (the JAX package's
-    ``hstu_from_config``, hstu.py:604-670, one device)."""
+    ``hstu_from_config``, hstu.py:604-670). Under ``shard_item_embedding``
+    the item table is built as the block of rows of this rank of ``mesh``
+    (a DataMesh; one rank of one without it)."""
+    table_shard = None
+    if config.get("shard_item_embedding", False):
+        table_shard = RowShard(dataload.item_num, mesh or make_mesh())
     loss = config["loss"]
     num_prior = config["num_prior_head"] or 1
     if loss == "prior" and config["weighted_prior_loss"]:
@@ -555,4 +575,5 @@ def hstu_from_config(config, dataload, dtype=torch.bfloat16) -> HSTU:
         attn_impl=config.get("attn_impl", "auto"),
         scan_layers=bool(config.get("scan_layers", False)),
         dtype=dtype,
+        table_shard=table_shard,
     )

@@ -20,12 +20,12 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
-from mhrec_tpu_torch.models.idnet.sasrec import position_nce
+from mhrec_tpu_torch.models.idnet.sasrec import position_draws, position_nce
 from mhrec_tpu_torch.models.layers import ItemEmbed, cosine_normalize
 from mhrec_tpu_torch.models.llm.config import LLMConfig
 from mhrec_tpu_torch.models.llm.dummy import DummyLLM
 from mhrec_tpu_torch.models.llm.llama import LlamaBackbone
-from mhrec_tpu_torch.models.losses import logit_scale_param
+from mhrec_tpu_torch.models.losses import gathered_pool, logit_scale_param
 from mhrec_tpu_torch.utils.enums import InputType
 
 
@@ -55,6 +55,10 @@ class LLMIDRec(nn.Module):
                                           gradient_checkpointing=gradient_checkpointing,
                                           token_embeddings=False)
         logit_scale_param(self, fix_temp, math.log(1 / 0.07))
+        # the data-parallel group (a DataMesh) in a process group: draws
+        # over the global batch, the global pool, global counts (the tower
+        # is dense: the gradient all-reduce and ZeRO-2 cover it)
+        self.mesh = None
 
     @torch.no_grad()
     def init_parameters(self, gen: torch.Generator):
@@ -88,15 +92,16 @@ class LLMIDRec(nn.Module):
             # required under sparse_item_adam)
             neg = cosine_normalize(self._embed(batch["pos_neg_items"], sub))
         elif self.num_negatives:
-            ids = torch.randint(1, self.item_num, (B, L, self.num_negatives),
-                                generator=generator, device=items.device)
-            neg = cosine_normalize(self._embed(ids, sub))
+            neg = cosine_normalize(self._embed(position_draws(self, B, L, generator,
+                                                              items.device), sub))
         else:
-            neg = cosine_normalize(self._embed(batch["neg_items"][:, -1].reshape(-1), sub))
+            neg = gathered_pool(cosine_normalize(
+                self._embed(batch["neg_items"][:, -1].reshape(-1), sub)), self.mesh)
         attn = user_mask[:, :L].int()
         out = self.user_llm(inputs_embeds=pos_embs[:, :L].to(self.dtype), attention_mask=attn)
         out = cosine_normalize(out.float())
-        return position_nce(self, out, tgt, neg, user_mask, L, scaled_ranks=False)
+        return position_nce(self, out, tgt, neg, user_mask, L, scaled_ranks=False,
+                            mesh=self.mesh)
 
     def predict_embeddings(self, item_seq, target_tags=None):
         attn = (item_seq > 0).int()

@@ -23,21 +23,29 @@ from mhrec_tpu_torch.models.layers import (
     LayerNorm,
     TransformerEncoder,
     additive_causal_mask,
+    batch_rows,
     cosine_normalize,
     dropout,
     trunc_normal_init,
 )
-from mhrec_tpu_torch.models.losses import clamp_logit_scale, logit_scale_param
+from mhrec_tpu_torch.models.losses import (
+    clamp_logit_scale,
+    gathered_pool,
+    global_count,
+    logit_scale_param,
+)
 from mhrec_tpu_torch.utils.enums import InputType
 
 _MIN = torch.finfo(torch.float32).min
 
 
-def position_nce(model, out, tgt, neg, user_mask, L, scaled_ranks: bool):
+def position_nce(model, out, tgt, neg, user_mask, L, scaled_ranks: bool, mesh=None):
     """SASRec's and LLMIDRec's NCE: ``out``/``tgt`` [B, L, D] normalized,
-    ``neg`` [B, L, K, D] per-position or [M, D] shared negatives.
-    ``scaled_ranks``: the accuracies compare scaled logits (SASRec) rather
-    than cosines (LLMIDRec), as each JAX model does."""
+    ``neg`` [B, L, K, D] per-position or [M, D] shared negatives (the
+    global pool over the ranks of ``mesh``). ``scaled_ranks``: the
+    accuracies compare scaled logits (SASRec) rather than cosines
+    (LLMIDRec), as each JAX model does. With ``mesh`` the means divide by
+    the global batch's count of valid positions."""
     scale = clamp_logit_scale(model.logit_scale)
     pos_logits = torch.einsum("bld,bld->bl", out, tgt)[..., None]
     if neg.dim() == 4:
@@ -52,7 +60,7 @@ def position_nce(model, out, tgt, neg, user_mask, L, scaled_ranks: bool):
     # the cross-entropy over valid positions, the unmasked sample count and
     # the top-k accuracies (JAX sasrec.py:126-142)
     ce = torch.logsumexp(logits, dim=-1) - logits[..., 0]
-    cnt = torch.clamp(valid.sum(), min=1.0)
+    cnt = torch.clamp(global_count(valid.sum(), mesh), min=1.0)
     res = {"loss": torch.sum(ce * valid) / cnt}
     n_unmasked = (logits > _MIN / 100).sum(dim=-1).float()
     res["nce_samples"] = (torch.sum(n_unmasked * valid) / cnt).detach()
@@ -65,6 +73,14 @@ def position_nce(model, out, tgt, neg, user_mask, L, scaled_ranks: bool):
             break
         res[f"nce_top{k}_acc"] = (torch.sum((beaten < k).float() * valid) / cnt).detach()
     return res
+
+
+def position_draws(model, B, L, generator, device):
+    """The in-model per-position negatives [B, L, num_negatives], uniform
+    over [1, item_num) (reference sasrec.py:80-88), drawn over the global
+    batch with ``model.mesh`` (``batch_rows``)."""
+    return batch_rows((B, L, model.num_negatives), model.mesh, lambda shape: torch.randint(
+        1, model.item_num, shape, generator=generator, device=device))
 
 
 class SASRec(nn.Module):
@@ -92,6 +108,9 @@ class SASRec(nn.Module):
         self.input_norm = LayerNorm(hidden_size, eps=layer_norm_eps)
         # init ln(1/0.07) trainable, ln(1/0.05) fixed (sasrec.py:51-56)
         logit_scale_param(self, fix_temp, math.log(1 / 0.07))
+        # the data-parallel group (a DataMesh) in a process group: draws
+        # over the global batch, the global pool, global counts
+        self.mesh = None
 
     @torch.no_grad()
     def init_parameters(self, gen: torch.Generator):
@@ -117,8 +136,8 @@ class SASRec(nn.Module):
     def encode(self, items, sub=None, generator=None):
         L = items.shape[1]
         x = self._embed(items, sub) + self.position_embedding.weight[:L][None]
-        x = dropout(self.input_norm(x), self.hidden_dropout_prob, generator)
-        return self.trm_encoder(x, additive_causal_mask(items), generator)
+        x = dropout(self.input_norm(x), self.hidden_dropout_prob, generator, self.mesh)
+        return self.trm_encoder(x, additive_causal_mask(items), generator, self.mesh)
 
     def forward(self, batch, sub=None, generator=None):
         """Training forward (JAX ``SASRec.__call__``): items [B, L+1]
@@ -135,14 +154,15 @@ class SASRec(nn.Module):
             # law; required under sparse_item_adam)
             neg = cosine_normalize(self._embed(batch["pos_neg_items"], sub))
         elif self.num_negatives:
-            ids = torch.randint(1, self.item_num, (B, L, self.num_negatives),
-                                generator=generator, device=items.device)
-            neg = cosine_normalize(self._embed(ids, sub))
+            neg = cosine_normalize(self._embed(position_draws(self, B, L, generator,
+                                                              items.device), sub))
         else:
-            neg = cosine_normalize(self._embed(batch["neg_items"][:, -1].reshape(-1), sub))
+            neg = gathered_pool(cosine_normalize(
+                self._embed(batch["neg_items"][:, -1].reshape(-1), sub)), self.mesh)
         out = cosine_normalize(self.encode(inputs, sub, generator).float())
         tgt = cosine_normalize(self._embed(targets, sub))
-        return position_nce(self, out, tgt, neg, user_mask, L, scaled_ranks=True)
+        return position_nce(self, out, tgt, neg, user_mask, L, scaled_ranks=True,
+                            mesh=self.mesh)
 
     # -- eval interface -------------------------------------------------
     def predict_embeddings(self, item_seq, target_tags=None):

@@ -66,16 +66,22 @@ class ItemEmbed(nn.Module):
     not read, and the trainer row-updates only the touched rows
     (``trainer/sparse_adam.py``).
 
-    ``shard_rows`` splits the rows over the ranks (``shard_item_embedding``,
-    ``parallel/mesh.py::RowShard``): ``weight`` then holds this rank's
-    block, a lookup without ``sub`` is a collective that fetches each row
-    from its owner (no gradient flows through it: the sharded table is
-    trained by the row update), and ``full_weight`` gathers the table."""
+    ``shard`` (a ``parallel/mesh.py::RowShard``) splits the rows over the
+    ranks (``shard_item_embedding``): ``weight`` is then this rank's block
+    from the start, a lookup without ``sub`` is a collective that fetches
+    each row from its owner (no gradient flows through it: the sharded table
+    is trained by the row update), and ``rows`` fetches a chunk of rows from
+    their owners. No method makes the whole table of a sharded one."""
 
-    def __init__(self, num_embeddings: int, features: int):
+    # the initial draw's chunk of rows, each from a generator of its own
+    INIT_CHUNK_ROWS = 256
+
+    def __init__(self, num_embeddings: int, features: int, shard=None):
         super().__init__()
-        self.weight = nn.Parameter(torch.empty(num_embeddings, features))
-        self.shard = None
+        self.num_embeddings = num_embeddings
+        self.shard = shard
+        rows = num_embeddings if shard is None else shard.rows
+        self.weight = nn.Parameter(torch.empty(rows, features))
 
     def forward(self, ids, sub=None):
         if sub is not None:
@@ -85,16 +91,34 @@ class ItemEmbed(nn.Module):
                 return self.shard.lookup(self.weight, ids)
         return F.embedding(ids, self.weight)
 
-    @torch.no_grad()
-    def shard_rows(self, shard):
-        """Keep only this rank's block of rows of ``shard`` (a RowShard)."""
-        self.weight = nn.Parameter(shard.block(self.weight.detach()),
-                                   requires_grad=self.weight.requires_grad)
-        self.shard = shard
+    def rows(self, a: int, b: int) -> torch.Tensor:
+        """Rows [a, b) of the whole table (fetched from their owners when
+        sharded: a collective)."""
+        if self.shard is None:
+            return self.weight[a:b]
+        return self.shard.fetch(self.weight, a, b)
 
-    def full_weight(self) -> torch.Tensor:
-        """The whole table (gathered from every rank when sharded)."""
-        return self.weight if self.shard is None else self.shard.gather(self.weight)
+    @torch.no_grad()
+    def trunc_normal_rows(self, gen: torch.Generator, std: float = 0.02):
+        """``trunc_normal_init`` of the table, drawn in chunks of
+        ``INIT_CHUNK_ROWS`` rows, chunk c from a generator seeded with (a seed
+        drawn from ``gen``) + c. Only the chunks that overlap this rank's
+        block are drawn, and its rows equal the same rows of the one-process
+        table (no random stream can skip ahead by rows, so one stream over
+        the whole table would make every rank draw all of it); a sharded
+        block's padding rows are zero. ``gen`` advances by one draw."""
+        w = self.weight
+        base = int(torch.randint(0, 2**62, (1,), generator=gen, device=gen.device))
+        start = 0 if self.shard is None else self.shard.start
+        stop = min(start + w.shape[0], self.num_embeddings)
+        w.zero_()
+        C = self.INIT_CHUNK_ROWS
+        for c in range(start // C, -(-stop // C)):
+            lo, hi = c * C, min((c + 1) * C, self.num_embeddings)
+            chunk = torch.empty((hi - lo, w.shape[1]), dtype=w.dtype, device=w.device)
+            trunc_normal_init(chunk, torch.Generator(device=w.device).manual_seed(base + c), std)
+            a, b = max(lo, start), min(hi, stop)
+            w[a - start:b - start].copy_(chunk[a - lo:b - lo])
 
 
 class ResBlock(nn.Module):
@@ -176,7 +200,9 @@ class TransformerLayer(nn.Module):
         self.ff_out = nn.Linear(inner_size, D)
         self.ff_ln = LayerNorm(D, eps=layer_norm_eps, dtype=torch.float32)
 
-    def forward(self, x, attn_bias, generator=None):
+    def forward(self, x, attn_bias, generator=None, shard=None):
+        """``shard`` (a DataMesh): the dropout masks cover the global batch
+        (``batch_rows``)."""
         B, L, D = x.shape
         h = self.n_heads
         dh = D // h
@@ -185,11 +211,12 @@ class TransformerLayer(nn.Module):
         qkv = self.qkv(x.float()).view(B, L, 3, h, dh)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
         scores = torch.einsum("blhd,bmhd->bhlm", q, k) / scale + attn_bias
-        probs = dropout(torch.softmax(scores, dim=-1), self.attn_dropout_prob, generator)
+        probs = dropout(torch.softmax(scores, dim=-1), self.attn_dropout_prob, generator, shard)
         ctx = torch.einsum("bhlm,bmhd->blhd", probs, v).reshape(B, L, D)
-        ctx = dropout(self.attn_out(ctx), self.hidden_dropout_prob, generator)
+        ctx = dropout(self.attn_out(ctx), self.hidden_dropout_prob, generator, shard)
         x = self.attn_ln(x + ctx)
-        ff = dropout(self.ff_out(self.act(self.ff_in(x))), self.hidden_dropout_prob, generator)
+        ff = dropout(self.ff_out(self.act(self.ff_in(x))), self.hidden_dropout_prob, generator,
+                     shard)
         return self.ff_ln(x + ff)
 
 
@@ -206,9 +233,9 @@ class TransformerEncoder(nn.Module):
                              hidden_dropout_prob, attn_dropout_prob, hidden_act)
             for _ in range(n_layers))
 
-    def forward(self, x, attn_bias, generator=None):
+    def forward(self, x, attn_bias, generator=None, shard=None):
         for layer in self.layers:
-            x = layer(x, attn_bias, generator)
+            x = layer(x, attn_bias, generator, shard)
         return x
 
 

@@ -67,6 +67,33 @@ def global_count(cnt: torch.Tensor, mesh=None) -> torch.Tensor:
     return cnt if mesh is None else mesh.all_reduce(cnt.detach().clone(), "loss_counts")
 
 
+class _SumGrad(torch.autograd.Function):
+    """The identity; backward, the gradient summed over the ranks of
+    ``mesh`` (one all-reduce, ``pool_gather_grad``)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.mesh.all_reduce(grad.contiguous().clone(), "pool_gather_grad"), None
+
+
+def gathered_pool(x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """The global batch's negative pool from this rank's rows ``x`` [n, ...]:
+    every rank's rows in rank order (``x`` itself without ``mesh``).
+    Backward, the pool's float32 gradient is summed over the ranks before
+    this rank takes its block, as one process's products over the global
+    batch sum it. The baselines' pools take it, which float32 products
+    consume; HSTU's and HLLM's bfloat16 products sum the gradient
+    themselves (``_PoolProduct``)."""
+    if mesh is None:
+        return x
+    return _SumGrad.apply(mesh.all_gather_rows(x, "pool_gather"), mesh)
+
+
 def _bf16_product(a, b):
     """``a @ b`` of the bfloat16-rounded operands with float32 sums, rounded
     to bfloat16 (JAX: bf16 einsum with ``preferred_element_type=f32``, then

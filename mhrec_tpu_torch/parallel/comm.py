@@ -31,8 +31,10 @@ gathered result (what each rank holds after the call). The tags in use:
 ``grad_all_reduce`` and ``zero_broadcast`` (the dense gradients and ZeRO-2's
 parameters), ``pool_gather`` and ``pool_gather_grad`` (the negative pool and
 its gradient), ``loss_counts`` and ``step_scalars``, ``dedup_gather``,
-``table_lookup``, ``table_gather`` and ``checksum`` (the row-sharded table),
-``corpus_gather`` (HLLM's corpus pass) and ``metric_reduce``.
+``table_lookup``, ``table_chunk`` (an evaluation's item chunks),
+``table_save`` (rank 0's host assembly for the checkpoint) and ``checksum``
+(the row-sharded table), ``corpus_gather`` (HLLM's corpus pass) and
+``metric_reduce``.
 """
 
 from __future__ import annotations

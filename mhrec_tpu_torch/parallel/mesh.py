@@ -19,7 +19,9 @@ batch and calls the collectives itself (``parallel/comm.py``):
   assigns each dense parameter's optimizer state to one rank
   (``trainer/optim.py::ZeroShardedOptimizer``);
 * ``RowShard`` is the row-sharded item table (``shard_item_embedding``, JAX
-  ``hstu.py:249-252``): rank r owns rows [r·R, (r+1)·R), R = ⌈n / W⌉.
+  ``hstu.py:249-252``): rank r owns rows [r·R, (r+1)·R), R = ⌈n / W⌉, and
+  no rank's device ever holds the whole table (JAX's ``data``-sharded
+  global array, whose chunks XLA moves one at a time).
 
 ``shard_batch``, ``local_shard`` and ``put_replicated`` have no
 counterpart: each rank holds its own rows of a batch (the batchers'
@@ -137,16 +139,20 @@ def zero_owners(sizes: Sequence[int], world: int) -> List[int]:
 class RowShard:
     """A table of ``num_rows`` rows split over the ranks of ``mesh`` in
     contiguous blocks of ``rows`` = ⌈num_rows / world⌉; the last block is
-    padded with zero rows. Every method is a collective except ``block``
-    and ``local_ids``.
+    padded with zero rows. No method makes the whole table on the device:
+    ``lookup`` and ``fetch`` move only the rows asked for, ``gather_to_host``
+    assembles the whole table in host memory on rank 0 alone. Every method
+    is a collective except ``block`` and ``local_ids``, and every rank calls
+    the collectives in the same order with the same arguments.
 
     Lookup pattern: each rank all-gathers the ids of every rank, fills the
     rows it owns (zeros elsewhere) into a [world, n, D] block and the block
     is SUM-all-reduced, so each id's row comes from its owner exactly
     (x + 0 = x); a rank keeps its own slice. Gradients return to the owner
     through the trainer's gathered row update (each rank applies the rows it
-    owns of the deduped union), and evaluation gathers the whole table once
-    (``gather``)."""
+    owns of the deduped union). Evaluation fetches the table chunk by chunk
+    (``fetch``: rows [a, b), a broadcast from each owner of a piece, so the
+    bytes travel once and no zero-filled block is summed)."""
 
     def __init__(self, num_rows: int, mesh: DataMesh):
         self.num_rows = num_rows
@@ -156,7 +162,8 @@ class RowShard:
 
     def block(self, full: torch.Tensor) -> torch.Tensor:
         """This rank's rows of the full table ``full`` [num_rows, ...],
-        zero-padded to ``rows``."""
+        zero-padded to ``rows`` (in ``full``'s memory: a checkpoint mapped
+        in host memory gives a host block)."""
         part = full[self.start:self.start + self.rows]
         pad = self.rows - part.shape[0]
         if pad:
@@ -181,6 +188,37 @@ class RowShard:
         comm.all_reduce(rows, "table_lookup")
         return rows[self.rank].reshape(*ids.shape, D)
 
-    def gather(self, local: torch.Tensor) -> torch.Tensor:
-        """The full table [num_rows, ...] from every rank's block."""
-        return torch.cat(comm.all_gather(local, "table_gather"), dim=0)[:self.num_rows]
+    @torch.no_grad()
+    def fetch(self, local: torch.Tensor, a: int, b: int, tag: str = "table_chunk"
+              ) -> torch.Tensor:
+        """Rows [a, b) of the table (0 ≤ a < b ≤ num_rows; the chunk may
+        straddle blocks) on every rank, each piece broadcast by the rank
+        that owns it (counted as ``tag``)."""
+        out = local.new_empty((b - a,) + tuple(local.shape[1:]))
+        for r in range(a // self.rows, (b - 1) // self.rows + 1):
+            lo, hi = max(a, r * self.rows), min(b, (r + 1) * self.rows)
+            piece = out[lo - a:hi - a]
+            if r == self.rank:
+                piece.copy_(local[lo - self.start:hi - self.start])
+            comm.broadcast(piece, r, tag)
+        return out
+
+    @torch.no_grad()
+    def gather_to_host(self, local: torch.Tensor, chunk: int,
+                       tag: str = "table_save") -> Optional[torch.Tensor]:
+        """The whole table [num_rows, ...] in host memory on rank 0, filled
+        ``chunk`` rows at a time through ``fetch``; None on the other ranks,
+        which only send their rows (and receive each chunk, a buffer of
+        ``chunk`` rows). No device holds more than a chunk beside its
+        block."""
+        full = None
+        if self.rank == 0:
+            full = torch.empty((self.num_rows,) + tuple(local.shape[1:]), dtype=local.dtype,
+                               device="cpu")
+        for a in range(0, self.num_rows, chunk):
+            b = min(a + chunk, self.num_rows)
+            part = self.fetch(local, a, b, tag)
+            if full is not None:
+                full[a:b].copy_(part)
+            del part  # one chunk at a time
+        return full

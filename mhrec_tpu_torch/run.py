@@ -9,7 +9,8 @@ checkpoint; ``--val_only True`` only evaluates (reference run.py:136-143).
 It runs on the CUDA card unless ``--device`` names another device
 (``--device cpu``).
 
-Data parallelism over W processes (HSTU and HLLM): ``--multihost`` joins
+Data parallelism over W processes (every model: HSTU, HLLM and the five
+baselines): ``--multihost`` joins
 a ``torch.distributed`` group, one process per rank, NCCL on the card (card
 ``local_rank % device_count``) and gloo with ``--device cpu``::
 
@@ -22,7 +23,8 @@ mhrec_tpu_torch.run --multihost ...``, which sets the address, the world
 size and the ranks. ``train_batch_size`` and ``eval_batch_size`` are
 global and must divide by W; each rank builds its share of every batch
 (for HLLM the texts of its rows' items, and its share of every corpus
-batch). HLLM refuses ``dedup_items``, a packed item tower without
+batch). Under ``shard_item_embedding`` an HSTU's item table is split over
+the ranks by rows and no rank holds it whole. HLLM refuses ``dedup_items``, a packed item tower without
 ``pack_chunk`` and ``packed_corpus_pass`` over several ranks, as the JAX
 package does. With ``result_json_path`` every rank writes
 ``{result_json_path}.{rank}.json``: the metrics, each read loss, the
@@ -182,7 +184,7 @@ def main(argv=None):
                         help="device to run on (default: the CUDA card)")
     parser.add_argument("--multihost", action="store_true",
                         help="run as one rank of a torch.distributed process group "
-                             "(data parallelism of HSTU or HLLM)")
+                             "(data parallelism of any model)")
     parser.add_argument("--coordinator_address", default=None,
                         help="host:port of the group's store (default: torchrun's "
                              "MASTER_ADDR:MASTER_PORT)")

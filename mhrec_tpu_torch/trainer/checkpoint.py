@@ -34,14 +34,19 @@ _writes: Dict[str, "_Write"] = {}
 _lock = threading.Lock()
 
 
-def host_copy(obj):
+def host_copy(obj, keep=()):
     """``obj`` with every tensor copied to host memory (a new copy even
-    when it is there already); returns (copy, bytes copied). Pageable
-    memory, freed when the write is done: nothing stays pinned."""
+    when it is there already), except the host tensors of ``keep``, which
+    nothing else writes (they go in as they are); returns (copy, bytes
+    copied). Pageable memory, freed when the write is done: nothing stays
+    pinned."""
     total = 0
+    keep_ids = {id(t) for t in keep}
 
     def copy(x):
         nonlocal total
+        if isinstance(x, torch.Tensor) and id(x) in keep_ids and x.device.type == "cpu":
+            return x
         if isinstance(x, torch.Tensor):
             total += x.numel() * x.element_size()
             return x.detach().to("cpu", copy=True)

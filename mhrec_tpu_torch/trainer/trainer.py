@@ -34,7 +34,8 @@
   with pad-item masking and history suppression, per-head top-k merged over
   item chunks on the card → host collector → metrics → sample-count
   normalization. The item table stays on the card; each chunk's
-  ``[B, H, chunk]`` score block is the largest object. Beside the top-k
+  ``[B, H, chunk]`` score block is the largest object (beside the table
+  itself, unless it is row-sharded). Beside the top-k
   merge the chunk loop advances the streamed mean-rank counters (GAUC /
   AUC) and the target scores (the VALUE metrics MAE / RMSE / LogLoss);
   the full ``[B, H, I]`` score tensor (``rec.score``) is the single-process
@@ -51,24 +52,30 @@
   stochastic rounding (``item_table_stochastic_round``, default on) from a
   noise stream of its own.
 
-* data parallelism (HSTU and HLLM) in a ``torch.distributed`` process
-  group of W ranks (``parallel/``), computing what the JAX package computes
-  as one SPMD program over the composed global batch: each rank steps on
-  its rows of the global batch (``train_batch_size`` is global), the
-  negative pool is all-gathered in rank order (for HLLM each rank encodes
-  its own rows' items first), every loss mean divides by global counts,
-  the dense gradients are SUM-all-reduced before the clip, the NaN guard
-  reads the all-reduced loss, and the optimizer state is sharded ZeRO-2
-  style (``shard_optimizer_state``, default on). Under ``sparse_item_adam``
-  the ranks all-gather their unique-id blocks and row gradients and every
-  id of the union is updated once (``sparse_adam_global_dedup``, on iff W
-  > 1); ``shard_item_embedding`` keeps only a block of the table's rows on
-  each rank (``parallel/mesh.py::RowShard``). Evaluation strides the users
-  over the ranks and SUM-reduces every metric sum in one collective; only
-  rank 0 writes checkpoints, dumps and eval chunks. HLLM's corpus pass
-  splits each corpus batch over the ranks (``shard_identical``) and
-  all-gathers the embeddings in rank order. Inside a group every collective
-  runs at W = 1 too.
+* data parallelism (every model: HSTU, HLLM and the five baselines) in a
+  ``torch.distributed`` process group of W ranks (``parallel/``),
+  computing what the JAX package computes as one SPMD program over the
+  composed global batch: each rank steps on its rows of the global batch
+  (``train_batch_size`` is global), the negative pool is all-gathered in
+  rank order (for HLLM each rank encodes its own rows' items first), every
+  loss mean divides by global counts and every batch-independent term by
+  W, random draws cover the global batch (``layers.batch_rows``), the dense
+  gradients are SUM-all-reduced before the clip, the NaN guard reads the
+  all-reduced loss, and the optimizer state is sharded ZeRO-2 style
+  (``shard_optimizer_state``, default on). Under ``sparse_item_adam`` the
+  ranks all-gather their unique-id blocks and row gradients and every id
+  of the union is updated once (``sparse_adam_global_dedup``, on iff W >
+  1). HSTU's ``shard_item_embedding`` keeps only a block of the table's
+  rows on each rank (``parallel/mesh.py::RowShard``), from the build on:
+  no rank's device ever holds the whole table, the evaluation scores it
+  chunk by chunk, each chunk fetched from its owners
+  (``ShardedItemFeatures``), and the checkpoint's table and moments are
+  assembled in rank 0's host memory. Evaluation strides the users over the
+  ranks and SUM-reduces every metric sum in one collective; only rank 0
+  writes checkpoints, dumps and eval chunks. HLLM's corpus pass splits
+  each corpus batch over the ranks (``shard_identical``) and all-gathers
+  the embeddings in rank order. Inside a group every collective runs at W
+  = 1 too.
 """
 
 from __future__ import annotations
@@ -90,7 +97,7 @@ from mhrec_tpu_torch.models.factory import build_model
 from mhrec_tpu_torch.models.hllm.hllm import batch_image_extra
 from mhrec_tpu_torch.models.layers import ItemEmbed, cosine_normalize
 from mhrec_tpu_torch.ops import row_adam_cuda
-from mhrec_tpu_torch.parallel import RowShard, comm, make_mesh, shard_identical
+from mhrec_tpu_torch.parallel import comm, make_mesh, shard_identical
 from mhrec_tpu_torch.trainer import checkpoint as ckpt_io
 from mhrec_tpu_torch.trainer.lr_schedule import build_schedule
 from mhrec_tpu_torch.trainer.optim import (
@@ -135,6 +142,27 @@ def topk_first(x: torch.Tensor, k: int):
     return torch.gather(vals, -1, order), torch.gather(sel, -1, order)
 
 
+class ShardedItemFeatures:
+    """The scoring features of a row-sharded item table (HSTU under
+    ``shard_item_embedding``), made a chunk at a time and never whole:
+    ``feats[a:b]`` fetches rows [a, b) from the ranks that own them and
+    projects and normalizes them (``compute_item_rows``), ``feats[ids]``
+    looks up the rows of a tensor of ids; both are collectives, which every
+    rank runs in the same order. ``len(feats)`` is the item count."""
+
+    def __init__(self, model):
+        self.model = model
+
+    def __len__(self) -> int:
+        return self.model.item_num
+
+    def __getitem__(self, key):
+        if isinstance(key, slice):
+            a, b, _ = key.indices(len(self))
+            return self.model.compute_item_rows(a, b)
+        return self.model.item_features(self.model.item_embedding(key))
+
+
 class Trainer:
     def __init__(self, config, dataload, device=None, dtype=None):
         """``device``: None for the card (raises if there is none), or an
@@ -150,23 +178,28 @@ class Trainer:
                 raise ValueError(f"compute_dtype must be one of {sorted(names)}, "
                                  f"got {config['compute_dtype']!r}")
             dtype = names[config["compute_dtype"]]
-        # parameters are made on the device: a 1B-parameter tower never
-        # passes through host memory
-        with self.device:
-            self.model = build_model(config, dataload, dtype=dtype).to(self.device)
-        self.model.eval()
         # the data-parallel group: every collective runs inside one, at one
         # rank too
         self.mesh = make_mesh() if comm.initialized() else None
         self.rank, self.world = (self.mesh.rank, self.mesh.world) if self.mesh else (0, 1)
-        if self.mesh is not None:
-            if self.world > 1 and str(config["model"]) not in ("HSTU", "HLLM"):
-                raise NotImplementedError(
-                    f"multi-process training of {config['model']} is not ported yet: the "
-                    "baselines' collectives are ROADMAP.md Queue 1 item 2 (HSTU and HLLM "
-                    "train over several processes)")
-            if hasattr(self.model, "mesh"):
-                self.model.mesh = self.mesh
+        self.sparse_item_adam = bool(config.get("sparse_item_adam", False))
+        # the row-sharded table of HSTU (JAX reads the key in hstu_from_config
+        # alone, hstu.py:669)
+        self.shard_table = (bool(config.get("shard_item_embedding", False))
+                            and str(config["model"] or "HSTU") == "HSTU")
+        if self.shard_table and not self.sparse_item_adam:
+            raise NotImplementedError(
+                "shard_item_embedding needs sparse_item_adam: the sharded table is trained "
+                "by the row update on the deduped union")
+        # parameters are made on the device: a 1B-parameter tower never
+        # passes through host memory, and a sharded table is made at its
+        # block's size
+        with self.device:
+            self.model = build_model(config, dataload, dtype=dtype, mesh=self.mesh).to(
+                self.device)
+        self.model.eval()
+        if self.mesh is not None and hasattr(self.model, "mesh"):
+            self.model.mesh = self.mesh
         self.collector = Collector(config)
         self.evaluator = Evaluator(config)
         self.eval_pred_len = config["eval_pred_len"]
@@ -188,7 +221,6 @@ class Trainer:
         self.valid_metric = config["valid_metric"]
         self.valid_metric_bigger = bool(config["valid_metric_bigger"])
         self.debug = bool(config.get("debug", False))
-        self.sparse_item_adam = bool(config.get("sparse_item_adam", False))
         if self.sparse_item_adam and str(config["model"]) == "HLLM":
             raise ValueError(
                 "sparse_item_adam applies to ID-embedding models — the HLLM item "
@@ -211,11 +243,6 @@ class Trainer:
         if self.world > 1 and self.sparse_item_adam and not self.sparse_dedup:
             raise ValueError("sparse_adam_global_dedup must stay on with more than one rank: "
                              "a row in two ranks' blocks would be stepped twice")
-        self.shard_table = bool(config.get("shard_item_embedding", False))
-        if self.shard_table and not self.sparse_item_adam:
-            raise NotImplementedError(
-                "shard_item_embedding needs sparse_item_adam: the sharded table is trained "
-                "by the row update on the deduped union")
         # ZeRO-2 optimizer state over the ranks (JAX trainer.py:341-350)
         self.shard_opt = self.world > 1 and bool(config.get("shard_optimizer_state", True))
         # the row update runs the kernel (on the card) unless 'xla' asks for
@@ -266,14 +293,11 @@ class Trainer:
         gen = torch.Generator(device=self.device).manual_seed(seed)
         # the table is initialised in float32 and then stored in
         # item_table_dtype, as in JAX (trainer.py:353-361)
+        # (a sharded table draws only its block's rows, equal to the same
+        # rows of the one-process draw: ItemEmbed.trunc_normal_rows)
         self._set_table_dtype(torch.float32)
         self.model.init_parameters(gen)
         self._set_table_dtype(self.item_table_dtype)
-        if self.shard_table:
-            # the whole table is drawn from the seed, as on one process, and
-            # each rank keeps its block: equal values to the replicated run
-            emb = self.item_table()
-            emb.shard_rows(RowShard(emb.weight.shape[0], self.mesh or make_mesh()))
         if str(self.config["model"]) == "HLLM":
             from mhrec_tpu_torch.models.hllm.hllm import load_pretrained_towers
 
@@ -657,7 +681,9 @@ class Trainer:
         In a process group every rank calls it: the sharded table rows and
         the ZeRO optimizer state are collected first (collectives), and rank
         0 writes them in the one-process layout, which loads at any world
-        size."""
+        size. Rank 0 assembles a sharded table and its two moments in host
+        memory, a chunk of ``eval_item_chunk_size`` rows at a time; the other
+        ranks send their rows and hold nothing of the whole table."""
         if self.step % self.accumulate_grad:
             raise ValueError(f"micro-step {self.step} is not at an accumulation boundary "
                              f"(accumulate_grad {self.accumulate_grad})")
@@ -679,7 +705,10 @@ class Trainer:
         stats = self.checkpoint_stats
         stats.clear()
         if self.async_checkpoint:
-            payload, stats["host_copy_bytes"] = ckpt_io.host_copy(payload)
+            # a sharded table's host assembly is a fresh copy already
+            fresh = ([payload["params"][self._table_key()], payload["table_m"],
+                      payload["table_v"]] if self.shard_table else ())
+            payload, stats["host_copy_bytes"] = ckpt_io.host_copy(payload, keep=fresh)
         # the synchronous save goes through the registry too, so it replaces
         # a failed write there and a load waits for it like any other
         ckpt_io.start_write(path, payload, stats)
@@ -700,15 +729,17 @@ class Trainer:
                 return f"{name}.weight"
         return None
 
-    def _whole_table(self, t: torch.Tensor) -> torch.Tensor:
-        """A table-shaped tensor whole: gathered from every rank's rows when
-        the table is sharded."""
+    def _whole_table(self, t: torch.Tensor) -> Optional[torch.Tensor]:
+        """A table-shaped tensor whole: when the table is sharded, assembled
+        from every rank's rows in rank 0's host memory (None on the other
+        ranks; a collective)."""
         shard = getattr(self.item_table(), "shard", None)
-        return t if shard is None else shard.gather(t)
+        return t if shard is None else shard.gather_to_host(t, self.item_chunk_size)
 
     def _whole_state_dict(self):
         """The model's state dict with the whole item table (collective
-        when it is sharded)."""
+        when it is sharded: rank 0 holds it in host memory, the other ranks
+        None)."""
         sd = self.model.state_dict()
         key = self._table_key()
         if key is not None:
@@ -773,7 +804,8 @@ class Trainer:
     @torch.no_grad()
     def compute_item_feature(self, return_host: bool = False):
         """Corpus item embeddings (reference compute_item_feature,
-        trainer.py:731-824). ID models: the normalized item table. Text
+        trainer.py:731-824). ID models: the normalized item table (of a
+        sharded table a ``ShardedItemFeatures``, read chunk by chunk). Text
         models: the item tower over the whole corpus in batches of
         ``MAX_ITEM_LIST_LENGTH · train_batch_size`` items, dense or packed
         (``packed_corpus_pass``), the last batch padded to that size → the
@@ -789,6 +821,8 @@ class Trainer:
         every rank holds the whole table; ``packed_corpus_pass`` raises
         there, as in JAX."""
         if not getattr(self.model, "needs_item_corpus_pass", False):
+            if self.shard_table:
+                return ShardedItemFeatures(self.model)
             return self.model.compute_item_all()
         if self.model.freeze_item_llm:
             return self.model.all_item_embeds
@@ -1140,14 +1174,13 @@ class Trainer:
                                       {k: np.asarray(h) for k, h in zip(names, host)})
 
         pending = None
-        sharded = getattr(self.item_table(), "shard", None) is not None
+        sharded = isinstance(item_feats, ShardedItemFeatures)
         for batch in eval_batcher.batches():
             n_real = int(batch["sample_weight"].sum())
-            if n_real == 0:
-                if sharded:
-                    # the other ranks' table lookups of this step need ours
-                    dev = self._eval_device_batch(batch)
-                    self.model.predict_embeddings(dev["item_seq"], dev["target_tags"])
+            # a batch of padding alone is skipped, except over a sharded
+            # table: the other ranks' lookups and chunk fetches of this batch
+            # need this rank's, so it runs them too and yields nothing
+            if n_real == 0 and not sharded:
                 continue
             dev = self._eval_device_batch(batch)
             if raw_item_table is None:
@@ -1157,7 +1190,8 @@ class Trainer:
                                                    raw_item_table)
             if need_full:
                 full = self._full_scores(pe, item_feats, item_tags, dev)[:n_real]
-                yield batch, n_real, full.cpu().numpy(), None, {}
+                if n_real:
+                    yield batch, n_real, full.cpu().numpy(), None, {}
                 continue
             mr = None
             if stream_meanrank or stream_tgt:
@@ -1170,6 +1204,8 @@ class Trainer:
                                                counts=stream_meanrank, tgt_item_tags=tgt_tags)
             topk_vals, topk_idx = self._stream_score_topk(pe, item_feats, item_tags, dev, top_k,
                                                           mr=mr)
+            if n_real == 0:
+                continue
             out = self._batch_outputs(pe, n_real, topk_vals, topk_idx, mr)
             copies = self._to_host(list(out.values()))
             if pending is not None:
@@ -1304,8 +1340,9 @@ class Trainer:
 
     def _item_chunks(self, item_feats, item_tags):
         """(offset, features, tags) of each item chunk of a table on the
-        card, the tail padded to the chunk size."""
-        I = item_feats.shape[0]
+        card, or fetched from its owners (``ShardedItemFeatures``), the tail
+        padded to the chunk size."""
+        I = len(item_feats)
         chunk = min(self.item_chunk_size, I)
         for off in range(0, I, chunk):
             feats_c = item_feats[off:off + chunk]
@@ -1328,7 +1365,7 @@ class Trainer:
         run_idx = torch.zeros((B, H, top_k), dtype=torch.long, device=self.device)
         for off, feats_c, tags_c in self._item_chunks(item_feats, item_tags):
             run_vals, run_idx = self._score_chunk(pe, feats_c, tags_c, dev, off,
-                                                  item_feats.shape[0], run_vals, run_idx,
+                                                  len(item_feats), run_vals, run_idx,
                                                   top_k, mr)
         return run_vals, run_idx
 
@@ -1392,8 +1429,9 @@ class Trainer:
         trainer.py:1657-1678): the oracle of the streamed paths, and what
         raw-score dumps (rec.score) read. Small corpora only. Scored chunk by
         chunk, as the streamed path scores them, so both see the same
-        products."""
-        I = item_feats.shape[0]
+        products; a sharded table's chunks are fetched as the streamed path
+        fetches them, and only the [B, H, I] scores are whole, as in JAX."""
+        I = len(item_feats)
         scores = torch.cat([
             self.model.score_items(pe["head_embs"], feats_c, tags_c, dev["target_tags"],
                                    pe.get("switch_pred"))[..., :I - off]

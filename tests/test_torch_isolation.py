@@ -476,17 +476,24 @@ import chip_smoke
 torch.set_num_threads(2)
 data_kw = dict(num_users=300, num_items=1000, seq_len=2 * 6 + 16, num_categories=8,
                eval_pred_len=8, max_item_list_length=6, seed=0)
+tower = dict(vocab_size=1024, hidden_size=64, intermediate_size=128, num_attention_heads=4,
+             num_key_value_heads=2)
 # chip_smoke.py's distributed phase, cut to a few widths and 4 steps (HLLM:
 # 64-wide towers, chunk rows of 128 tokens, over 128 users and 384 items, 3
-# steps), over gloo on the CPU
+# steps; the baselines: 2 steps at a global batch of 8 over the HSTU
+# catalog; the sharded table at 1,500 items after its reference at 701, two
+# chunks of 700 rows and a one-row tail), over gloo on the CPU
 chip_smoke.distributed_phase(
     tempfile.mkdtemp(), "cpu", device="cpu", data_kw=data_kw, n_layers=2, n_heads=2,
     item_embedding_size=128, hstu_embedding_size=128, eval_batch_size=32,
     eval_item_chunk_size=700, MAX_ITEM_LIST_LENGTH=6, num_negatives=64, total_iters=4,
     eval_interval=4, hllm_over=dict(MAX_TEXT_LENGTH=24, eval_batch_size=64, pack_chunk=128),
-    hllm_tower=dict(vocab_size=1024, hidden_size=64, intermediate_size=128,
-                    num_attention_heads=4, num_key_value_heads=2),
-    hllm_data=dict(chip_smoke.DIST_HLLM_DATA, num_users=128, num_items=384))
+    hllm_tower=tower, hllm_data=dict(chip_smoke.DIST_HLLM_DATA, num_users=128, num_items=384),
+    base_over=dict(n_layers=2, n_heads=2, item_embedding_size=128, hstu_embedding_size=128,
+                   embedding_size=32, item_embed_dim=32, eval_batch_size=32,
+                   eval_item_chunk_size=700, MAX_ITEM_LIST_LENGTH=6, train_batch_size=8,
+                   num_negatives=64),
+    base_tower=tower, base_data=data_kw, table_data=data_kw, table_items=(701, 1500))
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in {"jax", "jaxlib", "flax", "optax", "mhrec_tpu"})
 print("BAD", bad)
@@ -497,13 +504,16 @@ def test_distributed_phase_runs_without_what_the_card_lacks():
     """chip_smoke.py's distributed phase, cut to a few widths and 4 steps,
     on the CPU (gloo for every group) in a fresh interpreter where PyYAML,
     pandas and pyarrow cannot be imported: the one-rank group's CLI run
-    equals the ungrouped one bit for bit; the three two-rank runs (HSTU
-    with the table replicated and sharded, HLLM with the packed tower)
-    finish with the two ranks in one state and hold every check against
-    the rank-order oracle (loss, checksum, metrics, the checkpoint served
-    by one process, ZeRO-2), whose parameters equal theirs; the sharded
-    table holds half the rows a rank; and nothing of JAX is loaded (the
-    card's launch counts are not held here)."""
+    equals the ungrouped one bit for bit; the two-rank runs (HSTU with the
+    table replicated and sharded, HLLM with the packed tower, each of the
+    five baselines) finish with the two ranks in one state and hold every
+    check against the rank-order oracle (loss, checksum, metrics, the
+    checkpoint served by one process, ZeRO-2), whose parameters equal
+    theirs; the sharded table holds half the rows a rank, and neither rank
+    makes a tensor of the whole table but rank 0's host assembly for the
+    file and the checkpoint read into host memory, in (b) and in (e); and
+    nothing of JAX is loaded (the card's launch counts and memory are not
+    held here)."""
     env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="2")
     proc = subprocess.run([sys.executable, "-c", _DISTRIBUTED], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
@@ -524,6 +534,30 @@ def test_distributed_phase_runs_without_what_the_card_lacks():
     assert rec["gloo_hllm"]["collective_bytes_per_step"]["corpus_gather"] > 0
     assert rec["sharded_table_bytes_halved"]
     assert rec["gloo_sharded"]["table_rows"] == [500, 500]
+    # (d): every family over two ranks against its oracle
+    base = rec["gloo_baselines"]
+    assert sorted(base) == ["ComiRec", "DualVAE", "LLMIDRec", "REMI", "SASRec"], base.keys()
+    for family, g in base.items():
+        assert g["between_ranks_rel_diff"] <= 1e-6, (family, g)
+        assert g["final_loss_rel_diff"] <= 2e-4 and g["checksum_rel_diff"] <= 1e-5, (family, g)
+        assert all(ok for check, ok in g["checks"].items() if check != "launches"), (family, g)
+        assert g["params_max_abs_diff_vs_oracle"] <= 1e-6, (family, g)
+    for family in ("ComiRec", "REMI", "DualVAE"):
+        assert base[family]["collective_bytes_per_step"]["pool_gather"] > 0, family
+    # (e) and (b)'s sharded run: no whole table in either rank but rank 0's
+    # host assembly for the file and the checkpoint read into host memory
+    table = rec["gloo_table"]
+    assert table["checks"]["memory"], table
+    assert table["items"] == 1500 and table["reference_items"] == 701, table
+    for r in table["ranks"] + rec["gloo_sharded"]["table_memory"]:
+        assert r["table_hits_ok"], r
+    # (e) saves without a test split; (b) also loads for its test split
+    assert [p for p, _ in table["ranks"][0]["table_hits_by_phase_device"]] == ["save"]
+    assert table["ranks"][1]["table_hits_by_phase_device"] == []
+    shard_mem = rec["gloo_sharded"]["table_memory"]
+    assert [p for p, _ in shard_mem[0]["table_hits_by_phase_device"]] == ["load", "save"]
+    assert [p for p, _ in shard_mem[1]["table_hits_by_phase_device"]] == ["load"]
+    assert all(r["table_chunk_bytes_per_eval"] > 0 for r in table["ranks"])
 
 
 def test_pretrained_towers_load_without_what_the_card_lacks():

@@ -12,9 +12,11 @@ limit) run every case once; each test holds one case:
   single-process concatenation's gradient);
 * the cross-rank dedup of the unique-id blocks against JAX
   ``dedup_touched_rows`` on the same ids and rows;
-* the row-sharded table: lookups, the gathered table, two row updates on
+* the row-sharded table: lookups, the fetched table, two row updates on
   the rows each rank owns and the full-corpus scores, against the
-  replicated table (relative 1e-6; they are equal);
+  replicated table (relative 1e-6; they are equal); chunks of rows fetched
+  inside a block and across blocks, and rank 0's host assembly, equal to
+  the table's rows, with each byte of a chunk counted once;
 * the one-collective metric reduce against JAX ``_normalize_all`` on the
   summed sections;
 * ZeRO-2: three steps, the gathered state and a reloaded step equal to the
@@ -125,7 +127,8 @@ def test_cross_rank_dedup_matches_jax(cases):
             np.testing.assert_allclose(row, want[int(i)], rtol=1e-6, atol=1e-7)
 
 
-def test_sharded_table_matches_the_replicated_one(cases):
+def replicated_table():
+    """The shard case's table, moments and scores on one process."""
     from mhrec_tpu_torch.models.layers import cosine_normalize
     from mhrec_tpu_torch.trainer.sparse_adam import (
         dedup_touched_rows,
@@ -139,13 +142,37 @@ def test_sharded_table_matches_the_replicated_one(cases):
     for step in range(2):
         sparse_adamw_row_update(table, m, v, ids_u, g_u * (step + 1), 1e-2, step, W.ADAM)
     heads = cosine_normalize(torch.randn(4, 3, W.D, generator=W.gen(9)))
-    scores = heads @ cosine_normalize(table).t()
+    return table, m, v, heads @ cosine_normalize(table).t()
+
+
+def test_sharded_table_matches_the_replicated_one(cases):
+    table, m, v, scores = replicated_table()
     for r, got in enumerate(cases("shard")):
         assert got["block_rows"] == -(-W.N_ROWS // WORLD)  # half the rows, padded
         want = W.full_table()[W.id_block(r).clamp(min=0).view(3, 4)]
         assert torch.equal(got["lookup"], want)
         for name, ref in (("table", table), ("m", m), ("v", v), ("scores", scores)):
             torch.testing.assert_close(got[name], ref, rtol=1e-6, atol=0, msg=name)
+
+
+def test_sharded_table_chunks_and_host_assembly(cases):
+    got = cases("shard")
+    for r, g in enumerate(got):
+        for (a, b), rows in g["chunks"].items():
+            assert torch.equal(rows, W.full_table()[a:b]), (a, b)
+    # the host assembly of the updated table: rank 0 alone, on the CPU, in
+    # chunks of 7 rows
+    assert got[1]["host"] is None
+    host = got[0]["host"]
+    assert host.device.type == "cpu" and not host.requires_grad
+    torch.testing.assert_close(host, replicated_table()[0], rtol=1e-6, atol=0)
+    # each rank counts the rows it broadcast or received once: the chunk
+    # fetches (5 + 10 + 18 + 1 rows, then the table and its two moments of
+    # 37 rows each) and the assembly's 37
+    row = W.D * 4
+    for g in got:
+        assert g["traffic"] == {"table_chunk": (34 + 3 * W.N_ROWS + W.N_ROWS) * row,
+                                "table_save": W.N_ROWS * row}
 
 
 def test_metric_reduce_matches_jax_normalize_all(cases):

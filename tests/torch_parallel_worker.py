@@ -6,7 +6,9 @@ single-process references. Imports nothing of JAX.
     python tests/torch_parallel_worker.py RANK WORLD PORT OUT
 
 ``hllm RANK WORLD PORT OUT`` runs the HLLM cases of
-``tests/test_torch_multiprocess_hllm.py`` instead (``run_hllm``).
+``tests/test_torch_multiprocess_hllm.py`` instead (``run_hllm``), and
+``table RANK WORLD PORT OUT`` the row-sharded table's run of
+``tests/test_torch_multiprocess_table.py`` (``run_table``).
 """
 
 import copy
@@ -16,6 +18,8 @@ from types import SimpleNamespace
 
 import numpy as np
 import torch
+import torch.utils._python_dispatch
+import torch.utils._pytree
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -118,13 +122,15 @@ def run(rank, world, port, out):
     ids_u, g_u = dedup_touched_rows(ids, grads)
     save("dedup", {"ids": ids_u, "grads": g_u})
 
-    # the row-sharded table: lookup, gather, row update, scores
+    # the row-sharded table: lookup, fetched rows, row update, scores, the
+    # host assembly
     shard = RowShard(N_ROWS, mesh)
-    emb = ItemEmbed(N_ROWS, D)
+    emb = ItemEmbed(N_ROWS, D, shard)
     with torch.no_grad():
-        emb.weight.copy_(full_table())
-    emb.shard_rows(shard)
+        emb.weight.copy_(shard.block(full_table()))
     looked = emb(id_block(rank).clamp(min=0).view(3, 4))
+    # chunks inside one block and straddling both
+    chunks = {(a, b): emb.rows(a, b) for a, b in ((0, 5), (15, 25), (19, 37), (36, 37))}
     m = torch.zeros_like(emb.weight)
     v = torch.zeros_like(emb.weight)
     for step in range(2):
@@ -132,10 +138,12 @@ def run(rank, world, port, out):
             sparse_adamw_row_update(emb.weight, m, v, shard.local_ids(ids_u), g_u * (step + 1),
                                     1e-2, step, ADAM)
     heads = cosine_normalize(torch.randn(4, 3, D, generator=gen(9)))
-    scores = heads @ cosine_normalize(emb.full_weight()).t()
+    scores = heads @ cosine_normalize(emb.rows(0, N_ROWS)).t()
     save("shard", {"lookup": looked, "block_rows": emb.weight.shape[0],
-                   "table": emb.full_weight(), "m": shard.gather(m), "v": shard.gather(v),
-                   "scores": scores})
+                   "table": emb.rows(0, N_ROWS), "m": shard.fetch(m, 0, N_ROWS),
+                   "v": shard.fetch(v, 0, N_ROWS), "scores": scores, "chunks": chunks,
+                   "host": shard.gather_to_host(emb.weight, 7),
+                   "traffic": {k: comm.traffic[k] for k in ("table_chunk", "table_save")}})
 
     # the one-collective metric reduce
     from mhrec_tpu_torch.trainer.trainer import Trainer
@@ -174,8 +182,15 @@ def run(rank, world, port, out):
             "loss": float(out_["loss"]),
             "grads": {n: p.grad.clone() for n, p in t.model.named_parameters()
                       if p.grad is not None},
-            "table_m": t._whole_table(t.table_m), "checksum": t.param_checksum()})
+            "table_m": whole(t, t.table_m), "checksum": t.param_checksum()})
     comm.sync_hosts("done")
+
+
+def whole(trainer, x):
+    """A table-shaped tensor of ``trainer`` whole on this rank (fetched
+    from every rank's block when the table is sharded)."""
+    shard = trainer.item_table().shard
+    return x if shard is None else shard.fetch(x, 0, shard.num_rows)
 
 
 # the tiny HSTU of the train-step case (tests/test_multiprocess.py's shape)
@@ -266,10 +281,97 @@ def run_hllm(rank, world, port, out):
     comm.sync_hosts("done")
 
 
+class WholeTableWatch(torch.utils._python_dispatch.TorchDispatchMode):
+    """Records every tensor that an operation produces with ``rows`` rows
+    of one of the ``widths`` (a whole item table, raw or projected), as
+    (phase, operation, shape, device); ``phase`` names the code running."""
+
+    def __init__(self, rows, widths):
+        super().__init__()
+        self.rows, self.widths = rows, set(widths)
+        self.phase = "init"
+        self.hits = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for t in torch.utils._pytree.tree_leaves(out):
+            if (isinstance(t, torch.Tensor) and t.dim() == 2 and t.shape[0] == self.rows
+                    and t.shape[1] in self.widths):
+                self.hits.append((self.phase, str(func), tuple(t.shape), t.device.type))
+        return out
+
+
+def run_table(rank, world, port, out):
+    """One rank of the row-sharded table's run, on the spec of
+    ``{out}/spec.json`` (``config``: the overrides; ``init_dir``: a
+    checkpoint directory of the initial weights): under a
+    ``WholeTableWatch``, the trainer's build and initialisation, then
+    (after the initial weights are loaded, outside the watch) ``fit`` with
+    its evaluation and save, and the test split; then a second trainer of
+    the same config loads the written checkpoint. Saves the rank's record
+    to ``{out}/rank{rank}.pt``."""
+    import json
+
+    from mhrec_tpu_torch.config import Config
+    from mhrec_tpu_torch.data import InteractionData, build_dataloader
+    from mhrec_tpu_torch.trainer import Trainer
+
+    with open(os.path.join(out, "spec.json")) as fh:
+        spec = json.load(fh)
+    init_distributed(f"127.0.0.1:{port}", world, rank, backend="gloo", device="cpu")
+    cfg = Config(config_file_list=["IDNet/hstu-size1.yaml", "overall/ID.yaml", "IDNet/hstu.yaml"],
+                 config_dict=spec["config"]).finalize()
+    data = InteractionData(cfg).build()
+    watch = WholeTableWatch(data.item_num, (cfg["item_embedding_size"],
+                                            cfg["hstu_embedding_size"]))
+    with watch:
+        t = Trainer(cfg, data, device="cpu")
+        t.setup_model()
+    drawn = t.item_table().weight.detach().clone()
+    own_dir = t.saved_model_dir
+    t.saved_model_dir = spec["init_dir"]
+    assert t.load_checkpoint() and t.step == 0
+    t.saved_model_dir = own_dir
+    save_checkpoint = t.save_checkpoint
+
+    def watched_save():
+        watch.phase = "save"
+        save_checkpoint()
+        watch.phase = "fit"
+
+    t.save_checkpoint = watched_save
+    train, valid, test = build_dataloader(cfg, data, rank, world)
+    comm.traffic.clear()
+    with watch:
+        watch.phase = "fit"
+        stats = t.fit(train, valid)
+        watch.phase = "test"
+        result = t.evaluate(test, load_best_model=False)
+    traffic = dict(comm.traffic)
+    emb = t.item_table()
+    rec = {"drawn": drawn, "hits": watch.hits, "losses": t.fetched_losses,
+           "final_loss": float(stats["loss"]), "result": result,
+           "checksum": t.param_checksum(), "block": emb.weight.detach().clone(),
+           "m": t.table_m.clone(), "v": t.table_v.clone(), "traffic": traffic,
+           "checkpoint": t.checkpoint_path(), "block_rows": emb.weight.shape[0]}
+    # the written checkpoint, loaded by a trainer of the same config
+    t2 = Trainer(cfg, data, device="cpu")
+    t2.setup_model(seed=99)
+    t2.saved_model_dir = own_dir
+    assert t2.load_checkpoint()
+    rec["loaded"] = {"block": t2.item_table().weight.detach().clone(), "m": t2.table_m.clone(),
+                     "v": t2.table_v.clone(), "checksum": t2.param_checksum()}
+    torch.save(rec, os.path.join(out, f"rank{rank}.pt"))
+    comm.sync_hosts("done")
+
+
 if __name__ == "__main__":
     if sys.argv[1] == "hllm":
         rank_, world_, port_, out_ = sys.argv[2:6]
         run_hllm(int(rank_), int(world_), int(port_), out_)
+    elif sys.argv[1] == "table":
+        rank_, world_, port_, out_ = sys.argv[2:6]
+        run_table(int(rank_), int(world_), int(port_), out_)
     else:
         rank_, world_, port_, out_ = sys.argv[1:5]
         run(int(rank_), int(world_), int(port_), out_)
