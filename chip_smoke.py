@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch port (``mhrec_tpu_torch``) on one CUDA card.
 
     python3 chip_smoke.py [--profile | --train-only | --stu-bwd-ab | --image-only |
-                           --image-fit | --baselines-only | --distributed-only]
+                           --image-fit | --baselines-only | --distributed-only |
+                           --reference-only]
 
 Builds the port's CUDA kernels from ``mhrec_tpu_torch/csrc`` (one ``nvcc``
 per source, in parallel) and holds each against its plain PyTorch version on
@@ -48,7 +49,7 @@ and the HLLM serving path (``run.serve`` with ``model: HLLM``) as
 ``reproduce/HLLM-EBNerd-prior.sh`` sets it up: TinyLlama-1.1B item and user
 towers (2048 wide, 32 heads over 4 KV heads, SwiGLU 5632, vocab 32000; the
 ``config.json`` of ``tools/dryrun_hllm_1b.py`` cut from 22 to HLLM_LAYERS
-(11) layers, written to a temporary directory, random weights from seed 0), hierarchical prior heads
+(6) layers, written to a temporary directory, random weights from seed 0), hierarchical prior heads
 (11 categories × 2 segment heads, one medusa layer, segment embeddings),
 ``pred_len`` 4, ``eval_pred_len`` 8, windows of 24 items, texts of up to 256
 tokens, the packed item tower and the packed corpus pass, over HLLM_USERS
@@ -142,7 +143,7 @@ span rides the dense item tower), which their launch counts record.
 ``hllm_image`` is ``reproduce/HLLM-Pixel8M-prior.sh``'s model at full
 width: a Qwen2-VL-2B-Instruct item tower (its ``config.json``: the text
 decoder and the 32-block vision tower) and a Qwen2.5-1.5B user tower, both
-decoders cut to IMAGE_LLM_LAYERS (14) of their 28 layers,
+decoders cut to IMAGE_LLM_LAYERS (4) of their 28 layers,
 random weights from seed 0, a Qwen2-VL-layout byte-level BPE
 ``tokenizer.json`` (``write_qwen2_tokenizer``: the vision tokens at their
 ids) and 224 × 224 images (JPEGs of mixed native sizes the script writes
@@ -196,10 +197,23 @@ DIST_GLOO_STEPS steps of a float32 trunk, each held to the rank-order
 oracle (one process that sums the ranks' partial gradients in rank order);
 (c) two gloo ranks of HLLM; (d) the five baselines over two gloo ranks at
 their widths, global batch 64, each held to its rank-order oracle; (e) the
-row-sharded table at 1,000,000 items × 1024: no tensor of the whole table
+row-sharded table at 500,000 items × 1024: no tensor of the whole table
 on the card in either rank, and each phase's memory against a reference
-run at 131,073 items; see ``distributed_phase``. ``--distributed-only``
-builds the kernels and runs this phase alone, without the last line.
+run at 131,073 items; (f) FSDP / ZeRO-3: (b)'s HSTU under ``zero_stage: 3``
+(the table row-sharded through FSDP's rule) and (c)'s HLLM under ``fsdp:
+true``, each held to its oracle and to its ZeRO-2 run's checkpoint (bit for
+bit), its persistent bytes a rank below the ZeRO-2 run's, no whole sharded
+parameter or gradient alive after a step; see ``distributed_phase``.
+``--distributed-only`` builds the kernels and runs this phase alone,
+without the last line.
+
+Before the train phase, ``reference_ckpt`` writes a reference-format
+``full_model_fp32.pt`` of HSTU size4 over the serve catalog from seed 1
+(DeepSpeed's ``{"state_dict": ...}`` with ``_forward_module.`` prefixes),
+converts it with ``python -m mhrec_tpu_torch.convert_reference``'s entry
+point and serves it with ``run``'s ``--val_only True`` (#1 64 times); its
+metrics must equal those of the same tensors loaded straight into the
+model. ``--reference-only`` builds the kernels and runs it alone.
 
 Then ``hstu_1b`` (after the baselines, before the HLLM ones) runs
 the largest HSTU of the reference's ladder, hstu-1b (``IDNet/hstu-1b.yaml``:
@@ -216,7 +230,7 @@ Prints one JSON object per line: the card's name and power limit, build
 seconds, each kernel phase (error against tolerance; the kernel's and the
 plain version's device times from ``torch.profiler``, each beside its wall
 time ``host_ms``, and the bound), the serve, impl, eval_outputs,
-eval_streamed_metrics, train, train-impl, train_accum, distributed,
+eval_streamed_metrics, reference_ckpt, train, train-impl, train_accum, distributed,
 baselines_<family> (five), hstu_1b_serve, hstu_1b_serve_tf32,
 hstu_1b_train,
 hstu_1b_train_bf16_table, hstu_1b_train_stacked, hllm_serve, hllm_impl, hllm_host_table, hllm_train,
@@ -293,8 +307,9 @@ HLLM_USERS = 512
 HLLM_ITEMS = 4096
 # the towers' layers in those phases: TinyLlama-1.1B's 22 until the
 # distributed phase's baselines and sharded-table runs joined the script,
-# whose scratch files moved to /dev/shm (a depth cut)
-HLLM_LAYERS = 11
+# whose scratch files moved to /dev/shm, 11 until its FSDP runs and the
+# reference-checkpoint phase joined it (depth cuts)
+HLLM_LAYERS = 6
 # 10 until the distributed phase joined the script, 4 until its baselines
 # and sharded-table runs joined it (depth cuts)
 HLLM_TRAIN_STEPS = 3
@@ -1995,7 +2010,12 @@ def train_accum_phase(data, k1_steady):
 HSTU_DATA = dict(num_users=4096, num_items=200_000, seq_len=2 * 50 + 2 * 8,
                  num_categories=8, eval_pred_len=8, max_item_list_length=50, seed=0)
 HSTU_FILES = ("IDNet/hstu-size4.yaml", "overall/ID.yaml", "IDNet/hstu.yaml")
-DIST_STEPS = 10
+# the distributed phase's HSTU users, (a), (b) and (f): the HSTU phases'
+# 4,096 until (f) and the reference-checkpoint phase joined the script (a
+# depth cut)
+DIST_HSTU_DATA = dict(HSTU_DATA, num_users=2048)
+# (a)'s steps: 10 until (f) joined the phase (a depth cut)
+DIST_STEPS = 6
 # the gloo runs' steps (about 2 s each: gloo stages through the host); 5 until
 # the HLLM run joined the phase, 3 until the baselines and the sharded table
 # joined it (depth cuts)
@@ -2020,7 +2040,8 @@ DIST_STEP_TAGS = ("grad_all_reduce", "pool_gather", "pool_gather_grad", "dedup_g
 # its towers in float32; the global batch is HLLM_TRAIN_BATCH (4 rows a rank)
 DIST_HLLM_LAYERS = 2
 DIST_HLLM_STEPS = 2  # 3 until the baselines and the sharded table joined (a depth cut)
-DIST_HLLM_DATA = dict(num_users=512, num_items=2048, seq_len=2 * 24 + 2 * 8,
+# 512 users and 2,048 items until (f) joined the phase (a depth cut)
+DIST_HLLM_DATA = dict(num_users=256, num_items=1024, seq_len=2 * 24 + 2 * 8,
                       num_categories=11, eval_pred_len=8, max_item_list_length=24, seed=0,
                       item_texts=True)
 # the collectives of an HLLM step and of its evaluations' corpus passes
@@ -2042,17 +2063,26 @@ DIST_BASE_BATCH = 64
 DIST_BASE_STEPS = 2
 DIST_BASE_POSITION_NEGATIVES = 128
 DIST_BASE_LLM_LAYERS = 2
+# (f): (b)'s HSTU under ``zero_stage: 3`` (the table row-sharded through
+# FSDP's rule) and (c)'s HLLM under ``fsdp: true``, at the default
+# ``fsdp_min_size``, each held to its oracle and to its ZeRO-2 run's
+# checkpoint: bit-equal, as no clip fires there; a clip would hold them to
+# JAX's rtol (tests/test_sharding.py:282)
+DIST_FSDP_RTOL = 2e-5
+DIST_FSDP_TAGS = ("fsdp_gather", "fsdp_reduce_scatter", "grad_all_reduce", "zero_broadcast",
+                  "pool_gather", "pool_gather_grad", "dedup_gather", "step_scalars")
 # the collectives of a baseline's step
 DIST_BASE_TAGS = ("grad_all_reduce", "pool_gather", "pool_gather_grad", "dedup_gather",
                   "zero_broadcast", "loss_counts", "step_scalars")
 # (e): the sharded table's memory: (b)'s protocol over DIST_TABLE_USERS users
 # (two eval batches a split), 1 step, with the table row-sharded over
-# DIST_TABLE_ITEMS items (1024 wide: 4.10 GB, 12.3 GB with its two
-# moments), after the same run over DIST_TABLE_REF_ITEMS items, which
-# measures what a phase takes beside the table (activations): one eval chunk
-# of 131,072 rows and a one-row tail padded to a chunk, as at any catalog
-# that is not a whole number of chunks
-DIST_TABLE_ITEMS = 1_000_000
+# DIST_TABLE_ITEMS items (1024 wide: 2.05 GB, 6.1 GB with its two
+# moments; 1,000,000 until (f) and the reference-checkpoint phase joined
+# the script, a depth cut), after the same run over DIST_TABLE_REF_ITEMS
+# items, which measures what a phase takes beside the table (activations):
+# one eval chunk of 131,072 rows and a one-row tail padded to a chunk, as at
+# any catalog that is not a whole number of chunks
+DIST_TABLE_ITEMS = 500_000
 DIST_TABLE_REF_ITEMS = 131_073
 DIST_TABLE_USERS = 2048
 # a phase (a step, an evaluation with its load, a save) may take beyond
@@ -2400,6 +2430,11 @@ def rank_train(rank, dev, config, data, phases=False, watch_table=False, test_sp
            "launches": read_launches(), "collective_bytes": dict(comm.traffic),
            "optimizer_sharded": type(trainer.optimizer).__name__,
            "dense_params": sum(p.numel() for p in trainer.dense_params),
+           "persistent_bytes": stats["persistent_bytes"],
+           "fsdp_live_whole": stats["fsdp_live_whole"],
+           "fsdp_params": ({n: [e.numel, e.n] for n, e in trainer.fsdp.entries.items()}
+                           if trainer.fsdp is not None else {}),
+           "checkpoint": trainer.checkpoint_path(),
            "evaluations": stats["iters"] // trainer.eval_interval + int(test_split)}
     if phases:
         rec["phase_mem"], rec["peak_bytes"] = trainer.phase_mem, trainer.peak_bytes
@@ -2454,7 +2489,7 @@ def dist_rank(rank, port, out):
             init_logger(config, process_index=rank)
             rec["runs"][str(items)] = rank_train(rank, dev, config, data, phases=True,
                                                  watch_table=True, test_split=False)
-            # the run's checkpoint (12.3 GB at 1,000,000 items), written by
+            # the run's checkpoint (6.1 GB at 500,000 items), written by
             # rank 0 once both ranks have ended the run
             comm.sync_hosts("table run done")
             if rank == 0:
@@ -2828,6 +2863,65 @@ def held_to_oracle(ranks, oracle, oracle_trainer, served, served_result, tags):
     return rec, checks
 
 
+def checkpoints_apart(a, b):
+    """(bit-equal, the largest difference of a tensor over its largest
+    |value|) of every parameter, row moment and optimizer moment of two
+    checkpoint files."""
+    import torch
+
+    pa, pb = (torch.load(p, map_location="cpu", weights_only=True, mmap=True) for p in (a, b))
+    pairs = [(pa["params"][k], v) for k, v in pb["params"].items()]
+    pairs += [(pa[k], pb[k]) for k in ("table_m", "table_v") if k in pb]
+    for i, st in pb["optimizer"]["state"].items():
+        pairs += [(pa["optimizer"]["state"][i][k], st[k]) for k in ("exp_avg", "exp_avg_sq")]
+    equal, worst = len(pa["params"]) == len(pb["params"]), 0.0
+    for x, y in pairs:
+        if x.shape != y.shape:
+            return False, math.inf
+        if not torch.equal(x, y):
+            equal = False
+            worst = max(worst, float((x.float() - y.float()).abs().max())
+                        / max(float(y.float().abs().max()), 1e-30))
+    return equal, worst
+
+
+def fsdp_held(ranks, zero2, fsdp_ok_names):
+    """(f)'s record and checks of a gloo FSDP run's ``ranks`` beside the
+    same model's ZeRO-2 ranks ``zero2``: the checkpoints bit-equal (or
+    within DIST_FSDP_RTOL of the largest value), every rank's persistent
+    bytes below the ZeRO-2 rank's, the sharded parameters' blocks half of
+    them, no whole sharded parameter or gradient alive after a step, and
+    FSDP's collectives run."""
+    equal, worst = checkpoints_apart(ranks[0]["checkpoint"], zero2[0]["checkpoint"])
+    per_rank = []
+    for r, z in zip(ranks, zero2):
+        got, want = r["persistent_bytes"], z["persistent_bytes"]
+        per_rank.append({
+            "rank": r["rank"], "persistent_gb": {k: v / 1e9 for k, v in got.items()},
+            "zero2_persistent_gb": {k: v / 1e9 for k, v in want.items()},
+            "total_gb": sum(got[k] for k in ("params", "grads", "moments", "table")) / 1e9,
+            "zero2_total_gb": sum(want[k] for k in ("params", "grads", "moments", "table")) / 1e9,
+            "live_whole_after_steps": r["fsdp_live_whole"],
+            "sharded_params": len(r["fsdp_params"]),
+            "sharded_elements": sum(n for n, _ in r["fsdp_params"].values()),
+            "peak_mem_gb": r["peak_mem_gb"], "zero2_peak_mem_gb": z["peak_mem_gb"]})
+    steps = ranks[0]["iters"]
+    checks = {
+        "params_and_moments_as_zero2": equal or worst <= DIST_FSDP_RTOL,
+        "persistent_below_zero2": all(p["total_gb"] < p["zero2_total_gb"] for p in per_rank),
+        "blocks_halve": all(k == -(-n // DIST_WORLD) for r in ranks
+                            for n, k in r["fsdp_params"].values()) and bool(ranks[0]["fsdp_params"]),
+        "sharded_set": fsdp_ok_names(ranks[0]["fsdp_params"]),
+        "no_whole_between_steps": all(r["fsdp_live_whole"] == 0 for r in ranks),
+        "fsdp_collectives": all(r["collective_bytes"].get(t, 0) > 0 for r in ranks
+                                for t in ("fsdp_gather", "fsdp_reduce_scatter", "fsdp_save"))}
+    rec = {"bit_equal_to_zero2": equal, "max_scaled_diff_vs_zero2": worst, "ranks": per_rank,
+           "fsdp_collective_bytes_per_step": {
+               t: ranks[0]["collective_bytes"].get(t, 0) / steps
+               for t in ("fsdp_gather", "fsdp_reduce_scatter")}}
+    return rec, checks
+
+
 def distributed_hllm(work_dir, device, over, tower_over, data_kw=DIST_HLLM_DATA):
     """(c): HLLM over two gloo ranks on the one card (``hllm_dist_config``,
     towers from ``write_dist_hllm_tower``), over ``data_kw``, held to
@@ -2840,6 +2934,7 @@ def distributed_hllm(work_dir, device, over, tower_over, data_kw=DIST_HLLM_DATA)
 
     from mhrec_tpu_torch.data.synthetic import InMemoryInteractionData
     from mhrec_tpu_torch.data.textset import TextSEQTrainBatcher
+    from mhrec_tpu_torch.parallel import fsdp_params
 
     pretrain_dir = write_dist_hllm_tower(work_dir, tower_over)
     out = os.path.join(work_dir, "hllm")
@@ -2855,15 +2950,45 @@ def distributed_hllm(work_dir, device, over, tower_over, data_kw=DIST_HLLM_DATA)
     finally:
         ranks = gloo_ranks_finish(started)
     if isinstance(ranks, dict):
-        return ranks, None
+        return ranks, None, None
     # the ranks' checkpoint, evaluated by one process
     served, _, test = one_process_trainer(hllm_dist_config(pretrain_dir, out, **over),
                                           data, device)
     served_result = served.evaluate(test, load_best_model=True)
     rec, checks = held_to_oracle(ranks, oracle, oracle_trainer, served, served_result,
                                  DIST_HLLM_TAGS)
-    del served, oracle_trainer
-    remove_dirs(out, pretrain_dir)
+    del served
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    # (f): the same under fsdp, against the oracle and against these ranks
+    t_f = time.perf_counter()
+    f_out = os.path.join(work_dir, "hllm_fsdp")
+    f_over = dict(over, fsdp=True)
+    f_ranks = gloo_ranks(f_out, {"model": "hllm", "device": "cuda:0" if device == "cuda"
+                                 else device, "pretrain_dir": pretrain_dir, "data": data_kw,
+                                 "over": f_over})
+    if isinstance(f_ranks, dict):
+        f_rec = dict(f_ranks)
+    else:
+        served, _, test = one_process_trainer(hllm_dist_config(pretrain_dir, f_out, **f_over),
+                                              data, device)
+        f_rec, f_checks = held_to_oracle(f_ranks, oracle, oracle_trainer, served,
+                                         served.evaluate(test, load_best_model=True),
+                                         DIST_HLLM_TAGS + DIST_FSDP_TAGS)
+        del served
+        want_set = set(fsdp_params(oracle_trainer.model.named_parameters(), DIST_WORLD,
+                                   over.get("fsdp_min_size", 1 << 20)))
+        held, more = fsdp_held(f_ranks, ranks, lambda names: set(names) == want_set)
+        f_rec.update(held)
+        f_checks.update(more)
+        f_checks["launches"] = all(r["launches"][k] == n for r in f_ranks for k, n in {
+            "packed_attn_fwd": 2 * DIST_HLLM_LAYERS * f_ranks[0]["iters"],
+            "packed_attn_bwd": DIST_HLLM_LAYERS * f_ranks[0]["iters"]}.items())
+        f_rec.update(model="(c) under fsdp: true", checks=f_checks, ok=all(f_checks.values()),
+                     launches=[r["launches"] for r in f_ranks])
+    f_rec["seconds_phase"] = time.perf_counter() - t_f
+    del oracle_trainer
+    remove_dirs(out, f_out, pretrain_dir)
     if device == "cuda":
         torch.cuda.empty_cache()
     layers = DIST_HLLM_LAYERS
@@ -2874,8 +2999,10 @@ def distributed_hllm(work_dir, device, over, tower_over, data_kw=DIST_HLLM_DATA)
     rec.update(model="HLLM, TinyLlama-1.1B width, %d + %d layers, float32" % (layers, layers),
                steps=steps, global_batch=HLLM_TRAIN_BATCH, launches_expected=want,
                dense_params=ranks[0]["dense_params"], corpus_batch=ranks[0].get("corpus_batch"),
+               persistent_gb=[{k: v / 1e9 for k, v in r["persistent_bytes"].items()}
+                              for r in ranks],
                checks=checks, ok=all(checks.values()))
-    return rec, ranks[0]["launches"]
+    return rec, ranks[0]["launches"], f_rec
 
 
 def baseline_dist_config(family, checkpoint_dir, user_dir, **over):
@@ -3037,6 +3164,47 @@ def distributed_table(work_dir, device, data_kw, over, items, ref_steps):
     return rec, ranks[0]["runs"][run_key]["launches"], [r["runs"][ref_key] for r in ranks]
 
 
+def distributed_fsdp_hstu(disk_dir, device, data_kw, gloo_over, data, oracle, oracle_trainer,
+                          zero2):
+    """(f)'s HSTU: (b)'s gloo run under ``zero_stage: 3`` at the default
+    ``fsdp_min_size`` (FSDP's rule picks the table too, which is then the
+    row-sharded one), held to (b)'s oracle (``held_to_oracle``), to (b)'s
+    sharded ZeRO-2 ranks ``zero2`` (``fsdp_held``), its launches to (b)'s.
+    Returns (its record, rank 0's launches)."""
+    from mhrec_tpu_torch.parallel import fsdp_params
+
+    out = os.path.join(disk_dir, "fsdp_hstu")
+    over = dict(gloo_over, zero_stage=3)
+    ranks = gloo_ranks(out, {"device": "cuda:0" if device == "cuda" else device,
+                             "shard": False, "data": data_kw, "over": over})
+    if isinstance(ranks, dict) or not isinstance(zero2, list):
+        return (ranks if isinstance(ranks, dict) else {"ok": False, "zero2": zero2}), None
+    served, _, test = one_process_trainer(
+        base_config(**dist_overrides(DIST_RANK_BATCH * DIST_WORLD, os.path.join(out, "ckpt"),
+                                     **over)), data, device)
+    rec, checks = held_to_oracle(ranks, oracle, oracle_trainer, served,
+                                 served.evaluate(test, load_best_model=True),
+                                 DIST_STEP_TAGS + DIST_FSDP_TAGS)
+    del served
+    table_key = "item_embedding.weight"
+    want = set(fsdp_params(oracle_trainer.model.named_parameters(), DIST_WORLD,
+                           over.get("fsdp_min_size", 1 << 20)))
+    held, more = fsdp_held(ranks, zero2, lambda names: table_key in want
+                           and set(names) == want - {table_key})
+    rec.update(held)
+    checks.update(more)
+    checks["table_row_sharded"] = all(
+        r["table_rows"] == z["table_rows"] for r, z in zip(ranks, zero2))
+    steps, layers = ranks[0]["iters"], int(base_config(**over)["n_layers"])
+    want_launches = {"hstu_stu_gated_bwd": layers * steps, "row_adamw": steps}
+    checks["launches"] = (
+        all(r["launches"][k] == n for r in ranks for k, n in want_launches.items())
+        and all(r["launches"]["hstu_stu_gated_fwd"] > layers * steps for r in ranks))
+    rec.update(model="(b) under zero_stage: 3", launches=[r["launches"] for r in ranks],
+               checks=checks, ok=all(checks.values()))
+    return rec, ranks[0]["launches"]
+
+
 def progress(part, t0, ok):
     """A line that says which part of the distributed phase has ended, at
     how many seconds into it, and whether every check so far held."""
@@ -3044,7 +3212,7 @@ def progress(part, t0, ok):
           "seconds": time.perf_counter() - t0, "ok": bool(ok)})
 
 
-def distributed_phase(work_dir, smi, device="cuda", data_kw=HSTU_DATA, hllm_over=None,
+def distributed_phase(work_dir, smi, device="cuda", data_kw=DIST_HSTU_DATA, hllm_over=None,
                       hllm_tower=None, hllm_data=DIST_HLLM_DATA, base_over=None,
                       base_tower=None, base_data=DIST_BASE_DATA, table_data=None,
                       table_items=(DIST_TABLE_REF_ITEMS, DIST_TABLE_ITEMS), disk_dir=None,
@@ -3146,8 +3314,18 @@ def distributed_phase(work_dir, smi, device="cuda", data_kw=HSTU_DATA, hllm_over
                        checks=checks, ok=all(checks.values()))
         rec[f"gloo_{name}"] = run_rec
         ok &= run_rec["ok"]
+    # (f): (b)'s HSTU under zero_stage 3, the table row-sharded through
+    # FSDP's rule, against (b)'s oracle and (b)'s sharded ZeRO-2 ranks
+    t_f = time.perf_counter()
+    rec["gloo_fsdp_hstu"], f_launches = distributed_fsdp_hstu(
+        disk_dir, device, data_kw, gloo_over, data, oracle, oracle_trainer, runs.get("sharded"))
+    rec["gloo_fsdp_hstu"]["seconds_phase"] = time.perf_counter() - t_f
+    if f_launches is not None:
+        launches["distributed_gloo_fsdp_hstu"] = f_launches
+    ok &= rec["gloo_fsdp_hstu"].get("ok", False)
     del oracle_trainer
-    remove_dirs(*(os.path.join(disk_dir, name, "ckpt") for name in runs))
+    remove_dirs(*(os.path.join(disk_dir, name, "ckpt") for name in runs),
+                os.path.join(disk_dir, "fsdp_hstu"))
     if device == "cuda":
         # the oracle's replicas and cached blocks leave the card to (c)'s ranks
         torch.cuda.empty_cache()
@@ -3158,12 +3336,15 @@ def distributed_phase(work_dir, smi, device="cuda", data_kw=HSTU_DATA, hllm_over
         ok &= halved
     progress("b", t0, ok)
     t_hllm = time.perf_counter()
-    rec["gloo_hllm"], hllm_launches = distributed_hllm(disk_dir, device, hllm_over or {},
-                                                       hllm_tower or {}, hllm_data)
+    rec["gloo_hllm"], hllm_launches, rec["gloo_fsdp_hllm"] = distributed_hllm(
+        disk_dir, device, hllm_over or {}, hllm_tower or {}, hllm_data)
     rec["gloo_hllm"]["seconds_phase"] = time.perf_counter() - t_hllm
+    f_hllm = rec["gloo_fsdp_hllm"] or {}
     if hllm_launches is not None:
         launches["distributed_gloo_hllm"] = hllm_launches
-    ok &= rec["gloo_hllm"]["ok"]
+    if "launches" in f_hllm:
+        launches["distributed_gloo_fsdp_hllm"] = f_hllm["launches"][0]
+    ok &= rec["gloo_hllm"]["ok"] and f_hllm.get("ok", False)
     progress("c", t0, ok)
     # (d): the baselines
     t_base = time.perf_counter()
@@ -3199,6 +3380,108 @@ def distributed_phase(work_dir, smi, device="cuda", data_kw=HSTU_DATA, hllm_over
     return launches, ok
 
 
+# -- a reference checkpoint: conversion, then serving -------------------------
+def reference_hstu_state_dict(params):
+    """The names under which the reference saves an HSTU's parameters
+    (``params``: the port's, by name; hstu.py:380-543), the inverse of
+    ``convert_reference.convert_hstu``: the STU blocks under
+    ``_hstu._attention_layers`` (their norms have no parameters there and
+    are left out), the ResBlocks of a head an ``nn.Sequential``."""
+    import re
+
+    rules = ((r"^stu_layers\.(\d+)\.uvqk$", r"_hstu._attention_layers.\1._uvqk"),
+             (r"^stu_layers\.(\d+)\.o_proj\.", r"_hstu._attention_layers.\1._o."),
+             (r"^rel_bias\.(\d+)\.(ts_w|pos_w)$", r"_hstu._attention_layers.\1._rel_attn_bias._\2"),
+             (r"^item_proj\.", "item_id_proj_tower."),
+             (r"^(medusa_head\.\d+)\.res\.", r"\1."),
+             (r"^(medusa_cat_head\.\d+)\.0\.res\.", r"\1."),
+             (r"^(medusa_seg_head\.\d+\.\d+)\.res\.", r"\1."),
+             (r"^(medusa_seg_head\.\d+)\.res\.", r"\1.0."))
+    out = {}
+    for k, v in params.items():
+        if re.match(r"^stu_layers\.\d+\.(input_norm|attn_norm)\.", k):
+            continue
+        for pattern, repl in rules:
+            k = re.sub(pattern, repl, k)
+        out[k] = v
+    return out
+
+
+# the reference checkpoint's users: (a serve run's 4,096 on its catalog)
+REFERENCE_USERS = 4096
+
+
+def reference_ckpt_phase(data_kw, work_dir, device="cuda", **over):
+    """A reference-format checkpoint of HSTU size4 (``serve_config``'s
+    model) over ``data_kw``'s catalog: the port's parameters from seed 1
+    with the STU norms at the reference's identity, saved under the
+    reference's names (``reference_hstu_state_dict``) as DeepSpeed's fp32
+    merge writes ``full_model_fp32.pt`` (``{"state_dict": ...}``, every
+    name prefixed ``_forward_module.``); converted by the port's CLI
+    (``convert_reference.main``) and served by ``run.main(... --val_only
+    True)`` on ``device``, launches counted from 0 just before. Its metrics
+    must equal, bit for bit, those of the same tensors put straight into a
+    model (``load_state_dict``) and evaluated. Returns (launches, ok)."""
+    import torch
+
+    from mhrec_tpu_torch import convert_reference, run as run_mod
+    from mhrec_tpu_torch.data import build_eval_dataloaders
+    from mhrec_tpu_torch.trainer import Trainer
+
+    cli_over = dict(dict(seed=1, synthetic_data=data_kw, checkpoint_dir=work_dir), **over)
+    config = base_config(**dict(cli_over, val_only=True))
+    data = run_mod.load_data(config)  # the CLI's: the catalog's category names
+    # the tensors put straight into a model, evaluated
+    trainer = Trainer(config, data, device=device)
+    trainer.setup_model()
+    with torch.no_grad():
+        for name, p in trainer.model.named_parameters():
+            if ".input_norm." in name or ".attn_norm." in name:
+                p.fill_(1.0 if name.endswith("weight") else 0.0)
+    params = {k: v.detach().cpu() for k, v in trainer.model.named_parameters()}
+    _, test = build_eval_dataloaders(config, data)
+    direct = trainer.evaluate(test)
+    del trainer
+    path = os.path.join(work_dir, "full_model_fp32.pt")
+    ref = {f"_forward_module.{k}": v for k, v in reference_hstu_state_dict(params).items()}
+    torch.save({"state_dict": ref, "epoch": 0}, path)
+    ckpt_bytes = os.path.getsize(path)
+    del ref
+    argv = ["--config_file", *HSTU_FILES, "--", "--device", device]
+    for k, v in hstu_overrides(**cli_over).items():
+        if k != "int_to_category":  # the CLI takes the catalog's (run.load_data)
+            argv += [f"--{k}", json.dumps(v) if isinstance(v, (dict, list, bool)) else str(v)]
+    t0 = time.perf_counter()
+    conv = convert_reference.main(["--ckpt", path] + argv)
+    convert_s = time.perf_counter() - t0
+    reset_launches()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    served = run_mod.main(argv + ["--val_only", "True"])
+    if device == "cuda":
+        torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    launches = read_launches()
+    want_launches = {"hstu_stu_gated_fwd": 16 * -(-REFERENCE_USERS // config["eval_batch_size"])}
+    checks = {"served_equals_direct": served == direct, "no_missing": not conv["missing"],
+              "no_unused": not conv["unused"], "used_every_tensor": conv["used"] == len(params)
+              - sum(1 for k in params if ".input_norm." in k or ".attn_norm." in k),
+              "launches": all(launches[k] == n for k, n in want_launches.items())
+              and all(n == 0 for k, n in launches.items() if k not in want_launches)}
+    rec = {"phase": "reference_ckpt", "items": int(data.item_num), "users": len(test),
+           "checkpoint_gb": ckpt_bytes / 1e9, "tensors": conv["used"],
+           "convert_seconds": convert_s, "read_s": conv["read_s"],
+           "map_and_load_s": conv["convert_s"],
+           "read_gb_per_s": conv["bytes"] / 1e9 / max(conv["read_s"], 1e-9),
+           "convert_gb_per_s": ckpt_bytes / 1e9 / max(convert_s, 1e-9),
+           "serve_seconds": serve_s, "launches": launches, "launches_expected": want_launches,
+           "missing": conv["missing"][:10], "unused": conv["unused"][:10], "checks": checks,
+           "ok": all(checks.values())}
+    emit(rec)
+    return launches, rec["ok"]
+
+
 # -- hstu-1b: the largest HSTU of the reference's ladder ----------------------
 HSTU_1B_FILES = ("IDNet/hstu-1b.yaml", "overall/ID.yaml", "IDNet/hstu.yaml")
 # batch 32, as the JAX package's 1b ladder row trains it (BASELINE.md:48).
@@ -3206,11 +3489,12 @@ HSTU_1B_FILES = ("IDNet/hstu-1b.yaml", "overall/ID.yaml", "IDNet/hstu.yaml")
 # first, never the width or the depth
 HSTU_1B_BATCH = 32
 # 20 until the distributed phase joined the script, 10 until its baselines
-# and sharded-table runs joined it
-HSTU_1B_STEPS = 6
+# and sharded-table runs joined it, 6 until its FSDP runs joined it
+HSTU_1B_STEPS = 3
 # steps of each turn of the loop / stacked timing (loop, stacked, stacked,
-# loop); 5 until the distributed phase joined the script
-HSTU_1B_TURN_STEPS = 3
+# loop); 5 until the distributed phase joined the script, 3 until its FSDP
+# runs joined it
+HSTU_1B_TURN_STEPS = 2
 # the stacked prior loss against the loop on one batch, on a float32 copy
 # of the model: the loss to this relative difference and each gradient
 # tensor to STACKED_GRAD_TOL (relative L2). The two paths differ only in the
@@ -3885,7 +4169,7 @@ BAICHUAN_13B_2L = {
 # the pretrained-tower phases' catalog and users (hllm_serve's are
 # HLLM_ITEMS and HLLM_USERS), to keep time
 PRETRAINED_ITEMS = 4096
-PRETRAINED_USERS = 1024
+PRETRAINED_USERS = 512  # 1024 until the FSDP runs joined the script
 PRETRAINED_TRAIN_STEPS = 2  # 3 until (d) and (e) joined the distributed phase
 # the towers phase: catalog, users, and the ALiBi tower's corpus batch
 # (MAX_ITEM_LIST_LENGTH 24 × train_batch_size 8 = 192 items: its
@@ -4762,13 +5046,16 @@ IMAGE_TOKENIZER_VOCAB = 8192
 # 4,096 until the distributed phase joined the script (a depth cut)
 # the item and user decoders' layers in hllm_image: 28 each (Qwen2-VL-2B's
 # and Qwen2.5-1.5B's) until the distributed phase's baselines and
-# sharded-table runs joined the script (a depth cut; the vision tower keeps
-# its 32 blocks)
-IMAGE_LLM_LAYERS = 14
-IMAGE_USERS = 512
-IMAGE_ITEMS = 512
+# sharded-table runs joined the script, 14 and then 7 as its FSDP runs and
+# the reference-checkpoint phase joined it (depth cuts; the vision tower
+# keeps its 32 blocks)
+IMAGE_LLM_LAYERS = 4
+# 512 and 512 until the distributed phase's FSDP runs joined the script
+IMAGE_USERS = 256
+IMAGE_ITEMS = 256
 IMAGE_MISSING_EVERY = 16
-IMAGE_BROKEN_EVERY = 257
+# 257 until IMAGE_ITEMS fell to 256 (so that a broken file is still met)
+IMAGE_BROKEN_EVERY = 127
 IMAGE_NATIVE_SIZES = ((256, 256), (240, 320), (320, 240), (224, 224))
 # the host's decode rate is taken over this many items (cold, then the LRU)
 IMAGE_HOST_RATE_ITEMS = 512
@@ -4790,7 +5077,9 @@ IMAGE_PROFILED_STEPS = 1
 # of items with frames / images
 VARIANT_VIT_BLOCKS = 2
 VARIANT_LLM_LAYERS = 2
-VARIANT_USERS = 64  # 128 until the distributed phase joined the script
+# 128 users until the distributed phase joined the script, 64 until its
+# FSDP runs joined it; the items stay above the largest top-k (200)
+VARIANT_USERS = 32
 VARIANT_ITEMS = 256
 VARIANT_STEPS = 1  # 2 until the distributed phase joined the script
 # the variants' bf16 item embeddings against a float32 copy's (unit
@@ -5716,6 +6005,15 @@ def main(argv=None) -> int:
                 ok &= kernel_phase("stu_bwd", shape_name, 64, 50, H, 64, torch.bfloat16)["ok"]
                 kernel_breakdown("stu_bwd", shape_name, 64, 50, H, 64, torch.bfloat16)
         return 0 if ok else 1
+    if "--reference-only" in args:
+        # the reference-checkpoint phase alone
+        work_dir = tempfile.mkdtemp(prefix="chip_smoke_reference_")
+        try:
+            launches, ok = reference_ckpt_phase(hstu_data, work_dir)
+        finally:
+            shutil.rmtree(work_dir, ignore_errors=True)
+        emit({"path_launches": {"reference_ckpt": launches}})
+        return 0 if ok else 1
     if "--baselines-only" in args:
         # the baselines phase alone (its kernel holds included)
         work_dir = disk_tmpdir("chip_smoke_baselines_")
@@ -5821,6 +6119,17 @@ def main(argv=None) -> int:
     del trainer
     torch.cuda.empty_cache()
     seconds["eval_streamed_metrics"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    work_dir = tempfile.mkdtemp(prefix="chip_smoke_reference_")
+    try:
+        reference_launches, ok = reference_ckpt_phase(hstu_data, work_dir)
+    finally:
+        shutil.rmtree(work_dir, ignore_errors=True)
+    if not ok:
+        failed.append("reference_ckpt")
+    torch.cuda.empty_cache()
+    seconds["reference_ckpt"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
     ckpt_dir = disk_tmpdir("chip_smoke_ckpt_")
@@ -5932,7 +6241,8 @@ def main(argv=None) -> int:
     # each path's launches, counted from 0 just before it
     emit({"path_launches": {
         "serve": serve_launches, "eval_outputs": outputs_launches,
-        "eval_streamed_metrics": streamed_launches, "train": train_launches,
+        "eval_streamed_metrics": streamed_launches, "reference_ckpt": reference_launches,
+        "train": train_launches,
         "train_accum": accum_launches, **dist_launches, **baseline_launches,
         **hstu_1b_launches,
         "hllm_serve": hllm_launches,

@@ -1,5 +1,6 @@
 from mhrec_tpu_torch.parallel.mesh import (  # noqa: F401
     DataMesh,
+    fsdp_params,
     RowShard,
     init_distributed,
     make_mesh,

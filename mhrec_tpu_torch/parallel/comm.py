@@ -10,7 +10,8 @@ fast paths); inside a group every call is a collective, also at world size
   ``all_gather_objects`` / ``sync_hosts``: picklable metadata across ranks
   (``broadcast_object_list``, ``all_gather_object``, ``barrier``);
 * ``all_reduce`` (SUM, in place), ``broadcast``, ``all_gather`` (the list
-  form) and ``all_gather_rows``, the differentiable all-gather of the reference's
+  form), ``reduce_scatter`` and ``all_gather_flat`` (FSDP's flat blocks,
+  ``parallel/fsdp.py``) and ``all_gather_rows``, the differentiable all-gather of the reference's
   ``basemodel.py:11-22``: rank order along dim 0 forward, and backward each
   rank gets the gradient of its own block summed over the ranks (an
   ``all_reduce`` of the whole gathered gradient, then the rank's slice), or,
@@ -18,12 +19,13 @@ fast paths); inside a group every call is a collective, also at world size
 * ``SharedArray`` — POSIX shared-memory numpy arrays for sibling processes
   of one machine (reference ``SharedList``, shareables.py:94-173).
 
-The tensor collectives are ``all_reduce``, ``broadcast`` and the list
-form of ``all_gather``, which NCCL and gloo both run on CUDA tensors (gloo
-stages them through host memory). ``reduce_scatter``,
-``all_gather_into_tensor`` and the coalesced forms are not used: torch's
-backend table gives gloo no CUDA ``reduce_scatter``, so a reduce-scatter
-here is an all-reduce and the rank's slice.
+The tensor collectives are ``all_reduce``, ``broadcast``, the list form
+of ``all_gather`` and torch's single-tensor reduce-scatter and all-gather
+(``reduce_scatter_tensor`` / ``all_gather_into_tensor``, named
+``reduce_scatter_single`` / ``all_gather_single`` from torch 2.13), which
+NCCL and gloo both run, gloo on CPU tensors (torch 2.13) and on CUDA
+tensors staged through host memory (torch 2.11). The coalesced forms are
+not used.
 
 ``traffic`` counts the bytes of every tensor collective by the ``tag`` its
 caller gives: an all-reduce's and a broadcast's tensor, an all-gather's
@@ -33,8 +35,11 @@ parameters), ``pool_gather`` and ``pool_gather_grad`` (the negative pool and
 its gradient), ``loss_counts`` and ``step_scalars``, ``dedup_gather``,
 ``table_lookup``, ``table_chunk`` (an evaluation's item chunks),
 ``table_save`` (rank 0's host assembly for the checkpoint) and ``checksum``
-(the row-sharded table), ``corpus_gather`` (HLLM's corpus pass) and
-``metric_reduce``.
+(the row-sharded table and the FSDP blocks), ``corpus_gather`` (HLLM's
+corpus pass), ``metric_reduce``, and FSDP's ``fsdp_gather`` (a layer's
+parameters before its forward and its backward; the gathered result),
+``fsdp_reduce_scatter`` (their gradients; the whole flat input a rank
+sends), ``grad_norm`` (the clip's sum of squares) and ``fsdp_save``.
 """
 
 from __future__ import annotations
@@ -117,6 +122,35 @@ def all_gather(t: torch.Tensor, tag: str = "all_gather") -> List[torch.Tensor]:
     out = [torch.empty_like(t) for _ in range(process_count())]
     _count(tag, len(out) * t.numel() * t.element_size())
     dist.all_gather(out, t)
+    return out
+
+
+# torch 2.13 renamed the single-tensor forms (the old names warn there)
+_REDUCE_SCATTER = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
+_ALL_GATHER_FLAT = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+
+
+def reduce_scatter(flat: torch.Tensor, tag: str = "reduce_scatter") -> torch.Tensor:
+    """``flat`` [W·n] SUM-reduced over the ranks; returns this rank's block
+    [n] of the sum, rows [r·n, (r+1)·n) (``flat`` itself without a group)."""
+    if not initialized():
+        return flat
+    flat = flat.contiguous()
+    out = flat.new_empty(flat.numel() // process_count())
+    _count(tag, flat.numel() * flat.element_size())
+    _REDUCE_SCATTER(out, flat)
+    return out
+
+
+def all_gather_flat(block: torch.Tensor, tag: str = "all_gather_flat") -> torch.Tensor:
+    """Every rank's ``block`` [n] (equal sizes) in one flat tensor [W·n],
+    in rank order (``block`` itself without a group)."""
+    if not initialized():
+        return block
+    block = block.contiguous()
+    out = block.new_empty(process_count() * block.numel())
+    _count(tag, out.numel() * out.element_size())
+    _ALL_GATHER_FLAT(out, block)
     return out
 
 

@@ -18,6 +18,9 @@ batch and calls the collectives itself (``parallel/comm.py``):
 * ``zero_owners`` is the counterpart of ``zero_sharded_opt_state``: it
   assigns each dense parameter's optimizer state to one rank
   (``trainer/optim.py::ZeroShardedOptimizer``);
+* ``fsdp_params`` picks the parameters that FSDP / ZeRO-3 shards (JAX
+  ``place`` / ``fsdp_spec``, trainer.py:284-330; ``parallel/fsdp.py``
+  stores them);
 * ``RowShard`` is the row-sharded item table (``shard_item_embedding``, JAX
   ``hstu.py:249-252``): rank r owns rows [r·R, (r+1)·R), R = ⌈n / W⌉, and
   no rank's device ever holds the whole table (JAX's ``data``-sharded
@@ -121,6 +124,20 @@ def shard_identical(x, mesh: Optional[DataMesh]):
     assert B % mesh.world == 0, (B, mesh.world)
     n = B // mesh.world
     return x[mesh.rank * n:(mesh.rank + 1) * n]
+
+
+def fsdp_params(named_params, world: int, min_size: int) -> List[str]:
+    """The names of the parameters that FSDP shards over ``world`` ranks,
+    in ``named_params``' order: JAX's rule (trainer.py:296-330), at least
+    ``min_size`` elements and some dimension that divides by ``world`` and
+    is at least ``world`` (``fsdp_spec`` finds a dimension to put ``data``
+    on); none at one rank (JAX's ``dp > 1``). How a chosen parameter is
+    split is ``parallel/fsdp.py``'s: a flat block each rank, where JAX puts
+    its largest such dimension over the ranks; the numbers are the same."""
+    if world <= 1:
+        return []
+    return [name for name, p in named_params
+            if p.numel() >= min_size and any(s % world == 0 and s >= world for s in p.shape)]
 
 
 def zero_owners(sizes: Sequence[int], world: int) -> List[int]:

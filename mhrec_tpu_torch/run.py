@@ -28,8 +28,12 @@ the ranks by rows and no rank holds it whole. HLLM refuses ``dedup_items``, a pa
 ``pack_chunk`` and ``packed_corpus_pass`` over several ranks, as the JAX
 package does. With ``result_json_path`` every rank writes
 ``{result_json_path}.{rank}.json``: the metrics, each read loss, the
-parameter checksum, the kernels' launches and the bytes of each
-collective.
+parameter checksum, the kernels' launches, the bytes of each
+collective and of the state a rank keeps between steps.
+
+FSDP / ZeRO-3 (``--fsdp True`` or ``--zero_stage 3``, ``--fsdp_min_size``)
+shards the large parameters over the ranks of such a group
+(``parallel/fsdp.py``); at one rank it changes nothing.
 """
 
 from __future__ import annotations
@@ -168,6 +172,14 @@ def _run(config_files, extra_args, device):
             "steady_examples_per_s": fit_stats["steady_examples_per_s"] if fit_stats else None,
             "launches": launch_counts(),
             "collective_bytes": dict(comm.traffic),
+            "persistent_bytes": (fit_stats["persistent_bytes"] if fit_stats
+                                 else trainer.persistent_bytes()),
+            # the state kept between steps (at the end of the fit); FSDP:
+            # each sharded parameter's elements and its block's, and the
+            # most whole ones alive after a step
+            "fsdp_params": ({n: [e.numel, e.n] for n, e in trainer.fsdp.entries.items()}
+                            if trainer.fsdp is not None else {}),
+            "fsdp_live_whole": fit_stats["fsdp_live_whole"] if fit_stats else None,
         }
         if trainer.device.type == "cuda":
             payload["peak_mem_gb"] = torch.cuda.max_memory_allocated(trainer.device) / 2**30

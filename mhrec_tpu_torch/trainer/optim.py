@@ -36,7 +36,11 @@ bypass it, as in the JAX package).
 In a process group of more than one rank (``shard_optimizer_state``, on by
 default there, as in the JAX package) the optimizer is a
 ``ZeroShardedOptimizer``: ZeRO-2's sharded optimizer state, each
-parameter's moments on one rank.
+parameter's moments on one rank. Under FSDP (``parallel/fsdp.py``) the
+sharded parameters are blocks and every rank steps its own: their moments
+are blocks too, and ZeRO-2's owners and broadcasts cover only the
+parameters that stay replicated (JAX applies ZeRO to the still-replicated
+leaves, trainer.py:337-350).
 """
 
 from __future__ import annotations
@@ -190,7 +194,8 @@ def _buckets(tensors, numel: int = BUCKET_NUMEL):
 @torch.no_grad()
 def all_reduce_grads(params) -> None:
     """SUM the gradients of ``params`` over the ranks, in flat buckets (one
-    ``all_reduce`` each)."""
+    ``all_reduce`` each). The trainer leaves out FSDP's blocks, whose
+    gradients were reduce-scattered in the backward."""
     grads = [p.grad for p in params]
     for bucket in _buckets(grads):
         flat = comm.all_reduce(_flatten_dense_tensors(bucket), "grad_all_reduce")
@@ -206,24 +211,39 @@ class ZeroShardedOptimizer:
     (``make_optimizer`` over the groups' owned parameters) steps it on the
     SUM-all-reduced gradient and then broadcasts it to the others. The
     update is the replicated optimizer's, element for element: the same
-    kernel on the same gradients. Gradients are held whole on every rank,
-    since the global-norm clip reads all of them.
+    kernel on the same gradients. A replicated parameter's gradient is held
+    whole on every rank.
+
+    Under FSDP (``fsdp``, a ``parallel/fsdp.py::FSDP``) each rank steps
+    its blocks of the sharded parameters itself, with no broadcast; so does
+    it every replicated parameter when ``shard_replicated`` is false
+    (``shard_optimizer_state: false``).
 
     ``param_groups`` are this rank's groups (the trainer sets each group's
     learning rate); ``params`` every dense parameter. ``state_dict`` (a
     collective) returns a host copy of the whole state in the replicated
-    optimizer's layout on every rank, so a checkpoint written at one world
-    size loads at another; ``load_state_dict`` takes this rank's part of
-    such a state."""
+    optimizer's layout, on every rank, but for the sharded parameters'
+    moments, which rank 0 alone assembles (None elsewhere); so a checkpoint
+    written at one world size loads at another. ``load_state_dict`` takes
+    this rank's part of such a state."""
 
-    def __init__(self, groups, make_optimizer, mesh):
-        self.mesh = mesh
+    EVERY = -1  # the owner of a parameter that every rank steps
+
+    def __init__(self, groups, make_optimizer, mesh, fsdp=None, shard_replicated=True):
+        self.mesh, self.fsdp = mesh, fsdp
         self.params = [p for g in groups for p in g["params"]]
         self.group_sizes = [len(g["params"]) for g in groups]
-        self.owner = zero_owners([p.numel() for p in self.params], mesh.world)
-        mine = {id(p) for p, r in zip(self.params, self.owner) if r == mesh.rank}
+        self.owner = [self.EVERY] * len(self.params)
+        rep = [i for i, p in enumerate(self.params) if not self._sharded(p)]
+        if shard_replicated:
+            for i, r in zip(rep, zero_owners([self.params[i].numel() for i in rep], mesh.world)):
+                self.owner[i] = r
+        mine = {id(p) for p, r in zip(self.params, self.owner) if r in (mesh.rank, self.EVERY)}
         self.optim = make_optimizer(
             [dict(g, params=[p for p in g["params"] if id(p) in mine]) for g in groups])
+
+    def _sharded(self, p) -> bool:
+        return self.fsdp is not None and self.fsdp.is_block(p)
 
     @property
     def param_groups(self):
@@ -250,12 +270,25 @@ class ZeroShardedOptimizer:
     def state_dict(self):
         local = self.optim.state_dict()
         index = {id(p): i for i, p in enumerate(self.params)}
-        mine = {index[id(p)]: {k: v.detach().to("cpu", copy=True) if torch.is_tensor(v) else v
-                               for k, v in local["state"][li].items()}
-                for li, p in enumerate(self._local_params()) if li in local["state"]}
+        mine, blocks = {}, {}
+        for li, p in enumerate(self._local_params()):
+            if li not in local["state"]:
+                continue
+            i = index[id(p)]
+            if self._sharded(p):
+                blocks[i] = (p, local["state"][li])
+            elif self.owner[i] == self.mesh.rank or (self.owner[i] == self.EVERY
+                                                     and self.mesh.rank == 0):
+                mine[i] = {k: v.detach().to("cpu", copy=True) if torch.is_tensor(v) else v
+                           for k, v in local["state"][li].items()}
         state = {}
         for part in comm.all_gather_objects(mine):
             state.update(part)
+        for i in sorted(blocks):  # the same order on every rank
+            p, st = blocks[i]
+            entry = self.fsdp.entry_of(p)
+            state[i] = {k: (self.fsdp.assemble(entry, v) if torch.is_tensor(v)
+                            and v.shape == p.shape else v) for k, v in st.items()}
         groups, start = [], 0
         for g, n in zip(local["param_groups"], self.group_sizes):
             groups.append(dict(g, params=list(range(start, start + n))))
@@ -265,8 +298,16 @@ class ZeroShardedOptimizer:
     def load_state_dict(self, state_dict):
         index = {id(p): i for i, p in enumerate(self.params)}
         local = self._local_params()
-        state = {li: state_dict["state"][index[id(p)]] for li, p in enumerate(local)
-                 if index[id(p)] in state_dict["state"]}
+        state = {}
+        for li, p in enumerate(local):
+            saved = state_dict["state"].get(index[id(p)])
+            if saved is None:
+                continue
+            if self._sharded(p):
+                entry = self.fsdp.entry_of(p)
+                saved = {k: (self.fsdp.block_of(entry, v) if torch.is_tensor(v)
+                             and v.shape == entry.shape else v) for k, v in saved.items()}
+            state[li] = saved
         groups, li = [], 0
         for g, mine in zip(state_dict["param_groups"], self.optim.param_groups):
             groups.append(dict(g, params=list(range(li, li + len(mine["params"])))))
@@ -281,12 +322,15 @@ def _is_frozen(name: str, freeze_prefix: List[str], sparse_table: bool) -> bool:
 
 
 def build_optimizer(config, model: torch.nn.Module,
-                    schedule_factory: Callable[[float], Schedule], mesh=None
+                    schedule_factory: Callable[[float], Schedule], mesh=None, fsdp=None,
+                    shard_replicated: bool = True
                     ) -> Tuple[torch.optim.Optimizer, List[Schedule], List[torch.nn.Parameter]]:
     """Returns (optimizer, one schedule per parameter group, the frozen
     parameters). ``schedule_factory(lr)`` builds the configured schedule at
-    base learning rate ``lr``. With ``mesh`` (a DataMesh) the optimizer
-    state is sharded over its ranks (``ZeroShardedOptimizer``)."""
+    base learning rate ``lr``. With ``mesh`` (a DataMesh) the optimizer is
+    a ``ZeroShardedOptimizer`` over its ranks: the replicated parameters'
+    state sharded ZeRO-2 style unless ``shard_replicated`` is false, FSDP's
+    blocks (``fsdp``) stepped by each rank."""
     optim_args = dict(config["optim_args"] or {})
     split_modal = {"modal_lr", "modal_decay", "rec_lr", "rec_decay"} <= set(optim_args)
     mu_dtype = _moment_dtype(config.get("adam_mu_dtype"))
@@ -334,18 +378,30 @@ def build_optimizer(config, model: torch.nn.Module,
         return torch.optim.AdamW(groups, lr=base_lr, betas=(0.9, 0.999), eps=1e-8,
                                  weight_decay=wd, fused=True if on_card else None)
 
-    opt = make(groups) if mesh is None else ZeroShardedOptimizer(groups, make, mesh)
+    opt = make(groups) if mesh is None else ZeroShardedOptimizer(
+        groups, make, mesh, fsdp=fsdp, shard_replicated=shard_replicated)
     return opt, schedules, frozen
 
 
 @torch.no_grad()
-def clip_grad_norm(params, max_norm: float) -> None:
+def clip_grad_norm(params, max_norm: float, blocks=()) -> None:
     """optax.clip_by_global_norm on the gradients of ``params``, without a
     host synchronisation: scaled by ``max_norm / norm`` when the global norm
-    reaches ``max_norm``."""
+    reaches ``max_norm``. ``blocks``: those of ``params`` that are FSDP
+    blocks, whose squares are summed over the ranks (an all-reduce) before
+    the replicated gradients' are added."""
     grads = [p.grad for p in params if p.grad is not None]
     if not grads:
         return
-    norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+    if not blocks:
+        norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g)
+                                                     for g in grads]))
+    else:
+        ids = {id(p) for p in blocks}
+        sq = [torch.stack([torch.linalg.vector_norm(p.grad) for p in group]).square().sum()
+              if group else grads[0].new_zeros(())
+              for group in ([p for p in params if p.grad is not None and id(p) in ids],
+                            [p for p in params if p.grad is not None and id(p) not in ids])]
+        norm = (comm.all_reduce(sq[0], "grad_norm") + sq[1]).sqrt()
     scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
     torch._foreach_mul_(grads, scale)

@@ -76,10 +76,22 @@
   each corpus batch over the ranks (``shard_identical``) and all-gathers
   the embeddings in rank order. Inside a group every collective runs at W
   = 1 too.
+
+* FSDP / ZeRO-3 (``fsdp: true`` or ``zero_stage: 3``, ``fsdp_min_size``;
+  JAX trainer.py:284-330) over W > 1 ranks: every parameter that JAX's
+  rule shards is stored as a block a rank (``parallel/fsdp.py``), gathered
+  whole for its layer's forward and backward, its gradient
+  reduce-scattered in the backward, its moments blocks; the global-norm
+  clip sums the blocks' squares over the ranks. Under ``sparse_item_adam``
+  HSTU's item table, which JAX's rule shards as a parameter, is the
+  row-sharded table. An evaluation gathers every sharded parameter once
+  at its start; a save assembles them and their moments in rank 0's host
+  memory and writes the one-process layout.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import math
 import os
@@ -97,7 +109,8 @@ from mhrec_tpu_torch.models.factory import build_model
 from mhrec_tpu_torch.models.hllm.hllm import batch_image_extra
 from mhrec_tpu_torch.models.layers import ItemEmbed, cosine_normalize
 from mhrec_tpu_torch.ops import row_adam_cuda
-from mhrec_tpu_torch.parallel import comm, make_mesh, shard_identical
+from mhrec_tpu_torch.parallel import comm, fsdp_params, make_mesh, shard_identical
+from mhrec_tpu_torch.parallel.fsdp import shard_model
 from mhrec_tpu_torch.trainer import checkpoint as ckpt_io
 from mhrec_tpu_torch.trainer.lr_schedule import build_schedule
 from mhrec_tpu_torch.trainer.optim import (
@@ -112,7 +125,8 @@ from mhrec_tpu_torch.trainer.sparse_adam import (
     sparse_adamw_row_update,
 )
 from mhrec_tpu_torch.utils.misc import calculate_valid_score, early_stopping, resolve_device
-from mhrec_tpu_torch.utils.observability import save_eval_chunk, save_log_dict
+from mhrec_tpu_torch.utils.observability import get_tensorboard, save_eval_chunk, save_log_dict
+from mhrec_tpu_torch.utils.wandblogger import WandbLogger
 
 logger = logging.getLogger(__name__)
 
@@ -183,14 +197,33 @@ class Trainer:
         self.mesh = make_mesh() if comm.initialized() else None
         self.rank, self.world = (self.mesh.rank, self.mesh.world) if self.mesh else (0, 1)
         self.sparse_item_adam = bool(config.get("sparse_item_adam", False))
+        # FSDP / ZeRO-3: JAX's keys and defaults (trainer.py:290-294); set up
+        # in setup_model, once the parameters hold their initial values
+        self.use_fsdp = bool(config.get("fsdp", False)) or int(config.get("zero_stage") or 2) >= 3
+        self.fsdp_min_size = int(config.get("fsdp_min_size", 1 << 20) or (1 << 20))
+        self.fsdp = None
+        fsdp_on = self.use_fsdp and self.world > 1
+        is_hstu = str(config["model"] or "HSTU") == "HSTU"
         # the row-sharded table of HSTU (JAX reads the key in hstu_from_config
         # alone, hstu.py:669)
-        self.shard_table = (bool(config.get("shard_item_embedding", False))
-                            and str(config["model"] or "HSTU") == "HSTU")
+        self.shard_table = bool(config.get("shard_item_embedding", False)) and is_hstu
         if self.shard_table and not self.sparse_item_adam:
-            raise NotImplementedError(
-                "shard_item_embedding needs sparse_item_adam: the sharded table is trained "
-                "by the row update on the deduped union")
+            if not fsdp_on:
+                raise NotImplementedError(
+                    "shard_item_embedding needs sparse_item_adam: the sharded table is "
+                    "trained by the row update on the deduped union")
+            # a dense table is a parameter like any other: FSDP's rule shards it
+            self.shard_table = config["shard_item_embedding"] = False
+        if fsdp_on and self.sparse_item_adam and self._fsdp_shards_table(dataload):
+            # JAX's rule shards the table, a parameter there (trainer.py:76,
+            # 318-324); here it is the row-sharded table, which no rank holds
+            # whole either
+            if not is_hstu:
+                raise NotImplementedError(
+                    f"fsdp shards the item table of {config['model']} under sparse_item_adam "
+                    "(JAX's fsdp_min_size rule), and only HSTU's table can be row-sharded: "
+                    "raise fsdp_min_size above the table's size or turn sparse_item_adam off")
+            self.shard_table = config["shard_item_embedding"] = True
         # parameters are made on the device: a 1B-parameter tower never
         # passes through host memory, and a sharded table is made at its
         # block's size
@@ -281,6 +314,20 @@ class Trainer:
         # copy's bytes (asynchronous saves), the load's seconds
         self.checkpoint_stats: Dict[str, float] = {}
         self.async_checkpoint = bool(config.get("async_checkpoint", True))
+        # the scalar sinks (JAX trainer.py:205, 1240-1247), on rank 0: wandb
+        # under log_wandb, a tensorboardX writer wherever tensorboardX imports
+        self.wandblogger = WandbLogger(config, enabled=bool(config["log_wandb"])
+                                       and self.rank == 0)
+        self._tb = None
+
+    def _fsdp_shards_table(self, dataload) -> bool:
+        """Whether FSDP's rule picks the item table of an ID model (its
+        rows by ``item_embedding_size``)."""
+        D = self.config.get("item_embedding_size")
+        if not D or str(self.config["model"]) == "HLLM":
+            return False
+        table = torch.empty((int(dataload.item_num), int(D)), device="meta")
+        return bool(fsdp_params([("table", table)], self.world, self.fsdp_min_size))
 
     # ------------------------------------------------------------------
     def setup_model(self, seed: Optional[int] = None):
@@ -308,15 +355,29 @@ class Trainer:
                 self.model.all_item_embeds.copy_(torch.as_tensor(table))
         n_params = sum(p.numel() for p in self.model.parameters())
         logger.info("Trainable parameters: %d", n_params)
+        if self.use_fsdp and self.world > 1:
+            # the sparse table is the row-sharded one or stays whole
+            table_key = self._table_key() if self.sparse_item_adam else None
+            self.fsdp = shard_model(self.model, self.mesh, self.fsdp_min_size,
+                                    exclude={table_key})
+            logger.info("fsdp: %d parameters sharded over %d ranks",
+                        0 if self.fsdp is None else len(self.fsdp.entries), self.world)
         self.optimizer, self.group_schedules, frozen = build_optimizer(
             self.config, self.model,
             lambda lr: build_schedule(self.config["scheduler_args"], lr, self.total_iters),
-            mesh=self.mesh if self.shard_opt else None)
+            mesh=self.mesh if self.shard_opt or self.fsdp is not None else None,
+            fsdp=self.fsdp, shard_replicated=self.shard_opt)
         for p in frozen:
             p.requires_grad_(False)
         self.dense_params = (self.optimizer.params
                              if isinstance(self.optimizer, ZeroShardedOptimizer)
                              else [p for g in self.optimizer.param_groups for p in g["params"]])
+        # FSDP's blocks, whose gradients the backward reduce-scatters, and
+        # the replicated parameters, whose gradients are all-reduced
+        self.block_params = [p for p in self.dense_params
+                             if self.fsdp is not None and self.fsdp.is_block(p)]
+        blocks = {id(p) for p in self.block_params}
+        self.replicated_params = [p for p in self.dense_params if id(p) not in blocks]
         if self.sparse_item_adam:
             table = self.item_table().weight
             self.table_m = torch.zeros_like(table, dtype=torch.float32)
@@ -459,7 +520,7 @@ class Trainer:
             if p.grad is None:  # unused this step: optax still sees a zero gradient
                 p.grad = torch.zeros_like(p)
         if self.mesh is not None:
-            all_reduce_grads(self.dense_params)
+            all_reduce_grads(self.replicated_params)
         for p in self.dense_params:
             p.grad.masked_fill_(bad, 0.0)
         if slot:
@@ -486,7 +547,7 @@ class Trainer:
         outer = self.step // k
         clip = self.config.get("clip_grad_norm")
         if clip:
-            clip_grad_norm(self.dense_params, float(clip))
+            clip_grad_norm(self.dense_params, float(clip), blocks=self.block_params)
         for group, sched in zip(self.optimizer.param_groups, self.group_schedules):
             group["lr"] = sched(outer)
         self.optimizer.step()
@@ -588,6 +649,8 @@ class Trainer:
         cur_step = 0
         t_data = t_step = t_eval = 0.0
         self.fetched_losses = []  # (step, loss) of every step the host read
+        # FSDP: the most whole sharded parameters or gradients alive after a step
+        self.fsdp_live_whole = 0
         t_steady = None
         it_steady = 0
         t0 = time.time()
@@ -602,6 +665,9 @@ class Trainer:
             t_data += time.time() - td
             ts = time.time()
             out = self.train_step(batch)
+            if self.fsdp is not None:
+                # a count of weak references: no synchronisation
+                self.fsdp_live_whole = max(self.fsdp_live_whole, self.fsdp.live_whole())
             # the first step is fetched too, so the steady clock starts
             # after it; the NaN check fires on the last step as well
             if (it + 1) % self.update_interval == 0 or self.debug or it == start_it \
@@ -614,6 +680,9 @@ class Trainer:
                     raise RuntimeError(f"NaN loss at iter {it}")
                 logs = {k: float(v.detach()) for k, v in out.items()}
                 self.fetched_losses.append((it + 1, loss))
+                if (it + 1) % self.update_interval == 0 or self.debug or it == micro_steps - 1:
+                    # JAX's steps: its fetches, which skip the first step
+                    self._log_scalars(logs, step=it + 1, head="train")
                 t_step += time.time() - ts
                 if t_steady is None:
                     t_steady, it_steady = time.time(), it + 1
@@ -635,6 +704,8 @@ class Trainer:
                     bigger=self.valid_metric_bigger)
                 logger.info("valid @ step %d: %s=%.6f (best %.6f)", (it + 1) // k,
                             self.valid_metric, score, self.best_valid_score)
+                for section, metrics in result.items():
+                    self._log_scalars(metrics, step=(it + 1) // k, head=f"valid_{section}")
                 if update_flag:
                     self.best_valid_result = result
                     self.save_checkpoint()
@@ -662,7 +733,23 @@ class Trainer:
         logger.info("fit done: %d steps, %.1fs, %.1f examples/s (%.1f steady: after the "
                     "first step, evaluations left out)", n_done, wall, rate, steady_rate)
         return {"iters": n_done, "wall_s": wall, "examples_per_s": rate,
-                "steady_examples_per_s": steady_rate, "eval_s": t_eval, **logs}
+                "steady_examples_per_s": steady_rate, "eval_s": t_eval,
+                "fsdp_live_whole": self.fsdp_live_whole,
+                "persistent_bytes": self.persistent_bytes(), **logs}
+
+    def _log_scalars(self, metrics: Dict[str, Any], step: int, head: str):
+        """The numbers of ``metrics`` (already on the host) to wandb and to
+        TensorBoard as ``{head}/{name}`` at ``step`` (JAX trainer.py:1240-1247),
+        on rank 0."""
+        if self.rank:
+            return
+        numeric = {k: v for k, v in metrics.items() if isinstance(v, (int, float))}
+        self.wandblogger.log_metrics(numeric, step=step, head=head)
+        if self._tb is None:
+            self._tb = get_tensorboard(self.config) or False
+        if self._tb:
+            for k, v in numeric.items():
+                self._tb.add_scalar(f"{head}/{k}", v, step)
 
     # ------------------------------------------------------------------
     # checkpoints
@@ -707,7 +794,9 @@ class Trainer:
         if self.async_checkpoint:
             # a sharded table's host assembly is a fresh copy already
             fresh = ([payload["params"][self._table_key()], payload["table_m"],
-                      payload["table_v"]] if self.shard_table else ())
+                      payload["table_v"]] if self.shard_table else [])
+            if self.fsdp is not None:
+                fresh += [payload["params"][name] for name in self.fsdp.entries]
             payload, stats["host_copy_bytes"] = ckpt_io.host_copy(payload, keep=fresh)
         # the synchronous save goes through the registry too, so it replaces
         # a failed write there and a load waits for it like any other
@@ -737,25 +826,57 @@ class Trainer:
         return t if shard is None else shard.gather_to_host(t, self.item_chunk_size)
 
     def _whole_state_dict(self):
-        """The model's state dict with the whole item table (collective
-        when it is sharded: rank 0 holds it in host memory, the other ranks
+        """The model's state dict with the whole item table and the whole
+        FSDP parameters (collective when they are sharded: rank 0 holds them
+        in host memory, assembled a block at a time, the other ranks
         None)."""
         sd = self.model.state_dict()
         key = self._table_key()
         if key is not None:
             sd[key] = self._whole_table(sd[key])
+        if self.fsdp is not None:
+            for name, entry in self.fsdp.entries.items():
+                sd[name] = self.fsdp.assemble(entry, sd[name])
         return sd
 
     def param_checksum(self) -> float:
         """The sum of |p| over every parameter, the whole item table
-        included; the same on every rank (collective when the table is
-        sharded: its blocks' sums are all-reduced)."""
+        included; the same on every rank (collective when the table or
+        parameters are sharded: the blocks' sums are all-reduced)."""
         emb = self.item_table()
-        if getattr(emb, "shard", None) is None:
-            return float(sum(p.detach().abs().float().sum() for p in self.model.parameters()))
-        rest = sum(p.detach().abs().float().sum() for p in self.model.parameters()
-                   if p is not emb.weight)
-        return float(rest + comm.all_reduce(emb.weight.detach().abs().float().sum(), "checksum"))
+        table = emb.weight if getattr(emb, "shard", None) is not None else None
+        split = [p for p in self.model.parameters()
+                 if p is table or (self.fsdp is not None and self.fsdp.is_block(p))]
+        ids = {id(p) for p in split}
+        total = sum(p.detach().abs().float().sum() for p in self.model.parameters()
+                    if id(p) not in ids)
+        if split:
+            total = total + comm.all_reduce(sum(p.detach().abs().float().sum() for p in split),
+                                            "checksum")
+        return float(total)
+
+    def persistent_bytes(self) -> Dict[str, int]:
+        """The bytes of this rank's state between two steps: the dense
+        parameters, their gradients and the optimizer's moments; the item
+        table under ``sparse_item_adam`` with its row moments (``table``);
+        under FSDP the blocks and their moments (``block_params``,
+        ``block_moments``), counted in the first three too."""
+        def nbytes(ts):
+            return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+        def moments(ps):
+            return [v for p in ps for v in self.optimizer.state.get(p, {}).values()
+                    if torch.is_tensor(v) and v.dim() > 0]
+
+        table = self.item_table().weight if self.sparse_item_adam else None
+        params = [p for p in self.model.parameters() if p is not table]
+        out = {"params": nbytes(params), "grads": nbytes(p.grad for p in params),
+               "moments": nbytes(moments(params)),
+               "table": nbytes([table, self.table_m, self.table_v])}
+        if self.fsdp is not None:
+            out.update(block_params=nbytes(self.block_params),
+                       block_moments=nbytes(moments(self.block_params)))
+        return out
 
     def wait_for_checkpoint(self):
         """Wait for this run's checkpoint write in flight, if any (its error
@@ -778,6 +899,9 @@ class Trainer:
         # step counts stay where its policy keeps them (on the host unless
         # fused: on the card they would cost a synchronisation each per step)
         payload = torch.load(path, map_location="cpu", weights_only=True, mmap=True)
+        if self.fsdp is not None:
+            for name, entry in self.fsdp.entries.items():
+                payload["params"][name] = self.fsdp.block_of(entry, payload["params"][name])
         shard = getattr(self.item_table(), "shard", None)
         if shard is not None:
             key = self._table_key()
@@ -873,9 +997,15 @@ class Trainer:
         ``id2token``) and ``save_for_eval`` each batch's top-k and user /
         head embeddings (``saved_eval/eval_chunk_{n:05d}.npz``), under the
         checkpoint directory, n the batch's first row; with either on, the
-        metric rows also go to ``results.pkl`` when pandas is installed."""
+        metric rows also go to ``results.pkl`` when pandas is installed.
+        Under FSDP every sharded parameter is gathered whole for the
+        evaluation and dropped after it."""
         if load_best_model and not self.load_checkpoint():
             logger.warning("no checkpoint found; evaluating current params")
+        with self.fsdp.gathered() if self.fsdp is not None else contextlib.nullcontext():
+            return self._evaluate(eval_batcher)
+
+    def _evaluate(self, eval_batcher):
         self.model.eval()
         # GAUC / AUC (rec.meanrank) and the VALUE metrics (rec.tgt_score)
         # stream beside the top-k merge for any head count, as head-0

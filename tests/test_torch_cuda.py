@@ -1614,3 +1614,19 @@ def test_hllm_corpus_gather_and_pool_order_on_the_card(card, tmp_path):
         assert len(r["pools"]) == len(pools) == 4
         for got, want in zip(r["pools"], pools):
             torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+
+
+# -- FSDP: two gloo ranks on the one card -----------------------------------
+def test_fsdp_collectives_and_tower_on_the_card(card, tmp_path):
+    """FSDP's reduce-scatter and flat all-gather on CUDA tensors over gloo
+    (torch's single-tensor forms), and a two-layer tower with its large
+    parameters sharded, with and without gradient checkpointing: outputs
+    and gradients bit-equal to the replicated tower's on the same rows
+    (``tests/torch_parallel_worker.py fsdp`` on ``cuda:0``; NCCL refuses two
+    ranks on one device)."""
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch_parallel_worker as W
+
+    W.check_fsdp_worker(W.fsdp_worker_ranks(tmp_path, "cuda:0"))

@@ -29,7 +29,10 @@ SOURCES = sorted((ROOT / "mhrec_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke
 # tokenizer.json itself
 NEVER = ("jax", "jaxlib", "flax", "optax", "mhrec_tpu", "safetensors", "transformers",
          "tokenizers", "regex", "sentencepiece")
-NOT_AT_TOP = ("yaml", "pandas", "pyarrow", "PIL", "torchvision", "decord")
+NOT_AT_TOP = ("yaml", "pandas", "pyarrow", "PIL", "torchvision", "decord", "wandb",
+              "tensorboardX")
+# scipy is a dependency of the offline tools alone
+SCIPY_ONLY_UNDER = ROOT / "mhrec_tpu_torch" / "tools"
 
 
 def _imports(source):
@@ -67,6 +70,13 @@ def test_no_forbidden_imports(path):
         assert _root(module) not in NEVER, f"{path.name} imports {module}"
         if top:
             assert _root(module) not in NOT_AT_TOP, f"{path.name} imports {module} at module level"
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_scipy_only_in_the_tools(path):
+    if SCIPY_ONLY_UNDER in path.parents:
+        return
+    assert all(_root(module) != "scipy" for module, _ in _imports(path.read_text())), path.name
 
 
 def test_scanner_sees_what_it_looks_for():
@@ -482,12 +492,14 @@ tower = dict(vocab_size=1024, hidden_size=64, intermediate_size=128, num_attenti
 # 64-wide towers, chunk rows of 128 tokens, over 128 users and 384 items, 3
 # steps; the baselines: 2 steps at a global batch of 8 over the HSTU
 # catalog; the sharded table at 1,500 items after its reference at 701, two
-# chunks of 700 rows and a one-row tail), over gloo on the CPU
+# chunks of 700 rows and a one-row tail; (f) at fsdp_min_size 256, so that
+# the small parameters shard), over gloo on the CPU
 chip_smoke.distributed_phase(
     tempfile.mkdtemp(), "cpu", device="cpu", data_kw=data_kw, n_layers=2, n_heads=2,
     item_embedding_size=128, hstu_embedding_size=128, eval_batch_size=32,
     eval_item_chunk_size=700, MAX_ITEM_LIST_LENGTH=6, num_negatives=64, total_iters=4,
-    eval_interval=4, hllm_over=dict(MAX_TEXT_LENGTH=24, eval_batch_size=64, pack_chunk=128),
+    eval_interval=4, fsdp_min_size=256,
+    hllm_over=dict(MAX_TEXT_LENGTH=24, eval_batch_size=64, pack_chunk=128, fsdp_min_size=256),
     hllm_tower=tower, hllm_data=dict(chip_smoke.DIST_HLLM_DATA, num_users=128, num_items=384),
     base_over=dict(n_layers=2, n_heads=2, item_embedding_size=128, hstu_embedding_size=128,
                    embedding_size=32, item_embed_dim=32, eval_batch_size=32,
@@ -509,14 +521,19 @@ def test_distributed_phase_runs_without_what_the_card_lacks():
     five baselines) finish with the two ranks in one state and hold every
     check against the rank-order oracle (loss, checksum, metrics, the
     checkpoint served by one process, ZeRO-2), whose parameters equal
-    theirs; the sharded table holds half the rows a rank, and neither rank
+    theirs; (f) HSTU under zero_stage 3 and HLLM under fsdp equal their
+    ZeRO-2 runs bit for bit with fewer persistent bytes a rank and no whole
+    sharded tensor alive after a step; the sharded table holds half the
+    rows a rank, and neither rank
     makes a tensor of the whole table but rank 0's host assembly for the
     file and the checkpoint read into host memory, in (b) and in (e); and
     nothing of JAX is loaded (the card's launch counts and memory are not
     held here)."""
     env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="2")
+    # about 135 s alone; the limit guards against a hang, with room for a
+    # machine that other test workers share
     proc = subprocess.run([sys.executable, "-c", _DISTRIBUTED], cwd=ROOT, env=env,
-                          capture_output=True, text=True, timeout=300)
+                          capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "BAD []" in proc.stdout, proc.stdout[-3000:]
     rec = next(json.loads(line) for line in proc.stdout.splitlines()
@@ -554,6 +571,15 @@ def test_distributed_phase_runs_without_what_the_card_lacks():
     # (e) saves without a test split; (b) also loads for its test split
     assert [p for p, _ in table["ranks"][0]["table_hits_by_phase_device"]] == ["save"]
     assert table["ranks"][1]["table_hits_by_phase_device"] == []
+    # (f): HSTU under zero_stage 3 and HLLM under fsdp, against their
+    # oracles and their ZeRO-2 runs
+    for name in ("gloo_fsdp_hstu", "gloo_fsdp_hllm"):
+        g = rec[name]
+        assert all(ok for check, ok in g["checks"].items() if check != "launches"), (name, g)
+        assert g["bit_equal_to_zero2"] and g["params_max_abs_diff_vs_oracle"] <= 1e-6, g
+        assert all(r["live_whole_after_steps"] == 0 and r["total_gb"] < r["zero2_total_gb"]
+                   for r in g["ranks"]), g
+        assert g["fsdp_collective_bytes_per_step"]["fsdp_reduce_scatter"] > 0, g
     shard_mem = rec["gloo_sharded"]["table_memory"]
     assert [p for p, _ in shard_mem[0]["table_hits_by_phase_device"]] == ["load", "save"]
     assert [p for p, _ in shard_mem[1]["table_hits_by_phase_device"]] == ["load"]
@@ -651,3 +677,42 @@ def test_image_phases_run_without_what_the_card_lacks():
     assert phases[:3] == ["hllm_image_setup", "hllm_image_serve", "hllm_image_train"]
     assert phases[-1] == "hllm_image_variants" and recs[-1]["ok"]
     assert recs[1]["towers"]["image_tokens"] == 4
+
+
+_REFERENCE = """
+import json, sys, tempfile
+
+LACKING = ("pandas", "yaml", "pyarrow", "transformers", "tokenizers", "regex", "sentencepiece",
+           "scipy", "wandb", "tensorboardX")
+sys.modules.update({name: None for name in LACKING})
+import torch
+import chip_smoke
+
+torch.set_num_threads(2)
+data_kw = dict(num_users=64, num_items=500, seq_len=20, num_categories=8, eval_pred_len=8,
+               max_item_list_length=6, seed=0)
+chip_smoke.reference_ckpt_phase(data_kw, tempfile.mkdtemp(), device="cpu", n_layers=2,
+                                n_heads=2, item_embedding_size=128, hstu_embedding_size=128,
+                                eval_batch_size=32, eval_item_chunk_size=300,
+                                MAX_ITEM_LIST_LENGTH=6)
+bad = sorted(m for m, mod in sys.modules.items() if mod is not None
+             and m.split(".")[0] in {"jax", "jaxlib", "flax", "optax", "mhrec_tpu", *LACKING})
+print("BAD", bad)
+"""
+
+
+def test_reference_ckpt_phase_runs_without_what_the_card_lacks():
+    """chip_smoke.py's reference-checkpoint phase at a few widths on the
+    CPU in a fresh interpreter where pandas, PyYAML, pyarrow, scipy, wandb,
+    tensorboardX and the tokenizer packages cannot be imported: the written
+    reference checkpoint converts through the CLI's entry point and serves
+    at the directly loaded tensors' metrics, and nothing of JAX is
+    loaded."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="2")
+    proc = subprocess.run([sys.executable, "-c", _REFERENCE], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "BAD []" in proc.stdout, proc.stdout[-3000:]
+    rec = next(json.loads(line) for line in proc.stdout.splitlines()
+               if line.startswith('{"phase": "reference_ckpt"'))
+    assert all(ok for k, ok in rec["checks"].items() if k != "launches"), rec

@@ -8,7 +8,10 @@ single-process references. Imports nothing of JAX.
 ``hllm RANK WORLD PORT OUT`` runs the HLLM cases of
 ``tests/test_torch_multiprocess_hllm.py`` instead (``run_hllm``), and
 ``table RANK WORLD PORT OUT`` the row-sharded table's run of
-``tests/test_torch_multiprocess_table.py`` (``run_table``).
+``tests/test_torch_multiprocess_table.py`` (``run_table``), and ``fsdp RANK
+WORLD PORT OUT DEVICE`` FSDP's collectives and a sharded tower of
+``tests/test_torch_fsdp.py`` and ``tests/test_torch_cuda.py`` on DEVICE
+(``run_fsdp``).
 """
 
 import copy
@@ -365,6 +368,106 @@ def run_table(rank, world, port, out):
     comm.sync_hosts("done")
 
 
+def fsdp_tower(device, remat):
+    """A two-layer float32 llama tower of 64 wide (and its token table),
+    drawn from a fixed seed on ``device``."""
+    from mhrec_tpu_torch.models.llm.config import LLMConfig
+    from mhrec_tpu_torch.models.llm.llama import LlamaBackbone
+
+    cfg = LLMConfig(vocab_size=96, hidden_size=64, intermediate_size=128, num_hidden_layers=2,
+                    num_attention_heads=4, num_key_value_heads=2)
+    with torch.device(device):
+        m = LlamaBackbone(cfg, dtype=torch.float32, gradient_checkpointing=remat)
+    m.init_parameters(torch.Generator(device=device).manual_seed(5))
+    return m
+
+
+def run_fsdp(rank, world, port, out, device):
+    """FSDP's two collectives on ``device`` tensors, and the tower of
+    ``fsdp_tower`` with its parameters of 1,024 or more elements sharded
+    (with and without gradient checkpointing): this rank's rows of a batch
+    forward and backward, against the replicated tower on the same rows
+    with the gradients of the sharded parameters all-reduced. Saves the
+    collectives' results, the outputs and the gradients beside the
+    replicated tower's (a block of the sharded ones)."""
+    from mhrec_tpu_torch.parallel.fsdp import shard_model
+
+    dev = init_distributed(f"127.0.0.1:{port}", world, rank, backend="gloo", device=device)
+    mesh = make_mesh()
+    rec = {"backend": torch.distributed.get_backend(),
+           "reduce_scatter": comm.reduce_scatter(
+               torch.arange(6.0, device=dev) + 10 * rank, "fsdp_reduce_scatter").cpu(),
+           "all_gather_flat": comm.all_gather_flat(
+               torch.arange(3.0, device=dev) + 10 * rank, "fsdp_gather").cpu()}
+    ids = torch.randint(0, 96, (2 * world, 8), generator=gen(11)).to(dev)[2 * rank:2 * rank + 2]
+    for remat in (False, True):
+        ref, m = fsdp_tower(dev, remat), fsdp_tower(dev, remat)
+        fsdp = shard_model(m, mesh, 1024)
+        y_ref = ref(input_ids=ids)
+        y_ref.square().sum().backward()
+        y = m(input_ids=ids)
+        y.square().sum().backward()
+        want = {}
+        for name, p in ref.named_parameters():
+            # a block's gradient is summed over the ranks, a replicated
+            # parameter's stays the rank's (the trainer all-reduces those)
+            want[name] = (fsdp.block_of(fsdp.entries[name],
+                                        comm.all_reduce(p.grad.clone(), "grad_all_reduce"))
+                          if name in fsdp.entries else p.grad)
+        rec[f"remat{int(remat)}"] = {
+            "out": y.detach().cpu(), "out_ref": y_ref.detach().cpu(),
+            "sharded": sorted(fsdp.entries), "live_whole": fsdp.live_whole(),
+            "grads": {n: p.grad.cpu() for n, p in m.named_parameters()},
+            "want": {n: g.cpu() for n, g in want.items()}}
+    rec["traffic"] = dict(comm.traffic)
+    torch.save(rec, os.path.join(out, f"fsdp.{rank}.pt"))
+    comm.sync_hosts("done")
+
+
+def fsdp_worker_ranks(tmp_path, device):
+    """Two ranks of ``tests/torch_parallel_worker.py fsdp`` on ``device``
+    (gloo); returns their records."""
+    import socket
+    import subprocess
+    import sys
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root, OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen([sys.executable, os.path.join(root, "tests",
+                                                            "torch_parallel_worker.py"),
+                               "fsdp", str(r), "2", str(port), str(tmp_path), device],
+                              cwd=root, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    assert all(p.returncode == 0 for p in procs), logs[0][-3000:] + logs[1][-3000:]
+    return [torch.load(tmp_path / f"fsdp.{r}.pt") for r in range(2)]
+
+
+def check_fsdp_worker(ranks):
+    """The collectives' values, and the sharded tower's outputs and
+    gradients bit-equal to the replicated tower's (a sharded parameter's
+    all-reduced and cut to the block), with and without gradient
+    checkpointing, and no whole parameter or gradient left alive."""
+    for r, rec in enumerate(ranks):
+        assert rec["backend"] == "gloo"
+        assert torch.equal(rec["reduce_scatter"], torch.arange(3.0) * 2 + 10 + 6 * r)
+        assert torch.equal(rec["all_gather_flat"], torch.tensor([0., 1, 2, 10, 11, 12]))
+        for key in ("remat0", "remat1"):
+            run = rec[key]
+            assert torch.equal(run["out"], run["out_ref"]), key
+            assert len(run["sharded"]) == 15 and run["live_whole"] == 0, key
+            for name, g in run["want"].items():
+                assert torch.equal(run["grads"][name], g), (key, name)
+        assert rec["traffic"]["fsdp_gather"] > 0 and rec["traffic"]["fsdp_reduce_scatter"] > 0
+
+
 if __name__ == "__main__":
     if sys.argv[1] == "hllm":
         rank_, world_, port_, out_ = sys.argv[2:6]
@@ -372,6 +475,9 @@ if __name__ == "__main__":
     elif sys.argv[1] == "table":
         rank_, world_, port_, out_ = sys.argv[2:6]
         run_table(int(rank_), int(world_), int(port_), out_)
+    elif sys.argv[1] == "fsdp":
+        rank_, world_, port_, out_, device_ = sys.argv[2:7]
+        run_fsdp(int(rank_), int(world_), int(port_), out_, device_)
     else:
         rank_, world_, port_, out_ = sys.argv[1:5]
         run(int(rank_), int(world_), int(port_), out_)
