@@ -33,8 +33,8 @@ from seed 0:
   and ``attn_impl: xla`` (the plain path, no kernel), hold each against
   the serve path's embeddings of that batch, and time that batch's
   ``predict_embeddings`` under each and under ``auto`` (kernel A);
-* training (``run.train``, what ``run.py`` runs without ``--val_only``): 30
-  steps of the reproduce script's prior protocol at batch 64 with 8192
+* training (``run.train``, what ``run.py`` runs without ``--val_only``):
+  TRAIN_STEPS (10) steps of the reproduce script's prior protocol at batch 64 with 8192
   negatives, ``sparse_item_adam`` and dropout 0.2, an evaluation of the valid
   split with a best-checkpoint save (under a temporary directory), and the
   test split evaluated from that checkpoint; kernel A runs 16 times forward
@@ -49,7 +49,7 @@ and the HLLM serving path (``run.serve`` with ``model: HLLM``) as
 ``reproduce/HLLM-EBNerd-prior.sh`` sets it up: TinyLlama-1.1B item and user
 towers (2048 wide, 32 heads over 4 KV heads, SwiGLU 5632, vocab 32000; the
 ``config.json`` of ``tools/dryrun_hllm_1b.py`` cut from 22 to HLLM_LAYERS
-(6) layers, written to a temporary directory, random weights from seed 0), hierarchical prior heads
+(2) layers, written to a temporary directory, random weights from seed 0), hierarchical prior heads
 (11 categories × 2 segment heads, one medusa layer, segment embeddings),
 ``pred_len`` 4, ``eval_pred_len`` 8, windows of 24 items, texts of up to 256
 tokens, the packed item tower and the packed corpus pass, over HLLM_USERS
@@ -104,8 +104,9 @@ launches are counted from 0 just before it (``path_launches``).
 
 Four phases drive HLLM towers loaded from local checkpoints, their
 tokenizer and the HLLM training levers, in a work directory of their own. ``hllm_pretrained``
-writes a TinyLlama-1.1B-shaped checkpoint (seed 0, bfloat16, two
-``.safetensors`` shards and an index, about 2.2 GB, by ``write_safetensors``,
+writes a checkpoint of TinyLlama-1.1B's widths at PRETRAINED_LAYERS layers
+(seed 0, bfloat16, two ``.safetensors`` shards and an index, about 0.44 GB, by
+``write_safetensors``,
 this script's own header writer), points both pretrain directories at it and
 serves (``hllm_config``, over a catalog of PRETRAINED_ITEMS items and
 PRETRAINED_USERS users, through hllm_serve_phase's checks) and trains
@@ -117,7 +118,7 @@ synchronous against an asynchronous best-checkpoint save (the loop's blocked
 seconds, the writer's, the host copy's bytes; a train step runs during the
 write; both files equal tensor for tensor), ``remat_policy`` ``full``
 against ``dots`` (steady examples/s and peak memory at LEVERS_BATCH
-sequences, 44 + 22 packed launches a step under both, one batch's gradients
+sequences, 2 + 1 packed launches a layer a step under both, one batch's gradients
 equal), and ``adam_mu_dtype`` / ``adam_nu_dtype: bfloat16`` against the
 fused AdamW (state bytes, peak memory). ``hllm_tokenizer`` links
 hllm_pretrained's shards into a directory of their own and writes a
@@ -131,8 +132,8 @@ port's own reader (``data/hf_tokenizer.py``): load seconds, items/s and
 tokens/s cold, warm and from the disk cache, every id below 32,000, the
 repeats equal, the id lists' digest equal to TOKENIZER_DIGEST (what
 ``transformers`` gives on the CPU); then it serves and trains 3 steps
-through that tokenizer (``packed_attn_fwd`` 44 a serve run, 44 and
-``packed_attn_bwd`` 22 a train step). ``hllm_towers`` writes a
+through that tokenizer (``packed_attn_fwd`` twice a layer a serve run and a
+train step, ``packed_attn_bwd`` once a layer a train step). ``hllm_towers`` writes a
 bert-base-uncased-shaped BERT and a Baichuan-13B-shaped ALiBi tower (2 of
 its 40 layers) and has each serve a small catalog and train 2 steps on the
 dense item tower (no kernel).
@@ -142,8 +143,9 @@ directory of its own; no kernel of the port runs on these paths (the image
 span rides the dense item tower), which their launch counts record.
 ``hllm_image`` is ``reproduce/HLLM-Pixel8M-prior.sh``'s model at full
 width: a Qwen2-VL-2B-Instruct item tower (its ``config.json``: the text
-decoder and the 32-block vision tower) and a Qwen2.5-1.5B user tower, both
-decoders cut to IMAGE_LLM_LAYERS (4) of their 28 layers,
+decoder and the vision tower, cut to IMAGE_VIT_BLOCKS (16) of its 32 blocks) and
+a Qwen2.5-1.5B user tower, both decoders cut to IMAGE_LLM_LAYERS (2) of
+their 28 layers,
 random weights from seed 0, a Qwen2-VL-layout byte-level BPE
 ``tokenizer.json`` (``write_qwen2_tokenizer``: the vision tokens at their
 ids) and 224 × 224 images (JPEGs of mixed native sizes the script writes
@@ -166,8 +168,8 @@ copy's. ``--image-only`` runs these two phases alone, without the last
 line.
 
 Then ``baselines`` (after train_accum) drives the paper's five comparison
-models through ``run.train`` and ``run.serve`` over the same users and
-catalog, with ``sparse_item_adam``: ComiRec and REMI (hstu-size4's trunk,
+models through ``run.train`` and ``run.serve`` over LATE_HSTU_USERS users
+of the same catalog, with ``sparse_item_adam``: ComiRec and REMI (hstu-size4's trunk,
 1024 wide, 16 layers of 16 heads, in float32 as in the JAX package, 4
 interests; REMI with ``lambda_rr`` 100 and ``beta_ihn`` 1) and DualVAE (a
 1024-wide item table, 5 aspects of 32) with 8,192 shared negatives, SASRec
@@ -203,7 +205,12 @@ run at 131,073 items; (f) FSDP / ZeRO-3: (b)'s HSTU under ``zero_stage: 3``
 (the table row-sharded through FSDP's rule) and (c)'s HLLM under ``fsdp:
 true``, each held to its oracle and to its ZeRO-2 run's checkpoint (bit for
 bit), its persistent bytes a rank below the ZeRO-2 run's, no whole sharded
-parameter or gradient alive after a step; see ``distributed_phase``.
+parameter or gradient alive after a step; (g) tensor parallelism over
+four gloo ranks: (g1) (c) at ``tp_size: 2`` (data 2 × model 2) held to
+(c)'s oracle and to (c)'s one-rank-per-row checkpoint, (g2) Qwen2-1.5B's
+widths at ``tp_size: 4`` (``k_proj`` / ``v_proj`` whole, #8a-c on a view
+of their heads) held to a one-process run, each checkpoint served by one
+process; see ``distributed_phase``.
 ``--distributed-only`` builds the kernels and runs this phase alone,
 without the last line.
 
@@ -218,7 +225,8 @@ model. ``--reference-only`` builds the kernels and runs it alone.
 Then ``hstu_1b`` (after the baselines, before the HLLM ones) runs
 the largest HSTU of the reference's ladder, hstu-1b (``IDNet/hstu-1b.yaml``:
 22 layers, 2048 wide, 32 heads of 64) with ``scan_layers``, in the train
-phase's prior protocol over the same users and catalog: it serves (#1 22
+phase's prior protocol over LATE_HSTU_USERS users of the same catalog: it
+serves (#1 22
 times an eval batch on its tensor-core route), serves again under
 ``matmul_precision: tensorfloat32``, and trains at batch 32 with a float32
 table (fit, evaluation, best-checkpoint save, the test split from it; #4
@@ -254,6 +262,7 @@ shape and at hstu-1b's width.
 
 from __future__ import annotations
 
+import contextlib
 import glob
 import itertools
 import json
@@ -294,7 +303,9 @@ TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 2e-2)}  # (atol, rtol)
 IMPL_TOL = 5e-2
 F32_GRAD_TOL = 1e-2
 
-TRAIN_STEPS = 30
+# 30 until (g) of the distributed phase held its gradients, 20 until
+# the script's 1,200 s ran out on a slower machine (depth cuts)
+TRAIN_STEPS = 10
 
 # the HLLM training phase: sequences a step and steps
 HLLM_TRAIN_BATCH = 8
@@ -302,17 +313,21 @@ HLLM_TRAIN_BATCH = 8
 # (4,096 and 16,384 until the distributed phase joined the script, 2,048 and
 # 8,192 until its HLLM run joined it, 1,024 users until its baselines and
 # sharded-table runs joined it: depth cuts; hllm_impl_phase takes a whole
-# corpus batch of 3,072 items)
+# corpus batch of 3,072 items, and hllm_host_table's 2e-3 on the ranking
+# metrics is one user's hit in 512)
 HLLM_USERS = 512
 HLLM_ITEMS = 4096
 # the towers' layers in those phases: TinyLlama-1.1B's 22 until the
 # distributed phase's baselines and sharded-table runs joined the script,
 # whose scratch files moved to /dev/shm, 11 until its FSDP runs and the
-# reference-checkpoint phase joined it (depth cuts)
-HLLM_LAYERS = 6
+# reference-checkpoint phase joined it, 6 until its tensor-parallel runs
+# joined it, 4 until the script's 1,200 s ran out on a slower machine
+# (depth cuts)
+HLLM_LAYERS = 2
 # 10 until the distributed phase joined the script, 4 until its baselines
-# and sharded-table runs joined it (depth cuts)
-HLLM_TRAIN_STEPS = 3
+# and sharded-table runs joined it, 3 until its tensor-parallel runs joined
+# it (depth cuts)
+HLLM_TRAIN_STEPS = 2
 # chunk rows of 2048 tokens that a train step's 992 items pack into
 HLLM_TRAIN_CHUNK_ROWS = 72
 
@@ -926,6 +941,91 @@ def packed_bwd_kernel_phase(dtype, seed=0):
            "bound_ms": bound, "bound_by": bound_by, "library_ms": lib_ms,
            "library_host_ms": lib_host_ms, "library_error": lib_note,
            "ok": finite and excess <= 0 and zeros and repeat_equal}
+    emit(rec)
+    return rec
+
+
+# #8a-c on a tensor-parallel rank's heads: (whole query heads, KV heads,
+# head width, T, the rank) whose local query heads read a view of the whole
+# KV projection's heads (Qwen2-1.5B at T = 4, as (g2) runs it: rank 2's 3
+# heads over the second of 2 KV heads) or the KV heads gathered one per
+# query head (6 heads over 3 KV heads at T = 2: heads 0-2 read KV heads 0,
+# 0, 1)
+PACKED_TP_LAYOUTS = {"kv_view": (12, 2, 128, 4, 2), "kv_gather": (6, 3, 64, 2, 0)}
+PACKED_TP_ROWS = 8  # chunk rows of PACKED_SHAPE's 2048 tokens, its band
+
+
+def packed_tp_inputs(layout, dtype, seed=0):
+    """A rank's q [C, S, H/T, dh] and the k, v it passes to #8a-c under
+    ``layout``: a strided view of the whole projection's KV heads, or those
+    heads gathered (``models/llm/llama.py``, ``LlamaAttention._local_heads``);
+    the segment ids."""
+    import torch
+
+    H, Hkv, dh, T, m = PACKED_TP_LAYOUTS[layout]
+    _, S, _, _, _, w = PACKED_SHAPE
+    q, k, v, seg = packed_inputs(PACKED_TP_ROWS, S, H, Hkv, dh, w, dtype, seed)
+    h0, h1 = m * H // T, (m + 1) * H // T
+    need = [h // (H // Hkv) for h in range(h0, h1)]
+    q = q[:, :, h0:h1].contiguous()
+    if layout == "kv_view":
+        k, v = k[:, :, need[0]:need[-1] + 1], v[:, :, need[0]:need[-1] + 1]
+        assert k.stride(1) == Hkv * dh and not k.is_contiguous()
+    else:
+        idx = torch.tensor(need, device=k.device)
+        k, v = k.index_select(2, idx), v.index_select(2, idx)
+    return q, k, v, seg
+
+
+def packed_tp_phase(layout, dtype, seed=0):
+    """#8a and #8b/c on a tensor-parallel rank's heads (``PACKED_TP_LAYOUTS``)
+    against their plain versions on the same views: the forward on real
+    tokens, dq, dk, dv against the float32 plain autograd, zeros on
+    padding; the kernels' times beside the plain versions' and their
+    bounds from this run's band."""
+    import torch
+
+    from mhrec_tpu_torch.models.llm.packed import (packed_attention_plain,
+                                                   packed_attn_bwd_plain)
+    from mhrec_tpu_torch.ops.packed_attention_cuda import packed_attn_bwd, packed_attn_fwd
+
+    w = PACKED_SHAPE[5]
+    q, k, v, seg = packed_tp_inputs(layout, dtype, seed)
+    real = seg > 0
+    gen = torch.Generator(device=q.device).manual_seed(seed + 1)
+    dout = (torch.randn(q.shape, generator=gen, device=q.device)
+            * real[..., None, None]).to(dtype)
+    out, lse = packed_attn_fwd(q, k, v, seg, w, return_lse=True)
+    grads = packed_attn_bwd(q, k, v, out, dout, lse, seg, w)
+    torch.cuda.synchronize()
+    dname = str(dtype).replace("torch.", "")
+    ref = packed_attention_plain(q, k, v, seg, w)
+    fwd_err, fwd_excess = excess_error(out[real], ref[real], dname)
+    ref_g = packed_attn_bwd_plain(*(x.float() for x in (q, k, v, dout)), seg, w)
+    bwd_err, bwd_excess = excess_error(grads, ref_g, dname)
+    del ref, ref_g
+    zeros = not bool(out[~real].any()) and not any(bool(g[~real].any()) for g in grads)
+    finite = bool(torch.isfinite(out).all()) and all(bool(torch.isfinite(g).all())
+                                                     for g in grads)
+    t = timings({"fwd": lambda: packed_attn_fwd(q, k, v, seg, w),
+                 "fwd_plain": lambda: packed_attention_plain(q, k, v, seg, w),
+                 "bwd": lambda: packed_attn_bwd(q, k, v, out, dout, lse, seg, w),
+                 "bwd_plain": lambda: packed_attn_bwd_plain(q, k, v, dout, seg, w)},
+                iters=5, warmup=1)
+    H, dh = q.shape[2], q.shape[3]
+    pairs = packed_pairs(seg, w)
+    fb, fb_by = _bound(_nbytes(q, k, v, seg, q), 4 * dh * H * pairs, PEAK_FLOPS[dname])
+    bb, bb_by = _bound(_nbytes(q, k, v, out, dout, lse, seg, *grads), 10 * dh * H * pairs,
+                       PEAK_FLOPS[dname])
+    rec = {"phase": "kernel", "kernel": "packed_attn_tp", "layout": layout, "dtype": dname,
+           "C": q.shape[0], "S": q.shape[1], "H_local": H, "Hkv_local": k.shape[2], "dh": dh,
+           "window": w, "kv_strides": list(k.stride()), "kv_contiguous": k.is_contiguous(),
+           "pairs": pairs, "fwd_max_abs_err": fwd_err, "bwd_max_abs_err": bwd_err,
+           "atol": TOL[dname][0], "rtol": TOL[dname][1], "pad_rows_zero": zeros,
+           "fwd_ms": t["fwd"][0], "fwd_plain_ms": t["fwd_plain"][0], "fwd_bound_ms": fb,
+           "fwd_bound_by": fb_by, "bwd_ms": t["bwd"][0], "bwd_plain_ms": t["bwd_plain"][0],
+           "bwd_bound_ms": bb, "bwd_bound_by": bb_by,
+           "ok": finite and fwd_excess <= 0 and bwd_excess <= 0 and zeros}
     emit(rec)
     return rec
 
@@ -1590,8 +1690,9 @@ def hllm_train_impl_phase(trainer, data, work_dir):
 STREAMED_METRICS = ["Recall", "NDCG", "GAUC", "AUC", "MAE", "RMSE", "LogLoss"]
 # users held through both the streamed and the full-score path: 128, not
 # the 512 users first planned, whose host collector (argpartition and
-# argsort over [512, 12, 200000] scores) took 50.5 s of the phase
-FULL_SCORE_USERS = 128
+# argsort over [512, 12, 200000] scores) took 50.5 s of the phase; 64
+# since the script's 1,200 s ran out on a slower machine (a depth cut)
+FULL_SCORE_USERS = 64
 # the full-score path's [users, H, items] float32 tensor must stay below this
 FULL_SCORE_BYTES = 16 * 2**30
 # the CPU tests' tolerances (tests/test_torch_eval_outputs.py): streamed
@@ -1713,8 +1814,9 @@ def eval_outputs_phase(trainer, test_loader):
 
 
 # eval_outputs' eval batches (all 4 of the serve phase's until the
-# distributed phase joined the script: a depth cut)
-EVAL_OUTPUTS_BATCHES = 2
+# distributed phase joined the script, 2 until the script's 1,200 s ran
+# out on a slower machine: depth cuts)
+EVAL_OUTPUTS_BATCHES = 1
 
 
 class FirstBatches:
@@ -2007,15 +2109,22 @@ def train_accum_phase(data, k1_steady):
 
 # -- distributed: data parallelism over torch.distributed ---------------------
 # the HSTU phases' users and catalog (InMemoryInteractionData's arguments)
+# the baselines' and hstu_1b's users over the same catalog: the HSTU
+# phases' 4,096 until the distributed phase's tensor-parallel runs joined
+# the script, 2,048 until the script's 1,200 s ran out on a slower
+# machine (depth cuts)
+LATE_HSTU_USERS = 1024
 HSTU_DATA = dict(num_users=4096, num_items=200_000, seq_len=2 * 50 + 2 * 8,
                  num_categories=8, eval_pred_len=8, max_item_list_length=50, seed=0)
 HSTU_FILES = ("IDNet/hstu-size4.yaml", "overall/ID.yaml", "IDNet/hstu.yaml")
 # the distributed phase's HSTU users, (a), (b) and (f): the HSTU phases'
-# 4,096 until (f) and the reference-checkpoint phase joined the script (a
-# depth cut)
-DIST_HSTU_DATA = dict(HSTU_DATA, num_users=2048)
-# (a)'s steps: 10 until (f) joined the phase (a depth cut)
-DIST_STEPS = 6
+# 4,096 until (f) and the reference-checkpoint phase joined the script, 2,048
+# until (g) joined the phase, 1,024 until (g) held its gradients and ran
+# bfloat16 towers (depth cuts)
+DIST_HSTU_DATA = dict(HSTU_DATA, num_users=512)
+# (a)'s steps: 10 until (f) joined the phase, 6 until (g) joined it (depth
+# cuts: the machines that run the script differ by a quarter in speed)
+DIST_STEPS = 2
 # the gloo runs' steps (about 2 s each: gloo stages through the host); 5 until
 # the HLLM run joined the phase, 3 until the baselines and the sharded table
 # joined it (depth cuts)
@@ -2040,25 +2149,63 @@ DIST_STEP_TAGS = ("grad_all_reduce", "pool_gather", "pool_gather_grad", "dedup_g
 # its towers in float32; the global batch is HLLM_TRAIN_BATCH (4 rows a rank)
 DIST_HLLM_LAYERS = 2
 DIST_HLLM_STEPS = 2  # 3 until the baselines and the sharded table joined (a depth cut)
-# 512 users and 2,048 items until (f) joined the phase (a depth cut)
-DIST_HLLM_DATA = dict(num_users=256, num_items=1024, seq_len=2 * 24 + 2 * 8,
+# 512 users and 2,048 items until (f) joined the phase, 256 and 1,024 until
+# (g) joined it (depth cuts; a top-k of 200 needs more than 224 items)
+DIST_HLLM_DATA = dict(num_users=128, num_items=384, seq_len=2 * 24 + 2 * 8,
                       num_categories=11, eval_pred_len=8, max_item_list_length=24, seed=0,
                       item_texts=True)
 # the collectives of an HLLM step and of its evaluations' corpus passes
 DIST_HLLM_TAGS = ("grad_all_reduce", "pool_gather", "pool_gather_grad", "zero_broadcast",
                   "loss_counts", "step_scalars", "corpus_gather", "metric_reduce")
+# (g): tensor parallelism over 4 gloo ranks on the one card. (g1) is (c)
+# at tp_size 2, data 2 × model 2, held to (c)'s oracle and to (c)'s T = 1
+# checkpoint; (g2) is Qwen2-1.5B's widths (QWEN25_1_5B: 1536 wide, 12 heads
+# over 2 KV heads, 8960 intermediate) cut to DIST_TP_QWEN_LAYERS +
+# DIST_TP_QWEN_LAYERS layers at tp_size 4 (data 1 × model 4: k_proj /
+# v_proj stay whole, #8a-c read a view of their heads), DIST_TP_QWEN_STEPS
+# step and an evaluation, held to a one-process run. Their checkpoints go to
+# the memory scratch
+DIST_TP_WORLD = 4
+DIST_TP_QWEN_LAYERS = 1
+DIST_TP_QWEN_STEPS = 1
+# (g2)'s global batch: at (c)'s 8 its four ranks beside its one-process run
+# overfilled the card's 80 GB, so the batch is cut, not the widths; the
+# one-process runs go first, alone on the card
+DIST_TP_QWEN_BATCH = 4
+# (g2) again with bfloat16 towers (the HLLM scripts' type: the row-parallel
+# partials are then tensor-core GEMMs that write float32), for
+# DIST_TP_BF16_STEPS steps without an evaluation: its first step's
+# gradients held to one process's, its second step timed
+DIST_TP_BF16_STEPS = 2
+# the model group's collectives (parallel/tensor.py) beside the data
+# group's of an HLLM step
+DIST_TP_TAGS = ("tp_reduce", "tp_input_grad", "tp_whole_grad") + DIST_HLLM_TAGS
+# (g)'s first-step gradients against the oracle's (``grads_apart``): the
+# relative L2 error of each whole parameter, its norm taken as at least
+# TP_GRAD_FLOOR of the largest. Float32 towers at 1e-2: the loss's logit
+# tables are bfloat16 products in both runs (as in the JAX package), so an
+# operand that two summation orders leave a float32 ulp apart can round to
+# bfloat16 apart (2^-8), which reaches the heads' and the item tokens'
+# gradients at about 1e-3 (7.2e-4 and 1.6e-3 in the CPU rehearsal of
+# tests/test_torch_isolation.py); bfloat16 towers at 5e-2, where the
+# towers round too (9.2e-3 there). A gradient the model group left
+# unsummed is off by the other ranks' shares, 0.3 or more
+# (tests/test_torch_tensor_parallel.py holds that it fails this bound)
+TP_GRAD_TOL = {"float32": 1e-2, "bfloat16": 5e-2}
+TP_GRAD_FLOOR = 1e-4
 
 
 # (d): the five baselines over two gloo ranks on the one card, each at its
-# widths (BASELINE_FILES, sparse_item_adam) over DIST_BASE_DATA, (c)'s 512
-# users and 2,048 items in the HSTU catalog's shape; global batch
+# widths (BASELINE_FILES, sparse_item_adam) over DIST_BASE_DATA, 256 users
+# and 1,024 items in the HSTU catalog's shape (512 and 2,048 until (g)
+# joined the phase, a depth cut); global batch
 # DIST_BASE_BATCH (32 rows a rank), DIST_BASE_STEPS steps, an evaluation
 # with a save, the test split from it; SASRec and LLMIDRec with
 # DIST_BASE_POSITION_NEGATIVES a position (cut from the baselines phase's
 # 512 / 256: both ranks and the oracle share the card); LLMIDRec's
 # TinyLlama-width tower cut to DIST_BASE_LLM_LAYERS layers (its one-process
 # run at 22 layers peaks at 59.53 GiB)
-DIST_BASE_DATA = dict(HSTU_DATA, num_users=512, num_items=2048)
+DIST_BASE_DATA = dict(HSTU_DATA, num_users=256, num_items=1024)
 DIST_BASE_BATCH = 64
 DIST_BASE_STEPS = 2
 DIST_BASE_POSITION_NEGATIVES = 128
@@ -2076,13 +2223,15 @@ DIST_BASE_TAGS = ("grad_all_reduce", "pool_gather", "pool_gather_grad", "dedup_g
                   "zero_broadcast", "loss_counts", "step_scalars")
 # (e): the sharded table's memory: (b)'s protocol over DIST_TABLE_USERS users
 # (two eval batches a split), 1 step, with the table row-sharded over
-# DIST_TABLE_ITEMS items (1024 wide: 2.05 GB, 6.1 GB with its two
+# DIST_TABLE_ITEMS items (1024 wide: 1.23 GB, 3.7 GB with its two
 # moments; 1,000,000 until (f) and the reference-checkpoint phase joined
-# the script, a depth cut), after the same run over DIST_TABLE_REF_ITEMS
+# the script, 500,000 until (g) joined it, 300,000 until (g) held its
+# gradients and ran bfloat16 towers: depth cuts), after the same run
+# over DIST_TABLE_REF_ITEMS
 # items, which measures what a phase takes beside the table (activations):
 # one eval chunk of 131,072 rows and a one-row tail padded to a chunk, as at
 # any catalog that is not a whole number of chunks
-DIST_TABLE_ITEMS = 500_000
+DIST_TABLE_ITEMS = 200_000
 DIST_TABLE_REF_ITEMS = 131_073
 DIST_TABLE_USERS = 2048
 # a phase (a step, an evaluation with its load, a save) may take beyond
@@ -2148,10 +2297,13 @@ def free_port() -> int:
 
 
 def remove_dirs(*paths):
-    """Remove each directory of ``paths`` (the scratch files of a run that
-    has ended: checkpoints take the scratch memory)."""
+    """Remove each directory or file of ``paths`` (the scratch files of a
+    run that has ended: checkpoints take the scratch memory)."""
     for path in paths:
-        shutil.rmtree(path, ignore_errors=True)
+        if os.path.isfile(path):
+            os.remove(path)
+        else:
+            shutil.rmtree(path, ignore_errors=True)
 
 
 def start_processes(cmds, logs, env=None):
@@ -2195,13 +2347,6 @@ def wait_processes(started):
     return codes, tails
 
 
-def run_processes(cmds, logs, env=None):
-    """Start every command at once (stdout and stderr to its log file) and
-    wait for all (``wait_processes``). Returns the exit codes and the logs'
-    tails."""
-    return wait_processes(start_processes(cmds, logs, env))
-
-
 def cli_args(over):
     """``run.py``'s overrides after ``--`` for the config ``over``."""
     args = []
@@ -2210,13 +2355,14 @@ def cli_args(over):
     return args
 
 
-def world1_cli_runs(work_dir, device, data_kw, over):
+def world1_cli_start(work_dir, device, data_kw, over):
     """(a): ``python -m mhrec_tpu_torch.run`` trains the distributed
     protocol at batch 64, once as rank 0 of a one-rank group
     (``--multihost``: NCCL on the card, every collective runs through it)
     and once without a group, side by side, over the HSTU phases' catalog
     made in memory (``synthetic_data``); the two must agree on every step's
-    loss, the parameter checksum and the test metrics."""
+    loss, the parameter checksum and the test metrics. Starts both
+    processes; ``world1_cli_finish`` waits for them and holds them."""
     runs = {}
     cmds, logs = [], []
     for name, group in (("grouped", True), ("ungrouped", False)):
@@ -2231,7 +2377,13 @@ def world1_cli_runs(work_dir, device, data_kw, over):
         cmds.append(head + ["--config_file", *HSTU_FILES, "--"] + cli_args(cfg))
         logs.append(os.path.join(work_dir, f"{name}.log"))
         runs[name] = os.path.join(work_dir, f"{name}_result.0.json")
-    codes, tails = run_processes(cmds, logs)
+    return work_dir, over, runs, start_processes(cmds, logs)
+
+
+def world1_cli_finish(started):
+    """(a)'s record: ``world1_cli_start``'s two runs against each other."""
+    work_dir, over, runs, procs = started
+    codes, tails = wait_processes(procs)
     remove_dirs(*(os.path.join(work_dir, name) for name in runs))  # their checkpoints
     if codes != [0, 0]:
         return {"exit_codes": codes, "log_tails": tails, "ok": False}
@@ -2379,12 +2531,15 @@ def phase_trainer_class(on_card, watch=None):
     return PhaseTrainer
 
 
-def rank_train(rank, dev, config, data, phases=False, watch_table=False, test_split=True):
+def rank_train(rank, dev, config, data, phases=False, watch_table=False, test_split=True,
+               oracle_grads=None):
     """``run.train`` of ``config`` on this rank's rows (without
     ``test_split``: its fit alone), the launch counts and the collectives'
     bytes counted from 0 just before; with ``phases`` through
     ``phase_trainer_class`` (the memory of each phase), with
-    ``watch_table`` under a TableWatch of the item table's rows and widths.
+    ``watch_table`` under a TableWatch of the item table's rows and widths;
+    with ``oracle_grads`` (a file of ``save_first_grads``) its first step's
+    gradients against those (``grad_sums``, the record's ``first_step``).
     Returns the rank's record."""
     import contextlib
 
@@ -2406,13 +2561,26 @@ def rank_train(rank, dev, config, data, phases=False, watch_table=False, test_sp
     plain = run_mod.Trainer
     if phases:
         run_mod.Trainer = phase_trainer_class(on_card, watch)
+    probe = {}
+    if oracle_grads:
+        base = run_mod.Trainer
+
+        class Probed(base):
+            def setup_model(self, seed=None):
+                out = base.setup_model(self, seed)
+                on_first_step(self, lambda t, grads: probe.update(
+                    grad_sums(t, grads, oracle_grads)))
+                return out
+
+        run_mod.Trainer = Probed
     t0 = time.perf_counter()
     try:
         with watch if watch is not None else contextlib.nullcontext():
             if test_split:
                 trainer, stats, result = run_mod.train(config, data, dev)
             else:
-                train_b, valid_b, _ = run_mod.build_dataloader(config, data, rank, DIST_WORLD)
+                train_b, valid_b, _ = run_mod.build_dataloader(config, data,
+                                                               *run_mod.data_rank(config))
                 trainer = run_mod.Trainer(config, data, device=dev)
                 trainer.setup_model()
                 stats = trainer.fit(train_b, valid_b)
@@ -2430,6 +2598,9 @@ def rank_train(rank, dev, config, data, phases=False, watch_table=False, test_sp
            "launches": read_launches(), "collective_bytes": dict(comm.traffic),
            "optimizer_sharded": type(trainer.optimizer).__name__,
            "dense_params": sum(p.numel() for p in trainer.dense_params),
+           "params": sum(p.numel() for p in trainer.model.parameters()),
+           "tp_split_params": len(trainer.tp_split),
+           "tp_whole_in_split": len(trainer.tp_whole),
            "persistent_bytes": stats["persistent_bytes"],
            "fsdp_live_whole": stats["fsdp_live_whole"],
            "fsdp_params": ({n: [e.numel, e.n] for n, e in trainer.fsdp.entries.items()}
@@ -2438,6 +2609,8 @@ def rank_train(rank, dev, config, data, phases=False, watch_table=False, test_sp
            "evaluations": stats["iters"] // trainer.eval_interval + int(test_split)}
     if phases:
         rec["phase_mem"], rec["peak_bytes"] = trainer.phase_mem, trainer.peak_bytes
+    if oracle_grads:
+        rec["first_step"] = probe
     if watch is not None:
         rec["table_hits"] = watch.hits
     emb = trainer.item_table()
@@ -2467,8 +2640,8 @@ def dist_rank(rank, port, out):
 
     with open(os.path.join(out, "spec.json")) as fh:
         spec = json.load(fh)
-    dev = init_distributed(f"127.0.0.1:{port}", DIST_WORLD, rank, backend="gloo",
-                           device=spec["device"])
+    dev = init_distributed(f"127.0.0.1:{port}", spec.get("world", DIST_WORLD), rank,
+                           backend="gloo", device=spec["device"])
     model = spec.get("model")
     if model == "baselines":
         data = InMemoryInteractionData(**spec["data"])
@@ -2498,8 +2671,17 @@ def dist_rank(rank, port, out):
         config = dist_rank_config(spec, out)
         init_logger(config, process_index=rank)
         hstu = model is None
-        rec = rank_train(rank, dev, config, InMemoryInteractionData(**spec["data"]),
-                         phases=hstu, watch_table=hstu and spec["shard"])
+        data = InMemoryInteractionData(**spec["data"])
+        rec = rank_train(rank, dev, config, data, phases=hstu, watch_table=hstu and spec["shard"],
+                         test_split=spec.get("test_split", True),
+                         oracle_grads=spec.get("oracle_grads"))
+        if spec.get("bf16"):
+            # (g2) with bfloat16 towers: its fit alone, no evaluation
+            b = spec["bf16"]
+            rec["bf16"] = rank_train(
+                rank, dev, hllm_dist_config(spec["pretrain_dir"], os.path.join(out, "bf16"),
+                                            **b["over"]),
+                data, test_split=False, oracle_grads=b["oracle_grads"])
     with open(os.path.join(out, f"rank{rank}.json"), "w") as fh:
         json.dump(rec, fh)
     return 0
@@ -2734,14 +2916,18 @@ def one_process_trainer(config, data, device, trainer_cls=None):
     return (trainer, *build_eval_dataloaders(config, data))
 
 
-def rank_order_oracle(config, data, device, part=None):
+def rank_order_oracle(config, data, device, part=None, grads_path=None):
     """The rank-order oracle's run of ``config`` over the hosts' batch
     parts (``part``: their batcher class): fit with the valid evaluation,
     then the test split of the parameters the fit left (the ranks' run
     evaluates them from its checkpoint, saved at the same last step; the
-    oracle writes none). Returns its record and the trainer."""
+    oracle writes none); with ``grads_path``, its first step's gradients
+    saved there (``save_first_grads``). Returns its record and the
+    trainer."""
     trainer, valid, test = one_process_trainer(config, data, device,
                                                rank_order_trainer_class())
+    if grads_path:
+        save_first_grads(trainer, grads_path)
     stats = trainer.fit(RankBatches(trainer.config, data, part), valid)
     result = trainer.evaluate(test)
     rec = {"final_loss": float(stats["loss"]), "losses": trainer.fetched_losses,
@@ -2793,28 +2979,126 @@ def metrics_close(got, want):
     return not off, worst, off[:20]
 
 
+class WarmRanks:
+    """Rank processes started ahead of their runs (``chip_smoke.py
+    --warm-rank``): each imports torch and the package, then waits for the
+    run that ``take`` gives it, so that a gloo run's ranks begin at once
+    while the run before hides their start; they make no CUDA context
+    while they wait, so they take none of the card from the runs beside
+    them. ``size`` processes wait at any time; ``close`` stops them."""
+
+    def __init__(self, root, size=DIST_TP_WORLD):
+        self.root, self.size = root, size
+        os.makedirs(root, exist_ok=True)
+        self.waiting, self.count = [], 0
+        self.fill()
+
+    def fill(self):
+        env = dict(os.environ, PYTHONPATH=ROOT)
+        while len(self.waiting) < self.size:
+            i, self.count = self.count, self.count + 1
+            with open(os.path.join(self.root, f"warm{i}.log"), "w") as log:
+                self.waiting.append((i, subprocess.Popen(
+                    [sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--warm-rank",
+                     self.root, str(i)],
+                    cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT)))
+
+    def take(self, out, port, world):
+        """Rank r of a run over ``world`` ranks (``dist_rank(r, port,
+        out)``) to each of ``world`` waiting processes, its output to
+        ``{out}/rank{r}.log``; returns the processes."""
+        procs = []
+        while len(procs) < world:
+            if not self.waiting:
+                self.fill()
+            i, proc = self.waiting.pop(0)
+            if proc.poll() is not None:  # it ended before its run: not used
+                continue
+            r = len(procs)
+            open(os.path.join(out, f"rank{r}.log"), "w").close()
+            go = os.path.join(self.root, f"go{i}.json")
+            with open(go + ".tmp", "w") as fh:
+                json.dump({"rank": r, "port": port, "out": out}, fh)
+            os.replace(go + ".tmp", go)
+            procs.append(proc)
+        self.fill()
+        return procs
+
+    def close(self):
+        for _, proc in self.waiting:
+            proc.kill()
+            proc.wait()
+        self.waiting = []
+
+
+# the distributed phase's WarmRanks while it runs (gloo_ranks_start takes
+# its ranks from there)
+WARM = None
+
+
+@contextlib.contextmanager
+def warm_ranks(root):
+    """WARM, a WarmRanks under ``root``, for the block."""
+    global WARM
+    WARM = WarmRanks(root)
+    try:
+        yield
+    finally:
+        WARM.close()
+        WARM = None
+
+
+def warm_rank(root, i):
+    """A process of WarmRanks: the package imported, it waits for
+    ``{root}/go{i}.json`` (the rank, port and directory of its run), sends
+    its output to that run's rank log and runs ``dist_rank``; it ends if
+    the process that started it ends first."""
+    from mhrec_tpu_torch import run  # noqa: F401  (the package, loaded ahead)
+
+    parent = os.getppid()
+    go = os.path.join(root, f"go{i}.json")
+    while not os.path.exists(go):
+        if os.getppid() != parent:
+            return 1
+        time.sleep(0.05)
+    with open(go) as fh:
+        task = json.load(fh)
+    fd = os.open(os.path.join(task["out"], f"rank{task['rank']}.log"),
+                 os.O_WRONLY | os.O_APPEND | os.O_CREAT)
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os.dup2(fd, 1)
+    os.dup2(fd, 2)
+    return dist_rank(task["rank"], task["port"], task["out"])
+
+
 def gloo_ranks_start(out, spec):
-    """Start DIST_WORLD ranks of ``chip_smoke.py --distributed-rank`` in
-    processes of their own, over gloo, with ``spec`` written to
-    ``{out}/spec.json``; ``gloo_ranks_finish`` waits for them."""
+    """Start DIST_WORLD ranks (``spec["world"]`` if given) of ``chip_smoke.py
+    --distributed-rank`` over gloo (WARM's waiting processes while the
+    distributed phase has them, else processes of their own), with
+    ``spec`` written to ``{out}/spec.json``; ``gloo_ranks_finish`` waits for
+    them."""
     os.makedirs(out, exist_ok=True)
     with open(os.path.join(out, "spec.json"), "w") as fh:
         json.dump(spec, fh)
     port = free_port()
+    world = spec.get("world", DIST_WORLD)
+    logs = [os.path.join(out, f"rank{r}.log") for r in range(world)]
+    if WARM is not None:
+        return out, (WARM.take(out, port, world), logs, time.monotonic() + DIST_TIMEOUT)
     cmds = [[sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--distributed-rank",
-             str(r), str(port), out] for r in range(DIST_WORLD)]
-    return out, start_processes(cmds, [os.path.join(out, f"rank{r}.log")
-                                       for r in range(DIST_WORLD)])
+             str(r), str(port), out] for r in range(world)]
+    return out, start_processes(cmds, logs)
 
 
 def gloo_ranks_finish(started):
     """The ranks' records of ``gloo_ranks_start``, or a failure record."""
     out, procs = started
     codes, tails = wait_processes(procs)
-    if codes != [0] * DIST_WORLD:
+    if codes != [0] * len(codes):
         return {"exit_codes": codes, "log_tails": tails, "ok": False}
     ranks = []
-    for r in range(DIST_WORLD):
+    for r in range(len(codes)):
         with open(os.path.join(out, f"rank{r}.json")) as fh:
             ranks.append(json.load(fh))
     return ranks
@@ -2826,14 +3110,16 @@ def gloo_ranks(out, spec):
     return gloo_ranks_finish(gloo_ranks_start(out, spec))
 
 
-def held_to_oracle(ranks, oracle, oracle_trainer, served, served_result, tags):
+def held_to_oracle(ranks, oracle, oracle_trainer, served, served_result, tags, zero=True):
     """(the record, the checks) of a gloo run's ranks against the oracle
     (loss, checksum, metrics at DIST_TOL), against each other (loss and
     checksum, metrics equal), and their checkpoint evaluated by one process
     (``served``, its test metrics ``served_result``) against their metrics;
-    the bytes a step of each collective of ``tags``."""
-    r0, r1 = ranks
-    between = max(abs(r0[k] - r1[k]) / abs(r1[k]) for k in ("final_loss", "param_checksum"))
+    the bytes a step of each collective of ``tags``. ``zero``: the ranks'
+    optimizer must be ZeRO-2's (more than one data rank)."""
+    r0 = ranks[0]
+    between = max(abs(r0[k] - r[k]) / abs(r[k]) for r in ranks[1:]
+                  for k in ("final_loss", "param_checksum"))
     loss_rel = abs(r0["final_loss"] - oracle["final_loss"]) / abs(oracle["final_loss"])
     ck_rel = abs(r0["param_checksum"] - oracle["param_checksum"]) / oracle["param_checksum"]
     m_ok, worst, off = metrics_close(r0["result"], oracle["result"])
@@ -2844,10 +3130,11 @@ def held_to_oracle(ranks, oracle, oracle_trainer, served, served_result, tags):
         "metrics": m_ok, "checkpoint_served_by_one_process": s_ok,
         "loss": loss_rel <= DIST_TOL["loss"], "checksum": ck_rel <= DIST_TOL["checksum"],
         "between_ranks": between <= DIST_TOL["between_ranks"],
-        "ranks_metrics_equal": r0["result"] == r1["result"],
-        "zero_optimizer": all(r["optimizer_sharded"] == "ZeroShardedOptimizer" for r in ranks)}
+        "ranks_metrics_equal": all(r0["result"] == r["result"] for r in ranks[1:]),
+        "zero_optimizer": all((r["optimizer_sharded"] == "ZeroShardedOptimizer") == zero
+                              for r in ranks)}
     rec = {
-        "label": "gloo, 2 ranks on one card", "final_loss_rel_diff": loss_rel,
+        "label": f"gloo, {len(ranks)} ranks on one card", "final_loss_rel_diff": loss_rel,
         "checksum_rel_diff": ck_rel, "between_ranks_rel_diff": between,
         "max_metric_diff": worst, "metrics_beyond_tolerance": off,
         "served_max_metric_diff": s_worst, "served_metrics_beyond_tolerance": s_off,
@@ -2922,14 +3209,20 @@ def fsdp_held(ranks, zero2, fsdp_ok_names):
     return rec, checks
 
 
-def distributed_hllm(work_dir, device, over, tower_over, data_kw=DIST_HLLM_DATA):
+def distributed_hllm(work_dir, device, over, tower_over, data_kw=DIST_HLLM_DATA, tp_dir=None,
+                     qwen_over=None):
     """(c): HLLM over two gloo ranks on the one card (``hllm_dist_config``,
     towers from ``write_dist_hllm_tower``), over ``data_kw``, held to
     the rank-order oracle, to each other and to their checkpoint served by
     one process; the launches of #8a–c a rank must be what the layers and
     steps give (the forward and its recompute, the backward; the corpus
-    pass is the dense one and launches none). Returns (its record, the
-    ranks' launches)."""
+    pass is the dense one and launches none); then (f), whose ranks run
+    while this process serves (c)'s checkpoint and makes (g2)'s one-process
+    runs, and (g) (``distributed_tp``, its files under ``tp_dir``). Returns
+    (its record, the ranks' launches, (f)'s record, (g)'s records, (g)'s
+    launches)."""
+    import gc
+
     import torch
 
     from mhrec_tpu_torch.data.synthetic import InMemoryInteractionData
@@ -2942,31 +3235,49 @@ def distributed_hllm(work_dir, device, over, tower_over, data_kw=DIST_HLLM_DATA)
         "model": "hllm", "device": "cuda:0" if device == "cuda" else device,
         "pretrain_dir": pretrain_dir, "data": data_kw, "over": over})
     data = InMemoryInteractionData(**data_kw)
+    # the oracle's first-step gradients, which (g1)'s ranks are held to
+    os.makedirs(tp_dir or work_dir, exist_ok=True)
+    grads_path = os.path.join(tp_dir or work_dir, "oracle_grads_c.pt")
     try:
         # the oracle meanwhile, in this process
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
         oracle, oracle_trainer = rank_order_oracle(
             hllm_dist_config(pretrain_dir, os.path.join(work_dir, "hllm_oracle"), **over),
-            data, device, TextSEQTrainBatcher)
+            data, device, TextSEQTrainBatcher, grads_path=grads_path)
+        if device == "cuda":
+            oracle["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
     finally:
         ranks = gloo_ranks_finish(started)
     if isinstance(ranks, dict):
-        return ranks, None, None
-    # the ranks' checkpoint, evaluated by one process
-    served, _, test = one_process_trainer(hllm_dist_config(pretrain_dir, out, **over),
-                                          data, device)
-    served_result = served.evaluate(test, load_best_model=True)
-    rec, checks = held_to_oracle(ranks, oracle, oracle_trainer, served, served_result,
-                                 DIST_HLLM_TAGS)
-    del served
+        return ranks, None, None, {}, {}
+    # (f): the same under fsdp, against the oracle and against these ranks;
+    # its ranks start as this process evaluates (c)'s checkpoint and then
+    # makes (g2)'s one-process runs (the oracle's cached blocks freed first:
+    # 41 GB of ranks beside them)
+    gc.collect()
     if device == "cuda":
         torch.cuda.empty_cache()
-    # (f): the same under fsdp, against the oracle and against these ranks
     t_f = time.perf_counter()
     f_out = os.path.join(work_dir, "hllm_fsdp")
     f_over = dict(over, fsdp=True)
-    f_ranks = gloo_ranks(f_out, {"model": "hllm", "device": "cuda:0" if device == "cuda"
-                                 else device, "pretrain_dir": pretrain_dir, "data": data_kw,
-                                 "over": f_over})
+    f_started = gloo_ranks_start(f_out, {
+        "model": "hllm", "device": "cuda:0" if device == "cuda" else device,
+        "pretrain_dir": pretrain_dir, "data": data_kw, "over": f_over})
+    try:
+        # the ranks' checkpoint, evaluated by one process
+        served, _, test = one_process_trainer(hllm_dist_config(pretrain_dir, out, **over),
+                                              data, device)
+        served_result = served.evaluate(test, load_best_model=True)
+        rec, checks = held_to_oracle(ranks, oracle, oracle_trainer, served, served_result,
+                                     DIST_HLLM_TAGS)
+        del served
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        g2_oracles = tp_qwen_oracles(tp_dir or work_dir, device, over, data, qwen_over)
+    finally:
+        f_ranks = gloo_ranks_finish(f_started)
     if isinstance(f_ranks, dict):
         f_rec = dict(f_ranks)
     else:
@@ -2987,8 +3298,18 @@ def distributed_hllm(work_dir, device, over, tower_over, data_kw=DIST_HLLM_DATA)
         f_rec.update(model="(c) under fsdp: true", checks=f_checks, ok=all(f_checks.values()),
                      launches=[r["launches"] for r in f_ranks])
     f_rec["seconds_phase"] = time.perf_counter() - t_f
+    # (g): tensor parallelism, against this oracle (its parameters in host
+    # memory, so that four ranks have the card) and these ranks' checkpoint
+    oracle_state = trainer_state(oracle_trainer)
     del oracle_trainer
-    remove_dirs(out, f_out, pretrain_dir)
+    gc.collect()  # a trainer's reference cycles hold its card memory
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    g_recs, g_launches = distributed_tp(tp_dir or work_dir, device, over, data_kw, data,
+                                        pretrain_dir, ranks, oracle, oracle_state, grads_path,
+                                        qwen_over, g2_oracles)
+    del oracle_state
+    remove_dirs(out, f_out, pretrain_dir, grads_path)
     if device == "cuda":
         torch.cuda.empty_cache()
     layers = DIST_HLLM_LAYERS
@@ -2997,12 +3318,390 @@ def distributed_hllm(work_dir, device, over, tower_over, data_kw=DIST_HLLM_DATA)
     checks["launches"] = all(r["launches"][k] == n for r in ranks for k, n in want.items())
     checks["steps"] = steps == over.get("total_iters", DIST_HLLM_STEPS)
     rec.update(model="HLLM, TinyLlama-1.1B width, %d + %d layers, float32" % (layers, layers),
+               oracle_peak_mem_gb=oracle.get("peak_mem_gb"),
                steps=steps, global_batch=HLLM_TRAIN_BATCH, launches_expected=want,
                dense_params=ranks[0]["dense_params"], corpus_batch=ranks[0].get("corpus_batch"),
                persistent_gb=[{k: v / 1e9 for k, v in r["persistent_bytes"].items()}
                               for r in ranks],
                checks=checks, ok=all(checks.values()))
-    return rec, ranks[0]["launches"], f_rec
+    return rec, ranks[0]["launches"], f_rec, g_recs, g_launches
+
+
+def on_first_step(trainer, fn):
+    """Calls ``fn(trainer, gradients by parameter name)`` once, as the
+    trainer's first optimizer step begins: the dense gradients as the
+    optimizer receives them (summed over the model group where a rank holds
+    a share, all-reduced over the data group, NaN-guarded, clipped), before
+    Adam normalises them."""
+    opt = trainer.optimizer
+    own = "step" in vars(opt)
+    step = opt.step
+
+    def first(*a, **kw):
+        if own:
+            opt.step = step
+        else:  # the class's method again, no bound method left in a cycle
+            del opt.step
+        fn(trainer, {n: p.grad for n, p in trainer.model.named_parameters()
+                     if p.grad is not None})
+        return step(*a, **kw)
+
+    opt.step = first
+
+
+def save_first_grads(trainer, path):
+    """A one-process trainer's first-step gradients (``on_first_step``),
+    written to ``path`` in host memory's float32."""
+    import torch
+
+    on_first_step(trainer, lambda _, grads: torch.save(
+        {n: g.detach().float().cpu() for n, g in grads.items()}, path))
+
+
+def grad_sums(trainer, grads, oracle_path):
+    """A rank's first-step gradients against the oracle's whole ones in
+    ``oracle_path``: per parameter name [‖g − o‖², ‖o‖²] in float64, a
+    split parameter's against this rank's shard of the oracle's (None where
+    either side lacks the name), and the names split."""
+    import torch
+
+    from mhrec_tpu_torch.parallel.tensor import local_shard
+
+    want = torch.load(oracle_path, map_location="cpu", weights_only=True, mmap=True)
+    sums = {n: None for n in set(want) ^ set(grads)}
+    for n, g in grads.items():
+        if n not in want:
+            continue
+        o = want[n]
+        if n in trainer.tp_split:
+            o = local_shard(o, *trainer.tp_split[n])
+        o = o.to(g.device, torch.float64)
+        sums[n] = [float((g.double() - o).square().sum()), float(o.square().sum())]
+    return {"sums": sums, "split": sorted(trainer.tp_split)}
+
+
+def grad_errors(entries):
+    """The relative L2 error of each (label, ‖g − o‖², ‖o‖²) of
+    ``entries``, ‖o‖ taken as at least TP_GRAD_FLOOR of the largest ‖o‖
+    (a leaf whose gradient is float32 noise is held to an absolute bound),
+    as the CPU parity tests hold gradients; a label whose sums are None is
+    infinitely far."""
+    norms = [math.sqrt(w2) for _, d2, w2 in entries if d2 is not None]
+    floor = TP_GRAD_FLOOR * max(norms, default=0.0)
+    return {label: (math.inf if d2 is None else
+                    math.sqrt(d2) / max(math.sqrt(w2), floor, 1e-30))
+            for label, d2, w2 in entries}
+
+
+def grads_apart(ranks, T, key="first_step"):
+    """The relative L2 error of each gradient the ranks' first step gave
+    (``grad_sums`` in ``rank[key]``) against the oracle's: each split
+    parameter whole, its T shards' sums added within a data row (what a
+    gather of the shards gives), each whole parameter on every rank.
+    Returns {"data row d/name" or "rank r/name": error}."""
+    entries, split = {}, {}
+    for r in ranks:
+        probe = r[key]
+        for n, s in probe["sums"].items():
+            if s is None:
+                entries[f"rank {r['rank']}/{n}"] = (None, None)
+            elif n in probe["split"]:
+                label = f"data row {r['rank'] // T}/{n}"
+                d2, w2 = split.get(label, (0.0, 0.0))
+                split[label] = (d2 + s[0], w2 + s[1])
+            else:
+                entries[f"rank {r['rank']}/{n}"] = tuple(s)
+    entries.update(split)
+    return grad_errors([(label, d2, w2) for label, (d2, w2) in entries.items()])
+
+
+def grad_hold(ranks, T, dtype):
+    """(the record, held) of the ranks' first-step gradients against the
+    oracle's (``grads_apart``) at TP_GRAD_TOL[dtype]."""
+    errors = grads_apart(ranks, T)
+    worst = max(errors, key=errors.get)
+    top = sorted(errors, key=errors.get, reverse=True)[:8]
+    return ({"grad_rel_l2_max": errors[worst], "grad_worst": worst,
+             "grad_tol": TP_GRAD_TOL[dtype], "grads_held": len(errors),
+             "grad_largest": {k: errors[k] for k in top}},
+            errors[worst] <= TP_GRAD_TOL[dtype])
+
+
+def tp_checks(rec, checks, ranks, T, metrics=True):
+    """(g)'s hold against its oracle, beside ``held_to_oracle``'s (loss,
+    checksum, metrics at DIST_TOL, the ranks' agreement): the first step's
+    gradients, before Adam normalises them, within TP_GRAD_TOL
+    (``grad_hold``: a gradient the model group failed to sum, or summed
+    wrong, is off by the other ranks' shares). Without ``metrics`` the
+    metrics of the ranks' run against the oracle's run are reported, not
+    held: Adam's first step moves every parameter by about ``lr`` whatever
+    its gradient's size, so a gradient that is float32 noise (its exact
+    value 0, two summation orders apart) moves its parameter ±lr in the
+    two runs, and one near-tied target in an evaluation moves a metric by
+    1 / users; the same parameters' metrics (the ranks' checkpoint served
+    by one process) are held as ever."""
+    rec["first_step"], checks["first_step_grads"] = grad_hold(ranks, T, "float32")
+    if not metrics:
+        checks.pop("metrics")
+        rec["metrics_vs_oracle_within_tol"] = not rec["metrics_beyond_tolerance"]
+
+
+def tp_rank_record(ranks, c_ranks, layers, steps):
+    """(g)'s per-rank record: the parameters a rank holds against the whole
+    model, its persistent bytes against (c)'s rank's, each collective's
+    bytes a step (the model group's ``tp_`` tags apart), #8a-c's launches
+    and the peak memory."""
+    c0 = c_ranks[0] if c_ranks else None
+    return {
+        "params_per_rank": [r["params"] for r in ranks],
+        "split_params_per_rank": [r["tp_split_params"] for r in ranks],
+        "whole_in_split_per_rank": [r["tp_whole_in_split"] for r in ranks],
+        "persistent_gb": [{k: v / 1e9 for k, v in r["persistent_bytes"].items()}
+                          for r in ranks],
+        "c_persistent_gb": (None if c0 is None else
+                            {k: v / 1e9 for k, v in c0["persistent_bytes"].items()}),
+        "model_group_bytes_per_step": {t: b / steps for t, b in ranks[0]["collective_bytes"].items()
+                                       if t.startswith("tp_")},
+        "data_group_bytes_per_step": {t: b / steps for t, b in ranks[0]["collective_bytes"].items()
+                                      if not t.startswith("tp_")},
+        "packed_launches_per_rank": [{k: r["launches"][k] for k in ("packed_attn_fwd",
+                                                                   "packed_attn_bwd")}
+                                     for r in ranks],
+        "launches_expected": {"packed_attn_fwd": 2 * layers * steps,
+                              "packed_attn_bwd": layers * steps},
+        "peak_mem_gb": [r["peak_mem_gb"] for r in ranks]}
+
+
+def one_process_fit(config, data, device, grads_path, evaluate=True):
+    """(g2)'s one-process run of ``config`` (one data rank: the ranks'
+    batches), its first step's gradients saved to ``grads_path``: the fit,
+    with the valid split's evaluation unless ``evaluate`` is false, and no
+    save (its parameters stay in memory). Returns (its record, the
+    trainer, the valid batcher)."""
+    from mhrec_tpu_torch.data import build_dataloader
+    from mhrec_tpu_torch.trainer import Trainer
+
+    one = Trainer(config, data, device=device)
+    one.setup_model()
+    one.save_checkpoint = lambda: None
+    save_first_grads(one, grads_path)
+    train, valid, _ = build_dataloader(config, data)
+    stats = one.fit(train, valid if evaluate else None)
+    rec = {"final_loss": float(stats["loss"]), "losses": one.fetched_losses,
+           "param_checksum": one.param_checksum(), "result": one.best_valid_result,
+           "steady_examples_per_s": stats["steady_examples_per_s"], "pool_probe_exact": True}
+    return rec, one, valid
+
+
+def distributed_tp(work_dir, device, over, data_kw, data, pretrain_dir, c_ranks, oracle,
+                   oracle_state, oracle_grads, qwen_over=None, g2_oracles=None):
+    """(g): (g1) (c)'s HLLM at tp_size 2 over DIST_TP_WORLD gloo ranks (data
+    2 × model 2), held to (c)'s rank-order oracle (``oracle``, its
+    parameters ``oracle_state``, its first step's gradients in the file
+    ``oracle_grads``), to each other, to their checkpoint served by one
+    process (T = 1), its checksum there to (c)'s T = 1 ranks'
+    (``c_ranks``); (g2) Qwen2-1.5B's widths at tp_size 4 (data 1 × model 4)
+    at a global batch of DIST_TP_QWEN_BATCH, its one evaluation the valid
+    split's (with the save), held to a one-process run made before the
+    ranks, then the same ranks with bfloat16 towers for DIST_TP_BF16_STEPS
+    steps, their first step's gradients held to one process's and their
+    second step timed (``tp_qwen``; ``g2_oracles``: its one-process runs
+    if made already, ``tp_qwen_oracles``). ``qwen_over``: the tower's
+    ``config.json`` keys to change (a few widths on the CPU). Returns
+    ({name: record}, {name: launches a rank})."""
+    import gc
+
+    import torch
+
+    dev = "cuda:0" if device == "cuda" else device
+    recs, launches = {}, {}
+    layers = DIST_HLLM_LAYERS
+    # (g1)
+    t1 = time.perf_counter()
+    g_over = dict(over, tp_size=2)
+    g_out = os.path.join(work_dir, "tp_g1")
+    ranks = gloo_ranks(g_out, {"model": "hllm", "world": DIST_TP_WORLD, "device": dev,
+                               "pretrain_dir": pretrain_dir, "data": data_kw, "over": g_over,
+                               "oracle_grads": oracle_grads})
+    if isinstance(ranks, dict):
+        recs["g1"] = ranks
+    else:
+        served, _, test = one_process_trainer(hllm_dist_config(pretrain_dir, g_out, **over),
+                                              data, device)
+        rec, checks = held_to_oracle(ranks, oracle, oracle_state, served,
+                                     served.evaluate(test, load_best_model=True), DIST_TP_TAGS)
+        steps = ranks[0]["iters"]
+        tp_checks(rec, checks, ranks, 2)
+        if c_ranks:
+            # the T = 2 checkpoint, loaded at one process, against (c)'s
+            # T = 1 run
+            t1_rel = abs(served.param_checksum() - c_ranks[0]["param_checksum"]) \
+                / c_ranks[0]["param_checksum"]
+            rec["t1_checksum_rel_diff"] = t1_rel
+            checks["t1_checkpoint"] = t1_rel <= DIST_TOL["checksum"]
+        del served
+        rec.update(tp_rank_record(ranks, c_ranks, layers, steps))
+        checks["launches"] = all(r["launches"][k] == n for r in ranks
+                                 for k, n in rec["launches_expected"].items())
+        checks["split"] = all(r["tp_split_params"] == 14 * layers for r in ranks) \
+            and all(r["params"] < (c_ranks[0]["params"] if c_ranks else math.inf) for r in ranks)
+        checks["model_group_ran"] = all(rec["model_group_bytes_per_step"].get(t, 0) > 0
+                                        for t in ("tp_reduce", "tp_input_grad"))
+        rec.update(model="(c) at tp_size 2: data 2 x model 2", steps=steps, checks=checks,
+                   ok=all(checks.values()))
+        recs["g1"] = rec
+        launches["distributed_gloo_tp_tinyllama"] = ranks[0]["launches"]
+    recs["g1"]["seconds_phase"] = time.perf_counter() - t1
+    remove_dirs(g_out)
+    gc.collect()  # the served trainer's reference cycles hold its card memory
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    recs["g2"], q_launches = tp_qwen(work_dir, device, over, data_kw, data, c_ranks, qwen_over,
+                                     g2_oracles)
+    launches.update(q_launches)
+    return recs, launches
+
+
+def _release(device):
+    """Collect the reference cycles that hold a trainer's card memory and
+    free the cached blocks."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+
+def tp_qwen_oracles(work_dir, device, over, data, qwen_over=None):
+    """(g2)'s one-process runs (``tp_qwen``), float32 with its evaluation,
+    then bfloat16, their parameters and first-step gradients in host memory
+    and files under ``work_dir``; ``qwen_over``: the tower's ``config.json``
+    keys to change. Returns what ``tp_qwen`` takes as ``oracles``."""
+    t_start = time.perf_counter()
+    q_dir = os.path.join(work_dir, "qwen2_cut")
+    os.makedirs(q_dir, exist_ok=True)
+    with open(os.path.join(q_dir, "config.json"), "w") as fh:
+        json.dump(dict(QWEN25_1_5B, num_hidden_layers=DIST_TP_QWEN_LAYERS, **(qwen_over or {})),
+                  fh)
+    q_over = dict(over, total_iters=DIST_TP_QWEN_STEPS, eval_interval=DIST_TP_QWEN_STEPS,
+                  train_batch_size=DIST_TP_QWEN_BATCH)
+    # no evaluation in the bfloat16 fit
+    b_over = dict(q_over, precision="bf16-mixed", total_iters=DIST_TP_BF16_STEPS,
+                  eval_interval=10 * DIST_TP_BF16_STEPS)
+    q_grads, b_grads = (os.path.join(work_dir, f"oracle_grads_g2_{t}.pt") for t in ("f32", "bf16"))
+    q_oracle, one, valid = one_process_fit(
+        hllm_dist_config(q_dir, os.path.join(work_dir, "tp_g2_oracle"), **q_over), data, device,
+        q_grads)
+    q_state = trainer_state(one)
+    q_params = sum(p.numel() for p in one.model.parameters())
+    del one
+    _release(device)
+    b_oracle, one, _ = one_process_fit(
+        hllm_dist_config(q_dir, os.path.join(work_dir, "tp_g2_bf16_oracle"), **b_over), data,
+        device, b_grads, evaluate=False)
+    del one
+    _release(device)
+    return dict(q_dir=q_dir, q_over=q_over, b_over=b_over, q_grads=q_grads, b_grads=b_grads,
+                q_oracle=q_oracle, q_state=q_state, q_params=q_params, valid=valid,
+                b_oracle=b_oracle, seconds=time.perf_counter() - t_start)
+
+
+def tp_qwen(work_dir, device, over, data_kw, data, c_ranks=None, qwen_over=None,
+            oracles=None):
+    """(g2) of ``distributed_tp``: Qwen2-1.5B's widths at tp_size 4 over
+    DIST_TP_WORLD gloo ranks, float32 and then bfloat16, each held to a
+    one-process run made before the ranks (``oracles``: ``tp_qwen_oracles``'s,
+    made here if None; ``c_ranks``: (c)'s ranks, whose persistent bytes the
+    record sets beside). Returns (its record, {name: launches a rank})."""
+    import torch
+
+    dev = "cuda:0" if device == "cuda" else device
+    launches = {}
+
+    def release():
+        _release(device)
+
+    t2 = time.perf_counter()
+    if oracles is None:
+        oracles = tp_qwen_oracles(work_dir, device, over, data, qwen_over)
+    q_dir, q_over, b_over, q_grads, b_grads = (
+        oracles[k] for k in ("q_dir", "q_over", "b_over", "q_grads", "b_grads"))
+    q_oracle, q_state, q_params, valid, b_oracle = (
+        oracles[k] for k in ("q_oracle", "q_state", "q_params", "valid", "b_oracle"))
+    # what this process holds on the card beside the four ranks
+    held_gb = torch.cuda.memory_reserved() / 2**30 if device == "cuda" else None
+    q_out = os.path.join(work_dir, "tp_g2")
+    q_ranks = gloo_ranks(q_out, {"model": "hllm", "world": DIST_TP_WORLD, "device": dev,
+                                 "pretrain_dir": q_dir, "data": data_kw, "test_split": False,
+                                 "over": dict(q_over, tp_size=DIST_TP_WORLD),
+                                 "oracle_grads": q_grads,
+                                 "bf16": {"over": dict(b_over, tp_size=DIST_TP_WORLD),
+                                          "oracle_grads": b_grads}})
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    if isinstance(q_ranks, dict):
+        rec = q_ranks
+    else:
+        from mhrec_tpu_torch.trainer import Trainer
+
+        served = Trainer(hllm_dist_config(q_dir, q_out, **q_over), data, device=device)
+        served.setup_model()
+        rec, checks = held_to_oracle(q_ranks, q_oracle, q_state, served,
+                                     served.evaluate(valid, load_best_model=True), DIST_TP_TAGS,
+                                     zero=False)
+        del served
+        release()
+        steps = q_ranks[0]["iters"]
+        tp_checks(rec, checks, q_ranks, DIST_TP_WORLD, metrics=False)
+        rec.update(tp_rank_record(q_ranks, c_ranks, DIST_TP_QWEN_LAYERS, steps),
+                   whole_params=q_params, global_batch=DIST_TP_QWEN_BATCH,
+                   parent_reserved_gb=held_gb)
+        checks["launches"] = all(r["launches"][k] == n for r in q_ranks
+                                 for k, n in rec["launches_expected"].items())
+        # q, o, gate, up, down split (and q's bias); k, v whole, their
+        # gradients the model group's sum
+        checks["split"] = all(r["tp_split_params"] == 6 * DIST_TP_QWEN_LAYERS * 2
+                              and r["tp_whole_in_split"] == 4 * DIST_TP_QWEN_LAYERS * 2
+                              and r["params"] < q_params for r in q_ranks)
+        checks["model_group_ran"] = all(rec["model_group_bytes_per_step"].get(t, 0) > 0
+                                        for t in ("tp_reduce", "tp_input_grad", "tp_whole_grad"))
+        # the bfloat16 towers: gradients, the ranks' agreement, launches,
+        # and the second step's time beside one process's
+        bf = [r["bf16"] for r in q_ranks]
+        b_rec, checks["bf16_first_step_grads"] = grad_hold(bf, DIST_TP_WORLD, "bfloat16")
+        b_want = {"packed_attn_fwd": 2 * DIST_TP_QWEN_LAYERS * DIST_TP_BF16_STEPS,
+                  "packed_attn_bwd": DIST_TP_QWEN_LAYERS * DIST_TP_BF16_STEPS}
+        checks["launches"] &= all(r["launches"][k] == n for r in bf for k, n in b_want.items())
+        checks["bf16_between_ranks"] = all(
+            abs(r["final_loss"] - bf[0]["final_loss"]) <= DIST_TOL["between_ranks"]
+            * abs(bf[0]["final_loss"]) for r in bf)
+        b_rec.update(
+            steps=bf[0]["iters"], losses=bf[0]["losses"], oracle_losses=b_oracle["losses"],
+            first_loss_rel_diff=abs(bf[0]["losses"][0][1] - b_oracle["losses"][0][1])
+            / abs(b_oracle["losses"][0][1]),
+            step_s_per_rank=[DIST_TP_QWEN_BATCH / r["steady_examples_per_s"] for r in bf],
+            one_process_step_s=DIST_TP_QWEN_BATCH / b_oracle["steady_examples_per_s"],
+            launches_per_rank=[{k: r["launches"][k] for k in b_want} for r in bf],
+            launches_expected=b_want, peak_mem_gb=[r["peak_mem_gb"] for r in bf],
+            model_group_bytes_per_step={t: b / bf[0]["iters"]
+                                        for t, b in bf[0]["collective_bytes"].items()
+                                        if t.startswith("tp_")},
+            persistent_gb=[{k: v / 1e9 for k, v in r["persistent_bytes"].items()} for r in bf],
+            seconds=[r["seconds"] for r in bf])
+        rec["bf16"] = b_rec
+        rec.update(model="Qwen2-1.5B width, %d + %d layers, float32 (then bfloat16), tp_size "
+                   "%d: data 1 x model %d" % (DIST_TP_QWEN_LAYERS, DIST_TP_QWEN_LAYERS,
+                                              DIST_TP_WORLD, DIST_TP_WORLD),
+                   steps=steps, checks=checks, ok=all(checks.values()))
+        launches["distributed_gloo_tp_qwen2"] = q_ranks[0]["launches"]
+    rec["seconds_phase"] = time.perf_counter() - t2
+    rec["oracles_seconds"] = oracles["seconds"]
+    remove_dirs(q_out, q_dir, q_grads, b_grads, os.path.join(work_dir, "tp_g2_oracle"),
+                os.path.join(work_dir, "tp_g2_bf16_oracle"))
+    release()
+    return rec, launches
 
 
 def baseline_dist_config(family, checkpoint_dir, user_dir, **over):
@@ -3123,7 +3822,7 @@ def table_memory(run, ref, rank):
     return rec, ok
 
 
-def distributed_table(work_dir, device, data_kw, over, items, ref_steps):
+def table_start(work_dir, device, data_kw, over, items, ref_steps):
     """(e): HSTU size4 in (b)'s protocol, 1 step, the table row-sharded,
     over two gloo ranks on the one card, at each catalog of ``items`` (the
     reference first, then the measured one; ``fit`` with its evaluation and
@@ -3133,14 +3832,20 @@ def distributed_table(work_dir, device, data_kw, over, items, ref_steps):
     table's bytes, and ``table_memory``'s checks; the bytes of the
     evaluations' chunk fetches; #7 once a step a rank. The reference run
     takes ``ref_steps`` steps, (b)'s, so that it also measures (b)'s phases
-    (a later step frees the gradients of the one before). Returns (its
-    record, the measured run's rank-0 launches, the reference run's rank
-    records)."""
+    (a later step frees the gradients of the one before). Starts the
+    ranks; ``table_finish`` waits for them."""
     out = os.path.join(work_dir, "table")
     steps = {str(items[0]): ref_steps, str(items[1]): 1}
-    ranks = gloo_ranks(out, {"model": "table", "device": "cuda:0" if device == "cuda" else device,
-                             "data": data_kw, "items": list(items), "steps": steps,
-                             "over": over})
+    return items, gloo_ranks_start(out, {
+        "model": "table", "device": "cuda:0" if device == "cuda" else device, "data": data_kw,
+        "items": list(items), "steps": steps, "over": over})
+
+
+def table_finish(started):
+    """(e)'s record (``table_start``), the measured run's rank-0 launches
+    and the reference run's rank records."""
+    items, started = started
+    ranks = gloo_ranks_finish(started)
     if isinstance(ranks, dict):
         return ranks, None, None
     ref_key, run_key = (str(n) for n in items)
@@ -3212,12 +3917,20 @@ def progress(part, t0, ok):
           "seconds": time.perf_counter() - t0, "ok": bool(ok)})
 
 
-def distributed_phase(work_dir, smi, device="cuda", data_kw=DIST_HSTU_DATA, hllm_over=None,
-                      hllm_tower=None, hllm_data=DIST_HLLM_DATA, base_over=None,
-                      base_tower=None, base_data=DIST_BASE_DATA, table_data=None,
-                      table_items=(DIST_TABLE_REF_ITEMS, DIST_TABLE_ITEMS), disk_dir=None,
-                      **over):
-    """The data-parallel path on the card: (a) ``world1_cli_runs`` (HSTU
+def distributed_phase(work_dir, smi, device="cuda", **kw):
+    """``_distributed_phase`` with WarmRanks under ``work_dir``: each gloo
+    run's ranks wait ready while the run before ends."""
+    with warm_ranks(os.path.join(work_dir, "warm")):
+        return _distributed_phase(work_dir, smi, device=device, **kw)
+
+
+def _distributed_phase(work_dir, smi, device="cuda", data_kw=DIST_HSTU_DATA, hllm_over=None,
+                       hllm_tower=None, hllm_data=DIST_HLLM_DATA, tp_qwen_tower=None,
+                       base_over=None,
+                       base_tower=None, base_data=DIST_BASE_DATA, table_data=None,
+                       table_items=(DIST_TABLE_REF_ITEMS, DIST_TABLE_ITEMS), disk_dir=None,
+                       parts="abcde", **over):
+    """The data-parallel path on the card: (a) ``world1_cli_start`` (HSTU
     size4, the train phase's prior protocol); (b) two ranks of that HSTU
     over gloo on the one card (``dist_rank`` in processes of their own;
     NCCL refuses two ranks on one device), the item table replicated and
@@ -3225,9 +3938,11 @@ def distributed_phase(work_dir, smi, device="cuda", data_kw=DIST_HSTU_DATA, hllm
     (``rank_order_oracle``) at DIST_TOL, the two ranks to each other, the
     sharded run's per-rank table bytes to half the replicated run's and its
     memory to ``table_memory``'s checks against (e)'s reference run; (c)
-    ``distributed_hllm``; (d) ``distributed_baselines``; (e)
-    ``distributed_table``; and the record: examples/s, peak memory per
-    rank, the launches of the kernels, the bytes a step of each collective
+    ``distributed_hllm``, with (f) and (g) (``distributed_tp``: tensor
+    parallelism over four gloo ranks, its files under ``work_dir``;
+    ``tp_qwen_tower``: (g2)'s ``config.json`` keys to change); (d)
+    ``distributed_baselines``; (e) ``table_start``; and the record:
+    examples/s, peak memory per rank, the launches of the kernels, the bytes a step of each collective
     and the seconds, beside the card's name and power limit. The gloo rates
     are correctness runs (both ranks on one card, gloo staging through host
     memory), not scaling numbers. ``device`` "cpu" and config overrides
@@ -3236,8 +3951,14 @@ def distributed_phase(work_dir, smi, device="cuda", data_kw=DIST_HSTU_DATA, hllm
     LLMIDRec's tower), the catalogs ``data_kw`` / ``hllm_data`` /
     ``base_data`` / ``table_data`` and (e)'s ``table_items`` rehearse it at a
     few widths without the card. (b)-(d) keep their files under ``disk_dir``
-    (default ``work_dir``), (a) and (e) under ``work_dir``. Returns
-    (launches of each run, ok)."""
+    (default ``work_dir``), (a) and (e) under ``work_dir``. ``parts``: the
+    letters of the runs to make ((f) runs with (b) and (c), (g) with (c);
+    "q" without "c": (g2) alone). Runs that share no data and fit the card
+    together run side by side: (b)'s replicated and sharded runs, (a)
+    beside (b)'s (f), (d) beside (e).
+    Returns (launches of each run, ok)."""
+    import gc
+
     import torch
 
     from mhrec_tpu_torch.data.synthetic import InMemoryInteractionData
@@ -3247,133 +3968,177 @@ def distributed_phase(work_dir, smi, device="cuda", data_kw=DIST_HSTU_DATA, hllm
     rec = {"phase": "distributed", "card": smi, "steps": over.get("total_iters", DIST_STEPS),
            "gloo_steps": over.get("total_iters", DIST_GLOO_STEPS),
            "rank_batch": DIST_RANK_BATCH}
-    rec["world1_nccl_cli"] = world1_cli_runs(work_dir, device, data_kw, over)
-    ok = rec["world1_nccl_cli"]["ok"]
-    progress("a", t0, ok)
-    launches = {}
-    if "launches" in rec["world1_nccl_cli"]:
-        launches["distributed_world1_nccl"] = rec["world1_nccl_cli"]["launches"]["grouped"]
+    ok, launches, runs = True, {}, {}
+
+    def world1(started):
+        nonlocal ok
+        rec["world1_nccl_cli"] = world1_cli_finish(started)
+        ok &= rec["world1_nccl_cli"]["ok"]
+        progress("a", t0, ok)
+        if "launches" in rec["world1_nccl_cli"]:
+            launches["distributed_world1_nccl"] = rec["world1_nccl_cli"]["launches"]["grouped"]
+
+    # (a) runs beside (b)'s (f): 38 GB beside its 21
+    a_started = None
+    if "a" in parts and "b" not in parts:
+        world1(world1_cli_start(work_dir, device, data_kw, over))
     # (b) computes the trunk in float32, so that the oracle comparison sees
     # the data-parallel arithmetic and not bf16 rounding grown over 16
     # layers (#1 and #4 take their float32 routes), for DIST_GLOO_STEPS
     gloo_over = dict(dict(total_iters=DIST_GLOO_STEPS, eval_interval=DIST_GLOO_STEPS),
                      **over, compute_dtype="float32")
-    # the replicated run, with the oracle in this process meanwhile, then
-    # the sharded one (side by side, four ranks' evaluations overfill the
-    # card)
-    runs = {}
-    data = InMemoryInteractionData(**data_kw)
-    for shard, name in ((False, "replicated"), (True, "sharded")):
-        started = gloo_ranks_start(os.path.join(disk_dir, name), {
+    if "b" in parts:
+        # the replicated and the sharded run side by side (their four ranks
+        # peak at 40.7 GB together), with the oracle in this process
+        # meanwhile
+        data = InMemoryInteractionData(**data_kw)
+        started = {name: gloo_ranks_start(os.path.join(disk_dir, name), {
             "device": "cuda:0" if device == "cuda" else device, "shard": shard,
             "data": data_kw, "over": gloo_over})
+            for shard, name in ((False, "replicated"), (True, "sharded"))}
         try:
-            if not shard:
-                t_oracle = time.perf_counter()
-                oracle, oracle_trainer = rank_order_oracle(
-                    base_config(**dist_overrides(DIST_RANK_BATCH * DIST_WORLD,
-                                                 os.path.join(disk_dir, "oracle"), **gloo_over,
-                                                 sparse_adam_global_dedup=True)), data, device)
-                oracle_seconds = time.perf_counter() - t_oracle
+            t_oracle = time.perf_counter()
+            oracle, oracle_trainer = rank_order_oracle(
+                base_config(**dist_overrides(DIST_RANK_BATCH * DIST_WORLD,
+                                             os.path.join(disk_dir, "oracle"), **gloo_over,
+                                             sparse_adam_global_dedup=True)), data, device)
+            oracle_seconds = time.perf_counter() - t_oracle
         finally:
-            runs[name] = gloo_ranks_finish(started)
-        if isinstance(runs[name], list):
-            launches[f"distributed_gloo_{name}"] = runs[name][0]["launches"]
-    rec["oracle"] = {k: oracle[k] for k in ("final_loss", "param_checksum",
-                                            "steady_examples_per_s", "pool_probe_exact")}
-    rec["oracle"]["seconds"] = oracle_seconds
-    for name, ranks in runs.items():
-        if isinstance(ranks, dict):
-            rec[f"gloo_{name}"] = ranks
-            ok = False
-            continue
-        # the checkpoint the ranks wrote, evaluated by one process: the
-        # distributed evaluation's half of the oracle comparison, on the
-        # same parameters; and those parameters against the oracle's
-        served, _, test = one_process_trainer(
-            base_config(**dist_overrides(DIST_RANK_BATCH * DIST_WORLD,
-                                         os.path.join(disk_dir, name, "ckpt"), **gloo_over)),
-            data, device)
-        run_rec, checks = held_to_oracle(ranks, oracle, oracle_trainer, served,
-                                         served.evaluate(test, load_best_model=True),
-                                         DIST_STEP_TAGS)
-        del served
-        steps = ranks[0]["iters"]
-        layers = int(base_config(**over)["n_layers"])
-        want = {"hstu_stu_gated_bwd": layers * steps, "row_adamw": steps}
-        checks["launches"] = (
-            all(r["launches"][k] == n for r in ranks for k, n in want.items())
-            and all(r["launches"]["hstu_stu_gated_fwd"] > layers * steps for r in ranks))
-        run_rec.update(table_rows=[r["table_rows"] for r in ranks],
-                       table_bytes=[r["table_bytes"] for r in ranks],
-                       phase_mem_gb=[{p: v / 1e9 for p, v in r.get("phase_mem", {}).items()}
-                                     for r in ranks],
-                       table_chunk_bytes_per_eval=[
-                           r["collective_bytes"].get("table_chunk", 0) / r["evaluations"]
-                           for r in ranks],
-                       checks=checks, ok=all(checks.values()))
-        rec[f"gloo_{name}"] = run_rec
-        ok &= run_rec["ok"]
-    # (f): (b)'s HSTU under zero_stage 3, the table row-sharded through
-    # FSDP's rule, against (b)'s oracle and (b)'s sharded ZeRO-2 ranks
-    t_f = time.perf_counter()
-    rec["gloo_fsdp_hstu"], f_launches = distributed_fsdp_hstu(
-        disk_dir, device, data_kw, gloo_over, data, oracle, oracle_trainer, runs.get("sharded"))
-    rec["gloo_fsdp_hstu"]["seconds_phase"] = time.perf_counter() - t_f
-    if f_launches is not None:
-        launches["distributed_gloo_fsdp_hstu"] = f_launches
-    ok &= rec["gloo_fsdp_hstu"].get("ok", False)
-    del oracle_trainer
-    remove_dirs(*(os.path.join(disk_dir, name, "ckpt") for name in runs),
-                os.path.join(disk_dir, "fsdp_hstu"))
-    if device == "cuda":
-        # the oracle's replicas and cached blocks leave the card to (c)'s ranks
-        torch.cuda.empty_cache()
-    if all(isinstance(runs.get(n), list) for n in ("replicated", "sharded")):
-        halved = all(2 * s["table_bytes"] == r["table_bytes"]
-                     for s, r in zip(runs["sharded"], runs["replicated"]))
-        rec["sharded_table_bytes_halved"] = halved
-        ok &= halved
-    progress("b", t0, ok)
-    t_hllm = time.perf_counter()
-    rec["gloo_hllm"], hllm_launches, rec["gloo_fsdp_hllm"] = distributed_hllm(
-        disk_dir, device, hllm_over or {}, hllm_tower or {}, hllm_data)
-    rec["gloo_hllm"]["seconds_phase"] = time.perf_counter() - t_hllm
-    f_hllm = rec["gloo_fsdp_hllm"] or {}
-    if hllm_launches is not None:
-        launches["distributed_gloo_hllm"] = hllm_launches
-    if "launches" in f_hllm:
-        launches["distributed_gloo_fsdp_hllm"] = f_hllm["launches"][0]
-    ok &= rec["gloo_hllm"]["ok"] and f_hllm.get("ok", False)
-    progress("c", t0, ok)
-    # (d): the baselines
-    t_base = time.perf_counter()
-    base_over = dict(base_over or {})
-    base_recs, base_launches = distributed_baselines(disk_dir, device, base_data, base_over,
-                                                     base_tower or {})
-    rec["gloo_baselines"] = base_recs
-    rec["gloo_baselines_seconds"] = time.perf_counter() - t_base
-    for family, fam_launches in base_launches.items():
-        launches[f"distributed_gloo_{family}"] = fam_launches
-    ok &= bool(base_launches) and all(r.get("ok", False) for r in base_recs.values())
-    progress("d", t0, ok)
-    # (e): the sharded table's memory, and (b)'s sharded run against the
-    # same reference run
-    t_table = time.perf_counter()
-    table_data = table_data or dict(HSTU_DATA, num_users=DIST_TABLE_USERS)
-    rec["gloo_table"], table_launches, table_ref = distributed_table(
-        work_dir, device, table_data, dict(over, compute_dtype="float32"), table_items,
-        ref_steps=gloo_over["total_iters"])
-    rec["gloo_table"]["seconds_phase"] = time.perf_counter() - t_table
-    if table_launches is not None:
-        launches["distributed_gloo_table"] = table_launches
-    ok &= rec["gloo_table"]["ok"]
-    if table_ref is not None and isinstance(runs.get("sharded"), list):
-        memory = [table_memory(r, ref, r["rank"]) for r, ref in zip(runs["sharded"], table_ref)]
-        rec["gloo_sharded"]["table_memory"] = [m for m, _ in memory]
-        rec["gloo_sharded"]["checks"]["table_memory"] = all(mem_ok for _, mem_ok in memory)
-        rec["gloo_sharded"]["ok"] = all(rec["gloo_sharded"]["checks"].values())
-        ok &= rec["gloo_sharded"]["ok"]
+            for name, group in started.items():
+                runs[name] = gloo_ranks_finish(group)
+                if isinstance(runs[name], list):
+                    launches[f"distributed_gloo_{name}"] = runs[name][0]["launches"]
+        rec["oracle"] = {k: oracle[k] for k in ("final_loss", "param_checksum",
+                                                "steady_examples_per_s", "pool_probe_exact")}
+        rec["oracle"]["seconds"] = oracle_seconds
+        for name, ranks in runs.items():
+            if isinstance(ranks, dict):
+                rec[f"gloo_{name}"] = ranks
+                ok = False
+                continue
+            # the checkpoint the ranks wrote, evaluated by one process: the
+            # distributed evaluation's half of the oracle comparison, on the
+            # same parameters; and those parameters against the oracle's
+            served, _, test = one_process_trainer(
+                base_config(**dist_overrides(DIST_RANK_BATCH * DIST_WORLD,
+                                             os.path.join(disk_dir, name, "ckpt"), **gloo_over)),
+                data, device)
+            run_rec, checks = held_to_oracle(ranks, oracle, oracle_trainer, served,
+                                             served.evaluate(test, load_best_model=True),
+                                             DIST_STEP_TAGS)
+            del served
+            steps = ranks[0]["iters"]
+            layers = int(base_config(**over)["n_layers"])
+            want = {"hstu_stu_gated_bwd": layers * steps, "row_adamw": steps}
+            checks["launches"] = (
+                all(r["launches"][k] == n for r in ranks for k, n in want.items())
+                and all(r["launches"]["hstu_stu_gated_fwd"] > layers * steps for r in ranks))
+            run_rec.update(table_rows=[r["table_rows"] for r in ranks],
+                           table_bytes=[r["table_bytes"] for r in ranks],
+                           phase_mem_gb=[{p: v / 1e9 for p, v in r.get("phase_mem", {}).items()}
+                                         for r in ranks],
+                           table_chunk_bytes_per_eval=[
+                               r["collective_bytes"].get("table_chunk", 0) / r["evaluations"]
+                               for r in ranks],
+                           checks=checks, ok=all(checks.values()))
+            rec[f"gloo_{name}"] = run_rec
+            ok &= run_rec["ok"]
+        # (f): (b)'s HSTU under zero_stage 3, the table row-sharded through
+        # FSDP's rule, against (b)'s oracle and (b)'s sharded ZeRO-2 ranks;
+        # (a) beside it, with the oracle's and the served trainers' cached
+        # blocks freed first
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        if "a" in parts:
+            a_started = world1_cli_start(work_dir, device, data_kw, over)
+        t_f = time.perf_counter()
+        try:
+            rec["gloo_fsdp_hstu"], f_launches = distributed_fsdp_hstu(
+                disk_dir, device, data_kw, gloo_over, data, oracle, oracle_trainer,
+                runs.get("sharded"))
+        finally:
+            if a_started is not None:
+                world1(a_started)
+        rec["gloo_fsdp_hstu"]["seconds_phase"] = time.perf_counter() - t_f
+        if f_launches is not None:
+            launches["distributed_gloo_fsdp_hstu"] = f_launches
+        ok &= rec["gloo_fsdp_hstu"].get("ok", False)
+        del oracle_trainer
+        remove_dirs(*(os.path.join(disk_dir, name, "ckpt") for name in runs),
+                    os.path.join(disk_dir, "fsdp_hstu"))
+        if device == "cuda":
+            # the oracle's replicas and cached blocks leave the card to (c)'s ranks
+            torch.cuda.empty_cache()
+        if all(isinstance(runs.get(n), list) for n in ("replicated", "sharded")):
+            halved = all(2 * s["table_bytes"] == r["table_bytes"]
+                         for s, r in zip(runs["sharded"], runs["replicated"]))
+            rec["sharded_table_bytes_halved"] = halved
+            ok &= halved
+        progress("b", t0, ok)
+    if "q" in parts and "c" not in parts:
+        # (g2) alone
+        rec["gloo_tp_qwen2"], q_launches = tp_qwen(
+            work_dir, device, hllm_over or {}, hllm_data, InMemoryInteractionData(**hllm_data),
+            qwen_over=tp_qwen_tower)
+        launches.update(q_launches)
+        ok &= bool(rec["gloo_tp_qwen2"].get("ok", False))
+    if "c" in parts:
+        t_hllm = time.perf_counter()
+        (rec["gloo_hllm"], hllm_launches, rec["gloo_fsdp_hllm"], g_recs,
+         g_launches) = distributed_hllm(disk_dir, device, hllm_over or {}, hllm_tower or {},
+                                        hllm_data, tp_dir=work_dir, qwen_over=tp_qwen_tower)
+        rec["gloo_hllm"]["seconds_phase"] = time.perf_counter() - t_hllm
+        f_hllm = rec["gloo_fsdp_hllm"] or {}
+        if hllm_launches is not None:
+            launches["distributed_gloo_hllm"] = hllm_launches
+        if "launches" in f_hllm:
+            launches["distributed_gloo_fsdp_hllm"] = f_hllm["launches"][0]
+        ok &= rec["gloo_hllm"]["ok"] and f_hllm.get("ok", False)
+        progress("c", t0, ok)
+        # (g): tensor parallelism
+        for name, key in (("g1", "gloo_tp_tinyllama"), ("g2", "gloo_tp_qwen2")):
+            rec[key] = g_recs.get(name, {"ok": False, "error": "not run"})
+            ok &= bool(rec[key].get("ok", False))
+        launches.update(g_launches)
+        progress("g", t0, ok)
+    # (e) beside (d): the sharded table's memory, and (b)'s sharded run
+    # against the same reference run
+    e_started = None
+    if "e" in parts:
+        t_table = time.perf_counter()
+        table_data = table_data or dict(HSTU_DATA, num_users=DIST_TABLE_USERS)
+        e_started = table_start(work_dir, device, table_data, dict(over, compute_dtype="float32"),
+                                table_items, ref_steps=gloo_over["total_iters"])
+    table = None
+    try:
+        if "d" in parts:
+            # (d): the baselines
+            t_base = time.perf_counter()
+            base_over = dict(base_over or {})
+            base_recs, base_launches = distributed_baselines(disk_dir, device, base_data, base_over,
+                                                             base_tower or {})
+            rec["gloo_baselines"] = base_recs
+            rec["gloo_baselines_seconds"] = time.perf_counter() - t_base
+            for family, fam_launches in base_launches.items():
+                launches[f"distributed_gloo_{family}"] = fam_launches
+            ok &= bool(base_launches) and all(r.get("ok", False) for r in base_recs.values())
+            progress("d", t0, ok)
+    finally:
+        if e_started is not None:
+            table = table_finish(e_started)
+    if table is not None:
+        rec["gloo_table"], table_launches, table_ref = table
+        rec["gloo_table"]["seconds_phase"] = time.perf_counter() - t_table
+        if table_launches is not None:
+            launches["distributed_gloo_table"] = table_launches
+        ok &= rec["gloo_table"]["ok"]
+        if table_ref is not None and isinstance(runs.get("sharded"), list):
+            memory = [table_memory(r, ref, r["rank"]) for r, ref in zip(runs["sharded"], table_ref)]
+            rec["gloo_sharded"]["table_memory"] = [m for m, _ in memory]
+            rec["gloo_sharded"]["checks"]["table_memory"] = all(mem_ok for _, mem_ok in memory)
+            rec["gloo_sharded"]["ok"] = all(rec["gloo_sharded"]["checks"].values())
+            ok &= rec["gloo_sharded"]["ok"]
     rec["seconds"] = time.perf_counter() - t0
     rec["ok"] = bool(ok)
     emit(rec)
@@ -3489,8 +4254,9 @@ HSTU_1B_FILES = ("IDNet/hstu-1b.yaml", "overall/ID.yaml", "IDNet/hstu.yaml")
 # first, never the width or the depth
 HSTU_1B_BATCH = 32
 # 20 until the distributed phase joined the script, 10 until its baselines
-# and sharded-table runs joined it, 6 until its FSDP runs joined it
-HSTU_1B_STEPS = 3
+# and sharded-table runs joined it, 6 until its FSDP runs joined it, 3 until
+# its tensor-parallel runs joined it
+HSTU_1B_STEPS = 2
 # steps of each turn of the loop / stacked timing (loop, stacked, stacked,
 # loop); 5 until the distributed phase joined the script, 3 until its FSDP
 # runs joined it
@@ -3646,8 +4412,8 @@ def hstu_1b_phase(data, work_dir, device=None, **over):
     tests), each path with the launch counts set to 0 just before it and
     read just after:
 
-    * ``hstu_1b_serve``: ``run.serve`` over the HSTU phases' users and
-      catalog at eval batch 1024; #1 22 times an eval batch on its
+    * ``hstu_1b_serve``: ``run.serve`` over ``data``'s users and catalog
+      at eval batch 1024; #1 22 times an eval batch on its
       tensor-core route and no other kernel; users/s of a warm repeat,
       which must give the same metrics; peak memory. Then
       ``hstu_1b_serve_tf32``: the same trainer's evaluation under
@@ -3907,8 +4673,9 @@ BASELINE_POOL = 8192
 # stay under POSITION_NEG_BUDGET
 POSITION_NEG_CHOICES = (1024, 512, 256)
 # LLMIDRec's TinyLlama-width user tower, cut from its 22 layers to keep the
-# script's time (a depth cut: its checkpoint was 12.87 GB, its run 59.53 GiB)
-BASELINE_LLM_LAYERS = 4
+# script's time (a depth cut: its checkpoint was 12.87 GB, its run 59.53 GiB;
+# 4 until (g) of the distributed phase held its gradients)
+BASELINE_LLM_LAYERS = 2
 POSITION_NEG_BUDGET = 40 * 2**30
 
 
@@ -4171,11 +4938,18 @@ BAICHUAN_13B_2L = {
 PRETRAINED_ITEMS = 4096
 PRETRAINED_USERS = 512  # 1024 until the FSDP runs joined the script
 PRETRAINED_TRAIN_STEPS = 2  # 3 until (d) and (e) joined the distributed phase
+# the layers of the pretrained-tower phases' checkpoint (TinyLlama-1.1B's
+# widths): its 22 until the distributed phase's tensor-parallel runs joined
+# the script, 6 until they held their gradients and ran bfloat16 towers,
+# 4 until the script's 1,200 s ran out on a slower machine (depth cuts)
+PRETRAINED_LAYERS = 2
+PRETRAINED_TOWER = dict(TINYLLAMA_1B, num_hidden_layers=PRETRAINED_LAYERS)
 # the towers phase: catalog, users, and the ALiBi tower's corpus batch
 # (MAX_ITEM_LIST_LENGTH 24 × train_batch_size 8 = 192 items: its
-# [192, 40, 257, 257] float32 scores take 2.0 GB)
-TOWERS_ITEMS = 1024
-TOWERS_USERS = 256
+# [192, 40, 257, 257] float32 scores take 2.0 GB); 1,024 and 256 until the
+# distributed phase's tensor-parallel runs joined the script
+TOWERS_ITEMS = 512
+TOWERS_USERS = 128
 ALIBI_CORPUS_TRAIN_BATCH = 8
 # the levers phase: sequences a step (dots keeps every product's output:
 # about 1.25 GB a layer at 2 sequences, 248 items) and timed steps
@@ -4354,14 +5128,15 @@ def tower_load_record(model):
 
 
 def hllm_pretrained_phase(work_dir):
-    """HLLM with both towers from a TinyLlama-1.1B-shaped checkpoint the
-    script writes (seed 0, bfloat16, two ``.safetensors`` shards and an
-    index, about 2.2 GB): serving (``run.serve``: the towers' load seconds
+    """HLLM with both towers from a TinyLlama-1.1B-wide checkpoint of
+    PRETRAINED_LAYERS layers the script writes (seed 0, bfloat16, two
+    ``.safetensors`` shards and an index, about 0.44 GB; 2.2 GB at the
+    model's 22 layers): serving (``run.serve``: the towers' load seconds
     and GB/s, every loaded tensor equal to the written one, the corpus pass
     and users/s, through hllm_serve_phase's checks) and training
     (``run.train``: PRETRAINED_TRAIN_STEPS steps, then the test split; no
     evaluation inside the fit, so no checkpoint is written), with
-    ``packed_attn_fwd`` 44 and ``packed_attn_bwd`` 22 launches a step. Then
+    ``packed_attn_fwd`` twice and ``packed_attn_bwd`` once a layer a step. Then
     a 2-layer cut of the same weights as ``.safetensors`` and as
     ``pytorch_model.bin`` must give equal item embeddings (the packed item
     tower over the first corpus batch). Returns (the training trainer, its
@@ -4374,9 +5149,9 @@ def hllm_pretrained_phase(work_dir):
     from mhrec_tpu_torch.trainer import Trainer
 
     tower_dir = os.path.join(work_dir, "tinyllama_safetensors")
-    sd = hf_state_dict(TINYLLAMA_1B, seed=0, device=DEVICE, dtype=torch.bfloat16)
+    sd = hf_state_dict(PRETRAINED_TOWER, seed=0, device=DEVICE, dtype=torch.bfloat16)
     ckpt_bytes = sum(t.numel() * t.element_size() for t in sd.values())
-    write_s = write_hf_checkpoint(tower_dir, TINYLLAMA_1B, sd, shards=2)
+    write_s = write_hf_checkpoint(tower_dir, PRETRAINED_TOWER, sd, shards=2)
     data = InMemoryInteractionData(
         num_users=PRETRAINED_USERS, num_items=PRETRAINED_ITEMS, seq_len=2 * 24 + 2 * 8,
         num_categories=11, eval_pred_len=8, max_item_list_length=24, seed=0, item_texts=True)
@@ -4628,8 +5403,8 @@ def _corpus_pass(tokenizer, config, data, cache_dir=None):
 
 
 def hllm_tokenizer_phase(work_dir, tower_dir):
-    """HLLM with both towers from hllm_pretrained's TinyLlama-1.1B checkpoint
-    (its shards linked, not written again) and a tokenizer.json of
+    """HLLM with both towers from hllm_pretrained's TinyLlama-1.1B-wide
+    checkpoint (its shards linked, not written again) and a tokenizer.json of
     TinyLlama's layout (``write_llama_tokenizer``, vocabulary 32,000) beside
     them, over PRETRAINED_ITEMS items whose texts ``tokenizer_item_table``
     draws: the tokenizer's load seconds; the corpus tokenized on the host
@@ -4639,7 +5414,7 @@ def hllm_tokenizer_phase(work_dir, tower_dir):
     to TOKENIZER_DIGEST (what transformers gives on the CPU); then serving
     (``run.serve``, the packed corpus pass: ``packed_attn_fwd`` once per layer
     per corpus batch) and training (``run.train``, PRETRAINED_TRAIN_STEPS
-    steps: 44 ``packed_attn_fwd`` and 22 ``packed_attn_bwd`` launches a step)
+    steps: ``packed_attn_fwd`` twice and ``packed_attn_bwd`` once a layer a step)
     through that tokenizer. Returns (launches, ok)."""
     import numpy as np
     import torch
@@ -4650,7 +5425,7 @@ def hllm_tokenizer_phase(work_dir, tower_dir):
 
     vocab = TINYLLAMA_1B["vocab_size"]
     tok_dir = link_layer_cut(tower_dir, os.path.join(work_dir, "tinyllama_tokenizer"),
-                             TINYLLAMA_1B, TINYLLAMA_1B["num_hidden_layers"])
+                             TINYLLAMA_1B, PRETRAINED_LAYERS)
     data = InMemoryInteractionData(
         num_users=PRETRAINED_USERS, num_items=PRETRAINED_ITEMS, seq_len=2 * 24 + 2 * 8,
         num_categories=11, eval_pred_len=8, max_item_list_length=24, seed=0)
@@ -4715,7 +5490,8 @@ def hllm_tokenizer_phase(work_dir, tower_dir):
     del trainer
     torch.cuda.empty_cache()
     ok = bool(tok_ok and ok_serve and served and ok_train
-              and serve_launches["packed_attn_fwd"] == layers * n_batches == 44)
+              and serve_launches["packed_attn_fwd"] == layers * n_batches
+              == 2 * PRETRAINED_LAYERS)
     emit({"phase": "hllm_tokenizer", "vocab": len(tokenizer.model.vocab),
           "texts_s": texts_s, "tokenizer_write_s": write_s, "tokenizer_load_s": load_s,
           "items": PRETRAINED_ITEMS, "tokens": n_tokens,
@@ -4796,9 +5572,9 @@ def _checkpoints_equal(a, b):
 
 
 def _host_copy_rate(trainer):
-    """The 22-layer model's checkpoint state (parameters and AdamW moments,
-    25.7 GB) copied to host memory by ``host_copy``, the copy an
-    asynchronous save makes (pageable). Nothing is written."""
+    """The trained model's checkpoint state (parameters and AdamW moments;
+    25.7 GB at 22 layers) copied to host memory by ``host_copy``, the copy
+    an asynchronous save makes (pageable). Nothing is written."""
     import torch
 
     from mhrec_tpu_torch.trainer import checkpoint as ckpt_io
@@ -4814,7 +5590,7 @@ def _host_copy_rate(trainer):
 
 def hllm_train_levers_phase(trainer, cfg, data, work_dir):
     """The HLLM training levers on the pretrained-tower phase's trained
-    model (hllm_train_config's: 22 layers):
+    model (hllm_train_config's, PRETRAINED_LAYERS layers):
 
     * one best-checkpoint save synchronous, then one asynchronous of the
       same state, during whose write the loop takes a train step: the
@@ -4822,13 +5598,13 @@ def hllm_train_levers_phase(trainer, cfg, data, work_dir):
       bytes, and both files equal tensor for tensor. On a 1-layer
       hllm_train_config model from a 1-layer cut of the weights (about 3.5
       GB a file, mostly the heads and the token table): the machine's disk
-      takes 45 GiB of writes a run, and hllm_train's asynchronous 25.7 GB
-      save of the 22-layer model is already one of them. The 22-layer
-      model's state is copied to host memory as ``host_copy`` does it
-      (pageable), without a write;
+      takes 45 GiB of writes a run, and hllm_train's asynchronous save is
+      already one of them. The trained model's state is copied to host
+      memory as ``host_copy`` does it (pageable), without a write;
     * LEVERS_STEPS steps at LEVERS_BATCH sequences under ``remat_policy``
       ``full`` and ``dots``: steady examples/s, peak memory, launches a step
-      (44 ``packed_attn_fwd``, 22 ``packed_attn_bwd`` under both); one
+      (two ``packed_attn_fwd`` and one ``packed_attn_bwd`` a layer under
+      both); one
       batch's gradients under ``dots`` against ``full``'s (relative L2 of
       each tensor within F32_GRAD_TOL);
     * ``adam_mu_dtype`` / ``adam_nu_dtype: bfloat16`` against the default
@@ -4880,7 +5656,7 @@ def hllm_train_levers_phase(trainer, cfg, data, work_dir):
     del small
     torch.cuda.empty_cache()
     ok &= bool(equal and math.isfinite(loss))
-    rec["host_copy_22_layers"] = _host_copy_rate(trainer)
+    rec["host_copy_trained_model"] = _host_copy_rate(trainer)
 
     # remat_policy full against dots
     towers = [trainer.model.item_llm, trainer.model.user_llm]
@@ -4889,7 +5665,8 @@ def hllm_train_levers_phase(trainer, cfg, data, work_dir):
         for t in towers:
             t.remat_policy = pol
         rec[pol] = _step_stats(trainer, stream, LEVERS_STEPS)
-        want = {"packed_attn_fwd": 44.0, "packed_attn_bwd": 22.0}
+        layers = trainer.model.item_config.num_hidden_layers
+        want = {"packed_attn_fwd": 2.0 * layers, "packed_attn_bwd": float(layers)}
         ok &= (rec[pol]["launches_per_step"] == want
                and all(math.isfinite(x) for x in rec[pol]["losses"]))
     for t in towers:
@@ -5046,12 +5823,16 @@ IMAGE_TOKENIZER_VOCAB = 8192
 # 4,096 until the distributed phase joined the script (a depth cut)
 # the item and user decoders' layers in hllm_image: 28 each (Qwen2-VL-2B's
 # and Qwen2.5-1.5B's) until the distributed phase's baselines and
-# sharded-table runs joined the script, 14 and then 7 as its FSDP runs and
-# the reference-checkpoint phase joined it (depth cuts; the vision tower
-# keeps its 32 blocks)
-IMAGE_LLM_LAYERS = 4
-# 512 and 512 until the distributed phase's FSDP runs joined the script
-IMAGE_USERS = 256
+# sharded-table runs joined the script, 14 and then 4 as its FSDP runs and
+# the reference-checkpoint phase joined it, 2 since its tensor-parallel runs
+# joined it (depth cuts)
+IMAGE_LLM_LAYERS = 2
+# the vision tower's blocks in hllm_image: Qwen2-VL-2B's 32 until the
+# script's 1,200 s ran out on a slower machine (a depth cut)
+IMAGE_VIT_BLOCKS = 16
+# 512 and 512 until the distributed phase's FSDP runs joined the script;
+# 256 users until its tensor-parallel runs joined it
+IMAGE_USERS = 128
 IMAGE_ITEMS = 256
 IMAGE_MISSING_EVERY = 16
 # 257 until IMAGE_ITEMS fell to 256 (so that a broken file is still met)
@@ -5549,7 +6330,9 @@ def hllm_image_phase(work_dir, device=None, item_cfg=None, user_cfg=None,
     failed)."""
     import torch
 
-    item_cfg = item_cfg or dict(QWEN2_VL_2B, num_hidden_layers=IMAGE_LLM_LAYERS)
+    item_cfg = item_cfg or dict(
+        QWEN2_VL_2B, num_hidden_layers=IMAGE_LLM_LAYERS,
+        vision_config=dict(QWEN2_VL_2B["vision_config"], depth=IMAGE_VIT_BLOCKS))
     user_cfg = user_cfg or dict(QWEN25_1_5B, num_hidden_layers=IMAGE_LLM_LAYERS)
     data = _image_catalog(n_users, n_items)
     base = image_config(None, None, work_dir, **over)
@@ -5939,6 +6722,11 @@ def use_memory_scratch():
 
 def main(argv=None) -> int:
     args = sys.argv[1:] if argv is None else argv
+    # before the first allocation, here and in the processes it starts: the
+    # distributed phase's ranks and its oracle share the one card, and each
+    # process's cached blocks that no later request fits (2.8 GiB of an HLLM
+    # rank's 21.6 on an H100) would otherwise overfill it
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     if not os.path.isdir(os.path.join(ROOT, "mhrec_tpu_torch", "csrc")):
         print("chip_smoke.py: the mhrec_tpu_torch package is not beside this script",
               file=sys.stderr)
@@ -5951,6 +6739,10 @@ def main(argv=None) -> int:
         # on the device its spec names
         i = args.index("--distributed-rank")
         return dist_rank(int(args[i + 1]), int(args[i + 2]), args[i + 3])
+    if "--warm-rank" in args:
+        # a rank process started ahead of its run (WarmRanks)
+        i = args.index("--warm-rank")
+        return warm_rank(args[i + 1], int(args[i + 2]))
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device", file=sys.stderr)
         return 3
@@ -5986,11 +6778,12 @@ def main(argv=None) -> int:
 
     hstu_data = HSTU_DATA  # the HSTU phases' users and catalog
     if "--distributed-only" in args:
-        # the distributed phase alone
+        # the distributed phase alone; ``--parts cd``: some of its runs
+        parts = args[args.index("--parts") + 1] if "--parts" in args else "abcde"
         work_dir = tempfile.mkdtemp(prefix="chip_smoke_dist_")
         disk_dir = disk_tmpdir("chip_smoke_dist_")
         try:
-            launches, ok = distributed_phase(work_dir, smi, disk_dir=disk_dir)
+            launches, ok = distributed_phase(work_dir, smi, disk_dir=disk_dir, parts=parts)
         finally:
             remove_dirs(work_dir, disk_dir)
         emit({"path_launches": launches})
@@ -6018,7 +6811,8 @@ def main(argv=None) -> int:
         # the baselines phase alone (its kernel holds included)
         work_dir = disk_tmpdir("chip_smoke_baselines_")
         try:
-            launches, bad, _ = baselines_phase(InMemoryInteractionData(**hstu_data), work_dir)
+            launches, bad, _ = baselines_phase(
+                InMemoryInteractionData(**dict(hstu_data, num_users=LATE_HSTU_USERS)), work_dir)
         finally:
             shutil.rmtree(work_dir, ignore_errors=True)
         emit({"path_launches": launches})
@@ -6089,6 +6883,11 @@ def main(argv=None) -> int:
             rec = kernel_recs["packed_bwd"] = packed_bwd_kernel_phase(dtype)
             if not rec["ok"]:
                 failed.append(f"packed_bwd/{dtype}")
+            # a tensor-parallel rank's heads: a view of the KV heads, or
+            # the KV heads gathered one per query head
+            for layout in PACKED_TP_LAYOUTS:
+                if not packed_tp_phase(layout, dtype)["ok"]:
+                    failed.append(f"packed_tp/{layout}/{dtype}")
     torch.cuda.empty_cache()
     seconds["kernels"] = time.perf_counter() - t0
 
@@ -6168,9 +6967,10 @@ def main(argv=None) -> int:
     seconds["distributed"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
+    late_data = InMemoryInteractionData(**dict(hstu_data, num_users=LATE_HSTU_USERS))
     work_dir = disk_tmpdir("chip_smoke_baselines_")
     try:
-        baseline_launches, baseline_failed, _ = baselines_phase(data, work_dir)
+        baseline_launches, baseline_failed, _ = baselines_phase(late_data, work_dir)
     finally:
         shutil.rmtree(work_dir, ignore_errors=True)
     failed.extend(baseline_failed)
@@ -6180,11 +6980,11 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_1b_")
     try:
-        hstu_1b_launches, hstu_1b_failed = hstu_1b_phase(data, ckpt_dir)
+        hstu_1b_launches, hstu_1b_failed = hstu_1b_phase(late_data, ckpt_dir)
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
     failed.extend(hstu_1b_failed)
-    del data
+    del data, late_data
     torch.cuda.empty_cache()
     seconds["hstu_1b"] = time.perf_counter() - t0
 

@@ -12,7 +12,8 @@ def build_model(config, dataload, dtype=None, mesh=None):
     ``precision`` for HLLM, float32 for the ComiRec / REMI trunk. SASRec and
     DualVAE compute in float32 whatever it says, as in JAX. ``mesh``: the
     data-parallel group, which an HSTU under ``shard_item_embedding`` splits
-    its table over from the start."""
+    its table over from the start, and over whose model group an HLLM
+    splits its Llama towers under ``tp_size > 1``."""
     name = str(config["model"] or "HSTU")
     if name == "HSTU":
         from mhrec_tpu_torch.models.idnet.hstu import hstu_from_config
@@ -41,5 +42,5 @@ def build_model(config, dataload, dtype=None, mesh=None):
     if name == "HLLM":
         from mhrec_tpu_torch.models.hllm.hllm import hllm_from_config
 
-        return hllm_from_config(config, dataload, dtype=dtype)
+        return hllm_from_config(config, dataload, dtype=dtype, mesh=mesh)
     raise ValueError(f"Unknown model {name!r}")

@@ -20,6 +20,10 @@
 * the towers are Llama-family decoders (RoPE or ALiBi) or BERT encoders,
   as each pretrain directory's ``config.json`` says, and
   ``load_pretrained_towers`` reads their weights from that directory;
+* under ``tp_size > 1`` each rank of a model group holds its shards of the
+  Llama towers' projections (``models/llm/llama.py``, ``parallel/tensor.py``)
+  and the ranks of the group hold the same rows of every batch; the item
+  tower's pool is gathered over the data group;
 * ``use_image`` / ``use_video`` add a ``visual`` tower (Qwen2-VL's, or a
   CLIP / LLaVA one, as the item directory's ``vision_config`` says) whose
   tokens the item tower splices over each item's image-pad span, with
@@ -49,6 +53,7 @@ from mhrec_tpu_torch.models.llm.llama import LlamaBackbone
 from mhrec_tpu_torch.models.llm.vision import (ClipVisionTower, VisionConfig, VisionTower,
                                                has_vision_weights, load_any_vision_params)
 from mhrec_tpu_torch.models.multihead import compute_multihead_losses, predict_switch_and_heads
+from mhrec_tpu_torch.parallel.tensor import TPGroup, local_shard, split_params
 from mhrec_tpu_torch.utils.enums import InputType
 
 logger = logging.getLogger(__name__)
@@ -120,6 +125,7 @@ class HLLM(MedusaHeads, nn.Module):
         share_seg_weights: bool = False,
         use_seg_embed: bool = False,
         dtype=torch.bfloat16,
+        tp: Optional[TPGroup] = None,
     ):
         super().__init__()
         self.item_config, self.user_config = item_config, user_config
@@ -158,7 +164,7 @@ class HLLM(MedusaHeads, nn.Module):
         self.int_to_category = int_to_category
         self.dtype = dtype
         # the data-parallel group (a DataMesh) when the trainer runs in a
-        # process group: the negative pool is gathered over the ranks, the
+        # process group: the negative pool is gathered over its data ranks, the
         # loss means divide by global counts and random draws cover the
         # global batch
         self.mesh = None
@@ -180,7 +186,8 @@ class HLLM(MedusaHeads, nn.Module):
             # llama / mistral / qwen2 / tinyllama / baichuan share the
             # decoder topology (RMSNorm + RoPE + GQA + SwiGLU)
             return LlamaBackbone(cfg, dtype=dtype, gradient_checkpointing=gradient_checkpointing,
-                                 token_embeddings=token_embeddings, remat_policy=remat_policy)
+                                 token_embeddings=token_embeddings, remat_policy=remat_policy,
+                                 tp=tp)
 
         if freeze_item_llm:
             # the precomputed table, filled by the trainer from
@@ -414,6 +421,8 @@ def load_tower_weights(tower: nn.Module, path: str) -> Optional[dict]:
                 else loader.llama_state_dict_from_hf)
     has_table = hasattr(tower, "embed_tokens") or hasattr(tower, "word_embeddings")
     state = to_tower(sd, cfg, token_embeddings=has_table)
+    for name, (dim, tp) in split_params(tower).items():
+        state[name] = local_shard(state[name], dim, tp)  # a tensor-parallel shard
     loader.load_into(tower, state)
     return {"bytes": sum(t.numel() * t.element_size() for t in state.values()),
             "seconds": time.perf_counter() - t0}
@@ -498,10 +507,12 @@ def compute_dtype(config) -> torch.dtype:
     return torch.float32 if "32" in prec and "bf16" not in prec else torch.bfloat16
 
 
-def hllm_from_config(config, dataload, dtype=None) -> HLLM:
+def hllm_from_config(config, dataload, dtype=None, mesh=None) -> HLLM:
     """Build an HLLM from a Config + InteractionData (the JAX package's
-    ``hllm_from_config``, hllm.py:592-730, one device). ``dtype`` overrides
-    the compute type that ``precision`` selects."""
+    ``hllm_from_config``, hllm.py:592-730). ``dtype`` overrides the compute
+    type that ``precision`` selects. ``mesh`` (a DataMesh): under
+    ``tp_size > 1`` the Llama towers hold this rank's shards of its model
+    group; without one they stay whole."""
     loss = config["loss"]
     num_prior = config["num_prior_head"] or 1
     if loss == "prior" and config["weighted_prior_loss"]:
@@ -528,9 +539,11 @@ def hllm_from_config(config, dataload, dtype=None) -> HLLM:
         user_cfg = LLMConfig.from_pretrained_dir(user_dir or item_dir)
 
     if int(config.get("tp_size", 1) or 1) > 1:
-        raise NotImplementedError(
-            "tensor-parallel towers (tp_size > 1) are not ported yet: tensor parallelism is "
-            "ROADMAP.md Queue 1 item 6, after FSDP")
+        # the Llama towers' projections split over the model group (JAX
+        # hllm.py:621-623); BERT, the vision tower, the emb slots and the
+        # heads stay whole
+        item_cfg = dataclasses.replace(item_cfg, tp_shard=True)
+        user_cfg = dataclasses.replace(user_cfg, tp_shard=True)
     if config.get("packed_item_tower", False):
         # bound the packed attention to a causal band of the max segment
         # length: the text and its emb slots
@@ -616,4 +629,5 @@ def hllm_from_config(config, dataload, dtype=None) -> HLLM:
         cat_bottleneck_dim=config.get("cat_bottleneck_dim", 0) or 0,
         share_seg_weights=config.get("share_seg_weights", False),
         use_seg_embed=config.get("segment_embed", False),
+        tp=mesh.tp_group if mesh is not None else None,
     )

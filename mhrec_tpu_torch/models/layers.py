@@ -141,7 +141,8 @@ class ResBlock(nn.Module):
 
 def batch_rows(shape, shard, draw) -> torch.Tensor:
     """``draw(shape)`` for a tensor whose dim 0 is this rank's rows of a
-    global batch: with ``shard`` (a DataMesh of ``world`` ranks) the draw
+    global batch: with ``shard`` (a DataMesh of ``world`` data ranks; the
+    model ranks of a data row draw alike) the draw
     covers the global batch of ``world · shape[0]`` rows and this rank's
     rows are kept, so the ranks together draw what one process draws over
     the composed batch (the JAX package's one random stream over the global

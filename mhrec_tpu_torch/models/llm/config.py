@@ -32,8 +32,10 @@ class LLMConfig:
     # Multimodal RoPE (qwen2_vl): per-axis rotary sections (t, h, w) over
     # head_dim//2. None → standard 1D RoPE.
     mrope_section: Optional[tuple] = None
-    # Annotate projection kernels with 'model'-axis partitioning for
-    # tensor-parallel runs (tp_size > 1). Ignored on a 1-D data mesh.
+    # Split the projection kernels over the model group for tensor-parallel
+    # runs (tp_size > 1), as JAX's 'model' annotations do: the backbone's
+    # ``tp`` (parallel/tensor.py TPGroup) gives the model rank and T.
+    # Ignored without one (one process, a 1-D data mesh).
     tp_shard: bool = False
     # Max packed-segment length (item text + emb slot) — bounds the packed
     # attention kernel to a causal band in the packed varlen item tower.

@@ -45,6 +45,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from mhrec_tpu_torch.models.llm.config import LLMConfig
 from mhrec_tpu_torch.models.llm.packed import packed_attention
+from mhrec_tpu_torch.parallel import tensor
 
 
 class RMSNorm(nn.Module):
@@ -206,28 +207,130 @@ def _linear(layer: nn.Linear, x, dtype):
     return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
 
 
+def _plan(config: LLMConfig, tp, prefix: str):
+    """The layer's split projections under ``prefix`` (``tensor.tp_params``,
+    by their name in the block → dimension); none without tensor
+    parallelism."""
+    if tp is None or tp.size <= 1 or not config.tp_shard:
+        return {}
+    return {name[len(prefix):]: dim for name, dim in tensor.tp_params(config, tp.size).items()
+            if name.startswith(prefix)}
+
+
+class _PartialProduct(torch.autograd.Function):
+    """``x @ wᵀ`` of bfloat16 (float16) operands written in float32 by one
+    GEMM (``torch.mm``'s ``out_dtype``): the tensor cores' products summed
+    in float32 and left unrounded. The backward runs in the operands' type,
+    as one process's product does: the gradient that arrives is the float32
+    image of a compute-type value (the caller rounds the model group's sum
+    once), so it converts back exactly."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        out = torch.mm(x.reshape(-1, x.shape[-1]), w.t(), out_dtype=torch.float32)
+        return out.view(*x.shape[:-1], w.shape[0])
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, w = ctx.saved_tensors
+        g = grad.to(x.dtype)
+        gw = g.reshape(-1, g.shape[-1]).t() @ x.reshape(-1, x.shape[-1])
+        return g @ w, gw
+
+
+def _tp_linear(layer: nn.Linear, x, dtype):
+    """A row-parallel partial product in float32: the compute type's
+    operands, products summed in float32 (the model group adds the ranks'
+    partials before the one rounding). On the card a bfloat16 (float16)
+    product is one tensor-core GEMM that writes float32; elsewhere, and in
+    float32, the operands are widened first (the same numbers)."""
+    x, w = x.to(dtype), layer.weight.to(dtype)
+    if x.is_cuda and dtype in (torch.bfloat16, torch.float16):
+        return _PartialProduct.apply(x, w)
+    return F.linear(x.float(), w.float())
+
+
 class LlamaAttention(nn.Module):
-    def __init__(self, config: LLMConfig, dtype=torch.bfloat16):
+    """GQA attention. Under tensor parallelism (``tp``, a
+    ``parallel/tensor.py::TPGroup``, and ``config.tp_shard``) the block
+    holds what ``tensor.tp_params`` gives this model rank: its heads of
+    q/k/v where their counts divide by T, its rows of ``o_proj``'s input
+    where the width does (``tp_split``). A whole q (k, v) projection gives
+    every head; the rank attends with the query heads that its ``o_proj``
+    rows read (``heads``) over the KV heads those read: its own KV heads
+    when k/v are split, else a view of the whole projection's heads where
+    the local query heads map onto them as h // (H / Hkv), else those heads
+    gathered one per query head. The whole projections' gradients are then
+    shares (``tp_whole``), summed over the model group by the trainer."""
+
+    def __init__(self, config: LLMConfig, dtype=torch.bfloat16, tp=None):
         super().__init__()
         c = self.config = config
         self.dtype = dtype
         D, h, hk = c.hidden_size, c.num_attention_heads, c.num_key_value_heads
         dh = D // h
-        self.q_proj = nn.Linear(D, h * dh, bias=c.attention_bias)
-        self.k_proj = nn.Linear(D, hk * dh, bias=c.attention_bias)
-        self.v_proj = nn.Linear(D, hk * dh, bias=c.attention_bias)
-        self.o_proj = nn.Linear(D, D, bias=False)
+        plan = _plan(c, tp, "self_attn.")
+        self.tp = tp if plan else None
+        self.tp_split = plan
+        T, m = (tp.size, tp.rank) if plan else (1, 0)
+        nq = h // T if "q_proj.weight" in plan else h
+        nk = hk // T if "k_proj.weight" in plan else hk
+        self.q_proj = nn.Linear(D, nq * dh, bias=c.attention_bias)
+        self.k_proj = nn.Linear(D, nk * dh, bias=c.attention_bias)
+        self.v_proj = nn.Linear(D, nk * dh, bias=c.attention_bias)
+        self.row_split = "o_proj.weight" in plan
+        self.o_proj = nn.Linear(D // T if self.row_split else D, D, bias=False)
+        # this rank's columns [r0, r1) of the attention output (o_proj's
+        # input), the query heads [h0, h1) they come from and their KV heads
+        self.cols = (m * D // T, (m + 1) * D // T) if self.row_split else (0, D)
+        h0, h1 = self.cols[0] // dh, -(-self.cols[1] // dh)
+        self.heads = (h0, h1)
+        self.tp_whole = [f"{n}.{w}" for n in ("q_proj", "k_proj", "v_proj")
+                         for w in ("weight", "bias")
+                         if self.row_split and f"{n}.weight" not in plan
+                         and (w == "weight" or c.attention_bias)]
+        g = h // hk
+        need = [(h0 + j) // g for j in range(h1 - h0)]
+        self.kv_index = None  # KV heads by index (a gather), else the slice kv_slice
+        if "k_proj.weight" in plan:
+            self.kv_slice = (0, nk)
+        else:
+            kv0, kv1 = need[0], need[-1] + 1
+            rep = (h1 - h0) // (kv1 - kv0)
+            self.kv_slice = (kv0, kv1)
+            if (h1 - h0) % (kv1 - kv0) or any(need[j] - kv0 != j // rep
+                                               for j in range(h1 - h0)):
+                self.kv_index = need
+
+    def _local_heads(self, q, k, v):
+        """The query heads this rank attends with and their KV heads."""
+        if self.tp is None:
+            return q, k, v
+        h0, h1 = self.heads
+        if q.shape[2] != h1 - h0:  # a whole q projection
+            q = q[:, :, h0:h1]
+        if self.kv_index is not None:
+            idx = torch.tensor(self.kv_index, device=k.device)
+            return q, k.index_select(2, idx), v.index_select(2, idx)
+        kv0, kv1 = self.kv_slice
+        if k.shape[2] != kv1 - kv0:  # a view of the whole projection's heads
+            k, v = k[:, :, kv0:kv1], v[:, :, kv0:kv1]
+        return q, k, v
 
     def forward(self, x, mask_bias, cos, sin, segment_ids=None, alibi_bias=None):
         c = self.config
         B, T, D = x.shape
-        h, hk = c.num_attention_heads, c.num_key_value_heads
-        dh = D // h
-        q = _linear(self.q_proj, x, self.dtype).view(B, T, h, dh)
-        k = _linear(self.k_proj, x, self.dtype).view(B, T, hk, dh)
-        v = _linear(self.v_proj, x, self.dtype).view(B, T, hk, dh)
+        dh = D // c.num_attention_heads
+        if self.row_split:
+            x = tensor.copy_to_model(x, self.tp)
+        q = _linear(self.q_proj, x, self.dtype).view(B, T, -1, dh)
+        k = _linear(self.k_proj, x, self.dtype).view(B, T, -1, dh)
+        v = _linear(self.v_proj, x, self.dtype).view(B, T, -1, dh)
         if cos is not None:  # RoPE; None: ALiBi (a distance bias on the scores)
             q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+        q, k, v = self._local_heads(q, k, v)
+        h, hk = q.shape[2], k.shape[2]
         if segment_ids is not None:
             if alibi_bias is not None:
                 raise NotImplementedError(_PACKED_ALIBI)
@@ -242,7 +345,7 @@ class LlamaAttention(nn.Module):
                 ctx = packed_attention(q, k, v, segment_ids, window=w)
             else:  # one flat stream [S]
                 ctx = packed_attention(q, k, v, segment_ids[None], window=w)
-            ctx = ctx.reshape(B, T, D)
+            ctx = ctx.reshape(B, T, h * dh)
         else:
             if hk != h:
                 k = k.repeat_interleave(h // hk, dim=2)
@@ -252,34 +355,52 @@ class LlamaAttention(nn.Module):
             scores = torch.einsum("bthd,bshd->bhts", q, k).float() / math.sqrt(dh)
             scores = scores + mask_bias
             if alibi_bias is not None:  # [H, T, T], broadcast over the batch
-                scores = scores + alibi_bias
+                scores = scores + alibi_bias[self.heads[0]:self.heads[1]]
             probs = torch.softmax(scores, dim=-1).to(self.dtype)
-            ctx = torch.einsum("bhts,bshd->bthd", probs, v).reshape(B, T, D)
-        return _linear(self.o_proj, ctx, self.dtype)
+            ctx = torch.einsum("bhts,bshd->bthd", probs, v).reshape(B, T, h * dh)
+        if not self.row_split:
+            return _linear(self.o_proj, ctx, self.dtype)
+        a = self.cols[0] - self.heads[0] * dh
+        ctx = ctx[..., a:a + self.cols[1] - self.cols[0]]
+        return tensor.reduce_from_model(_tp_linear(self.o_proj, ctx, self.dtype),
+                                        self.tp).to(self.dtype)
 
 
 class LlamaMLP(nn.Module):
-    def __init__(self, config: LLMConfig, dtype=torch.bfloat16):
+    """SwiGLU. Under tensor parallelism (where the intermediate width
+    divides by T) this rank's columns of ``gate`` / ``up`` and rows of
+    ``down``'s input, the partial products summed over the model group."""
+
+    def __init__(self, config: LLMConfig, dtype=torch.bfloat16, tp=None):
         super().__init__()
         self.dtype = dtype
         D, I = config.hidden_size, config.intermediate_size
-        self.gate_proj = nn.Linear(D, I, bias=False)
-        self.up_proj = nn.Linear(D, I, bias=False)
-        self.down_proj = nn.Linear(I, D, bias=False)
+        plan = _plan(config, tp, "mlp.")
+        self.tp = tp if plan else None
+        self.tp_split = plan
+        n = I // tp.size if plan else I
+        self.gate_proj = nn.Linear(D, n, bias=False)
+        self.up_proj = nn.Linear(D, n, bias=False)
+        self.down_proj = nn.Linear(n, D, bias=False)
 
     def forward(self, x):
+        if self.tp is not None:
+            x = tensor.copy_to_model(x, self.tp)
         gate = _linear(self.gate_proj, x, self.dtype)
         up = _linear(self.up_proj, x, self.dtype)
-        return _linear(self.down_proj, F.silu(gate) * up, self.dtype)
+        if self.tp is None:
+            return _linear(self.down_proj, F.silu(gate) * up, self.dtype)
+        return tensor.reduce_from_model(_tp_linear(self.down_proj, F.silu(gate) * up, self.dtype),
+                                        self.tp).to(self.dtype)
 
 
 class LlamaLayer(nn.Module):
-    def __init__(self, config: LLMConfig, dtype=torch.bfloat16):
+    def __init__(self, config: LLMConfig, dtype=torch.bfloat16, tp=None):
         super().__init__()
         self.input_layernorm = RMSNorm(config.hidden_size, config.rms_norm_eps)
-        self.self_attn = LlamaAttention(config, dtype)
+        self.self_attn = LlamaAttention(config, dtype, tp)
         self.post_attention_layernorm = RMSNorm(config.hidden_size, config.rms_norm_eps)
-        self.mlp = LlamaMLP(config, dtype)
+        self.mlp = LlamaMLP(config, dtype, tp)
 
     def forward(self, x, mask_bias, cos, sin, segment_ids=None, alibi_bias=None):
         x = x + self.self_attn(self.input_layernorm(x), mask_bias, cos, sin, segment_ids,
@@ -292,13 +413,16 @@ class LlamaBackbone(nn.Module):
 
     def __init__(self, config: LLMConfig, dtype=torch.bfloat16,
                  gradient_checkpointing: bool = False, token_embeddings: bool = True,
-                 remat_policy: str = "full"):
+                 remat_policy: str = "full", tp=None):
         """``token_embeddings=False`` leaves out the token table of a tower
         that only ever takes ``inputs_embeds`` (the user tower), as flax
         creates it only when token ids arrive. ``gradient_checkpointing``
         keeps only each layer's input for the backward, which runs the layer
         again; ``remat_policy`` "dots" also keeps the layer's matrix-product
-        outputs."""
+        outputs. ``tp`` (a ``parallel/tensor.py::TPGroup``) with
+        ``config.tp_shard``: the layers' projections split over the model
+        group as JAX's rule says (the token table and the norms stay
+        whole)."""
         super().__init__()
         self.config = config
         self.dtype = dtype
@@ -308,17 +432,29 @@ class LlamaBackbone(nn.Module):
         self.remat_policy = remat_policy
         if token_embeddings:
             self.embed_tokens = nn.Embedding(config.vocab_size, config.hidden_size)
-        self.layers = nn.ModuleList(LlamaLayer(config, dtype)
+        self.layers = nn.ModuleList(LlamaLayer(config, dtype, tp)
                                     for _ in range(config.num_hidden_layers))
         self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps)
 
     @torch.no_grad()
     def init_parameters(self, gen: torch.Generator):
         """flax's initialisers: normal(0.02) kernels and embeddings, zero
-        biases, unit RMSNorm weights."""
-        for m in self.modules():
+        biases, unit RMSNorm weights. A tensor-parallel shard is this
+        rank's part of the whole parameter's draw, so the ranks together
+        hold what one process draws."""
+        split = tensor.split_params(self)
+        for name, m in self.named_modules():
             if isinstance(m, (nn.Linear, nn.Embedding)):
-                m.weight.normal_(0.0, 0.02, generator=gen)
+                key = f"{name}.weight"
+                if key in split:
+                    dim, tp = split[key]
+                    shape = list(m.weight.shape)
+                    shape[dim] *= tp.size
+                    whole = torch.empty(shape, device=m.weight.device).normal_(
+                        0.0, 0.02, generator=gen)
+                    m.weight.copy_(tensor.local_shard(whole, dim, tp))
+                else:
+                    m.weight.normal_(0.0, 0.02, generator=gen)
                 if getattr(m, "bias", None) is not None:
                     m.bias.zero_()
             elif isinstance(m, RMSNorm):
@@ -384,6 +520,7 @@ class LlamaBackbone(nn.Module):
             rel = (pos[None, :] - pos[:, None]).float()
             if not causal:
                 rel = -rel.abs()
+            # every head's; each attention block takes its own heads' rows
             slopes = torch.from_numpy(alibi_slopes(c.num_attention_heads)).to(x.device)
             alibi_bias = slopes[:, None, None] * rel[None]
         elif position_ids.dim() == 3 and c.mrope_section:

@@ -15,6 +15,9 @@ items first-fit into rows of ``chunk`` tokens ([C, chunk] arrays).
 * ``PackedAttention`` — the ``torch.autograd.Function`` around the kernels:
   the forward ``packed_attn_fwd`` saves its log-sum-exp, the backward runs
   ``packed_attn_bwd`` (the splash kernel's ``custom_vjp`` on the TPU);
+* the plain versions and the kernels take whatever heads the caller
+  passes: under tensor parallelism a rank's own query heads over its KV
+  heads (a strided view, or gathered ones);
 * ``packed_attention`` — the dispatch: the hand-written CUDA kernels
   (``ops/packed_attention_cuda.py``) on CUDA tensors, through
   ``PackedAttention`` where a gradient is wanted; the plain version under

@@ -12,6 +12,18 @@ log-sum-exp, and the autograd of the forward); on CUDA tensors it launches
 its kernel or raises. ``packed_attn_fwd.launches`` and
 ``packed_attn_bwd.launches`` count the kernels' launches (one backward call
 launches both of its passes and counts once).
+
+Under tensor parallelism (``tp_size > 1``, ``models/llm/llama.py``) each
+rank calls the kernels on its own H/T query heads and the KV heads those
+read: its own KV heads where their count divides by T, else a strided view
+of the whole projection's KV heads (the kernels take any token and row
+strides, so the view is not copied) or, where the local query heads do
+not map onto that view as h // (H / Hkv), the KV heads gathered one per
+query head. The JAX splash call has no partitioning rule
+(``mhrec_tpu/models/llm/packed.py:45-75`` has no ``shard_map``): GSPMD
+runs it on the heads its operands hold. Splitting the kernels by heads is
+a departure in mechanics, not in the numbers: each head's attention is
+computed alone in both.
 """
 
 from __future__ import annotations

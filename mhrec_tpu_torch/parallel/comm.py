@@ -19,6 +19,12 @@ fast paths); inside a group every call is a collective, also at world size
 * ``SharedArray`` — POSIX shared-memory numpy arrays for sibling processes
   of one machine (reference ``SharedList``, shareables.py:94-173).
 
+Every collective takes a ``group`` (a ``dist.new_group`` of some ranks;
+None: the default group) and runs over its ranks; a ``root`` and the
+gather orders are ranks within that group. Under tensor parallelism
+(``parallel/mesh.py::make_mesh``) the data-parallel collectives run over
+this rank's data group and ``parallel/tensor.py``'s over its model group.
+
 The tensor collectives are ``all_reduce``, ``broadcast``, the list form
 of ``all_gather`` and torch's single-tensor reduce-scatter and all-gather
 (``reduce_scatter_tensor`` / ``all_gather_into_tensor``, named
@@ -39,7 +45,13 @@ its gradient), ``loss_counts`` and ``step_scalars``, ``dedup_gather``,
 corpus pass), ``metric_reduce``, and FSDP's ``fsdp_gather`` (a layer's
 parameters before its forward and its backward; the gathered result),
 ``fsdp_reduce_scatter`` (their gradients; the whole flat input a rank
-sends), ``grad_norm`` (the clip's sum of squares) and ``fsdp_save``.
+sends), ``grad_norm`` (the clip's sum of squares) and ``fsdp_save``. The
+model group's tags begin with ``tp_``: ``tp_reduce`` (the row-parallel
+products' float32 partials), ``tp_input_grad`` (the gradient of a
+column-parallel product's input), ``tp_whole_grad`` (the gradients of the
+projections that stay whole inside a split block), ``tp_grad_norm``,
+``tp_checksum`` and ``tp_save`` (rank 0's assembly of the split
+parameters and their moments).
 """
 
 from __future__ import annotations
@@ -73,21 +85,38 @@ def process_index() -> int:
     return dist.get_rank() if initialized() else 0
 
 
-def broadcast_object(obj: Any, root: int = 0) -> Any:
-    """Broadcast a picklable object from ``root`` to every rank."""
+def group_size(group=None) -> int:
+    """The ranks of ``group`` (None: the default group)."""
+    return process_count() if group is None else dist.get_world_size(group)
+
+
+def group_rank(group=None) -> int:
+    """This process's rank within ``group`` (None: the default group)."""
+    return process_index() if group is None else dist.get_rank(group)
+
+
+def _global(group, r: int) -> int:
+    """The default group's rank of rank ``r`` of ``group``."""
+    return r if group is None else dist.get_global_rank(group, r)
+
+
+def broadcast_object(obj: Any, root: int = 0, group=None) -> Any:
+    """Broadcast a picklable object from ``root`` (a rank of ``group``) to
+    every rank of the group."""
     if not initialized():
         return obj
-    buf = [obj if process_index() == root else None]
-    dist.broadcast_object_list(buf, src=root)
+    buf = [obj if group_rank(group) == root else None]
+    dist.broadcast_object_list(buf, src=_global(group, root), group=group)
     return buf[0]
 
 
-def all_gather_objects(obj: Any) -> List[Any]:
-    """Gather one picklable object per rank; returns a list in rank order."""
+def all_gather_objects(obj: Any, group=None) -> List[Any]:
+    """Gather one picklable object per rank of ``group``; returns a list in
+    the group's rank order."""
     if not initialized():
         return [obj]
-    out: List[Any] = [None] * process_count()
-    dist.all_gather_object(out, obj)
+    out: List[Any] = [None] * group_size(group)
+    dist.all_gather_object(out, obj, group=group)
     return out
 
 
@@ -98,30 +127,31 @@ def sync_hosts(name: str = "barrier") -> None:
         dist.barrier()
 
 
-def all_reduce(t: torch.Tensor, tag: str = "all_reduce") -> torch.Tensor:
-    """SUM ``t`` over the ranks, in place; returns ``t``."""
+def all_reduce(t: torch.Tensor, tag: str = "all_reduce", group=None) -> torch.Tensor:
+    """SUM ``t`` over the ranks of ``group``, in place; returns ``t``."""
     if initialized():
         _count(tag, t.numel() * t.element_size())
-        dist.all_reduce(t)
+        dist.all_reduce(t, group=group)
     return t
 
 
-def broadcast(t: torch.Tensor, root: int, tag: str = "broadcast") -> torch.Tensor:
-    """``t`` of rank ``root`` into ``t`` of every rank, in place."""
+def broadcast(t: torch.Tensor, root: int, tag: str = "broadcast", group=None) -> torch.Tensor:
+    """``t`` of rank ``root`` (of ``group``) into ``t`` of every rank of the
+    group, in place."""
     if initialized():
         _count(tag, t.numel() * t.element_size())
-        dist.broadcast(t, src=root)
+        dist.broadcast(t, src=_global(group, root), group=group)
     return t
 
 
-def all_gather(t: torch.Tensor, tag: str = "all_gather") -> List[torch.Tensor]:
-    """Every rank's ``t`` (equal shapes), in rank order."""
+def all_gather(t: torch.Tensor, tag: str = "all_gather", group=None) -> List[torch.Tensor]:
+    """Every rank's ``t`` (equal shapes), in the rank order of ``group``."""
     if not initialized():
         return [t]
     t = t.contiguous()
-    out = [torch.empty_like(t) for _ in range(process_count())]
+    out = [torch.empty_like(t) for _ in range(group_size(group))]
     _count(tag, len(out) * t.numel() * t.element_size())
-    dist.all_gather(out, t)
+    dist.all_gather(out, t, group=group)
     return out
 
 
@@ -130,53 +160,56 @@ _REDUCE_SCATTER = getattr(dist, "reduce_scatter_single", None) or dist.reduce_sc
 _ALL_GATHER_FLAT = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
 
 
-def reduce_scatter(flat: torch.Tensor, tag: str = "reduce_scatter") -> torch.Tensor:
-    """``flat`` [W·n] SUM-reduced over the ranks; returns this rank's block
-    [n] of the sum, rows [r·n, (r+1)·n) (``flat`` itself without a group)."""
+def reduce_scatter(flat: torch.Tensor, tag: str = "reduce_scatter", group=None) -> torch.Tensor:
+    """``flat`` [W·n] SUM-reduced over the W ranks of ``group``; returns this
+    rank's block [n] of the sum, rows [r·n, (r+1)·n) for its rank r in the
+    group (``flat`` itself without a process group)."""
     if not initialized():
         return flat
     flat = flat.contiguous()
-    out = flat.new_empty(flat.numel() // process_count())
+    out = flat.new_empty(flat.numel() // group_size(group))
     _count(tag, flat.numel() * flat.element_size())
-    _REDUCE_SCATTER(out, flat)
+    _REDUCE_SCATTER(out, flat, group=group)
     return out
 
 
-def all_gather_flat(block: torch.Tensor, tag: str = "all_gather_flat") -> torch.Tensor:
+def all_gather_flat(block: torch.Tensor, tag: str = "all_gather_flat",
+                    group=None) -> torch.Tensor:
     """Every rank's ``block`` [n] (equal sizes) in one flat tensor [W·n],
-    in rank order (``block`` itself without a group)."""
+    in the rank order of ``group`` (``block`` itself without a process
+    group)."""
     if not initialized():
         return block
     block = block.contiguous()
-    out = block.new_empty(process_count() * block.numel())
+    out = block.new_empty(group_size(group) * block.numel())
     _count(tag, out.numel() * out.element_size())
-    _ALL_GATHER_FLAT(out, block)
+    _ALL_GATHER_FLAT(out, block, group=group)
     return out
 
 
 class _AllGatherRows(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, tag, reduce_grad):
-        ctx.n, ctx.tag, ctx.reduce_grad = x.shape[0], tag, reduce_grad
-        return torch.cat(all_gather(x, tag), dim=0)
+    def forward(ctx, x, tag, reduce_grad, group):
+        ctx.n, ctx.tag, ctx.reduce_grad, ctx.group = x.shape[0], tag, reduce_grad, group
+        return torch.cat(all_gather(x, tag, group), dim=0)
 
     @staticmethod
     def backward(ctx, grad):
         if ctx.reduce_grad:
-            grad = all_reduce(grad.contiguous().clone(), f"{ctx.tag}_grad")
-        r = process_index()
-        return grad[r * ctx.n:(r + 1) * ctx.n], None, None
+            grad = all_reduce(grad.contiguous().clone(), f"{ctx.tag}_grad", ctx.group)
+        r = group_rank(ctx.group)
+        return grad[r * ctx.n:(r + 1) * ctx.n], None, None, None
 
 
 def all_gather_rows(x: torch.Tensor, tag: str = "all_gather_rows",
-                    reduce_grad: bool = True) -> torch.Tensor:
-    """Every rank's ``x`` concatenated along dim 0 in rank order,
-    differentiably: the gradient of a rank's block is summed over the ranks
-    and handed back to that rank (counted as ``{tag}_grad``). With
+                    reduce_grad: bool = True, group=None) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along dim 0 in the rank order of
+    ``group``, differentiably: the gradient of a rank's block is summed over
+    the ranks and handed back to that rank (counted as ``{tag}_grad``). With
     ``reduce_grad`` false the rank takes its block of its own gradient: the
     caller's operations have summed it over the ranks already (the loss's
     products against the negative pool, ``models/losses.py``)."""
-    return _AllGatherRows.apply(x, tag, reduce_grad)
+    return _AllGatherRows.apply(x, tag, reduce_grad, group)
 
 
 class SharedArray:

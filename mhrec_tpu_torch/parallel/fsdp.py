@@ -3,7 +3,9 @@
 reference's DeepSpeed stage 3).
 
 Each parameter that ``mesh.fsdp_params`` picks is stored as this rank's
-block: the parameter flattened, padded with zeros to a multiple of W
+block over the W ranks of its data group: the parameter (under tensor
+parallelism this rank's shard of it, JAX's "the 'data' axis takes a dim
+the TP spec left free") flattened, padded with zeros to a multiple of W
 elements, and elements [r·n, (r+1)·n) of that, a ``Parameter`` of n
 elements under the parameter's own name. So the optimizer's groups, the
 freeze and learning-rate prefixes and the state dict's keys stay as they
@@ -94,7 +96,7 @@ class _Unit:
         """The whole parameters from every rank's blocks (one collective)."""
         W = self.fsdp.world
         flat = blocks[0] if len(blocks) == 1 else torch.cat(list(blocks))
-        grid = comm.all_gather_flat(flat.detach(), "fsdp_gather").view(W, -1)
+        grid = comm.all_gather_flat(flat.detach(), "fsdp_gather", self.fsdp.group).view(W, -1)
         fulls, off = [], 0
         for e in self.entries:
             # one entry: a view of the gathered tensor; several: a copy each
@@ -117,7 +119,7 @@ class _Unit:
             flat = F.pad(g.reshape(-1), (0, W * e.n - e.numel))
             parts.append(flat.view(W, e.n))
         flat = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
-        block = comm.reduce_scatter(flat.reshape(-1), "fsdp_reduce_scatter")
+        block = comm.reduce_scatter(flat.reshape(-1), "fsdp_reduce_scatter", self.fsdp.group)
         return list(block.split([e.n for e in self.entries]))
 
     def put(self, fulls):
@@ -186,7 +188,7 @@ class FSDP:
 
     def __init__(self, model: torch.nn.Module, names: List[str], mesh: DataMesh):
         self.model = model
-        self.rank, self.world = mesh.rank, mesh.world
+        self.rank, self.world, self.group = mesh.rank, mesh.world, mesh.group
         self._live: Dict[int, weakref.ref] = {}
         self._saved: Dict[int, Tuple[_Call, int]] = {}  # storage address → gather
         self._packing = None
@@ -329,7 +331,7 @@ class FSDP:
             full = torch.empty(self.world * entry.n, dtype=block.dtype, device="cpu")
         for r in range(self.world):
             buf = block.detach().clone() if r == self.rank else torch.empty_like(block)
-            comm.broadcast(buf, r, "fsdp_save")
+            comm.broadcast(buf, r, "fsdp_save", self.group)
             if full is not None:
                 full[r * entry.n:(r + 1) * entry.n].copy_(buf)
             del buf
@@ -351,13 +353,15 @@ class FSDP:
 
 
 def shard_model(model: torch.nn.Module, mesh: Optional[DataMesh], min_size: int,
-                exclude=()) -> Optional[FSDP]:
-    """FSDP over ``mesh`` of ``model``'s parameters that JAX's rule picks
-    (``fsdp_params`` at ``min_size``), leaving out the names of
-    ``exclude``; None when it picks none (one rank, or nothing large
-    enough)."""
+                exclude=(), split=None) -> Optional[FSDP]:
+    """FSDP over the data ranks of ``mesh`` of ``model``'s parameters that
+    JAX's rule picks (``fsdp_params`` at ``min_size``; ``split``: the
+    tensor-parallel shards, name → (dimension, model group), whose blocks
+    are cut from this rank's shard), leaving out the names of ``exclude``;
+    None when it picks none (one rank, or nothing large enough)."""
     if mesh is None:
         return None
-    names = [n for n in fsdp_params(model.named_parameters(), mesh.world, min_size)
+    split = {n: (dim, tp.size) for n, (dim, tp) in (split or {}).items()}
+    names = [n for n in fsdp_params(model.named_parameters(), mesh.world, min_size, split)
              if n not in exclude]
     return FSDP(model, names, mesh) if names else None

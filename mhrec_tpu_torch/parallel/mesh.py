@@ -9,10 +9,12 @@ batch and calls the collectives itself (``parallel/comm.py``):
 * ``init_distributed`` joins the process group (the counterpart of
   ``jax.distributed.initialize``): NCCL for a CUDA device, gloo for the
   CPU, device ``cuda:{local_rank % device_count}``;
-* ``make_mesh`` gives this process's rank and the world size
-  (``DataMesh``), which also carries the collectives a model calls (the
-  pool gather, the loss counts' sum); tensor parallelism (``tp_size > 1``)
-  is not ported;
+* ``make_mesh`` gives this process's place in the grid of data ranks ×
+  model ranks (``DataMesh``: the data rank and world, the model rank and
+  ``tp``, the two process groups), which also carries the collectives a
+  model calls over the data group (the pool gather, the loss counts' sum);
+  ``tp_size > 1`` splits the LLM towers over the model group
+  (``parallel/tensor.py``), whose ranks hold the same rows of every batch;
 * ``shard_identical`` is this rank's slice of dim 0 of data that every
   rank holds alike (a corpus chunk each rank built for itself);
 * ``zero_owners`` is the counterpart of ``zero_sharded_opt_state``: it
@@ -21,8 +23,9 @@ batch and calls the collectives itself (``parallel/comm.py``):
 * ``fsdp_params`` picks the parameters that FSDP / ZeRO-3 shards (JAX
   ``place`` / ``fsdp_spec``, trainer.py:284-330; ``parallel/fsdp.py``
   stores them);
-* ``RowShard`` is the row-sharded item table (``shard_item_embedding``, JAX
-  ``hstu.py:249-252``): rank r owns rows [r·R, (r+1)·R), R = ⌈n / W⌉, and
+* ``RowShard`` is the row-sharded item table over the data group
+  (``shard_item_embedding``, JAX ``hstu.py:249-252``): rank r owns rows
+  [r·R, (r+1)·R), R = ⌈n / W⌉, and
   no rank's device ever holds the whole table (JAX's ``data``-sharded
   global array, whose chunks XLA moves one at a time).
 
@@ -36,12 +39,13 @@ from __future__ import annotations
 
 import os
 from dataclasses import dataclass
-from typing import List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
 from mhrec_tpu_torch.parallel import comm
+from mhrec_tpu_torch.parallel.tensor import TPGroup
 
 
 def init_distributed(coordinator_address: Optional[str] = None,
@@ -83,34 +87,76 @@ def init_distributed(coordinator_address: Optional[str] = None,
 
 @dataclass(frozen=True)
 class DataMesh:
-    """This process's place in the data-parallel group: ``rank`` of
-    ``world`` ranks, each holding ``1/world`` of every global batch. A
-    model's collectives go through it (``comm``'s), so that a caller may
-    hand the model another group of the same interface."""
+    """This process's place in the rank grid: data rank ``rank`` of
+    ``world`` data ranks, each holding ``1/world`` of every global batch,
+    and model rank ``model_rank`` of ``tp`` (tensor parallelism; 0 of 1
+    without it). Global rank = rank · tp + model_rank, the JAX package's
+    ``devices.reshape(W / tp, tp)``. ``group`` is the data group (the ranks
+    of this model rank across the data rows; None, the default group, at
+    ``tp`` 1) and ``model_group`` the model group (the ``tp`` ranks of this
+    data row, which hold the same rows of every batch). A model's
+    collectives go through it (``comm``'s, over the data group), so that a
+    caller may hand the model another group of the same interface."""
 
     rank: int
     world: int
+    model_rank: int = 0
+    tp: int = 1
+    group: Any = None
+    model_group: Any = None
+
+    @property
+    def tp_group(self) -> Optional[TPGroup]:
+        """This rank's model group (``parallel/tensor.py``), None without
+        tensor parallelism."""
+        return TPGroup(self.model_rank, self.tp, self.model_group) if self.tp > 1 else None
 
     def all_gather_rows(self, x: torch.Tensor, tag: str) -> torch.Tensor:
-        """Every rank's ``x`` along dim 0 in rank order; backward, this
+        """Every data rank's ``x`` along dim 0 in rank order; backward, this
         rank's block of its own gradient (``comm.all_gather_rows`` without
         its all-reduce): the loss's products against the gathered pool sum
         that gradient over the ranks (``models/losses.py``)."""
-        return comm.all_gather_rows(x, tag, reduce_grad=False)
+        return comm.all_gather_rows(x, tag, reduce_grad=False, group=self.group)
 
     def all_reduce(self, t: torch.Tensor, tag: str) -> torch.Tensor:
-        """``t`` summed over the ranks, in place (``comm.all_reduce``)."""
-        return comm.all_reduce(t, tag)
+        """``t`` summed over the data ranks, in place (``comm.all_reduce``)."""
+        return comm.all_reduce(t, tag, group=self.group)
+
+
+# one mesh per tp_size and process group (the group object itself, which a
+# destroyed and re-made group does not reuse): the groups are made once
+_MESHES: Dict[Tuple[int, Any], DataMesh] = {}
 
 
 def make_mesh(tp_size: int = 1) -> DataMesh:
-    """The data-parallel group of this process (rank 0 of 1 without a
-    process group)."""
-    if tp_size > 1:
-        raise NotImplementedError(
-            "tp_size > 1 (tensor-parallel towers) is not ported yet: tensor parallelism is "
-            "ROADMAP.md Queue 1 item 6, after FSDP")
-    return DataMesh(comm.process_index(), comm.process_count())
+    """This process's place in the grid of W / ``tp_size`` data ranks ×
+    ``tp_size`` model ranks (rank 0 of 1 without a process group). At
+    ``tp_size`` > 1 every rank makes every data group and every model group
+    (``dist.new_group``, in the same order on every rank), once per process
+    group. W must divide by ``tp_size`` (JAX mesh.py:36): else a ValueError
+    names (W, T)."""
+    tp_size = max(int(tp_size or 1), 1)
+    W, r = comm.process_count(), comm.process_index()
+    if tp_size == 1:
+        return DataMesh(r, W)
+    if W % tp_size:
+        # the JAX assert's numbers (mesh.py:36)
+        raise ValueError(f"the world does not divide by tp_size: {(W, tp_size)}")
+    key = (tp_size, dist.group.WORLD)
+    if key not in _MESHES:
+        d, m = divmod(r, tp_size)
+        rows = W // tp_size
+        data_group = model_group = None
+        for mm in range(tp_size):
+            g = dist.new_group([dd * tp_size + mm for dd in range(rows)])
+            if mm == m:
+                data_group = g
+        for dd in range(rows):
+            g = dist.new_group(list(range(dd * tp_size, (dd + 1) * tp_size)))
+            if dd == d:
+                model_group = g
+        _MESHES[key] = DataMesh(d, rows, m, tp_size, data_group, model_group)
+    return _MESHES[key]
 
 
 def shard_identical(x, mesh: Optional[DataMesh]):
@@ -126,18 +172,28 @@ def shard_identical(x, mesh: Optional[DataMesh]):
     return x[mesh.rank * n:(mesh.rank + 1) * n]
 
 
-def fsdp_params(named_params, world: int, min_size: int) -> List[str]:
+def fsdp_params(named_params, world: int, min_size: int, split=None) -> List[str]:
     """The names of the parameters that FSDP shards over ``world`` ranks,
     in ``named_params``' order: JAX's rule (trainer.py:296-330), at least
     ``min_size`` elements and some dimension that divides by ``world`` and
     is at least ``world`` (``fsdp_spec`` finds a dimension to put ``data``
-    on); none at one rank (JAX's ``dp > 1``). How a chosen parameter is
-    split is ``parallel/fsdp.py``'s: a flat block each rank, where JAX puts
-    its largest such dimension over the ranks; the numbers are the same."""
+    on); none at one rank (JAX's ``dp > 1``). ``split`` maps the names of
+    tensor-parallel shards to (their split dimension, T)
+    (``parallel/tensor.py``): such a parameter counts its whole elements,
+    and its split dimension is not free for ``data``. How a chosen parameter is split is
+    ``parallel/fsdp.py``'s: a flat block each rank of its (local) shard,
+    where JAX puts its largest free such dimension over the ranks; the
+    numbers are the same."""
     if world <= 1:
         return []
-    return [name for name, p in named_params
-            if p.numel() >= min_size and any(s % world == 0 and s >= world for s in p.shape)]
+    split = split or {}
+    out = []
+    for name, p in named_params:
+        dim, T = split.get(name, (None, 1))
+        if p.numel() * T >= min_size and any(
+                s % world == 0 and s >= world for i, s in enumerate(p.shape) if i != dim):
+            out.append(name)
+    return out
 
 
 def zero_owners(sizes: Sequence[int], world: int) -> List[int]:
@@ -173,7 +229,7 @@ class RowShard:
 
     def __init__(self, num_rows: int, mesh: DataMesh):
         self.num_rows = num_rows
-        self.rank, self.world = mesh.rank, mesh.world
+        self.rank, self.world, self.group = mesh.rank, mesh.world, mesh.group
         self.rows = -(-num_rows // self.world)
         self.start = self.rank * self.rows
 
@@ -197,12 +253,12 @@ class RowShard:
         """Rows ``ids`` (global, any shape, the same count on every rank) of
         the table whose block this rank holds as ``local``."""
         D = local.shape[1]
-        parts = comm.all_gather(ids.reshape(-1), "table_lookup")
+        parts = comm.all_gather(ids.reshape(-1), "table_lookup", self.group)
         rows = torch.stack([
             torch.where((loc >= 0)[:, None], local[loc.clamp(min=0)],
                         torch.zeros((), dtype=local.dtype, device=local.device))
             for loc in (self.local_ids(p) for p in parts)])
-        comm.all_reduce(rows, "table_lookup")
+        comm.all_reduce(rows, "table_lookup", self.group)
         return rows[self.rank].reshape(*ids.shape, D)
 
     @torch.no_grad()
@@ -217,7 +273,7 @@ class RowShard:
             piece = out[lo - a:hi - a]
             if r == self.rank:
                 piece.copy_(local[lo - self.start:hi - self.start])
-            comm.broadcast(piece, r, tag)
+            comm.broadcast(piece, r, tag, self.group)
         return out
 
     @torch.no_grad()

@@ -34,6 +34,15 @@ collective and of the state a rank keeps between steps.
 FSDP / ZeRO-3 (``--fsdp True`` or ``--zero_stage 3``, ``--fsdp_min_size``)
 shards the large parameters over the ranks of such a group
 (``parallel/fsdp.py``); at one rank it changes nothing.
+
+Tensor parallelism (``--tp_size T``, W divisible by T): the W ranks form
+a grid of W / T data ranks × T model ranks (rank = d·T + m), HLLM's Llama
+towers are split over each row's T model ranks (``parallel/tensor.py``),
+and the ranks of a row build the same rows of every batch, so the batch
+sizes divide by W / T. Every other model runs T replicas a row::
+
+    torchrun --nproc_per_node 2 -m mhrec_tpu_torch.run --multihost \
+        --config_file overall/LLM.yaml HLLM/HLLM.yaml -- --device cpu --tp_size 2 ...
 """
 
 from __future__ import annotations
@@ -49,11 +58,22 @@ from mhrec_tpu_torch.config import Config
 from mhrec_tpu_torch.data import InteractionData, build_dataloader, build_eval_dataloaders
 from mhrec_tpu_torch.data.synthetic import InMemoryInteractionData
 from mhrec_tpu_torch.ops import launch_counts
-from mhrec_tpu_torch.parallel import comm, init_distributed
+from mhrec_tpu_torch.parallel import comm, init_distributed, make_mesh
 from mhrec_tpu_torch.trainer import Trainer
 from mhrec_tpu_torch.utils import init_logger, init_seed, resolve_device
 
 logger = logging.getLogger(__name__)
+
+
+def data_rank(config):
+    """(this rank's data rank, the data world): the batchers' ``host_id`` /
+    ``num_hosts``. Under ``tp_size`` T the W ranks form W / T data rows of T
+    model ranks, and the ranks of a row build the same rows of every
+    batch."""
+    if not comm.initialized():
+        return 0, 1
+    mesh = make_mesh(int(config.get("tp_size", 1) or 1))
+    return mesh.rank, mesh.world
 
 
 def serve(config, data, device=None):
@@ -61,8 +81,7 @@ def serve(config, data, device=None):
     with parameters initialised from ``config["seed"]``, and the evaluation
     of the test split. Returns (trainer, test batcher, metric sections).
     In a process group, this rank's share of the users."""
-    _, test_loader = build_eval_dataloaders(config, data, comm.process_index(),
-                                            comm.process_count())
+    _, test_loader = build_eval_dataloaders(config, data, *data_rank(config))
     trainer = Trainer(config, data, device=device)
     trainer.setup_model()
     result = trainer.evaluate(test_loader, load_best_model=True)
@@ -76,8 +95,7 @@ def train(config, data, device=None):
     split evaluated from the best checkpoint. Returns (trainer, fit
     statistics, metric sections). In a process group, this rank's share
     of every batch."""
-    train_loader, valid_loader, test_loader = build_dataloader(
-        config, data, comm.process_index(), comm.process_count())
+    train_loader, valid_loader, test_loader = build_dataloader(config, data, *data_rank(config))
     trainer = Trainer(config, data, device=device)
     trainer.setup_model()
     fit_stats = trainer.fit(train_loader, valid_loader)
@@ -141,13 +159,14 @@ def _run(config_files, extra_args, device):
     # every rank seeds alike, as the JAX package does; the batchers' host
     # draws add the rank (trainset.py:278-280)
     init_seed(config["seed"] or 2020, config["reproducibility"])
-    rank, world = comm.process_index(), comm.process_count()
+    rank = comm.process_index()
     init_logger(config, process_index=rank)  # only rank 0 logs below WARNING
     logger.info("configuration:\n%s", config.format_categorized())
+    world = data_rank(config)[1]
     for key in ("train_batch_size", "eval_batch_size"):
         if config[key] and config[key] % world:
             raise ValueError(f"{key}={config[key]} is GLOBAL and must divide by the "
-                             f"world size {world}")
+                             f"data world size {world}")
 
     logger.info("loading data...")
     data = load_data(config)

@@ -192,19 +192,20 @@ def _buckets(tensors, numel: int = BUCKET_NUMEL):
 
 
 @torch.no_grad()
-def all_reduce_grads(params) -> None:
-    """SUM the gradients of ``params`` over the ranks, in flat buckets (one
-    ``all_reduce`` each). The trainer leaves out FSDP's blocks, whose
-    gradients were reduce-scattered in the backward."""
+def all_reduce_grads(params, group=None) -> None:
+    """SUM the gradients of ``params`` over the ranks of ``group`` (the data
+    group; None: every rank), in flat buckets (one ``all_reduce`` each).
+    The trainer leaves out FSDP's blocks, whose gradients were
+    reduce-scattered in the backward."""
     grads = [p.grad for p in params]
     for bucket in _buckets(grads):
-        flat = comm.all_reduce(_flatten_dense_tensors(bucket), "grad_all_reduce")
+        flat = comm.all_reduce(_flatten_dense_tensors(bucket), "grad_all_reduce", group)
         for g, r in zip(bucket, _unflatten_dense_tensors(flat, bucket)):
             g.copy_(r)
 
 
 class ZeroShardedOptimizer:
-    """ZeRO-2 optimizer-state sharding over the ranks of ``mesh`` (DeepSpeed
+    """ZeRO-2 optimizer-state sharding over the data ranks of ``mesh`` (DeepSpeed
     stage 2's sharded optimizer state; the JAX package's
     ``zero_sharded_opt_state``, trainer.py:341-350): each dense parameter's
     state lives on the one rank ``zero_owners`` gives it, whose optimizer
@@ -259,7 +260,8 @@ class ZeroShardedOptimizer:
         for r in range(self.mesh.world):
             owned = [p for p, o in zip(self.params, self.owner) if o == r]
             for bucket in _buckets(owned):
-                flat = comm.broadcast(_flatten_dense_tensors(bucket), r, "zero_broadcast")
+                flat = comm.broadcast(_flatten_dense_tensors(bucket), r, "zero_broadcast",
+                                      self.mesh.group)
                 if r != self.mesh.rank:
                     for p, v in zip(bucket, _unflatten_dense_tensors(flat, bucket)):
                         p.copy_(v)
@@ -282,7 +284,7 @@ class ZeroShardedOptimizer:
                 mine[i] = {k: v.detach().to("cpu", copy=True) if torch.is_tensor(v) else v
                            for k, v in local["state"][li].items()}
         state = {}
-        for part in comm.all_gather_objects(mine):
+        for part in comm.all_gather_objects(mine, self.mesh.group):
             state.update(part)
         for i in sorted(blocks):  # the same order on every rank
             p, st = blocks[i]
@@ -384,24 +386,41 @@ def build_optimizer(config, model: torch.nn.Module,
 
 
 @torch.no_grad()
-def clip_grad_norm(params, max_norm: float, blocks=()) -> None:
+def clip_grad_norm(params, max_norm: float, blocks=(), split=(), group=None, tp=None) -> None:
     """optax.clip_by_global_norm on the gradients of ``params``, without a
     host synchronisation: scaled by ``max_norm / norm`` when the global norm
     reaches ``max_norm``. ``blocks``: those of ``params`` that are FSDP
-    blocks, whose squares are summed over the ranks (an all-reduce) before
-    the replicated gradients' are added."""
+    blocks, whose squares are summed over the data ranks of ``group`` (an
+    all-reduce) before the replicated gradients' are added. ``split``: the
+    tensor-parallel shards, whose squares (their blocks' after that sum)
+    are summed over the model group ``tp``; so each shard counts once and
+    each replicated parameter once."""
     grads = [p.grad for p in params if p.grad is not None]
     if not grads:
         return
-    if not blocks:
+    if not blocks and not split:
         norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g)
                                                      for g in grads]))
     else:
-        ids = {id(p) for p in blocks}
-        sq = [torch.stack([torch.linalg.vector_norm(p.grad) for p in group]).square().sum()
-              if group else grads[0].new_zeros(())
-              for group in ([p for p in params if p.grad is not None and id(p) in ids],
-                            [p for p in params if p.grad is not None and id(p) not in ids])]
-        norm = (comm.all_reduce(sq[0], "grad_norm") + sq[1]).sqrt()
+        ids, tp_ids = {id(p) for p in blocks}, {id(p) for p in split}
+
+        def sq(keep):
+            ps = [p for p in params if p.grad is not None and keep(id(p))]
+            return (torch.stack([torch.linalg.vector_norm(p.grad) for p in ps]).square().sum()
+                    if ps else grads[0].new_zeros(()))
+
+        norm2 = sq(lambda i: i not in ids and i not in tp_ids)
+        shard2 = sq(lambda i: i in tp_ids and i not in ids)
+        if ids:
+            if tp_ids:
+                b = comm.all_reduce(torch.stack([sq(lambda i: i in ids and i not in tp_ids),
+                                                 sq(lambda i: i in ids and i in tp_ids)]),
+                                    "grad_norm", group)
+                norm2, shard2 = b[0] + norm2, b[1] + shard2
+            else:
+                norm2 = comm.all_reduce(sq(lambda i: i in ids), "grad_norm", group) + norm2
+        if tp_ids:
+            norm2 = norm2 + comm.all_reduce(shard2, "tp_grad_norm", tp.group)
+        norm = norm2.sqrt()
     scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
     torch._foreach_mul_(grads, scale)

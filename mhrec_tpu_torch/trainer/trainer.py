@@ -109,7 +109,7 @@ from mhrec_tpu_torch.models.factory import build_model
 from mhrec_tpu_torch.models.hllm.hllm import batch_image_extra
 from mhrec_tpu_torch.models.layers import ItemEmbed, cosine_normalize
 from mhrec_tpu_torch.ops import row_adam_cuda
-from mhrec_tpu_torch.parallel import comm, fsdp_params, make_mesh, shard_identical
+from mhrec_tpu_torch.parallel import comm, fsdp_params, make_mesh, shard_identical, tensor
 from mhrec_tpu_torch.parallel.fsdp import shard_model
 from mhrec_tpu_torch.trainer import checkpoint as ckpt_io
 from mhrec_tpu_torch.trainer.lr_schedule import build_schedule
@@ -193,9 +193,15 @@ class Trainer:
                                  f"got {config['compute_dtype']!r}")
             dtype = names[config["compute_dtype"]]
         # the data-parallel group: every collective runs inside one, at one
-        # rank too
-        self.mesh = make_mesh() if comm.initialized() else None
+        # rank too; under tp_size > 1 the rank grid of data × model ranks
+        # (rank, world: the data rank and the data world)
+        tp_size = int(config.get("tp_size", 1) or 1)
+        self.mesh = make_mesh(tp_size) if comm.initialized() or tp_size > 1 else None
         self.rank, self.world = (self.mesh.rank, self.mesh.world) if self.mesh else (0, 1)
+        self.group = self.mesh.group if self.mesh else None
+        self.tp_group = self.mesh.tp_group if self.mesh is not None else None
+        # the one rank that writes checkpoints, dumps and logs: global rank 0
+        self.writer = comm.process_index() == 0
         self.sparse_item_adam = bool(config.get("sparse_item_adam", False))
         # FSDP / ZeRO-3: JAX's keys and defaults (trainer.py:290-294); set up
         # in setup_model, once the parameters hold their initial values
@@ -233,6 +239,11 @@ class Trainer:
         self.model.eval()
         if self.mesh is not None and hasattr(self.model, "mesh"):
             self.model.mesh = self.mesh
+        # tensor parallelism: the towers' shards (name → (dim, model group))
+        # and the whole projections inside split blocks, whose gradients are
+        # each model rank's share
+        self.tp_split = tensor.split_params(self.model)
+        self.tp_whole = tensor.whole_in_split(self.model)
         self.collector = Collector(config)
         self.evaluator = Evaluator(config)
         self.eval_pred_len = config["eval_pred_len"]
@@ -317,7 +328,7 @@ class Trainer:
         # the scalar sinks (JAX trainer.py:205, 1240-1247), on rank 0: wandb
         # under log_wandb, a tensorboardX writer wherever tensorboardX imports
         self.wandblogger = WandbLogger(config, enabled=bool(config["log_wandb"])
-                                       and self.rank == 0)
+                                       and self.writer)
         self._tb = None
 
     def _fsdp_shards_table(self, dataload) -> bool:
@@ -359,7 +370,7 @@ class Trainer:
             # the sparse table is the row-sharded one or stays whole
             table_key = self._table_key() if self.sparse_item_adam else None
             self.fsdp = shard_model(self.model, self.mesh, self.fsdp_min_size,
-                                    exclude={table_key})
+                                    exclude={table_key}, split=self.tp_split)
             logger.info("fsdp: %d parameters sharded over %d ranks",
                         0 if self.fsdp is None else len(self.fsdp.entries), self.world)
         self.optimizer, self.group_schedules, frozen = build_optimizer(
@@ -378,6 +389,10 @@ class Trainer:
                              if self.fsdp is not None and self.fsdp.is_block(p)]
         blocks = {id(p) for p in self.block_params}
         self.replicated_params = [p for p in self.dense_params if id(p) not in blocks]
+        # (after FSDP, whose blocks take the parameters' names)
+        params = dict(self.model.named_parameters())
+        self.split_params = [params[n] for n in self.tp_split]
+        self.whole_in_split = [params[n] for n in self.tp_whole]
         if self.sparse_item_adam:
             table = self.item_table().weight
             self.table_m = torch.zeros_like(table, dtype=torch.float32)
@@ -519,8 +534,12 @@ class Trainer:
         for p in self.dense_params:
             if p.grad is None:  # unused this step: optax still sees a zero gradient
                 p.grad = torch.zeros_like(p)
+        if self.whole_in_split:
+            # a whole projection inside a split block: each model rank's
+            # gradient is its heads' share (GSPMD's sum in JAX)
+            tensor.sum_grads(self.whole_in_split, self.tp_group)
         if self.mesh is not None:
-            all_reduce_grads(self.replicated_params)
+            all_reduce_grads(self.replicated_params, self.group)
         for p in self.dense_params:
             p.grad.masked_fill_(bad, 0.0)
         if slot:
@@ -536,8 +555,8 @@ class Trainer:
             g_sub = g_sub.masked_fill_(bad, 0.0)
             if self.world > 1:
                 # the global block: every rank's ids and rows, in rank order
-                ids = torch.cat(comm.all_gather(ids, "dedup_gather"))
-                g_sub = torch.cat(comm.all_gather(g_sub, "dedup_gather"))
+                ids = torch.cat(comm.all_gather(ids, "dedup_gather", self.group))
+                g_sub = torch.cat(comm.all_gather(g_sub, "dedup_gather", self.group))
             if k > 1:
                 self.acc_ids[slot].copy_(ids)
                 self.acc_g[slot].copy_(g_sub)
@@ -547,7 +566,9 @@ class Trainer:
         outer = self.step // k
         clip = self.config.get("clip_grad_norm")
         if clip:
-            clip_grad_norm(self.dense_params, float(clip), blocks=self.block_params)
+            clip_grad_norm(self.dense_params, float(clip), blocks=self.block_params,
+                           split=self.split_params, group=self.group,
+                           tp=self.tp_group if self.split_params else None)
         for group, sched in zip(self.optimizer.param_groups, self.group_schedules):
             group["lr"] = sched(outer)
         self.optimizer.step()
@@ -629,7 +650,7 @@ class Trainer:
         global counts), so the sums are the global batch's values."""
         names = list(out)
         vals = comm.all_reduce(torch.stack([out[n].detach().float().reshape(()) for n in names]),
-                               "step_scalars")
+                               "step_scalars", self.group)
         return dict(zip(names, vals.unbind()))
 
     def fit(self, train_batcher, valid_batcher=None):
@@ -741,7 +762,7 @@ class Trainer:
         """The numbers of ``metrics`` (already on the host) to wandb and to
         TensorBoard as ``{head}/{name}`` at ``step`` (JAX trainer.py:1240-1247),
         on rank 0."""
-        if self.rank:
+        if not self.writer:
             return
         numeric = {k: v for k, v in metrics.items() if isinstance(v, (int, float))}
         self.wandblogger.log_metrics(numeric, step=step, head=head)
@@ -779,14 +800,14 @@ class Trainer:
         ckpt_io.wait_to_replace(path)  # one host copy at a time
         payload = {
             "params": self._whole_state_dict(),
-            "optimizer": self.optimizer.state_dict(),
+            "optimizer": self._whole_optimizer_state(),
             "step": self.step,
             "best_valid_score": self.best_valid_score,
         }
         if self.table_m is not None:
             payload["table_m"], payload["table_v"] = (
                 self._whole_table(t) for t in (self.table_m, self.table_v))
-        if self.rank:
+        if not self.writer:
             return
         os.makedirs(self.saved_model_dir, exist_ok=True)
         stats = self.checkpoint_stats
@@ -797,6 +818,7 @@ class Trainer:
                       payload["table_v"]] if self.shard_table else [])
             if self.fsdp is not None:
                 fresh += [payload["params"][name] for name in self.fsdp.entries]
+            fresh += [payload["params"][name] for name in self.tp_split]
             payload, stats["host_copy_bytes"] = ckpt_io.host_copy(payload, keep=fresh)
         # the synchronous save goes through the registry too, so it replaces
         # a failed write there and a load waits for it like any other
@@ -837,23 +859,69 @@ class Trainer:
         if self.fsdp is not None:
             for name, entry in self.fsdp.entries.items():
                 sd[name] = self.fsdp.assemble(entry, sd[name])
+        for name, (dim, tp) in self.tp_split.items():
+            sd[name] = self._whole_split(sd[name], dim, tp)
         return sd
+
+    def _whole_split(self, shard, dim, tp):
+        """A tensor-parallel shard's whole tensor in host memory on global
+        rank 0 (the model group of data rank 0 assembles it; a collective
+        there), None elsewhere."""
+        if self.rank:
+            return None
+        return tensor.assemble_to_host(shard, dim, tp, self.device)
+
+    def _split_moments(self, sd, fn):
+        """``sd`` (the optimizer's state dict) with each split parameter's
+        moments (not its step count) replaced by ``fn(moment, dim, tp)``."""
+        index = {id(p): i for i, p in enumerate(self.dense_params)}
+        params = dict(self.model.named_parameters())
+        for name, (dim, tp) in self.tp_split.items():
+            i = index.get(id(params[name]))
+            if i in sd["state"]:
+                # a new dict: a torch optimizer's state dict holds its live
+                # per-parameter state
+                sd["state"][i] = {k: fn(v, dim, tp) if k != "step" and (
+                    v is None or torch.is_tensor(v)) else v for k, v in sd["state"][i].items()}
+        return sd
+
+    def _whole_optimizer_state(self):
+        """The optimizer's state dict in the one-process layout: each split
+        parameter's moments (FSDP's assembled shard on data rank 0, None on
+        the others) assembled whole on global rank 0 (``_whole_split``)."""
+        return self._split_moments(self.optimizer.state_dict(), self._whole_split)
 
     def param_checksum(self) -> float:
         """The sum of |p| over every parameter, the whole item table
         included; the same on every rank (collective when the table or
-        parameters are sharded: the blocks' sums are all-reduced)."""
+        parameters are sharded: the blocks' sums are all-reduced over the
+        data group, then the tensor-parallel shards' over the model
+        group)."""
         emb = self.item_table()
         table = emb.weight if getattr(emb, "shard", None) is not None else None
-        split = [p for p in self.model.parameters()
+        params = dict(self.model.named_parameters())
+        shards = {id(params[n]) for n in self.tp_split}
+        split = [p for p in params.values()
                  if p is table or (self.fsdp is not None and self.fsdp.is_block(p))]
         ids = {id(p) for p in split}
-        total = sum(p.detach().abs().float().sum() for p in self.model.parameters()
-                    if id(p) not in ids)
+
+        def total(ps):
+            return sum((p.detach().abs().float().sum() for p in ps),
+                       torch.zeros((), device=self.device))
+
+        out = total(p for p in params.values() if id(p) not in ids | shards)
+        if not shards:
+            if split:
+                out = out + comm.all_reduce(total(split), "checksum", self.group)
+            return float(out)
+        # the blocks of whole parameters, then those of shards
+        blocks = torch.zeros(2, device=self.device)
         if split:
-            total = total + comm.all_reduce(sum(p.detach().abs().float().sum() for p in split),
-                                            "checksum")
-        return float(total)
+            blocks = comm.all_reduce(torch.stack([total(p for p in split if id(p) not in shards),
+                                                  total(p for p in split if id(p) in shards)]),
+                                     "checksum", self.group)
+        mine = blocks[1] + total(p for p in params.values() if id(p) in shards - ids)
+        return float(out + blocks[0] + comm.all_reduce(mine, "tp_checksum", self.tp_group.group))
 
     def persistent_bytes(self) -> Dict[str, int]:
         """The bytes of this rank's state between two steps: the dense
@@ -899,6 +967,10 @@ class Trainer:
         # step counts stay where its policy keeps them (on the host unless
         # fused: on the card they would cost a synchronisation each per step)
         payload = torch.load(path, map_location="cpu", weights_only=True, mmap=True)
+        for name, (dim, tp) in self.tp_split.items():
+            # this rank's shard of the one-process layout, at any T
+            payload["params"][name] = tensor.local_shard(payload["params"][name], dim, tp)
+        self._split_moments(payload["optimizer"], tensor.local_shard)
         if self.fsdp is not None:
             for name, entry in self.fsdp.entries.items():
                 payload["params"][name] = self.fsdp.block_of(entry, payload["params"][name])
@@ -984,7 +1056,7 @@ class Trainer:
                     put(rows["tokens"]), put(rows["lens"]), img.get("pixel_patches"),
                     batch_image_extra(img, ""))
                 if mesh is not None:
-                    emb = torch.cat(comm.all_gather(emb, "corpus_gather"))
+                    emb = torch.cat(comm.all_gather(emb, "corpus_gather", self.group))
             emb = emb[: cb["n_real"]]
             chunks.append(emb.cpu() if return_host else emb)
         return torch.cat(chunks)
@@ -1049,7 +1121,7 @@ class Trainer:
 
         # only rank 0 writes dumps and eval chunks (JAX trainer.py:1150,1162)
         save_for_eval = bool(self.config.get("save_for_eval", False))
-        log_detailed = bool(self.config.get("log_detailed_results", False)) and self.rank == 0
+        log_detailed = bool(self.config.get("log_detailed_results", False)) and self.writer
         switch_correct_sum = None
         n_eval_samples = 0
         for batch, n_real, topk_vals, topk_idx, pe in results:
@@ -1063,7 +1135,7 @@ class Trainer:
                 )
                 n_eval_samples += n_real
                 continue
-            if save_for_eval and self.rank == 0:
+            if save_for_eval and self.writer:
                 save_eval_chunk(
                     os.path.join(self.saved_model_dir, "saved_eval"), n_eval_samples,
                     user_ids=batch["user_ids"][:n_real], topk_values=topk_vals,
@@ -1102,7 +1174,7 @@ class Trainer:
         )
         for section, metrics in result_summary.items():
             self.results_rows.append({"section": section, **metrics})
-        if (save_for_eval or log_detailed) and self.rank == 0:
+        if (save_for_eval or log_detailed) and self.writer:
             self._save_results_table()
         if switch_accs:
             result_summary.setdefault("shared", {}).update(switch_accs)
@@ -1188,7 +1260,7 @@ class Trainer:
         if self.mesh is None or not values:
             return list(values)
         t = torch.tensor(values, dtype=torch.float64, device=self.device)
-        return comm.all_reduce(t, "metric_reduce").tolist()
+        return comm.all_reduce(t, "metric_reduce", self.mesh.group).tolist()
 
     # ------------------------------------------------------------------
     def _use_host_item_table(self, needs_corpus: bool, need_full: bool = False) -> bool:

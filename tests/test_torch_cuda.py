@@ -334,6 +334,48 @@ def test_packed_attn_bwd_kernel_matches_plain(card, shape, dtype, window):
         _close(g, r, dtype)
 
 
+# a tensor-parallel rank's heads (models/llm/llama.py LlamaAttention): (whole
+# query heads, KV heads, head width, T, the rank); "kv_view": Qwen2-1.5B at
+# T = 4, rank 2's 3 heads read a strided view of the second KV head;
+# "kv_gather": 6 heads over 3 KV heads at T = 2, rank 0's heads read KV
+# heads 0, 0, 1, gathered
+TP_LAYOUTS = {"kv_view": (12, 2, 128, 4, 2), "kv_gather": (6, 3, 64, 2, 0)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("layout", list(TP_LAYOUTS))
+def test_packed_attn_kernels_on_tensor_parallel_heads(card, layout, dtype):
+    """#8a and #8b/c on a rank's local query heads over the KV heads it
+    passes them (a view of the whole projection's heads, or those heads
+    gathered one per query head), against the plain versions on the same
+    inputs."""
+    from mhrec_tpu_torch.models.llm.packed import packed_attention_plain, packed_attn_bwd_plain
+    from mhrec_tpu_torch.ops.packed_attention_cuda import packed_attn_bwd, packed_attn_fwd
+
+    H, Hkv, dh, T, m = TP_LAYOUTS[layout]
+    w = 20
+    q, k, v, seg, dout, real = _packed_bwd_inputs(3, 300, H, Hkv, dh, w, dtype, card)
+    h0, h1 = m * H // T, (m + 1) * H // T
+    need = [h // (H // Hkv) for h in range(h0, h1)]
+    q, dout = q[:, :, h0:h1].contiguous(), dout[:, :, h0:h1].contiguous()
+    if layout == "kv_view":
+        k, v = k[:, :, need[0]:need[-1] + 1], v[:, :, need[0]:need[-1] + 1]
+        assert not k.is_contiguous() and k.stride(1) == Hkv * dh
+    else:
+        idx = torch.tensor(need, device=card)
+        k, v = k.index_select(2, idx), v.index_select(2, idx)
+    before = (packed_attn_fwd.launches, packed_attn_bwd.launches)
+    out, lse = packed_attn_fwd(q, k, v, seg, w, return_lse=True)
+    grads = packed_attn_bwd(q, k, v, out, dout, lse, seg, w)
+    torch.cuda.synchronize()
+    assert (packed_attn_fwd.launches, packed_attn_bwd.launches) == (before[0] + 1, before[1] + 1)
+    _close(out[real], packed_attention_plain(q, k, v, seg, w)[real], dtype)
+    ref = packed_attn_bwd_plain(*(x.float() for x in (q, k, v, dout)), seg, w)
+    for name, g, r, x in zip(("dq", "dk", "dv"), grads, ref, (q, k, v)):
+        assert g.shape == x.shape and not bool(g[~real].any()), name
+        _close(g, r, dtype)
+
+
 def _edge_segments(C, S, window, seed):
     """Segment ids whose runs straddle the kernels' 64-row tile edges: from
     the start of each row, runs of 1, 63, 1, 1, 65, 2, 200 (longer than the
@@ -1630,3 +1672,31 @@ def test_fsdp_collectives_and_tower_on_the_card(card, tmp_path):
     import torch_parallel_worker as W
 
     W.check_fsdp_worker(W.fsdp_worker_ranks(tmp_path, "cuda:0"))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+def test_row_parallel_partial_product_on_the_card(card, dtype):
+    """A tensor-parallel rank's row-parallel partial product in a 16-bit
+    compute type (``llama._tp_linear``): one GEMM that writes float32 (no
+    rounding to the compute type, which the model group's sum does once),
+    equal to the widened operands' float32 product to the order of sums;
+    its backward is one process's product's (``F.linear`` in the compute
+    type) on a gradient the compute type holds, to a rounding of that type
+    (TOL of bfloat16)."""
+    from mhrec_tpu_torch.models.llm.llama import _tp_linear
+
+    gen = torch.Generator(device=card).manual_seed(0)
+    layer = torch.nn.Linear(704, 512, bias=False).to(card)
+    x = torch.randn(3, 40, 704, device=card, generator=gen).requires_grad_(True)
+    out = _tp_linear(layer, x, dtype)
+    assert out.dtype == torch.float32
+    ref = torch.nn.functional.linear(x.detach().to(dtype).float(), layer.weight.to(dtype).float())
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
+    g = torch.randn(out.shape, device=card, generator=gen).to(dtype)
+    out.backward(g.float())
+    x2 = x.detach().clone().requires_grad_(True)
+    w2 = layer.weight.detach().clone().requires_grad_(True)
+    torch.nn.functional.linear(x2.to(dtype), w2.to(dtype)).backward(g)
+    for got, want in ((x.grad, x2.grad), (layer.weight.grad, w2.grad)):
+        tol = TOL[torch.bfloat16]
+        torch.testing.assert_close(got, want, rtol=tol, atol=tol * float(want.abs().max()))

@@ -493,7 +493,8 @@ tower = dict(vocab_size=1024, hidden_size=64, intermediate_size=128, num_attenti
 # steps; the baselines: 2 steps at a global batch of 8 over the HSTU
 # catalog; the sharded table at 1,500 items after its reference at 701, two
 # chunks of 700 rows and a one-row tail; (f) at fsdp_min_size 256, so that
-# the small parameters shard), over gloo on the CPU
+# the small parameters shard; (g2)'s Qwen2 tower 96 wide, its 12 heads
+# over 2 KV heads kept), over gloo on the CPU
 chip_smoke.distributed_phase(
     tempfile.mkdtemp(), "cpu", device="cpu", data_kw=data_kw, n_layers=2, n_heads=2,
     item_embedding_size=128, hstu_embedding_size=128, eval_batch_size=32,
@@ -501,6 +502,7 @@ chip_smoke.distributed_phase(
     eval_interval=4, fsdp_min_size=256,
     hllm_over=dict(MAX_TEXT_LENGTH=24, eval_batch_size=64, pack_chunk=128, fsdp_min_size=256),
     hllm_tower=tower, hllm_data=dict(chip_smoke.DIST_HLLM_DATA, num_users=128, num_items=384),
+    tp_qwen_tower=dict(vocab_size=1024, hidden_size=96, intermediate_size=128),
     base_over=dict(n_layers=2, n_heads=2, item_embedding_size=128, hstu_embedding_size=128,
                    embedding_size=32, item_embed_dim=32, eval_batch_size=32,
                    eval_item_chunk_size=700, MAX_ITEM_LIST_LENGTH=6, train_batch_size=8,
@@ -523,7 +525,9 @@ def test_distributed_phase_runs_without_what_the_card_lacks():
     checkpoint served by one process, ZeRO-2), whose parameters equal
     theirs; (f) HSTU under zero_stage 3 and HLLM under fsdp equal their
     ZeRO-2 runs bit for bit with fewer persistent bytes a rank and no whole
-    sharded tensor alive after a step; the sharded table holds half the
+    sharded tensor alive after a step; (g) HLLM over four ranks at tp_size 2
+    (data 2 × model 2) and, at Qwen2-1.5B's head counts, tp_size 4 hold their
+    oracles and their checkpoints serve at one process; the sharded table holds half the
     rows a rank, and neither rank
     makes a tensor of the whole table but rank 0's host assembly for the
     file and the checkpoint read into host memory, in (b) and in (e); and
@@ -580,10 +584,50 @@ def test_distributed_phase_runs_without_what_the_card_lacks():
         assert all(r["live_whole_after_steps"] == 0 and r["total_gb"] < r["zero2_total_gb"]
                    for r in g["ranks"]), g
         assert g["fsdp_collective_bytes_per_step"]["fsdp_reduce_scatter"] > 0, g
+    # (g): tensor parallelism over four ranks, against (c)'s oracle and
+    # checkpoint and against one process
+    for name in ("gloo_tp_tinyllama", "gloo_tp_qwen2"):
+        g = rec[name]
+        assert all(ok for check, ok in g["checks"].items() if check != "launches"), (name, g)
+        assert g["final_loss_rel_diff"] <= 2e-4 and g["checksum_rel_diff"] <= 1e-5, g
+        assert g["between_ranks_rel_diff"] <= 1e-6, g
+        assert g["model_group_bytes_per_step"]["tp_reduce"] > 0, g
+    assert rec["gloo_tp_tinyllama"]["checks"]["t1_checkpoint"]
+    assert rec["gloo_tp_qwen2"]["model_group_bytes_per_step"]["tp_whole_grad"] > 0
     shard_mem = rec["gloo_sharded"]["table_memory"]
     assert [p for p, _ in shard_mem[0]["table_hits_by_phase_device"]] == ["load", "save"]
     assert [p for p, _ in shard_mem[1]["table_hits_by_phase_device"]] == ["load"]
     assert all(r["table_chunk_bytes_per_eval"] > 0 for r in table["ranks"])
+
+
+def test_tp_size_builds_and_an_indivisible_world_raises(synth_dir, tmp_path):
+    """``tp_size: 2`` no longer raises "not ported yet": an HLLM built
+    outside a process group keeps its towers whole (``tp_shard`` set, no
+    model group); a trainer whose world (1) does not divide by ``tp_size``
+    raises with the JAX assert's numbers (W, T), as ``make_mesh`` does over
+    any such world."""
+    from mhrec_tpu_torch.config import Config
+    from mhrec_tpu_torch.data import InteractionData
+    from mhrec_tpu_torch.models.hllm.hllm import hllm_from_config
+    from mhrec_tpu_torch.parallel import make_mesh
+    from mhrec_tpu_torch.parallel.tensor import split_params
+    from mhrec_tpu_torch.trainer import Trainer
+
+    over = dict(data_path=synth_dir["data_path"], dataset=synth_dir["name"],
+                text_path=synth_dir["text_path"], random_init_towers=True, tp_size=2,
+                MAX_ITEM_LIST_LENGTH=4, MAX_TEXT_LENGTH=8, tag_version="v1",
+                checkpoint_dir=str(tmp_path))
+    cfg = Config(config_file_list=["overall/LLM.yaml", "HLLM/HLLM.yaml"],
+                 config_dict=over).finalize()
+    data = InteractionData(cfg).build()
+    model = hllm_from_config(cfg, data)
+    assert model.item_llm.config.tp_shard and model.user_llm.config.tp_shard
+    assert split_params(model) == {}
+    with pytest.raises(ValueError, match=r"\(1, 2\)"):
+        Trainer(cfg, data, device="cpu")
+    with pytest.raises(ValueError, match=r"\(1, 3\)"):
+        make_mesh(3)
+    assert make_mesh(1).world == 1
 
 
 def test_pretrained_towers_load_without_what_the_card_lacks():

@@ -8,7 +8,9 @@ single-process references. Imports nothing of JAX.
 ``hllm RANK WORLD PORT OUT`` runs the HLLM cases of
 ``tests/test_torch_multiprocess_hllm.py`` instead (``run_hllm``), and
 ``table RANK WORLD PORT OUT`` the row-sharded table's run of
-``tests/test_torch_multiprocess_table.py`` (``run_table``), and ``fsdp RANK
+``tests/test_torch_multiprocess_table.py`` (``run_table``), ``tp RANK WORLD
+PORT OUT`` the tensor-parallel cases of
+``tests/test_torch_tensor_parallel.py`` (``run_tp``), and ``fsdp RANK
 WORLD PORT OUT DEVICE`` FSDP's collectives and a sharded tower of
 ``tests/test_torch_fsdp.py`` and ``tests/test_torch_cuda.py`` on DEVICE
 (``run_fsdp``).
@@ -368,6 +370,80 @@ def run_table(rank, world, port, out):
     comm.sync_hosts("done")
 
 
+def run_tp(rank, world, port, out):
+    """One rank of the tensor-parallel cases of
+    ``tests/test_torch_tensor_parallel.py``, in the order of
+    ``{out}/spec.json``'s ``cases`` (each: ``files``, ``config`` with its
+    ``tp_size``, ``init_dir``, a one-process checkpoint that the trainer
+    loads by slicing, and the flags ``grads`` and ``serve_init``). Per case:
+    the local shapes and the split; with ``grads`` the first batch's loss
+    and its gradients, the split parameters' assembled whole on rank 0;
+    with ``serve_init`` the test split of the loaded checkpoint; then
+    ``fit`` with its evaluation and save, and the test split from the
+    saved checkpoint. Saves ``{out}/{case}.{rank}.pt``."""
+    import json
+
+    from mhrec_tpu_torch.config import Config
+    from mhrec_tpu_torch.data import InteractionData, build_dataloader
+    from mhrec_tpu_torch.parallel import tensor
+    from mhrec_tpu_torch.run import data_rank
+    from mhrec_tpu_torch.trainer import Trainer
+
+    with open(os.path.join(out, "spec.json")) as fh:
+        spec = json.load(fh)
+    init_distributed(f"127.0.0.1:{port}", world, rank, backend="gloo", device="cpu")
+    for case in spec["cases"]:
+        cfg = Config(config_file_list=case["files"], config_dict=dict(
+            case["config"], checkpoint_dir=os.path.join(out, f"ck_{case['name']}"))).finalize()
+        data = InteractionData(cfg).build()
+        train, valid, test = build_dataloader(cfg, data, *data_rank(cfg))
+        t = Trainer(cfg, data, device="cpu")
+        t.setup_model()
+        own = t.saved_model_dir
+        if case.get("init_dir"):
+            t.saved_model_dir = case["init_dir"]
+            assert t.load_checkpoint() and t.step == 0
+            t.saved_model_dir = own
+        named = dict(t.model.named_parameters())
+        rec = {"shapes": {n: tuple(p.shape) for n, p in named.items()},
+               "split": {n: dim for n, (dim, _) in t.tp_split.items()},
+               "whole_in_split": sorted(t.tp_whole), "mesh": (t.rank, t.world)}
+        llm = getattr(t.model, "item_llm", None)
+        if llm is not None and hasattr(llm, "layers"):
+            # the first item-tower layer's query heads and whether it
+            # gathers its KV heads
+            attn = llm.layers[0].self_attn
+            rec["attention"] = (tuple(attn.heads), attn.kv_index is not None)
+        if case.get("grads"):
+            batch = next(train.epoch_batches(0))
+            t.model.train()
+            res = t.model(t._train_device_batch(batch), generator=t.step_generator(0))
+            res["loss"].backward()
+            # the shares of the whole projections before the model group's sum
+            rec["unsummed"] = {n: named[n].grad.clone() for n in t.tp_whole}
+            tensor.sum_grads([named[n] for n in t.tp_whole], t.tp_group)
+            rec["loss0"] = float(res["loss"])
+            rec["grads"] = {n: (t._whole_split(p.grad, *t.tp_split[n]) if n in t.tp_split
+                                else p.grad.clone()) for n, p in named.items()}
+            for p in named.values():
+                p.grad = None
+        if case.get("serve_init"):
+            rec["init_result"] = t.evaluate(test)
+        comm.traffic.clear()
+        stats = t.fit(train, valid)
+        rec["traffic"] = dict(comm.traffic)
+        # the moments after the fit's save: still this rank's shards
+        state = t.optimizer.state
+        rec["moment_shapes"] = {n: tuple(state[p]["exp_avg"].shape) for n, p in named.items()
+                                if "exp_avg" in state.get(p, {})}
+        rec.update(losses=t.fetched_losses, final_loss=float(stats["loss"]),
+                   checksum=t.param_checksum(), persistent_bytes=stats["persistent_bytes"],
+                   result=t.evaluate(test, load_best_model=True),
+                   checkpoint=t.checkpoint_path())
+        torch.save(rec, os.path.join(out, f"{case['name']}.{rank}.pt"))
+        comm.sync_hosts("case done")
+
+
 def fsdp_tower(device, remat):
     """A two-layer float32 llama tower of 64 wide (and its token table),
     drawn from a fixed seed on ``device``."""
@@ -475,6 +551,9 @@ if __name__ == "__main__":
     elif sys.argv[1] == "table":
         rank_, world_, port_, out_ = sys.argv[2:6]
         run_table(int(rank_), int(world_), int(port_), out_)
+    elif sys.argv[1] == "tp":
+        rank_, world_, port_, out_ = sys.argv[2:6]
+        run_tp(int(rank_), int(world_), int(port_), out_)
     elif sys.argv[1] == "fsdp":
         rank_, world_, port_, out_, device_ = sys.argv[2:7]
         run_fsdp(int(rank_), int(world_), int(port_), out_, device_)
