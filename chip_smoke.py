@@ -2141,6 +2141,10 @@ DIST_TOL = {"loss": 2e-4, "checksum": 1e-5, "rank_metric": 3e-5, "entropy": 2e-3
             "between_ranks": 1e-6}
 # the NCCL world-1 CLI run against the ungrouped one (bit-equal is expected)
 DIST_WORLD1_TOL = 1e-6
+# (a)'s item chunk when scoring: half the other phases', so that its two
+# runs' evaluations fit beside (b)'s (f) and the oracle (131,072 ran out of
+# the card there once); the streamed top-k is exact at any chunk
+DIST_WORLD1_EVAL_CHUNK = 65536
 # the collectives of a train step, by their comm.traffic tags
 DIST_STEP_TAGS = ("grad_all_reduce", "pool_gather", "pool_gather_grad", "dedup_gather",
                   "zero_broadcast", "loss_counts", "step_scalars")
@@ -2368,7 +2372,8 @@ def world1_cli_start(work_dir, device, data_kw, over):
     for name, group in (("grouped", True), ("ungrouped", False)):
         cfg = dist_overrides(DIST_RANK_BATCH, os.path.join(work_dir, name),
                              synthetic_data=data_kw,
-                             result_json_path=os.path.join(work_dir, f"{name}_result"), **over)
+                             result_json_path=os.path.join(work_dir, f"{name}_result"),
+                             **dict(dict(eval_item_chunk_size=DIST_WORLD1_EVAL_CHUNK), **over))
         cfg.pop("int_to_category")  # the in-memory catalog's
         head = [sys.executable, "-m", "mhrec_tpu_torch.run", "--device", device]
         if group:
@@ -5219,13 +5224,22 @@ def hllm_pretrained_phase(work_dir):
     return trainer, cfg, data, {"serve": serve_launches, "train": train_launches}, ok
 
 
-# -- a tower's HF tokenizer (tokenizer.json) -----------------------------------
+# -- a tower's tokenizer (tokenizer.json, tokenizer.model) ----------------------
 # the hllm_tokenizer phase's texts are cut to hllm_config's MAX_TEXT_LENGTH;
 # TOKENIZER_DIGEST is the sha256 (ids_digest) of the PRETRAINED_ITEMS items'
 # id lists that transformers gives under the tokenizer write_llama_tokenizer
 # writes (tests/test_torch_tokenizer.py computes it with transformers)
 TOKENIZER_MAX_LENGTH = 256
 TOKENIZER_DIGEST = "1bc8278eecc4c727048f583595339cb0cbe651ac14f1531cf02c4ec3873275e4"
+# the same texts through the tokenizer.model of write_llama_spm_tokenizer
+# (tests/test_torch_sentencepiece.py computes it with transformers'
+# LlamaConverter)
+TOKENIZER_MODEL_DIGEST = "fedba73e84bda92d44c7a3516c9d679bab13814f1d9a870906598835cca1ef15"
+# the hllm_towers phase's item texts (towers_texts) through the Baichuan2
+# directory of write_baichuan_tokenizer (vocabulary 64,000), computed with
+# the port's native encoder on the CPU (tests/test_torch_sentencepiece.py;
+# tests/test_torch_cuda.py holds that encoder to sentencepiece)
+BAICHUAN_TOKENIZER_DIGEST = "4254ad0f6292b7cf2aa95fa8c6045549d154cc0274c1591606b58906fcee0a43"
 # the base characters of that tokenizer: everything else (CJK, emoji, most
 # accented letters) takes the byte fallback
 TOKENIZER_ALPHABET = ("▁" + "".join(chr(c) for c in range(33, 127)) + "éèàüöñ")
@@ -5290,21 +5304,13 @@ def rendered_texts(config, table, num_items):
     return [cache.render(i) for i in range(num_items)]
 
 
-def write_llama_tokenizer(dirpath, texts, vocab_size, seed=0):
-    """A TinyLlama-shaped ``tokenizer.json`` and ``tokenizer_config.json``
-    in plain Python: BPE with byte fallback and ``fuse_unk``; <unk> <s> </s>,
-    the 256 ``<0xNN>`` tokens, TOKENIZER_ALPHABET, then merges that build the
-    most frequent words of ``texts`` left to right (a word: a ▁-run and what
-    follows it, after the normalizer), then words of syllables drawn from
-    ``seed``, until the vocabulary holds exactly ``vocab_size`` entries; the
-    Prepend/Replace ▁ normalizer, no pre-tokenizer, a BOS template; the
-    config names LlamaTokenizer with ``add_bos_token: true`` and
-    ``legacy: false``. Returns the seconds taken."""
+def _llama_bpe(texts, vocab_size, seed=0):
+    """The BPE of ``write_llama_tokenizer``: (vocabulary in id order,
+    merges in rank order) of exactly ``vocab_size`` entries."""
     import collections
     import random
     import re as _re
 
-    t0 = time.perf_counter()
     specials = ["<unk>", "<s>", "</s>"]
     vocab = {t: i for i, t in enumerate(
         specials + [f"<0x{b:02X}>" for b in range(256)] + list(TOKENIZER_ALPHABET))}
@@ -5332,6 +5338,22 @@ def write_llama_tokenizer(dirpath, texts, vocab_size, seed=0):
     rnd = random.Random(seed)
     while len(vocab) < vocab_size:
         build("▁" + "".join(rnd.choice(_SYLLABLES) for _ in range(rnd.randint(2, 6))))
+    return vocab, merges
+
+
+def write_llama_tokenizer(dirpath, texts, vocab_size, seed=0):
+    """A TinyLlama-shaped ``tokenizer.json`` and ``tokenizer_config.json``
+    in plain Python: BPE with byte fallback and ``fuse_unk``; <unk> <s> </s>,
+    the 256 ``<0xNN>`` tokens, TOKENIZER_ALPHABET, then merges that build the
+    most frequent words of ``texts`` left to right (a word: a ▁-run and what
+    follows it, after the normalizer), then words of syllables drawn from
+    ``seed``, until the vocabulary holds exactly ``vocab_size`` entries; the
+    Prepend/Replace ▁ normalizer, no pre-tokenizer, a BOS template; the
+    config names LlamaTokenizer with ``add_bos_token: true`` and
+    ``legacy: false``. Returns the seconds taken."""
+    t0 = time.perf_counter()
+    specials = ["<unk>", "<s>", "</s>"]
+    vocab, merges = _llama_bpe(texts, vocab_size, seed)
     added = [{"id": i, "content": t, "single_word": False, "lstrip": False, "rstrip": False,
               "normalized": False, "special": True} for i, t in enumerate(specials)]
     spec = {
@@ -5365,6 +5387,119 @@ def write_llama_tokenizer(dirpath, texts, vocab_size, seed=0):
                    "add_eos_token": False, "legacy": False, "bos_token": "<s>",
                    "eos_token": "</s>", "unk_token": "<unk>", "pad_token": None,
                    "model_max_length": 2048}, fh)
+    return time.perf_counter() - t0
+
+
+def _pb_varint(n):
+    out = bytearray()
+    n &= (1 << 64) - 1
+    while True:
+        b = n & 0x7F
+        n >>= 7
+        if n:
+            out.append(b | 0x80)
+        else:
+            out.append(b)
+            return bytes(out)
+
+
+def _pb_field(num, value):
+    """One protobuf field: an int as a varint, a float as fixed32, str and
+    bytes length-delimited."""
+    import struct
+
+    if isinstance(value, int):  # bool too
+        return _pb_varint(num << 3) + _pb_varint(int(value))
+    if isinstance(value, float):
+        return _pb_varint(num << 3 | 5) + struct.pack("<f", value)
+    if isinstance(value, str):
+        value = value.encode("utf-8")
+    return _pb_varint(num << 3 | 2) + _pb_varint(len(value)) + value
+
+
+def spm_model_bytes(pieces, model_type=2, byte_fallback=True, add_dummy_prefix=True,
+                    remove_extra_whitespaces=False, charsmap=b"", normalizer="identity"):
+    """A SentencePiece ``ModelProto`` written by hand: ``pieces`` as (piece,
+    score, type) with the proto's types (1 normal, 2 unknown, 3 control, 4
+    user-defined, 5 unused, 6 byte); the trainer spec's model_type (1
+    Unigram, 2 BPE), vocab_size and byte_fallback; the normalizer spec's
+    name, charsmap and whitespace flags (escape_whitespaces on)."""
+    body = b"".join(_pb_field(1, _pb_field(1, p) + _pb_field(2, float(sc)) + _pb_field(3, k))
+                    for p, sc, k in pieces)
+    trainer = (_pb_field(3, model_type) + _pb_field(4, len(pieces))
+               + _pb_field(35, bool(byte_fallback)))
+    norm = (_pb_field(1, normalizer) + (_pb_field(2, charsmap) if charsmap else b"")
+            + _pb_field(3, bool(add_dummy_prefix)) + _pb_field(4, bool(remove_extra_whitespaces))
+            + _pb_field(5, True))
+    return body + _pb_field(2, trainer) + _pb_field(3, norm)
+
+
+def _spm_pieces(texts, vocab_size, seed):
+    """``_llama_bpe``'s vocabulary as SentencePiece BPE pieces: <unk>, <s>,
+    </s>, the 256 byte pieces, TOKENIZER_ALPHABET (the lowest scores, as
+    SentencePiece lists single characters), then each merged piece scored
+    by its rank."""
+    vocab, merges = _llama_bpe(texts, vocab_size, seed)
+    rank = {a + b: r for r, (a, b) in enumerate(merges)}
+    pieces = []
+    for t in vocab:
+        if t == "<unk>":
+            pieces.append((t, 0.0, 2))
+        elif t in ("<s>", "</s>"):
+            pieces.append((t, 0.0, 3))
+        elif t.startswith("<0x") and len(t) == 6:
+            pieces.append((t, 0.0, 6))
+        elif t in rank:
+            pieces.append((t, -float(rank[t]), 1))
+        else:
+            pieces.append((t, -float(vocab_size + vocab[t]), 1))
+    return pieces
+
+
+def write_llama_spm_tokenizer(dirpath, texts, vocab_size, seed=0):
+    """TinyLlama's layout without ``tokenizer.json``: a SentencePiece
+    ``tokenizer.model`` (BPE with byte fallback, the identity normalizer;
+    ``_spm_pieces``) and the ``tokenizer_config.json`` of
+    ``write_llama_tokenizer``. The port converts it as transformers'
+    LlamaConverter does. Returns the seconds taken."""
+    t0 = time.perf_counter()
+    with open(os.path.join(dirpath, "tokenizer.model"), "wb") as fh:
+        fh.write(spm_model_bytes(_spm_pieces(texts, vocab_size, seed)))
+    with open(os.path.join(dirpath, "tokenizer_config.json"), "w") as fh:
+        json.dump({"tokenizer_class": "LlamaTokenizer", "add_bos_token": True,
+                   "add_eos_token": False, "legacy": False, "bos_token": "<s>",
+                   "eos_token": "</s>", "unk_token": "<unk>", "pad_token": None,
+                   "model_max_length": 2048}, fh)
+    return time.perf_counter() - t0
+
+
+def write_baichuan_config(dirpath):
+    """Baichuan2's ``tokenizer_config.json``: ``auto_map`` to
+    ``tokenization_baichuan.BaichuanTokenizer``, no BOS or EOS added, its
+    special tokens as single-word AddedTokens."""
+    def token(content):
+        return {"__type": "AddedToken", "content": content, "lstrip": False,
+                "normalized": True, "rstrip": False, "single_word": True}
+
+    with open(os.path.join(dirpath, "tokenizer_config.json"), "w") as fh:
+        json.dump({"add_bos_token": False, "add_eos_token": False,
+                   "auto_map": {"AutoTokenizer": ["tokenization_baichuan.BaichuanTokenizer",
+                                                  None]},
+                   "bos_token": token("<s>"), "eos_token": token("</s>"),
+                   "pad_token": token("<unk>"), "unk_token": token("<unk>"),
+                   "clean_up_tokenization_spaces": False, "model_max_length": 4096,
+                   "sp_model_kwargs": {}, "tokenizer_class": "BaichuanTokenizer"}, fh)
+
+
+def write_baichuan_tokenizer(dirpath, texts, vocab_size, seed=0):
+    """A Baichuan2 directory's tokenizer: a SentencePiece ``tokenizer.model``
+    (BPE with byte fallback, the identity normalizer; ``_spm_pieces``) and
+    ``write_baichuan_config``'s config (the port runs the remote-code class
+    natively and never reads its Python). Returns the seconds taken."""
+    t0 = time.perf_counter()
+    with open(os.path.join(dirpath, "tokenizer.model"), "wb") as fh:
+        fh.write(spm_model_bytes(_spm_pieces(texts, vocab_size, seed)))
+    write_baichuan_config(dirpath)
     return time.perf_counter() - t0
 
 
@@ -5404,18 +5539,24 @@ def _corpus_pass(tokenizer, config, data, cache_dir=None):
 
 def hllm_tokenizer_phase(work_dir, tower_dir):
     """HLLM with both towers from hllm_pretrained's TinyLlama-1.1B-wide
-    checkpoint (its shards linked, not written again) and a tokenizer.json of
-    TinyLlama's layout (``write_llama_tokenizer``, vocabulary 32,000) beside
-    them, over PRETRAINED_ITEMS items whose texts ``tokenizer_item_table``
-    draws: the tokenizer's load seconds; the corpus tokenized on the host
-    with a cold cache (a fresh tokenizer), again (the BPE word cache warm)
-    and from the disk cache (items/s, tokens/s, tokens an item); every id
-    below 32,000; both repeats equal to the first; the id lists' digest equal
-    to TOKENIZER_DIGEST (what transformers gives on the CPU); then serving
-    (``run.serve``, the packed corpus pass: ``packed_attn_fwd`` once per layer
-    per corpus batch) and training (``run.train``, PRETRAINED_TRAIN_STEPS
-    steps: ``packed_attn_fwd`` twice and ``packed_attn_bwd`` once a layer a step)
-    through that tokenizer. Returns (launches, ok)."""
+    checkpoint (its shards linked, not written again) beside two tokenizers
+    of TinyLlama's layout over PRETRAINED_ITEMS items whose texts
+    ``tokenizer_item_table`` draws (vocabulary 32,000 each): a
+    ``tokenizer.json`` (``write_llama_tokenizer``) and, in a second
+    directory, only a SentencePiece ``tokenizer.model``
+    (``write_llama_spm_tokenizer``, converted by the port as transformers'
+    LlamaConverter does). For each: the load seconds (the conversion
+    included, and a reload from the converted spec); the corpus tokenized
+    on the host with a cold cache (a fresh tokenizer), again (the word cache
+    warm) and, for the tokenizer.json, from the disk cache (items/s,
+    tokens/s, tokens an item); every id below 32,000; the repeats equal to
+    the first; the id lists' digests equal to TOKENIZER_DIGEST and
+    TOKENIZER_MODEL_DIGEST (what transformers gives on the CPU). Then
+    serving (``run.serve``, the packed corpus pass: ``packed_attn_fwd`` once
+    per layer per corpus batch) through the tokenizer.model directory and
+    training (``run.train``, PRETRAINED_TRAIN_STEPS steps: ``packed_attn_fwd``
+    twice and ``packed_attn_bwd`` once a layer a step) through the
+    tokenizer.json one. Returns (launches, ok)."""
     import numpy as np
     import torch
 
@@ -5424,7 +5565,10 @@ def hllm_tokenizer_phase(work_dir, tower_dir):
     from mhrec_tpu_torch.run import train
 
     vocab = TINYLLAMA_1B["vocab_size"]
+    kind = "hf:LlamaTokenizerFast"
     tok_dir = link_layer_cut(tower_dir, os.path.join(work_dir, "tinyllama_tokenizer"),
+                             TINYLLAMA_1B, PRETRAINED_LAYERS)
+    spm_dir = link_layer_cut(tower_dir, os.path.join(work_dir, "tinyllama_tokenizer_model"),
                              TINYLLAMA_1B, PRETRAINED_LAYERS)
     data = InMemoryInteractionData(
         num_users=PRETRAINED_USERS, num_items=PRETRAINED_ITEMS, seq_len=2 * 24 + 2 * 8,
@@ -5432,9 +5576,10 @@ def hllm_tokenizer_phase(work_dir, tower_dir):
     t0 = time.perf_counter()
     data.item_text = tokenizer_item_table(PRETRAINED_ITEMS, seed=0)
     texts_s = time.perf_counter() - t0
-    serve_cfg = hllm_config(tok_dir, work_dir)
+    serve_cfg = hllm_config(spm_dir, work_dir)
     texts = rendered_texts(serve_cfg, data.item_text, PRETRAINED_ITEMS)
     write_s = write_llama_tokenizer(tok_dir, texts, vocab, seed=0)
+    spm_write_s = write_llama_spm_tokenizer(spm_dir, texts, vocab, seed=0)
 
     t0 = time.perf_counter()
     tokenizer = build_tokenizer(tok_dir, vocab)
@@ -5449,15 +5594,32 @@ def hllm_tokenizer_phase(work_dir, tower_dir):
     n_tokens = sum(len(ids) for ids in cold)
     digest = ids_digest(cold)
     ids_ok = all(0 <= i < vocab for ids in cold for i in ids)
-    tok_ok = (getattr(tokenizer, "kind", None) == "hf:LlamaTokenizerFast" and same_render
+    tok_ok = (getattr(tokenizer, "kind", None) == kind and same_render
               and ids_ok and warm == cold and disk == cold and hit
               and digest == TOKENIZER_DIGEST)
+
+    # the tokenizer.model directory: the first load converts it
+    t0 = time.perf_counter()
+    spm_tok = build_tokenizer(spm_dir, vocab)
+    spm_load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    build_tokenizer(spm_dir, vocab)
+    spm_reload_s = time.perf_counter() - t0
+    spm_cold, spm_cold_s, _, _ = _corpus_pass(spm_tok, serve_cfg, data)
+    spm_warm, spm_warm_s, _, _ = _corpus_pass(spm_tok, serve_cfg, data)
+    spm_tokens = sum(len(ids) for ids in spm_cold)
+    spm_digest = ids_digest(spm_cold)
+    spm_ok = (spm_tok.kind == kind and not os.path.exists(os.path.join(spm_dir, "tokenizer.json"))
+              and spm_warm == spm_cold and spm_digest == TOKENIZER_MODEL_DIGEST
+              and all(0 <= i < vocab for ids in spm_cold for i in ids))
 
     trainer, _, serve_launches, ok_serve, _ = hllm_serve_phase(
         serve_cfg, data, phase="hllm_tokenizer_serve")
     text_cache = trainer._corpus_batcher.text_cache
-    served = text_cache.tokenizer.kind == "hf:LlamaTokenizerFast" and np.array_equal(
-        text_cache.batch(np.arange(PRETRAINED_ITEMS))[1], np.asarray([len(x) for x in cold]))
+    served = (text_cache.tokenizer.kind == kind
+              and text_cache.tokenizer.files_digest == spm_tok.files_digest
+              and np.array_equal(text_cache.batch(np.arange(PRETRAINED_ITEMS))[1],
+                                 np.asarray([len(x) for x in spm_cold])))
     layers = trainer.model.item_config.num_hidden_layers
     n_batches = math.ceil(data.item_num / trainer._corpus_batcher.batch_size)
     del trainer
@@ -5481,15 +5643,17 @@ def hllm_tokenizer_phase(work_dir, tower_dir):
                 "packed_attn_bwd": train_launches["packed_attn_bwd"] / stats["iters"]}
     losses = [loss for _, loss in trainer.fetched_losses]
     # the train batcher run.train builds, and the evaluation's corpus batcher
-    trained = {TextSEQTrainBatcher(cfg, data).text_cache.tokenizer.kind,
-               trainer._corpus_batcher.text_cache.tokenizer.kind} == {"hf:LlamaTokenizerFast"}
+    trained = ({TextSEQTrainBatcher(cfg, data).text_cache.tokenizer.kind,
+                trainer._corpus_batcher.text_cache.tokenizer.kind} == {kind}
+               and trainer._corpus_batcher.text_cache.tokenizer.files_digest
+               == tokenizer.files_digest)
     ok_train = (stats["iters"] == PRETRAINED_TRAIN_STEPS and len(losses) == stats["iters"]
                 and all(math.isfinite(x) for x in losses) and trained
                 and per_step == {"packed_attn_fwd": 2 * layers, "packed_attn_bwd": layers}
                 and "pred_7" in result)
     del trainer
     torch.cuda.empty_cache()
-    ok = bool(tok_ok and ok_serve and served and ok_train
+    ok = bool(tok_ok and spm_ok and ok_serve and served and ok_train
               and serve_launches["packed_attn_fwd"] == layers * n_batches
               == 2 * PRETRAINED_LAYERS)
     emit({"phase": "hllm_tokenizer", "vocab": len(tokenizer.model.vocab),
@@ -5503,6 +5667,17 @@ def hllm_tokenizer_phase(work_dir, tower_dir):
           "disk_cache_tokens_per_s": n_tokens / disk_s,
           "ids_below_vocab": ids_ok, "repeat_equal": warm == cold, "disk_cache_hit": bool(hit),
           "disk_cache_equal": disk == cold, "digest": digest, "digest_expected": TOKENIZER_DIGEST,
+          "tokenizer_model": {
+              "vocab": spm_tok.vocab_size, "write_s": spm_write_s, "load_s": spm_load_s,
+              "reload_s": spm_reload_s, "tokens": spm_tokens,
+              "tokens_per_item": spm_tokens / PRETRAINED_ITEMS,
+              "cold_items_per_s": PRETRAINED_ITEMS / spm_cold_s,
+              "cold_tokens_per_s": spm_tokens / spm_cold_s,
+              "warm_items_per_s": PRETRAINED_ITEMS / spm_warm_s,
+              "warm_tokens_per_s": spm_tokens / spm_warm_s,
+              "repeat_equal": spm_warm == spm_cold, "digest": spm_digest,
+              "digest_expected": TOKENIZER_MODEL_DIGEST, "ok": bool(spm_ok)},
+          "serve_tokenizer_dir": "tokenizer.model", "train_tokenizer_dir": "tokenizer.json",
           "serve_used_tokenizer": bool(served), "serve_launches": serve_launches,
           "train_steps": stats["iters"], "train_seconds": seconds,
           "steady_examples_per_s": stats["steady_examples_per_s"], "losses": losses,
@@ -5703,23 +5878,44 @@ def hllm_train_levers_phase(trainer, cfg, data, work_dir):
     return rec["full"]["launches_per_step"], bool(ok)
 
 
+def towers_data():
+    """The hllm_towers phase's users and catalog, with item texts."""
+    from mhrec_tpu_torch.data.synthetic import InMemoryInteractionData
+
+    return InMemoryInteractionData(
+        num_users=TOWERS_USERS, num_items=TOWERS_ITEMS, seq_len=2 * 24 + 2 * 8,
+        num_categories=11, eval_pred_len=8, max_item_list_length=24, seed=0, item_texts=True)
+
+
+def towers_texts(data=None):
+    """(each item's text as the towers' corpus pass renders it, its
+    MAX_TEXT_LENGTH): what the Baichuan tower's tokenizer is built from and
+    held to BAICHUAN_TOKENIZER_DIGEST over."""
+    cfg = hllm_config(".", ".")
+    data = data if data is not None else towers_data()
+    return rendered_texts(cfg, data.item_text, TOWERS_ITEMS), cfg["MAX_TEXT_LENGTH"]
+
+
 def hllm_towers_phase(work_dir):
     """Two towers from checkpoints the script writes, each serving a small
     catalog (``run.serve``, the dense item tower and corpus pass: no kernel)
     and training 2 steps (``run.train``, finite losses): a
-    bert-base-uncased-shaped BERT (full depth, float32 ``.safetensors``)
-    and a Baichuan-13B-shaped ALiBi tower (2 of its 40 layers, bfloat16
-    ``W_pack`` ``.safetensors``; its corpus batch cut to
-    ALIBI_CORPUS_TRAIN_BATCH × 24 items so the [items, 40, T, T] float32
-    scores fit). Every loaded tensor must equal the written one."""
+    bert-base-uncased-shaped BERT (full depth, float32 ``.safetensors``, the
+    hash tokenizer: no tokenizer file) and a Baichuan-13B-shaped ALiBi tower
+    (2 of its 40 layers, bfloat16 ``W_pack`` ``.safetensors``; its corpus
+    batch cut to ALIBI_CORPUS_TRAIN_BATCH × 24 items so the [items, 40, T,
+    T] float32 scores fit) with a Baichuan2 directory's tokenizer
+    (``write_baichuan_tokenizer``: a 64,000-piece ``tokenizer.model``, the
+    remote-code class run natively as ``spm:BaichuanTokenizer``): its load
+    seconds, the corpus tokenized cold and warm (items/s, tokens/s), the ids
+    held to BAICHUAN_TOKENIZER_DIGEST, and serving and training through it.
+    Every loaded tensor must equal the written one."""
     import torch
 
-    from mhrec_tpu_torch.data.synthetic import InMemoryInteractionData
+    from mhrec_tpu_torch.data.textset import build_tokenizer
     from mhrec_tpu_torch.run import serve, train
 
-    data = InMemoryInteractionData(
-        num_users=TOWERS_USERS, num_items=TOWERS_ITEMS, seq_len=2 * 24 + 2 * 8,
-        num_categories=11, eval_pred_len=8, max_item_list_length=24, seed=0, item_texts=True)
+    data = towers_data()
     recs, ok_all, launches_all = {}, True, {}
     for name, hf_cfg, dtype, corpus_batch in (
             ("bert_base", BERT_BASE, torch.float32, 32),
@@ -5728,6 +5924,31 @@ def hllm_towers_phase(work_dir):
         # no lm_head: the towers never read it, and the disk counts writes
         sd = hf_state_dict(hf_cfg, seed=1, device=DEVICE, dtype=dtype, lm_head=False)
         write_s = write_hf_checkpoint(tower_dir, hf_cfg, sd)
+        tok_rec, kind, tok_ok = {}, "hash", True
+        if name.startswith("baichuan"):
+            kind = "spm:BaichuanTokenizer"
+            texts, T = towers_texts(data)
+            tok_rec["tokenizer_write_s"] = write_baichuan_tokenizer(
+                tower_dir, texts, hf_cfg["vocab_size"], seed=0)
+            t0 = time.perf_counter()
+            tokenizer = build_tokenizer(tower_dir, hf_cfg["vocab_size"])
+            tok_rec["tokenizer_load_s"] = time.perf_counter() - t0
+            cfg = hllm_config(tower_dir, work_dir)
+            cold, cold_s, _, _ = _corpus_pass(tokenizer, cfg, data)
+            warm, warm_s, _, _ = _corpus_pass(tokenizer, cfg, data)
+            n_tokens = sum(len(ids) for ids in cold)
+            digest = ids_digest(cold)
+            tok_ok = (tokenizer.kind == kind and warm == cold
+                      and all(0 <= i < hf_cfg["vocab_size"] for ids in cold for i in ids)
+                      and digest == BAICHUAN_TOKENIZER_DIGEST
+                      and cfg["MAX_TEXT_LENGTH"] == T)
+            tok_rec.update(
+                tokenizer=kind, tokens=n_tokens, tokens_per_item=n_tokens / TOWERS_ITEMS,
+                cold_items_per_s=TOWERS_ITEMS / cold_s, cold_tokens_per_s=n_tokens / cold_s,
+                warm_items_per_s=TOWERS_ITEMS / warm_s, warm_tokens_per_s=n_tokens / warm_s,
+                repeat_equal=warm == cold, digest=digest,
+                digest_expected=BAICHUAN_TOKENIZER_DIGEST)
+            del tokenizer
         dense = dict(packed_item_tower=False, packed_corpus_pass=False)
         reset_launches()
         t0 = time.perf_counter()
@@ -5736,6 +5957,7 @@ def hllm_towers_phase(work_dir):
         torch.cuda.synchronize()
         serve_s = time.perf_counter() - t0
         serve_launches = read_launches()
+        served = trainer._corpus_batcher.text_cache.tokenizer.kind == kind
         equal, n = loaded_equal_written(trainer.model, sd, tower_dir)
         load = tower_load_record(trainer.model)
         del trainer, sd
@@ -5751,18 +5973,21 @@ def hllm_towers_phase(work_dir):
         train_launches = read_launches()
         losses = [loss for _, loss in trainer.fetched_losses]
         peak = torch.cuda.max_memory_allocated() / 2**30
+        trained = trainer._corpus_batcher.text_cache.tokenizer.kind == kind
         del trainer
         torch.cuda.empty_cache()
         ok = (equal and stats["iters"] == 2 and len(losses) == 2
               and all(math.isfinite(x) for x in losses) and "pred_7" in result
               and "pred_7" in tresult and not any(serve_launches.values())
-              and not any(train_launches.values()))
+              and not any(train_launches.values()) and tok_ok and served and trained)
         ok_all &= ok
         launches_all[name] = {"serve": serve_launches, "train": train_launches}
         recs[name] = {"write_s": write_s, "load": load, "loaded_tensors_equal_written": equal,
                       "tensors_compared": n, "serve_s": serve_s,
                       "users_per_s": TOWERS_USERS / serve_s, "train_s": train_s,
-                      "losses": losses, "train_peak_mem_gb": peak, "ok": bool(ok)}
+                      "losses": losses, "train_peak_mem_gb": peak,
+                      "served_tokenizer": bool(served), "trained_tokenizer": bool(trained),
+                      **tok_rec, "ok": bool(ok)}
     emit({"phase": "hllm_towers", "items": TOWERS_ITEMS, "users": TOWERS_USERS, **recs,
           "ok": bool(ok_all)})
     return launches_all, ok_all
@@ -6816,6 +7041,13 @@ def main(argv=None) -> int:
         finally:
             shutil.rmtree(work_dir, ignore_errors=True)
         emit({"path_launches": launches})
+        return 1 if bad else 0
+    if "--pretrained-only" in args:
+        # the phases of the towers from local checkpoints alone (hllm_pretrained,
+        # the levers, the tokenizers, the BERT and Baichuan towers)
+        seconds = {}
+        launches, bad = pretrained_phases(seconds)
+        emit({"phase_seconds": seconds, "path_launches": launches})
         return 1 if bad else 0
     if "--train-only" in args:
         data = InMemoryInteractionData(**hstu_data)

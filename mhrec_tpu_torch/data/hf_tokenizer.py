@@ -3,10 +3,10 @@ counterpart of what ``AutoTokenizer.from_pretrained(dir,
 local_files_only=True, trust_remote_code=True)`` builds for
 ``mhrec_tpu/data/textset.py:74-88``).
 
-The port depends on none of ``transformers``, ``tokenizers``, ``regex`` or
-``sentencepiece``, so this module reads ``tokenizer.json`` itself and runs
-its pipeline with the standard library (``json``, ``re``, ``unicodedata``)
-only. ``encode(text,
+The port depends on none of ``transformers``, ``tokenizers``, ``regex``,
+``sentencepiece``, ``protobuf`` or ``tiktoken``, so this module reads the
+tokenizer files itself and runs the ``tokenizer.json`` pipeline with the
+standard library (``json``, ``re``, ``unicodedata``) only. ``encode(text,
 max_length)`` gives the ids of HF's ``tok.encode(text, truncation=True,
 max_length=max_length)``:
 
@@ -14,14 +14,18 @@ max_length=max_length)``:
    ``normalized``, ``lstrip``, ``rstrip`` and ``single_word`` (tokens with
    ``normalized: true`` are matched in each piece after normalizing it);
 2. normalizer: ``Sequence``, ``Prepend``, ``Replace``, ``NFC`` / ``NFD`` /
-   ``NFKC`` / ``NFKD``, ``Lowercase``, ``StripAccents``, ``BertNormalizer``;
+   ``NFKC`` / ``NFKD``, ``Lowercase``, ``StripAccents``, ``BertNormalizer``,
+   ``Strip``, ``Precompiled`` (a SentencePiece charsmap, applied by extended
+   grapheme clusters as ``tokenizers``' ``spm_precompiled`` does);
 3. pre-tokenizer: ``Sequence``, ``Metaspace``, ``Split`` (string or regex),
    ``ByteLevel``, ``BertPreTokenizer``, ``Whitespace``, ``Punctuation``,
    ``Digits``;
 4. model: ``BPE`` (merges by rank, byte fallback, ``fuse_unk``, the
    continuing-subword prefix and end-of-word suffix, ``ignore_merges``,
    GPT-2's byte map under ``ByteLevel``; merges as ``"a b"`` or as
-   ``["a", "b"]``) with a per-word cache, or ``WordPiece``;
+   ``["a", "b"]``) with a per-word cache, ``WordPiece``, ``Unigram``
+   (Viterbi over the scores, unknowns fused, byte fallback) or
+   ``WordLevel``;
 5. post-processor: ``TemplateProcessing``, ``BertProcessing``,
    ``RobertaProcessing``, ``ByteLevel``, ``Sequence`` (a single sequence).
    The content is cut to ``max_length`` less the specials the post-processor
@@ -43,9 +47,16 @@ raises on any other class. Special tokens the config names and
 ``ByteLevel`` pre-tokenizer takes the config's ``add_prefix_space`` (default
 false); BERT's normalizer takes ``do_lower_case``, ``strip_accents`` and
 ``tokenize_chinese_chars``. ``legacy`` changes nothing when
-``tokenizer.json`` defines the tokenizer. A BERT directory with only
-``vocab.txt`` gets the pipeline ``transformers``' converter builds for
-``BertTokenizerFast``.
+``tokenizer.json`` defines the tokenizer. Without ``tokenizer.json`` (and
+for Llama whenever the config sets ``add_prefix_space``, ``from_slow``) the
+pipeline is the one ``transformers``' converters build from the slow
+files: ``BertConverter`` from ``vocab.txt``, ``GPT2Converter`` /
+``Qwen2Converter`` from ``vocab.json`` / ``merges.txt``, ``LlamaConverter``
+/ ``GemmaConverter`` from a SentencePiece ``tokenizer.model``
+(``sentencepiece.py``) and ``TikTokenConverter`` from a tiktoken one.
+``added_tokens.json`` counts where the config has no
+``added_tokens_decoder``. Baichuan's remote-code class is recognized by
+name in ``auto_map`` and run natively (``sentencepiece.SlowSpmTokenizer``).
 
 Unicode: ``re`` has no ``\p{..}``, so the regexes of ``Split`` and
 ``ByteLevel`` are translated with classes built once from ``unicodedata``.
@@ -59,12 +70,14 @@ A ``\p{..}`` other than a general category, or a regex construct the
 translation does not know, raises and names the pattern.
 
 What this module does not read raises ``NotImplementedError`` naming the
-component: ``Unigram`` and ``WordLevel`` models, BPE dropout, a
-``Precompiled`` normalizer, an unknown component or class.
+file or the component: BPE dropout, an unknown component, class or
+remote-code class, a malformed file, a ``*.tiktoken`` file (which
+``transformers`` reads for none of these families).
 """
 
 from __future__ import annotations
 
+import base64
 import bisect
 import functools
 import hashlib
@@ -75,6 +88,8 @@ import re
 import string
 import unicodedata
 from typing import Dict, List, Optional, Tuple
+
+from mhrec_tpu_torch.data import sentencepiece
 
 # -- Unicode tables: where tokenizers 0.22 differs from Python 3.12's 15.0 ----
 # general categories of Unicode 16.0 (Oniguruma, Rust's char methods) that
@@ -584,6 +599,147 @@ def _pattern(spec, where: str):
     raise NotImplementedError(f"{where} pattern {spec!r}")
 
 
+# -- extended grapheme clusters (UAX #29, what tokenizers' Precompiled walks) --
+# Other_Grapheme_Extend, the Emoji_Modifier range and the tag characters
+_GE_EXTRA = ((0x009BE, 0x009BE), (0x009D7, 0x009D7), (0x00B3E, 0x00B3E), (0x00B57, 0x00B57),
+             (0x00BBE, 0x00BBE), (0x00BD7, 0x00BD7), (0x00CC2, 0x00CC2), (0x00CD5, 0x00CD6),
+             (0x00D3E, 0x00D3E), (0x00D57, 0x00D57), (0x00DCF, 0x00DCF), (0x00DDF, 0x00DDF),
+             (0x01B35, 0x01B35), (0x0200C, 0x0200C), (0x0302E, 0x0302F), (0x0FF9E, 0x0FF9F),
+             (0x1133E, 0x1133E), (0x11357, 0x11357), (0x114B0, 0x114B0), (0x114BD, 0x114BD),
+             (0x115AF, 0x115AF), (0x11930, 0x11930), (0x1D165, 0x1D165), (0x1D16E, 0x1D172),
+             (0x1F3FB, 0x1F3FF), (0x0E0020, 0x0E007F))
+# Mc that is not SpacingMark, and the two Lo that are
+_SM_DROP = ((0x0102B, 0x0102C), (0x01038, 0x01038), (0x01062, 0x01064), (0x01067, 0x0106D),
+            (0x01083, 0x01083), (0x01087, 0x0108C), (0x0108F, 0x0108F), (0x0109A, 0x0109C),
+            (0x01A61, 0x01A61), (0x01A63, 0x01A64), (0x0AA7B, 0x0AA7B), (0x0AA7D, 0x0AA7D),
+            (0x11720, 0x11721))
+_SM_ADD = ((0x00E33, 0x00E33), (0x00EB3, 0x00EB3))
+_PREPEND = ((0x00600, 0x00605), (0x006DD, 0x006DD), (0x0070F, 0x0070F), (0x00890, 0x00891),
+            (0x008E2, 0x008E2), (0x00D4E, 0x00D4E), (0x110BD, 0x110BD), (0x110CD, 0x110CD),
+            (0x111C2, 0x111C3), (0x1193F, 0x1193F), (0x11941, 0x11941), (0x11A3A, 0x11A3A),
+            (0x11A84, 0x11A89), (0x11D46, 0x11D46), (0x11F02, 0x11F02))
+_EXT_PICT = (
+    (0x000A9, 0x000A9), (0x000AE, 0x000AE), (0x0203C, 0x0203C), (0x02049, 0x02049),
+    (0x02122, 0x02122), (0x02139, 0x02139), (0x02194, 0x02199), (0x021A9, 0x021AA),
+    (0x0231A, 0x0231B), (0x02328, 0x02328), (0x02388, 0x02388), (0x023CF, 0x023CF),
+    (0x023E9, 0x023F3), (0x023F8, 0x023FA), (0x024C2, 0x024C2), (0x025AA, 0x025AB),
+    (0x025B6, 0x025B6), (0x025C0, 0x025C0), (0x025FB, 0x025FE), (0x02600, 0x02605),
+    (0x02607, 0x02612), (0x02614, 0x02685), (0x02690, 0x02705), (0x02708, 0x02712),
+    (0x02714, 0x02714), (0x02716, 0x02716), (0x0271D, 0x0271D), (0x02721, 0x02721),
+    (0x02728, 0x02728), (0x02733, 0x02734), (0x02744, 0x02744), (0x02747, 0x02747),
+    (0x0274C, 0x0274C), (0x0274E, 0x0274E), (0x02753, 0x02755), (0x02757, 0x02757),
+    (0x02763, 0x02767), (0x02795, 0x02797), (0x027A1, 0x027A1), (0x027B0, 0x027B0),
+    (0x027BF, 0x027BF), (0x02934, 0x02935), (0x02B05, 0x02B07), (0x02B1B, 0x02B1C),
+    (0x02B50, 0x02B50), (0x02B55, 0x02B55), (0x03030, 0x03030), (0x0303D, 0x0303D),
+    (0x03297, 0x03297), (0x03299, 0x03299), (0x1F000, 0x1F0FF), (0x1F10D, 0x1F10F),
+    (0x1F12F, 0x1F12F), (0x1F16C, 0x1F171), (0x1F17E, 0x1F17F), (0x1F18E, 0x1F18E),
+    (0x1F191, 0x1F19A), (0x1F1AD, 0x1F1E5), (0x1F201, 0x1F20F), (0x1F21A, 0x1F21A),
+    (0x1F22F, 0x1F22F), (0x1F232, 0x1F23A), (0x1F23C, 0x1F23F), (0x1F249, 0x1F3FA),
+    (0x1F400, 0x1F53D), (0x1F546, 0x1F64F), (0x1F680, 0x1F6FF), (0x1F774, 0x1F77F),
+    (0x1F7D5, 0x1F7FF), (0x1F80C, 0x1F80F), (0x1F848, 0x1F84F), (0x1F85A, 0x1F85F),
+    (0x1F888, 0x1F88F), (0x1F8AE, 0x1F8FF), (0x1F90C, 0x1F93A), (0x1F93C, 0x1F945),
+    (0x1F947, 0x1FAFF), (0x1FC00, 0x1FFFD))
+
+
+def _in(ranges, c: int) -> bool:
+    return any(a <= c <= b for a, b in ranges)
+
+
+@functools.lru_cache(maxsize=None)
+def _gcb(ch: str) -> str:
+    """Grapheme_Cluster_Break of a character (Extended_Pictographic as
+    ``Pict`` where it has no other value)."""
+    c = ord(ch)
+    if ch == "\r":
+        return "CR"
+    if ch == "\n":
+        return "LF"
+    if c == 0x200D:
+        return "ZWJ"
+    if 0x1F1E6 <= c <= 0x1F1FF:
+        return "RI"
+    if _in(_PREPEND, c):
+        return "Prepend"
+    g = _tables().category(ch)
+    if g in ("Mn", "Me") or _in(_GE_EXTRA, c):
+        return "Extend"
+    if g in ("Cc", "Zl", "Zp", "Cf"):
+        return "Control"
+    if 0x1100 <= c <= 0x115F or 0xA960 <= c <= 0xA97C:
+        return "L"
+    if 0x1160 <= c <= 0x11A7 or 0xD7B0 <= c <= 0xD7C6:
+        return "V"
+    if 0x11A8 <= c <= 0x11FF or 0xD7CB <= c <= 0xD7FB:
+        return "T"
+    if 0xAC00 <= c <= 0xD7A3:
+        return "LV" if (c - 0xAC00) % 28 == 0 else "LVT"
+    if (g == "Mc" and not _in(_SM_DROP, c)) or _in(_SM_ADD, c):
+        return "SpacingMark"
+    if _in(_EXT_PICT, c):
+        return "Pict"
+    return "Other"
+
+
+def _graphemes(s: str) -> List[str]:
+    """The extended grapheme clusters of ``s`` (rules GB3-GB13)."""
+    if not s:
+        return []
+    out, start = [], 0
+    prev = _gcb(s[0])
+    pict = prev == "Pict"          # Pict Extend* so far
+    pict_zwj = False               # ... followed by ZWJ
+    ri = 1 if prev == "RI" else 0  # regional indicators in the current run
+    for i in range(1, len(s)):
+        cur = _gcb(s[i])
+        if prev == "CR" and cur == "LF":
+            join = True
+        elif prev in ("Control", "CR", "LF") or cur in ("Control", "CR", "LF"):
+            join = False
+        elif prev == "L" and cur in ("L", "V", "LV", "LVT"):
+            join = True
+        elif prev in ("LV", "V") and cur in ("V", "T"):
+            join = True
+        elif prev in ("LVT", "T") and cur == "T":
+            join = True
+        elif cur in ("Extend", "ZWJ", "SpacingMark") or prev == "Prepend":
+            join = True
+        elif prev == "ZWJ" and cur == "Pict" and pict_zwj:
+            join = True
+        elif prev == "RI" and cur == "RI":
+            join = ri % 2 == 1
+        else:
+            join = False
+        if not join:
+            out.append(s[start:i])
+            start = i
+        pict_zwj = pict and cur == "ZWJ"
+        pict = cur == "Pict" or (pict and cur == "Extend")
+        ri = ri + 1 if cur == "RI" and join else (1 if cur == "RI" else 0)
+        prev = cur
+    out.append(s[start:])
+    return out
+
+
+def _precompiled(charsmap, s: str) -> str:
+    """tokenizers' Precompiled normalizer: a grapheme of fewer than 6 bytes
+    that a key prefixes becomes the first (shortest) key's string, whole;
+    otherwise each character that is a key becomes its string."""
+    starts = charsmap.starts
+    if not any(map(starts, s)):
+        return s
+    out = []
+    for g in _graphemes(s):
+        if len(g.encode("utf-8")) < 6 and starts(g[0]):
+            norm = charsmap.shortest(g)
+            if norm is not None:
+                out.append(norm)
+                continue
+        for ch in g:
+            norm = charsmap.shortest(ch) if starts(ch) else None
+            out.append(ch if norm is None else norm)
+    return "".join(out)
+
+
 class _Normalizer:
     """str → str, and whether it can remove characters (what Metaspace's
     ``prepend_scheme: first`` cannot see through: tokenizers tests the
@@ -621,6 +777,22 @@ class _Normalizer:
                 spec.get("clean_text", True), spec.get("handle_chinese_chars", True),
                 spec.get("strip_accents"), spec.get("lowercase", True)))
             self.removes = True
+        elif kind == "Strip":
+            left, right = bool(spec.get("strip_left", True)), bool(spec.get("strip_right", True))
+            ws = "".join(sorted(_WS))
+            self.steps.append(lambda s: s.lstrip(ws) if left else s)
+            self.steps.append(lambda s: s.rstrip(ws) if right else s)
+            self.removes |= left
+        elif kind == "Precompiled":
+            blob = spec.get("precompiled_charsmap")
+            try:
+                blob = base64.b64decode(blob or "", validate=True)
+            except (ValueError, TypeError):
+                raise NotImplementedError("Precompiled normalizer: its charsmap is not base64") \
+                    from None
+            charsmap = sentencepiece.Charsmap(blob, "Precompiled normalizer")
+            self.steps.append(functools.partial(_precompiled, charsmap))
+            self.removes |= charsmap.removes
         else:
             raise NotImplementedError(f"normalizer {kind!r}")
 
@@ -894,6 +1066,107 @@ class _WordPiece:
         return out
 
 
+class _Unigram:
+    """tokenizers' Unigram: the Viterbi path over the pieces' scores (an
+    unknown character, where no piece is that character alone, at the
+    lowest score less 10), consecutive unknowns fused, then byte fallback
+    for an unknown piece whose bytes all have ``<0xNN>`` pieces."""
+
+    def __init__(self, spec):
+        pieces = spec.get("vocab") or []
+        if not pieces:
+            raise NotImplementedError("Unigram model with an empty vocabulary")
+        self.pieces = [p for p, _ in pieces]
+        self.scores = [float(s) for _, s in pieces]
+        self.vocab = {p: i for i, p in enumerate(self.pieces)}
+        self.size = len(pieces)
+        self.unk_id = spec.get("unk_id")
+        if self.unk_id is not None and not 0 <= self.unk_id < self.size:
+            raise NotImplementedError(f"Unigram unk_id {self.unk_id} outside the vocabulary")
+        self.byte_fallback = bool(spec.get("byte_fallback", False))
+        self.unk_score = min(self.scores) - 10.0
+        self.max_len = max(len(p) for p in self.pieces)
+        self.cache: Dict[str, List[int]] = {}
+
+    def tokenize(self, word: str) -> List[int]:
+        ids = self.cache.get(word)
+        if ids is None:
+            ids = self._tokenize(word)
+            if len(self.cache) >= 1_000_000:
+                self.cache.clear()
+            self.cache[word] = ids
+        return ids
+
+    def _unk(self) -> int:
+        if self.unk_id is None:
+            raise ValueError("Unigram model without an unk_id met an unknown character")
+        return self.unk_id
+
+    def _tokenize(self, w: str) -> List[int]:
+        n = len(w)
+        best = [0.0] * (n + 1)
+        start = [-1] * (n + 1)
+        node = [0] * (n + 1)
+        vocab, scores = self.vocab, self.scores
+        for a in range(n):
+            till = best[a]
+            single = False
+            for b in range(a + 1, min(n, a + self.max_len) + 1):
+                pid = vocab.get(w[a:b])
+                if pid is None:
+                    continue
+                cand = scores[pid] + till
+                if start[b] == -1 or cand > best[b]:
+                    best[b], start[b], node[b] = cand, a, pid
+                if b == a + 1:
+                    single = True
+            if not single:
+                cand = self.unk_score + till
+                if start[a + 1] == -1 or cand > best[a + 1]:
+                    best[a + 1], start[a + 1], node[a + 1] = cand, a, self._unk()
+        strings: List[str] = []
+        unk: List[str] = []
+        end = n
+        while end > 0:
+            a = start[end]
+            if self.unk_id is not None and node[end] == self.unk_id:
+                unk.append(w[a:end])
+            else:
+                if unk:
+                    strings.append("".join(reversed(unk)))
+                    unk = []
+                strings.append(w[a:end])
+            end = a
+        if unk:
+            strings.append("".join(reversed(unk)))
+        ids: List[int] = []
+        for piece in reversed(strings):
+            pid = vocab.get(piece)
+            if pid is None and self.byte_fallback:
+                fb = [vocab.get(f"<0x{b:02X}>") for b in piece.encode("utf-8")]
+                if all(t is not None for t in fb):
+                    ids.extend(fb)
+                    continue
+            ids.append(self._unk() if pid is None else pid)
+        return ids
+
+
+class _WordLevel:
+    def __init__(self, spec):
+        if not isinstance(spec.get("vocab"), dict):
+            raise NotImplementedError("WordLevel model without a vocabulary map")
+        self.vocab: Dict[str, int] = spec["vocab"]
+        self.unk = spec.get("unk_token")
+
+    def tokenize(self, word: str) -> List[int]:
+        tid = self.vocab.get(word)
+        if tid is None:
+            tid = self.vocab.get(self.unk)
+            if tid is None:
+                raise ValueError(f"WordLevel unk token {self.unk!r} is not in the vocabulary")
+        return [tid]
+
+
 def _model(spec):
     kind = spec.get("type") or ("BPE" if "merges" in spec else None)
     if kind == "BPE":
@@ -902,6 +1175,10 @@ def _model(spec):
         return _WordPiece(spec["vocab"], spec.get("unk_token", "[UNK]"),
                           spec.get("continuing_subword_prefix", "##"),
                           spec.get("max_input_chars_per_word", 100))
+    if kind == "Unigram":
+        return _Unigram(spec)
+    if kind == "WordLevel":
+        return _WordLevel(spec)
     raise NotImplementedError(f"model {kind!r}")
 
 
@@ -962,7 +1239,7 @@ class HFTokenizer:
         if spec.get("model") is None:
             raise NotImplementedError("tokenizer.json without a model")
         self.model = _model(spec["model"])
-        self.vocab_size = len(self.model.vocab)
+        self.vocab_size = getattr(self.model, "size", None) or len(self.model.vocab)
         self.normalizer = _Normalizer(spec.get("normalizer"))
         self.pre_tokenizer = _PreTokenizer(spec.get("pre_tokenizer"), self.normalizer.removes)
         self.before, self.after = (template if template is not None
@@ -1002,7 +1279,7 @@ class HFTokenizer:
             tid = self.token_to_id(tok.content)
             if tid is None:
                 ids = [t.id for t in self.added.values()]
-                size = len(self.model.vocab)
+                size = self.vocab_size
                 tid = (size if not ids else max(ids) + 1 if max(ids) >= size or size == 0
                        else size)
             tok.id = tid
@@ -1126,9 +1403,24 @@ _MODEL_TYPES = {
 # transformers' SPECIAL_TOKENS_ATTRIBUTES, in its order
 _SPECIAL_KEYS = ("bos_token", "eos_token", "unk_token", "sep_token", "pad_token", "cls_token",
                  "mask_token", "additional_special_tokens")
-# the files whose bytes name a tokenizer (the token cache's key)
-_FILES = ("tokenizer.json", "vocab.txt", "tokenizer_config.json", "special_tokens_map.json",
-          "added_tokens.json")
+# the files a tokenizer is read from
+_TOKENIZER_FILES = ("tokenizer.json", "vocab.txt", "tokenizer.model", "vocab.json", "merges.txt",
+                    "tekken.json")
+# the files whose bytes name a tokenizer (the token cache's key), with the
+# directory's *.tiktoken
+_FILES = _TOKENIZER_FILES + ("tokenizer_config.json", "special_tokens_map.json",
+                             "added_tokens.json")
+# the remote-code class run natively (auto_map's AutoTokenizer entry)
+_BAICHUAN = "tokenization_baichuan.BaichuanTokenizer"
+# the classes that read a tiktoken tokenizer.model: no slow class, or a
+# SentencePiece one that transformers lacks where sentencepiece is not
+# installed (PreTrainedTokenizerFast.__init__ then takes TikTokenConverter)
+_TIKTOKEN_CLASSES = ("PreTrainedTokenizerFast", "LlamaTokenizerFast", "GemmaTokenizerFast",
+                     "GPTNeoXTokenizerFast")
+_TIKTOKEN_PATTERN = (r"(?i:'s|'t|'re|'ve|'m|'ll|'d)|[^\r\n\p{L}\p{N}]?\p{L}+|\p{N}{1,3}|"
+                     r" ?[^\s\p{L}\p{N}]+[\r\n]*|\s*[\r\n]+|\s+(?!\S)|\s+")
+_QWEN2_PATTERN = (r"(?i:'s|'t|'re|'ve|'m|'ll|'d)|[^\r\n\p{L}\p{N}]?\p{L}+|\p{N}|"
+                  r" ?[^\s\p{L}\p{N}]+[\r\n]*|\s*[\r\n]+|\s+(?!\S)|\s+")
 
 
 def _read_json(path: str, what: str):
@@ -1139,14 +1431,28 @@ def _read_json(path: str, what: str):
         raise NotImplementedError(f"{what} {path} is not JSON: {e}") from None
 
 
+def _tiktoken_files(pretrain_dir: str) -> List[str]:
+    return sorted(n for n in os.listdir(pretrain_dir) if n.endswith(".tiktoken"))
+
+
 def _class_name(pretrain_dir: str, tcfg: dict) -> str:
+    """The fast class AutoTokenizer picks, or ``BaichuanTokenizer`` for
+    Baichuan's remote code (recognized by name, never executed)."""
     name = tcfg.get("tokenizer_class")
     cfg_path = os.path.join(pretrain_dir, "config.json")
     cfg = _read_json(cfg_path, "config") if os.path.exists(cfg_path) else {}
     for src in (tcfg, cfg):
-        if "AutoTokenizer" in (src.get("auto_map") or {}):
-            raise NotImplementedError(f"{pretrain_dir}: a tokenizer class in remote code "
-                                      "(auto_map)")
+        auto = src.get("auto_map") or {}
+        if isinstance(auto, (list, tuple)):  # the old format
+            auto = {"AutoTokenizer": auto}
+        if "AutoTokenizer" in auto:
+            ref = auto["AutoTokenizer"]
+            ref = ref[0] if isinstance(ref, (list, tuple)) and ref else ref
+            if isinstance(ref, str) and ref.split("--")[-1] == _BAICHUAN:
+                return "BaichuanTokenizer"
+            raise NotImplementedError(
+                f"{pretrain_dir}: a tokenizer class in remote code (auto_map {ref!r}); the port "
+                f"runs only {_BAICHUAN}, natively")
     if not name:
         name = cfg.get("tokenizer_class") or _MODEL_TYPES.get(cfg.get("model_type"))
     if not name:
@@ -1205,10 +1511,229 @@ def _bert_spec(pretrain_dir: str, tcfg: dict, specials: dict) -> dict:
     }
 
 
+def _spm_spec(path: str, data: bytes, cls: str, tcfg: dict, specials: dict,
+              from_slow: bool) -> dict:
+    """``LlamaConverter`` / ``GemmaConverter`` over ``tokenizer.model``, with
+    the slow tokenizer's settings: ``legacy`` (default true),
+    ``add_prefix_space`` (default true), its tokens for ids 0-2."""
+    model = sentencepiece.parse_model(data, path)
+    if len(model.pieces) < 3:
+        raise NotImplementedError(f"{path}: fewer than 3 pieces")
+    if cls == "GemmaTokenizerFast":
+        first = tuple(_token_spec(specials.get(k))[0]
+                      for k in ("pad_token", "eos_token", "bos_token"))
+        if None in first:
+            raise NotImplementedError(f"{path}: GemmaConverter needs a pad, eos and bos token")
+        return sentencepiece.converted_spec(model, "gemma", first)
+    # the slow tokenizer's convert_ids_to_tokens(0..2); the one that
+    # add_prefix_space builds in LlamaTokenizerFast.__init__ has no
+    # added_tokens_decoder
+    decoder = {} if from_slow else tcfg.get("added_tokens_decoder") or {}
+    first = tuple((decoder.get(str(i)) or {}).get("content") or p
+                  for i, (p, _, _) in enumerate(model.pieces[:3]))
+    legacy = tcfg.get("legacy")
+    return sentencepiece.converted_spec(model, "llama", first,
+                                        True if legacy is None else bool(legacy),
+                                        tcfg.get("add_prefix_space", True))
+
+
+def _slow_bpe_spec(pretrain_dir: str, cls: str, tcfg: dict, specials: dict) -> dict:
+    """``GPT2Converter`` / ``Qwen2Converter`` over ``vocab.json`` and
+    ``merges.txt``, read as ``GPT2Tokenizer`` / ``Qwen2Tokenizer`` read them."""
+    vpath, mpath = (os.path.join(pretrain_dir, n) for n in ("vocab.json", "merges.txt"))
+    vocab = _read_json(vpath, "vocabulary")
+    if not isinstance(vocab, dict):
+        raise NotImplementedError(f"{vpath}: not a vocabulary")
+    with open(mpath, encoding="utf-8") as fh:
+        if cls == "GPT2TokenizerFast":
+            merges = [tuple(m.split()) for m in fh.read().split("\n")[1:-1]]
+        else:
+            merges = []
+            for i, line in enumerate(fh):
+                line = line.strip()
+                if (i == 0 and line.startswith("#version:")) or not line:
+                    continue
+                merges.append(tuple(line.split()))
+    for m in merges:
+        if len(m) != 2:
+            raise NotImplementedError(f"{mpath}: merge {' '.join(m)!r} is not a pair")
+    spec = {"model": {"type": "BPE", "dropout": None, "unk_token": None,
+                      "continuing_subword_prefix": "", "end_of_word_suffix": "",
+                      "fuse_unk": False, "byte_fallback": False, "vocab": vocab,
+                      "merges": [list(m) for m in dict.fromkeys(merges)]},
+            "added_tokens": [], "post_processor": {"type": "ByteLevel"}}
+    if cls == "Qwen2TokenizerFast":
+        spec["normalizer"] = {"type": "NFC"}
+        spec["pre_tokenizer"] = {"type": "Sequence", "pretokenizers": [
+            {"type": "Split", "pattern": {"Regex": _QWEN2_PATTERN}, "behavior": "Isolated",
+             "invert": False},
+            {"type": "ByteLevel", "add_prefix_space": False, "use_regex": False}]}
+        return spec
+    spec["normalizer"] = None
+    spec["pre_tokenizer"] = {"type": "ByteLevel", "use_regex": True,
+                             "add_prefix_space": bool(tcfg.get("add_prefix_space", False))}
+    if tcfg.get("add_bos_token", False):
+        bos = _token_spec(specials.get("bos_token"))[0]
+        if bos not in vocab:
+            raise NotImplementedError(f"{vpath}: add_bos_token with {bos!r} outside it")
+        spec["post_processor"] = {
+            "type": "TemplateProcessing",
+            "single": [{"SpecialToken": {"id": bos, "type_id": 0}},
+                       {"Sequence": {"id": "A", "type_id": 0}}],
+            "special_tokens": {bos: {"id": bos, "ids": [vocab[bos]]}}}
+    return spec
+
+
+def _tiktoken_spec(path: str, data: bytes, specials: dict) -> dict:
+    """``TikTokenConverter``: byte-level BPE over the ranks (ids = ranks,
+    ``ignore_merges``), each token's splits into two tokens as merges
+    ordered by its rank, the cl100k pattern, the config's
+    ``additional_special_tokens`` added after the vocabulary."""
+    ranks: Dict[bytes, int] = {}
+    for line in data.splitlines():
+        if not line:
+            continue
+        try:
+            tok, rank = line.split()
+            ranks[base64.b64decode(tok, validate=True)] = int(rank)
+        except ValueError:
+            raise NotImplementedError(f"{path}: tiktoken line {line[:80]!r}") from None
+
+    def text(b):
+        return "".join(_BYTE_MAP[x] for x in b)
+
+    merges = []
+    for tok, rank in ranks.items():
+        local = [(tok[:i], tok[i:], rank) for i in range(1, len(tok))
+                 if tok[:i] in ranks and tok[i:] in ranks]
+        local.sort(key=lambda x: (ranks[x[0]], ranks[x[1]]))
+        merges.extend(local)
+    merges.sort(key=lambda v: v[2])
+    extra = [_token_spec(t)[0] for t in specials.get("additional_special_tokens") or []]
+    return {
+        "model": {"type": "BPE", "dropout": None, "unk_token": None, "fuse_unk": False,
+                  "byte_fallback": False, "ignore_merges": True,
+                  "vocab": {text(t): r for t, r in ranks.items()},
+                  "merges": [[text(a), text(b)] for a, b, _ in merges]},
+        "normalizer": None,
+        "pre_tokenizer": {"type": "Sequence", "pretokenizers": [
+            {"type": "Split", "pattern": {"Regex": _TIKTOKEN_PATTERN}, "behavior": "Isolated",
+             "invert": False},
+            {"type": "ByteLevel", "add_prefix_space": False, "use_regex": False}]},
+        "post_processor": {"type": "ByteLevel"},
+        "added_tokens": [{"id": None, "content": c, "single_word": False, "lstrip": False,
+                          "rstrip": False, "normalized": False, "special": True}
+                         for c in extra],
+    }
+
+
+def _base_spec(pretrain_dir: str, cls: str, tcfg: dict, specials: dict) -> dict:
+    """The ``tokenizer.json`` spec of the directory, from the file the class
+    reads: ``tokenizer.model`` for Llama / Gemma without ``tokenizer.json``
+    (and for Llama whenever the config sets ``add_prefix_space``:
+    ``from_slow``), ``tokenizer.json``, BERT's ``vocab.txt``, GPT-2's /
+    Qwen2's ``vocab.json`` + ``merges.txt``, or a tiktoken
+    ``tokenizer.model``; else ``NotImplementedError`` naming the file."""
+    path = functools.partial(os.path.join, pretrain_dir)
+    has = lambda name: os.path.exists(path(name))  # noqa: E731
+    from_slow = cls == "LlamaTokenizerFast" and tcfg.get("add_prefix_space") is not None
+    spm_class = cls in ("LlamaTokenizerFast", "GemmaTokenizerFast")
+    # without tokenizer.json transformers passes tokenizer.model as every
+    # class's vocab_file
+    if has("tokenizer.model") and (from_slow or not has("tokenizer.json")):
+        with open(path("tokenizer.model"), "rb") as fh:
+            data = fh.read()
+        if sentencepiece.is_tiktoken(data):
+            if from_slow:
+                raise NotImplementedError(
+                    f"{path('tokenizer.model')}: add_prefix_space rebuilds the Llama tokenizer "
+                    "from a SentencePiece model; this is a tiktoken rank file")
+            if cls in _TIKTOKEN_CLASSES:
+                return _tiktoken_spec(path("tokenizer.model"), data, specials)
+        elif spm_class:
+            return _spm_spec(path("tokenizer.model"), data, cls, tcfg, specials, from_slow)
+        raise NotImplementedError(f"{path('tokenizer.model')}: not read for {cls}")
+    if from_slow:
+        raise NotImplementedError(
+            f"{pretrain_dir}: add_prefix_space rebuilds the Llama tokenizer from "
+            "tokenizer.model, which the directory lacks")
+    if has("tokenizer.json"):
+        spec = _read_json(path("tokenizer.json"), "tokenizer")
+        if not isinstance(spec, dict):
+            raise NotImplementedError(f"{path('tokenizer.json')}: not a tokenizer")
+        return spec
+    if cls == "BertTokenizerFast" and has("vocab.txt"):
+        return _bert_spec(pretrain_dir, tcfg, specials)
+    if cls in ("GPT2TokenizerFast", "Qwen2TokenizerFast") and has("vocab.json") \
+            and has("merges.txt"):
+        return _slow_bpe_spec(pretrain_dir, cls, tcfg, specials)
+    present = [n for n in _TOKENIZER_FILES if has(n)] + _tiktoken_files(pretrain_dir)
+    raise NotImplementedError(f"{path(present[0])}: not read for {cls}")
+
+
+def _baichuan(pretrain_dir: str, tcfg: dict, specials: dict) -> sentencepiece.SlowSpmTokenizer:
+    """Baichuan's ``BaichuanTokenizer`` (slow): ``tokenizer.model`` through
+    sentencepiece's encode, the added tokens as the slow tokenizer
+    registers them (the config's ``added_tokens_decoder`` at its ids, then
+    the special tokens at their piece ids, else after the vocabulary; the
+    bos / eos / unk / pad tokens with their config flags), the
+    ``add_bos_token`` (default true) / ``add_eos_token`` template."""
+    path = os.path.join(pretrain_dir, "tokenizer.model")
+    if not os.path.exists(path):
+        raise NotImplementedError(f"{path}: BaichuanTokenizer reads it; the directory lacks it")
+    proc = sentencepiece.Processor(sentencepiece.read_model(path), path)
+    Tok = sentencepiece.SlowAddedToken
+    decoder: Dict[int, Tuple[str, sentencepiece.SlowAddedToken]] = {}
+    for k, t in (tcfg.get("added_tokens_decoder") or {}).items():
+        decoder[int(k)] = (t["content"], Tok(t["content"], t.get("lstrip"), t.get("rstrip"),
+                                             t.get("single_word")))
+    encoder = {c: i for i, (c, _) in decoder.items()}
+    current = {p: i for i, (p, _, _) in enumerate(proc.model.pieces)}
+    current.update(encoder)
+    new_idx, n_new, seen = len(current), 0, set()
+    for key in _SPECIAL_KEYS:
+        values = specials.get(key)
+        values = values if key == "additional_special_tokens" and values else [values]
+        for v in values:
+            content, flags = _token_spec(v)
+            if content is None or content in seen:
+                continue
+            seen.add(content)
+            # the class makes bos / eos / unk / pad AddedTokens; a string
+            # already registered is skipped
+            as_token = flags is not None or key in ("bos_token", "eos_token", "unk_token",
+                                                    "pad_token")
+            if not as_token and content in encoder:
+                continue
+            if content in current:
+                idx = current[content]
+            else:
+                idx = current[content] = new_idx + n_new
+                n_new += 1
+            decoder[idx] = (content, Tok(content, **{k: v for k, v in (flags or {}).items()
+                                                     if k != "normalized" and v is not None}))
+            encoder[content] = idx
+    added = {c: (i, decoder[i][1]) for c, i in encoder.items()}
+
+    def tid(key):
+        content = _token_spec(specials.get(key))[0]
+        if content is None:
+            raise ValueError(f"{pretrain_dir}: add_{key} = True but {key} = None")
+        return encoder[content] if content in encoder else proc.piece_to_id(content)
+
+    before = [tid("bos_token")] if tcfg.get("add_bos_token", True) else []
+    after = [tid("eos_token")] if tcfg.get("add_eos_token", False) else []
+    tok = sentencepiece.SlowSpmTokenizer(proc, added, before, after,
+                                         _token_spec(specials.get("unk_token"))[0],
+                                         tcfg.get("truncation_side", "right"))
+    tok.kind = "spm:BaichuanTokenizer"
+    return tok
+
+
 def files_digest(pretrain_dir: str) -> str:
     """sha256 over the bytes of the tokenizer files the directory holds."""
     h = hashlib.sha256()
-    for name in _FILES:
+    for name in _FILES + tuple(_tiktoken_files(pretrain_dir)):
         path = os.path.join(pretrain_dir, name)
         if os.path.exists(path):
             h.update(name.encode() + b"\x00")
@@ -1217,52 +1742,65 @@ def files_digest(pretrain_dir: str) -> str:
     return h.hexdigest()
 
 
-def load_tokenizer(pretrain_dir: str) -> Optional[HFTokenizer]:
-    """The tokenizer of a pretrain directory: from ``tokenizer.json``, or a
-    BERT ``vocab.txt``; None when the directory holds no tokenizer file;
-    ``NotImplementedError`` naming the file for a SentencePiece
-    ``tokenizer.model``, ``*.tiktoken`` or ``vocab.json`` / ``merges.txt``
-    without ``tokenizer.json`` (the JAX package reads those through
-    libraries the port does not depend on), and naming the component for
-    what this module does not read."""
+def _specials(pretrain_dir: str, tcfg: dict, defaults: dict) -> dict:
+    """The special tokens: class defaults, the config, and
+    special_tokens_map.json where the config has no added_tokens_decoder."""
+    specials = dict(defaults)
+    specials.update({k: tcfg[k] for k in _SPECIAL_KEYS if k in tcfg})
+    smap_path = os.path.join(pretrain_dir, "special_tokens_map.json")
+    if "added_tokens_decoder" not in tcfg and os.path.exists(smap_path):
+        smap = _read_json(smap_path, "special tokens map")
+        specials.update({k: v for k, v in smap.items() if k in _SPECIAL_KEYS})
+    return specials
+
+
+def _legacy_added_tokens(pretrain_dir: str, specials: dict) -> dict:
+    """``added_tokens.json`` as transformers turns it into an
+    ``added_tokens_decoder`` where the config has none."""
+    path = os.path.join(pretrain_dir, "added_tokens.json")
+    if not os.path.exists(path):
+        return {}
+    special = set()
+    for key in _SPECIAL_KEYS:
+        v = specials.get(key)
+        for t in (v if key == "additional_special_tokens" and v else [v]):
+            if t is not None:
+                special.add(_token_spec(t)[0])
+    table = _read_json(path, "added tokens")
+    return {str(i): {"content": c, "normalized": c not in special, "special": c in special}
+            for c, i in table.items()}
+
+
+def load_tokenizer(pretrain_dir: str):
+    """The tokenizer of a pretrain directory: an ``HFTokenizer`` from
+    ``tokenizer.json``, a SentencePiece or tiktoken ``tokenizer.model``, a
+    BERT ``vocab.txt`` or GPT-2 / Qwen2 ``vocab.json`` + ``merges.txt``; a
+    ``SlowSpmTokenizer`` for Baichuan's remote-code class; None when the
+    directory holds no tokenizer file; ``NotImplementedError`` naming the
+    file or the component for what the port does not read (among them
+    ``*.tiktoken``, which transformers reaches for no directory of these
+    families)."""
     has = lambda name: os.path.exists(os.path.join(pretrain_dir, name))  # noqa: E731
-    if not has("tokenizer.json") and not has("vocab.txt"):
-        for name in ("tokenizer.model", "vocab.json", "merges.txt"):
-            if has(name):
-                raise NotImplementedError(
-                    f"{pretrain_dir}/{name} without tokenizer.json: not ported")
-        tik = [n for n in os.listdir(pretrain_dir) if n.endswith(".tiktoken")]
+    if not any(map(has, _TOKENIZER_FILES)):
+        tik = _tiktoken_files(pretrain_dir)
         if tik:
-            raise NotImplementedError(f"{pretrain_dir}/{tik[0]}: tiktoken is not ported")
+            raise NotImplementedError(f"{pretrain_dir}/{tik[0]}: transformers reads no "
+                                      "*.tiktoken file for this directory")
         return None
     tcfg_path = os.path.join(pretrain_dir, "tokenizer_config.json")
     tcfg = _read_json(tcfg_path, "tokenizer config") if has("tokenizer_config.json") else {}
     cls = _class_name(pretrain_dir, tcfg)
+    if cls == "BaichuanTokenizer":
+        tok = _baichuan(pretrain_dir, tcfg, _specials(
+            pretrain_dir, tcfg, dict(unk_token="<unk>", bos_token="<s>", eos_token="</s>")))
+        tok.files_digest = files_digest(pretrain_dir)
+        return tok
     if tcfg.get("split_special_tokens"):
         raise NotImplementedError(f"{pretrain_dir}: split_special_tokens")
     defaults, template = _CLASSES[cls]
-    if cls == "LlamaTokenizerFast" and tcfg.get("add_prefix_space") is not None:
-        raise NotImplementedError(
-            f"{pretrain_dir}: add_prefix_space rebuilds the Llama tokenizer from tokenizer.model")
+    specials = _specials(pretrain_dir, tcfg, defaults)
 
-    # the special tokens: class defaults, the config, special_tokens_map.json
-    # where the config has no added_tokens_decoder
-    specials = dict(defaults)
-    specials.update({k: tcfg[k] for k in _SPECIAL_KEYS if k in tcfg})
-    if "added_tokens_decoder" not in tcfg and has("special_tokens_map.json"):
-        smap = _read_json(os.path.join(pretrain_dir, "special_tokens_map.json"),
-                          "special tokens map")
-        specials.update({k: v for k, v in smap.items() if k in _SPECIAL_KEYS})
-
-    if has("tokenizer.json"):
-        spec = _read_json(os.path.join(pretrain_dir, "tokenizer.json"), "tokenizer")
-    elif cls == "BertTokenizerFast":
-        spec = _bert_spec(pretrain_dir, tcfg, specials)
-    else:
-        raise NotImplementedError(f"{pretrain_dir}/vocab.txt for {cls}: not ported")
-    if not isinstance(spec, dict):
-        raise NotImplementedError(f"{pretrain_dir}/tokenizer.json: not a tokenizer")
-    spec = dict(spec)
+    spec = dict(_base_spec(pretrain_dir, cls, tcfg, specials))
     if cls == "BertTokenizerFast":
         norm = spec.get("normalizer")
         if norm is None:
@@ -1279,7 +1817,8 @@ def load_tokenizer(pretrain_dir: str) -> Optional[HFTokenizer]:
         spec["pre_tokenizer"] = dict(pre, add_prefix_space=prefix_space)
 
     tok = HFTokenizer(spec)
-    decoder = tcfg.get("added_tokens_decoder") or {}
+    decoder = (tcfg["added_tokens_decoder"] if "added_tokens_decoder" in tcfg
+               else _legacy_added_tokens(pretrain_dir, specials)) or {}
     for _, t in sorted(((int(k), v) for k, v in decoder.items()), key=lambda kv: kv[0]):
         tok.add_token(_AddedToken(t["content"], None, t.get("single_word", False),
                                   t.get("lstrip", False), t.get("rstrip", False),

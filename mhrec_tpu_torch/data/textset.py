@@ -21,16 +21,17 @@ per-image maps ``patch_valid``, ``patch_hw``, ``img_src``, ``img_pos`` or, for
 a LLaVA tower, ``tok_src``). The image path takes the dense item tower.
 
 The tokenizer resolves a pretrain directory as the JAX package's
-``build_tokenizer`` does, without ``transformers`` or ``tokenizers``: a
-``tokenizer.json``, or a BERT ``vocab.txt``, gives the HF tokenizer of
-``data/hf_tokenizer.py`` (the same ids as ``AutoTokenizer``), unless its
-vocabulary is larger than the model's, where the JAX package's guard takes
-the hashing tokenizer over the model's vocabulary; a directory without a
-tokenizer file, or no directory, gives the hashing tokenizer. Where the JAX
-package loads the tokenizer through a library the port does not depend on
-(SentencePiece's ``tokenizer.model``, tiktoken, a slow ``vocab.json`` /
-``merges.txt`` BPE) or cannot load it at all and falls back to hashing, the
-port raises instead of tokenizing differently.
+``build_tokenizer`` does, without ``transformers``, ``tokenizers``,
+``sentencepiece`` or ``tiktoken``: ``data/hf_tokenizer.py`` reads a
+``tokenizer.json``, a SentencePiece or tiktoken ``tokenizer.model``, a BERT
+``vocab.txt`` or a slow ``vocab.json`` / ``merges.txt`` BPE, and runs
+Baichuan's remote-code tokenizer natively (``data/sentencepiece.py``), all
+with the same ids as ``AutoTokenizer``; unless its vocabulary is larger
+than the model's, where the JAX package's guard takes the hashing tokenizer
+over the model's vocabulary. A directory without a tokenizer file, or no
+directory, gives the hashing tokenizer. Where the JAX package cannot load
+the tokenizer and falls back to hashing on the exception, the port raises
+instead of tokenizing differently.
 """
 
 from __future__ import annotations
@@ -44,6 +45,7 @@ from typing import Dict, Iterator, Optional, Union
 import numpy as np
 
 from mhrec_tpu_torch.data.hf_tokenizer import HFTokenizer, load_tokenizer
+from mhrec_tpu_torch.data.sentencepiece import SlowSpmTokenizer
 from mhrec_tpu_torch.data.trainset import SEQTrainBatcher
 from mhrec_tpu_torch.models.llm.packed import pack_items
 
@@ -70,14 +72,14 @@ class HashTokenizer:
         return ids
 
 
-def build_tokenizer(pretrain_dir: Optional[str],
-                    vocab_size: int = 1024) -> Union[HashTokenizer, HFTokenizer]:
-    """The pretrain directory's HF tokenizer (``hf_tokenizer.load_tokenizer``:
-    ``tokenizer.json`` or a BERT ``vocab.txt``), or the hashing tokenizer over
-    its model's vocabulary (``config.json``'s ``vocab_size``, or
-    ``text_config``'s) where it holds no tokenizer file or where the
-    tokenizer's vocabulary is larger than the model's (the JAX package's
-    guard, ``mhrec_tpu/data/textset.py:80-87``), else over ``vocab_size``."""
+def build_tokenizer(pretrain_dir: Optional[str], vocab_size: int = 1024
+                    ) -> Union[HashTokenizer, HFTokenizer, SlowSpmTokenizer]:
+    """The pretrain directory's tokenizer (``hf_tokenizer.load_tokenizer``),
+    or the hashing tokenizer over its model's vocabulary (``config.json``'s
+    ``vocab_size``, or ``text_config``'s) where it holds no tokenizer file or
+    where the tokenizer's vocabulary is larger than the model's (the JAX
+    package's guard, ``mhrec_tpu/data/textset.py:80-87``), else over
+    ``vocab_size``."""
     if not pretrain_dir:
         return HashTokenizer(vocab_size)
     model_vocab = None
@@ -290,10 +292,10 @@ def _token_id(tokenizer, content: str) -> Optional[int]:
 
 
 def image_special_ids(tokenizer):
-    """(vision_start, image_pad, vision_end) token ids: the HF tokenizer's,
-    else (hashing tokenizer, or one without all three) the top three ids of
-    the vocabulary."""
-    if isinstance(tokenizer, HFTokenizer):
+    """(vision_start, image_pad, vision_end) token ids: the HF or
+    SentencePiece tokenizer's, else (hashing tokenizer, or one without all
+    three) the top three ids of the vocabulary."""
+    if not isinstance(tokenizer, HashTokenizer):
         trip = [_token_id(tokenizer, t)
                 for t in ("<|vision_start|>", "<|image_pad|>", "<|vision_end|>")]
         if all(isinstance(x, int) and x >= 0 for x in trip):
@@ -320,7 +322,7 @@ def _setup_image_store(config, dataload, tokenizer):
     if config.get("use_video", False):
         store = ItemVideoStore(config, dataload)
         vs, ip, ve = image_special_ids(tokenizer)
-        if isinstance(tokenizer, HFTokenizer):
+        if not isinstance(tokenizer, HashTokenizer):
             vp = _token_id(tokenizer, "<|video_pad|>")
             if isinstance(vp, int) and vp >= 0:
                 ip = vp

@@ -1700,3 +1700,204 @@ def test_row_parallel_partial_product_on_the_card(card, dtype):
     for got, want in ((x.grad, x2.grad), (layer.weight.grad, w2.grad)):
         tol = TOL[torch.bfloat16]
         torch.testing.assert_close(got, want, rtol=tol, atol=tol * float(want.abs().max()))
+
+
+# -- the SentencePiece readers against sentencepiece (the card's machine) ------------
+# Models that sentencepiece's own trainer learns from seeded texts; the
+# tests skip where sentencepiece does not import (the sandbox). Ids are
+# integers: exact equality. The port follows transformers 4.57 (the JAX
+# package's); the card's machine has another major version, whose
+# tokenizer classes differ, so these tests hold the port to sentencepiece
+# and tokenizers, and tests/test_torch_sentencepiece.py holds it to 4.57.
+SPM_FRAGMENTS = [
+    "hello", "world", "Title:", "Item", "café", "naïve", "Ångström", "Crème brûlée", "ÉCOLE",
+    "日本語", "中文字符", "한국어", "ひらがな", "ｶﾀｶﾅ", "Ｆｕｌｌ", "ﬁne", "½", "²³", "Ⅻ", "™",
+    "😀", "👍🏽", "🇯🇵", "❤️", "👩‍👩‍👧", "12345", "3.14159", "don't", "I'M", "<s>", "</s>",
+    "<unk>", "é", "가", "​", "﻿", "a-b", "x_y", "$9.99", "#tag",
+]
+SPM_SEPARATORS = [" ", " ", " ", "  ", "   ", "\t", "\n", "", " \n ", "　", "\xa0"]
+
+
+def _spm_texts(seed, n):
+    import random
+
+    rnd = random.Random(seed)
+    out = ["", " ", "  leading", "trailing  ", "a  b", "<s>x</s>", "x <unk>"]
+    for _ in range(n):
+        k = rnd.randint(1, 12)
+        text = "".join(rnd.choice(SPM_FRAGMENTS) + rnd.choice(SPM_SEPARATORS) for _ in range(k))
+        out.append(" " + text if rnd.random() < 0.2 else text)
+    return out
+
+
+SPM_KINDS = [(t, n, b) for t in ("bpe", "unigram") for n in ("identity", "nmt_nfkc")
+             for b in (True, False)]
+
+
+@pytest.fixture(scope="module")
+def spm_models(tmp_path_factory):
+    """{(model_type, normalization, byte_fallback): tokenizer.model path}."""
+    spm = pytest.importorskip("sentencepiece")
+    import io
+
+    root = tmp_path_factory.mktemp("spm_trained")
+    corpus = _spm_texts(1, 3000)
+    out = {}
+    for kind in SPM_KINDS:
+        model_type, norm, fallback = kind
+        buf = io.BytesIO()
+        spm.SentencePieceTrainer.train(
+            sentence_iterator=iter(t for t in corpus if t.strip()), model_writer=buf,
+            model_type=model_type, vocab_size=700, normalization_rule_name=norm,
+            byte_fallback=fallback, character_coverage=0.995, hard_vocab_limit=False,
+            user_defined_symbols=["<sep>"], minloglevel=2, num_threads=1)
+        path = root / ("_".join(map(str, kind)) + ".model")
+        path.write_bytes(buf.getvalue())
+        out[kind] = str(path)
+    return out
+
+
+SPM_IDS = ["_".join(map(str, k)) for k in SPM_KINDS]
+
+
+@pytest.mark.parametrize("kind", SPM_KINDS, ids=SPM_IDS)
+def test_native_encoder_matches_sentencepiece(spm_models, kind):
+    """``Processor`` (the encode behind ``spm:BaichuanTokenizer``) against
+    ``SentencePieceProcessor.encode``: ids and pieces."""
+    import sentencepiece as spm
+
+    from mhrec_tpu_torch.data import sentencepiece as port
+
+    path = spm_models[kind]
+    sp = spm.SentencePieceProcessor(model_file=path)
+    proc = port.Processor(port.read_model(path), path)
+    for text in _spm_texts(2, 300):
+        got = proc.encode(text)
+        assert [i for _, i in got] == sp.encode(text), (kind, text)
+        assert [p for p, _ in got] == sp.encode(text, out_type=str), (kind, text)
+
+
+@pytest.mark.parametrize("kind", SPM_KINDS, ids=SPM_IDS)
+def test_reader_lists_the_pieces_sentencepiece_lists(spm_models, kind):
+    """The port's protobuf reader against sentencepiece's view of the same
+    trained model: every piece, its score and its type. These are what
+    tests/test_torch_sentencepiece.py hands transformers' converters in place
+    of their sentencepiece extractor."""
+    import sentencepiece as spm
+
+    from mhrec_tpu_torch.data import sentencepiece as port
+
+    sp = spm.SentencePieceProcessor(model_file=spm_models[kind])
+    model = port.read_model(spm_models[kind])
+    assert len(model.pieces) == sp.get_piece_size()
+    assert model.model_type == {"unigram": port.UNIGRAM, "bpe": port.BPE}[kind[0]]
+    assert model.byte_fallback == kind[2] and model.normalizer_name == kind[1]
+    for i, (piece, score, t) in enumerate(model.pieces):
+        assert piece == sp.id_to_piece(i) and score == sp.get_score(i), i
+        assert (t == port.UNKNOWN) == sp.is_unknown(i) and (t == port.CONTROL) == sp.is_control(i)
+        assert (t == port.UNUSED) == sp.is_unused(i) and (t == port.BYTE) == sp.is_byte(i)
+    assert model.pieces[sp.piece_to_id("<sep>")][2] == port.USER_DEFINED
+
+
+@pytest.mark.parametrize("add_bos", [False, True])
+@pytest.mark.parametrize("kind", SPM_KINDS, ids=SPM_IDS)
+def test_baichuan_tokenizer_matches_sentencepiece(spm_models, kind, add_bos, tmp_path):
+    """A Baichuan2 directory (chip_smoke.py's tokenizer_config.json over a
+    trained model) through the port (``spm:BaichuanTokenizer``) against
+    sentencepiece's encode under the class's template, on texts without
+    its added tokens (their handling is held to transformers 4.57's slow
+    tokenizer in tests/test_torch_sentencepiece.py)."""
+    import json
+    import shutil
+
+    import sentencepiece as spm
+
+    import chip_smoke
+    from mhrec_tpu_torch.data.textset import build_tokenizer
+
+    d = tmp_path / "baichuan"
+    d.mkdir()
+    shutil.copy(spm_models[kind], d / "tokenizer.model")
+    (d / "config.json").write_text(json.dumps({"model_type": "baichuan", "vocab_size": 1024}))
+    chip_smoke.write_baichuan_config(str(d))
+    cfg = json.loads((d / "tokenizer_config.json").read_text())
+    cfg["add_bos_token"] = add_bos
+    (d / "tokenizer_config.json").write_text(json.dumps(cfg))
+    sp = spm.SentencePieceProcessor(model_file=spm_models[kind])
+    ours = build_tokenizer(str(d), 1024)
+    assert ours.kind == "spm:BaichuanTokenizer" and ours.vocab_size == sp.get_piece_size()
+    bos = [sp.piece_to_id("<s>")] if add_bos else []
+    texts = [t for t in _spm_texts(3, 200) if not any(x in t for x in ("<s>", "</s>", "<unk>"))]
+    for text in texts:
+        for n in (17, 256):
+            assert ours.encode(text, n) == bos + sp.encode(text)[:n - len(bos)], (text, n)
+
+
+def test_precompiled_reader_matches_a_real_nmt_nfkc_charsmap(spm_models):
+    """A trained nmt_nfkc model's charsmap: the port's Precompiled
+    normalizer against tokenizers' at every code point (each between two
+    letters, and after a base letter), and the port's sentencepiece
+    normalizer against ``SentencePieceProcessor.normalize``."""
+    import base64
+
+    import sentencepiece as spm
+    from tokenizers import normalizers
+
+    from mhrec_tpu_torch.data import hf_tokenizer
+    from mhrec_tpu_torch.data import sentencepiece as port
+
+    path = spm_models[("bpe", "nmt_nfkc", True)]
+    model = port.read_model(path)
+    assert model.normalizer_name == "nmt_nfkc" and len(model.charsmap) > 100_000
+    oracle = normalizers.Precompiled(model.charsmap)
+    ours = hf_tokenizer._Normalizer({"type": "Precompiled", "precompiled_charsmap":
+                                     base64.b64encode(model.charsmap).decode()})
+    cps = [c for c in range(1, 0x110000) if not 0xD800 <= c <= 0xDFFF]
+    for sep in ("|", "a"):
+        for i in range(0, len(cps), 4096):
+            chunk = "".join(sep + chr(c) for c in cps[i:i + 4096]) + sep
+            assert ours(chunk) == oracle.normalize_str(chunk), (sep, hex(cps[i]))
+    sp = spm.SentencePieceProcessor(model_file=path)
+    proc = port.Processor(model, path)
+    for text in _spm_texts(5, 300):
+        assert proc.normalize(text) == sp.normalize(text), text
+
+
+def test_chip_smoke_tokenizers_match_sentencepiece(tmp_path):
+    """The directories chip_smoke.py writes, read by sentencepiece: the
+    64,000-piece Baichuan2 model over the hllm_towers phase's texts gives
+    BAICHUAN_TOKENIZER_DIGEST through sentencepiece's own encode, as the
+    port's does; the 32,000-piece TinyLlama-layout tokenizer.model is a
+    model sentencepiece loads, with the pieces the port reads, and the port
+    gives TOKENIZER_MODEL_DIGEST (computed with transformers 4.57's
+    LlamaConverter in tests/test_torch_sentencepiece.py) over the
+    hllm_tokenizer phase's texts."""
+    import json
+
+    import chip_smoke
+    from mhrec_tpu_torch.data import sentencepiece as port
+    from mhrec_tpu_torch.data.textset import build_tokenizer
+
+    spm = pytest.importorskip("sentencepiece")
+    texts, T = chip_smoke.towers_texts()
+    d = tmp_path / "baichuan"
+    d.mkdir()
+    chip_smoke.write_baichuan_tokenizer(str(d), texts, 64_000, seed=0)
+    sp = spm.SentencePieceProcessor(model_file=str(d / "tokenizer.model"))
+    # Baichuan2's template adds nothing; the slow truncation keeps T ids
+    ids = [sp.encode(t)[:T] for t in texts]
+    assert chip_smoke.ids_digest(ids) == chip_smoke.BAICHUAN_TOKENIZER_DIGEST
+
+    d = tmp_path / "tinyllama"
+    d.mkdir()
+    (d / "config.json").write_text(json.dumps(chip_smoke.TINYLLAMA_1B))
+    cfg = chip_smoke.hllm_config(str(d), str(tmp_path))
+    n = chip_smoke.PRETRAINED_ITEMS
+    texts = chip_smoke.rendered_texts(cfg, chip_smoke.tokenizer_item_table(n, seed=0), n)
+    chip_smoke.write_llama_spm_tokenizer(str(d), texts, 32_000, seed=0)
+    sp = spm.SentencePieceProcessor(model_file=str(d / "tokenizer.model"))
+    pieces = port.read_model(str(d / "tokenizer.model")).pieces
+    assert [p for p, _, _ in pieces] == [sp.id_to_piece(i) for i in range(sp.get_piece_size())]
+    ours = build_tokenizer(str(d), 32_000)
+    got = [ours.encode(t, cfg["MAX_TEXT_LENGTH"]) for t in texts]
+    assert chip_smoke.ids_digest(got) == chip_smoke.TOKENIZER_MODEL_DIGEST

@@ -25,10 +25,10 @@ torch.set_num_threads(2)
 
 ROOT = Path(__file__).resolve().parents[1]
 SOURCES = sorted((ROOT / "mhrec_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-# the port depends on none of these: it parses .safetensors and reads
-# tokenizer.json itself
+# the port depends on none of these: it parses .safetensors and reads the
+# tokenizer files itself
 NEVER = ("jax", "jaxlib", "flax", "optax", "mhrec_tpu", "safetensors", "transformers",
-         "tokenizers", "regex", "sentencepiece")
+         "tokenizers", "regex", "sentencepiece", "google.protobuf", "tiktoken")
 NOT_AT_TOP = ("yaml", "pandas", "pyarrow", "PIL", "torchvision", "decord", "wandb",
               "tensorboardX")
 # scipy is a dependency of the offline tools alone
@@ -67,7 +67,8 @@ def _root(module):
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_forbidden_imports(path):
     for module, top in _imports(path.read_text()):
-        assert _root(module) not in NEVER, f"{path.name} imports {module}"
+        assert not any(module == n or module.startswith(n + ".") for n in NEVER), \
+            f"{path.name} imports {module}"
         if top:
             assert _root(module) not in NOT_AT_TOP, f"{path.name} imports {module} at module level"
 
@@ -246,7 +247,8 @@ _EVAL_MODES = """
 import glob, json, os, sys, tempfile
 
 # what the port runs without: importing it fails
-LACKING = ("pandas", "yaml", "pyarrow", "transformers", "tokenizers", "regex", "sentencepiece")
+LACKING = ("pandas", "yaml", "pyarrow", "transformers", "tokenizers", "regex", "sentencepiece",
+           "google.protobuf", "tiktoken")
 sys.modules.update({name: None for name in LACKING})
 import torch
 import chip_smoke
@@ -298,8 +300,23 @@ chip_smoke.write_llama_tokenizer(tower, chip_smoke.rendered_texts(cfg, hdata.ite
 trainer, _, result = serve(cfg, hdata, device="cpu")
 assert "pred_7" in result and trainer.host_table_stats["chunks"] == 3
 assert trainer._corpus_batcher.text_cache.tokenizer.kind == "hf:LlamaTokenizerFast"
+# the tokenizer.model readers: a TinyLlama-layout model converted, and a
+# Baichuan2 directory whose remote-code class runs natively
+from mhrec_tpu_torch.data.textset import build_tokenizer
+texts = chip_smoke.rendered_texts(cfg, hdata.item_text, 300)
+for name, write, kind in (("spm", chip_smoke.write_llama_spm_tokenizer, "hf:LlamaTokenizerFast"),
+                          ("baichuan", chip_smoke.write_baichuan_tokenizer,
+                           "spm:BaichuanTokenizer")):
+    d = os.path.join(work, name)
+    os.makedirs(d)
+    with open(os.path.join(d, "config.json"), "w") as fh:
+        json.dump({"model_type": "llama" if name == "spm" else "baichuan", "vocab_size": 1024}, fh)
+    write(d, texts, 1024)
+    tok = build_tokenizer(d, 1024)
+    assert tok.kind == kind and len(tok.encode(texts[1], 24)) == 24, (kind, tok.kind)
 bad = sorted(m for m, mod in sys.modules.items() if mod is not None
-             and m.split(".")[0] in {"jax", "jaxlib", "flax", "optax", "mhrec_tpu", *LACKING})
+             and any(m == n or m.startswith(n + ".")
+                     for n in ("jax", "jaxlib", "flax", "optax", "mhrec_tpu", *LACKING)))
 print("BAD", bad)
 """
 
@@ -309,10 +326,13 @@ def test_eval_modes_and_accumulation_run_without_what_the_card_lacks():
     the streamed GAUC / VALUE metrics, gradient accumulation and the HLLM
     host-memory corpus table (its tower directory holding a tokenizer.json)
     on the CPU in a fresh interpreter where pandas, PyYAML, pyarrow,
-    transformers, tokenizers, regex and sentencepiece cannot be imported
+    transformers, tokenizers, regex, sentencepiece, protobuf and tiktoken
+    cannot be imported
     (chip_smoke.py's configurations, cut to a few widths): each runs,
     ``results.pkl`` is skipped with one warning, the corpus pass tokenizes
-    with the port's HF tokenizer, and nothing forbidden is loaded."""
+    with the port's HF tokenizer, a ``tokenizer.model`` directory and a
+    Baichuan2 one tokenize without protobuf, sentencepiece or tiktoken, and
+    nothing forbidden is loaded."""
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     proc = subprocess.run([sys.executable, "-c", _EVAL_MODES], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
@@ -325,7 +345,8 @@ _HSTU_1B = """
 import json, sys, tempfile
 
 # what the port runs without: importing it fails
-LACKING = ("pandas", "yaml", "pyarrow", "transformers", "tokenizers", "regex", "sentencepiece")
+LACKING = ("pandas", "yaml", "pyarrow", "transformers", "tokenizers", "regex", "sentencepiece",
+           "google.protobuf", "tiktoken")
 sys.modules.update({name: None for name in LACKING})
 import torch
 import chip_smoke
@@ -376,7 +397,7 @@ import os, sys, tempfile
 
 # what the port runs without: importing it fails
 LACKING = ("safetensors", "transformers", "pandas", "yaml", "pyarrow", "tokenizers", "regex",
-           "sentencepiece")
+           "sentencepiece", "google.protobuf", "tiktoken")
 sys.modules.update({name: None for name in LACKING})
 import torch
 import chip_smoke
@@ -411,7 +432,8 @@ assert stats["iters"] == 2 and trainer.checkpoint_stats["asynchronous"]
 assert trainer.checkpoint_stats["bytes"] > 0 and "pred_7" in result
 assert trainer._corpus_batcher.text_cache.tokenizer.kind == "hf:LlamaTokenizerFast"
 bad = sorted(m for m, mod in sys.modules.items() if mod is not None
-             and m.split(".")[0] in {"jax", "jaxlib", "flax", "optax", "mhrec_tpu", *LACKING})
+             and any(m == n or m.startswith(n + ".")
+                     for n in ("jax", "jaxlib", "flax", "optax", "mhrec_tpu", *LACKING)))
 print("BAD", bad)
 """
 
@@ -421,7 +443,7 @@ import sys, tempfile
 
 # what the port runs without: importing it fails
 LACKING = ("pandas", "yaml", "pyarrow", "transformers", "tokenizers", "regex", "sentencepiece",
-           "safetensors")
+           "safetensors", "google.protobuf", "tiktoken")
 sys.modules.update({name: None for name in LACKING})
 import torch
 import chip_smoke
@@ -442,7 +464,8 @@ paths, failed, kernels = chip_smoke.baselines_phase(
 assert sorted(paths) == sorted(f"baselines_{f}{s}" for f in chip_smoke.BASELINE_FILES
                                for s in ("", "_serve"))
 bad = sorted(m for m, mod in sys.modules.items() if mod is not None
-             and m.split(".")[0] in {"jax", "jaxlib", "flax", "optax", "mhrec_tpu", *LACKING})
+             and any(m == n or m.startswith(n + ".")
+                     for n in ("jax", "jaxlib", "flax", "optax", "mhrec_tpu", *LACKING)))
 print("BAD", bad)
 """
 
@@ -478,7 +501,8 @@ def test_baselines_phase_runs_without_what_the_card_lacks():
 _DISTRIBUTED = """
 import json, sys, tempfile
 
-LACKING = ("pandas", "yaml", "pyarrow", "transformers", "tokenizers", "regex", "sentencepiece")
+LACKING = ("pandas", "yaml", "pyarrow", "transformers", "tokenizers", "regex", "sentencepiece",
+           "google.protobuf", "tiktoken")
 sys.modules.update({name: None for name in LACKING})
 import torch
 import chip_smoke
@@ -667,7 +691,7 @@ import sys, tempfile
 
 # what the port runs without: importing it fails
 LACKING = ("pandas", "yaml", "pyarrow", "transformers", "tokenizers", "regex", "sentencepiece",
-           "safetensors", "torchvision", "decord")
+           "safetensors", "torchvision", "decord", "google.protobuf", "tiktoken")
 sys.modules.update({name: None for name in LACKING})
 import torch
 import chip_smoke as c
@@ -695,7 +719,8 @@ assert not failed and set(paths) == {f"hllm_image_{v}_{p}" for p in ("serve", "t
                                      for v in ("video", "dynamic", "llava_anyres",
                                                "llava_dynamic")}
 bad = sorted(m for m, mod in sys.modules.items() if mod is not None
-             and m.split(".")[0] in {"jax", "jaxlib", "flax", "optax", "mhrec_tpu", *LACKING})
+             and any(m == n or m.startswith(n + ".")
+                     for n in ("jax", "jaxlib", "flax", "optax", "mhrec_tpu", *LACKING)))
 print("BAD", bad)
 """
 
@@ -727,7 +752,7 @@ _REFERENCE = """
 import json, sys, tempfile
 
 LACKING = ("pandas", "yaml", "pyarrow", "transformers", "tokenizers", "regex", "sentencepiece",
-           "scipy", "wandb", "tensorboardX")
+           "scipy", "wandb", "tensorboardX", "google.protobuf", "tiktoken")
 sys.modules.update({name: None for name in LACKING})
 import torch
 import chip_smoke
@@ -740,7 +765,8 @@ chip_smoke.reference_ckpt_phase(data_kw, tempfile.mkdtemp(), device="cpu", n_lay
                                 eval_batch_size=32, eval_item_chunk_size=300,
                                 MAX_ITEM_LIST_LENGTH=6)
 bad = sorted(m for m, mod in sys.modules.items() if mod is not None
-             and m.split(".")[0] in {"jax", "jaxlib", "flax", "optax", "mhrec_tpu", *LACKING})
+             and any(m == n or m.startswith(n + ".")
+                     for n in ("jax", "jaxlib", "flax", "optax", "mhrec_tpu", *LACKING)))
 print("BAD", bad)
 """
 

@@ -13,7 +13,15 @@ classes save with ``save_pretrained``, beside a ``config.json``:
   off;
 * Qwen2 byte-level BPE (NFC, the Qwen2 split regex, GPT-2's byte map);
 * BERT WordPiece, lower-cased and cased, and a ``vocab.txt``-only BERT
-  directory.
+  directory;
+* the slow files ``vocab.json`` / ``merges.txt`` without ``tokenizer.json``
+  (GPT-2, Qwen2, Qwen2-VL's added tokens), which ``transformers`` converts
+  with ``GPT2Converter`` / ``Qwen2Converter``;
+* a tiktoken ``tokenizer.model`` (ranks written from a seed), which
+  ``transformers`` converts with ``TikTokenConverter``, also held to
+  ``tiktoken`` itself;
+* ``Unigram`` (with and without byte fallback, with a ``Precompiled``
+  normalizer) and ``WordLevel`` models that ``tokenizers`` trains.
 
 Ids are integers, so the tolerance is exact equality. The texts come from a
 seed with numpy and cover ASCII, accents, CJK, emoji, digit runs, runs of
@@ -23,9 +31,11 @@ hypothesis test adds random Unicode text. The Unicode tables the port
 carries are held to ``tokenizers`` at every code point.
 """
 
+import base64
 import json
 import os
 import shutil
+import struct
 
 import numpy as np
 import pytest
@@ -265,6 +275,152 @@ def _drop_config_key(dirpath, key):
     return dirpath
 
 
+def _drop_tokenizer_json(dirpath):
+    """The slow files alone: what a directory saved by the slow class holds."""
+    os.remove(os.path.join(dirpath, "tokenizer.json"))
+    return dirpath
+
+
+def write_qwen2_vl_slow(dirpath):
+    """Qwen2's BPE with Qwen2-VL's added tokens (the vision markers among
+    them), as ``vocab.json`` / ``merges.txt`` / ``tokenizer_config.json``."""
+    tok = Tokenizer.from_file(os.path.join(write_qwen2(dirpath + "_json"), "tokenizer.json"))
+    fast = Qwen2TokenizerFast(tokenizer_object=tok, unk_token=None,
+                              additional_special_tokens=list(chip_smoke.QWEN2_VL_ADDED[1:]))
+    fast.save_pretrained(dirpath)
+    shutil.rmtree(dirpath + "_json")
+    _write_config(dirpath, "qwen2_vl", 1024)
+    return _drop_tokenizer_json(dirpath)
+
+
+def tiktoken_ranks():
+    """Byte-level ranks learned from the seeded corpus: the 256 bytes, then
+    the most frequent byte strings of its words (with a leading space or
+    not) whose prefix one shorter has a rank."""
+    import collections
+
+    ranks = [bytes([b]) for b in range(256)]
+    have = set(ranks)
+    counts = collections.Counter()
+    for text in make_corpus():
+        for w in text.split(" "):
+            for word in (w.encode(), (" " + w).encode()):
+                for i in range(2, len(word) + 1):
+                    counts[word[:i]] += 1
+    for piece, _ in sorted(counts.items(), key=lambda kv: (-kv[1], kv[0])):
+        if len(ranks) >= 700:
+            break
+        if piece[:-1] in have and piece not in have:
+            ranks.append(piece)
+            have.add(piece)
+    return ranks
+
+
+def write_tiktoken(dirpath, cls="PreTrainedTokenizerFast"):
+    """A tiktoken rank file as ``tokenizer.model`` (Llama-3's
+    ``original/`` layout), with additional special tokens."""
+    os.makedirs(dirpath)
+    with open(os.path.join(dirpath, "tokenizer.model"), "w") as fh:
+        fh.writelines(f"{base64.b64encode(t).decode()} {i}\n"
+                      for i, t in enumerate(tiktoken_ranks()))
+    with open(os.path.join(dirpath, "tokenizer_config.json"), "w") as fh:
+        json.dump({"tokenizer_class": cls,
+                   "additional_special_tokens": ["<|begin_of_text|>", "<|eot_id|>"]}, fh)
+    _write_config(dirpath, "llama", 1024)
+    return dirpath
+
+
+def _unigram_object(byte_fallback=False, precompiled=None):
+    tok = Tokenizer(models.Unigram())
+    if precompiled is not None:
+        tok.normalizer = normalizers.Sequence([normalizers.Precompiled(precompiled),
+                                               normalizers.Replace(Regex(" {2,}"), " "),
+                                               normalizers.Strip(left=False, right=True)])
+    tok.pre_tokenizer = pre_tokenizers.Metaspace(prepend_scheme="always")
+    specials = ["<unk>", "<s>", "</s>"] + (
+        [f"<0x{b:02X}>" for b in range(256)] if byte_fallback else [])
+    tok.train_from_iterator(make_corpus(), trainers.UnigramTrainer(
+        vocab_size=300 + len(specials), show_progress=False, special_tokens=specials,
+        unk_token="<unk>"))
+    if byte_fallback:
+        spec = json.loads(tok.to_str())
+        spec["model"]["byte_fallback"] = True
+        tok = Tokenizer.from_str(json.dumps(spec))
+    tok.post_processor = processors.TemplateProcessing(
+        single="<s> $A </s>", special_tokens=[("<s>", 1), ("</s>", 2)])
+    return tok
+
+
+def write_unigram(dirpath, byte_fallback=False, precompiled=None):
+    """A SentencePiece-style Unigram tokenizer.json (T5's / XLM-R's kind)."""
+    PreTrainedTokenizerFast(tokenizer_object=_unigram_object(byte_fallback, precompiled),
+                            unk_token="<unk>", bos_token="<s>", eos_token="</s>"
+                            ).save_pretrained(dirpath)
+    _write_config(dirpath, "llama", 1024)
+    return dirpath
+
+
+def write_wordlevel(dirpath):
+    tok = Tokenizer(models.WordLevel(unk_token="<unk>"))
+    tok.normalizer = normalizers.Lowercase()
+    tok.pre_tokenizer = pre_tokenizers.Whitespace()
+    tok.train_from_iterator(make_corpus(), trainers.WordLevelTrainer(
+        vocab_size=300, show_progress=False, special_tokens=["<unk>", "<s>", "</s>"]))
+    tok.post_processor = processors.TemplateProcessing(
+        single="<s> $A </s>", special_tokens=[("<s>", 1), ("</s>", 2)])
+    PreTrainedTokenizerFast(tokenizer_object=tok, unk_token="<unk>", bos_token="<s>",
+                            eos_token="</s>").save_pretrained(dirpath)
+    _write_config(dirpath, "llama", 1024)
+    return dirpath
+
+
+def charsmap_blob(mapping):
+    """A precompiled charsmap: a darts-clone double array (a block of 256
+    units for each node's children, the leaf unit holding the value with its
+    top bit set) over the keys' UTF-8, then the values, NUL-terminated."""
+    strings, offsets = bytearray(), {}
+    for k, v in mapping.items():
+        offsets[k] = len(strings)
+        strings += v.encode("utf-8") + b"\x00"
+    trie = {}
+    for k in mapping:
+        node = trie
+        for b in k.encode("utf-8"):
+            node = node.setdefault(b, {})
+        node[None] = offsets[k]
+    units = [0] * 256
+
+    def place(node, pos):
+        base = len(units)
+        units.extend([0] * 256)
+        units[pos] |= (pos ^ base) << 10
+        for c, child in node.items():
+            if c is None:
+                units[base] = child | (1 << 31)
+                units[pos] |= 1 << 8
+            else:
+                units[base ^ c] = c
+        for c, child in node.items():
+            if c is not None:
+                place(child, base ^ c)
+
+    place(trie, 0)
+    body = struct.pack(f"<{len(units)}I", *units)
+    return struct.pack("<I", len(body)) + body + bytes(strings)
+
+
+# nmt_nfkc-like rules: compatibility forms, ligatures, fractions, a key of
+# two characters (halfwidth katakana and its sound mark), removals and
+# widenings
+CHARSMAP = {"Ａ": "A", "ｂ": "b", "ﬁ": "fi", "½": "1⁄2", "™": "TM", "　": " ", "\u200b": "",
+            "\u00ad": "", "Ⅻ": "XII", "ｶﾞ": "ガ", "ｶ": "カ", "ﾞ": "゙", "²": "2", "❤": "♥",
+            "👍": "+1", "e\u0301": "é", "\u1100\u1161": "가", "\r\n": "\n", "…": "..."}
+
+
+def precompiled_blob():
+    return charsmap_blob(CHARSMAP)
+
+
 DIRS = {
     "llama_legacy_layout": lambda d: write_llama(d, "legacy", legacy=True),
     "llama_legacy_layout_legacy_false": lambda d: write_llama(d, "legacy", legacy=False),
@@ -285,6 +441,20 @@ DIRS = {
     "bert_uncased": lambda d: write_bert(d, lower=True),
     "bert_cased": lambda d: write_bert(d, lower=False),
     "bert_vocab_txt": lambda d: write_bert(d, vocab_only=True),
+    "gpt2_vocab_merges": lambda d: _drop_tokenizer_json(write_gpt2(d, False)),
+    "gpt2_vocab_merges_prefix_space": lambda d: _drop_tokenizer_json(write_gpt2(d, True)),
+    "qwen2_vocab_merges": lambda d: _drop_tokenizer_json(write_qwen2(d)),
+    "qwen2_vl_vocab_merges": write_qwen2_vl_slow,
+    # an older save: added_tokens.json and special_tokens_map.json, no
+    # added_tokens_decoder in the config
+    "qwen2_vl_added_tokens_json": lambda d: _drop_config_key(write_qwen2_vl_slow(d),
+                                                             "added_tokens_decoder"),
+    "tiktoken": write_tiktoken,
+    "tiktoken_llama_class": lambda d: write_tiktoken(d, "LlamaTokenizer"),
+    "unigram": write_unigram,
+    "unigram_byte_fallback": lambda d: write_unigram(d, byte_fallback=True),
+    "unigram_precompiled": lambda d: write_unigram(d, precompiled=precompiled_blob()),
+    "wordlevel": write_wordlevel,
 }
 
 
@@ -313,7 +483,7 @@ def test_encode_matches_jax(tok_dirs, name):
 
 
 FAMILIES = ("llama_legacy_layout", "llama_metaspace", "qwen2", "bert_uncased", "gpt2",
-            "generic")
+            "generic", "qwen2_vocab_merges", "tiktoken", "unigram_precompiled", "wordlevel")
 
 
 @pytest.mark.parametrize("name", FAMILIES)
@@ -389,46 +559,88 @@ def test_hash_tokenizer_where_jax_hashes(tok_dirs, tmp_path, case):
     assert ours.encode("hello world", 8) == ref.encode("hello world", 8)
 
 
-@pytest.mark.parametrize("case", ["tokenizer_model", "tiktoken", "vocab_json_merges",
-                                  "bad_json", "unigram", "wordlevel", "unknown_normalizer",
-                                  "unknown_class", "regex_script_class"])
+@pytest.mark.parametrize("case", ["bad_json", "unknown_class", "regex_script_class",
+                                  "malformed_tokenizer_model", "remote_code_class",
+                                  "bpe_dropout", "tiktoken_layout"])
 def test_what_the_port_cannot_tokenize_raises(tok_dirs, tmp_path, case):
+    """What the JAX package cannot load either (its transformers raises and
+    it hashes) or what the port does not run raises, naming the file or the
+    component."""
     d = tmp_path / case
     d.mkdir()
     _write_config(str(d), "llama", 1024)
     spec = json.loads((open(os.path.join(tok_dirs["qwen2"], "tokenizer.json")).read()))
     match = case
-    if case == "tokenizer_model":
-        (d / "tokenizer.model").write_bytes(b"\x00")
-        match = "tokenizer.model"
-    elif case == "tiktoken":
-        (d / "cl100k.tiktoken").write_text("")
-        match = "tiktoken"
-    elif case == "vocab_json_merges":
-        (d / "vocab.json").write_text("{}")
-        (d / "merges.txt").write_text("")
-        match = "vocab.json"
-    elif case == "bad_json":
+    if case == "bad_json":
         (d / "tokenizer.json").write_text("{")
         match = "not JSON"
-    elif case in ("unigram", "wordlevel"):
-        spec["model"] = {"type": "Unigram" if case == "unigram" else "WordLevel", "vocab": []}
-        (d / "tokenizer.json").write_text(json.dumps(spec))
-        match = "Unigram" if case == "unigram" else "WordLevel"
-    elif case == "unknown_normalizer":
-        spec["normalizer"] = {"type": "Precompiled", "precompiled_charsmap": ""}
-        (d / "tokenizer.json").write_text(json.dumps(spec))
-        match = "Precompiled"
     elif case == "unknown_class":
         shutil.copy(os.path.join(tok_dirs["qwen2"], "tokenizer.json"), d)
         (d / "tokenizer_config.json").write_text(json.dumps({"tokenizer_class": "T5Tokenizer"}))
         match = "T5TokenizerFast"
-    else:
+    elif case == "regex_script_class":
         spec["pre_tokenizer"]["pretokenizers"][0]["pattern"]["Regex"] = r"\p{Han}+"
         (d / "tokenizer.json").write_text(json.dumps(spec))
         match = "Han"
+    elif case == "malformed_tokenizer_model":
+        (d / "tokenizer.model").write_bytes(b"\x0a\x05ab")
+        match = "tokenizer.model"
+    elif case == "remote_code_class":
+        shutil.copy(os.path.join(tok_dirs["qwen2"], "tokenizer.json"), d)
+        (d / "tokenizer_config.json").write_text(json.dumps(
+            {"auto_map": {"AutoTokenizer": ["tokenization_chatglm.ChatGLMTokenizer", None]}}))
+        match = "tokenization_chatglm.ChatGLMTokenizer"
+    elif case == "bpe_dropout":
+        spec["model"]["dropout"] = 0.1
+        (d / "tokenizer.json").write_text(json.dumps(spec))
+        match = "dropout"
+    else:  # a *.tiktoken file: transformers reads none for these families
+        shutil.copy(os.path.join(tok_dirs["tiktoken"], "tokenizer.model"),
+                    d / "cl100k_base.tiktoken")
+        match = "cl100k_base.tiktoken"
     with pytest.raises(NotImplementedError, match=match):
         build_tokenizer(str(d), 1024)
+
+
+def test_tiktoken_file_for_a_slow_bpe_class_raises(tok_dirs, tmp_path):
+    """A tiktoken tokenizer.model under Qwen2's class: transformers passes it
+    as Qwen2Tokenizer's vocab.json and fails; the port names the file."""
+    d = tmp_path / "qwen2_tiktoken"
+    d.mkdir()
+    _write_config(str(d), "qwen2", 1024)
+    shutil.copy(os.path.join(tok_dirs["tiktoken"], "tokenizer.model"), d)
+    with pytest.raises(NotImplementedError, match="tokenizer.model"):
+        build_tokenizer(str(d), 1024)
+
+
+def test_tiktoken_matches_tiktoken(tok_dirs):
+    """The tiktoken layout against tiktoken's own encoder over the same
+    ranks, pattern and special tokens (PreTrainedTokenizerFast adds no
+    template)."""
+    import tiktoken
+
+    ranks = tiktoken_ranks()
+    enc = tiktoken.Encoding(
+        "seeded", pat_str=hf_tokenizer._TIKTOKEN_PATTERN,
+        mergeable_ranks={t: i for i, t in enumerate(ranks)},
+        special_tokens={"<|begin_of_text|>": len(ranks), "<|eot_id|>": len(ranks) + 1})
+    ours = build_tokenizer(tok_dirs["tiktoken"], 1024)
+    texts = make_texts() + ["<|begin_of_text|>hello<|eot_id|> world", "x<|eot_id|>"]
+    for text in texts:
+        assert ours.encode(text, 10**6) == enc.encode(text, allowed_special="all"), text
+
+
+def test_qwen2_vl_vocab_merges_gives_jax_vision_ids(tok_dirs):
+    """Qwen2-VL's vision markers from the slow files: the ids that
+    image_special_ids finds in both packages, after the vocabulary."""
+    from mhrec_tpu.data.textset import image_special_ids as jax_image_special_ids
+    from mhrec_tpu_torch.data.textset import image_special_ids
+
+    d = tok_dirs["qwen2_vl_vocab_merges"]
+    ref, ours = _pair(d)
+    want = jax_image_special_ids(ref)
+    assert image_special_ids(ours) == want
+    assert min(want) >= ours.vocab_size and len(set(want)) == 3
 
 
 # -- the Unicode tables, at every code point -------------------------------------

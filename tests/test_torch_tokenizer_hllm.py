@@ -18,10 +18,19 @@ tokens (the item prompt and "Title:" take the first 16 of every item):
 * the corpus pass's item embeddings to 1e-5 (``tests/test_torch_hllm.py``'s
   tolerance for float32 embeddings) and the train loss to rtol 1e-5
   (``tests/test_torch_hllm_train.py``'s).
+
+The token rows, the disk cache and the item embeddings are held again
+with the towers' tokenizer in two slow layouts: Qwen2's ``vocab.json`` /
+``merges.txt`` (the JAX package loads it through ``transformers``'
+``Qwen2Converter``) and TinyLlama's ``tokenizer.model`` alone (the JAX
+side's ``AutoTokenizer`` answered by ``transformers``' ``LlamaConverter``
+through a test monkeypatch, since its own path needs ``sentencepiece``;
+``tests/test_torch_sentencepiece.py`` says how).
 """
 
 import json
 import os
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -40,7 +49,7 @@ from mhrec_tpu.data.textset import build_tokenizer as jax_build_tokenizer
 from mhrec_tpu.trainer import Trainer as JaxTrainer
 from mhrec_tpu_torch.config import Config
 from mhrec_tpu_torch.convert import state_dict_from_flax
-from mhrec_tpu_torch.data.hf_tokenizer import HFTokenizer
+from mhrec_tpu_torch.data.hf_tokenizer import HFTokenizer, files_digest
 from mhrec_tpu_torch.data.textset import (BatchTextBatcher, ItemTextCache, TextSEQTrainBatcher,
                                           build_tokenizer)
 from mhrec_tpu_torch.trainer import Trainer
@@ -199,3 +208,95 @@ def test_train_loss_matches_jax(slice_setup, models):
         out = tt.model(tt._train_device_batch(batch), generator=tt.step_generator(0))
     assert np.isfinite(float(loss))
     np.testing.assert_allclose(out["loss"].item(), float(loss), rtol=LOSS_TOL)
+
+
+# -- the same slice through the slow layouts ------------------------------------------
+LAYOUTS = ("qwen2_vocab_merges", "llama_tokenizer_model")
+
+
+@pytest.fixture(scope="module")
+def layouts(slice_setup):
+    """The towers' directory twice more, its tokenizer in another layout:
+    Qwen2's slow ``vocab.json`` / ``merges.txt`` (``Qwen2Tokenizer`` in the
+    config), and TinyLlama's without ``tokenizer.json``: only the
+    ``tokenizer.model`` of ``chip_smoke.write_llama_spm_tokenizer``
+    (vocabulary 1024) beside the same ``config.json``."""
+    from test_torch_tokenizer import write_qwen2
+
+    s = slice_setup
+    texts = chip_smoke.rendered_texts(s["jcfg"], s["jdata"].item_text, s["jdata"].item_num)
+    out = {}
+    for name in LAYOUTS:
+        d = str(s["tmp"] / name)
+        if name == "qwen2_vocab_merges":
+            write_qwen2(d)
+            os.remove(os.path.join(d, "tokenizer.json"))
+        else:
+            os.makedirs(d)
+            chip_smoke.write_llama_spm_tokenizer(d, texts, 1024)
+        shutil.copy(os.path.join(s["tok_dir"], "config.json"), d)
+        over = dict(s["over"], item_pretrain_dir=d, user_pretrain_dir=d)
+        out[name] = dict(dir=d, jcfg=JaxConfig(config_file_list=YAMLS, config_dict=over).finalize(),
+                         tcfg=Config(config_file_list=YAMLS, config_dict=over).finalize())
+    return out
+
+
+@pytest.fixture
+def jax_sees(monkeypatch):
+    """The JAX package's AutoTokenizer, with the tokenizer.model layout
+    answered by transformers' LlamaConverter (sentencepiece, which its own
+    path needs, is not installed here): ``_HFTokenizerWrapper`` around it."""
+    import transformers
+    from test_torch_sentencepiece import oracle
+
+    original = transformers.AutoTokenizer.from_pretrained
+
+    def from_pretrained(path, *args, **kwargs):
+        if str(path).endswith("llama_tokenizer_model"):
+            return oracle(str(path)).tok
+        return original(path, *args, **kwargs)
+
+    monkeypatch.setattr(transformers.AutoTokenizer, "from_pretrained", from_pretrained)
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_slow_layouts_token_rows_and_disk_cache_match_jax(slice_setup, layouts, jax_sees,
+                                                          layout):
+    s, lay = slice_setup, layouts[layout]
+    jt, tt = jax_build_tokenizer(lay["dir"], 1024), build_tokenizer(lay["dir"], 1024)
+    assert isinstance(jt, _HFTokenizerWrapper) and isinstance(tt, HFTokenizer)
+    assert tt.kind == {"qwen2_vocab_merges": "hf:Qwen2TokenizerFast",
+                       "llama_tokenizer_model": "hf:LlamaTokenizerFast"}[layout]
+    args = (s["tcfg"]["text_keys"], s["tcfg"]["item_prompt"], s["tcfg"]["MAX_TEXT_LENGTH"])
+    ref, ours = JaxItemTextCache(s["jdata"], jt, *args), ItemTextCache(s["jdata"], tt, *args)
+    ids = np.arange(s["jdata"].item_num)
+    want = ref.batch(ids)
+    for a, b in zip(ours.batch(ids), want):
+        np.testing.assert_array_equal(a, b)
+    assert (want[0] >= 4).sum() > 1000 and want[0].max() < 1024
+    ref.build_disk_cache(str(s["tmp"] / f"jax_cache_{layout}"), "SynthRec", len(ids))
+    ours.build_disk_cache(str(s["tmp"] / f"torch_cache_{layout}"), "SynthRec", len(ids))
+    again = ItemTextCache(s["jdata"], build_tokenizer(lay["dir"], 1024), *args)
+    assert again.load_disk_cache(str(s["tmp"] / f"torch_cache_{layout}"), "SynthRec", len(ids))
+    np.testing.assert_array_equal(again._matrix, ref._matrix)
+    np.testing.assert_array_equal(again._lens, ref._lens)
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_slow_layouts_item_embeddings_match_jax(slice_setup, layouts, models, jax_sees, layout):
+    """The packed corpus pass over every item through each layout, on the
+    towers of ``models``."""
+    from types import SimpleNamespace
+
+    s, lay = slice_setup, layouts[layout]
+    jt, tt, params = models
+    jt.state = SimpleNamespace(params=jax.tree.map(jnp.asarray, params))
+    jt.extra_vars = {}
+    jt._corpus_batcher = JaxBatchTextBatcher(lay["jcfg"], s["jdata"])
+    tt._corpus_batcher = BatchTextBatcher(lay["tcfg"], s["jdata"])
+    used = tt._corpus_batcher.text_cache.tokenizer
+    assert isinstance(used, HFTokenizer) and used.files_digest == files_digest(lay["dir"])
+    ref = np.asarray(jt.compute_item_feature(return_host=True))
+    out = tt.compute_item_feature()
+    assert out.shape == ref.shape == (300, 64)
+    np.testing.assert_allclose(out.numpy(), ref, rtol=TOL, atol=TOL)
