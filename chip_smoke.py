@@ -526,6 +526,7 @@ KERNELS = {
         name="hstu_stu_gated_fwd", source="mhrec_tpu_torch/csrc/hstu_stu_gated_fwd.cu",
         replaces="mhrec_tpu/ops/pallas/hstu_attention_tpu.py:497",
         products="bf16: tensor cores, mma.sync m16n8k16; f32: CUDA cores",
+        f32_source="mhrec_tpu_torch/csrc/hstu_stu_f32.cu",
     ),
     "attn": dict(
         name="hstu_attn_fwd", source="mhrec_tpu_torch/csrc/hstu_attn_fwd.cu",
@@ -536,6 +537,7 @@ KERNELS = {
         name="hstu_stu_gated_bwd", source="mhrec_tpu_torch/csrc/hstu_stu_gated_bwd.cu",
         replaces="mhrec_tpu/ops/pallas/hstu_attention_tpu.py:537",
         products="bf16: tensor cores, mma.sync m16n8k16; f32: CUDA cores",
+        f32_source="mhrec_tpu_torch/csrc/hstu_stu_f32.cu",
     ),
     "attn_bwd": dict(
         name="hstu_attn_bwd", source="mhrec_tpu_torch/csrc/hstu_attn_bwd.cu",
@@ -597,8 +599,11 @@ def kernel_phase(kind, shape_name, B, L, H, d, dtype, seed=0):
     attention kernel or STU backward kernel whose bfloat16 route runs on
     the tensor cores is also timed on its CUDA-core route
     (``cuda_core_ms``), so that the two designs are compared in one call on
-    one card. Times are the device's (``device_ms``), each beside its wall
-    time (``host_ms``: plain, kernel, kernel, plain). The
+    one card; the fused STU kernels in float32 name their form and cluster
+    size, must give the same bits on a repeat (``repeat_bit_equal``), and
+    in the cluster form are also timed on the query-tile kernels
+    (``query_tiles_ms``). Times are the device's (``device_ms``), each
+    beside its wall time (``host_ms``: plain, kernel, kernel, plain). The
     comparison and timing launches are counted outside the main paths'
     runs."""
     import torch
@@ -622,11 +627,28 @@ def kernel_phase(kind, shape_name, B, L, H, d, dtype, seed=0):
     fns = {"plain": lambda: plain(*args), "kernel": lambda: fn(*args)}
     if kind in ("attn", "stu_bwd", "attn_bwd") and route == "tensor_cores":
         fns["cuda_core"] = lambda: fn(*args, route="cuda_cores")
+    if kind in ("stu", "stu_bwd") and dtype == torch.float32:
+        # the float32 form (a cluster of blocks a batch row, or query
+        # tiles), its cluster size, a repeat's bits; the cluster form is
+        # timed beside the query-tile kernels in the same call
+        from mhrec_tpu_torch.ops import hstu_attention_cuda as K
+
+        rec["form"] = K.stu_gated_f32_form(L, H, d, d, backward=kind == "stu_bwd")
+        rec["cluster"] = K.stu_f32_cluster(H)[0] if rec["form"] == "cluster" else None
+        again = fn(*args)
+        torch.cuda.synchronize()
+        again = again if isinstance(again, tuple) else (again,)
+        rec["repeat_bit_equal"] = all(torch.equal(a, b) for a, b in zip(outs, again))
+        rec["ok"] = rec["ok"] and rec["repeat_bit_equal"]
+        if rec["form"] == "cluster":
+            fns["query_tiles"] = lambda: fn(*args, form="query_tiles")
     t = timings(fns)
     # device times; the host's wall times beside them (host_ms)
     (rec["ms"], rec["host_ms"]), (rec["plain_ms"], rec["plain_host_ms"]) = t["kernel"], t["plain"]
     if "cuda_core" in t:
         rec["cuda_core_ms"], rec["cuda_core_host_ms"] = t["cuda_core"]
+    if "query_tiles" in t:
+        rec["query_tiles_ms"], rec["query_tiles_host_ms"] = t["query_tiles"]
     rec["bound_ms"], rec["bound_by"] = bound_ms(kind, args)
     emit(rec)
     return rec
@@ -2152,10 +2174,14 @@ DIST_STEP_TAGS = ("grad_all_reduce", "pool_gather", "pool_gather_grad", "dedup_g
 # TinyLlama-1.1B width cut to DIST_HLLM_LAYERS + DIST_HLLM_LAYERS layers,
 # its towers in float32; the global batch is HLLM_TRAIN_BATCH (4 rows a rank)
 DIST_HLLM_LAYERS = 2
-DIST_HLLM_STEPS = 2  # 3 until the baselines and the sharded table joined (a depth cut)
+# 3 until the baselines and the sharded table joined, 2 until the script
+# passed 1,200 s on slower machines (depth cuts; a step of (g1) is 12-16 s
+# of host-staged collectives)
+DIST_HLLM_STEPS = 1
 # 512 users and 2,048 items until (f) joined the phase, 256 and 1,024 until
-# (g) joined it (depth cuts; a top-k of 200 needs more than 224 items)
-DIST_HLLM_DATA = dict(num_users=128, num_items=384, seq_len=2 * 24 + 2 * 8,
+# (g) joined it, 384 items until the script passed 1,200 s on slower
+# machines (depth cuts; a top-k of 200 needs more than 224 items)
+DIST_HLLM_DATA = dict(num_users=128, num_items=256, seq_len=2 * 24 + 2 * 8,
                       num_categories=11, eval_pred_len=8, max_item_list_length=24, seed=0,
                       item_texts=True)
 # the collectives of an HLLM step and of its evaluations' corpus passes
@@ -4008,6 +4034,9 @@ def _distributed_phase(work_dir, smi, device="cuda", data_kw=DIST_HSTU_DATA, hll
                                              os.path.join(disk_dir, "oracle"), **gloo_over,
                                              sparse_adam_global_dedup=True)), data, device)
             oracle_seconds = time.perf_counter() - t_oracle
+            # the oracle's evaluation buffers back to the card while the four
+            # ranks run on (their evaluations ran out of memory beside them)
+            _release(device)
         finally:
             for name, group in started.items():
                 runs[name] = gloo_ranks_finish(group)
@@ -4668,6 +4697,9 @@ BASELINE_BATCH = 64
 # 10 until the distributed phase joined the script, 4 until its baselines
 # run joined it (depth cuts: (d) trains every family too)
 BASELINE_STEPS = 2
+# ComiRec's and REMI's train steps timed on each float32 form of #1 / #4,
+# each of its two turns
+BASELINE_FORM_STEPS = 2
 # the shared negative pool a step (reproduce/HSTU-Pixel8M-base.sh, per chip)
 BASELINE_POOL = 8192
 # SASRec and LLMIDRec draw num_negatives for EVERY position: at the
@@ -4738,6 +4770,42 @@ def baseline_config(family, checkpoint_dir, user_dir=None, **over):
     return Config(config_file_list=list(BASELINE_FILES[family]), config_dict=d).finalize()
 
 
+@contextlib.contextmanager
+def stu_f32_form(form):
+    """The STU trunk's fused block on one float32 form of #1 / #4 (and so of
+    its backward) for the duration: the trunk's ``hstu_stu_gated_fwd``
+    patched with ``form``; the launch counts go on as before."""
+    import functools
+
+    from mhrec_tpu_torch.models.idnet import hstu as trunk
+    from mhrec_tpu_torch.ops import hstu_attention_cuda as K
+
+    trunk.hstu_stu_gated_fwd = functools.partial(K.hstu_stu_gated_fwd, form=form)
+    try:
+        yield
+    finally:
+        trunk.hstu_stu_gated_fwd = K.hstu_stu_gated_fwd
+
+
+def stu_form_ab(trainer, stream=None, loader=None, steps=BASELINE_FORM_STEPS):
+    """A ComiRec / REMI trainer's train steps (``stream``) or evaluation of
+    ``loader`` with #1 / #4 on the query-tile kernels and on the cluster
+    kernels, in turns (query tiles, cluster, cluster, query tiles), in one
+    call on one card: examples/s or users/s of each turn."""
+    out = {"query_tiles": [], "cluster": []}
+    for form in ("query_tiles", "cluster", "cluster", "query_tiles"):
+        with stu_f32_form(form):
+            if stream is not None:
+                out[form].append(_timed_steps(trainer, stream, steps))
+            else:
+                _sync(trainer)
+                t0 = time.perf_counter()
+                trainer.evaluate(loader)
+                _sync(trainer)
+                out[form].append(len(loader) / (time.perf_counter() - t0))
+    return out
+
+
 def baselines_phase(data, work_dir, device=None, families=tuple(BASELINE_FILES),
                     position_negatives=None, user_llm=None, **over):
     """The five baselines through the entry points a user calls, at full
@@ -4746,8 +4814,9 @@ def baselines_phase(data, work_dir, device=None, families=tuple(BASELINE_FILES),
 
     * kernel holds (on the card): #1 ``hstu_stu_gated_fwd`` and #4
       ``hstu_stu_gated_bwd`` in float32, the route ComiRec's and REMI's
-      trunk takes (CUDA cores), at their serve (1024) and train (64)
-      batches, window 50, 16 heads of 64, against the plain versions;
+      trunk takes (CUDA cores, a cluster of 8 blocks a batch row), at their
+      serve (1024) and train (64) batches, window 50, 16 heads of 64,
+      against the plain versions, a repeat bit for bit;
     * ``baselines_<family>``: ``run.train`` (BASELINE_STEPS steps, an
       evaluation of the valid split with a best-checkpoint save, the test
       split from it); #7 once a step, and for ComiRec / REMI #1 16 times a
@@ -4761,7 +4830,10 @@ def baselines_phase(data, work_dir, device=None, families=tuple(BASELINE_FILES),
       few users equals a dense sort (``check_streamed_topk``); #1 16 times
       an eval batch for ComiRec / REMI, no kernel for the others;
     * a second run from the same seed: a fresh trainer's first step gives
-      the first run's first loss, bit for bit.
+      the first run's first loss, bit for bit;
+    * ComiRec and REMI (on the card): BASELINE_FORM_STEPS train steps and a
+      warm evaluation with #1 / #4 forced onto each float32 form, in turns
+      (``f32_form_examples_per_s``, ``f32_form_users_per_s``).
 
     SASRec and LLMIDRec take ``position_negatives`` per position (None:
     ``pick_position_negatives``). ``user_llm``: LLMIDRec's tower config
@@ -4785,7 +4857,7 @@ def baselines_phase(data, work_dir, device=None, families=tuple(BASELINE_FILES),
                                         ("stu_bwd", "comirec_serve", 1024)):
                 rec = kernel_recs[f"{kind}/{shape_name}"] = kernel_phase(
                     kind, shape_name, B, 50, 16, 64, torch.float32)
-                if not (rec["ok"] and rec["route"] == "cuda_cores"):
+                if not (rec["ok"] and rec["route"] == "cuda_cores" and rec["form"] == "cluster"):
                     failed.append(f"baselines/{kind}/{shape_name}")
         torch.cuda.empty_cache()
     user_llm = user_llm or dict(TINYLLAMA_1B, num_hidden_layers=BASELINE_LLM_LAYERS)
@@ -4852,6 +4924,12 @@ def baselines_phase(data, work_dir, device=None, families=tuple(BASELINE_FILES),
             kernel_recs["row_adamw/sasrec"] = row
             train_ok = train_ok and row["ok"]
         first_loss = trainer.fetched_losses[0]
+        if layers and dev.type == "cuda":
+            # the train step with #1 / #4 on each float32 form, in turns
+            loader = build_dataloader(config, data)[0]
+            stream = itertools.chain.from_iterable(
+                loader.epoch_batches(e) for e in itertools.count(1))
+            rec["f32_form_examples_per_s"] = stu_form_ab(trainer, stream=stream)
         del trainer
         if dev.type == "cuda":
             torch.cuda.empty_cache()
@@ -4874,6 +4952,9 @@ def baselines_phase(data, work_dir, device=None, families=tuple(BASELINE_FILES),
         serve_peak = _peak_gb(dev)
         with torch.no_grad():
             topk_ok = check_streamed_topk(trainer, next(iter(test_loader.batches())))
+        if layers and dev.type == "cuda":
+            # the evaluation with #1 on each float32 form, in turns
+            rec["f32_form_users_per_s"] = stu_form_ab(trainer, loader=test_loader)
         heads = trainer.model.medusa_num_heads
         del trainer
         if dev.type == "cuda":

@@ -42,7 +42,9 @@
 // * float32, and bfloat16 at other head widths (stu_gated_bwd_ln_kernel with
 //   head_attention of hstu_attn_common.cuh, then the CUDA-core attention
 //   backward): FMAs out of float32 shared memory, so float32 stays full
-//   float32.
+//   float32. Float32 over windows of at most 64 rows takes the cluster
+//   kernel of hstu_stu_f32.cu instead (one kernel, dattn kept on chip);
+//   this one keeps longer windows and other widths.
 #include "hstu_attn_bwd.cuh"
 #include "hstu_stu_tc.cuh"
 

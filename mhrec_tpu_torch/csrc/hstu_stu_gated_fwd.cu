@@ -35,7 +35,9 @@
 // * float32, and bfloat16 at other head widths (stu_gated_fwd_kernel, with
 //   head_attention of hstu_attn_common.cuh): CUDA-core FMAs out of float32
 //   shared-memory tiles, heads walked in a loop; float32 keeps every product
-//   in full float32 (the tensor cores would take it as TF32).
+//   in full float32 (the tensor cores would take it as TF32). Float32 over
+//   windows of at most 64 rows takes the cluster kernel of hstu_stu_f32.cu
+//   instead; this one keeps longer windows and other widths.
 #include "hstu_attn_common.cuh"
 #include "hstu_stu_tc.cuh"
 

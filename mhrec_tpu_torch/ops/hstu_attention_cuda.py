@@ -9,7 +9,10 @@ Counterpart of ``mhrec_tpu/ops/pallas/hstu_attention_tpu.py``:
   (``stu_gated_fwd_route``); differentiable, its backward is
   ``hstu_stu_gated_bwd`` (``csrc/hstu_stu_gated_bwd.cu``), replacing
   ``_bwd_gated_kernel``, on the tensor cores in bfloat16
-  (``stu_gated_bwd_route``);
+  (``stu_gated_bwd_route``). In float32 both run on the CUDA cores in one
+  of two forms (``stu_gated_f32_form``): one thread-block cluster a batch
+  row over windows of at most 64 rows (``csrc/hstu_stu_f32.cu``), else one
+  block a 16-row query tile (the two files above);
 * ``hstu_attn_fwd`` — the pointwise attention over ``[B, H, L, d]``
   (``csrc/hstu_attn_fwd.cu``), replacing ``_fwd_kernel_v2`` /
   ``hstu_attention_pallas_v2``, on the tensor cores in bfloat16
@@ -48,6 +51,13 @@ _TC_WARPS, _TC_TK = 4, 32
 _TC_BWD_STATS = 4 * 4 * _TQ
 _SMEM_LIMIT = 232448  # bytes of shared memory one block may use on sm_90
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the float32 cluster kernels (csrc/hstu_stu_f32.cu, hstu_stu_cluster.cuh):
+# the longest window, the portable cluster size, the heads a forward block
+# works on at once (a pair of product groups each), a score tile's floats,
+# the exchanged partial sums' and row statistics' floats
+_CL_MAX_L, _CL_MAX_CLUSTER, _CL_PAIRS = 64, 8, 2
+_CL_P_FLOATS, _CL_STAT_FLOATS = 64 * 68, 8 * 64
+F32_FORMS = ("cluster", "query_tiles")
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _LLP = ctypes.POINTER(ctypes.c_longlong)
@@ -74,6 +84,62 @@ def stu_gated_fwd_route(dtype, L: int, H: int, dqk: int, dv: int) -> str:
     tc = (dtype == torch.bfloat16 and dqk % 8 == 0 and dv % 8 == 0
           and _tc_smem_bytes(dqk, dv, L, H) <= _SMEM_LIMIT)
     return "tensor_cores" if tc else "cuda_cores"
+
+
+def stu_f32_cluster(H: int):
+    """(blocks a cluster, heads a block) of the float32 cluster kernels at
+    H heads: ceil(H / 8) heads a block, as few blocks as cover H (at most
+    8, the portable cluster size; the last block may hold fewer heads)."""
+    hb = -(-H // _CL_MAX_CLUSTER)
+    return -(-H // hb), hb
+
+
+def _stu_cluster_smem_bytes(L: int, H: int, dqk: int, dv: int, backward: bool) -> int:
+    """Dynamic shared memory of a float32 cluster block
+    (``stu32::fwd_smem_bytes`` / ``bwd_smem_bytes``): the statistics, q, k,
+    v tiles of ``round8(L)`` rows at a pitch that is a multiple of 4 floats
+    with an odd quarter — every head's of the block forward (plus a score
+    tile for each head worked on at once where a q tile cannot hold the
+    scores and then the output), one head's and the block's [L, hb·dv] rows
+    and two score tiles backward."""
+    hb = stu_f32_cluster(H)[1]
+    L8 = -(-L // 8) * 8
+    dp = -(-max(dqk, dv) // 4) * 4
+    ld = dp + (4 if dp % 8 == 0 else 8)
+    if backward:
+        floats = _CL_STAT_FLOATS + 2 * _CL_P_FLOATS + 3 * L8 * ld + L8 * (hb * dv + 4)
+    else:
+        own = ld < L8 or dv > 64
+        floats = (_CL_STAT_FLOATS + own * min(hb, _CL_PAIRS) * _CL_P_FLOATS
+                  + hb * 3 * L8 * ld)
+    return 4 * floats
+
+
+def stu_gated_f32_form(L: int, H: int, dqk: int, dv: int, backward: bool = False) -> str:
+    """Which float32 kernel the fused STU block takes on the card (both on
+    the CUDA cores in full float32): "cluster" — one thread-block cluster a
+    batch row (``stu_f32_cluster``), a block's heads' windows in shared
+    memory, the LayerNorm's row sums exchanged through distributed shared
+    memory — for windows of at most 64 rows (every model config: window 50)
+    and head widths that are multiples of 4 up to 128, where its shared
+    memory fits; else "query_tiles", one block a 16-row query tile walking
+    every head."""
+    ok = (1 <= L <= _CL_MAX_L and 4 <= min(dqk, dv) and max(dqk, dv) <= _MAX_D
+          and dqk % 4 == 0 and dv % 4 == 0
+          and _stu_cluster_smem_bytes(L, H, dqk, dv, backward) <= _SMEM_LIMIT)
+    return "cluster" if ok else "query_tiles"
+
+
+def _pick_f32_form(name: str, form, q, v, H: int, backward: bool) -> str:
+    """The float32 form a call takes: ``form`` as asked (None: the shape's
+    own, ``stu_gated_f32_form``); the cluster form only where the shape
+    allows it."""
+    auto = stu_gated_f32_form(q.shape[1], H, q.shape[-1] // H, v.shape[-1] // H, backward)
+    form = auto if form is None else form
+    _check(form in F32_FORMS, f"{name}: unknown float32 form {form!r}")
+    _check(form == "query_tiles" or auto == "cluster",
+           f"{name}: this shape cannot take the float32 cluster form")
+    return form
 
 
 def _tc_widths(dqk: int, dv: int) -> bool:
@@ -123,8 +189,10 @@ def _pick_route(name: str, route, auto: str) -> str:
     return route
 
 
-def _lib(name: str, argtypes) -> ctypes.CDLL:
-    lib = cuda_build.load(name)
+def _lib(name: str, argtypes, source: str = None) -> ctypes.CDLL:
+    """Function ``name`` of the library built from ``csrc/<source>.cu``
+    (None: ``name``'s own)."""
+    lib = cuda_build.load(source or name)
     fn = getattr(lib, name)
     if fn.argtypes is None:
         fn.argtypes = argtypes
@@ -171,6 +239,9 @@ def _check_gated_inputs(name, q, k, v, u, gamma, beta, nonpad, num_heads):
 
 
 def _launch_error(name: str, err: int):
+    if err == -1:
+        raise RuntimeError(f"{name}: no thread-block cluster of this shape fits on the card "
+                           "(cudaOccupancyMaxActiveClusters found none)")
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")
 
@@ -241,23 +312,32 @@ def hstu_stu_gated_fwd_plain(q, k, v, u, gamma, beta, nonpad, num_heads: int,
     return (u.float() * y).to(q.dtype)
 
 
-def _stu_gated_fwd_launch(q, k, v, u, gamma, beta, nonpad, num_heads: int, eps: float):
+def _stu_gated_fwd_launch(q, k, v, u, gamma, beta, nonpad, num_heads: int, eps: float,
+                         form=None):
+    name, H = "hstu_stu_gated_fwd", num_heads
+    cluster = (q.dtype == torch.float32  # a form the shape cannot take fails on every device
+               and _pick_f32_form(name, form, q, v, H, False) == "cluster")
     if q.device.type == "cpu":
         return hstu_stu_gated_fwd_plain(q, k, v, u, gamma, beta, nonpad, num_heads, eps)
-    name = "hstu_stu_gated_fwd"
     _check_cuda_inputs(name, (q, k, v, u), nonpad)
     B, L, H, dqk, dv = _check_gated_inputs(name, q, k, v, u, gamma, beta, nonpad, num_heads)
     code = _DTYPES[q.dtype]
     if stu_gated_fwd_route(q.dtype, L, H, dqk, dv) == "tensor_cores":
-        q, k, v, u, gamma, beta = (cuda_build.aligned16(t) for t in (q, k, v, u, gamma, beta))
         code = 2
-    fn = _lib(name, [_P] * 8 + [_I] * 5 + [_LL] * 8 + [_F, _F, _I, _P])
+    if cluster or code == 2:  # their 16-byte copies
+        q, k, v, u, gamma, beta = (cuda_build.aligned16(t) for t in (q, k, v, u, gamma, beta))
     out = torch.empty((B, L, H * dv), dtype=q.dtype, device=q.device)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), u.data_ptr(), gamma.data_ptr(),
-             beta.data_ptr(), nonpad.data_ptr(), out.data_ptr(), B, L, H, dqk, dv,
-             q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-             v.stride(0), v.stride(1), u.stride(0), u.stride(1),
-             1.0 / L, eps, code, _stream(q))
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), u.data_ptr(), gamma.data_ptr(),
+            beta.data_ptr(), nonpad.data_ptr(), out.data_ptr(), B, L, H, dqk, dv,
+            q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+            v.stride(0), v.stride(1), u.stride(0), u.stride(1), 1.0 / L, eps)
+    if cluster:
+        fn = _lib("hstu_stu_f32_fwd", [_P] * 8 + [_I] * 5 + [_LL] * 8 + [_F, _F, _P],
+                  "hstu_stu_f32")
+        err = fn(*args, _stream(q))
+    else:
+        fn = _lib(name, [_P] * 8 + [_I] * 5 + [_LL] * 8 + [_F, _F, _I, _P])
+        err = fn(*args, code, _stream(q))
     _launch_error(name, err)
     hstu_stu_gated_fwd.launches += 1
     return out
@@ -294,39 +374,50 @@ def hstu_stu_gated_bwd_plain(q, k, v, u, gamma, beta, nonpad, g, num_heads: int,
 
 
 def hstu_stu_gated_bwd(q, k, v, u, gamma, beta, nonpad, g, num_heads: int,
-                       eps: float = 1e-6, route=None):
+                       eps: float = 1e-6, route=None, form=None):
     """Gradients (dq, dk, dv, du, dγ, dβ) of ``hstu_stu_gated_fwd`` given its
     output gradient g [B, L, H·dv]. dq, dk, dv, du come back contiguous in
     the inputs' dtype, dγ and dβ in float32. One call is one launch of the
-    backward kernel (two steps on one stream, ``csrc/hstu_stu_gated_bwd.cu``).
-    ``route``: None takes ``stu_gated_bwd_route``; "cuda_cores" runs the
-    CUDA-core kernels on bfloat16 too (to time the two designs side by side)."""
+    backward kernel (one cluster kernel, or two steps on one stream,
+    ``csrc/hstu_stu_gated_bwd.cu``). ``route``: None takes
+    ``stu_gated_bwd_route``; "cuda_cores" runs the CUDA-core kernels on
+    bfloat16 too (to time the two designs side by side). ``form`` (float32):
+    None takes ``stu_gated_f32_form``; "query_tiles" runs the query-tile
+    kernels where the cluster form would (to time the two side by side)."""
     name = "hstu_stu_gated_bwd"
     H = num_heads
     route = _pick_route(name, route, stu_gated_bwd_route(q.dtype, q.shape[1], H,
                                                          q.shape[-1] // H, v.shape[-1] // H))
+    cluster = (q.dtype == torch.float32  # a form the shape cannot take fails on every device
+               and _pick_f32_form(name, form, q, v, H, True) == "cluster")
     if q.device.type == "cpu":
         return hstu_stu_gated_bwd_plain(q, k, v, u, gamma, beta, nonpad, g, num_heads, eps)
     g = g.contiguous()
     _check_cuda_inputs(name, (q, k, v, u, g), nonpad)
     B, L, H, dqk, dv = _check_gated_inputs(name, q, k, v, u, gamma, beta, nonpad, num_heads)
     _check(g.shape == v.shape, f"{name}: g{tuple(g.shape)} must be shaped as v{tuple(v.shape)}")
-    code = _DTYPES[q.dtype]
-    if route == "tensor_cores":
+    code = 2 if route == "tensor_cores" else _DTYPES[q.dtype]
+    if cluster or code == 2:  # their 16-byte copies
         q, k, v, u, gamma, beta, g = (cuda_build.aligned16(t)
                                       for t in (q, k, v, u, gamma, beta, g))
-        code = 2
-    fn = _lib(name, [_P] * 15 + [_I] * 5 + [_LLP] + [_F, _F, _I, _P])
     F, Fq = H * dv, H * dqk
     dq, dk = (torch.empty((B, L, Fq), dtype=q.dtype, device=q.device) for _ in range(2))
-    dvv, du, dattn = (torch.empty((B, L, F), dtype=q.dtype, device=q.device) for _ in range(3))
-    parts = torch.empty((2, B * -(-L // _TQ), F), dtype=torch.float32, device=q.device)
+    dvv, du = (torch.empty((B, L, F), dtype=q.dtype, device=q.device) for _ in range(2))
     strides = (ctypes.c_longlong * 8)(q.stride(0), q.stride(1), k.stride(0), k.stride(1),
                                       v.stride(0), v.stride(1), u.stride(0), u.stride(1))
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), u.data_ptr(), gamma.data_ptr(),
-             beta.data_ptr(), nonpad.data_ptr(), g.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-             dvv.data_ptr(), du.data_ptr(), dattn.data_ptr(), parts[0].data_ptr(),
-             parts[1].data_ptr(), B, L, H, dqk, dv, strides, 1.0 / L, eps, code, _stream(q))
+    ptrs = [t.data_ptr() for t in (q, k, v, u, gamma, beta, nonpad, g, dq, dk, dvv, du)]
+    if cluster:  # no dattn round trip; dγ, dβ partials a batch row
+        parts = torch.empty((2, B, F), dtype=torch.float32, device=q.device)
+        fn = _lib("hstu_stu_f32_bwd", [_P] * 14 + [_I] * 5 + [_LLP] + [_F, _F, _P],
+                  "hstu_stu_f32")
+        err = fn(*ptrs, parts[0].data_ptr(), parts[1].data_ptr(), B, L, H, dqk, dv, strides,
+                 1.0 / L, eps, _stream(q))
+    else:
+        dattn = torch.empty((B, L, F), dtype=q.dtype, device=q.device)
+        parts = torch.empty((2, B * -(-L // _TQ), F), dtype=torch.float32, device=q.device)
+        fn = _lib(name, [_P] * 15 + [_I] * 5 + [_LLP] + [_F, _F, _I, _P])
+        err = fn(*ptrs, dattn.data_ptr(), parts[0].data_ptr(), parts[1].data_ptr(), B, L, H,
+                 dqk, dv, strides, 1.0 / L, eps, code, _stream(q))
     _launch_error(name, err)
     hstu_stu_gated_bwd.launches += 1
     dgamma, dbeta = parts.sum(1)
@@ -338,20 +429,22 @@ hstu_stu_gated_bwd.launches = 0
 
 class _StuGated(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, u, gamma, beta, nonpad, num_heads, eps):
+    def forward(ctx, q, k, v, u, gamma, beta, nonpad, num_heads, eps, form):
         ctx.save_for_backward(q, k, v, u, gamma, beta, nonpad)
-        ctx.num_heads, ctx.eps = num_heads, eps
-        return _stu_gated_fwd_launch(q, k, v, u, gamma, beta, nonpad, num_heads, eps)
+        ctx.num_heads, ctx.eps, ctx.form = num_heads, eps, form
+        return _stu_gated_fwd_launch(q, k, v, u, gamma, beta, nonpad, num_heads, eps, form)
 
     @staticmethod
     def backward(ctx, g):
         q, k, v, u, gamma, beta, nonpad = ctx.saved_tensors
-        grads = hstu_stu_gated_bwd(q, k, v, u, gamma, beta, nonpad, g, ctx.num_heads, ctx.eps)
-        return (*grads, None, None, None)
+        form = None if ctx.form is None or q.dtype != torch.float32 else ctx.form
+        grads = hstu_stu_gated_bwd(q, k, v, u, gamma, beta, nonpad, g, ctx.num_heads, ctx.eps,
+                                   form=form)
+        return (*grads, None, None, None, None)
 
 
 def hstu_stu_gated_fwd(q, k, v, u, gamma, beta, nonpad, num_heads: int,
-                       eps: float = 1e-6):
+                       eps: float = 1e-6, form=None):
     """``u ⊙ LayerNorm(concat_h(mask ⊙ silu(q_h k_hᵀ)/L · v_h))``.
 
     q, k [B, L, H·dqk]; v, u [B, L, H·dv] — row-strided views (e.g. the
@@ -359,8 +452,11 @@ def hstu_stu_gated_fwd(q, k, v, u, gamma, beta, nonpad, num_heads: int,
     [H·dv] float32; nonpad [B, L] bool. Returns [B, L, H·dv] in q's dtype.
     Differentiable in q, k, v, u, gamma and beta through
     ``hstu_stu_gated_bwd``; ``.launches`` counts the forward kernel.
+    ``form`` (float32 on the card): None takes ``stu_gated_f32_form``;
+    "query_tiles" runs the query-tile kernels, forward and backward, where
+    the cluster form would (to time the two side by side).
     """
-    return _StuGated.apply(q, k, v, u, gamma, beta, nonpad, num_heads, eps)
+    return _StuGated.apply(q, k, v, u, gamma, beta, nonpad, num_heads, eps, form)
 
 
 hstu_stu_gated_fwd.launches = 0

@@ -1414,6 +1414,7 @@ def test_stu_gated_f32_at_comirec_shapes(card, B):
     q, k, v, u, gamma, beta, nonpad, g = args
     assert K.stu_gated_fwd_route(torch.float32, L, H, d, d) == "cuda_cores"
     assert K.stu_gated_bwd_route(torch.float32, L, H, d, d) == "cuda_cores"
+    assert K.stu_gated_f32_form(L, H, d, d) == K.stu_gated_f32_form(L, H, d, d, True) == "cluster"
     f0, b0 = K.hstu_stu_gated_fwd.launches, K.hstu_stu_gated_bwd.launches
     out = K.hstu_stu_gated_fwd(q, k, v, u, gamma, beta, nonpad, H)
     grads = K.hstu_stu_gated_bwd(q, k, v, u, gamma, beta, nonpad, g, H)
@@ -1423,6 +1424,122 @@ def test_stu_gated_f32_at_comirec_shapes(card, B):
     ref = K.hstu_stu_gated_bwd_plain(q, k, v, u, gamma, beta, nonpad, g, H)
     for o, r in zip(grads, ref):
         _close(o, r, torch.float32)
+
+
+# the float32 forms of #1 / #4: (L, H, d). One cluster a batch row up to
+# 64 rows (clusters of 1, 2, 3, 8 blocks; H = 3 in 3 blocks of 1 head, H =
+# 16 in 8 of 2, H = 32 in 8 of 4), query tiles past it
+F32_FORM_SHAPES = {
+    "L1-H16-d64": (1, 16, 64), "L2-H3-d32": (2, 3, 32), "L16-H8-d16": (16, 8, 16),
+    "L50-H16-d64": (50, 16, 64), "L50-H32-d64": (50, 32, 64), "L50-H16-d128": (50, 16, 128),
+    "L63-H2-d128": (63, 2, 128), "L64-H1-d64": (64, 1, 64), "L64-H32-d16": (64, 32, 16),
+    "L65-H3-d32": (65, 3, 32), "L130-H2-d64": (130, 2, 64), "L400-H8-d64": (400, 8, 64),
+}
+
+
+def _f32_form_inputs(B, L, H, dqk, dv, card, seed, layout):
+    """q, k, v, u as the strided splits of one uvqk tensor, or contiguous
+    copies in one buffer 4 bytes past a 16-byte boundary; g; batch row 1
+    all padding, the others led by padding."""
+    gen = torch.Generator().manual_seed(seed)
+    F, Fq = H * dv, H * dqk
+    mixed = (0.5 * torch.randn(B, L, 2 * F + 2 * Fq, generator=gen)).to(card)
+    u, v, q, k = torch.split(mixed, [F, F, Fq, Fq], dim=-1)
+    gamma = (1 + 0.1 * torch.randn(F, generator=gen)).to(card)
+    beta = (0.05 * torch.randn(F, generator=gen)).to(card)
+    g = torch.randn(B, L, F, generator=gen).to(card)
+    nonpad = _nonpad(B, L, gen, card)
+    nonpad[1] = False
+    if layout == "misaligned":
+        n = sum(t.numel() for t in (q, k, v, u))
+        flat = torch.empty(n + 1, device=card)[1:]
+        out, at = [], 0
+        for t in (q, k, v, u):
+            out.append(flat[at:at + t.numel()].view(t.shape).copy_(t))
+            at += t.numel()
+        q, k, v, u = out
+        assert q.data_ptr() % 16 == 4
+    return q, k, v, u, gamma, beta, nonpad, g
+
+
+@pytest.mark.parametrize("layout", ["uvqk", "misaligned"])
+@pytest.mark.parametrize("shape", list(F32_FORM_SHAPES))
+def test_stu_gated_f32_forms(card, shape, layout):
+    """#1 and #4 in float32 on the form the shape takes: one launch a call,
+    within TOL of the plain versions, the same bits on a repeat, zero dq,
+    dk, dv on the all-padding batch row."""
+    L, H, d = F32_FORM_SHAPES[shape]
+    want = "cluster" if L <= 64 else "query_tiles"
+    assert K.stu_gated_f32_form(L, H, d, d) == want
+    assert K.stu_gated_f32_form(L, H, d, d, backward=True) == want
+    args = _f32_form_inputs(3, L, H, d, d, card, L + H + d, layout)
+    q, k, v, u, gamma, beta, nonpad, g = args
+    f0, b0 = K.hstu_stu_gated_fwd.launches, K.hstu_stu_gated_bwd.launches
+    outs = [K.hstu_stu_gated_fwd(q, k, v, u, gamma, beta, nonpad, H) for _ in range(2)]
+    grads = [K.hstu_stu_gated_bwd(q, k, v, u, gamma, beta, nonpad, g, H) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert (K.hstu_stu_gated_fwd.launches, K.hstu_stu_gated_bwd.launches) == (f0 + 2, b0 + 2)
+    assert outs[0].shape == (3, L, H * d) and torch.equal(outs[0], outs[1])
+    _close(outs[0], K.hstu_stu_gated_fwd_plain(q, k, v, u, gamma, beta, nonpad, H),
+           torch.float32)
+    ref = K.hstu_stu_gated_bwd_plain(q, k, v, u, gamma, beta, nonpad, g, H)
+    for name, o, a, r in zip(("dq", "dk", "dv", "du", "dgamma", "dbeta"), *grads, ref):
+        assert o.dtype == torch.float32 and o.shape == r.shape, name
+        assert torch.equal(o, a), name
+        _close(o, r, torch.float32)
+    for o in grads[0][:3]:
+        assert not bool(o[1].any())
+
+
+@pytest.mark.parametrize("L", [50, 70])
+def test_stu_gated_f32_unequal_widths(card, L):
+    """q/k heads of 32 and v/u heads of 64 in float32, in clusters (L = 50)
+    and over query tiles (L = 70)."""
+    H = 8
+    q, k, v, u, gamma, beta, nonpad, g = _f32_form_inputs(3, L, H, 32, 64, card, L, "uvqk")
+    out = K.hstu_stu_gated_fwd(q, k, v, u, gamma, beta, nonpad, H)
+    _close(out, K.hstu_stu_gated_fwd_plain(q, k, v, u, gamma, beta, nonpad, H), torch.float32)
+    for o, r in zip(K.hstu_stu_gated_bwd(q, k, v, u, gamma, beta, nonpad, g, H),
+                    K.hstu_stu_gated_bwd_plain(q, k, v, u, gamma, beta, nonpad, g, H)):
+        assert o.shape == r.shape
+        _close(o, r, torch.float32)
+
+
+@pytest.mark.parametrize("shape", ["L50-H16-d64", "L65-H3-d32"])
+def test_stu_gated_f32_autograd_matches_plain_autograd(card, shape):
+    """The float32 gradients of ``hstu_stu_gated_fwd`` through autograd (one
+    launch of #4) against torch's autograd of the plain version."""
+    L, H, d = F32_FORM_SHAPES[shape]
+    args = _f32_form_inputs(4, L, H, d, d, card, 11, "uvqk")
+    leaves = [x.detach().clone().requires_grad_(True) for x in args[:6]]
+    plain = [x.detach().clone().requires_grad_(True) for x in args[:6]]
+    nonpad, g = args[6], args[7]
+    b0 = K.hstu_stu_gated_bwd.launches
+    K.hstu_stu_gated_fwd(*leaves, nonpad, H).backward(g)
+    K.hstu_stu_gated_fwd_plain(*plain, nonpad, H).backward(g)
+    torch.cuda.synchronize()
+    assert K.hstu_stu_gated_bwd.launches == b0 + 1
+    for name, a, r in zip(("q", "k", "v", "u", "gamma", "beta"), leaves, plain):
+        torch.testing.assert_close(a.grad, r.grad, atol=TOL[torch.float32],
+                                   rtol=TOL[torch.float32], msg=name)
+
+
+def test_stu_gated_f32_query_tiles_on_request(card):
+    """``form="query_tiles"`` runs the query-tile kernels where the cluster
+    form would (as ``chip_smoke.py`` times them side by side), forward and
+    backward, and agrees with the cluster form; a window past 64 rows
+    refuses the cluster form."""
+    L, H, d = 50, 16, 64
+    q, k, v, u, gamma, beta, nonpad, g = _f32_form_inputs(2, L, H, d, d, card, 5, "uvqk")
+    leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v, u, gamma, beta)]
+    out = K.hstu_stu_gated_fwd(*leaves, nonpad, H, form="query_tiles")
+    out.backward(g)
+    _close(out, K.hstu_stu_gated_fwd(q, k, v, u, gamma, beta, nonpad, H), torch.float32)
+    for leaf, c in zip(leaves, K.hstu_stu_gated_bwd(q, k, v, u, gamma, beta, nonpad, g, H)):
+        _close(leaf.grad, c, torch.float32)
+    x = _f32_form_inputs(2, 65, 2, 16, 16, card, 5, "uvqk")
+    with pytest.raises(ValueError, match="cluster form"):
+        K.hstu_stu_gated_fwd(*x[:7], 2, form="cluster")
 
 
 def test_row_adamw_at_sasrec_width_equals_plain(card):

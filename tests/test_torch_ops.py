@@ -233,7 +233,11 @@ AFFINE_TOL = dict(rtol=1e-4, atol=1e-4)
     (torch.bfloat16, 50, 4, 12, "cuda_cores"),       # a width the 16-byte copies cannot take
     (torch.bfloat16, 50, 18, 128, "cuda_cores"),     # F = 2304 at width 128: rows too wide
     (torch.float32, 50, 16, 64, "cuda_cores"),
-], ids=["size4", "merrec", "1b", "size1", "d128", "d12", "d128-F2304", "f32"])
+    (torch.float32, 1, 16, 64, "cuda_cores"),        # cluster form
+    (torch.float32, 400, 8, 64, "cuda_cores"),       # query-tile form
+    (torch.float32, 50, 32, 64, "cuda_cores"),       # F = 2048, cluster form
+], ids=["size4", "merrec", "1b", "size1", "d128", "d12", "d128-F2304", "f32", "f32-L1",
+        "f32-merrec", "f32-F2048"])
 def test_stu_gated_fwd_route(dtype, L, H, d, route):
     """bfloat16 takes the tensor-core kernel at every width the models build;
     the rest the CUDA-core kernel, which admits them (its shared memory)."""
@@ -253,14 +257,138 @@ def test_stu_gated_fwd_route(dtype, L, H, d, route):
     (torch.bfloat16, 50, 18, 128, 128, "cuda_cores"),    # F = 2304 at width 128: rows too wide
     (torch.float32, 50, 16, 64, 64, "cuda_cores"),
     (torch.float32, 50, 32, 64, 64, "cuda_cores"),       # F = 2048
+    (torch.float32, 65, 16, 64, 64, "cuda_cores"),       # query-tile form
+    (torch.float32, 50, 8, 32, 64, "cuda_cores"),        # dqk != dv, cluster form
 ], ids=["size4", "merrec", "1b", "size1", "d128", "dqk32-dv64", "d12", "dv12", "d128-F2304",
-        "f32", "f32-F2048"])
+        "f32", "f32-F2048", "f32-L65", "f32-dqk32-dv64"])
 def test_stu_gated_bwd_route(dtype, L, H, dqk, dv, route):
     """bfloat16 takes the tensor-core backward at every width the models
     build; the rest the CUDA-core kernels, which admit them (their shared
     memory)."""
     assert K.stu_gated_bwd_route(dtype, L, H, dqk, dv) == route
     assert 4 * K._TQ * (H * dv + 2) + K._head_smem_bytes(dqk, dv) <= K._SMEM_LIMIT
+
+
+# The float32 forms of #1 / #4 at the models' shapes (L, H, dqk, dv): the
+# form, the cluster (blocks, heads a block), each direction's shared memory,
+# reckoned by hand from csrc/hstu_stu_cluster.cuh — 512 floats of
+# statistics, score tiles of 64 × 68, q/k/v tiles of round8(L) rows at
+# pitch 68 (width 64), 36 (width 32) or 20 (width 16) — and the blocks an
+# SM's shared memory holds (228 KB, 1 KB reserved a block).
+F32_FORMS = {
+    # ComiRec / REMI's trunk (hstu-size4): two blocks an SM both ways
+    "size4": ((50, 16, 64, 64), "cluster", "cluster", (8, 2),
+              4 * (512 + 2 * 3 * 56 * 68), 4 * (512 + 2 * 4352 + 3 * 56 * 68 + 56 * 132),
+              (2, 2)),
+    # q tiles of pitch 36 cannot hold 56 score columns: a score tile of their own
+    "size1": ((50, 4, 32, 32), "cluster", "cluster", (4, 1),
+              4 * (512 + 4352 + 3 * 56 * 36), 4 * (512 + 2 * 4352 + 3 * 56 * 36 + 56 * 36),
+              (5, 3)),
+    "size2": ((50, 8, 32, 32), "cluster", "cluster", (8, 1),
+              4 * (512 + 4352 + 3 * 56 * 36), 4 * (512 + 2 * 4352 + 3 * 56 * 36 + 56 * 36),
+              (5, 3)),
+    # 512 / 12 = 42: not a multiple of 4, the 16-byte copies cannot take it
+    "size3": ((50, 12, 42, 42), "query_tiles", "query_tiles", (6, 2), None, None, None),
+    "1b": ((50, 32, 64, 64), "cluster", "cluster", (8, 4),
+           4 * (512 + 4 * 3 * 56 * 68), 4 * (512 + 2 * 4352 + 3 * 56 * 68 + 56 * 260),
+           (1, 1)),
+    "L1": ((1, 16, 64, 64), "cluster", "cluster", (8, 2),
+           4 * (512 + 2 * 3 * 8 * 68), 4 * (512 + 2 * 4352 + 3 * 8 * 68 + 8 * 132),
+           (14, 4)),
+    "L65": ((65, 16, 64, 64), "query_tiles", "query_tiles", (8, 2), None, None, None),
+    "L400": ((400, 8, 64, 64), "query_tiles", "query_tiles", (8, 1), None, None, None),
+    # heads of 16: q tiles too narrow for the scores, a score tile for each of
+    # the two heads a block works on at once
+    "H32-d16": ((64, 32, 16, 16), "cluster", "cluster", (8, 4),
+                4 * (512 + 2 * 4352 + 4 * 3 * 64 * 20),
+                4 * (512 + 2 * 4352 + 3 * 64 * 20 + 64 * 68), (2, 3)),
+    # heads of 128 at a full window: the forward's two score tiles do not fit
+    "L64-d128": ((64, 16, 128, 128), "query_tiles", "cluster", (8, 2),
+                 None, 4 * (512 + 2 * 4352 + 3 * 64 * 132 + 64 * 260), None),
+}
+
+
+@pytest.mark.parametrize("name", list(F32_FORMS))
+def test_stu_gated_f32_form(name):
+    (L, H, dqk, dv), fwd, bwd, cluster, fwd_bytes, bwd_bytes, per_sm = F32_FORMS[name]
+    assert K.stu_gated_f32_form(L, H, dqk, dv) == fwd
+    assert K.stu_gated_f32_form(L, H, dqk, dv, backward=True) == bwd
+    assert K.stu_f32_cluster(H) == cluster
+    C, hb = cluster
+    assert C <= 8 and (C - 1) * hb < H <= C * hb  # every head in one block, none empty
+    if bwd_bytes is not None:
+        assert K._stu_cluster_smem_bytes(L, H, dqk, dv, True) == bwd_bytes <= K._SMEM_LIMIT
+    if fwd_bytes is None:
+        return
+    got = (K._stu_cluster_smem_bytes(L, H, dqk, dv, False), bwd_bytes)
+    assert got[0] == fwd_bytes <= K._SMEM_LIMIT
+    assert tuple(233472 // (b + 1024) for b in got) == per_sm
+
+
+@pytest.mark.parametrize("form,L,match", [
+    ("cluster", 65, "cluster form"),      # past 64 rows
+    ("tiles", 50, "unknown float32 form"),
+    ("query_tiles", 50, None),
+    ("cluster", 50, None),
+])
+def test_cpu_call_checks_the_f32_form_as_the_card_does(form, L, match):
+    """A float32 form the shape cannot take raises on CPU tensors too (forward
+    and backward); one it can take runs the plain version."""
+    rng = np.random.default_rng(3)
+    B, H, d = 2, 2, 16
+    q, k, v, u, g = (_t(rng.normal(size=(B, L, H * d)).astype(np.float32)) for _ in range(5))
+    gam, bet = torch.ones(H * d), torch.zeros(H * d)
+    nonpad = _t(_nonpad(B, L, rng))
+    fwd = lambda: K.hstu_stu_gated_fwd(q, k, v, u, gam, bet, nonpad, H, form=form)  # noqa: E731
+    bwd = lambda: K.hstu_stu_gated_bwd(q, k, v, u, gam, bet, nonpad, g, H, form=form)  # noqa: E731
+    if match is not None:
+        for call in (fwd, bwd):
+            with pytest.raises(ValueError, match=match):
+                call()
+        return
+    assert torch.equal(fwd(), K.hstu_stu_gated_fwd_plain(q, k, v, u, gam, bet, nonpad, H))
+    for a, b in zip(bwd(), K.hstu_stu_gated_bwd_plain(q, k, v, u, gam, bet, nonpad, g, H)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("L,form,cluster", [(50, None, True), (50, "query_tiles", False),
+                                            (65, None, False)])
+def test_f32_wrappers_pass_the_form_to_the_kernels(monkeypatch, L, form, cluster):
+    """What the float32 wrappers hand the C functions (meta tensors, the
+    kernels replaced by a recorder): the cluster form's entry points of
+    csrc/hstu_stu_f32.cu, the backward's with one dγ / dβ row a batch row
+    and no dattn scratch, else the query-tile kernels' with dtype code 0;
+    one launch counted a call."""
+    calls = []
+
+    def lib(name, argtypes, source=None):
+        def fn(*args):
+            calls.append((name, source, len(argtypes), args))
+            return 0
+        return fn
+
+    monkeypatch.setattr(K, "_lib", lib)
+    monkeypatch.setattr(K, "_stream", lambda t: 0)
+    monkeypatch.setattr(K.hstu_stu_gated_fwd, "launches", 0)
+    monkeypatch.setattr(K.hstu_stu_gated_bwd, "launches", 0)
+    B, H, d = 3, 16, 64
+    m = torch.device("meta")
+    q, k, v, u, g = (torch.empty(B, L, H * d, device=m) for _ in range(5))
+    gamma, beta = torch.empty(H * d, device=m), torch.empty(H * d, device=m)
+    nonpad = torch.empty(B, L, device=m, dtype=torch.bool)
+    out = K.hstu_stu_gated_fwd(q, k, v, u, gamma, beta, nonpad, H, form=form)
+    grads = K.hstu_stu_gated_bwd(q, k, v, u, gamma, beta, nonpad, g, H, form=form)
+    assert out.shape == (B, L, H * d) and [t.shape for t in grads[4:]] == [(H * d,)] * 2
+    (fname, fsrc, fn_args, fargs), (bname, bsrc, bn_args, bargs) = calls
+    assert fn_args == len(fargs) and bn_args == len(bargs)
+    if cluster:
+        assert (fname, fsrc, bname, bsrc) == ("hstu_stu_f32_fwd", "hstu_stu_f32",
+                                              "hstu_stu_f32_bwd", "hstu_stu_f32")
+    else:
+        assert (fname, fsrc, bname, bsrc) == ("hstu_stu_gated_fwd", None,
+                                              "hstu_stu_gated_bwd", None)
+        assert fargs[-2] == bargs[-2] == 0  # the float32 dtype code
+    assert (K.hstu_stu_gated_fwd.launches, K.hstu_stu_gated_bwd.launches) == (1, 1)
 
 
 @pytest.mark.parametrize("dtype,L,dqk,dv,route", [
