@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--profile | --train-only | --stu-bwd-ab | --image-only |
                            --image-fit | --baselines-only | --distributed-only |
-                           --reference-only]
+                           --reference-only | --packed-bwd-only | --hllm-f32-step]
 
 Builds the port's CUDA kernels from ``mhrec_tpu_torch/csrc`` (one ``nvcc``
 per source, in parallel) and holds each against its plain PyTorch version on
@@ -257,7 +257,11 @@ of this script beside another tree's ``mhrec_tpu_torch`` (a parent commit
 unpacked with ``git archive``) runs that tree's training, so two trees can
 be timed in turns within one call. ``--stu-bwd-ab`` likewise builds the
 kernels and times #4 (``hstu_stu_gated_bwd``) alone at the train step's
-shape and at hstu-1b's width.
+shape and at hstu-1b's width. ``--packed-bwd-only`` builds the packed
+attention's kernels and runs #8b/c's records alone (the corpus shape in
+float32 and bfloat16, and the tensor-parallel layouts), and
+``--hllm-f32-step`` times the float32 HLLM's packed train batch
+(``hllm_f32_step_phase``): both run another tree's kernels likewise.
 """
 
 from __future__ import annotations
@@ -561,6 +565,7 @@ KERNELS = {
         # splash_attention_kernel.py:1635) and _splash_attention_bwd_dkv (:2196)
         replaces="mhrec_tpu/models/llm/packed.py:45",
         products="bf16: tensor cores, mma.sync m16n8k16; f32: CUDA cores",
+        f32_source="mhrec_tpu_torch/csrc/packed_attn_bwd_f32.cu",
     ),
 }
 
@@ -868,6 +873,109 @@ def packed_fwd_train_rows(corpus_ms_per_pair, seed=0):
             "ms_per_pair_over_corpus": ms / pairs / corpus_ms_per_pair}
 
 
+def _segment_runs(row):
+    """First and last index of each position's run of equal segment ids."""
+    S = len(row)
+    start, end = list(range(S)), list(range(S))
+    for i in range(1, S):
+        if row[i] == row[i - 1]:
+            start[i] = start[i - 1]
+    for i in range(S - 2, -1, -1):
+        if row[i] == row[i + 1]:
+            end[i] = end[i + 1]
+    return start, end
+
+
+def packed_warp_tiles(seg, window: int):
+    """The 16 × 16 sub-tiles the float32 ``packed_attn_bwd`` kernels
+    (csrc/packed_attn_bwd_f32.cu) compute for one query head, reckoned by
+    their walk from the segment ids: (pass, chunk row, first own row of the
+    warp, first row of the stage), pass "dq" (own rows: queries, stages:
+    keys) or "dkv" (own rows: keys, stages: queries). Blocks own 64 rows,
+    16 a warp; each warp's span is, in the dq pass, from max(start of its
+    first real row's segment, that row − window) to its last real row, in
+    the dk/dv pass from its first real key to min(end of its last key's
+    segment, that key + window); the block streams 16-row stages over the
+    union of its warps' spans, and a warp computes each stage that meets
+    its span."""
+    w = int(window)
+    for c, row in enumerate(seg.cpu().tolist()):
+        S = len(row)
+        start, end = _segment_runs(row)
+        for b0 in range(0, S, 64):
+            spans = {"dq": [], "dkv": []}
+            for w0 in range(b0, min(b0 + 64, S), 16):
+                real = [i for i in range(w0, min(w0 + 16, S)) if row[i] > 0]
+                if real:
+                    f, l = real[0], real[-1]
+                    spans["dq"].append((w0, max(start[f], f - w), l + 1))
+                    spans["dkv"].append((w0, f, min(end[l] + 1, l + w + 1)))
+            for pass_, sp in spans.items():
+                if sp:
+                    lo, hi = min(x[1] for x in sp), max(x[2] for x in sp)
+                    for s0 in range(lo, hi, 16):
+                        for w0, a, b in sp:
+                            if s0 < b and s0 + 16 > a:
+                                yield pass_, c, w0, s0
+
+
+def packed_tile_pairs(seg, window: int, walk: str):
+    """(query, key) pairs a query head's share of ``packed_attn_bwd``'s tiles
+    computes on these segments, each pass apart ({"dq": n, "dkv": n}).
+    ``walk`` "warp": the float32 kernels' 16 × 16 sub-tiles
+    (``packed_warp_tiles``). ``walk`` "block": the bfloat16 kernels' 64 × 64
+    tiles from the band's start of a query tile's first row (dq), from a key
+    tile to the end of its last key's segment (dk/dv; at dh = 128 their
+    dk/dv pass streams 32-row query tiles, and this reckons 64). The float32
+    kernels before their own source walked the same tiles, and on from a
+    key tile that ends in padding to its band's end."""
+    count = {"dq": 0, "dkv": 0}
+    if walk == "warp":
+        for pass_, *_ in packed_warp_tiles(seg, window):
+            count[pass_] += 256
+        return count
+    w = int(window)
+    for row in seg.cpu().tolist():
+        S = len(row)
+        for b0 in range(0, S, 64):
+            n = min(64, S - b0)
+            if not any(row[b0:b0 + n]):
+                continue
+            lo0 = max(0, b0 - w)
+            band_lo = max([lo0] + [j + 1 for j in range(lo0, b0) if row[j] != row[b0]])
+            count["dq"] += 4096 * (-(-(b0 + n - band_lo) // 64))
+            hi0, last = min(S, b0 + n + w), row[b0 + n - 1]
+            band_hi = b0 + n if last == 0 else next(
+                (i for i in range(b0 + n, hi0) if row[i] != last), hi0)
+            count["dkv"] += 4096 * (-(-(band_hi - b0) // 64))
+    return count
+
+
+def pass_ms(fn, iters: int = 5):
+    """Device ms a call of ``packed_attn_bwd`` spends in each pass ({"dq",
+    "dkv", "other"}: its dq and dk/dv kernels, and any copy around them),
+    from ``torch.profiler`` over ``iters`` calls after a warm one."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # a trace now and then comes back without device events
+        ms = {"dq": 0.0, "dkv": 0.0, "other": 0.0}
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                part = "dkv" if "dkv" in e.name else "dq" if "dq" in e.name else "other"
+                ms[part] += (e.time_range.end - e.time_range.start) / 1e3 / iters
+        if ms["dq"] > 0:
+            return ms
+    raise RuntimeError("pass_ms: the profiler's traces held no device time")
+
+
 def packed_bwd_kernel_phase(dtype, seed=0):
     """``packed_attn_bwd`` against its plain version (torch's autograd of
     ``packed_attention_plain``) at the corpus shape, for a random cotangent
@@ -888,7 +996,12 @@ def packed_bwd_kernel_phase(dtype, seed=0):
     is that work over the kernel's time. ``route`` names the kernels that
     the input type selects (bfloat16: tensor cores; float32: CUDA cores),
     and in bfloat16 ``train_rows`` times the kernel alone at the train
-    step's chunk rows (``packed_bwd_train_rows``)."""
+    step's chunk rows (``packed_bwd_train_rows``). ``dq_ms`` and ``dkv_ms``
+    split the call's device time by pass (``pass_ms``); ``tile_pairs`` is
+    the pairs a query head's tiles compute in each pass by the route's walk
+    (``packed_tile_pairs``), beside ``pairs``, and the float32 record adds
+    the 64 × 64 block walk's (``tile_pairs_block_walk``) and the kernels'
+    registers, spills, shared memory and blocks an SM (``plan``)."""
     import torch
     import torch.nn.functional as F
 
@@ -940,7 +1053,18 @@ def packed_bwd_kernel_phase(dtype, seed=0):
             del lib_out, leaves
     except RuntimeError as exc:
         lib_note = str(exc)[:300]
+    split = pass_ms(kernel)
     pairs = packed_pairs(seg, w)
+    f32 = dtype == torch.float32
+    tile_pairs = packed_tile_pairs(seg, w, "warp" if f32 else "block")
+    extra = {}
+    if f32:
+        from mhrec_tpu_torch.ops import packed_attention_cuda
+
+        # a tree before the float32 kernels' own source has no plan to read
+        info = getattr(packed_attention_cuda, "packed_attn_bwd_f32_info", None)
+        extra = {"tile_pairs_block_walk": packed_tile_pairs(seg, w, "block"),
+                 "plan": info(dh) if info else None}
     nbytes = _nbytes(q, k, v, out, dout, lse, seg, *grads)
     bound, bound_by = _bound(nbytes, 10 * dh * H * pairs, PEAK_FLOPS[dname])
     ms = t["kernel"][0]
@@ -953,8 +1077,9 @@ def packed_bwd_kernel_phase(dtype, seed=0):
            # bfloat16 runs the tensor-core kernels, float32 the CUDA-core ones
            "route": "tensor_core" if dtype == torch.bfloat16 else "cuda_core",
            "band_tflops": 10 * dh * H * pairs / ms / 1e9, "train_rows": train_rows,
-           "real_tokens": int(real.sum()), "pairs": pairs, "max_abs_err": err,
-           "atol": TOL[dname][0], "rtol": TOL[dname][1],
+           "real_tokens": int(real.sum()), "pairs": pairs, "tile_pairs": tile_pairs, **extra,
+           "dq_ms": split["dq"], "dkv_ms": split["dkv"], "other_ms": split["other"],
+           "max_abs_err": err, "atol": TOL[dname][0], "rtol": TOL[dname][1],
            # per gradient: (max abs error, excess over TOL) against the
            # float32 reference, then against the plain version in bfloat16
            "per_grad_err": per_grad, "pad_rows_and_keys_zero": zeros,
@@ -1003,8 +1128,10 @@ def packed_tp_phase(layout, dtype, seed=0):
     """#8a and #8b/c on a tensor-parallel rank's heads (``PACKED_TP_LAYOUTS``)
     against their plain versions on the same views: the forward on real
     tokens, dq, dk, dv against the float32 plain autograd, zeros on
-    padding; the kernels' times beside the plain versions' and their
-    bounds from this run's band."""
+    padding, the backward's bits on a repeat; the kernels' times beside the
+    plain versions' and their bounds from this run's band, the backward's
+    split by pass (``bwd_dq_ms``, ``bwd_dkv_ms``) with its walk's
+    ``tile_pairs``."""
     import torch
 
     from mhrec_tpu_torch.models.llm.packed import (packed_attention_plain,
@@ -1019,7 +1146,10 @@ def packed_tp_phase(layout, dtype, seed=0):
             * real[..., None, None]).to(dtype)
     out, lse = packed_attn_fwd(q, k, v, seg, w, return_lse=True)
     grads = packed_attn_bwd(q, k, v, out, dout, lse, seg, w)
+    again = packed_attn_bwd(q, k, v, out, dout, lse, seg, w)
     torch.cuda.synchronize()
+    repeat_equal = all(bool(torch.equal(a, b)) for a, b in zip(grads, again))
+    del again
     dname = str(dtype).replace("torch.", "")
     ref = packed_attention_plain(q, k, v, seg, w)
     fwd_err, fwd_excess = excess_error(out[real], ref[real], dname)
@@ -1034,6 +1164,7 @@ def packed_tp_phase(layout, dtype, seed=0):
                  "bwd": lambda: packed_attn_bwd(q, k, v, out, dout, lse, seg, w),
                  "bwd_plain": lambda: packed_attn_bwd_plain(q, k, v, dout, seg, w)},
                 iters=5, warmup=1)
+    split = pass_ms(lambda: packed_attn_bwd(q, k, v, out, dout, lse, seg, w))
     H, dh = q.shape[2], q.shape[3]
     pairs = packed_pairs(seg, w)
     fb, fb_by = _bound(_nbytes(q, k, v, seg, q), 4 * dh * H * pairs, PEAK_FLOPS[dname])
@@ -1046,8 +1177,11 @@ def packed_tp_phase(layout, dtype, seed=0):
            "atol": TOL[dname][0], "rtol": TOL[dname][1], "pad_rows_zero": zeros,
            "fwd_ms": t["fwd"][0], "fwd_plain_ms": t["fwd_plain"][0], "fwd_bound_ms": fb,
            "fwd_bound_by": fb_by, "bwd_ms": t["bwd"][0], "bwd_plain_ms": t["bwd_plain"][0],
+           "bwd_dq_ms": split["dq"], "bwd_dkv_ms": split["dkv"], "bwd_other_ms": split["other"],
            "bwd_bound_ms": bb, "bwd_bound_by": bb_by,
-           "ok": finite and fwd_excess <= 0 and bwd_excess <= 0 and zeros}
+           "tile_pairs": packed_tile_pairs(seg, w, "warp" if dtype == torch.float32 else "block"),
+           "repeat_bit_equal": repeat_equal,
+           "ok": finite and fwd_excess <= 0 and bwd_excess <= 0 and zeros and repeat_equal}
     emit(rec)
     return rec
 
@@ -1648,6 +1782,50 @@ def hllm_loss_and_grads(trainer, batch, packed: bool, grads: bool = True):
     return float(out["loss"].detach()), got, launches
 
 
+def hllm_f32_step_ms(f32, batch, n: int = 3) -> float:
+    """Host wall ms of one warm forward and backward of a float32 HLLM's
+    train batch through the packed item tower (``hllm_loss_and_grads``,
+    which ends in a synchronize): the least of ``n`` calls."""
+    best = math.inf
+    for _ in range(n):
+        t0 = time.perf_counter()
+        hllm_loss_and_grads(f32, batch, True)
+        best = min(best, (time.perf_counter() - t0) * 1e3)
+    return best
+
+
+def hllm_f32_step_phase(work_dir):
+    """The float32 train batch of ``hllm_train_impl_phase`` alone (a 2-layer
+    HLLM at TinyLlama's widths, 2 sequences, 248 items, the packed item
+    tower), timed warm (``hllm_f32_step_ms``) with its launches: a copy of
+    this script beside another tree's ``mhrec_tpu_torch`` times that tree's
+    kernels in the same step, so two trees can be timed in turns in one
+    call."""
+    import torch
+
+    from mhrec_tpu_torch.data import build_dataloader
+    from mhrec_tpu_torch.data.synthetic import InMemoryInteractionData
+    from mhrec_tpu_torch.trainer import Trainer
+
+    pretrain_dir = os.path.join(work_dir, "tinyllama_2l")
+    os.makedirs(pretrain_dir, exist_ok=True)
+    with open(os.path.join(pretrain_dir, "config.json"), "w") as fh:
+        json.dump(dict(TINYLLAMA_1B, num_hidden_layers=2), fh)
+    data = InMemoryInteractionData(
+        num_users=HLLM_USERS, num_items=HLLM_ITEMS, seq_len=2 * 24 + 2 * 8, num_categories=11,
+        eval_pred_len=8, max_item_list_length=24, seed=0, item_texts=True)
+    cfg = hllm_train_config(pretrain_dir, work_dir, train_batch_size=2, num_negatives=16)
+    batch = next(build_dataloader(cfg, data)[0].epoch_batches(5))
+    f32 = Trainer(cfg, data, dtype=torch.float32)
+    f32.setup_model()
+    loss, _, launches = hllm_loss_and_grads(f32, batch, True)
+    rec = {"phase": "hllm_f32_step", "items": len(batch["emb_slots"]), "loss": loss,
+           "launches": launches, "packed_step_ms": hllm_f32_step_ms(f32, batch, n=5),
+           "ok": math.isfinite(loss) and launches["packed_attn_bwd"] == 2}
+    emit(rec)
+    return rec
+
+
 def hllm_train_impl_phase(trainer, data, work_dir):
     """One train batch of 2 sequences (248 items) through the packed item
     tower (the kernels forward and backward) and the dense padded one (no
@@ -1655,7 +1833,8 @@ def hllm_train_impl_phase(trainer, data, work_dir):
     weights from seed 0), the loss and every gradient to a relative L2
     error of F32_GRAD_TOL, and the launches of each route (packed: 2 + 2
     forward with the recompute, 2 backward; dense: none); on the trained
-    bfloat16 model the loss alone, to IMPL_TOL."""
+    bfloat16 model the loss alone, to IMPL_TOL. ``packed_step_ms`` times the
+    float32 packed batch's forward and backward, warm."""
     import torch
 
     from mhrec_tpu_torch.data import build_dataloader
@@ -1692,6 +1871,7 @@ def hllm_train_impl_phase(trainer, data, work_dir):
                                               for p in (True, False))
     rel = abs(lp - ld) / abs(ld)
     grad_rel, cos, _ = _grad_agreement(gp, gd)
+    step_ms = hllm_f32_step_ms(f32, batches[True])
     want = {k: 0 for k in launch_p}
     ok = (rel <= F32_GRAD_TOL and grad_rel <= F32_GRAD_TOL and set(gp) == set(gd)
           and launch_p == dict(want, packed_attn_fwd=4, packed_attn_bwd=2) and launch_d == want
@@ -1700,7 +1880,7 @@ def hllm_train_impl_phase(trainer, data, work_dir):
     recs["float32"] = {"layers": 2, "loss_packed": lp, "loss_dense": ld, "loss_rel_diff": rel,
                        "grad_max_rel_l2": grad_rel, "grad_cosine": cos, "grads": len(gp),
                        "packed_launches": launch_p, "dense_launches": launch_d,
-                       "tolerance": F32_GRAD_TOL, "ok": bool(ok)}
+                       "packed_step_ms": step_ms, "tolerance": F32_GRAD_TOL, "ok": bool(ok)}
     del f32
     emit({"phase": "hllm_train_impl", "items": n_items, "same_items": bool(same_items), **recs,
           "ok": bool(ok_all)})
@@ -7078,8 +7258,14 @@ def main(argv=None) -> int:
     from mhrec_tpu_torch.data.synthetic import InMemoryInteractionData
     from mhrec_tpu_torch.ops import cuda_build
 
+    names = cuda_build.SOURCES
+    if "--packed-bwd-only" in args or "--hllm-f32-step" in args:
+        # the packed attention's sources alone, those this tree has (a copy
+        # of this script beside a parent tree's package builds that tree's)
+        names = [n for n in ("packed_attn_fwd", "packed_attn_bwd", "packed_attn_bwd_f32")
+                 if os.path.exists(os.path.join(cuda_build.CSRC, n + ".cu"))]
     t0 = time.perf_counter()
-    per_source = cuda_build.build(verbose=True)
+    per_source = cuda_build.build(names, verbose=True)
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "per_source": per_source})
 
     hstu_data = HSTU_DATA  # the HSTU phases' users and catalog
@@ -7103,6 +7289,24 @@ def main(argv=None) -> int:
             for shape_name, H in (("size4", 16), ("1b", 32)):
                 ok &= kernel_phase("stu_bwd", shape_name, 64, 50, H, 64, torch.bfloat16)["ok"]
                 kernel_breakdown("stu_bwd", shape_name, 64, 50, H, 64, torch.bfloat16)
+        return 0 if ok else 1
+    if "--packed-bwd-only" in args:
+        # #8b/c alone: the corpus records in both types and the
+        # tensor-parallel layouts; a copy of this script beside another
+        # tree's mhrec_tpu_torch times that tree's kernels
+        ok = True
+        with torch.no_grad():
+            for dtype in (torch.float32, torch.bfloat16):
+                ok &= packed_bwd_kernel_phase(dtype)["ok"]
+                for layout in PACKED_TP_LAYOUTS:
+                    ok &= packed_tp_phase(layout, dtype)["ok"]
+        return 0 if ok else 1
+    if "--hllm-f32-step" in args:
+        work_dir = tempfile.mkdtemp(prefix="chip_smoke_f32_step_")
+        try:
+            ok = hllm_f32_step_phase(work_dir)["ok"]
+        finally:
+            shutil.rmtree(work_dir, ignore_errors=True)
         return 0 if ok else 1
     if "--reference-only" in args:
         # the reference-checkpoint phase alone

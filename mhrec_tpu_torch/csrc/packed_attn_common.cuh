@@ -1,11 +1,12 @@
 // Shared device code of the packed segment attention kernels
-// (packed_attn_fwd.cu, packed_attn_bwd.cu): tile sizes, the thread layout
+// (packed_attn_fwd.cu, packed_attn_bwd.cu, packed_attn_bwd_f32.cu): the
+// backward's arguments, the float32 forward's tile sizes and thread layout,
 // and the conversions between the input type and float32.
 //
-// A block has NT = 256 threads, a 16 x 16 grid (ty, tx). In a score tile of
-// TQ query rows by TK key rows, thread (ty, tx) owns rows ty + 16·r (r < 4)
-// and columns tx + 16·j (j < 4); the 16 lanes of one row are one half-warp,
-// so a row's sums reduce with four xor shuffles.
+// The float32 forward's block has NT = 256 threads, a 16 x 16 grid (ty, tx).
+// In a score tile of TQ query rows by TK key rows, thread (ty, tx) owns rows
+// ty + 16·r (r < 4) and columns tx + 16·j (j < 4); the 16 lanes of one row
+// are one half-warp, so a row's sums reduce with four xor shuffles.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -32,6 +33,24 @@ template <> __device__ __forceinline__ float from_f<float>(float x) { return x; 
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
     return __float2bfloat16(x);  // round to nearest even, as torch's .to(bfloat16)
 }
+
+// Pointers and strides of one backward call; strides in elements
+struct BwdArgs {
+    const void* q;        // [C, S, H, dh], chunk-row / token strides sqc, sqs
+    const void* k;        // [C, S, Hkv, dh], skc, sks
+    const void* v;        // [C, S, Hkv, dh], svc, svs
+    const void* o;        // [C, S, H, dh] contiguous
+    const void* dout;     // [C, S, H, dh] contiguous
+    const float* lse;     // [C, H, S]
+    const int* seg;       // [C, S]
+    void* dq;             // [C, S, H, dh] contiguous
+    void* dk;             // [C, S, Hkv, dh] contiguous
+    void* dv;             // [C, S, Hkv, dh] contiguous
+    float* delta;         // [C, H, S] scratch: written by the dq pass
+    int S, H, Hkv, window;
+    long long sqc, sqs, skc, sks, svc, svs;
+    float scale;
+};
 
 // the sum of x over the 16 lanes of one half-warp, in every lane
 __device__ __forceinline__ float half_warp_sum(float x) {

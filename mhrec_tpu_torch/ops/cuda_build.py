@@ -27,7 +27,8 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("hstu_stu_gated_fwd", "hstu_attn_fwd", "hstu_stu_gated_bwd", "hstu_attn_bwd",
-           "row_adamw", "packed_attn_fwd", "packed_attn_bwd", "hstu_stu_f32")
+           "row_adamw", "packed_attn_fwd", "packed_attn_bwd", "hstu_stu_f32",
+           "packed_attn_bwd_f32")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

@@ -1,8 +1,10 @@
 """Packed (varlen) segment attention of the HLLM item tower as hand-written
-CUDA kernels: the forward (``csrc/packed_attn_fwd.cu``) and the backward
-(``csrc/packed_attn_bwd.cu``: a dq pass and a dk/dv pass). Each routes by
-the input type: bfloat16 runs on the tensor cores, float32 on the CUDA
-cores in full float32.
+CUDA kernels: the forward (``csrc/packed_attn_fwd.cu``) and the backward (a
+dq pass and a dk/dv pass). Each routes by the input type: bfloat16 runs on
+the tensor cores, float32 on the CUDA cores in full float32; the backward's
+float32 kernels have a source of their own (``csrc/packed_attn_bwd_f32.cu``:
+16-byte operand loads, a copy ring, and each warp's 16 × 16 sub-tiles
+computed only where its rows attend).
 
 Counterparts of the splash-attention call ``_splash_call``
 (``mhrec_tpu/models/llm/packed.py:45``) behind ``packed_attention_splash``
@@ -74,12 +76,18 @@ def _check_inputs(name, q, k, v, segment_ids, window):
     return C, S, H, Hkv, dh, min(w, S)
 
 
-def _fn(name: str, argtypes):
-    fn = getattr(cuda_build.load(name), name)
+def _fn(name: str, argtypes, source: Optional[str] = None):
+    """Function ``name`` of the library built from ``csrc/<source>.cu``
+    (None: ``name``'s own)."""
+    fn = getattr(cuda_build.load(source or name), name)
     if fn.argtypes is None:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return fn
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def packed_attn_fwd(q, k, v, segment_ids, window: Optional[int] = None,
@@ -108,8 +116,7 @@ def packed_attn_fwd(q, k, v, segment_ids, window: Optional[int] = None,
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), segment_ids.data_ptr(), out.data_ptr(),
              None if lse is None else lse.data_ptr(),
              C, S, H, Hkv, dh, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-             v.stride(0), v.stride(1), w, dh ** -0.5, _DTYPES[q.dtype],
-             torch.cuda.current_stream(q.device).cuda_stream)
+             v.stride(0), v.stride(1), w, dh ** -0.5, _DTYPES[q.dtype], _stream(q))
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")
     packed_attn_fwd.launches += 1
@@ -136,10 +143,12 @@ def packed_attn_bwd(q, k, v, out, dout, lse, segment_ids, window: Optional[int] 
     _check(lse.device == dev and lse.dtype == torch.float32 and lse.shape == (C, H, S)
            and lse.is_contiguous(),
            f"{name}: lse must be a contiguous float32 [{C}, {H}, {S}] tensor on {dev}")
-    out, dout = out.contiguous(), dout.contiguous()
-    if dtype == torch.bfloat16:
-        q, k, v, out, dout = (cuda_build.aligned16(t) for t in (q, k, v, out, dout))
-    fn = _fn(name, [_P] * 11 + [_I] * 5 + [_LL] * 6 + [_I, _F, _I, _P])
+    # both routes copy 16-byte chunks: a misaligned row or stride is copied first
+    q, k, v, out, dout = (cuda_build.aligned16(t) for t in (q, k, v, out.contiguous(),
+                                                            dout.contiguous()))
+    # float32: csrc/packed_attn_bwd_f32.cu; bfloat16: csrc/packed_attn_bwd.cu
+    fname = "packed_attn_bwd_f32" if dtype == torch.float32 else name
+    fn = _fn(fname, [_P] * 11 + [_I] * 5 + [_LL] * 6 + [_I, _F, _P])
     dq = torch.empty((C, S, H, dh), dtype=dtype, device=dev)
     dk = torch.empty((C, S, Hkv, dh), dtype=dtype, device=dev)
     dv = torch.empty((C, S, Hkv, dh), dtype=dtype, device=dev)
@@ -148,8 +157,7 @@ def packed_attn_bwd(q, k, v, out, dout, lse, segment_ids, window: Optional[int] 
              lse.data_ptr(), segment_ids.data_ptr(), dq.data_ptr(), dk.data_ptr(),
              dv.data_ptr(), delta.data_ptr(),
              C, S, H, Hkv, dh, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-             v.stride(0), v.stride(1), w, dh ** -0.5, _DTYPES[dtype],
-             torch.cuda.current_stream(dev).cuda_stream)
+             v.stride(0), v.stride(1), w, dh ** -0.5, _stream(q))
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")
     packed_attn_bwd.launches += 1
@@ -157,3 +165,22 @@ def packed_attn_bwd(q, k, v, out, dout, lse, segment_ids, window: Optional[int] 
 
 
 packed_attn_bwd.launches = 0
+
+F32_INFO_KEYS = ("registers", "spilled_bytes", "dynamic_smem_bytes", "static_smem_bytes",
+                 "blocks_per_sm")
+
+
+def packed_attn_bwd_f32_info(dh: int):
+    """The float32 backward's plan on this card at head width ``dh``, as the
+    compiler and the runtime give it: for the dq pass and the dk/dv pass
+    (``csrc/packed_attn_bwd_f32.cu``), registers a thread, bytes spilled to
+    local memory a thread, dynamic and static shared bytes a block, and the
+    blocks an SM holds at once."""
+    _check(dh in _HEAD_DIMS, f"packed_attn_bwd_f32_info: head width {dh} not one of {_HEAD_DIMS}")
+    name = "packed_attn_bwd_f32_info"
+    out = (ctypes.c_int * 10)()
+    err = _fn(name, [_I, _P], "packed_attn_bwd_f32")(dh, ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA call failed with cudaError_t {err}")
+    return {pass_: dict(zip(F32_INFO_KEYS, out[5 * i:5 * i + 5]))
+            for i, pass_ in enumerate(("dq", "dkv"))}

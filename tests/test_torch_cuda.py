@@ -407,7 +407,8 @@ def _packed_layout(layout, C, S, H, Hkv, dh, dtype, card, gen):
         assert q.stride(1) == (H + 2 * Hkv) * dh and not q.is_contiguous()
     elif layout == "misaligned":
         sizes = [C * S * H * dh, C * S * Hkv * dh, C * S * Hkv * dh]
-        flat = (0.5 * torch.randn(sum(sizes) + 4, generator=gen)).to(card, dtype)[4:]
+        off = 8 // torch.empty(0, dtype=dtype).element_size()  # 8 bytes
+        flat = (0.5 * torch.randn(sum(sizes) + off, generator=gen)).to(card, dtype)[off:]
         q, k, v = (x.view(C, S, -1, dh) for x in flat.split(sizes))
         assert q.data_ptr() % 16 == 8
     else:
@@ -453,6 +454,93 @@ def test_packed_attn_bwd_tensor_core_route(card, dh, heads, layout, window):
         _close(g, r, dtype)
 
 
+
+
+def _packed_bwd_f32_check(q, k, v, seg, window, card, gen):
+    """#8b/c in float32 on these inputs against torch's autograd of the plain
+    version: dq, dk, dv within 1e-4, zeros on padding rows and keys, the
+    same bits on a repeat, one launch a call."""
+    from mhrec_tpu_torch.models.llm.packed import packed_attn_bwd_plain
+    from mhrec_tpu_torch.ops.packed_attention_cuda import packed_attn_bwd, packed_attn_fwd
+
+    real = seg > 0
+    dout = torch.randn(q.shape, generator=gen).to(card) * real[..., None, None]
+    out, lse = packed_attn_fwd(q, k, v, seg, window, return_lse=True)
+    before = packed_attn_bwd.launches
+    grads = packed_attn_bwd(q, k, v, out, dout, lse, seg, window)
+    again = packed_attn_bwd(q, k, v, out, dout, lse, seg, window)
+    torch.cuda.synchronize()
+    assert packed_attn_bwd.launches == before + 2
+    ref = packed_attn_bwd_plain(q, k, v, dout, seg, window)
+    for name, g, r, x, a in zip(("dq", "dk", "dv"), grads, ref, (q, k, v), again):
+        assert g.dtype == torch.float32 and g.shape == x.shape, name
+        assert bool(torch.isfinite(g).all()) and torch.equal(g, a), name
+        assert not bool(g[~real].any()), name
+        _close(g, r, torch.float32)
+
+
+@pytest.mark.parametrize("window", [70, 13, None], ids=["band70", "band13", "no_band"])
+@pytest.mark.parametrize("layout", ["contiguous", "fused", "misaligned"])
+@pytest.mark.parametrize("heads", [(4, 4), (16, 2)], ids=["mha", "gqa8"])
+@pytest.mark.parametrize("dh", [16, 32, 64, 128])
+def test_packed_attn_bwd_f32_route(card, dh, heads, layout, window):
+    """The float32 kernels (csrc/packed_attn_bwd_f32.cu) at every head width
+    the wrapper takes, on segments that straddle the 64-row blocks and the
+    16-row sub-tiles (1-token runs, runs of 63 and 65, a run of 200 longer
+    than the band, a chunk row all padding, S = 450 off the tile grid), with
+    a band of 70 or 13 rows (off the 16-row grid) or none; ``fused``: q, k, v
+    are strided views of one projection, ``misaligned``: their rows miss the
+    16-byte boundary the kernels' copies need (the wrapper copies them)."""
+    C, S, (H, Hkv) = 3, 450, heads
+    seg = _edge_segments(C, S, 70, seed=dh + H).to(card)
+    gen = torch.Generator().manual_seed(7)
+    q, k, v = _packed_layout(layout, C, S, H, Hkv, dh, torch.float32, card, gen)
+    _packed_bwd_f32_check(q, k, v, seg, window, card, gen)
+
+
+@pytest.mark.parametrize("window", [13, None], ids=["band13", "no_band"])
+@pytest.mark.parametrize("layout", list(TP_LAYOUTS))
+def test_packed_attn_bwd_f32_on_tensor_parallel_heads(card, layout, window):
+    """The float32 kernels on a tensor-parallel rank's heads (TP_LAYOUTS: a
+    strided view of the whole projection's KV heads at dh 128, or KV heads
+    gathered one per query head), on segments that straddle the tiles."""
+    H, Hkv, dh, T, m = TP_LAYOUTS[layout]
+    C, S = 3, 450
+    seg = _edge_segments(C, S, 70, seed=11).to(card)
+    gen = torch.Generator().manual_seed(8)
+    q = (0.5 * torch.randn(C, S, H, dh, generator=gen)).to(card)
+    k, v = ((0.5 * torch.randn(C, S, Hkv, dh, generator=gen)).to(card) for _ in range(2))
+    h0, h1 = m * H // T, (m + 1) * H // T
+    need = [h // (H // Hkv) for h in range(h0, h1)]
+    q = q[:, :, h0:h1].contiguous()
+    if layout == "kv_view":
+        k, v = k[:, :, need[0]:need[-1] + 1], v[:, :, need[0]:need[-1] + 1]
+        assert not k.is_contiguous() and k.stride(1) == Hkv * dh
+    else:
+        idx = torch.tensor(need, device=card)
+        k, v = k.index_select(2, idx), v.index_select(2, idx)
+    _packed_bwd_f32_check(q, k, v, seg, window, card, gen)
+
+
+# the float32 kernels' dynamic shared memory a block (either pass), reckoned
+# by hand from their layout: q/dO (k/v) tiles of 64 rows and a ring of two
+# stages of 16 rows of k/v (q/dO), rows padded by 4 floats, and each warp's
+# 16 x 20 tile of dS (P, then dS)
+F32_BWD_SMEM = {16: 20480, 32: 32768, 64: 57344, 128: 106496}
+
+
+@pytest.mark.parametrize("dh", sorted(F32_BWD_SMEM))
+def test_packed_attn_bwd_f32_plan(card, dh):
+    """Both float32 passes build without spills, take the shared memory
+    reckoned above, and fit three blocks an SM (two at dh 128)."""
+    from mhrec_tpu_torch.ops.packed_attention_cuda import packed_attn_bwd_f32_info
+
+    plan = packed_attn_bwd_f32_info(dh)
+    for pass_ in ("dq", "dkv"):
+        got, smem = plan[pass_], F32_BWD_SMEM[dh]
+        assert got["spilled_bytes"] == 0, (pass_, got)
+        assert got["dynamic_smem_bytes"] == smem, (pass_, got)
+        assert got["blocks_per_sm"] >= (2 if dh == 128 else 3), (pass_, got)
 
 
 @pytest.mark.parametrize("window", [70, None], ids=["band", "no_band"])
